@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Without a card every test here skips (the CUDA kernels have no CPU
+mode). ``paged_inputs`` is the small paged case that
+``tests/test_torch_ops.py`` also holds against the JAX kernel.
+"""
+import numpy as np
+import pytest
+import torch
+
+from torchbooster_tpu_torch.models.gpt import _quantize_kv
+from torchbooster_tpu_torch.ops import paged_attention as pa
+
+LAYOUTS = [(False, False, 1), (True, False, 3), (False, True, 3),
+           (True, True, 3)]
+
+
+def paged_inputs(rs, *, s_q, quantized, tree, kv_heads=2, n_heads=4,
+                 head_dim=8, ps=4, n_pages=12, n_slots=3):
+    """A small pool with three slots; slots 0 and 1 share their first
+    page (one work entry, two lanes); slot 2 is referenced by nothing
+    beyond its own pages; trailing work entries are null padding.
+    Returns numpy ``k``/``v`` beside the port's pool tensors ``pk``/
+    ``pv`` (``_quantize_kv`` pairs when ``quantized``)."""
+    lens = np.array([6, 9, 3], np.int32)
+    tables = {0: [3, 7, 5], 1: [3, 2, 9, 10], 2: [1, 4]}
+    holders = {}
+    for s, pages in tables.items():
+        for idx, p in enumerate(pages):
+            holders.setdefault(p, []).append((s, idx))
+    live = sorted(holders)
+    n_w, lanes = n_pages - 1, n_slots
+    wp = np.zeros(n_w, np.int32)
+    wr = np.full((n_w, lanes), -1, np.int32)
+    wpos = np.zeros(n_w, np.int32)
+    for i, p in enumerate(live):
+        wp[i], wpos[i] = p, holders[p][0][1]
+        for lane, (s, _) in enumerate(holders[p]):
+            wr[i, lane] = s
+    shape = (n_pages, ps, kv_heads, head_dim)
+    k = rs.randn(*shape).astype(np.float32)
+    v = rs.randn(*shape).astype(np.float32)
+    q = rs.randn(n_slots, s_q, n_heads, head_dim).astype(np.float32)
+    tvis = None
+    if tree:
+        tvis = np.zeros((n_slots, s_q, s_q), np.int32)
+        parents = [0, 0, 1][:s_q]
+        for s in range(n_slots):
+            for j in range(s_q):
+                node = j
+                while True:
+                    tvis[s, j, node] = 1
+                    if node == 0:
+                        break
+                    node = parents[node]
+    if quantized:
+        pk, pv = _quantize_kv(torch.as_tensor(k)), _quantize_kv(
+            torch.as_tensor(v))
+    else:
+        pk, pv = torch.as_tensor(k), torch.as_tensor(v)
+    return dict(q=q, k=k, v=v, pk=pk, pv=pv, wp=wp, wr=wr, wpos=wpos,
+                lens=lens, tvis=tvis, ps=ps,
+                referenced=sorted({s for s in wr.reshape(-1) if s >= 0}))
+
+
+def _on_card(x):
+    """The case's kernel operands as CUDA tensors."""
+    cuda = lambda t: t.cuda() if isinstance(t, torch.Tensor) \
+        else tuple(a.cuda() for a in t)
+    args = (cuda(torch.as_tensor(x["q"])), cuda(x["pk"]), cuda(x["pv"]),
+            *(cuda(torch.as_tensor(x[n])) for n in ("wp", "wr", "wpos",
+                                                    "lens")))
+    tv = None if x["tvis"] is None else cuda(torch.as_tensor(x["tvis"]))
+    return args, tv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,tree,s_q", LAYOUTS)
+def test_paged_kernel_matches_plain_version_on_card(quantized, tree, s_q):
+    """Every layout (plain/int8 pool, with/without tree mask), fp32 q:
+    both sides accumulate in fp32, so 1e-5 covers summation order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    x = paged_inputs(np.random.RandomState(5), s_q=s_q,
+                     quantized=quantized, tree=tree)
+    args, tv = _on_card(x)
+    before = pa.launches
+    got = pa.paged_attention(*args, page_size=x["ps"], tree_vis=tv)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = pa.paged_attention_reference(*args, page_size=x["ps"],
+                                        tree_vis=tv)
+    ref = x["referenced"]
+    torch.testing.assert_close(got[ref], want[ref], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_masked_lane_and_bad_operands_on_card():
+    """A lane whose page is wholly past its slot's length adds nothing
+    (no NaN); operands the kernel does not take raise, never fall back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    x = paged_inputs(np.random.RandomState(3), s_q=1, quantized=False,
+                     tree=False)
+    x["lens"] = x["lens"].copy()
+    x["lens"][1] = 2                  # slot 1's later pages all masked
+    args, _ = _on_card(x)
+    got = pa.paged_attention(*args, page_size=x["ps"])
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(*args, page_size=x["ps"])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-5)
+    before = pa.launches
+    with pytest.raises(ValueError):   # pool left on the CPU
+        pa.paged_attention(args[0], x["pk"], x["pv"], *args[3:],
+                           page_size=x["ps"])
+    with pytest.raises(ValueError):   # pool geometry != page_size
+        pa.paged_attention(*args, page_size=2 * x["ps"])
+    assert pa.launches == before

@@ -1,0 +1,83 @@
+"""The numpy bridge between the JAX package's trees and the port.
+
+The port keeps the JAX parameter layout (stacked ``blocks``, ``(in,
+out)`` dense kernels, ``q | k | v`` qkv columns), so a parameter tree
+crosses as a leaf-by-leaf copy: JAX → numpy (``jax.device_get``, done
+by the caller) → :func:`params_from_jax` → :func:`to_numpy`, byte-exact.
+bfloat16 leaves travel as their raw 16-bit patterns (numpy has no
+native bfloat16; ``ml_dtypes`` supplies the dtype JAX hands out)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch.models.gpt import GPTConfig, map_tensors
+
+
+def tensor_from_numpy(a, device: str | torch.device = "cuda") -> torch.Tensor:
+    """One numpy (or ml_dtypes bfloat16) array → tensor, byte-exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(resolve_device(device))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Tensor → numpy, byte-exact; bfloat16 comes back as the
+    ``ml_dtypes.bfloat16`` dtype the JAX package uses."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _shapes(cfg: GPTConfig) -> dict:
+    n, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+    qkv = d + 2 * cfg.kv_heads * hd
+    return {("wte", "table"): (cfg.vocab, d),
+            ("blocks", "attn_qkv", "kernel"): (n, d, qkv),
+            ("blocks", "attn_proj", "kernel"): (n, d, d),
+            ("ln_f", "scale"): (d,)}
+
+
+def params_from_jax(tree: dict, cfg: GPTConfig,
+                    device: str | torch.device = "cuda") -> dict:
+    """A JAX GPT parameter tree (numpy leaves) → the port's parameters,
+    checked against ``cfg``'s widths so a mismatched checkpoint fails
+    here instead of inside the first matmul."""
+    for path, want in _shapes(cfg).items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        if tuple(np.shape(leaf)) != want:
+            raise ValueError(f"{'/'.join(path)} has shape "
+                             f"{tuple(np.shape(leaf))}, cfg wants {want}")
+    return _map_leaves(tree, lambda a: tensor_from_numpy(a, device))
+
+
+def pool_from_jax(pool: dict, device: str | torch.device = "cuda") -> dict:
+    """A ``make_pool`` pool (``{"k", "v"}``, plain arrays or int8
+    ``(values, scales)`` pairs) → tensors, byte-exact."""
+    return _map_leaves(pool, lambda a: tensor_from_numpy(a, device))
+
+
+def to_numpy(tree):
+    """Port parameters or pools → numpy leaves (the inverse bridge)."""
+    return map_tensors(tree, tensor_to_numpy)
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
+__all__ = ["params_from_jax", "pool_from_jax", "tensor_from_numpy",
+           "tensor_to_numpy", "to_numpy"]

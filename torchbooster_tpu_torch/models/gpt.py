@@ -1,0 +1,427 @@
+"""GPT language model — the port of ``torchbooster_tpu/models/gpt.py``
+for the serving slice: config, init, the block math, the cached-
+attention numerics core shared by the dense ``generate`` control and
+the paged engine, and the next-token rules.
+
+Layouts follow the JAX package so parameters cross frameworks with a
+plain copy (``interop.params_from_jax``): block tensors are stacked on
+a leading layer axis, dense kernels are ``(in, out)``, and the qkv
+projection's columns are ``q | k | v`` at GQA widths. Not ported here
+(``ROADMAP.md``): the tensor/expert/sequence/pipeline-parallel
+branches, LoRA deltas, dropout, MoE blocks and the training step.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch.models import layers as L
+from torchbooster_tpu_torch.ops.attention import NEG_INF, mha_reference
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    """GPT-2 small by default (``torchbooster_tpu/models/gpt.py:39``)."""
+    vocab: int = 50257
+    n_layers: int = 12
+    d_model: int = 768
+    n_heads: int = 12
+    n_kv_heads: int = 0           # 0 → = n_heads (MHA)
+    seq_len: int = 1024
+    mlp_ratio: int = 4
+    dropout: float = 0.0
+    tie_embeddings: bool = True
+    n_experts: int = 0
+    pos: str = "learned"          # "learned" (wpe table) | "rope"
+    rope_base: float = 10_000.0
+    mlp: str = "gelu"             # "gelu" (tanh approx.) | "swiglu"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def _check_cfg(cfg: GPTConfig) -> None:
+    if cfg.n_heads % cfg.kv_heads:
+        raise ValueError(f"n_heads={cfg.n_heads} not divisible by "
+                         f"n_kv_heads={cfg.kv_heads}")
+    if cfg.pos not in ("learned", "rope"):
+        raise ValueError(f"unknown pos {cfg.pos!r}; use 'learned' or 'rope'")
+    if cfg.mlp not in ("gelu", "swiglu"):
+        raise ValueError(f"unknown mlp {cfg.mlp!r}; use 'gelu' or 'swiglu'")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE blocks are not ported yet (ROADMAP.md A8)")
+
+
+def _check_pos(params: dict, cfg: GPTConfig) -> None:
+    """A rope checkpoint served with pos='learned' (or vice versa)
+    would decode with no position signal: make it loud."""
+    if cfg.pos == "rope" and "wpe" in params:
+        raise ValueError("params carry a wpe table but cfg.pos='rope'")
+    if cfg.pos != "rope" and "wpe" not in params:
+        raise ValueError(f"params have no wpe table but cfg.pos={cfg.pos!r}")
+
+
+class GPT:
+    """``init(seed, cfg, device=...)`` → params (blocks stacked over the
+    layer axis); ``apply(params, ids, cfg)`` → logits (B, S, vocab)."""
+
+    Config = GPTConfig
+
+    @staticmethod
+    def init(seed: int | torch.Generator = 0, cfg: GPTConfig = GPTConfig(),
+             device: str | torch.device = "cuda",
+             dtype: torch.dtype = torch.float32) -> dict:
+        """GPT-2 init — N(0, 0.02), residual projections N(0, 0.02/√(2L)),
+        wpe N(0, 0.01), zero biases, unit norms — drawn on the CPU from
+        ``seed`` (an int or a ``torch.Generator``) so the same seed gives
+        the same weights on every device, then moved to ``device``."""
+        _check_cfg(cfg)
+        dev = resolve_device(device)
+        gen = seed if isinstance(seed, torch.Generator) \
+            else torch.Generator().manual_seed(int(seed))
+        n, d = cfg.n_layers, cfg.d_model
+        h = cfg.mlp_ratio * d
+        res_std = 0.02 / math.sqrt(2 * n)
+        qkv_out = d + 2 * cfg.kv_heads * cfg.head_dim
+
+        def normal(shape, std):
+            return torch.randn(shape, generator=gen) * std
+
+        def norm():
+            return {"scale": torch.ones(n, d), "bias": torch.zeros(n, d)}
+
+        def dense(din, dout, std):
+            return {"kernel": normal((n, din, dout), std),
+                    "bias": torch.zeros(n, dout)}
+
+        blocks = {"ln1": norm(), "attn_qkv": dense(d, qkv_out, 0.02),
+                  "attn_proj": dense(d, d, res_std), "ln2": norm()}
+        if cfg.mlp == "swiglu":
+            hs = max((-(-2 * h // 3) + 7) // 8 * 8, 8)
+            blocks.update({"mlp_fc1": dense(d, hs, 0.02),
+                           "mlp_fc3": dense(d, hs, 0.02),
+                           "mlp_fc2": dense(hs, d, res_std)})
+        else:
+            blocks.update({"mlp_fc1": dense(d, h, 0.02),
+                           "mlp_fc2": dense(h, d, res_std)})
+        params = {"wte": {"table": normal((cfg.vocab, d), 0.02)},
+                  "blocks": blocks,
+                  "ln_f": {"scale": torch.ones(d), "bias": torch.zeros(d)}}
+        if cfg.pos != "rope":
+            params["wpe"] = {"table": normal((cfg.seq_len, d), 0.01)}
+        if not cfg.tie_embeddings:
+            params["head"] = {"kernel": normal((d, cfg.vocab), 0.02)}
+        return map_tensors(params, lambda t: t.to(device=dev, dtype=dtype))
+
+    @staticmethod
+    def apply(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Full causal forward → logits (B, S, vocab)."""
+        _check_pos(params, cfg)
+        x, _, _ = _prefill_forward(params, ids, cfg, compute_dtype)
+        return _lm_head(params, x)
+
+    @staticmethod
+    def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
+                 **kw) -> torch.Tensor:
+        return generate(params, ids, cfg, **kw)
+
+
+def map_tensors(tree, fn):
+    """Apply ``fn`` to every tensor leaf of a nested dict/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_tensors(v, fn) for v in tree)
+    return fn(tree)
+
+
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """Floating leaves cast to ``dtype`` ONCE — numerically what the
+    JAX package's per-op ``astype(x.dtype)`` computes, without paying
+    the cast on every step."""
+    return map_tensors(params, lambda t: t.to(dtype)
+                       if t.is_floating_point() else t)
+
+
+def layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i``'s view of the stacked block tensors (no copy)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          base: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding (rotate-half) over (B, S, H, D); ``positions``
+    is (S,) shared or (B, S) per slot. Angles in fp32."""
+    half = x.shape[-1] // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    if positions.ndim == 1:
+        cos, sin = angles.cos()[None, :, None, :], angles.sin()[None, :, None, :]
+    else:
+        cos, sin = angles.cos()[:, :, None, :], angles.sin()[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
+                positions: torch.Tensor | None = None):
+    """The transformer block shared by every path (full forward,
+    prefill chunk, cached decode). ``attend(q, k, v) -> (o, extras)``
+    supplies the attention flavor. Returns ``(x, extras)``."""
+    b, s, d = x.shape
+    n_heads, kv_heads, head_dim = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    h = L.layer_norm(bp["ln1"], x)
+    qkv = L.dense(bp["attn_qkv"], h)
+    q_width, kv_dim = n_heads * head_dim, kv_heads * head_dim
+    q = qkv[..., :q_width].reshape(b, s, n_heads, head_dim)
+    k = qkv[..., q_width:q_width + kv_dim].reshape(b, s, kv_heads, head_dim)
+    v = qkv[..., q_width + kv_dim:].reshape(b, s, kv_heads, head_dim)
+    if cfg.pos == "rope":
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = _rope(q, positions, cfg.rope_base)
+        k = _rope(k, positions, cfg.rope_base)
+    o, extras = attend(q, k, v)
+    x = x + L.dense(bp["attn_proj"], o.reshape(b, s, q_width))
+    h = L.layer_norm(bp["ln2"], x)
+    if "mlp_fc3" in bp:
+        h = F.silu(L.dense(bp["mlp_fc1"], h)) * L.dense(bp["mlp_fc3"], h)
+    else:   # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(L.dense(bp["mlp_fc1"], h), approximate="tanh")
+    return x + L.dense(bp["mlp_fc2"], h), extras
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(token, head) int8: ``q = round(x / s)``, ``s =
+    absmax/127`` stored bf16, and the division uses the ROUNDED bf16
+    scale so the stored pair is self-consistent. Returns ``(int8
+    values, bf16 scales (..., 1))``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = scale.clamp_min(1e-8).to(torch.bfloat16)
+    q = torch.round(xf / scale.float()).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _grouped_cache_attention(q: torch.Tensor, cache_k, cache_v,
+                             visible: torch.Tensor, *, state: bool = False):
+    """The cached-attention numerics core (``gpt.py:956``) shared by
+    the dense decode control and the paged engine. q is (B, S_q, H,
+    Dh); caches are (B, T, H_kv, Dh) — plain tensors or ``(int8
+    values, bf16 scales)`` pairs; ``visible`` broadcasts against the
+    (B, g, rep, S_q, T) scores. Dot operands are the cache dtype (the
+    query dtype for int8 caches) with fp32 accumulation; the int8
+    scales factor out of both dots.
+
+    ``state=False`` → normalized (B, S_q, H, Dh) in ``q.dtype``;
+    ``state=True`` → the flash partial ``(o fp32 (B, S_q, g, rep, Dh),
+    m (B, g, rep, S_q), l (B, g, rep, S_q))``."""
+    b, s_q, n_heads, head_dim = q.shape
+    quantized = isinstance(cache_k, tuple)
+    if quantized:
+        (ck, ck_s), (cv, cv_s) = cache_k, cache_v
+    else:
+        ck, cv = cache_k, cache_v
+    kv_heads = ck.shape[2]
+    rep = n_heads // kv_heads
+    qg = q.reshape(b, s_q, kv_heads, rep, head_dim)
+    dot_t = q.dtype if quantized else ck.dtype
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(dot_t).float(),
+                          ck.to(dot_t).float()) / (head_dim ** 0.5)
+    if quantized:
+        scores = scores * ck_s[..., 0].float().transpose(1, 2)[:, :, None, None, :]
+    scores = torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+    if state:
+        m = scores.amax(dim=-1)
+        probs = torch.exp(scores - m[..., None])
+        l = probs.sum(dim=-1)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    if quantized:
+        probs = probs * cv_s[..., 0].float().transpose(1, 2)[:, :, None, None, :]
+        probs = probs.to(dot_t).float()
+        pv = cv.to(dot_t).float()
+    else:
+        pv = cv.float()
+    o = torch.einsum("bgrqk,bkgd->bqgrd", probs, pv)
+    if state:
+        return o, m, l
+    return o.to(q.dtype).reshape(b, s_q, n_heads, head_dim)
+
+
+def _cached_block(bp: dict, x: torch.Tensor, cache_k, cache_v, pos: int,
+                  cfg: GPTConfig) -> torch.Tensor:
+    """One decode step through one block at position ``pos``: this
+    token's K/V are written into the (B, S_cache, H_kv, Dh) caches IN
+    PLACE, then attended with everything ``<= pos``."""
+    quantized = isinstance(cache_k, tuple)
+    s_cache = (cache_k[0] if quantized else cache_k).shape[1]
+
+    def attend(q, k, v):
+        if quantized:
+            for cache, new in ((cache_k, k), (cache_v, v)):
+                vals, scales = _quantize_kv(new)
+                cache[0][:, pos] = vals[:, 0]
+                cache[1][:, pos] = scales[:, 0]
+        else:
+            cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+        visible = torch.arange(s_cache, device=x.device) <= pos
+        return _grouped_cache_attention(q, cache_k, cache_v, visible), None
+
+    x, _ = _block_core(bp, x, cfg, attend,
+                       positions=torch.tensor([pos], device=x.device))
+    return x
+
+
+def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = L.layer_norm(params["ln_f"], x)
+    if "head" in params:
+        return L.dense(params["head"], x)
+    return x @ params["wte"]["table"].to(x.dtype).T
+
+
+def _mask_logits(logits: torch.Tensor,
+                 mask: torch.Tensor | None) -> torch.Tensor:
+    """Legality mask: forbidden positions drop to the dtype's finite
+    minimum (never -inf); ``None`` is an exact no-op."""
+    if mask is None:
+        return logits
+    return torch.where(mask, logits,
+                       torch.full_like(logits, torch.finfo(logits.dtype).min))
+
+
+def _filter_logits(logits: torch.Tensor, temperature: float,
+                   top_k: int | None, top_p: float | None,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Temperature-scaled, top-k then top-p filtered fp32 logits (top-p
+    mass measured over the top-k-filtered distribution)."""
+    logits = _mask_logits(logits, mask).float() / temperature
+    if top_k is not None or top_p is not None:
+        desc = torch.sort(logits, dim=-1, descending=True).values
+        neg = torch.tensor(-math.inf, device=logits.device)
+        if top_k is not None:
+            logits = torch.where(logits < desc[..., top_k - 1:top_k],
+                                 neg, logits)
+            keep_k = torch.arange(desc.shape[-1], device=desc.device) < top_k
+            desc = torch.where(keep_k, desc, neg)
+        if top_p is not None:
+            probs = torch.softmax(desc, dim=-1)
+            keep = probs.cumsum(dim=-1) - probs < top_p
+            thresh = torch.where(keep, desc, -neg).amin(dim=-1, keepdim=True)
+            logits = torch.where(logits >= thresh, logits, neg)
+    return logits
+
+
+def _make_pick(temperature: float, top_k: int | None, top_p: float | None):
+    """``pick(generator, logits) -> ids``: greedy argmax at temperature
+    0 (ties go to the LOWEST id), else a categorical draw over
+    :func:`_filter_logits` from the given ``torch.Generator``."""
+
+    def pick(gen: torch.Generator | None,
+             logits: torch.Tensor) -> torch.Tensor:
+        if temperature == 0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(
+            _filter_logits(logits, temperature, top_k, top_p), dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[..., 0]
+
+    return pick
+
+
+def _prefill_forward(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+                     compute_dtype: torch.dtype):
+    """Full prompt forward collecting per-layer K/V. Returns ``(x, ks,
+    vs)`` with x (B, S, d) and ks/vs stacked (L, B, S, kv_heads, Dh)."""
+    s0 = ids.shape[1]
+    x = L.embedding(params["wte"], ids, dtype=compute_dtype)
+    if "wpe" in params:
+        x = x + L.embedding(params["wpe"],
+                            torch.arange(s0, device=ids.device),
+                            dtype=compute_dtype)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = _block_core(
+            layer_params(params["blocks"], i), x, cfg,
+            lambda q, k, v: (mha_reference(q, k, v, causal=True), (k, v)))
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
+             n_new: int = 32, generator: torch.Generator | None = None,
+             temperature: float = 1.0, top_k: int | None = None,
+             top_p: float | None = None,
+             compute_dtype: torch.dtype = torch.bfloat16,
+             cache_dtype: str | None = None) -> torch.Tensor:
+    """Dense KV-cache decoding — the control every serving test is
+    held to (``gpt.py:1329``). Prefill runs the whole prompt once, then
+    ``n_new`` tokens decode one at a time against a static-shape cache
+    (``cache_dtype="int8"`` stores ``_quantize_kv`` pairs). Returns
+    (B, S_prompt + n_new) ids."""
+    b, s0 = ids.shape
+    if s0 + n_new > cfg.seq_len:
+        raise ValueError(f"prompt {s0} + n_new {n_new} exceeds "
+                         f"cfg.seq_len={cfg.seq_len}")
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if cache_dtype not in (None, "int8"):
+        raise ValueError(f"cache_dtype must be None or 'int8', got "
+                         f"{cache_dtype!r}")
+    if n_new == 0:
+        return ids
+    _check_pos(params, cfg)
+    params = cast_params(params, compute_dtype)
+    x, ks, vs = _prefill_forward(params, ids, cfg, compute_dtype)
+    s_total = s0 + n_new
+
+    def padded(t):
+        out = torch.zeros((*t.shape[:2], s_total, *t.shape[3:]),
+                          dtype=t.dtype, device=t.device)
+        out[:, :, :s0] = t
+        return out
+
+    if cache_dtype == "int8":
+        cache_k = tuple(padded(t) for t in _quantize_kv(ks))
+        cache_v = tuple(padded(t) for t in _quantize_kv(vs))
+        layer_cache = lambda c, i: (c[0][i], c[1][i])
+    else:
+        cache_k = padded(ks.to(compute_dtype))
+        cache_v = padded(vs.to(compute_dtype))
+        layer_cache = lambda c, i: c[i]
+    pick = _make_pick(temperature, top_k, top_p)
+    last = pick(generator, _lm_head(params, x[:, -1:])[:, 0])
+    out = [last]
+    for pos in range(s0, s_total - 1):
+        x = L.embedding(params["wte"], last[:, None], dtype=compute_dtype)
+        if "wpe" in params:
+            x = x + params["wpe"]["table"][pos].to(compute_dtype)
+        for i in range(cfg.n_layers):
+            x = _cached_block(layer_params(params["blocks"], i), x,
+                              layer_cache(cache_k, i),
+                              layer_cache(cache_v, i), pos, cfg)
+        last = pick(generator, _lm_head(params, x)[:, 0])
+        out.append(last)
+    return torch.cat([ids, torch.stack(out, dim=1).to(ids.dtype)], dim=1)
+
+
+__all__ = ["GPT", "GPTConfig", "cast_params", "generate", "layer_params",
+           "map_tensors"]
