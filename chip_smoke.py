@@ -1,28 +1,48 @@
 """On-card smoke test of the PyTorch/CUDA port (``torchbooster_tpu_torch``).
 
     python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --phases device,build,kernel
+    python3 chip_smoke.py --phases device,build,flash
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's CUDA sources (nvcc, sm_90a) and time it.
-3. kernel  — hold the paged flash-decode kernel against its plain PyTorch
-   version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129 pages,
-   8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1 decode,
-   S=5 linear verify, a tree-verify mask, and a prefix page shared by two
-   lanes; then time it (profiler device time, and CUDA events per call)
-   beside its plain version, its bound and ``scaled_dot_product_attention``
-   over the same context, each timed call reading another of 12 layer
-   pools as the decode step does.
-4. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
+2. build   — compile the port's CUDA sources (nvcc, sm_90a), one nvcc per
+   source, all started together, and time it.
+3. kernel  — hold the paged flash-decode kernel (B4) against its plain
+   PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
+   pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
+   decode, S=5 linear verify, a tree-verify mask, and a prefix page shared
+   by two lanes; then time it (profiler device time, and CUDA events per
+   call) beside its plain version, its bound and
+   ``scaled_dot_product_attention`` over the same context, each timed
+   call reading another of 12 layer pools as the decode step does.
+4. flash   — hold the flash kernels B1 (forward: o, lse), B2 (dq) and B3
+   (dk, dv) against their plain versions: GPT-2-small training geometry
+   (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
+   S_q 256 < S_kv 1024, ragged S 1000, D 32 (the recipe default's heads)
+   and a non-causal fp32 case; then time each kernel at the training
+   geometry beside its plain version, its bound and SDPA (forward, and
+   its backward), and sweep S for the ``"auto"`` crossover against
+   ``mha_reference``.
+5. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
    (tied embeddings x4), ``ServingConfig(page_size=64, n_pages=129,
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
    tokens, 32 new tokens each); every request must equal the port's
    dense ``generate``, and the kernel must have launched on this path.
-5. serve_bf16 — the same at bf16; prints decode tok/s, p50 TTFT and peak
+6. serve_bf16 — the same at bf16; prints decode tok/s, p50 TTFT and peak
    device memory beside the card's name and power limit, then replays the
    trace under the profiler for the device busy share and the top kernels.
+7. train   — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
+   built in code from ``examples/lm/gpt/gpt.yml``'s values with the model
+   at GPT-2-small width: batch 8 x 1024, 20 steps, bf16 over fp32 masters,
+   remat, AdamW + cycle schedule (2-step warmup), clip 1.0, then a
+   32-token sample. Every loss finite and the last below the first; the
+   flash launch counts exact (B1 2 x 12 per step with remat, plus 12 for
+   the sample's prefill; B2 and B3 12 per step); one fp32 forward +
+   backward with the flash kernels against ``mha_reference`` (loss and
+   gradient norm, rtol 1e-4). Prints step ms, tokens/s, the model-FLOP
+   share of 989 TFLOP/s, peak memory, and a profiled device busy share
+   with the top kernels.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel's route, error, times and launches. Longer
@@ -42,7 +62,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "kernel", "serve_fp32", "serve_bf16")
+PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
+          "train")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 DEV = "cuda"
@@ -297,6 +318,196 @@ def phase_kernel(report: dict) -> dict:
     return {"max_abs_err": worst, **timing}
 
 
+# ----------------------------------------------------------------- flash
+# B1-B3 cases: (name, B, H, H_kv, S_q, S_kv, D, dtype, causal). The first
+# is the training path's geometry (GPT-2 small, batch 8 x 1024) and the
+# one timed; "d32" is the recipe default's (d_model 256 / 8 heads).
+FLASH_CASES = [
+    ("mha_bf16_causal", 8, 12, 12, 1024, 1024, 64, torch.bfloat16, True),
+    ("mha_fp32_causal", 8, 12, 12, 1024, 1024, 64, torch.float32, True),
+    ("gqa4_bf16_causal", 8, 12, 4, 1024, 1024, 64, torch.bfloat16, True),
+    ("kvcache_bf16_sq256_skv1024", 8, 12, 12, 256, 1024, 64,
+     torch.bfloat16, True),
+    ("ragged1000_bf16_causal", 8, 12, 12, 1000, 1000, 64, torch.bfloat16,
+     True),
+    ("d32_bf16_causal", 32, 8, 8, 256, 256, 32, torch.bfloat16, True),
+    ("mha_fp32_noncausal_s512", 4, 12, 12, 512, 512, 64, torch.float32,
+     False),
+]
+# atol = rtol, per dtype. bf16: the kernels round P and dS to bf16 before
+# their second product (tensor-core operands) where the plain version
+# keeps fp32, so outputs differ by a few bf16 ulp of their own size;
+# fp32: only the summation order differs
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype):
+    """(q, k, v, dO) in the kernels' folded (BH, S, D) layout."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+    return (rand(b * h, s_q, d), rand(b * h_kv, s_kv, d),
+            rand(b * h_kv, s_kv, d), rand(b * h, s_q, d))
+
+
+def visible_pairs(s_q, s_kv, causal):
+    """(query, key) pairs the causal mask leaves visible, per head."""
+    if not causal:
+        return s_q * s_kv
+    off = s_kv - s_q
+    return sum(min(s_kv, max(0, i + off + 1)) for i in range(s_q))
+
+
+def phase_flash(report: dict) -> dict:
+    """Each of B1, B2 and B3 against its plain version in every case,
+    then timed at the training geometry. Returns the three kernels'
+    ``kernels``-line fields."""
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    per_case = {}
+    for name, b, h, h_kv, s_q, s_kv, d, dtype, causal in FLASH_CASES:
+        q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.launch_fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
+        # the backward pair on the same inputs: the plain forward's o/lse
+        dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal, scale)
+        dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, causal, scale)
+        torch.cuda.synchronize()
+        args = (q, k, v, o_ref, lse_ref, do, causal, scale)
+        dq_ref = fa.dq_reference(*args)
+        dk_ref, dv_ref = fa.dkv_reference(*args)
+        tol = FLASH_TOL[dtype]
+        errs, used = {}, {}
+        for key, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+                               ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                               ("dv", dv, dv_ref)):
+            got, want = got.float(), want.float()
+            diff = (got - want).abs()
+            errs[key] = diff.max().item()
+            # the largest share of its allowance atol + rtol|want| that
+            # any element uses: <= 1 is what torch.allclose accepts
+            used[key] = (diff / (tol + tol * want.abs())).max().item()
+            if not (used[key] <= 1.0 and math.isfinite(errs[key])):
+                raise AssertionError(f"flash case {name}: {key} disagrees "
+                                     f"with the plain version: max abs "
+                                     f"err {errs[key]} (atol = rtol = "
+                                     f"{tol})")
+        worst["fwd"] = max(worst["fwd"], errs["o"], errs["lse"])
+        worst["dq"] = max(worst["dq"], errs["dq"])
+        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+        per_case[name] = {"max_abs_err": errs, "allowance_used": used,
+                          "atol": tol, "rtol": tol}
+        log(f"flash {name}: " + ", ".join(
+            f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)" for k in errs)
+            + f" (max abs err, and % of the allowance atol + rtol|ref| "
+            f"used; atol = rtol = {tol})")
+    report["flash_cases"] = per_case
+
+    # timing at the training path's shapes (bf16 MHA causal, B 8, H 12,
+    # S 1024, D 64), each kernel beside its plain half and SDPA
+    name, b, h, h_kv, s_q, s_kv, d, dtype, causal = FLASH_CASES[0]
+    q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.launch_fwd(q, k, v, True, scale)
+    _, delta = fa.launch_dq(q, k, v, o, lse, do, True, scale)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (t.reshape(b, -1, t.shape[1], d) for t in (q, k, v, do))
+    q4g, k4g, v4g = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    out4 = sdpa(q4g, k4g, v4g, is_causal=True)
+    bwd_args = (q, k, v, o, lse, do, True, scale)
+    runs = {
+        "fwd": (lambda: fa.launch_fwd(q, k, v, True, scale),
+                lambda: fa.flash_attention_reference(q, k, v, True, scale),
+                lambda: sdpa(q4, k4, v4, is_causal=True)),
+        "dq": (lambda: fa.launch_dq(q, k, v, o, lse, do, True, scale),
+               lambda: fa.dq_reference(*bwd_args),
+               lambda: torch.autograd.grad(out4, (q4g, k4g, v4g), do4,
+                                           retain_graph=True)),
+        "dkv": (lambda: fa.launch_dkv(q, k, v, lse, do, delta, True, scale),
+                lambda: fa.dkv_reference(*bwd_args), None),
+    }
+    pairs = b * h * visible_pairs(s_q, s_kv, True)
+    el = torch.finfo(dtype).bits // 8
+    n_q, n_kv = b * h * s_q * d, b * h_kv * s_kv * d
+    rows = b * h * s_q
+    # products per kernel (2 flops per multiply-add over D for each visible
+    # pair): B1 QK^T, PV; B2 QK^T, dO V^T, dS K; B3 QK^T, dO V^T, P^T dO,
+    # dS^T Q. Bytes: each input read once, each output written once.
+    work = {"fwd": (2 * 2, (n_q + 2 * n_kv + n_q) * el + rows * 4),
+            "dq": (3 * 2, (3 * n_q + 2 * n_kv + n_q) * el + rows * 8),
+            "dkv": (4 * 2, (2 * n_q + 4 * n_kv) * el + rows * 8)}
+    timing = {}
+    for key, (kern, plain, lib) in runs.items():
+        call = {"kernel": cuda_ms(kern, iters=50),
+                "plain": cuda_ms(plain, iters=10)}
+        dev = {"kernel": device_ms(kern, iters=50),
+               "plain": device_ms(plain, iters=10)}
+        if lib is not None:
+            call["library"] = cuda_ms(lib, iters=50)
+            dev["library"] = device_ms(lib, iters=50)
+        src = dev if all(dev.values()) else call
+        prods, nbytes = work[key]
+        flops = prods * d * pairs
+        t_ops = flops / BF16_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        timing[key] = {
+            "ms": src["kernel"], "plain_ms": src["plain"],
+            "library_ms": src.get("library"),
+            "timed_by": "profiler device time" if src is dev
+            else "CUDA events per call", "call_ms": call, "device_ms": dev,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": worst[key]}
+        lib_txt = (f"; sdpa {src['library'] * 1e3:.1f} us"
+                   if lib is not None else "")
+        log(f"flash timing {key} (bf16 MHA causal B{b} H{h} S{s_q} D{d}, "
+            f"{timing[key]['timed_by']}): kernel {src['kernel'] * 1e3:.1f} "
+            f"us; plain {src['plain'] * 1e3:.1f} us{lib_txt}; bound "
+            f"{timing[key]['bound_ms'] * 1e3:.1f} us "
+            f"({timing[key]['bound_by']}); achieved "
+            f"{flops / src['kernel'] / 1e9:.1f} TFLOP/s")
+    # the SDPA yardstick's backward computes dQ, dK and dV in one call: it
+    # stands beside B2 and B3 together
+    timing["dkv"]["library_ms"] = timing["dq"]["library_ms"]
+    timing["sdpa_fwd_bwd_ms"] = timing["fwd"]["library_ms"] \
+        + timing["dq"]["library_ms"]
+    report["flash_timing"] = timing
+    report["auto_crossover"] = crossover()
+    return timing
+
+
+def crossover() -> list:
+    """Forward + backward through ``attention`` (bf16, causal, B 8, H 12,
+    D 64) with the flash kernels and with ``mha_reference``, across S:
+    the measurement the ``"auto"`` rule rests on."""
+    from torchbooster_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    rows = []
+    for s_len in (256, 512, 1024, 2048, 4096):
+        q, k, v, do = (torch.randn(8, s_len, 12, 64, generator=gen,
+                                   device=DEV, dtype=torch.bfloat16)
+                       for _ in range(4))
+        for t in (q, k, v):
+            t.requires_grad_()
+        row = {"S": s_len}
+        for impl in ("flash", "reference"):
+            row[f"{impl}_ms"] = cuda_ms(
+                lambda: attention(q, k, v, impl=impl).backward(do),
+                iters=10, warmup=2)
+        rows.append(row)
+        log(f"auto crossover S={s_len}: flash fwd+bwd {row['flash_ms']:.3f}"
+            f" ms, mha_reference {row['reference_ms']:.3f} ms (CUDA "
+            f"events per call)")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------- serving
 def gpt2_small():
     from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
@@ -406,6 +617,206 @@ def phase_serve(params, cfg, dtype, smi: str, report: dict, key: str,
     return match, launches
 
 
+# ----------------------------------------------------------------- train
+TRAIN_STEPS = 20
+TRAIN_B, TRAIN_S = 8, 1024
+
+
+def gpt2_train_config(n_iter: int, precision: str = "bf16",
+                      sample_tokens: int = 32):
+    """``examples/lm/gpt/gpt.yml``'s values built in code (the card's
+    machine reads no YAML), with the model block at GPT-2-small width
+    (chunked LM head), batch 8 x 1024, ``n_iter`` steps, a 2-step warmup
+    so that the loss moves, and a log record every step."""
+    from torchbooster_tpu_torch.config import (
+        DatasetConfig,
+        EnvConfig,
+        LoaderConfig,
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes.gpt import Config, ModelConfig
+
+    return Config(
+        n_iter=n_iter, seed=42, clip=1.0, accumulate_every=1, log_every=1,
+        save_every=0, checkpoint_root="checkpoints",
+        model=ModelConfig(vocab=50257, n_layers=12, d_model=768,
+                          n_heads=12, seq_len=TRAIN_S, remat=True,
+                          chunked_head=True),
+        env=EnvConfig(distributed=False, precision=precision, mesh="dp"),
+        loader=LoaderConfig(batch_size=TRAIN_B, num_workers=0,
+                            drop_last=True),
+        optim=OptimizerConfig(name="adamw", lr=3e-4, weight_decay=0.1,
+                              betas=(0.9, 0.95)),
+        scheduler=SchedulerConfig(name="cycle", n_iter=n_iter, warmup=2,
+                                  decay=("lin", "cos")),
+        dataset=DatasetConfig(name="synthetic_lm", root="dataset/lm"),
+        sample_tokens=sample_tokens, sample_temperature=0.8)
+
+
+def model_flops_per_step(cfg) -> float:
+    """6 x parameters x tokens for the matmuls (the tied head counted
+    once, the wpe lookup not at all) plus causal attention's two
+    products, 6 L S d per token over forward and backward. The remat
+    recompute is not counted."""
+    d, n_l = cfg.d_model, cfg.n_layers
+    n_params = cfg.vocab * d + n_l * (12 * d * d + 13 * d) + 2 * d
+    tokens = TRAIN_B * TRAIN_S
+    return 6.0 * n_params * tokens + 6.0 * n_l * TRAIN_S * d * tokens
+
+
+def flash_vs_reference_fp32() -> dict:
+    """One fp32 forward + backward of the recipe's loss from the same
+    parameters and batch, attention through the flash kernels and
+    through ``mha_reference``: loss and gradient norm must agree."""
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.ops.losses import lm_head_cross_entropy
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+    from torchbooster_tpu_torch.utils import tree_leaves
+
+    t = recipe.setup(gpt2_train_config(1, "fp32"))
+    batch = t.batch(next(t.batches)[1])
+    out = {}
+    for impl in ("flash", "reference"):
+        hidden = GPT.apply(t.state.params, batch["ids"], t.cfg,
+                           compute_dtype=torch.float32, remat=True,
+                           attn_impl=impl, return_hidden=True)
+        loss = lm_head_cross_entropy(hidden, GPT.head_table(t.state.params),
+                                     batch["labels"])
+        loss.backward()
+        leaves = tree_leaves(t.state.params)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad) for p in leaves])).item()
+        out[impl] = {"loss": loss.item(), "grad_norm": norm}
+        for p in leaves:
+            p.grad = None
+    # both sides are fp32 throughout; they differ in the order of the
+    # attention sums (online softmax over 64-key tiles against one
+    # softmax over the row), worth ~1e-6 relative per layer
+    tol = 1e-4
+    for key in ("loss", "grad_norm"):
+        a, b = out["flash"][key], out["reference"][key]
+        if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+            raise AssertionError(f"fp32 step: flash {key} {a} vs reference "
+                                 f"{b} (rtol {tol})")
+    out["rtol"] = tol
+    log(f"train fp32 flash vs reference: loss {out['flash']['loss']:.6f} / "
+        f"{out['reference']['loss']:.6f}, grad norm "
+        f"{out['flash']['grad_norm']:.6f} / "
+        f"{out['reference']['grad_norm']:.6f} (rtol {tol})")
+    return out
+
+
+def train_breakdown(n_steps: int = 3) -> dict:
+    """A fresh bf16 trainer: two warm steps, then ``n_steps`` under the
+    profiler (CUDA activity): device busy share of the wall time, kernels
+    per step, the flash kernels' share of device time, and the top
+    kernels; then one step with host activity traced, for the host ops
+    that take the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    t = recipe.setup(gpt2_train_config(n_steps + 2, sample_tokens=0))
+    for _ in range(2):
+        t.state, m = t.step(t.state, t.batch(next(t.batches)[1]))
+    m["loss"].item()
+    batches = [t.batch(next(t.batches)[1]) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            t.state, m = t.step(t.state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
+                         for e in events), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in per_kernel)
+    flash = sum(v for k, v in per_kernel if "::flash_" in k)
+    # one more step with host (CPU) activity traced, apart from the timed
+    # ones because the tracing slows the host: where the host time goes
+    batch = t.batch(next(t.batches)[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as host_prof:
+        t.state, m = t.step(t.state, batch)
+        torch.cuda.synchronize()
+    host_ops = sorted(((e.key, e.self_cpu_time_total / 1e6, e.count)
+                       for e in host_prof.key_averages()),
+                      key=lambda kv: -kv[1])
+    return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
+            "device_busy_s": busy, "device_busy_share": busy / wall,
+            "flash_s": flash, "flash_share_of_device": flash / max(busy,
+                                                                   1e-12),
+            "kernels_per_step": sum(e.count for e in events) / n_steps,
+            "top": per_kernel[:10], "host_top_one_step": host_ops[:12]}
+
+
+def phase_train(report: dict, smi: str) -> dict:
+    """The recipe's ``main`` at GPT-2-small width on the card; returns
+    the flash kernels' launch counts from this run."""
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    conf = gpt2_train_config(TRAIN_STEPS)
+    cfg = conf.model.make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    t0 = time.perf_counter()
+    res = recipe.main(conf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                "dkv": fa.launches_dkv}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in res["log"]]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    n_l = cfg.n_layers
+    # remat runs each block's forward twice per step; the sample's
+    # prefill adds one forward per layer
+    expected = {"fwd": 2 * n_l * TRAIN_STEPS + n_l,
+                "dq": n_l * TRAIN_STEPS, "dkv": n_l * TRAIN_STEPS}
+    if launches != expected:
+        raise AssertionError(f"train: flash launches {launches}, expected "
+                             f"{expected}")
+    # steady state: from the end of step 5 to the end of the last step
+    el = [r["elapsed_s"] for r in res["log"]]
+    warm = 5
+    step_s = (el[-1] - el[warm - 1]) / (TRAIN_STEPS - warm)
+    flops = model_flops_per_step(cfg)
+    out = {"losses": losses, "launches": launches, "expected": expected,
+           "main_wall_s": wall, "step_ms": step_s * 1e3,
+           "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+           "model_flops_per_step": flops,
+           "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
+           "peak_mem_bytes": peak, "sample_len": len(res.get("sample", [])),
+           "card": smi}
+    log(f"train: GPT-2 small, batch {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} "
+        f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
+        f"model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of 989 "
+        f"TFLOP/s, peak mem {peak / 2**30:.2f} GiB; flash launches "
+        f"{launches} [{smi}]")
+    out["fp32_flash_vs_reference"] = flash_vs_reference_fp32()
+    torch.cuda.empty_cache()
+    b = out["breakdown"] = train_breakdown()
+    log(f"train profiled: {b['steps']} steps, wall {b['wall_s']:.3f} s "
+        f"({b['step_ms']:.1f} ms/step), device busy "
+        f"{100 * b['device_busy_share']:.1f}%, "
+        f"{b['kernels_per_step']:.0f} kernels per step, flash kernels "
+        f"{100 * b['flash_share_of_device']:.1f}% of device time; top: "
+        + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in b["top"][:5]))
+    log("train host, one traced step (self CPU ms, calls): " + "; ".join(
+        f"{k[:40]} {v * 1e3:.1f} ({n})"
+        for k, v, n in b["host_top_one_step"][:8]))
+    report["train"] = out
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -435,43 +846,71 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"(x{torch.cuda.device_count()}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
+    blank = {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
+             "bound_ms": None, "bound_by": None, "library_ms": None}
     kernel = {"name": "paged_attention", "route": "cuda",
               "source": "torchbooster_tpu_torch/ops/csrc/paged_attention.cu",
               "replaces": "torchbooster_tpu/ops/paged_attention.py:70",
-              "launches": 0, "max_abs_err": None, "ms": None,
-              "plain_ms": None, "bound_ms": None, "bound_by": None,
-              "library_ms": None}
+              **blank}
+    flash_src = "torchbooster_tpu_torch/ops/csrc/flash_attention.cu"
+    flash = {key: {"name": name, "route": "cuda", "source": flash_src,
+                   "replaces": f"torchbooster_tpu/ops/flash_attention.py:{line}",
+                   **blank}
+             for key, name, line in (("fwd", "flash_fwd", 104),
+                                     ("dq", "flash_dq", 227),
+                                     ("dkv", "flash_dkv", 265))}
     t0 = time.perf_counter()
     if "build" in phases:
+        # one nvcc per source, all started together
+        from concurrent.futures import ThreadPoolExecutor
+
         t = time.perf_counter()
-        _build.build("paged_attention")
+        sources = ("paged_attention", "flash_attention")
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(_build.build, sources))
         report["build_s"] = time.perf_counter() - t
-        report["ptxas"] = _build.ptxas_info.get("paged_attention", "")
-        log(f"build: paged_attention.cu in {report['build_s']:.1f} s")
+        report["build_s_each"] = dict(_build.build_seconds)
+        report["ptxas"] = {n: _build.ptxas_info.get(n, "") for n in sources}
+        log(f"build: {', '.join(f'{n}.cu {sec:.1f} s' for n, sec in _build.build_seconds.items())}"
+            f" (in parallel, {report['build_s']:.1f} s)")
     if "kernel" in phases:
         res = phase_kernel(report)
         kernel.update({k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms")})
+    if "flash" in phases:
+        res = phase_flash(report)
+        for key in flash:
+            flash[key].update({k: res[key][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
     if "serve_fp32" in phases or "serve_bf16" in phases:
         params, cfg = gpt2_small()
-    if "serve_fp32" in phases:
-        match, launches = phase_serve(params, cfg, torch.float32, smi,
-                                      report, "serve_fp32")
-        kernel["launches"] = launches
-        if not all(match):
-            raise AssertionError(f"fp32 paged serving disagrees with dense "
-                                 f"generate on {match.count(False)} requests")
-    if "serve_bf16" in phases:
-        _, launches = phase_serve(params, cfg, torch.bfloat16, smi, report,
-                                  "serve_bf16", breakdown=True)
-        kernel["launches"] = kernel["launches"] or launches
+        if "serve_fp32" in phases:
+            match, launches = phase_serve(params, cfg, torch.float32, smi,
+                                          report, "serve_fp32")
+            kernel["launches"] = launches
+            if not all(match):
+                raise AssertionError(f"fp32 paged serving disagrees with "
+                                     f"dense generate on "
+                                     f"{match.count(False)} requests")
+        if "serve_bf16" in phases:
+            _, launches = phase_serve(params, cfg, torch.bfloat16, smi,
+                                      report, "serve_bf16", breakdown=True)
+            kernel["launches"] = kernel["launches"] or launches
+        # freed so that the train phase's peak memory is its own
+        del params
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        launches = phase_train(report, smi)
+        for key in flash:
+            flash[key]["launches"] = launches[key]
     report["wall_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
     log(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, *flash.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -121,3 +121,91 @@ def test_paged_kernel_masked_lane_and_bad_operands_on_card():
     with pytest.raises(ValueError):   # pool geometry != page_size
         pa.paged_attention(*args, page_size=2 * x["ps"])
     assert pa.launches == before
+
+
+# B1-B3: (B, H, H_kv, S_q, S_kv, D, dtype) — GPT-2-small training geometry
+# (also with 4 kv heads and the KV-cache alignment S_q < S_kv) and the GPT
+# recipe default (d_model 256 / 8 heads = D 32, S 256, batch 32)
+FLASH_CASES = {
+    "gpt2_small_bf16": (8, 12, 12, 1024, 1024, 64, torch.bfloat16),
+    "gpt2_small_fp32": (8, 12, 12, 1024, 1024, 64, torch.float32),
+    "gpt2_small_gqa4_bf16": (8, 12, 4, 1024, 1024, 64, torch.bfloat16),
+    "sq256_skv1024_bf16": (8, 12, 12, 256, 1024, 64, torch.bfloat16),
+    "recipe_default_d32_bf16": (32, 8, 8, 256, 256, 32, torch.bfloat16),
+    # the third head dim built, with GQA and ragged lengths
+    "d128_gqa2_ragged200_bf16": (2, 4, 2, 200, 200, 128, torch.bfloat16),
+    "d128_ragged130_fp32": (2, 4, 4, 130, 130, 128, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain_versions_on_card(name):
+    """B1 (o, lse), B2 (dq) and B3 (dk, dv) against their plain versions
+    on the same inputs, causal. bf16: the tensor-core kernels round P and
+    dS to bf16 before their second product, the plain version keeps them
+    fp32, so a few bf16 ulp: 2e-2; fp32: summation order only, 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    b, h, h_kv, s_q, s_kv, d, dtype = FLASH_CASES[name]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(rows, s, d, generator=gen,
+                               device="cuda").to(dtype)
+                   for rows, s in ((b * h, s_q), (b * h_kv, s_kv),
+                                   (b * h_kv, s_kv), (b * h, s_q)))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    scale = d ** -0.5
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    o, lse = fa.launch_fwd(q, k, v, True, scale)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, scale)
+    dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, True, scale)
+    dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, True, scale)
+    torch.cuda.synchronize()
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(
+        n + 1 for n in before)
+    want = (o_ref, lse_ref,
+            fa.dq_reference(q, k, v, o_ref, lse_ref, do, True, scale),
+            *fa.dkv_reference(q, k, v, o_ref, lse_ref, do, True, scale))
+    for got, ref in zip((o, lse, dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_and_bad_operands_on_card():
+    """``flash_attention`` differentiates through B1-B3 (grads against the
+    plain versions'); operands the kernels do not take raise, never fall
+    back: a head dim that is not built, mixed dtypes, a strided operand,
+    an lse of the wrong shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(8, 1000, 64, generator=gen, device="cuda")
+                   for _ in range(4))       # ragged: no 64-tile divides 1000
+    grads = []
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if route == "kernel":
+            out = fa.flash_attention(*leaves)
+        else:
+            out = fa._Flash.apply(*(t.cpu() for t in leaves), True,
+                                  64 ** -0.5, 1000, 1000).cuda()
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    before = fa.launches_fwd
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*(torch.randn(2, 64, 48, device="cuda")
+                             for _ in range(3)))
+    with pytest.raises(ValueError, match="every operand"):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.launch_fwd(q[:, ::2], k[:, ::2], v[:, ::2], True, 0.125)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.launch_dq(q, k, v, q, q[:, :1, 0], do, True, 0.125)
+    assert fa.launches_fwd == before

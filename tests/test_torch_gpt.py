@@ -103,7 +103,8 @@ def test_forward_logits_match_jax(n_kv_heads, pos):
     ids = np.random.RandomState(1).randint(0, 97, (2, 11)).astype(np.int32)
     want = np.asarray(JGPT.apply(jp, jnp.asarray(ids), jcfg,
                                  compute_dtype=jnp.float32, remat=False))
-    got = GPT.apply(tp, torch.as_tensor(ids).long(), cfg).numpy()
+    got = GPT.apply(tp, torch.as_tensor(ids).long(), cfg,
+                    compute_dtype=torch.float32, remat=False).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 

@@ -1,8 +1,9 @@
 """Package guards of ``torchbooster_tpu_torch``.
 
 - importing every module of the port loads neither ``jax`` nor anything
-  of ``torchbooster_tpu``, and starts no ``nvcc`` (kernels build at first
-  launch, never at import);
+  of ``torchbooster_tpu`` nor PyYAML (the card's machine has none), runs
+  no recipe and starts no ``nvcc`` (kernels build at first launch, never
+  at import);
 - ``chip_smoke.py`` refuses to run without a CUDA card: non-zero exit and
   no result line.
 """
@@ -34,6 +35,7 @@ print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "jax_pkg": sorted(m for m in sys.modules if m == "torchbooster_tpu"
                       or m.startswith("torchbooster_tpu.")),
+    "yaml": sorted(m for m in sys.modules if m == "yaml"),
     "nvcc": [a for a in started if "nvcc" in a],
     "built": sorted(_build.build_seconds),
 }))
@@ -47,7 +49,11 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "torchbooster_tpu_torch.serving.engine" in got["modules"]
     assert "torchbooster_tpu_torch.ops.paged_attention" in got["modules"]
-    assert got["jax"] == [] and got["jax_pkg"] == []
+    for name in ("ops.flash_attention", "ops.losses", "utils", "scheduler",
+                 "metrics", "dataset", "data.sources", "data.pipeline",
+                 "recipes.gpt"):
+        assert f"torchbooster_tpu_torch.{name}" in got["modules"]
+    assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     assert got["nvcc"] == [] and got["built"] == []
 
 

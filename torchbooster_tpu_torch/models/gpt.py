@@ -1,14 +1,15 @@
-"""GPT language model — the port of ``torchbooster_tpu/models/gpt.py``
-for the serving slice: config, init, the block math, the cached-
-attention numerics core shared by the dense ``generate`` control and
-the paged engine, and the next-token rules.
+"""GPT language model — the port of ``torchbooster_tpu/models/gpt.py``:
+config, init, the training forward ``GPT.apply`` (per-block remat,
+attention through the ``ops.attention`` dispatcher), the block math,
+the cached-attention numerics core shared by the dense ``generate``
+control and the paged engine, and the next-token rules.
 
 Layouts follow the JAX package so parameters cross frameworks with a
 plain copy (``interop.params_from_jax``): block tensors are stacked on
 a leading layer axis, dense kernels are ``(in, out)``, and the qkv
 projection's columns are ``q | k | v`` at GQA widths. Not ported here
 (``ROADMAP.md``): the tensor/expert/sequence/pipeline-parallel
-branches, LoRA deltas, dropout, MoE blocks and the training step.
+branches, LoRA deltas, dropout and MoE blocks.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from torchbooster_tpu_torch._device import resolve_device
 from torchbooster_tpu_torch.models import layers as L
-from torchbooster_tpu_torch.ops.attention import NEG_INF, mha_reference
+from torchbooster_tpu_torch.ops.attention import NEG_INF, attention
 
 
 @dataclass(frozen=True)
@@ -125,11 +127,62 @@ class GPT:
 
     @staticmethod
     def apply(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
-              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Full causal forward → logits (B, S, vocab)."""
+              compute_dtype: torch.dtype = torch.bfloat16,
+              remat: bool = True, attn_impl: str = "auto",
+              return_aux: bool = False,
+              return_hidden: bool = False) -> torch.Tensor:
+        """Full causal forward → logits (B, S, vocab), or the final-norm
+        hidden states (B, S, d) with ``return_hidden`` (for the chunked
+        LM-head loss, ``ops.losses.lm_head_cross_entropy`` with
+        :meth:`head_table`). Every leaf is cast to ``compute_dtype``
+        where it is used, inside the differentiated function, so the
+        gradients land on the fp32 masters. ``return_aux`` adds the MoE
+        load-balance loss, 0 for these dense blocks.
+
+        ``remat`` recomputes each block in backward (non-reentrant
+        ``torch.utils.checkpoint``). The JAX package keeps the matmul
+        outputs (``dots_with_no_batch_dims_saveable``) and recomputes
+        the rest; full per-block recompute gives the same numbers for
+        another memory/time trade, and launches the attention forward
+        twice per layer and step."""
+        b, s = ids.shape
         _check_pos(params, cfg)
-        x, _, _ = _prefill_forward(params, ids, cfg, compute_dtype)
-        return _lm_head(params, x)
+        if s > cfg.seq_len:
+            raise ValueError(f"sequence length {s} exceeds "
+                             f"cfg.seq_len={cfg.seq_len}")
+        if cfg.dropout:
+            raise NotImplementedError(
+                "dropout > 0 is not ported yet (ROADMAP.md A1)")
+        x = _embed(params, ids, compute_dtype)
+
+        def attend(q, k, v):
+            # grouped K/V go to the dispatcher as they are: the flash
+            # kernels index grouped rows, the reference expands them
+            return attention(q, k, v, causal=True, impl=attn_impl), None
+
+        def block(bp: dict, x: torch.Tensor) -> torch.Tensor:
+            return _block_core(bp, x, cfg, attend)[0]
+
+        for i in range(cfg.n_layers):
+            bp = layer_params(params["blocks"], i)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block, bp, x, use_reentrant=False)
+            else:
+                x = block(bp, x)
+        out = L.layer_norm(params["ln_f"], x) if return_hidden \
+            else _lm_head(params, x)
+        if return_aux:
+            return out, torch.zeros((), device=out.device)
+        return out
+
+    @staticmethod
+    def head_table(params: dict) -> torch.Tensor:
+        """(vocab, d) output-projection table — the ``table`` argument of
+        ``ops.losses.lm_head_cross_entropy`` (tied: the wte table;
+        untied: the head kernel transposed)."""
+        if "head" in params:
+            return params["head"]["kernel"].T
+        return params["wte"]["table"]
 
     @staticmethod
     def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
@@ -343,21 +396,28 @@ def _make_pick(temperature: float, top_k: int | None, top_p: float | None):
     return pick
 
 
-def _prefill_forward(params: dict, ids: torch.Tensor, cfg: GPTConfig,
-                     compute_dtype: torch.dtype):
-    """Full prompt forward collecting per-layer K/V. Returns ``(x, ks,
-    vs)`` with x (B, S, d) and ks/vs stacked (L, B, S, kv_heads, Dh)."""
-    s0 = ids.shape[1]
+def _embed(params: dict, ids: torch.Tensor,
+           compute_dtype: torch.dtype) -> torch.Tensor:
+    """Token (+ learned position) embeddings in ``compute_dtype``."""
     x = L.embedding(params["wte"], ids, dtype=compute_dtype)
     if "wpe" in params:
         x = x + L.embedding(params["wpe"],
-                            torch.arange(s0, device=ids.device),
+                            torch.arange(ids.shape[1], device=ids.device),
                             dtype=compute_dtype)
+    return x
+
+
+def _prefill_forward(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+                     compute_dtype: torch.dtype):
+    """Full prompt forward collecting per-layer K/V, attending through
+    the dispatcher as ``gpt.py:1320`` does. Returns ``(x, ks, vs)`` with
+    x (B, S, d) and ks/vs stacked (L, B, S, kv_heads, Dh)."""
+    x = _embed(params, ids, compute_dtype)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, (k, v) = _block_core(
             layer_params(params["blocks"], i), x, cfg,
-            lambda q, k, v: (mha_reference(q, k, v, causal=True), (k, v)))
+            lambda q, k, v: (attention(q, k, v, causal=True), (k, v)))
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)

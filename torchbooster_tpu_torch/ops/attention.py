@@ -1,7 +1,9 @@
-"""Plain attention over (B, S, H, D) tensors — the numerical ground
-truth of ``torchbooster_tpu/ops/attention.py``. The flash kernels that
-the JAX package dispatches to on a TPU at S >= 4096 belong to the
-training slice; the serving path's prefill always runs this."""
+"""Attention over (B, S, H, D) tensors — the port of
+``torchbooster_tpu/ops/attention.py``: the plain ``mha_reference`` (the
+numerical ground truth) and the ``attention`` dispatcher, which sends
+CUDA tensors to the flash kernels (``ops/flash_attention.py``) and CPU
+tensors to the reference. ``GPT.apply`` and the prefill of the dense
+``generate`` both attend through the dispatcher, as in the JAX package."""
 from __future__ import annotations
 
 import math
@@ -38,4 +40,47 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-__all__ = ["NEG_INF", "expand_kv_heads", "mha_reference"]
+def flash_auto_engaged(seq_len_q: int, seq_len_kv: int | None = None,
+                       device: str | torch.device = "cuda") -> bool:
+    """THE predicate ``attention(impl="auto")`` evaluates: the flash
+    kernels on a CUDA device whenever both lengths are tileable. The JAX
+    package's ``S >= 4096`` threshold is a TPU v5e crossover and does not
+    carry over; the H100 crossover is measured in PERF.md."""
+    from torchbooster_tpu_torch.ops.flash_attention import tileable
+
+    if seq_len_kv is None:
+        seq_len_kv = seq_len_q
+    return (torch.device(device).type == "cuda" and tileable(seq_len_q)
+            and tileable(seq_len_kv))
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, sm_scale: float | None = None,
+              impl: str = "auto") -> torch.Tensor:
+    """(B, S, H, D) attention. ``impl``: ``"auto"`` (the flash kernels on
+    the card when :func:`flash_auto_engaged`, else the reference),
+    ``"flash"`` (the kernels on the card, their plain blocked version on
+    the CPU) or ``"reference"``."""
+    if impl == "auto":
+        impl = ("flash" if flash_auto_engaged(q.shape[1], k.shape[1],
+                                              q.device) else "reference")
+    if impl == "reference":
+        return mha_reference(q, k, v, causal, sm_scale)
+    if impl != "flash":
+        raise ValueError(f"unknown attention impl {impl!r}; use 'auto', "
+                         "'flash' or 'reference'")
+    from torchbooster_tpu_torch.ops.flash_attention import flash_attention
+
+    b, s_q, h, d = q.shape
+    s_kv, h_kv = k.shape[1], k.shape[2]
+    # heads fold into the batch; grouped k/v fold at their own width (the
+    # kernels index grouped rows directly, so no expanded copy exists)
+    qf = q.transpose(1, 2).reshape(b * h, s_q, d)
+    kf = k.transpose(1, 2).reshape(b * h_kv, s_kv, d)
+    vf = v.transpose(1, 2).reshape(b * h_kv, s_kv, d)
+    out = flash_attention(qf, kf, vf, causal=causal, sm_scale=sm_scale)
+    return out.reshape(b, h, s_q, d).transpose(1, 2)
+
+
+__all__ = ["NEG_INF", "attention", "expand_kv_heads", "flash_auto_engaged",
+           "mha_reference"]
