@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's CUDA sources (nvcc, sm_90a), one nvcc per
-   source, all started together, and time it.
+2. build   — compile the port's four CUDA sources (nvcc, sm_90a), one nvcc
+   per source, all started together, and time it.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
@@ -43,6 +43,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    gradient norm, rtol 1e-4). Prints step ms, tokens/s, the model-FLOP
    share of 989 TFLOP/s, peak memory, and a profiled device busy share
    with the top kernels.
+8. conv    — hold the GroupNorm kernels B5 (forward) and B6 (backward) and
+   the fused conv + GroupNorm kernels B7 (1x1, any stride) and B8 (3x3,
+   stride 1) against their plain versions, in bf16 and fp32, with and
+   without ReLU: every ResNet-18 CIFAR geometry at batch 512 (the stem,
+   each stage, the stride-2 projections), ResNet-50 224² bottleneck
+   geometries (56²x64->256 1x1, 56²x64 3x3, a 7²x2048 GroupNorm), a
+   non-square 7x9 map, and widths off the 16-byte vectors (12 channels
+   in, 40 out); then time each kernel at every ResNet-18 shape of
+   the training path (profiler device time, or CUDA events around
+   back-to-back calls where the profiler loses events; and CUDA events
+   per call) beside its bound, its plain version and a library yardstick
+   (``F.group_norm`` on the channels-last view and its backward; for
+   B7/B8 the sequence cuDNN conv + ``F.group_norm`` + ReLU).
+9. resnet_train — the ResNet recipe's ``main`` (``recipes/resnet.py``) on a
+   config built in code from ``examples/img_cls/resnet/resnet.yml``'s
+   values (ResNet-18, CIFAR stem, batch 512, bf16 over fp32 masters,
+   AdamW, cycle schedule, clip 1.0, label smoothing 0.1, host
+   augmentation) for 2 epochs of the ``cifar10`` twin (32 steps, and an
+   eval pass of 2 batches after each epoch). Every loss finite and the
+   last below the first; the launch counts of B5-B8 exact (per train step
+   B5 4, B6 4, B7 3, B8 13; per eval forward B5 4, B7 3, B8 13); one fp32
+   forward + backward with the kernels against ``fused=False`` and the
+   plain GroupNorm (loss and gradient norm, rtol 1e-4). Prints step ms,
+   img/s, the model-FLOP share of 989 TFLOP/s, peak memory, the host data
+   time per step and a profiled device busy share with the top kernels.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel's route, error, times and launches. Longer
@@ -63,9 +88,11 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
-          "train")
+          "train", "conv", "resnet_train")
+SOURCES = ("paged_attention", "flash_attention", "group_norm", "fused_block")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
+FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
 DEV = "cuda"
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -104,23 +131,48 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+def stream_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Milliseconds per call from CUDA events around ``iters`` calls
+    issued back to back: where the host enqueues faster than the card
+    runs them, this is the card's own time per call, without the host
+    gap that :func:`cuda_ms` counts before each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def device_ms(fn, iters: int = 50) -> float:
     """Milliseconds of device (kernel) time per call, from the profiler:
     the sum of every kernel's own device time over ``iters`` calls. The
     host-side launch cost, which :func:`cuda_ms` includes, is left out.
-    Returns 0.0 when the profiler records no device time."""
+    Every call launches at least one kernel, so a window that recorded
+    fewer kernel launches than calls lost events (seen once on the card:
+    a 100 µs kernel read as 3.6 µs, and later whole windows of one-kernel
+    calls); it is profiled again, and 0.0 is returned when the second
+    window loses events too or the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / iters / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        timed = [e for e in prof.key_averages()
+                 if getattr(e, "self_device_time_total", 0.0) > 0]
+        if sum(e.count for e in timed) >= iters:
+            return sum(e.self_device_time_total for e in timed) / iters / 1e3
+    return 0.0
 
 
 # ---------------------------------------------------------------- kernel
@@ -817,6 +869,485 @@ def phase_train(report: dict, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ conv
+RN_B = 512            # the ResNet recipe's batch (examples/img_cls/resnet)
+GROUPS = 32
+# (name, kind, B, H, W, Cin, Cout, stride); kind "gn" runs B5 and B6,
+# "1x1" B7, "3x3" B8. The first eleven are the ResNet-18 CIFAR training
+# path at batch 512 (stage s at 32 / 2^s): the stem norm and the stride-2
+# 3x3s' norms (B5/B6), the stride-2 projections (B7), the stride-1 3x3s.
+CONV_MAIN = [
+    ("stem_gn", "gn", RN_B, 32, 32, 64, 64, 1),
+    ("stage1_gn", "gn", RN_B, 16, 16, 128, 128, 1),
+    ("stage2_gn", "gn", RN_B, 8, 8, 256, 256, 1),
+    ("stage3_gn", "gn", RN_B, 4, 4, 512, 512, 1),
+    ("stage1_proj", "1x1", RN_B, 32, 32, 64, 128, 2),
+    ("stage2_proj", "1x1", RN_B, 16, 16, 128, 256, 2),
+    ("stage3_proj", "1x1", RN_B, 8, 8, 256, 512, 2),
+    ("stage0_3x3", "3x3", RN_B, 32, 32, 64, 64, 1),
+    ("stage1_3x3", "3x3", RN_B, 16, 16, 128, 128, 1),
+    ("stage2_3x3", "3x3", RN_B, 8, 8, 256, 256, 1),
+    ("stage3_3x3", "3x3", RN_B, 4, 4, 512, 512, 1),
+]
+# calls of each main-path geometry per training step (forward)
+CONV_PER_STEP = {"stem_gn": 1, "stage1_gn": 1, "stage2_gn": 1,
+                 "stage3_gn": 1, "stage1_proj": 1, "stage2_proj": 1,
+                 "stage3_proj": 1, "stage0_3x3": 4, "stage1_3x3": 3,
+                 "stage2_3x3": 3, "stage3_3x3": 3}
+# ResNet-50 at 224² (bottleneck geometries, batch 32) and a non-square map
+CONV_EXTRA = [
+    ("r50_56sq_1x1_64to256", "1x1", 32, 56, 56, 64, 256, 1),
+    ("r50_56sq_3x3_64", "3x3", 32, 56, 56, 64, 64, 1),
+    ("r50_7sq_gn_2048", "gn", 32, 7, 7, 2048, 2048, 1),
+    ("nonsquare_7x9_gn", "gn", 8, 7, 9, 64, 64, 1),
+    ("nonsquare_7x9_1x1_s2", "1x1", 8, 7, 9, 64, 128, 2),
+    ("nonsquare_7x9_3x3", "3x3", 8, 7, 9, 64, 32, 1),
+    # widths off the 16-byte vectors: the one-element load routes, a
+    # ragged Cout tile and 20 groups of 2 (``groups`` clipped from 32)
+    ("odd_c12_gn", "gn", 8, 7, 9, 12, 12, 1),
+    ("odd_cin12_cout40_3x3", "3x3", 8, 7, 9, 12, 40, 1),
+    ("odd_cin12_cout40_1x1_s2", "1x1", 8, 7, 9, 12, 40, 2),
+]
+def groups_for(c: int) -> int:
+    """The recipe's 32 groups, clipped to a divisor of ``c`` as
+    ``layers.group_norm`` and the fused kernels' wrappers clip them."""
+    g = min(GROUPS, c)
+    while c % g:
+        g -= 1
+    return g
+
+
+# the kernel each kernels-line entry is timed at: the largest main-path call
+CONV_TIMED = {"gn_fwd": "stem_gn", "gn_bwd": "stem_gn",
+              "conv1x1": "stage1_proj", "conv3x3": "stage0_3x3"}
+# atol = rtol, per dtype. bf16: both sides compute in fp32 from the same
+# bf16 values and round the output once, so one bf16 ulp of the output;
+# fp32: only the summation order differs
+CONV_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def conv_inputs(gen, kind, b, h, w, cin, cout, dtype):
+    """x (and dy for "gn") in ``dtype``, w (k, k, Cin, Cout) scaled by
+    1/sqrt(fan-in) in ``dtype``, scale and bias fp32."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    k = 3 if kind == "3x3" else 1
+    x = (randn(b, h, w, cin) * 2.0 + 0.5).to(dtype)
+    return dict(x=x, dy=randn(b, h, w, cin).to(dtype),
+                w=(randn(k, k, cin, cout) / math.sqrt(k * k * cin)).to(dtype),
+                scale=1.0 + 0.1 * randn(cout), bias=0.1 * randn(cout))
+
+
+def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
+    """One geometry through its kernel(s) and plain version(s): max abs
+    error and the share of the allowance atol + rtol|ref| used, per
+    output."""
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    name, kind, b, h, w, cin, cout, stride = case
+    a = conv_inputs(gen, kind, b, h, w, cin, cout, dtype)
+    x, s, bi = a["x"], a["scale"], a["bias"]
+    g = groups_for(cout)
+    if kind == "gn":
+        y, st = gnk.launch_fwd(x, s, bi, g, 1e-5, relu)
+        torch.cuda.synchronize()
+        y_ref, st_ref = gnk.group_norm_fwd_reference(x, s, bi, g, 1e-5, relu)
+        dx, part = gnk.launch_bwd(x, a["dy"], st_ref, s, bi, g, relu)
+        torch.cuda.synchronize()
+        dx_ref, part_ref = gnk.group_norm_bwd_reference(
+            x, a["dy"], st_ref, s, bi, g, relu)
+        pairs = {"y": (y, y_ref), "stats": (st, st_ref), "dx": (dx, dx_ref),
+                 "part": (part, part_ref)}
+    else:
+        launch = fb.launch_1x1 if kind == "1x1" else fb.launch_3x3
+        extra = {"stride": stride} if kind == "1x1" else {}
+        out, mu, rstd = launch(x, a["w"], s, bi, g, 1e-5, relu, **extra)
+        torch.cuda.synchronize()
+        ref = fb.conv_gn_reference(x, a["w"], s, bi, g, 1e-5, relu, stride)
+        pairs = {"out": (out, ref[0]), "mu": (mu, ref[1]),
+                 "rstd": (rstd, ref[2])}
+    tol = CONV_TOL[dtype]
+    errs, used = {}, {}
+    for key, (got, want) in pairs.items():
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        errs[key] = diff.max().item()
+        used[key] = (diff / (tol + tol * want.abs())).max().item()
+        if not (used[key] <= 1.0 and math.isfinite(errs[key])):
+            raise AssertionError(f"conv case {name} {dtype} relu={relu}: "
+                                 f"{key} disagrees with the plain version: "
+                                 f"max abs err {errs[key]} (atol = rtol = "
+                                 f"{tol})")
+    return errs, used
+
+
+def conv_work(case, el: int) -> dict:
+    """Bytes each kernel must move (each input read once, each output
+    written once) and the operations it does, per call. "gn_fwd": x in, y
+    out, stats; about 6 fp32 flops an element (moments, affine, ReLU).
+    "gn_bwd": x and dy in, dx out, stats and partials; about 12. "conv":
+    the positions the conv reads (the strided quarter for a stride-2 1x1),
+    the weight, out, mu/rstd; 2 flops per multiply-add of the product, at
+    the tensor-core rate."""
+    name, kind, b, h, w, cin, cout, stride = case
+    if kind == "gn":
+        n = b * h * w * cin
+        small = 2 * cin * 4 + b * 2 * cin * 4
+        return {"gn_fwd": (2 * n * el + small, 6 * n, FP32_FLOPS),
+                "gn_bwd": (3 * n * el + small + b * 2 * cin * 4, 12 * n,
+                           FP32_FLOPS)}
+    k = 3 if kind == "3x3" else 1
+    ho, wo = (h + stride - 1) // stride, (w + stride - 1) // stride
+    x_pos = b * (ho * wo if k == 1 else h * w) * cin
+    nbytes = (x_pos + k * k * cin * cout + b * ho * wo * cout) * el \
+        + 2 * cout * 4 + 2 * b * cout * 4
+    flops = 2 * b * ho * wo * cout * k * k * cin
+    key = "conv1x1" if kind == "1x1" else "conv3x3"
+    return {key: (nbytes, flops, BF16_FLOPS if el == 2 else FP32_FLOPS)}
+
+
+def time_conv_case(gen, case) -> dict:
+    """Each kernel of one main-path geometry at bf16 (ReLU as on the
+    path: on for the norms and the 3x3 timed, off for the projections)
+    beside its plain version, its bound and the library yardstick."""
+    import torch.nn.functional as F
+
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    name, kind, b, h, w, cin, cout, stride = case
+    dtype = torch.bfloat16
+    relu = kind != "1x1"
+    a = conv_inputs(gen, kind, b, h, w, cin, cout, dtype)
+    x, s, bi = a["x"], a["scale"], a["bias"]
+    x4 = x.permute(0, 3, 1, 2)                  # channels-last NCHW view
+    s_x, b_x = s.to(dtype), bi.to(dtype)
+    runs = {}
+    if kind == "gn":
+        _, st = gnk.launch_fwd(x, s, bi, GROUPS, 1e-5, relu)
+        xg = x4.detach().clone(memory_format=torch.channels_last) \
+            .requires_grad_()
+        sg, bg = s_x.clone().requires_grad_(), b_x.clone().requires_grad_()
+        out_lib = F.group_norm(xg, GROUPS, sg, bg, 1e-5)
+        dy4 = a["dy"].permute(0, 3, 1, 2)
+        runs["gn_fwd"] = (
+            lambda: gnk.launch_fwd(x, s, bi, GROUPS, 1e-5, relu),
+            lambda: gnk.group_norm_fwd_reference(x, s, bi, GROUPS, 1e-5,
+                                                 relu),
+            lambda: F.group_norm(x4, GROUPS, s_x, b_x, 1e-5))
+        runs["gn_bwd"] = (
+            lambda: gnk.launch_bwd(x, a["dy"], st, s, bi, GROUPS, relu),
+            lambda: gnk.group_norm_bwd_reference(x, a["dy"], st, s, bi,
+                                                 GROUPS, relu),
+            lambda: torch.autograd.grad(out_lib, (xg, sg, bg), dy4,
+                                        retain_graph=True))
+    else:
+        k = 3 if kind == "3x3" else 1
+        w4 = a["w"].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        pad = (k - 1) // 2
+
+        def library():
+            y = F.group_norm(F.conv2d(x4, w4, stride=stride, padding=pad),
+                             GROUPS, s_x, b_x, 1e-5)
+            return F.relu(y) if relu else y
+
+        if kind == "1x1":
+            kern = lambda: fb.launch_1x1(x, a["w"], s, bi, GROUPS, 1e-5,  # noqa: E731
+                                         relu, stride)
+            key = "conv1x1"
+        else:
+            kern = lambda: fb.launch_3x3(x, a["w"], s, bi, GROUPS, 1e-5,  # noqa: E731
+                                         relu)
+            key = "conv3x3"
+        runs[key] = (kern, lambda: fb.conv_gn_reference(
+            x, a["w"], s, bi, GROUPS, 1e-5, relu, stride), library)
+    work = conv_work(case, 2)
+    out = {}
+    for key, (kern, plain, lib) in runs.items():
+        call = {"kernel": cuda_ms(kern, iters=20),
+                "plain": cuda_ms(plain, iters=5, warmup=2),
+                "library": cuda_ms(lib, iters=20)}
+        dev = {"kernel": device_ms(kern, iters=20),
+               "plain": device_ms(plain, iters=5),
+               "library": device_ms(lib, iters=20)}
+        stream = {}
+        if all(dev.values()):
+            src, timed_by = dev, "profiler device time"
+        else:
+            # the profiler lost events: time the calls back to back
+            stream = {"kernel": stream_ms(kern, iters=20),
+                      "plain": stream_ms(plain, iters=5, warmup=2),
+                      "library": stream_ms(lib, iters=20)}
+            src, timed_by = stream, "CUDA events over back-to-back calls"
+        nbytes, flops, peak = work[key]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        out[key] = {"ms": src["kernel"], "plain_ms": src["plain"],
+                    "library_ms": src["library"], "timed_by": timed_by,
+                    "call_ms": call, "device_ms": dev, "stream_ms": stream,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": nbytes, "flops": flops}
+        log(f"conv timing {key} {name} (bf16, {out[key]['timed_by']}): "
+            f"kernel {src['kernel'] * 1e3:.1f} us; plain "
+            f"{src['plain'] * 1e3:.1f} us; library {src['library'] * 1e3:.1f}"
+            f" us; bound {out[key]['bound_ms'] * 1e3:.1f} us "
+            f"({out[key]['bound_by']})")
+    return out
+
+
+def phase_conv(report: dict) -> dict:
+    """B5-B8 against their plain versions in every case and dtype, with
+    and without ReLU; then timed at the ResNet-18 training shapes.
+    Returns the four kernels' ``kernels``-line fields."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    worst = {"gn_fwd": 0.0, "gn_bwd": 0.0, "conv1x1": 0.0, "conv3x3": 0.0}
+    which = {"y": "gn_fwd", "stats": "gn_fwd", "dx": "gn_bwd",
+             "part": "gn_bwd"}
+    per_case = {}
+    for case in CONV_MAIN + CONV_EXTRA:
+        name, kind = case[0], case[1]
+        for dtype in (torch.bfloat16, torch.float32):
+            for relu in (True, False):
+                errs, used = check_conv_case(gen, case, dtype, relu)
+                for key, err in errs.items():
+                    kk = which.get(key, "conv1x1" if kind == "1x1"
+                                   else "conv3x3")
+                    worst[kk] = max(worst[kk], err)
+                tag = f"{name}_{str(dtype)[6:]}_{'relu' if relu else 'norelu'}"
+                per_case[tag] = {"max_abs_err": errs, "allowance_used": used,
+                                 "atol": CONV_TOL[dtype],
+                                 "rtol": CONV_TOL[dtype]}
+                log(f"conv {tag}: " + ", ".join(
+                    f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)" for k in errs)
+                    + f" (atol = rtol = {CONV_TOL[dtype]})")
+        torch.cuda.empty_cache()
+    report["conv_cases"] = per_case
+    timing = {}
+    for case in CONV_MAIN:
+        timing[case[0]] = time_conv_case(gen, case)
+        torch.cuda.empty_cache()
+    # per training step: every main-path call of each kernel (forward
+    # counts; B6 runs once per B5)
+    per_step = {}
+    for key in worst:
+        per_step[key] = {
+            f: sum(CONV_PER_STEP[n] * t[key][f] for n, t in timing.items()
+                   if key in t)
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"conv per training step {key}: kernel "
+            f"{per_step[key]['ms']:.3f} ms, plain "
+            f"{per_step[key]['plain_ms']:.3f} ms, library "
+            f"{per_step[key]['library_ms']:.3f} ms, bound "
+            f"{per_step[key]['bound_ms']:.3f} ms")
+    report["conv_timing"] = timing
+    report["conv_per_step"] = per_step
+    return {key: {**{k: timing[CONV_TIMED[key]][key][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err": worst[key]} for key in worst}
+
+
+# ---------------------------------------------------------- resnet_train
+RESNET_EPOCHS = 2
+
+
+def resnet_train_config(epochs: int, precision: str = "bf16"):
+    """``examples/img_cls/resnet/resnet.yml``'s values built in code (the
+    card's machine reads no YAML), with ``epochs`` epochs."""
+    from torchbooster_tpu_torch.config import (
+        DatasetConfig,
+        EnvConfig,
+        LoaderConfig,
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes.resnet import Config
+
+    return Config(
+        epochs=epochs, seed=42, depth=18, num_classes=10, clip=1.0,
+        label_smoothing=0.1, pretrained="", freeze_backbone=False,
+        env=EnvConfig(distributed=False, precision=precision, n_devices=0,
+                      mesh="dp"),
+        loader=LoaderConfig(batch_size=RN_B, num_workers=0, drop_last=True),
+        optim=OptimizerConfig(name="adamw", lr=1e-3, weight_decay=1e-2),
+        scheduler=SchedulerConfig(name="cycle", n_iter=160, warmup=16,
+                                  decay=("lin", "cos")),
+        dataset=DatasetConfig(name="cifar10", root="dataset/cifar10"))
+
+
+def resnet_forward_flops(params: dict, size: int = 32) -> float:
+    """Forward flops per image of a basic-block ResNet with the CIFAR
+    stem: 2 per multiply-add of every conv and the head."""
+    flops = 2 * size * size * params["stem"]["conv"]["kernel"].numel()
+    hw = size
+    for si in range(4):
+        stage = params[f"stage{si}"]
+        for bi in range(len(stage)):
+            block = stage[f"block{bi}"]
+            hw = hw // 2 if (bi == 0 and si > 0) else hw
+            flops += 2 * hw * hw * sum(block[k]["kernel"].numel() for k in
+                                       ("conv1", "conv2", "proj")
+                                       if k in block)
+    return float(flops + 2 * params["head"]["kernel"].numel())
+
+
+def resnet_fp32_check() -> dict:
+    """One fp32 forward + backward of the recipe's loss from the same
+    parameters and batch, through B5-B8 (``fused="auto"``) and through
+    ``fused=False`` with the plain GroupNorm: loss and gradient norm must
+    agree."""
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+    from torchbooster_tpu_torch.recipes import resnet as recipe
+    from torchbooster_tpu_torch.utils import tree_leaves
+
+    t = recipe.setup(resnet_train_config(1, "fp32"))
+    batch = recipe.to_device(next(iter(t.train_loader)), t.device)
+    out = {}
+    for route, kw in (("kernels", dict(fused="auto", gn_impl="auto")),
+                      ("plain", dict(fused=False, gn_impl="plain"))):
+        before = (gnk.launches_fwd, fb.launches_3x3)
+        loss, _ = recipe.make_loss_fn(t.conf, train=True, **kw)(
+            t.state.params, batch, None)
+        loss.backward()
+        leaves = tree_leaves(t.state.params)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad) for p in leaves])).item()
+        out[route] = {"loss": loss.item(), "grad_norm": norm,
+                      "launched": (gnk.launches_fwd, fb.launches_3x3)
+                      != before}
+        for p in leaves:
+            p.grad = None
+    if not out["kernels"]["launched"] or out["plain"]["launched"]:
+        raise AssertionError(f"fp32 check took the wrong routes: {out}")
+    # fp32 on both sides (TF32 off); they differ in the order of the conv
+    # and moment sums only
+    tol = 1e-4
+    for key in ("loss", "grad_norm"):
+        a, b = out["kernels"][key], out["plain"][key]
+        if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+            raise AssertionError(f"resnet fp32: kernels {key} {a} vs plain "
+                                 f"{b} (rtol {tol})")
+    out["rtol"] = tol
+    log(f"resnet_train fp32 kernels vs plain: loss {out['kernels']['loss']:.6f}"
+        f" / {out['plain']['loss']:.6f}, grad norm "
+        f"{out['kernels']['grad_norm']:.6f} / {out['plain']['grad_norm']:.6f}"
+        f" (rtol {tol})")
+    return out
+
+
+def resnet_breakdown(n_steps: int = 3) -> dict:
+    """A fresh bf16 trainer: two warm steps, then ``n_steps`` steps as the
+    recipe runs them (host fetch and augmentation included) under the
+    profiler (CUDA activity): device busy share of the wall time, the
+    device's own time per step, kernels per step, the share of B5-B8,
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.recipes import resnet as recipe
+
+    t = recipe.setup(resnet_train_config(1))
+    batches = iter(t.train_loader)
+    for _ in range(2):
+        t.state, m = t.step(t.state, recipe.to_device(next(batches),
+                                                      t.device))
+    m["loss"].item()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            t.state, m = t.step(t.state, recipe.to_device(next(batches),
+                                                          t.device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
+                         for e in events), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in per_kernel)
+    ours = sum(v for k, v in per_kernel if any(
+        n in k for n in ("gn_fwd", "gn_bwd", "conv_mma", "conv_f32",
+                         "group_moments")))
+    return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
+            "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_ms_per_step": busy / n_steps * 1e3,
+            "b5_b8_s": ours, "b5_b8_share_of_device": ours / max(busy, 1e-12),
+            "kernels_per_step": sum(e.count for e in events) / n_steps,
+            "top": per_kernel[:10]}
+
+
+def phase_resnet_train(report: dict, smi: str) -> dict:
+    """The ResNet recipe's ``main`` at the YAML's configuration on the
+    card; returns B5-B8's launch counts from this run."""
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+    from torchbooster_tpu_torch.recipes import resnet as recipe
+
+    conf = resnet_train_config(RESNET_EPOCHS)
+    n_eval = RESNET_EPOCHS * (len(conf.dataset.make(Split.TEST)) // RN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gnk.launches_fwd = gnk.launches_bwd = 0
+    fb.launches_1x1 = fb.launches_3x3 = 0
+    t0 = time.perf_counter()
+    res = recipe.main(conf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gn_fwd": gnk.launches_fwd, "gn_bwd": gnk.launches_bwd,
+                "conv1x1": fb.launches_1x1, "conv3x3": fb.launches_3x3}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [st["loss"] for st in res["steps"]]
+    n_steps = len(losses)
+    if n_steps != 32 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"resnet_train: {n_steps} steps, losses "
+                             f"{losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet_train: the loss did not fall: {losses}")
+    fwd = n_steps + n_eval
+    expected = {"gn_fwd": 4 * fwd, "gn_bwd": 4 * n_steps,
+                "conv1x1": 3 * fwd, "conv3x3": 13 * fwd}
+    if launches != expected:
+        raise AssertionError(f"resnet_train: launches {launches}, expected "
+                             f"{expected} ({n_steps} steps, {n_eval} eval "
+                             f"batches)")
+    # steady state: the second epoch's training loop (its 16 steps, host
+    # fetch and augmentation included, ended by reading its metrics)
+    last = res["log"][-1]
+    step_s = last["train_s"] / last["train_steps"]
+    data_s = float(np.mean([st["data_s"] for st in res["steps"]
+                            if st["epoch"] == last["epoch"]]))
+    params = recipe.ResNet.init(0, 18, 10, "cifar", device="cpu")
+    flops = 3.0 * resnet_forward_flops(params) * RN_B
+    out = {"losses": losses, "launches": launches, "expected": expected,
+           "eval_batches": n_eval, "main_wall_s": wall,
+           "step_ms": step_s * 1e3, "img_per_s": RN_B / step_s,
+           "host_data_ms_per_step": data_s * 1e3,
+           "model_flops_per_step": flops,
+           "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
+           "peak_mem_bytes": peak, "test_acc": res.get("test_acc"),
+           "card": smi}
+    log(f"resnet_train: ResNet-18 CIFAR, batch {RN_B}, {n_steps} steps, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, test acc "
+        f"{res.get('test_acc')}; step {out['step_ms']:.1f} ms, "
+        f"{out['img_per_s']:.0f} img/s, host data {data_s * 1e3:.1f} ms per "
+        f"step, model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of "
+        f"989 TFLOP/s, peak mem {peak / 2**30:.2f} GiB; launches {launches} "
+        f"[{smi}]")
+    out["fp32_kernels_vs_plain"] = resnet_fp32_check()
+    torch.cuda.empty_cache()
+    b = out["breakdown"] = resnet_breakdown()
+    log(f"resnet_train profiled: {b['steps']} steps, wall {b['wall_s']:.3f} s "
+        f"({b['step_ms']:.1f} ms/step), device {b['device_ms_per_step']:.1f} "
+        f"ms/step, busy {100 * b['device_busy_share']:.1f}%, "
+        f"{b['kernels_per_step']:.0f} kernels per step, B5-B8 "
+        f"{100 * b['b5_b8_share_of_device']:.1f}% of device time; top: "
+        + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in b["top"][:6]))
+    report["resnet_train"] = out
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -859,18 +1390,29 @@ def main() -> int:
              for key, name, line in (("fwd", "flash_fwd", 104),
                                      ("dq", "flash_dq", 227),
                                      ("dkv", "flash_dkv", 265))}
+    conv_kernels = {key: {"name": name, "route": "cuda",
+                          "source": f"torchbooster_tpu_torch/ops/csrc/{src}",
+                          "replaces": f"torchbooster_tpu/ops/{ref}", **blank}
+                    for key, name, src, ref in (
+                        ("gn_fwd", "gn_fwd", "group_norm.cu",
+                         "group_norm.py:69"),
+                        ("gn_bwd", "gn_bwd", "group_norm.cu",
+                         "group_norm.py:106"),
+                        ("conv1x1", "conv1x1_gn", "fused_block.cu",
+                         "fused_block.py:70"),
+                        ("conv3x3", "conv3x3_gn", "fused_block.cu",
+                         "fused_block.py:238"))}
     t0 = time.perf_counter()
     if "build" in phases:
         # one nvcc per source, all started together
         from concurrent.futures import ThreadPoolExecutor
 
         t = time.perf_counter()
-        sources = ("paged_attention", "flash_attention")
-        with ThreadPoolExecutor(len(sources)) as pool:
-            list(pool.map(_build.build, sources))
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            list(pool.map(_build.build, SOURCES))
         report["build_s"] = time.perf_counter() - t
         report["build_s_each"] = dict(_build.build_seconds)
-        report["ptxas"] = {n: _build.ptxas_info.get(n, "") for n in sources}
+        report["ptxas"] = {n: _build.ptxas_info.get(n, "") for n in SOURCES}
         log(f"build: {', '.join(f'{n}.cu {sec:.1f} s' for n, sec in _build.build_seconds.items())}"
             f" (in parallel, {report['build_s']:.1f} s)")
     if "kernel" in phases:
@@ -905,12 +1447,23 @@ def main() -> int:
         launches = phase_train(report, smi)
         for key in flash:
             flash[key]["launches"] = launches[key]
+    if "conv" in phases:
+        res = phase_conv(report)
+        for key in conv_kernels:
+            conv_kernels[key].update({k: res[key][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+    if "resnet_train" in phases:
+        launches = phase_resnet_train(report, smi)
+        for key in conv_kernels:
+            conv_kernels[key]["launches"] = launches[key]
     report["wall_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
     log(smi)
-    print(json.dumps({"kernels": [kernel, *flash.values()]}))
+    print(json.dumps({"kernels": [kernel, *flash.values(),
+                                  *conv_kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (B1-B8) against their plain PyTorch versions,
+on a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -209,3 +210,141 @@ def test_flash_autograd_and_bad_operands_on_card():
     with pytest.raises(ValueError, match="shapes"):
         fa.launch_dq(q, k, v, q, q[:, :1, 0], do, True, 0.125)
     assert fa.launches_fwd == before
+
+
+# B5-B8: ResNet-18 CIFAR geometries (batch 32 of the recipe's 512):
+# (kind, B, H, W, Cin, Cout, stride) — the stem norm, a stride-2
+# projection, the first and last stages' stride-1 3x3s
+CONV_CASES = {
+    "stem_gn": ("gn", 32, 32, 32, 64, 64, 1),
+    "stage3_gn": ("gn", 32, 4, 4, 512, 512, 1),
+    "stage1_proj_1x1_s2": ("1x1", 32, 32, 32, 64, 128, 2),
+    "stage0_3x3": ("3x3", 32, 32, 32, 64, 64, 1),
+    "stage3_3x3": ("3x3", 32, 4, 4, 512, 512, 1),
+    # widths off the 16-byte vectors: one-element loads, a ragged Cout
+    # tile, 12 and 20 groups (clipped from 32)
+    "odd_c12_gn": ("gn", 4, 7, 9, 12, 12, 1),
+    "odd_cin12_cout40_3x3": ("3x3", 4, 7, 9, 12, 40, 1),
+}
+# bf16: both sides compute in fp32 from the same bf16 values and round the
+# output once (one bf16 ulp); fp32: summation order only
+CONV_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def no_tf32():
+    """Full-fp32 products in the plain versions: cuDNN runs fp32
+    convolutions in TF32 unless told not to, which alone moves them by
+    ~1e-3 from the kernels' fp32 sums."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def _conv_operands(kind, b, h, w, cin, cout, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = 3 if kind == "3x3" else 1
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    return dict(x=(rand(b, h, w, cin) * 2 + 0.5).to(dtype),
+                dy=rand(b, h, w, cin).to(dtype),
+                w=(rand(k, k, cin, cout) / (k * k * cin) ** 0.5).to(dtype),
+                scale=1 + 0.1 * rand(cout), bias=0.1 * rand(cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(CONV_CASES))
+def test_conv_gn_kernels_match_plain_versions_on_card(name, dtype, relu,
+                                                     no_tf32):
+    """B5 (y, stats) and B6 (dx, partials), or B7/B8 (out, mu, rstd),
+    against their plain versions on the same inputs (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    kind, b, h, w, cin, cout, stride = CONV_CASES[name]
+    a = _conv_operands(kind, b, h, w, cin, cout, dtype)
+    tol = CONV_TOL[dtype]
+    g = fb._resolve_groups(32, cout)
+    if kind == "gn":
+        before = (gn.launches_fwd, gn.launches_bwd)
+        y, st = gn.launch_fwd(a["x"], a["scale"], a["bias"], g, 1e-5, relu)
+        dx, part = gn.launch_bwd(a["x"], a["dy"], st, a["scale"], a["bias"],
+                                 g, relu)
+        torch.cuda.synchronize()
+        assert (gn.launches_fwd, gn.launches_bwd) == tuple(
+            n + 1 for n in before)
+        y_ref, st_ref = gn.group_norm_fwd_reference(
+            a["x"], a["scale"], a["bias"], g, 1e-5, relu)
+        dx_ref, part_ref = gn.group_norm_bwd_reference(
+            a["x"], a["dy"], st, a["scale"], a["bias"], g, relu)
+        pairs = ((y, y_ref), (st, st_ref), (dx, dx_ref), (part, part_ref))
+    else:
+        launch = fb.launch_1x1 if kind == "1x1" else fb.launch_3x3
+        extra = {"stride": stride} if kind == "1x1" else {}
+        counter = "launches_1x1" if kind == "1x1" else "launches_3x3"
+        before = getattr(fb, counter)
+        got = launch(a["x"], a["w"], a["scale"], a["bias"], g, 1e-5, relu,
+                     **extra)
+        torch.cuda.synchronize()
+        assert getattr(fb, counter) == before + 1
+        want = fb.conv_gn_reference(a["x"], a["w"], a["scale"], a["bias"],
+                                    g, 1e-5, relu, stride)
+        pairs = tuple(zip(got, want))
+    for g, r in pairs:
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_conv_gn_autograd_and_bad_operands_on_card(no_tf32):
+    """``group_norm_fused``, ``conv1x1_gn_relu`` (stride 2) and
+    ``conv3x3_gn_relu`` differentiate on the card (fp32, TF32 off) as the
+    same calls do on the CPU (1e-4); operands the kernels do not take
+    raise, never fall back: a weight or scale left on the CPU, fp16, a
+    strided x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    a = _conv_operands("3x3", 4, 9, 7, 64, 64, torch.float32, seed=1)
+    calls = {
+        "gn": lambda x, w, s, b: gn.group_norm_fused(s, b, x, 32,
+                                                     relu=True),
+        "1x1": lambda x, w, s, b: fb.conv1x1_gn_relu(
+            x, w[1:2, 1:2], s, b, 32, relu=True, stride=2),
+        "3x3": lambda x, w, s, b: fb.conv3x3_gn_relu(x, w, s, b, 32),
+    }
+    for name, call in calls.items():
+        grads = []
+        for dev in ("cuda", "cpu"):
+            leaves = [a[k].detach().to(dev).requires_grad_()
+                      for k in ("x", "w", "scale", "bias")]
+            out = call(*leaves)
+            out.backward(torch.ones_like(out) * 0.1 + out.detach())
+            grads.append([t.grad.cpu() if t.grad is not None
+                          else torch.zeros(()) for t in leaves])
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                       msg=name)
+    x, w, s, b = (a[k] for k in ("x", "w", "scale", "bias"))
+    before = (gn.launches_fwd, fb.launches_3x3)
+    with pytest.raises(ValueError, match="on cuda|expected"):
+        gn.launch_fwd(x, s.cpu(), b, 32)
+    with pytest.raises(TypeError, match="dtype"):
+        gn.launch_fwd(x.half(), s, b, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.launch_fwd(x[:, :, ::2], s, b, 32)
+    with pytest.raises(ValueError, match="every operand"):
+        fb.launch_3x3(x, w.cpu(), s, b, 32)
+    with pytest.raises(ValueError, match="every operand"):
+        fb.launch_3x3(x, w.bfloat16(), s, b, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.launch_3x3(x.transpose(1, 2), w, s, b, 32)
+    assert (gn.launches_fwd, fb.launches_3x3) == before

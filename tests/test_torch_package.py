@@ -36,6 +36,7 @@ print(json.dumps({
     "jax_pkg": sorted(m for m in sys.modules if m == "torchbooster_tpu"
                       or m.startswith("torchbooster_tpu.")),
     "yaml": sorted(m for m in sys.modules if m == "yaml"),
+    "scipy": sorted(m for m in sys.modules if m == "scipy"),
     "nvcc": [a for a in started if "nvcc" in a],
     "built": sorted(_build.build_seconds),
 }))
@@ -51,9 +52,14 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
     assert "torchbooster_tpu_torch.ops.paged_attention" in got["modules"]
     for name in ("ops.flash_attention", "ops.losses", "utils", "scheduler",
                  "metrics", "dataset", "data.sources", "data.pipeline",
-                 "recipes.gpt"):
+                 "recipes.gpt", "ops.group_norm", "ops.fused_block",
+                 "models.layers", "models.resnet", "data.transforms",
+                 "recipes.resnet", "interop"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
+    # scipy (the rotation augmentation) is imported when a transform is
+    # built, not at import
+    assert got["scipy"] == []
     assert got["nvcc"] == [] and got["built"] == []
 
 

@@ -410,7 +410,7 @@ def test_synthetic_lm_and_loader_order_match_jax():
         got, want = list(loader), list(jloader)
         assert [b.tobytes() for b in got] == [b.tobytes() for b in want]
     with pytest.raises(NotImplementedError, match="A9"):
-        resolve_dataset(DatasetConfig(name="mnist"), "train")
+        resolve_dataset(DatasetConfig(name="coco"), "train")
 
 
 def test_stream_loader_and_collate_match_jax():

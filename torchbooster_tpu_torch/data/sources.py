@@ -1,9 +1,18 @@
-"""Dataset resolution over the builtin registry — the port of the first
-link of ``torchbooster_tpu/data/sources.py``'s chain. The local record
-stores, the raw MNIST/CIFAR readers and HuggingFace wait for the data
-path (``ROADMAP.md`` A9); a name the registry does not hold raises."""
+"""Dataset resolution — the port of ``torchbooster_tpu/data/sources.py``'s
+chain, as far as the data it can serve: the builtin registry (the
+synthetic families, byte-identical to the JAX package's), then the
+offline step of the chain that turns ``mnist``, ``cifar10`` and
+``imagenet`` into their synthetic twins with the JAX package's warning.
+
+The local record stores, the raw MNIST/CIFAR readers and HuggingFace wait
+for the data path (``ROADMAP.md`` A9): where ``root`` holds a store or a
+raw release that the JAX chain would read, the port raises
+``NotImplementedError`` rather than train on the twin; any other name the
+registry does not hold raises too."""
 from __future__ import annotations
 
+import logging
+from pathlib import Path
 from typing import Any, Callable
 
 import numpy as np
@@ -29,6 +38,37 @@ def _synthetic_size(conf: Any, split: Split, default_train: int) -> int:
     return default_train if split == Split.TRAIN else default_train // 8
 
 
+def _synthetic_classification(n: int, shape: tuple, classes: int,
+                              split: Split, seed: int = 0) -> ArrayDataset:
+    """Deterministic class-conditional Gaussian images (learnable: a
+    linear probe separates them), the JAX package's bytes."""
+    rng = np.random.RandomState(seed + {"train": 0, "validation": 1,
+                                        "test": 2}[split.value])
+    labels = rng.randint(0, classes, n).astype(np.int32)
+    prototypes = np.random.RandomState(seed).randn(classes, *shape) \
+        .astype(np.float32)
+    images = prototypes[labels] + 0.5 * rng.randn(n, *shape).astype(np.float32)
+    return ArrayDataset(images.astype(np.float32), labels)
+
+
+@register_dataset("synthetic_mnist")
+def _synthetic_mnist(conf: Any, split: Split, **kw):
+    n = _synthetic_size(conf, split, 8_192)
+    return _synthetic_classification(n, (28, 28, 1), 10, split)
+
+
+@register_dataset("synthetic_cifar10")
+def _synthetic_cifar10(conf: Any, split: Split, **kw):
+    n = _synthetic_size(conf, split, 8_192)
+    return _synthetic_classification(n, (32, 32, 3), 10, split)
+
+
+@register_dataset("synthetic_imagenet")
+def _synthetic_imagenet(conf: Any, split: Split, **kw):
+    n = _synthetic_size(conf, split, 2_048)
+    return _synthetic_classification(n, (224, 224, 3), 1000, split)
+
+
 @register_dataset("synthetic_lm")
 def _synthetic_lm(conf: Any, split: Split, seq_len: int = 256,
                   vocab: int = 1_024, **kw):
@@ -47,17 +87,57 @@ def _synthetic_lm(conf: Any, split: Split, seq_len: int = 256,
     return ArrayDataset(tokens)
 
 
+_SYNTHETIC_TWINS = {"mnist": "synthetic_mnist", "cifar10": "synthetic_cifar10",
+                    "imagenet": "synthetic_imagenet",
+                    "imagenet-1k": "synthetic_imagenet"}
+_MNIST_FILES = ("train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+                "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")
+_CIFAR_FILES = tuple(f"data_batch_{i}.bin" for i in range(1, 6)) \
+    + ("test_batch.bin",)
+
+
+def _local_release(name: str, root: Path, split: Split) -> str | None:
+    """What the JAX chain would read from ``root`` before falling back
+    to a twin (a record store, MNIST IDX files, the CIFAR-10 binary
+    release), or None."""
+    if (root / f"{split.value}.bstore").exists():
+        return f"a record store {root / f'{split.value}.bstore'}"
+    if name == "mnist" and all(
+            (root / f).is_file() or (root / f"{f}.gz").is_file()
+            for f in _MNIST_FILES):
+        return f"MNIST IDX files under {root}"
+    if name == "cifar10" and (
+            (root / "cifar-10-binary.tar.gz").is_file()
+            or any(all((d / f).is_file() for f in _CIFAR_FILES)
+                   for d in (root, root / "cifar-10-batches-bin"))):
+        return f"the CIFAR-10 binary release under {root}"
+    return None
+
+
 def resolve_dataset(conf: Any, split: Split | str, **kwargs: Any) -> Any:
-    """The dataset ``conf.name`` names, from the registry."""
+    """The dataset ``conf.name`` names: the registry first, then, with
+    nothing local to read and no network, the synthetic twin."""
     if isinstance(split, str):
         split = Split(split)
     name = conf.name.lower()
-    if name not in _REGISTRY:
+    if name in _REGISTRY:
+        return _REGISTRY[name](conf, split, **kwargs)
+    local = _local_release(name, Path(getattr(conf, "root", "") or "."),
+                           split)
+    if local is not None:
         raise NotImplementedError(
-            f"dataset {conf.name!r}: only the builtin registry "
-            f"{sorted(_REGISTRY)} is ported (stores, raw readers and "
-            f"HuggingFace wait for ROADMAP.md A9)")
-    return _REGISTRY[name](conf, split, **kwargs)
+            f"dataset {conf.name!r}: reading {local} is not ported yet "
+            f"(ROADMAP.md A9); the port will not train on the synthetic "
+            f"twin in its place")
+    if name in _SYNTHETIC_TWINS:
+        logging.warning("dataset %r unavailable (offline?); using %s "
+                        "stand-in", conf.name, _SYNTHETIC_TWINS[name])
+        return _REGISTRY[_SYNTHETIC_TWINS[name]](conf, split, **kwargs)
+    raise NotImplementedError(
+        f"dataset {conf.name!r}: only the builtin registry "
+        f"{sorted(_REGISTRY)} and the synthetic twins of "
+        f"{sorted(_SYNTHETIC_TWINS)} are ported (stores, raw readers and "
+        f"HuggingFace wait for ROADMAP.md A9)")
 
 
 __all__ = ["register_dataset", "resolve_dataset"]

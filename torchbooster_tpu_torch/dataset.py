@@ -1,11 +1,12 @@
 """Dataset base classes — the port of ``torchbooster_tpu/dataset.py``:
-the ``Split`` enum, the map and stream protocols and the in-memory
-``ArrayDataset``. The record-store ``BaseDataset`` waits for the data
-path (``ROADMAP.md`` A9)."""
+the ``Split`` enum, the map and stream protocols, the in-memory
+``ArrayDataset`` and the lazy per-example ``TransformDataset``. The
+record-store ``BaseDataset`` waits for the data path (``ROADMAP.md``
+A9)."""
 from __future__ import annotations
 
 from enum import Enum
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 
 class Split(Enum):
@@ -48,4 +49,25 @@ class ArrayDataset(Dataset):
         return items if len(items) > 1 else items[0]
 
 
-__all__ = ["ArrayDataset", "Dataset", "IterableDataset", "Split"]
+class TransformDataset(Dataset):
+    """Apply a per-example transform lazily, on the host (the
+    augmentation stage of the image recipes)."""
+
+    def __init__(self, base: Dataset, transform: Callable[[Any], Any]):
+        self.base = base
+        self.transform = transform
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, index: int) -> Any:
+        return self.transform(self.base[index])
+
+    def __getitems__(self, indices) -> Any:
+        if hasattr(self.base, "__getitems__"):
+            return [self.transform(x) for x in self.base.__getitems__(indices)]
+        return [self.transform(self.base[int(i)]) for i in indices]
+
+
+__all__ = ["ArrayDataset", "Dataset", "IterableDataset", "Split",
+           "TransformDataset"]

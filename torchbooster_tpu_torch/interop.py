@@ -3,7 +3,8 @@
 The port keeps the JAX parameter layout (stacked ``blocks``, ``(in,
 out)`` dense kernels, ``q | k | v`` qkv columns), so a parameter tree
 crosses as a leaf-by-leaf copy: JAX → numpy (``jax.device_get``, done
-by the caller) → :func:`params_from_jax` → :func:`to_numpy`, byte-exact.
+by the caller) → :func:`params_from_jax` (GPT) or
+:func:`resnet_params_from_jax` → :func:`to_numpy`, byte-exact.
 bfloat16 leaves travel as their raw 16-bit patterns (numpy has no
 native bfloat16; ``ml_dtypes`` supplies the dtype JAX hands out)."""
 from __future__ import annotations
@@ -60,6 +61,48 @@ def params_from_jax(tree: dict, cfg: GPTConfig,
     return _map_leaves(tree, lambda a: tensor_from_numpy(a, device))
 
 
+def _leaf_shapes(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(_leaf_shapes(value, prefix + (key,)))
+        return out
+    return {prefix: tuple(np.shape(tree))}
+
+
+def resnet_params_from_jax(tree: dict,
+                           device: str | torch.device = "cuda") -> dict:
+    """A JAX ResNet parameter tree (numpy leaves) → the port's
+    parameters, byte-exact. The depth, stem, input channels and class
+    count are read from the tree's keys and its stem and head; every leaf
+    is then checked against the tree the port's ``ResNet.init`` builds
+    for them, so a truncated or mis-shaped checkpoint fails here."""
+    from torchbooster_tpu_torch.models.resnet import _CONFIGS, ResNet
+
+    try:
+        stages = [tree[f"stage{i}"] for i in range(4)]
+        kind = "bottleneck" if "conv3" in stages[0]["block0"] else "basic"
+        stem_k, _, in_ch, _ = np.shape(tree["stem"]["conv"]["kernel"])
+        classes = np.shape(tree["head"]["kernel"])[1]
+    except (KeyError, ValueError) as err:
+        raise ValueError(f"not a ResNet parameter tree: {err!r}") from err
+    repeats = tuple(len(s) for s in stages)
+    depth = next((d for d, cfg in _CONFIGS.items()
+                  if cfg == (kind, repeats)), None)
+    if depth is None:
+        raise ValueError(f"no ResNet depth has {kind} blocks {repeats}")
+    want = _leaf_shapes(ResNet.init(0, depth, int(classes),
+                                    "imagenet" if stem_k == 7 else "cifar",
+                                    device="cpu", in_channels=int(in_ch)))
+    got = _leaf_shapes(tree)
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"ResNet-{depth} tree does not match the depth "
+                         f"its keys imply; first differing leaves: "
+                         f"{bad[:4]}")
+    return _map_leaves(tree, lambda a: tensor_from_numpy(a, device))
+
+
 def pool_from_jax(pool: dict, device: str | torch.device = "cuda") -> dict:
     """A ``make_pool`` pool (``{"k", "v"}``, plain arrays or int8
     ``(values, scales)`` pairs) → tensors, byte-exact."""
@@ -79,5 +122,5 @@ def _map_leaves(tree, fn):
     return fn(tree)
 
 
-__all__ = ["params_from_jax", "pool_from_jax", "tensor_from_numpy",
-           "tensor_to_numpy", "to_numpy"]
+__all__ = ["params_from_jax", "pool_from_jax", "resnet_params_from_jax",
+           "tensor_from_numpy", "tensor_to_numpy", "to_numpy"]

@@ -1,0 +1,221 @@
+"""GroupNorm(+ReLU) over NHWC, forward and backward — the port of
+``torchbooster_tpu/ops/group_norm.py`` (TPU kernels ``_fwd_kernel`` :69 and
+``_bwd_kernel`` :106, bound together by the ``custom_vjp`` at :190-263).
+
+:func:`group_norm_fused` is differentiable through a
+``torch.autograd.Function``: its forward launches B5 and its backward B6,
+the hand-written CUDA kernels of ``csrc/group_norm.cu``, on CUDA tensors.
+On CPU tensors it runs :func:`group_norm_fwd_reference` and
+:func:`group_norm_bwd_reference` — the same math in plain PyTorch — and
+only there. There is no fall-back: a failed build or launch raises.
+``launches_fwd`` and ``launches_bwd`` count kernel launches; the plain path
+never touches them.
+
+Numerics are the TPU kernels', not the docstring's: B5 clamps the group
+variance at 0 (:87), B6 recomputes the ReLU mask as ``xhat * scale + bias
+> 0`` in fp32 (:123). The TPU layout folds (``_fold``, ``_layout``) are not
+ported: the CUDA kernels read NHWC as it lies. The per-sample dscale and
+dbias partials are summed over N outside the kernel, as the JAX package
+does at :258.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+launches_fwd = 0    # B5 launches (the main path's proof of route)
+launches_bwd = 0    # B6 launches
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _group_combine(per_c: torch.Tensor, groups: int,
+                   count: int) -> torch.Tensor:
+    """(N, C) per-channel sums → per-channel group means: each channel
+    gets its group's sum over ``count`` elements (the TPU kernel's
+    same-group one-hot matmul)."""
+    n, c = per_c.shape
+    g = per_c.reshape(n, groups, c // groups).sum(-1) * (1.0 / count)
+    return g.repeat_interleave(c // groups, dim=1)
+
+
+def group_norm_fwd_reference(x: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, groups: int,
+                             eps: float = 1e-5, relu: bool = False):
+    """B5's math in plain PyTorch: ``(y, stats)`` — y in x's dtype, stats
+    fp32 ``(N, 2, C)`` (per-channel group mean and ``1/sqrt(var + eps)``,
+    var clamped at 0)."""
+    n, h, w, c = x.shape
+    count = h * w * (c // groups)
+    xf = x.float().reshape(n, h * w, c)
+    mean = _group_combine(xf.sum(1), groups, count)
+    ex2 = _group_combine((xf * xf).sum(1), groups, count)
+    inv = torch.rsqrt(torch.clamp(ex2 - mean * mean, min=0.0) + eps)
+    a = inv * scale.float()
+    b = bias.float() - mean * a
+    y = xf * a[:, None, :] + b[:, None, :]
+    if relu:
+        y = torch.clamp(y, min=0.0)
+    return (y.to(x.dtype).reshape(x.shape),
+            torch.stack([mean, inv], dim=1))
+
+
+def group_norm_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
+                             stats: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, groups: int,
+                             relu: bool = False):
+    """B6's math in plain PyTorch: ``(dx, part)`` — dx in x's dtype, part
+    fp32 ``(N, 2, C)``, the per-sample dscale and dbias partials."""
+    n, h, w, c = x.shape
+    count = h * w * (c // groups)
+    mean, inv = stats[:, 0, None, :], stats[:, 1, None, :]
+    scale32, bias32 = scale.float(), bias.float()
+    xhat = (x.float().reshape(n, h * w, c) - mean) * inv
+    g = dy.float().reshape(n, h * w, c)
+    if relu:
+        g = torch.where(xhat * scale32 + bias32 > 0, g,
+                        torch.zeros_like(g))
+    dxhat = g * scale32
+    g1 = _group_combine(dxhat.sum(1), groups, count)[:, None, :]
+    g2 = _group_combine((dxhat * xhat).sum(1), groups, count)[:, None, :]
+    dx = inv * (dxhat - g1 - xhat * g2)
+    part = torch.stack([(g * xhat).sum(1), g.sum(1)], dim=1)
+    return dx.to(x.dtype).reshape(x.shape), part
+
+
+# ------------------------------------------------------------ CUDA route
+def _lib() -> ctypes.CDLL:
+    from torchbooster_tpu_torch.ops import _build
+
+    lib = _build.load("group_norm")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    specs = {"tb_gn_fwd": [i] + [p] * 5 + [i] * 4 + [f, i, p],
+             "tb_gn_bwd": [i] + [p] * 7 + [i] * 4 + [i, p]}
+    for name, argtypes in specs.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(x, scale, bias, groups, *like_x, stats=None) -> None:
+    """What the kernels take, checked before any pointer is passed:
+    contiguous, 16-byte aligned CUDA tensors on one device; x ``(N, H, W,
+    C)`` fp32 or bf16 with ``groups`` dividing C; ``like_x`` (dy) shaped
+    and typed like x; scale, bias (and ``stats``) fp32."""
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"group_norm: dtype {x.dtype} not supported (fp32 "
+                        f"or bf16)")
+    if x.ndim != 4 or x.shape[-1] % groups:
+        raise ValueError(f"group_norm: x must be (N, H, W, C) with groups "
+                         f"({groups}) dividing C, got {tuple(x.shape)}")
+    c = x.shape[-1]
+    want = [(t, x.shape, x.dtype) for t in like_x] + [
+        (scale, (c,), torch.float32), (bias, (c,), torch.float32)]
+    if stats is not None:
+        want.append((stats, (x.shape[0], 2, c), torch.float32))
+    for t, shape, dtype in want:
+        if t.device != x.device or t.dtype != dtype \
+                or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"group_norm: expected a {dtype} tensor of "
+                             f"shape {tuple(shape)} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for t in (x, *like_x, scale, bias, *(() if stats is None else (stats,))):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("group_norm: the kernels take contiguous, "
+                             "16-byte aligned tensors")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               groups: int, eps: float = 1e-5, relu: bool = False):
+    """B5 on CUDA tensors (scale and bias fp32): ``(y, stats)``."""
+    global launches_fwd
+    _check_cuda(x, scale, bias, groups)
+    n, h, w, c = x.shape
+    y = torch.empty_like(x)
+    stats = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    err = _lib().tb_gn_fwd(_DTYPE_CODE[x.dtype], x.data_ptr(),
+                           scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                           stats.data_ptr(), n, h * w, c, groups, float(eps),
+                           int(relu), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"group_norm forward kernel launch failed: CUDA "
+                           f"error {err}")
+    launches_fwd += 1
+    return y, stats
+
+
+def launch_bwd(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+               scale: torch.Tensor, bias: torch.Tensor, groups: int,
+               relu: bool = False):
+    """B6 on CUDA tensors: ``(dx, part)``."""
+    global launches_bwd
+    _check_cuda(x, scale, bias, groups, dy, stats=stats)
+    n, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    part = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    err = _lib().tb_gn_bwd(_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
+                           stats.data_ptr(), scale.data_ptr(),
+                           bias.data_ptr(), dx.data_ptr(), part.data_ptr(), n,
+                           h * w, c, groups, int(relu), _stream(x))
+    if err != 0:
+        raise RuntimeError(f"group_norm backward kernel launch failed: CUDA "
+                           f"error {err}")
+    launches_bwd += 1
+    return dx, part
+
+
+class _GroupNorm(torch.autograd.Function):
+    """B5 forward, B6 backward (the JAX ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, relu):
+        s32 = scale.detach().float().contiguous()
+        b32 = bias.detach().float().contiguous()
+        if x.device.type == "cpu":
+            y, stats = group_norm_fwd_reference(x, s32, b32, groups, eps,
+                                                relu)
+        else:
+            y, stats = launch_fwd(x, s32, b32, groups, eps, relu)
+        ctx.save_for_backward(x, s32, b32, stats)
+        ctx.args = (groups, relu, scale.dtype, bias.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, s32, b32, stats = ctx.saved_tensors
+        groups, relu, s_dtype, b_dtype = ctx.args
+        dy = dy.contiguous()
+        if x.device.type == "cpu":
+            dx, part = group_norm_bwd_reference(x, dy, stats, s32, b32,
+                                                groups, relu)
+        else:
+            dx, part = launch_bwd(x, dy, stats, s32, b32, groups, relu)
+        part = part.sum(dim=0)
+        return dx, part[0].to(s_dtype), part[1].to(b_dtype), None, None, None
+
+
+def group_norm_fused(scale: torch.Tensor, bias: torch.Tensor,
+                     x: torch.Tensor, groups: int, eps: float = 1e-5,
+                     relu: bool = False) -> torch.Tensor:
+    """Fused GroupNorm(+ReLU) over NHWC through B5/B6 (the plain versions
+    on CPU tensors); differentiable. ``groups`` must divide C (the caller,
+    ``layers.group_norm``, clips it)."""
+    if x.shape[-1] % groups:
+        raise ValueError(f"group_norm_fused: groups ({groups}) must divide "
+                         f"C ({x.shape[-1]})")
+    return _GroupNorm.apply(x.contiguous(), scale, bias, int(groups),
+                            float(eps), bool(relu))
+
+
+__all__ = ["group_norm_bwd_reference", "group_norm_fused",
+           "group_norm_fwd_reference", "launch_bwd", "launch_fwd",
+           "launches_bwd", "launches_fwd"]

@@ -1,8 +1,8 @@
 """Training utilities — the port of ``torchbooster_tpu/utils.py``:
 :class:`TrainState`, :func:`make_step` (forward, backward, global-norm
 clip, accumulation, the scheduled optimizer update and the EMA ramp),
-:func:`make_eval_step`, :func:`seed`, :func:`iter_loader` and
-:func:`instrument_step`.
+:func:`make_eval_step`, :func:`freeze`, :func:`seed`,
+:func:`iter_loader` and :func:`instrument_step`.
 
 PyTorch runs eagerly, so the step is a plain function that updates the
 state IN PLACE (parameters through the optimizer, the EMA tree with
@@ -154,7 +154,10 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
             state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=True)
+            # every leaf, not only the optimizer's: a frozen leaf
+            # (``freeze``) gets a gradient too, which must not pile up
+            for p in leaves:
+                p.grad = None
         if ema_decay is not None and state.ema is not None and boundary:
             d = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
             with torch.no_grad():
@@ -167,6 +170,50 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
                           else v for k, v in aux.items()}}
 
     return step_fn
+
+
+def _paths(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """``("a/b/c", leaf)`` pairs of a nested dict tree, in insertion
+    order (the JAX package's ``path_str`` rendering)."""
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            yield from _paths(value, path)
+        else:
+            yield path, value
+
+
+@dataclass(frozen=True)
+class Frozen:
+    """What :func:`freeze` returns: the wrapped transformation over the
+    leaves whose path ``labels`` does not mark frozen. Frozen leaves are
+    not in the torch optimizer at all, so they get no update and no
+    decoupled weight decay: they stay bit-identical."""
+
+    tx: Any
+    labels: Callable[[str], bool]
+
+    def learning_rate(self, count: int) -> float:
+        return self.tx.learning_rate(count)
+
+    def clip_units(self, params: Any) -> None:
+        self.tx.clip_units(params)
+
+    def init(self, params: Any) -> torch.optim.Optimizer:
+        trainable = {path: leaf for path, leaf in _paths(params)
+                     if not self.labels(path)}
+        if not trainable:
+            raise ValueError("freeze: every parameter is frozen")
+        return self.tx.init(trainable)
+
+
+def freeze(labels: Callable[[str], bool], tx: Any) -> Frozen:
+    """Freeze parameters under any optimizer (``utils.freeze``, JAX
+    :125-142): ``labels(path)`` returns True for frozen paths, rendered
+    ``"stage0/block0/conv1/kernel"``; those get no update and no weight
+    decay while ``tx`` drives the rest. The global-norm clip of
+    ``make_step`` still counts their gradients, as the JAX step's does."""
+    return Frozen(tx=tx, labels=labels)
 
 
 def make_eval_step(loss_fn: Callable, has_aux: bool = True,
@@ -212,5 +259,6 @@ def instrument_step(step_fn: Callable, name: str = "train_step",
     return wrapped
 
 
-__all__ = ["TrainState", "instrument_step", "iter_loader", "make_eval_step",
-           "make_step", "seed", "tree_leaves"]
+__all__ = ["Frozen", "TrainState", "freeze", "instrument_step",
+           "iter_loader", "make_eval_step", "make_step", "seed",
+           "tree_leaves"]
