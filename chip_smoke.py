@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's four CUDA sources (nvcc, sm_90a), one nvcc
+2. build   — compile the port's five CUDA sources (nvcc, sm_90a), one nvcc
    per source, all started together, and time it.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
@@ -50,12 +50,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    each stage, the stride-2 projections), ResNet-50 224² bottleneck
    geometries (56²x64->256 1x1, 56²x64 3x3, a 7²x2048 GroupNorm), a
    non-square 7x9 map, and widths off the 16-byte vectors (12 channels
-   in, 40 out); then time each kernel at every ResNet-18 shape of
-   the training path (profiler device time, or CUDA events around
-   back-to-back calls where the profiler loses events; and CUDA events
-   per call) beside its bound, its plain version and a library yardstick
+   in, 40 out), and B8's one-pass routes at small batch (a cluster at B 3,
+   a partial pack at B 5); B8 logs the route each case took, and two bf16
+   calls on the same inputs must agree bit for bit; then time each kernel
+   at every ResNet-18 shape of the training path (profiler device time,
+   or CUDA events around back-to-back calls where the profiler loses
+   events; and CUDA events per call) beside its bound, its plain version,
+   B8's earlier two-pass kernel on the same inputs and a library yardstick
    (``F.group_norm`` on the channels-last view and its backward; for
-   B7/B8 the sequence cuDNN conv + ``F.group_norm`` + ReLU).
+   B7/B8 the sequence cuDNN conv + ``F.group_norm`` + ReLU), with B8's
+   route and TFLOP/s over the product counted once.
 9. resnet_train — the ResNet recipe's ``main`` (``recipes/resnet.py``) on a
    config built in code from ``examples/img_cls/resnet/resnet.yml``'s
    values (ResNet-18, CIFAR stem, batch 512, bf16 over fp32 masters,
@@ -63,7 +67,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    augmentation) for 2 epochs of the ``cifar10`` twin (32 steps, and an
    eval pass of 2 batches after each epoch). Every loss finite and the
    last below the first; the launch counts of B5-B8 exact (per train step
-   B5 4, B6 4, B7 3, B8 13; per eval forward B5 4, B7 3, B8 13); one fp32
+   B5 4, B6 4, B7 3, B8 13; per eval forward B5 4, B7 3, B8 13), B8's by
+   route (7 "cluster" and 6 "pack" per forward); one fp32
    forward + backward with the kernels against ``fused=False`` and the
    plain GroupNorm (loss and gradient norm, rtol 1e-4). Prints step ms,
    img/s, the model-FLOP share of 989 TFLOP/s, peak memory, the host data
@@ -89,7 +94,8 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "train", "conv", "resnet_train")
-SOURCES = ("paged_attention", "flash_attention", "group_norm", "fused_block")
+SOURCES = ("paged_attention", "flash_attention", "group_norm", "fused_block",
+           "conv3x3_gn_sm90")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
@@ -907,7 +913,14 @@ CONV_EXTRA = [
     ("odd_c12_gn", "gn", 8, 7, 9, 12, 12, 1),
     ("odd_cin12_cout40_3x3", "3x3", 8, 7, 9, 12, 40, 1),
     ("odd_cin12_cout40_1x1_s2", "1x1", 8, 7, 9, 12, 40, 2),
+    # B8's one-pass routes at small batch: a cluster of 8 CTAs per sample,
+    # a pack of 8 whose only pack holds 5 samples
+    ("cluster_b3_32sq_3x3", "3x3", 3, 32, 32, 64, 64, 1),
+    ("pack_rem_b5_4sq_3x3", "3x3", 5, 4, 4, 512, 512, 1),
 ]
+# B8 cases whose bf16 calls must repeat bit for bit
+CONV_REPEAT = ("stage0_3x3", "stage3_3x3", "pack_rem_b5_4sq_3x3",
+               "odd_cin12_cout40_3x3")
 def groups_for(c: int) -> int:
     """The recipe's 32 groups, clipped to a divisor of ``c`` as
     ``layers.group_norm`` and the fused kernels' wrappers clip them."""
@@ -938,10 +951,20 @@ def conv_inputs(gen, kind, b, h, w, cin, cout, dtype):
                 scale=1.0 + 0.1 * randn(cout), bias=0.1 * randn(cout))
 
 
+def b8_route(case, dtype) -> str:
+    """The route B8 takes for ``case`` at ``dtype``."""
+    from torchbooster_tpu_torch.ops import fused_block as fb
+
+    _, _, b, h, w, cin, cout, _ = case
+    if dtype != torch.bfloat16:
+        return "f32"
+    return fb.plan_conv3x3(b, h, w, cin, cout, groups_for(cout)).route
+
+
 def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
     """One geometry through its kernel(s) and plain version(s): max abs
     error and the share of the allowance atol + rtol|ref| used, per
-    output."""
+    output. B8's per-route counter must move on the planned route."""
     from torchbooster_tpu_torch.ops import fused_block as fb
     from torchbooster_tpu_torch.ops import group_norm as gnk
 
@@ -962,8 +985,15 @@ def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
     else:
         launch = fb.launch_1x1 if kind == "1x1" else fb.launch_3x3
         extra = {"stride": stride} if kind == "1x1" else {}
+        route = b8_route(case, dtype) if kind == "3x3" else None
+        before = dict(fb.launches_3x3_by_route)
         out, mu, rstd = launch(x, a["w"], s, bi, g, 1e-5, relu, **extra)
         torch.cuda.synchronize()
+        if route is not None and fb.launches_3x3_by_route != {
+                **before, route: before[route] + 1}:
+            raise AssertionError(f"conv case {name} {dtype}: B8 did not take "
+                                 f"the {route!r} route: "
+                                 f"{fb.launches_3x3_by_route} after {before}")
         ref = fb.conv_gn_reference(x, a["w"], s, bi, g, 1e-5, relu, stride)
         pairs = {"out": (out, ref[0]), "mu": (mu, ref[1]),
                  "rstd": (rstd, ref[2])}
@@ -1090,11 +1120,51 @@ def time_conv_case(gen, case) -> dict:
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops}
+        extra = ""
+        if key == "conv3x3":
+            # the product counted once, whatever the route computes; beside
+            # it the two-pass mma_sync kernel (B8's earlier bf16 route) on
+            # the same inputs, outside the launch counters
+            out[key]["route"] = b8_route(case, dtype)
+            out[key]["tflops"] = flops / (src["kernel"] * 1e-3) / 1e12
+            two = lambda: fb._launch(x, a["w"], s, bi, GROUPS, 1e-5,  # noqa: E731
+                                     relu, 1)
+            out[key]["two_pass_ms"] = (device_ms(two, iters=10)
+                                       or stream_ms(two, iters=10))
+            extra = (f"; route {out[key]['route']}, "
+                     f"{out[key]['tflops']:.1f} TFLOP/s; two-pass mma_sync "
+                     f"{out[key]['two_pass_ms'] * 1e3:.1f} us")
         log(f"conv timing {key} {name} (bf16, {out[key]['timed_by']}): "
             f"kernel {src['kernel'] * 1e3:.1f} us; plain "
             f"{src['plain'] * 1e3:.1f} us; library {src['library'] * 1e3:.1f}"
             f" us; bound {out[key]['bound_ms'] * 1e3:.1f} us "
-            f"({out[key]['bound_by']})")
+            f"({out[key]['bound_by']}){extra}")
+    return out
+
+
+def repeat_check(gen) -> dict:
+    """Two bf16 B8 calls on the same inputs must give the same out, mu and
+    rstd bit for bit (fixed-order sums, no atomics, across a cluster's
+    CTAs too)."""
+    from torchbooster_tpu_torch.ops import fused_block as fb
+
+    cases = {c[0]: c for c in CONV_MAIN + CONV_EXTRA}
+    out = {}
+    for name in CONV_REPEAT:
+        _, kind, b, h, w, cin, cout, _ = cases[name]
+        a = conv_inputs(gen, kind, b, h, w, cin, cout, torch.bfloat16)
+        g = groups_for(cout)
+        first, second = (fb.launch_3x3(a["x"], a["w"], a["scale"], a["bias"],
+                                       g) for _ in range(2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in zip(first, second))
+        route = b8_route(cases[name], torch.bfloat16)
+        out[name] = {"route": route, "bit_identical": same}
+        if not same:
+            raise AssertionError(f"conv3x3 {name} ({route}): two calls on the "
+                                 f"same inputs differ")
+    log("conv3x3 repeat, bit for bit: " + ", ".join(
+        f"{n} ({r['route']}) ok" for n, r in out.items()))
     return out
 
 
@@ -1125,6 +1195,7 @@ def phase_conv(report: dict) -> dict:
                     + f" (atol = rtol = {CONV_TOL[dtype]})")
         torch.cuda.empty_cache()
     report["conv_cases"] = per_case
+    report["conv3x3_repeat"] = repeat_check(gen)
     timing = {}
     for case in CONV_MAIN:
         timing[case[0]] = time_conv_case(gen, case)
@@ -1133,20 +1204,27 @@ def phase_conv(report: dict) -> dict:
     # counts; B6 runs once per B5)
     per_step = {}
     for key in worst:
+        fields = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+            ("two_pass_ms",) if key == "conv3x3" else ())
         per_step[key] = {
             f: sum(CONV_PER_STEP[n] * t[key][f] for n, t in timing.items()
                    if key in t)
-            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for f in fields}
         log(f"conv per training step {key}: kernel "
             f"{per_step[key]['ms']:.3f} ms, plain "
             f"{per_step[key]['plain_ms']:.3f} ms, library "
             f"{per_step[key]['library_ms']:.3f} ms, bound "
-            f"{per_step[key]['bound_ms']:.3f} ms")
+            f"{per_step[key]['bound_ms']:.3f} ms" + (
+                f", two-pass mma_sync {per_step[key]['two_pass_ms']:.3f} ms"
+                if key == "conv3x3" else ""))
     report["conv_timing"] = timing
     report["conv_per_step"] = per_step
-    return {key: {**{k: timing[CONV_TIMED[key]][key][k] for k in (
+    res = {key: {**{k: timing[CONV_TIMED[key]][key][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "max_abs_err": worst[key]} for key in worst}
+    res["conv3x3"]["timed_route"] = timing[CONV_TIMED["conv3x3"]][
+        "conv3x3"]["route"]
+    return res
 
 
 # ---------------------------------------------------------- resnet_train
@@ -1268,7 +1346,7 @@ def resnet_breakdown(n_steps: int = 3) -> dict:
     busy = sum(v for _, v in per_kernel)
     ours = sum(v for k, v in per_kernel if any(
         n in k for n in ("gn_fwd", "gn_bwd", "conv_mma", "conv_f32",
-                         "group_moments")))
+                         "group_moments", "conv3x3_gn_sm90")))
     return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
             "device_busy_s": busy, "device_busy_share": busy / wall,
             "device_ms_per_step": busy / n_steps * 1e3,
@@ -1291,12 +1369,15 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gnk.launches_fwd = gnk.launches_bwd = 0
     fb.launches_1x1 = fb.launches_3x3 = 0
+    for route in fb.launches_3x3_by_route:
+        fb.launches_3x3_by_route[route] = 0
     t0 = time.perf_counter()
     res = recipe.main(conf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"gn_fwd": gnk.launches_fwd, "gn_bwd": gnk.launches_bwd,
                 "conv1x1": fb.launches_1x1, "conv3x3": fb.launches_3x3}
+    by_route = dict(fb.launches_3x3_by_route)
     peak = torch.cuda.max_memory_allocated()
     losses = [st["loss"] for st in res["steps"]]
     n_steps = len(losses)
@@ -1312,6 +1393,12 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         raise AssertionError(f"resnet_train: launches {launches}, expected "
                              f"{expected} ({n_steps} steps, {n_eval} eval "
                              f"batches)")
+    # stages 0-1 (4 + 3 calls a forward) on clusters, 2-3 (3 + 3) packed
+    route_expected = {"cluster": 7 * fwd, "pack": 6 * fwd, "mma_sync": 0,
+                      "f32": 0}
+    if by_route != route_expected:
+        raise AssertionError(f"resnet_train: B8 routes {by_route}, expected "
+                             f"{route_expected}")
     # steady state: the second epoch's training loop (its 16 steps, host
     # fetch and augmentation included, ended by reading its metrics)
     last = res["log"][-1]
@@ -1321,7 +1408,7 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     params = recipe.ResNet.init(0, 18, 10, "cifar", device="cpu")
     flops = 3.0 * resnet_forward_flops(params) * RN_B
     out = {"losses": losses, "launches": launches, "expected": expected,
-           "eval_batches": n_eval, "main_wall_s": wall,
+           "conv3x3_by_route": by_route, "eval_batches": n_eval, "main_wall_s": wall,
            "step_ms": step_s * 1e3, "img_per_s": RN_B / step_s,
            "host_data_ms_per_step": data_s * 1e3,
            "model_flops_per_step": flops,
@@ -1333,8 +1420,8 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         f"{res.get('test_acc')}; step {out['step_ms']:.1f} ms, "
         f"{out['img_per_s']:.0f} img/s, host data {data_s * 1e3:.1f} ms per "
         f"step, model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of "
-        f"989 TFLOP/s, peak mem {peak / 2**30:.2f} GiB; launches {launches} "
-        f"[{smi}]")
+        f"989 TFLOP/s, peak mem {peak / 2**30:.2f} GiB; launches {launches}, "
+        f"B8 by route {by_route} [{smi}]")
     out["fp32_kernels_vs_plain"] = resnet_fp32_check()
     torch.cuda.empty_cache()
     b = out["breakdown"] = resnet_breakdown()
@@ -1345,7 +1432,7 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         f"{100 * b['b5_b8_share_of_device']:.1f}% of device time; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in b["top"][:6]))
     report["resnet_train"] = out
-    return launches
+    return {**launches, "conv3x3_by_route": by_route}
 
 
 def main() -> int:
@@ -1400,8 +1487,9 @@ def main() -> int:
                          "group_norm.py:106"),
                         ("conv1x1", "conv1x1_gn", "fused_block.cu",
                          "fused_block.py:70"),
-                        ("conv3x3", "conv3x3_gn", "fused_block.cu",
+                        ("conv3x3", "conv3x3_gn", "conv3x3_gn_sm90.cu",
                          "fused_block.py:238"))}
+    conv_kernels["conv3x3"].update(timed_route=None, launches_by_route=None)
     t0 = time.perf_counter()
     if "build" in phases:
         # one nvcc per source, all started together
@@ -1453,10 +1541,13 @@ def main() -> int:
             conv_kernels[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
+        conv_kernels["conv3x3"]["timed_route"] = res["conv3x3"]["timed_route"]
     if "resnet_train" in phases:
         launches = phase_resnet_train(report, smi)
         for key in conv_kernels:
             conv_kernels[key]["launches"] = launches[key]
+        conv_kernels["conv3x3"]["launches_by_route"] = \
+            launches["conv3x3_by_route"]
     report["wall_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,

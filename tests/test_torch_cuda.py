@@ -221,11 +221,26 @@ CONV_CASES = {
     "stage1_proj_1x1_s2": ("1x1", 32, 32, 32, 64, 128, 2),
     "stage0_3x3": ("3x3", 32, 32, 32, 64, 64, 1),
     "stage3_3x3": ("3x3", 32, 4, 4, 512, 512, 1),
+    # B8's one-pass routes at small batch: a cluster of 8 CTAs per sample
+    # (B 3), a pack of 8 whose only pack holds 5 samples, a pack of 2
+    "cluster_b3_3x3": ("3x3", 3, 32, 32, 64, 64, 1),
+    "pack_rem_b5_3x3": ("3x3", 5, 4, 4, 512, 512, 1),
+    "pack2_8sq_3x3": ("3x3", 4, 8, 8, 256, 256, 1),
+    # a cluster whose second tile is partial (M = 196), and a pack of 2
+    # 7x7 maps with Cin below one 64-channel step and a ragged Cout tile
+    "cluster_partial_14sq_3x3": ("3x3", 2, 14, 14, 256, 256, 1),
+    "pack_cin24_7sq_3x3": ("3x3", 3, 7, 7, 24, 48, 1),
     # widths off the 16-byte vectors: one-element loads, a ragged Cout
     # tile, 12 and 20 groups (clipped from 32)
     "odd_c12_gn": ("gn", 4, 7, 9, 12, 12, 1),
     "odd_cin12_cout40_3x3": ("3x3", 4, 7, 9, 12, 40, 1),
 }
+# the route each bf16 3x3 case must take (fp32 always takes "f32")
+CONV3_ROUTE = {"stage0_3x3": "cluster", "stage3_3x3": "pack",
+               "cluster_b3_3x3": "cluster", "pack_rem_b5_3x3": "pack",
+               "pack2_8sq_3x3": "pack", "odd_cin12_cout40_3x3": "mma_sync",
+               "cluster_partial_14sq_3x3": "cluster",
+               "pack_cin24_7sq_3x3": "pack"}
 # bf16: both sides compute in fp32 from the same bf16 values and round the
 # output once (one bf16 ulp); fp32: summation order only
 CONV_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -262,7 +277,8 @@ def _conv_operands(kind, b, h, w, cin, cout, dtype, seed=0):
 def test_conv_gn_kernels_match_plain_versions_on_card(name, dtype, relu,
                                                      no_tf32):
     """B5 (y, stats) and B6 (dx, partials), or B7/B8 (out, mu, rstd),
-    against their plain versions on the same inputs (TF32 off)."""
+    against their plain versions on the same inputs (TF32 off); B8 on the
+    route its case names (its per-route counter moves)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     from torchbooster_tpu_torch.ops import fused_block as fb
@@ -290,15 +306,41 @@ def test_conv_gn_kernels_match_plain_versions_on_card(name, dtype, relu,
         extra = {"stride": stride} if kind == "1x1" else {}
         counter = "launches_1x1" if kind == "1x1" else "launches_3x3"
         before = getattr(fb, counter)
+        route = CONV3_ROUTE.get(name) if dtype == torch.bfloat16 else "f32"
+        if kind == "3x3":
+            by_route = fb.launches_3x3_by_route[route]
         got = launch(a["x"], a["w"], a["scale"], a["bias"], g, 1e-5, relu,
                      **extra)
         torch.cuda.synchronize()
         assert getattr(fb, counter) == before + 1
+        if kind == "3x3":
+            assert fb.launches_3x3_by_route[route] == by_route + 1
         want = fb.conv_gn_reference(a["x"], a["w"], a["scale"], a["bias"],
                                     g, 1e-5, relu, stride)
         pairs = tuple(zip(got, want))
     for g, r in pairs:
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stage0_3x3", "pack_rem_b5_3x3",
+                                  "odd_cin12_cout40_3x3"])
+def test_conv3x3_repeats_bit_for_bit_on_card(name):
+    """Two bf16 B8 calls on the same inputs give the same out, mu and rstd
+    bit for bit: every sum, across CTAs of a cluster too, runs in a fixed
+    order with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+
+    kind, b, h, w, cin, cout, _ = CONV_CASES[name]
+    a = _conv_operands(kind, b, h, w, cin, cout, torch.bfloat16, seed=2)
+    g = fb._resolve_groups(32, cout)
+    first, second = (fb.launch_3x3(a["x"], a["w"], a["scale"], a["bias"], g)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
 
 
 @pytest.mark.cuda

@@ -4,35 +4,88 @@ the 1×1 conv, and ``_fwd3_kernel`` :238, the 3×3 stride-1 conv).
 
 :func:`conv1x1_gn_relu` (B7) and :func:`conv3x3_gn_relu` (B8) are
 differentiable through ``torch.autograd.Function``s whose forwards launch
-the hand-written CUDA kernels of ``csrc/fused_block.cu`` on CUDA tensors
-and run :func:`conv_gn_reference` — the same math in plain PyTorch — on
-CPU tensors, and only there. The backwards are plain PyTorch, as the JAX
+the hand-written CUDA kernels of ``csrc/fused_block.cu`` and
+``csrc/conv3x3_gn_sm90.cu`` on CUDA tensors and run
+:func:`conv_gn_reference` — the same math in plain PyTorch — on CPU
+tensors, and only there. The backwards are plain PyTorch, as the JAX
 package's are plain XLA: B7's is ``_conv1x1_gn_bwd`` (:184-216), which
 recomputes y from x and w; B8's is the autograd of the reference
 formulation ``_ref_conv3x3_gn`` (:283-305) recomputed from (x, w, scale,
 bias), as at :345-352. There is no fall-back: a failed build or launch
-raises. ``launches_1x1`` and ``launches_3x3`` count kernel launches.
+raises. ``launches_1x1`` and ``launches_3x3`` count kernel launches,
+``launches_3x3_by_route`` B8's by the route :func:`plan_conv3x3` chose.
 
 What the kernels keep of the TPU ones: the weight is cast to x's dtype
 before the product (:365, :397), the product accumulates in fp32, the
 group moments come from the fp32 y and are NOT clamped (:84, :273, unlike
 ``ops/group_norm.py``), and B7 returns per-channel mu and rstd ``(B,
-Cout)`` for its backward. ``_samples_per_cell`` and the VMEM budget of
-``fits``/``fits3`` are TPU limits and are not ported: the CUDA kernels
-tile the product and reduce the moments across CTAs (see the source
-note), so any size runs.
+Cout)`` for its backward. The VMEM budget of ``fits``/``fits3`` is a TPU
+limit and is not ported: the CUDA kernels tile the product and reduce the
+moments across CTAs (see the source notes), so any size runs. B8's
+"pack" route takes up ``_samples_per_cell``'s idea (several samples in
+one grid cell) for maps of at most 128 positions.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 launches_1x1 = 0    # B7 launches (the main path's proof of route)
-launches_3x3 = 0    # B8 launches
+launches_3x3 = 0    # B8 launches, every route
+# B8 launches by route: bf16 "cluster" and "pack" (conv3x3_gn_sm90.cu),
+# bf16 "mma_sync" and fp32 "f32" (the two-pass kernels of fused_block.cu)
+launches_3x3_by_route = {"cluster": 0, "pack": 0, "mma_sync": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODE = {"cluster": 1, "pack": 2}
+_SM90_BM = 128          # tile rows of the one-pass kernel
+_SM90_BN = (64, 128, 256)
+_MAX_CLUSTER = 8        # CTAs holding one sample (portable cluster size)
+_MAX_PACK = 8           # samples sharing one tile
+
+
+class Conv3x3Plan(NamedTuple):
+    """How B8 runs one bf16 call: ``route`` ``"cluster"`` (one sample over
+    ``cluster`` CTAs of ``bm`` rows), ``"pack"`` (``p`` samples in one
+    ``bm``-row tile) or ``"mma_sync"`` (the two-pass kernel of
+    ``fused_block.cu``), with ``bn`` output channels a tile."""
+    route: str
+    bm: int
+    bn: int
+    p: int
+    cluster: int
+
+
+def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
+                 groups: int) -> Conv3x3Plan:
+    """The route of a bf16 B8 call, chosen before launch. The one-pass
+    ``wgmma`` kernel takes Cin and Cout multiples of 8 and a Cout tile
+    (64, 128 or 256) that is a multiple of the group width; a sample of M
+    = H·W rows takes ``ceil(M / 128)`` CTAs of one cluster (at most 8)
+    when M > 128, else ``min(8, 128 // M)`` samples share a tile. Every
+    other shape (odd widths, M > 1024 such as ResNet-50's 56² maps) takes
+    the two-pass ``mma_sync`` kernel, whose tile height follows M."""
+    m = h * w
+    mma_bm = 16 if m <= 16 else (32 if m <= 32 else 64)
+    fallback = Conv3x3Plan("mma_sync", mma_bm, 64, 1, 1)
+    if b < 1 or m < 1 or cin % 8 or cout % 8 or groups < 1 or cout % groups:
+        return fallback
+    gw = cout // groups
+    fits = [n for n in _SM90_BN if n % gw == 0]
+    if not fits:
+        return fallback
+    want = min(cout, _SM90_BN[-1])
+    bn = next((n for n in fits if n >= want), fits[-1])
+    bm = _SM90_BM
+    if m <= bm:
+        return Conv3x3Plan("pack", bm, bn, min(_MAX_PACK, bm // m), 1)
+    cluster = -(-m // bm)
+    if cluster > _MAX_CLUSTER or b > 65535:
+        return fallback
+    return Conv3x3Plan("cluster", bm, bn, 1, cluster)
 
 
 def _resolve_groups(groups: int, c: int) -> int:
@@ -146,6 +199,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_sm90() -> ctypes.CDLL:
+    from torchbooster_tpu_torch.ops import _build
+
+    lib = _build.load("conv3x3_gn_sm90")
+    fn = lib.tb_conv3x3_gn_sm90
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 7 + [i] * 6 + [f] + [i] * 6 + [p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _weight_taps(w: torch.Tensor) -> torch.Tensor:
+    """(k, k, Cin, Cout) -> (taps, Cout, Cin): a weight tile loads with Cin
+    contiguous, the K-major layout of the tensor-core B operand."""
+    ks, cin, cout = w.shape[0], w.shape[2], w.shape[3]
+    return w.permute(0, 1, 3, 2).reshape(ks * ks, cout, cin).contiguous()
+
+
 def _check_cuda(x, w, scale, bias) -> None:
     """What the kernels take, checked before any pointer is passed:
     contiguous, 16-byte aligned CUDA tensors on one device; x ``(B, H, W,
@@ -177,8 +249,8 @@ def _check_cuda(x, w, scale, bias) -> None:
 def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
             bias: torch.Tensor, groups: int, eps: float, relu: bool,
             stride: int):
-    """One call of ``tb_conv_gn`` (pass 1, moments, pass 2)."""
-    _check_cuda(x, w, scale, bias)
+    """One call of ``tb_conv_gn`` (pass 1, moments, pass 2) on operands
+    :func:`_check_cuda` passed."""
     b, h, wd, cin = x.shape
     ks, cout = w.shape[0], w.shape[3]
     if cout % groups:
@@ -186,9 +258,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                          f"({cout})")
     pad = (ks - 1) // 2
     ho, wo = (h + 2 * pad - ks) // stride + 1, (wd + 2 * pad - ks) // stride + 1
-    # (k, k, Cin, Cout) -> (taps, Cout, Cin): a weight tile loads with Cin
-    # contiguous, the layout of the tensor-core B operand
-    wt = w.permute(0, 1, 3, 2).reshape(ks * ks, cout, cin).contiguous()
+    wt = _weight_taps(w)
     lib = _lib()
     code = _DTYPE_CODE[x.dtype]
     out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
@@ -206,6 +276,29 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out, mu, rstd
 
 
+def _launch_sm90(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, groups: int, eps: float, relu: bool,
+                 plan: Conv3x3Plan):
+    """One call of ``tb_conv3x3_gn_sm90`` (B8's one-pass route) on checked
+    bf16 operands."""
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    wt = _weight_taps(w)
+    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    mu = torch.empty((b, cout), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mu)
+    err = _lib_sm90().tb_conv3x3_gn_sm90(
+        x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), b, h, wd, cin, cout,
+        groups, float(eps), int(relu), _ROUTE_CODE[plan.route], plan.bm,
+        plan.bn, plan.p, plan.cluster,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_gn kernel launch failed ({plan}): CUDA "
+                           f"error {err}")
+    return out, mu, rstd
+
+
 def launch_1x1(x, w, scale, bias, groups: int, eps: float = 1e-5,
                relu: bool = True, stride: int = 1):
     """B7 on CUDA tensors, w ``(1, 1, Cin, Cout)``: ``(out, mu, rstd)``."""
@@ -213,6 +306,7 @@ def launch_1x1(x, w, scale, bias, groups: int, eps: float = 1e-5,
     if w.shape[:2] != (1, 1):
         raise ValueError(f"launch_1x1: w must be (1, 1, Cin, Cout), got "
                          f"{tuple(w.shape)}")
+    _check_cuda(x, w, scale, bias)
     res = _launch(x, w, scale, bias, groups, eps, relu, stride)
     launches_1x1 += 1
     return res
@@ -221,13 +315,23 @@ def launch_1x1(x, w, scale, bias, groups: int, eps: float = 1e-5,
 def launch_3x3(x, w, scale, bias, groups: int, eps: float = 1e-5,
                relu: bool = True):
     """B8 on CUDA tensors, w ``(3, 3, Cin, Cout)``, stride 1, padding 1:
-    ``(out, mu, rstd)``."""
+    ``(out, mu, rstd)``. bf16 takes the route :func:`plan_conv3x3` plans;
+    fp32 the CUDA-core two-pass kernel."""
     global launches_3x3
     if w.shape[:2] != (3, 3):
         raise ValueError(f"launch_3x3: w must be (3, 3, Cin, Cout), got "
                          f"{tuple(w.shape)}")
-    res = _launch(x, w, scale, bias, groups, eps, relu, 1)
+    _check_cuda(x, w, scale, bias)
+    route = "f32"
+    if x.dtype == torch.bfloat16:
+        plan = plan_conv3x3(*x.shape, w.shape[3], groups)
+        route = plan.route
+    if route in _ROUTE_CODE:
+        res = _launch_sm90(x, w, scale, bias, groups, eps, relu, plan)
+    else:
+        res = _launch(x, w, scale, bias, groups, eps, relu, 1)
     launches_3x3 += 1
+    launches_3x3_by_route[route] += 1
     return res
 
 
@@ -320,6 +424,7 @@ def conv3x3_gn_relu(x: torch.Tensor, kernel: torch.Tensor,
                             scale, bias, groups, float(eps), bool(relu))
 
 
-__all__ = ["conv1x1_gn_backward", "conv1x1_gn_relu", "conv3x3_gn_relu",
-           "conv_gn_reference", "launch_1x1", "launch_3x3", "launches_1x1",
-           "launches_3x3", "ref_conv3x3_gn"]
+__all__ = ["Conv3x3Plan", "conv1x1_gn_backward", "conv1x1_gn_relu",
+           "conv3x3_gn_relu", "conv_gn_reference", "launch_1x1", "launch_3x3",
+           "launches_1x1", "launches_3x3", "launches_3x3_by_route",
+           "plan_conv3x3", "ref_conv3x3_gn"]
