@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's five CUDA sources (nvcc, sm_90a), one nvcc
-   per source, all started together, and time it.
+2. build   — compile the port's six CUDA sources (nvcc, sm_90a), one nvcc
+   per source, all started together, and time it; print the registers and
+   spills ``-Xptxas -v`` reports for the B2/B3 ``"sm90"`` kernels.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
@@ -19,11 +20,16 @@ Phases, in order; any failure exits non-zero and prints no result:
 4. flash   — hold the flash kernels B1 (forward: o, lse), B2 (dq) and B3
    (dk, dv) against their plain versions: GPT-2-small training geometry
    (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
-   S_q 256 < S_kv 1024, ragged S 1000, D 32 (the recipe default's heads)
-   and a non-causal fp32 case; then time each kernel at the training
-   geometry beside its plain version, its bound and SDPA (forward, and
-   its backward), and sweep S for the ``"auto"`` crossover against
-   ``mha_reference``.
+   S_q 256 < S_kv 1024, ragged S 1000, D 32 (the recipe default's heads),
+   D 128 at S 1024, and non-causal bf16 and fp32 cases; B2 and B3 on the
+   route ``plan_flash_bwd`` plans (every bf16 case but D 32 on
+   ``"sm90"``), two bf16 calls of each bit for bit; then time each kernel
+   at the training geometry (profiler device time, or CUDA events around
+   back-to-back calls where the profiler loses events) beside its plain
+   version, its bound and SDPA (forward, and its backward), B2 and B3 on
+   ``"sm90"`` and on
+   ``"mma_sync"`` on the same inputs, and sweep S for the ``"auto"``
+   crossover against ``mha_reference``.
 5. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
    (tied embeddings x4), ``ServingConfig(page_size=64, n_pages=129,
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
@@ -38,7 +44,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    remat, AdamW + cycle schedule (2-step warmup), clip 1.0, then a
    32-token sample. Every loss finite and the last below the first; the
    flash launch counts exact (B1 2 x 12 per step with remat, plus 12 for
-   the sample's prefill; B2 and B3 12 per step); one fp32 forward +
+   the sample's prefill; B2 and B3 12 per step, all on ``"sm90"``); one
+   fp32 forward +
    backward with the flash kernels against ``mha_reference`` (loss and
    gradient norm, rtol 1e-4). Prints step ms, tokens/s, the model-FLOP
    share of 989 TFLOP/s, peak memory, and a profiled device busy share
@@ -94,8 +101,8 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "train", "conv", "resnet_train")
-SOURCES = ("paged_attention", "flash_attention", "group_norm", "fused_block",
-           "conv3x3_gn_sm90")
+SOURCES = ("paged_attention", "flash_attention", "flash_bwd_sm90",
+           "group_norm", "fused_block", "conv3x3_gn_sm90")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
@@ -118,6 +125,33 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(text: str, pattern: str) -> dict:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``
+    output, for the mangled entry names that ``pattern`` (a regex with the
+    kernel's name and its first template argument as groups) matches."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\S+?)'?(?: for|$)", line)
+        if m:
+            k = re.search(pattern, m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -389,6 +423,9 @@ FLASH_CASES = [
     ("ragged1000_bf16_causal", 8, 12, 12, 1000, 1000, 64, torch.bfloat16,
      True),
     ("d32_bf16_causal", 32, 8, 8, 256, 256, 32, torch.bfloat16, True),
+    ("d128_bf16_causal", 4, 8, 8, 1024, 1024, 128, torch.bfloat16, True),
+    ("mha_bf16_noncausal_s512", 4, 12, 12, 512, 512, 64, torch.bfloat16,
+     False),
     ("mha_fp32_noncausal_s512", 4, 12, 12, 512, 512, 64, torch.float32,
      False),
 ]
@@ -424,16 +461,42 @@ def phase_flash(report: dict) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     per_case = {}
+    repeat = {}
     for name, b, h, h_kv, s_q, s_kv, d, dtype, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.launch_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
-        # the backward pair on the same inputs: the plain forward's o/lse
+        # the backward pair on the same inputs: the plain forward's o/lse,
+        # on the planned route (every bf16 case but D 32 on "sm90")
+        route = fa.plan_flash_bwd(dtype, d, s_q, s_kv, h // h_kv)
+        if dtype == torch.bfloat16 and d != 32 and route != "sm90":
+            raise AssertionError(f"flash case {name}: planned {route!r}, "
+                                 f"not 'sm90'")
+        before = (fa.launches_dq_by_route[route],
+                  fa.launches_dkv_by_route[route])
         dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal, scale)
         dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, causal, scale)
         torch.cuda.synchronize()
+        if (fa.launches_dq_by_route[route], fa.launches_dkv_by_route[route]
+                ) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"flash case {name}: B2/B3 did not take "
+                                 f"the {route!r} route")
+        if dtype == torch.bfloat16:
+            # a second call on the same inputs must repeat bit for bit
+            dq2, delta2 = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal,
+                                       scale)
+            dk2, dv2 = fa.launch_dkv(q, k, v, lse_ref, do, delta2, causal,
+                                     scale)
+            torch.cuda.synchronize()
+            repeat[name] = {"route": route, "bit_identical": all(
+                torch.equal(x, y) for x, y in ((dq, dq2), (delta, delta2),
+                                               (dk, dk2), (dv, dv2)))}
+            if not repeat[name]["bit_identical"]:
+                raise AssertionError(f"flash case {name} ({route}): two "
+                                     f"backward calls on the same inputs "
+                                     f"differ")
         args = (q, k, v, o_ref, lse_ref, do, causal, scale)
         dq_ref = fa.dq_reference(*args)
         dk_ref, dv_ref = fa.dkv_reference(*args)
@@ -457,12 +520,15 @@ def phase_flash(report: dict) -> dict:
         worst["dq"] = max(worst["dq"], errs["dq"])
         worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
         per_case[name] = {"max_abs_err": errs, "allowance_used": used,
-                          "atol": tol, "rtol": tol}
+                          "atol": tol, "rtol": tol, "bwd_route": route}
         log(f"flash {name}: " + ", ".join(
             f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)" for k in errs)
             + f" (max abs err, and % of the allowance atol + rtol|ref| "
-            f"used; atol = rtol = {tol})")
+            f"used; atol = rtol = {tol}); backward route {route}")
     report["flash_cases"] = per_case
+    report["flash_bwd_repeat"] = repeat
+    log("flash backward repeat, bit for bit: " + ", ".join(
+        f"{n} ({r['route']}) ok" for n, r in repeat.items()))
 
     # timing at the training path's shapes (bf16 MHA causal, B 8, H 12,
     # S 1024, D 64), each kernel beside its plain half and SDPA
@@ -497,6 +563,13 @@ def phase_flash(report: dict) -> dict:
     work = {"fwd": (2 * 2, (n_q + 2 * n_kv + n_q) * el + rows * 4),
             "dq": (3 * 2, (3 * n_q + 2 * n_kv + n_q) * el + rows * 8),
             "dkv": (4 * 2, (2 * n_q + 4 * n_kv) * el + rows * 8)}
+    # B2 / B3 on their earlier route, on the same inputs (outside the
+    # main path's launch counts)
+    previous = {
+        "dq": lambda: fa.launch_dq(q, k, v, o, lse, do, True, scale,
+                                   route="mma_sync"),
+        "dkv": lambda: fa.launch_dkv(q, k, v, lse, do, delta, True, scale,
+                                     route="mma_sync")}
     timing = {}
     for key, (kern, plain, lib) in runs.items():
         call = {"kernel": cuda_ms(kern, iters=50),
@@ -506,33 +579,56 @@ def phase_flash(report: dict) -> dict:
         if lib is not None:
             call["library"] = cuda_ms(lib, iters=50)
             dev["library"] = device_ms(lib, iters=50)
-        src = dev if all(dev.values()) else call
+        if key in previous:
+            call["previous"] = cuda_ms(previous[key], iters=50)
+            dev["previous"] = device_ms(previous[key], iters=50)
+        stream = {}
+        if all(dev.values()):
+            src, timed_by = dev, "profiler device time"
+        else:
+            # the profiler lost events: time the calls back to back
+            fns = {"kernel": kern, "plain": plain, "library": lib,
+                   "previous": previous.get(key)}
+            stream = {n: stream_ms(fn, iters=10 if n == "plain" else 50)
+                      for n, fn in fns.items() if fn is not None}
+            src, timed_by = stream, "CUDA events over back-to-back calls"
         prods, nbytes = work[key]
         flops = prods * d * pairs
         t_ops = flops / BF16_FLOPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         timing[key] = {
             "ms": src["kernel"], "plain_ms": src["plain"],
-            "library_ms": src.get("library"),
-            "timed_by": "profiler device time" if src is dev
-            else "CUDA events per call", "call_ms": call, "device_ms": dev,
+            "library_ms": src.get("library"), "timed_by": timed_by,
+            "call_ms": call, "device_ms": dev, "stream_ms": stream,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
+            "tflops": flops / src["kernel"] / 1e9,
             "max_abs_err": worst[key]}
         lib_txt = (f"; sdpa {src['library'] * 1e3:.1f} us"
                    if lib is not None else "")
+        route_txt = ""
+        if key in previous:
+            timing[key].update(
+                timed_route="sm90", previous_route="mma_sync",
+                previous_ms=src["previous"],
+                previous_tflops=flops / src["previous"] / 1e9)
+            route_txt = (f" (route sm90); mma_sync {src['previous'] * 1e3:.1f}"
+                         f" us, {timing[key]['previous_tflops']:.1f} TFLOP/s")
         log(f"flash timing {key} (bf16 MHA causal B{b} H{h} S{s_q} D{d}, "
             f"{timing[key]['timed_by']}): kernel {src['kernel'] * 1e3:.1f} "
-            f"us; plain {src['plain'] * 1e3:.1f} us{lib_txt}; bound "
-            f"{timing[key]['bound_ms'] * 1e3:.1f} us "
+            f"us{route_txt}; plain {src['plain'] * 1e3:.1f} us{lib_txt}; "
+            f"bound {timing[key]['bound_ms'] * 1e3:.1f} us "
             f"({timing[key]['bound_by']}); achieved "
-            f"{flops / src['kernel'] / 1e9:.1f} TFLOP/s")
+            f"{timing[key]['tflops']:.1f} TFLOP/s")
     # the SDPA yardstick's backward computes dQ, dK and dV in one call: it
     # stands beside B2 and B3 together
     timing["dkv"]["library_ms"] = timing["dq"]["library_ms"]
     timing["sdpa_fwd_bwd_ms"] = timing["fwd"]["library_ms"] \
         + timing["dq"]["library_ms"]
+    log(f"flash timing B2 + B3: sm90 {(timing['dq']['ms'] + timing['dkv']['ms']) * 1e3:.1f}"
+        f" us, mma_sync {(timing['dq']['previous_ms'] + timing['dkv']['previous_ms']) * 1e3:.1f}"
+        f" us, sdpa backward {timing['dq']['library_ms'] * 1e3:.1f} us")
     report["flash_timing"] = timing
     report["auto_crossover"] = crossover()
     return timing
@@ -804,8 +900,8 @@ def train_breakdown(n_steps: int = 3) -> dict:
                       key=lambda kv: -kv[1])
     return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
             "device_busy_s": busy, "device_busy_share": busy / wall,
-            "flash_s": flash, "flash_share_of_device": flash / max(busy,
-                                                                   1e-12),
+            "device_ms_per_step": busy / n_steps * 1e3, "flash_s": flash,
+            "flash_share_of_device": flash / max(busy, 1e-12),
             "kernels_per_step": sum(e.count for e in events) / n_steps,
             "top": per_kernel[:10], "host_top_one_step": host_ops[:12]}
 
@@ -821,12 +917,17 @@ def phase_train(report: dict, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    for counts in (fa.launches_dq_by_route, fa.launches_dkv_by_route):
+        for route in counts:
+            counts[route] = 0
     t0 = time.perf_counter()
     res = recipe.main(conf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
                 "dkv": fa.launches_dkv}
+    by_route = {"dq": dict(fa.launches_dq_by_route),
+                "dkv": dict(fa.launches_dkv_by_route)}
     peak = torch.cuda.max_memory_allocated()
     losses = [r["loss"] for r in res["log"]]
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
@@ -841,13 +942,19 @@ def phase_train(report: dict, smi: str) -> dict:
     if launches != expected:
         raise AssertionError(f"train: flash launches {launches}, expected "
                              f"{expected}")
+    # bf16, D 64, S 1024: every backward launch on the wgmma kernels
+    route_expected = {key: {"sm90": expected[key], "mma_sync": 0, "f32": 0}
+                      for key in ("dq", "dkv")}
+    if by_route != route_expected:
+        raise AssertionError(f"train: B2/B3 routes {by_route}, expected "
+                             f"{route_expected}")
     # steady state: from the end of step 5 to the end of the last step
     el = [r["elapsed_s"] for r in res["log"]]
     warm = 5
     step_s = (el[-1] - el[warm - 1]) / (TRAIN_STEPS - warm)
     flops = model_flops_per_step(cfg)
     out = {"losses": losses, "launches": launches, "expected": expected,
-           "main_wall_s": wall, "step_ms": step_s * 1e3,
+           "bwd_by_route": by_route, "main_wall_s": wall, "step_ms": step_s * 1e3,
            "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
            "model_flops_per_step": flops,
            "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
@@ -858,13 +965,13 @@ def phase_train(report: dict, smi: str) -> dict:
         f"{out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
         f"model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of 989 "
         f"TFLOP/s, peak mem {peak / 2**30:.2f} GiB; flash launches "
-        f"{launches} [{smi}]")
+        f"{launches}, B2/B3 by route {by_route} [{smi}]")
     out["fp32_flash_vs_reference"] = flash_vs_reference_fp32()
     torch.cuda.empty_cache()
     b = out["breakdown"] = train_breakdown()
     log(f"train profiled: {b['steps']} steps, wall {b['wall_s']:.3f} s "
-        f"({b['step_ms']:.1f} ms/step), device busy "
-        f"{100 * b['device_busy_share']:.1f}%, "
+        f"({b['step_ms']:.1f} ms/step), device {b['device_ms_per_step']:.1f} "
+        f"ms/step, busy {100 * b['device_busy_share']:.1f}%, "
         f"{b['kernels_per_step']:.0f} kernels per step, flash kernels "
         f"{100 * b['flash_share_of_device']:.1f}% of device time; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in b["top"][:5]))
@@ -872,7 +979,7 @@ def phase_train(report: dict, smi: str) -> dict:
         f"{k[:40]} {v * 1e3:.1f} ({n})"
         for k, v, n in b["host_top_one_step"][:8]))
     report["train"] = out
-    return launches
+    return {**launches, "by_route": by_route}
 
 
 # ------------------------------------------------------------------ conv
@@ -1470,13 +1577,17 @@ def main() -> int:
               "source": "torchbooster_tpu_torch/ops/csrc/paged_attention.cu",
               "replaces": "torchbooster_tpu/ops/paged_attention.py:70",
               **blank}
-    flash_src = "torchbooster_tpu_torch/ops/csrc/flash_attention.cu"
-    flash = {key: {"name": name, "route": "cuda", "source": flash_src,
+    csrc = "torchbooster_tpu_torch/ops/csrc"
+    flash = {key: {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
                    "replaces": f"torchbooster_tpu/ops/flash_attention.py:{line}",
                    **blank}
-             for key, name, line in (("fwd", "flash_fwd", 104),
-                                     ("dq", "flash_dq", 227),
-                                     ("dkv", "flash_dkv", 265))}
+             for key, name, src, line in (
+                 ("fwd", "flash_fwd", "flash_attention.cu", 104),
+                 ("dq", "flash_dq", "flash_bwd_sm90.cu", 227),
+                 ("dkv", "flash_dkv", "flash_bwd_sm90.cu", 265))}
+    for key in ("dq", "dkv"):
+        flash[key].update(timed_route=None, launches_by_route=None,
+                          previous_ms=None)
     conv_kernels = {key: {"name": name, "route": "cuda",
                           "source": f"torchbooster_tpu_torch/ops/csrc/{src}",
                           "replaces": f"torchbooster_tpu/ops/{ref}", **blank}
@@ -1503,6 +1614,13 @@ def main() -> int:
         report["ptxas"] = {n: _build.ptxas_info.get(n, "") for n in SOURCES}
         log(f"build: {', '.join(f'{n}.cu {sec:.1f} s' for n, sec in _build.build_seconds.items())}"
             f" (in parallel, {report['build_s']:.1f} s)")
+        regs = report["ptxas_flash_bwd_sm90"] = ptxas_kernels(
+            report["ptxas"]["flash_bwd_sm90"],
+            r"(flash_dq_sm90|flash_dkv_sm90)ILi(\d+)E")
+        log("ptxas flash_bwd_sm90: " + "; ".join(
+            f"{n} {r.get('registers')} registers, spill stores "
+            f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes"
+            for n, r in sorted(regs.items())))
     if "kernel" in phases:
         res = phase_kernel(report)
         kernel.update({k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -1513,7 +1631,8 @@ def main() -> int:
         for key in flash:
             flash[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
+                "library_ms") + (("timed_route", "previous_ms")
+                                 if key != "fwd" else ())})
     if "serve_fp32" in phases or "serve_bf16" in phases:
         params, cfg = gpt2_small()
         if "serve_fp32" in phases:
@@ -1535,6 +1654,8 @@ def main() -> int:
         launches = phase_train(report, smi)
         for key in flash:
             flash[key]["launches"] = launches[key]
+        for key in ("dq", "dkv"):
+            flash[key]["launches_by_route"] = launches["by_route"][key]
     if "conv" in phases:
         res = phase_conv(report)
         for key in conv_kernels:

@@ -124,54 +124,127 @@ def test_paged_kernel_masked_lane_and_bad_operands_on_card():
     assert pa.launches == before
 
 
-# B1-B3: (B, H, H_kv, S_q, S_kv, D, dtype) — GPT-2-small training geometry
-# (also with 4 kv heads and the KV-cache alignment S_q < S_kv) and the GPT
-# recipe default (d_model 256 / 8 heads = D 32, S 256, batch 32)
+# B1-B3: (B, H, H_kv, S_q, S_kv, D, dtype, causal) — GPT-2-small training
+# geometry (also with 4 kv heads and the KV-cache alignment S_q < S_kv), the
+# GPT recipe default (d_model 256 / 8 heads = D 32, S 256, batch 32), head
+# dim 128 at S 1024 and a non-causal case
 FLASH_CASES = {
-    "gpt2_small_bf16": (8, 12, 12, 1024, 1024, 64, torch.bfloat16),
-    "gpt2_small_fp32": (8, 12, 12, 1024, 1024, 64, torch.float32),
-    "gpt2_small_gqa4_bf16": (8, 12, 4, 1024, 1024, 64, torch.bfloat16),
-    "sq256_skv1024_bf16": (8, 12, 12, 256, 1024, 64, torch.bfloat16),
-    "recipe_default_d32_bf16": (32, 8, 8, 256, 256, 32, torch.bfloat16),
+    "gpt2_small_bf16": (8, 12, 12, 1024, 1024, 64, torch.bfloat16, True),
+    "gpt2_small_fp32": (8, 12, 12, 1024, 1024, 64, torch.float32, True),
+    "gpt2_small_gqa4_bf16": (8, 12, 4, 1024, 1024, 64, torch.bfloat16, True),
+    "sq256_skv1024_bf16": (8, 12, 12, 256, 1024, 64, torch.bfloat16, True),
+    "recipe_default_d32_bf16": (32, 8, 8, 256, 256, 32, torch.bfloat16, True),
     # the third head dim built, with GQA and ragged lengths
-    "d128_gqa2_ragged200_bf16": (2, 4, 2, 200, 200, 128, torch.bfloat16),
-    "d128_ragged130_fp32": (2, 4, 4, 130, 130, 128, torch.float32),
+    "d128_gqa2_ragged200_bf16": (2, 4, 2, 200, 200, 128, torch.bfloat16,
+                                 True),
+    "d128_ragged130_fp32": (2, 4, 4, 130, 130, 128, torch.float32, True),
+    "d128_s1024_bf16": (4, 8, 8, 1024, 1024, 128, torch.bfloat16, True),
+    "noncausal_s512_bf16": (4, 12, 12, 512, 512, 64, torch.bfloat16, False),
 }
+# the backward's route each case must take (plan_flash_bwd)
+FLASH_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
+               "gpt2_small_gqa4_bf16": "sm90", "sq256_skv1024_bf16": "sm90",
+               "recipe_default_d32_bf16": "mma_sync",
+               "d128_gqa2_ragged200_bf16": "sm90",
+               "d128_ragged130_fp32": "f32", "d128_s1024_bf16": "sm90",
+               "noncausal_s512_bf16": "sm90"}
+
+
+def _flash_operands(name, seed=0):
+    b, h, h_kv, s_q, s_kv, d, dtype, _ = FLASH_CASES[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(rows, s, d, generator=gen,
+                             device="cuda").to(dtype)
+                 for rows, s in ((b * h, s_q), (b * h_kv, s_kv),
+                                 (b * h_kv, s_kv), (b * h, s_q)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain_versions_on_card(name):
     """B1 (o, lse), B2 (dq) and B3 (dk, dv) against their plain versions
-    on the same inputs, causal. bf16: the tensor-core kernels round P and
+    on the same inputs; B2 and B3 on the route the case names (their
+    per-route counters move). bf16: the tensor-core kernels round P and
     dS to bf16 before their second product, the plain version keeps them
     fp32, so a few bf16 ulp: 2e-2; fp32: summation order only, 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     from torchbooster_tpu_torch.ops import flash_attention as fa
 
-    b, h, h_kv, s_q, s_kv, d, dtype = FLASH_CASES[name]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(rows, s, d, generator=gen,
-                               device="cuda").to(dtype)
-                   for rows, s in ((b * h, s_q), (b * h_kv, s_kv),
-                                   (b * h_kv, s_kv), (b * h, s_q)))
+    dtype, causal = FLASH_CASES[name][6:]
+    q, k, v, do = _flash_operands(name)
+    d = q.shape[-1]
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     scale = d ** -0.5
-    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
-    o, lse = fa.launch_fwd(q, k, v, True, scale)
-    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, scale)
-    dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, True, scale)
-    dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, True, scale)
+    route = FLASH_ROUTE[name]
+    assert fa.plan_flash_bwd(dtype, d, q.shape[1], k.shape[1],
+                             q.shape[0] // k.shape[0]) == route
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
+              fa.launches_dq_by_route[route], fa.launches_dkv_by_route[route])
+    o, lse = fa.launch_fwd(q, k, v, causal, scale)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
+    dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal, scale)
+    dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, causal, scale)
     torch.cuda.synchronize()
-    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(
-        n + 1 for n in before)
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
+            fa.launches_dq_by_route[route],
+            fa.launches_dkv_by_route[route]) == tuple(n + 1 for n in before)
     want = (o_ref, lse_ref,
-            fa.dq_reference(q, k, v, o_ref, lse_ref, do, True, scale),
-            *fa.dkv_reference(q, k, v, o_ref, lse_ref, do, True, scale))
+            fa.dq_reference(q, k, v, o_ref, lse_ref, do, causal, scale),
+            *fa.dkv_reference(q, k, v, o_ref, lse_ref, do, causal, scale))
     for got, ref in zip((o, lse, dq, dk, dv), want):
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gpt2_small_gqa4_bf16",
+                                  "d128_gqa2_ragged200_bf16",
+                                  "noncausal_s512_bf16"])
+def test_flash_bwd_sm90_repeats_bit_for_bit_on_card(name):
+    """Two calls of B2 and of B3 on the ``"sm90"`` route, on the same
+    inputs, give the same dq, delta, dk and dv bit for bit: every sum runs
+    in a fixed order, the GQA group's included, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    causal = FLASH_CASES[name][7]
+    q, k, v, do = _flash_operands(name, seed=2)
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.launch_fwd(q, k, v, causal, scale)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.launch_dq(q, k, v, o, lse, do, causal, scale,
+                                 route="sm90")
+        runs.append((dq, delta, *fa.launch_dkv(q, k, v, lse, do, delta,
+                                               causal, scale, route="sm90")))
+    torch.cuda.synchronize()
+    for one, two in zip(*runs):
+        assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("mode", [0, 1], ids=["mn_major_b", "register_a"])
+def test_wgmma_operand_forms_match_matmul_on_card(mode, n):
+    """The two operand forms the ``"sm90"`` backward rests on, one 64-row
+    tile each, against ``torch.matmul`` on the same bf16 tiles: B read
+    MN-major through the transpose bit (N 128 spans two 64-column blocks,
+    the descriptor's leading offset), and an accumulator re-packed as the
+    register-A operand. Small integers keep every product and sum exact,
+    so the two must be equal: a wrong layout is not a rounding error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a, w, b = (torch.randint(-2, 3, shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for shape in ((64, 64), (64, 64), (64, n)))
+    got = fa.wgmma_probe(mode, a, w, b)
+    lhs = a.float() if mode == 0 else (a.float() @ w.float().T).bfloat16()
+    torch.cuda.synchronize()
+    assert torch.equal(got, lhs.float() @ b.float())
 
 
 @pytest.mark.cuda
@@ -210,6 +283,19 @@ def test_flash_autograd_and_bad_operands_on_card():
     with pytest.raises(ValueError, match="shapes"):
         fa.launch_dq(q, k, v, q, q[:, :1, 0], do, True, 0.125)
     assert fa.launches_fwd == before
+    # a route that cannot take the operands raises before any launch:
+    # "sm90" at D 32 (and for fp32), "mma_sync" for fp32
+    dq_before = dict(fa.launches_dq_by_route)
+    q32 = torch.randn(4, 64, 32, device="cuda", dtype=torch.bfloat16)
+    o32, lse32 = fa.launch_fwd(q32, q32, q32, True, 0.125)
+    with pytest.raises(ValueError, match="route"):
+        fa.launch_dq(q32, q32, q32, o32, lse32, q32, True, 0.125,
+                     route="sm90")
+    o, lse = fa.launch_fwd(q, k, v, True, 0.125)
+    for route in ("sm90", "mma_sync"):
+        with pytest.raises(ValueError, match="route"):
+            fa.launch_dq(q, k, v, o, lse, do, True, 0.125, route=route)
+    assert fa.launches_dq_by_route == dq_before
 
 
 # B5-B8: ResNet-18 CIFAR geometries (batch 32 of the recipe's 512):

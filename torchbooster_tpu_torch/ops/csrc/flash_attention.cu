@@ -12,7 +12,10 @@
 // bf16 runs the *_mma kernels (tensor cores, mma.sync m16n8k16, fp32
 // accumulators; P and dS round to bf16 before their second product, as in
 // FlashAttention-2); fp32 runs CUDA-core fp32 products throughout, so fp32
-// inputs stay within 1e-4 of the plain version.
+// inputs stay within 1e-4 of the plain version. The bf16 backward at head
+// dims 64 and 128 runs the wgmma kernels of flash_bwd_sm90.cu instead (the
+// "sm90" route, planned by `plan_flash_bwd`); flash_dq_mma and
+// flash_dkv_mma keep D 32 and are timed beside them.
 //
 // Numerics follow the TPU kernels: q is scaled before the product
 // ((q * scale) K^T; the tensor-core route scales the fp32 scores, the same

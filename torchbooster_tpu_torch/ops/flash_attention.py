@@ -5,14 +5,23 @@
 
 :func:`flash_attention` is differentiable through a
 ``torch.autograd.Function``: its forward launches B1 and its backward
-launches B2 then B3, the hand-written CUDA kernels of
-``csrc/flash_attention.cu``, on CUDA tensors. On CPU tensors it runs
+launches B2 then B3, hand-written CUDA kernels (``csrc/flash_attention.cu``
+and, for the backward's bf16 ``"sm90"`` route, ``csrc/flash_bwd_sm90.cu``),
+on CUDA tensors. On CPU tensors it runs
 :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference` — the same math in plain
 PyTorch, blocked exactly like the TPU kernels — and only there. There is
 no fall-back: a failed build or launch raises. ``launches_fwd``,
 ``launches_dq`` and ``launches_dkv`` count kernel launches; the plain
 path never touches them.
+
+The backward has three CUDA routes, planned before launch by
+:func:`plan_flash_bwd` and counted in ``launches_dq_by_route`` /
+``launches_dkv_by_route``: ``"sm90"`` (bf16, head dim 64 or 128, ``1 <=
+S_q <= S_kv``: the ``wgmma`` kernels of ``csrc/flash_bwd_sm90.cu``),
+``"mma_sync"`` (other bf16 shapes, D 32 among them: the ``mma.sync``
+kernels of ``csrc/flash_attention.cu``) and ``"f32"`` (fp32, CUDA-core
+kernels of the same file).
 
 Shape contract (the TPU kernels'): q ``(BH, S_q, D)``, k/v ``(BH_kv,
 S_kv, D)`` with ``BH % BH_kv == 0``; q row ``b`` reads grouped k/v row
@@ -22,7 +31,8 @@ align to the LAST keys: query ``i`` sees keys ``[0, i + S_kv - S_q]``.
 ``block_q``/``block_k`` decide, as on the TPU, which lengths are
 tileable (:func:`tileable`; an untileable length raises ``ValueError``)
 and the blocking of the plain version. The CUDA kernels tile by their
-own 64-row constant and mask a ragged last tile. The JAX package's
+own constants (64 rows; 128 and 64 on the ``"sm90"`` route) and mask a
+ragged last tile. The JAX package's
 ``TB_FLASH_BLOCK_*`` environment defaults tune TPU tiles and are not
 carried over.
 """
@@ -38,10 +48,15 @@ from torchbooster_tpu_torch.ops.attention import NEG_INF
 MIN_BLOCK = 8          # the TPU kernel's smallest tile edge
 DEFAULT_BLOCK = 1024   # the JAX package's default tile (both axes)
 HEAD_DIMS = (32, 64, 128)   # head dims the CUDA kernels are built for
+SM90_HEAD_DIMS = (64, 128)  # head dims of the backward's "sm90" route
+_SM90_MAX_S = 65535 * 64    # at most 65535 64-row tiles along grid.y
 
 launches_fwd = 0    # B1 launches (the main path's proof of route)
-launches_dq = 0     # B2 launches
-launches_dkv = 0    # B3 launches
+launches_dq = 0     # B2 launches, every route
+launches_dkv = 0    # B3 launches, every route
+# B2 / B3 launches by the route plan_flash_bwd chose
+launches_dq_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
+launches_dkv_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -229,11 +244,24 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 
 
 # ------------------------------------------------------------ CUDA route
-def _bind(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    specs = {"tb_flash_fwd": [i, i] + [p] * 5 + [i] * 5 + [f, p],
-             "tb_flash_dq": [i, i] + [p] * 8 + [i] * 5 + [f, p],
-             "tb_flash_dkv": [i, i] + [p] * 8 + [i] * 5 + [f, p]}
+def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
+                   rep: int) -> str:
+    """The route of a B2/B3 pair on the card, chosen before launch:
+    ``"f32"`` for fp32; ``"sm90"`` for bf16 at head dim 64 or 128 with
+    ``1 <= S_q <= S_kv`` (ragged lengths and any GQA group included: what
+    ``csrc/flash_bwd_sm90.cu`` checks before it launches); ``"mma_sync"``
+    for every other bf16 shape — D 32, whose 64-byte rows need a 64-byte
+    swizzle the ``wgmma`` kernels do not build, and S_q > S_kv, where
+    causal rows see no key."""
+    if dtype == torch.float32:
+        return "f32"
+    if (head_dim in SM90_HEAD_DIMS and rep >= 1
+            and 1 <= s_q <= s_kv <= _SM90_MAX_S):
+        return "sm90"
+    return "mma_sync"
+
+
+def _bind(lib: ctypes.CDLL, specs: dict) -> None:
     for name, argtypes in specs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
@@ -241,11 +269,26 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.restype = ctypes.c_int
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 def _lib() -> ctypes.CDLL:
     from torchbooster_tpu_torch.ops import _build
 
     lib = _build.load("flash_attention")
-    _bind(lib)
+    _bind(lib, {"tb_flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 5 + [_F, _P],
+                "tb_flash_dq": [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+                "tb_flash_dkv": [_I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P]})
+    return lib
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    from torchbooster_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd_sm90")
+    _bind(lib, {"tb_flash_dq_sm90": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+                "tb_flash_dkv_sm90": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+                "tb_wgmma_probe": [_I, _I] + [_P] * 5})
     return lib
 
 
@@ -311,45 +354,98 @@ def launch_fwd(q, k, v, causal, sm_scale):
     return o, lse
 
 
-def launch_dq(q, k, v, o, lse, do, causal, sm_scale):
+def _bwd_route(q, k, route: str | None, *tensors) -> str:
+    """The backward's route for checked operands: the plan, or ``route``
+    when the caller names one (the smoke times ``"mma_sync"`` beside
+    ``"sm90"`` on the same inputs). A route that cannot take the operands
+    raises."""
+    bh, s_q, head_dim = q.shape
+    plan = plan_flash_bwd(q.dtype, head_dim, s_q, k.shape[1],
+                          bh // k.shape[0])
+    route = plan if route is None else route
+    wants = {"sm90": plan == "sm90", "f32": q.dtype == torch.float32,
+             "mma_sync": q.dtype == torch.bfloat16}
+    if not wants.get(route, False):
+        raise ValueError(f"flash_attention backward: route {route!r} does "
+                         f"not take these operands (planned {plan!r})")
+    if route == "sm90" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention backward: the sm90 kernels take "
+                         "16-byte aligned tensors")
+    return route
+
+
+def launch_dq(q, k, v, o, lse, do, causal, sm_scale,
+              route: str | None = None):
     """B2 on CUDA tensors: ``(dq, delta)``, delta the fp32 (BH, S_q)
-    rowsum(dO∘O) that B3 reads."""
+    rowsum(dO∘O) that B3 reads. ``route`` defaults to the plan of
+    :func:`plan_flash_bwd`."""
     global launches_dq
     _check_cuda(q, k, v, o, do, rows=(lse,))
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
     delta = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
-    err = _lib().tb_flash_dq(
-        _DTYPE_CODE[q.dtype], head_dim, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), bh, bh_kv, s_q, s_kv, int(causal),
-        sm_scale, _stream(q))
+    route = _bwd_route(q, k, route, q, k, v, o, do, dq)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            bh, bh_kv, s_q, s_kv, int(causal), sm_scale, _stream(q))
+    if route == "sm90":
+        err = _lib_sm90().tb_flash_dq_sm90(head_dim, *ptrs)
+    else:
+        err = _lib().tb_flash_dq(_DTYPE_CODE[q.dtype], head_dim, *ptrs)
     if err != 0:
-        raise RuntimeError(f"flash_attention dQ kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention dQ kernel launch failed "
+                           f"({route}): CUDA error {err}")
     launches_dq += 1
+    launches_dq_by_route[route] += 1
     return dq, delta
 
 
-def launch_dkv(q, k, v, lse, do, delta, causal, sm_scale):
+def launch_dkv(q, k, v, lse, do, delta, causal, sm_scale,
+               route: str | None = None):
     """B3 on CUDA tensors: grouped ``(dk, dv)``. ``delta`` comes from
-    :func:`launch_dq` on the same stream."""
+    :func:`launch_dq` on the same stream; ``route`` as there."""
     global launches_dkv
     _check_cuda(q, k, v, do, rows=(lse, delta))
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib().tb_flash_dkv(
-        _DTYPE_CODE[q.dtype], head_dim, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, bh_kv, s_q, s_kv, int(causal),
-        sm_scale, _stream(q))
+    route = _bwd_route(q, k, route, q, k, v, do, dk, dv)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, bh_kv, s_q, s_kv, int(causal), sm_scale, _stream(q))
+    if route == "sm90":
+        err = _lib_sm90().tb_flash_dkv_sm90(head_dim, *ptrs)
+    else:
+        err = _lib().tb_flash_dkv(_DTYPE_CODE[q.dtype], head_dim, *ptrs)
     if err != 0:
-        raise RuntimeError(f"flash_attention dK/dV kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention dK/dV kernel launch failed "
+                           f"({route}): CUDA error {err}")
     launches_dkv += 1
+    launches_dkv_by_route[route] += 1
     return dk, dv
+
+
+def wgmma_probe(mode: int, a: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """One ``wgmma`` tile of ``csrc/flash_bwd_sm90.cu`` on bf16 CUDA
+    tensors, for the card tests of the two operand forms B2/B3 rest on:
+    ``a``, ``w`` (64, 64) and ``b`` (64, N), N 64 or 128. Mode 0 returns
+    ``a @ b`` with b read MN-major (the transpose bit); mode 1 ``bf16(a
+    @ w.T) @ b``, the first product's accumulator re-packed as the
+    register-A operand of the second. fp32 (64, N)."""
+    n = b.shape[1]
+    if (a.shape != (64, 64) or w.shape != (64, 64) or b.shape != (64, n)
+            or any(t.dtype != torch.bfloat16 or t.device.type != "cuda"
+                   or not t.is_contiguous() for t in (a, w, b))):
+        raise ValueError("wgmma_probe: a, w (64, 64) and b (64, N) "
+                         "contiguous bf16 CUDA tensors")
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    err = _lib_sm90().tb_wgmma_probe(mode, n, a.data_ptr(), w.data_ptr(),
+                                     b.data_ptr(), c.data_ptr(), _stream(a))
+    if err != 0:
+        raise RuntimeError(f"wgmma_probe launch failed: CUDA error {err}")
+    return c
 
 
 def _backward(q, k, v, o, lse, do, causal, sm_scale, block_q, block_k):
@@ -404,8 +500,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bool(causal), float(sm_scale), block_q, block_k)
 
 
-__all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "dkv_reference", "dq_reference",
-           "flash_attention", "flash_attention_backward_reference",
-           "flash_attention_reference", "launch_dkv", "launch_dq",
-           "launch_fwd", "launches_dkv", "launches_dq", "launches_fwd",
-           "tileable"]
+__all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "dkv_reference",
+           "dq_reference", "flash_attention",
+           "flash_attention_backward_reference", "flash_attention_reference",
+           "launch_dkv", "launch_dq", "launch_fwd", "launches_dkv",
+           "launches_dkv_by_route", "launches_dq", "launches_dq_by_route",
+           "launches_fwd", "plan_flash_bwd", "tileable", "wgmma_probe"]
