@@ -6,9 +6,10 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's six CUDA sources (nvcc, sm_90a), one nvcc
-   per source, all started together, and time it; print the registers and
-   spills ``-Xptxas -v`` reports for the B2/B3 ``"sm90"`` kernels.
+2. build   — compile the port's seven CUDA sources (nvcc, sm_90a), one
+   nvcc per source, all started together, and time it; print the
+   registers and spills ``-Xptxas -v`` reports for the B1 and B2/B3
+   ``"sm90"`` kernels.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
@@ -21,13 +22,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    (dk, dv) against their plain versions: GPT-2-small training geometry
    (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
    S_q 256 < S_kv 1024, ragged S 1000, D 32 (the recipe default's heads),
-   D 128 at S 1024, and non-causal bf16 and fp32 cases; B2 and B3 on the
-   route ``plan_flash_bwd`` plans (every bf16 case but D 32 on
-   ``"sm90"``), two bf16 calls of each bit for bit; then time each kernel
-   at the training geometry (profiler device time, or CUDA events around
-   back-to-back calls where the profiler loses events) beside its plain
-   version, its bound and SDPA (forward, and its backward), B2 and B3 on
-   ``"sm90"`` and on
+   D 128 at S 1024, and non-causal bf16 and fp32 cases; B1 on the route
+   ``plan_flash_fwd`` plans and B2 and B3 on the route ``plan_flash_bwd``
+   plans (every bf16 case but D 32 on ``"sm90"``), two bf16 calls of each
+   bit for bit; then time each kernel at the training geometry (profiler
+   device time, or CUDA events around back-to-back calls where the
+   profiler loses events) beside its plain version, its bound and SDPA
+   (forward, and its backward), B1, B2 and B3 on ``"sm90"`` and on
    ``"mma_sync"`` on the same inputs, and sweep S for the ``"auto"``
    crossover against ``mha_reference``.
 5. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
@@ -44,8 +45,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    remat, AdamW + cycle schedule (2-step warmup), clip 1.0, then a
    32-token sample. Every loss finite and the last below the first; the
    flash launch counts exact (B1 2 x 12 per step with remat, plus 12 for
-   the sample's prefill; B2 and B3 12 per step, all on ``"sm90"``); one
-   fp32 forward +
+   the sample's prefill; B2 and B3 12 per step; all three on ``"sm90"``);
+   one fp32 forward +
    backward with the flash kernels against ``mha_reference`` (loss and
    gradient norm, rtol 1e-4). Prints step ms, tokens/s, the model-FLOP
    share of 989 TFLOP/s, peak memory, and a profiled device busy share
@@ -101,8 +102,8 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "train", "conv", "resnet_train")
-SOURCES = ("paged_attention", "flash_attention", "flash_bwd_sm90",
-           "group_norm", "fused_block", "conv3x3_gn_sm90")
+SOURCES = ("paged_attention", "flash_attention", "flash_fwd_sm90",
+           "flash_bwd_sm90", "group_norm", "fused_block", "conv3x3_gn_sm90")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
@@ -465,8 +466,17 @@ def phase_flash(report: dict) -> dict:
     for name, b, h, h_kv, s_q, s_kv, d, dtype, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
         scale = 1.0 / math.sqrt(d)
+        # B1 on its planned route (every bf16 case but D 32 on "sm90")
+        fwd_route = fa.plan_flash_fwd(dtype, d, s_q, s_kv, h // h_kv)
+        if dtype == torch.bfloat16 and d != 32 and fwd_route != "sm90":
+            raise AssertionError(f"flash case {name}: B1 planned "
+                                 f"{fwd_route!r}, not 'sm90'")
+        before = fa.launches_fwd_by_route[fwd_route]
         o, lse = fa.launch_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
+        if fa.launches_fwd_by_route[fwd_route] != before + 1:
+            raise AssertionError(f"flash case {name}: B1 did not take the "
+                                 f"{fwd_route!r} route")
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
         # the backward pair on the same inputs: the plain forward's o/lse,
         # on the planned route (every bf16 case but D 32 on "sm90")
@@ -485,14 +495,22 @@ def phase_flash(report: dict) -> dict:
                                  f"the {route!r} route")
         if dtype == torch.bfloat16:
             # a second call on the same inputs must repeat bit for bit
+            o2, lse2 = fa.launch_fwd(q, k, v, causal, scale)
             dq2, delta2 = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal,
                                        scale)
             dk2, dv2 = fa.launch_dkv(q, k, v, lse_ref, do, delta2, causal,
                                      scale)
             torch.cuda.synchronize()
-            repeat[name] = {"route": route, "bit_identical": all(
+            repeat[name] = {"fwd_route": fwd_route, "route": route,
+                            "fwd_bit_identical": torch.equal(o, o2)
+                            and torch.equal(lse, lse2),
+                            "bit_identical": all(
                 torch.equal(x, y) for x, y in ((dq, dq2), (delta, delta2),
                                                (dk, dk2), (dv, dv2)))}
+            if not repeat[name]["fwd_bit_identical"]:
+                raise AssertionError(f"flash case {name} ({fwd_route}): two "
+                                     f"forward calls on the same inputs "
+                                     f"differ")
             if not repeat[name]["bit_identical"]:
                 raise AssertionError(f"flash case {name} ({route}): two "
                                      f"backward calls on the same inputs "
@@ -520,13 +538,17 @@ def phase_flash(report: dict) -> dict:
         worst["dq"] = max(worst["dq"], errs["dq"])
         worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
         per_case[name] = {"max_abs_err": errs, "allowance_used": used,
-                          "atol": tol, "rtol": tol, "bwd_route": route}
+                          "atol": tol, "rtol": tol, "fwd_route": fwd_route,
+                          "bwd_route": route}
         log(f"flash {name}: " + ", ".join(
             f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)" for k in errs)
             + f" (max abs err, and % of the allowance atol + rtol|ref| "
-            f"used; atol = rtol = {tol}); backward route {route}")
+            f"used; atol = rtol = {tol}); forward route {fwd_route}, "
+            f"backward route {route}")
     report["flash_cases"] = per_case
     report["flash_bwd_repeat"] = repeat
+    log("flash forward repeat, bit for bit: " + ", ".join(
+        f"{n} ({r['fwd_route']}) ok" for n, r in repeat.items()))
     log("flash backward repeat, bit for bit: " + ", ".join(
         f"{n} ({r['route']}) ok" for n, r in repeat.items()))
 
@@ -563,9 +585,11 @@ def phase_flash(report: dict) -> dict:
     work = {"fwd": (2 * 2, (n_q + 2 * n_kv + n_q) * el + rows * 4),
             "dq": (3 * 2, (3 * n_q + 2 * n_kv + n_q) * el + rows * 8),
             "dkv": (4 * 2, (2 * n_q + 4 * n_kv) * el + rows * 8)}
-    # B2 / B3 on their earlier route, on the same inputs (outside the
-    # main path's launch counts)
+    # B1, B2 and B3 on their earlier route, on the same inputs (outside
+    # the main path's launch counts)
     previous = {
+        "fwd": lambda: fa.launch_fwd(q, k, v, True, scale,
+                                     route="mma_sync"),
         "dq": lambda: fa.launch_dq(q, k, v, o, lse, do, True, scale,
                                    route="mma_sync"),
         "dkv": lambda: fa.launch_dkv(q, k, v, lse, do, delta, True, scale,
@@ -917,7 +941,8 @@ def phase_train(report: dict, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
-    for counts in (fa.launches_dq_by_route, fa.launches_dkv_by_route):
+    for counts in (fa.launches_fwd_by_route, fa.launches_dq_by_route,
+                   fa.launches_dkv_by_route):
         for route in counts:
             counts[route] = 0
     t0 = time.perf_counter()
@@ -926,7 +951,8 @@ def phase_train(report: dict, smi: str) -> dict:
     wall = time.perf_counter() - t0
     launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
                 "dkv": fa.launches_dkv}
-    by_route = {"dq": dict(fa.launches_dq_by_route),
+    by_route = {"fwd": dict(fa.launches_fwd_by_route),
+                "dq": dict(fa.launches_dq_by_route),
                 "dkv": dict(fa.launches_dkv_by_route)}
     peak = torch.cuda.max_memory_allocated()
     losses = [r["loss"] for r in res["log"]]
@@ -942,11 +968,11 @@ def phase_train(report: dict, smi: str) -> dict:
     if launches != expected:
         raise AssertionError(f"train: flash launches {launches}, expected "
                              f"{expected}")
-    # bf16, D 64, S 1024: every backward launch on the wgmma kernels
+    # bf16, D 64, S 1024: every B1-B3 launch on the wgmma kernels
     route_expected = {key: {"sm90": expected[key], "mma_sync": 0, "f32": 0}
-                      for key in ("dq", "dkv")}
+                      for key in ("fwd", "dq", "dkv")}
     if by_route != route_expected:
-        raise AssertionError(f"train: B2/B3 routes {by_route}, expected "
+        raise AssertionError(f"train: B1-B3 routes {by_route}, expected "
                              f"{route_expected}")
     # steady state: from the end of step 5 to the end of the last step
     el = [r["elapsed_s"] for r in res["log"]]
@@ -954,7 +980,7 @@ def phase_train(report: dict, smi: str) -> dict:
     step_s = (el[-1] - el[warm - 1]) / (TRAIN_STEPS - warm)
     flops = model_flops_per_step(cfg)
     out = {"losses": losses, "launches": launches, "expected": expected,
-           "bwd_by_route": by_route, "main_wall_s": wall, "step_ms": step_s * 1e3,
+           "by_route": by_route, "main_wall_s": wall, "step_ms": step_s * 1e3,
            "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
            "model_flops_per_step": flops,
            "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
@@ -965,7 +991,7 @@ def phase_train(report: dict, smi: str) -> dict:
         f"{out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
         f"model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of 989 "
         f"TFLOP/s, peak mem {peak / 2**30:.2f} GiB; flash launches "
-        f"{launches}, B2/B3 by route {by_route} [{smi}]")
+        f"{launches}, B1-B3 by route {by_route} [{smi}]")
     out["fp32_flash_vs_reference"] = flash_vs_reference_fp32()
     torch.cuda.empty_cache()
     b = out["breakdown"] = train_breakdown()
@@ -1582,10 +1608,10 @@ def main() -> int:
                    "replaces": f"torchbooster_tpu/ops/flash_attention.py:{line}",
                    **blank}
              for key, name, src, line in (
-                 ("fwd", "flash_fwd", "flash_attention.cu", 104),
+                 ("fwd", "flash_fwd", "flash_fwd_sm90.cu", 104),
                  ("dq", "flash_dq", "flash_bwd_sm90.cu", 227),
                  ("dkv", "flash_dkv", "flash_bwd_sm90.cu", 265))}
-    for key in ("dq", "dkv"):
+    for key in flash:
         flash[key].update(timed_route=None, launches_by_route=None,
                           previous_ms=None)
     conv_kernels = {key: {"name": name, "route": "cuda",
@@ -1614,13 +1640,15 @@ def main() -> int:
         report["ptxas"] = {n: _build.ptxas_info.get(n, "") for n in SOURCES}
         log(f"build: {', '.join(f'{n}.cu {sec:.1f} s' for n, sec in _build.build_seconds.items())}"
             f" (in parallel, {report['build_s']:.1f} s)")
-        regs = report["ptxas_flash_bwd_sm90"] = ptxas_kernels(
-            report["ptxas"]["flash_bwd_sm90"],
-            r"(flash_dq_sm90|flash_dkv_sm90)ILi(\d+)E")
-        log("ptxas flash_bwd_sm90: " + "; ".join(
-            f"{n} {r.get('registers')} registers, spill stores "
-            f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes"
-            for n, r in sorted(regs.items())))
+        for src, names in (("flash_fwd_sm90", "flash_fwd_sm90"),
+                           ("flash_bwd_sm90",
+                            "flash_dq_sm90|flash_dkv_sm90")):
+            regs = report[f"ptxas_{src}"] = ptxas_kernels(
+                report["ptxas"][src], rf"({names})ILi(\d+)E")
+            log(f"ptxas {src}: " + "; ".join(
+                f"{n} {r.get('registers')} registers, spill stores "
+                f"{r.get('spill_stores')} / loads {r.get('spill_loads')} "
+                f"bytes" for n, r in sorted(regs.items())))
     if "kernel" in phases:
         res = phase_kernel(report)
         kernel.update({k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -1631,8 +1659,7 @@ def main() -> int:
         for key in flash:
             flash[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms") + (("timed_route", "previous_ms")
-                                 if key != "fwd" else ())})
+                "library_ms", "timed_route", "previous_ms")})
     if "serve_fp32" in phases or "serve_bf16" in phases:
         params, cfg = gpt2_small()
         if "serve_fp32" in phases:
@@ -1654,7 +1681,7 @@ def main() -> int:
         launches = phase_train(report, smi)
         for key in flash:
             flash[key]["launches"] = launches[key]
-        for key in ("dq", "dkv"):
+        for key in flash:
             flash[key]["launches_by_route"] = launches["by_route"][key]
     if "conv" in phases:
         res = phase_conv(report)

@@ -141,7 +141,8 @@ FLASH_CASES = {
     "d128_s1024_bf16": (4, 8, 8, 1024, 1024, 128, torch.bfloat16, True),
     "noncausal_s512_bf16": (4, 12, 12, 512, 512, 64, torch.bfloat16, False),
 }
-# the backward's route each case must take (plan_flash_bwd)
+# the route each case's B1 (plan_flash_fwd) and B2/B3 (plan_flash_bwd) must
+# take: the two plans agree on every case
 FLASH_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
                "gpt2_small_gqa4_bf16": "sm90", "sq256_skv1024_bf16": "sm90",
                "recipe_default_d32_bf16": "mma_sync",
@@ -163,7 +164,7 @@ def _flash_operands(name, seed=0):
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain_versions_on_card(name):
     """B1 (o, lse), B2 (dq) and B3 (dk, dv) against their plain versions
-    on the same inputs; B2 and B3 on the route the case names (their
+    on the same inputs; all three on the route the case names (their
     per-route counters move). bf16: the tensor-core kernels round P and
     dS to bf16 before their second product, the plain version keeps them
     fp32, so a few bf16 ulp: 2e-2; fp32: summation order only, 1e-4."""
@@ -177,9 +178,11 @@ def test_flash_kernels_match_plain_versions_on_card(name):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     scale = d ** -0.5
     route = FLASH_ROUTE[name]
-    assert fa.plan_flash_bwd(dtype, d, q.shape[1], k.shape[1],
-                             q.shape[0] // k.shape[0]) == route
+    shape = (dtype, d, q.shape[1], k.shape[1], q.shape[0] // k.shape[0])
+    assert fa.plan_flash_bwd(*shape) == route
+    assert fa.plan_flash_fwd(*shape) == route
     before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
+              fa.launches_fwd_by_route[route],
               fa.launches_dq_by_route[route], fa.launches_dkv_by_route[route])
     o, lse = fa.launch_fwd(q, k, v, causal, scale)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
@@ -187,6 +190,7 @@ def test_flash_kernels_match_plain_versions_on_card(name):
     dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, causal, scale)
     torch.cuda.synchronize()
     assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
+            fa.launches_fwd_by_route[route],
             fa.launches_dq_by_route[route],
             fa.launches_dkv_by_route[route]) == tuple(n + 1 for n in before)
     want = (o_ref, lse_ref,
@@ -222,6 +226,80 @@ def test_flash_bwd_sm90_repeats_bit_for_bit_on_card(name):
     torch.cuda.synchronize()
     for one, two in zip(*runs):
         assert torch.equal(one, two)
+
+
+# the bf16 cases B1 takes on its "sm90" route
+SM90_FWD_CASES = sorted(n for n, r in FLASH_ROUTE.items() if r == "sm90")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SM90_FWD_CASES)
+def test_flash_fwd_sm90_repeats_and_holds_to_mma_sync_on_card(name):
+    """B1 on ``"sm90"`` twice on the same inputs: o and lse bit for bit
+    (fixed-order sums, no atomics); and against B1 on ``"mma_sync"``
+    (``flash_fwd_mma``) on the same inputs, within the bf16 allowance
+    (2e-2): both round P to bf16, after other running maxima."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    causal = FLASH_CASES[name][7]
+    q, k, v, _ = _flash_operands(name, seed=3)
+    scale = q.shape[-1] ** -0.5
+    before = dict(fa.launches_fwd_by_route)
+    one = fa.launch_fwd(q, k, v, causal, scale)
+    two = fa.launch_fwd(q, k, v, causal, scale, route="sm90")
+    old = fa.launch_fwd(q, k, v, causal, scale, route="mma_sync")
+    torch.cuda.synchronize()
+    assert fa.launches_fwd_by_route == {
+        **before, "sm90": before["sm90"] + 2,
+        "mma_sync": before["mma_sync"] + 1}
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    for a, b in zip(one, old):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_step_takes_sm90_forward_on_card():
+    """A bf16 autograd step through ``flash_attention`` (GQA 2, ragged
+    S 200, D 64): B1, B2 and B3 each launch once on ``"sm90"``; o and the
+    grads hold to the plain versions (2e-2, as the flash cases). A forward
+    route that cannot take the operands raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (torch.randn(8, 200, 64, generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(4, 200, 64, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    counts = (fa.launches_fwd_by_route, fa.launches_dq_by_route,
+              fa.launches_dkv_by_route)
+    before = [dict(c) for c in counts]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    for now, was in zip(counts, before):
+        assert now == {**was, "sm90": was["sm90"] + 1}
+    scale = 64 ** -0.5
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, scale)
+    want = (o_ref, *fa.flash_attention_backward_reference(
+        q, k, v, o_ref, lse_ref, do, True, scale))
+    for got, ref in zip((out, *(t.grad for t in leaves)), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    with pytest.raises(ValueError, match="forward: route"):
+        fa.launch_fwd(q.float(), k.float(), v.float(), True, scale,
+                      route="sm90")
+    with pytest.raises(ValueError, match="forward: route"):
+        fa.launch_fwd(q[:, :, :32].contiguous(), k[:, :, :32].contiguous(),
+                      v[:, :, :32].contiguous(), True, scale, route="sm90")
+    assert fa.launches_fwd_by_route == {**before[0],
+                                        "sm90": before[0]["sm90"] + 1}
 
 
 @pytest.mark.cuda

@@ -221,3 +221,61 @@ def test_serving_config_yaml_and_unported_options(tmp_path):
                 dict(response_format={"type": "json_object"}, eos_id=1)):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             batcher.run([Request(prompt=np.arange(3), **bad)])
+
+
+def _docs_serving_block() -> str:
+    """The ``serving:`` YAML block that ``docs/config.md`` documents."""
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parents[1] / "docs" /
+            "config.md").read_text()
+    section = text.split("### The `serving:` block", 1)[1]
+    return section.split("```yaml\n", 1)[1].split("```", 1)[0]
+
+
+def _seq64_model():
+    """A port-only small GPT whose context (64) the documented 64-token
+    pages divide."""
+    from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab=97, n_layers=2, d_model=32, n_heads=4, seq_len=64)
+    return GPT.init(0, cfg, device="cpu"), cfg
+
+
+def test_serving_config_docs_block_builds_the_sweep(tmp_path):
+    """The documented ``serving:`` block (``decode_backend: xla``, the JAX
+    name of the pool sweep) loads and builds, and its engine serves."""
+    path = tmp_path / "serve.yaml"
+    path.write_text(_docs_serving_block())
+    conf = ServingConfig.load(path)
+    assert (conf.page_size, conf.n_pages, conf.decode_backend) == (
+        64, 256, "xla")
+    params, cfg = _seq64_model()
+    batcher = conf.make(params, cfg, compute_dtype="float32", device="cpu")
+    assert batcher.engine.decode_backend == "sweep"
+    req = Request(prompt=np.arange(5), max_new_tokens=2)
+    batcher.run([req])
+    assert len(req.tokens) == 2
+
+
+@pytest.mark.parametrize("name,backend", [
+    ("xla", "sweep"), ("sweep", "sweep"), ("pallas", "kernel"),
+    ("kernel", "kernel"), ("", "sweep")])
+def test_serving_config_decode_backend_names(name, backend):
+    """The JAX package's names (``xla``, ``pallas``) and the port's own
+    (``sweep``, ``kernel``) pick the engine's backend; ``""`` is the
+    device default, the sweep on the CPU. Built, not run."""
+    params, cfg = _seq64_model()
+    batcher = ServingConfig(page_size=4, n_pages=8, max_slots=2,
+                            decode_backend=name).make(
+        params, cfg, compute_dtype="float32", device="cpu")
+    assert batcher.engine.decode_backend == backend
+
+
+def test_serving_config_unknown_decode_backend_raises():
+    params, cfg = _seq64_model()
+    with pytest.raises(ValueError, match="'kernel', 'pallas', 'sweep', "
+                                         "'xla'.*'triton'"):
+        ServingConfig(page_size=4, n_pages=8,
+                      decode_backend="triton").make(params, cfg,
+                                                    device="cpu")

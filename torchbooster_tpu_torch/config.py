@@ -407,15 +407,23 @@ class DatasetConfig(BaseConfig):
         return resolve_dataset(self, split, **kwargs)
 
 
+# ServingConfig.decode_backend -> the PagedEngine backend: the JAX
+# package's names, the port's own, and "" for the engine's device default
+_DECODE_BACKENDS = {"": None, "xla": "sweep", "sweep": "sweep",
+                    "pallas": "kernel", "kernel": "kernel"}
+
+
 @dataclass
 class ServingConfig:
     """Paged KV geometry and sampling knobs of the continuous-batching
-    loop (field meanings as in the JAX package). ``decode_backend``:
-    ``""`` picks the CUDA kernel on the card and the pool sweep on the
-    CPU; ``"kernel"`` or ``"sweep"`` force one. Options of the JAX
-    engine that are not ported yet (``speculative``, ``spec_tree``,
-    ``parallel_sampling``, ``tp > 1``) raise ``NotImplementedError``
-    when enabled."""
+    loop (field meanings as in the JAX package). ``decode_backend``
+    takes the JAX package's names, ``"xla"`` (the pool sweep) and
+    ``"pallas"`` (the paged flash-decode kernel), and the port's own,
+    ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
+    the sweep on the CPU. Any other name raises in :meth:`make`. Options
+    of the JAX engine that are not ported yet (``speculative``,
+    ``spec_tree``, ``parallel_sampling``, ``tp > 1``) raise
+    ``NotImplementedError`` when enabled."""
 
     page_size: int = 64
     n_pages: int = 256
@@ -432,7 +440,7 @@ class ServingConfig:
     spec_tree: bool = False
     spec_tree_width: int = 2
     parallel_sampling: bool = False
-    decode_backend: str = ""           # "" auto | "kernel" | "sweep"
+    decode_backend: str = ""    # "" auto | "xla"/"sweep" | "pallas"/"kernel"
     tp: int = 1
     seed: int = 0                      # sampling generator seed
 
@@ -485,6 +493,10 @@ class ServingConfig:
 
         if isinstance(compute_dtype, str):
             compute_dtype = _DTYPES[compute_dtype]
+        if self.decode_backend not in _DECODE_BACKENDS:
+            raise ValueError(f"serving.decode_backend must be one of "
+                             f"{sorted(_DECODE_BACKENDS)}, got "
+                             f"{self.decode_backend!r}")
         engine = PagedEngine(
             params, model_cfg, page_size=self.page_size,
             n_pages=self.n_pages, max_slots=self.max_slots,
@@ -494,7 +506,8 @@ class ServingConfig:
             top_p=self.top_p or None, seed=self.seed,
             prefix_cache=self.prefix_cache,
             prefill_chunk_pages=self.prefill_chunk_pages,
-            decode_backend=self.decode_backend or None, tp=self.tp,
+            decode_backend=_DECODE_BACKENDS[self.decode_backend],
+            tp=self.tp,
             speculative=self.speculative, spec_tree=self.spec_tree,
             parallel_sampling=self.parallel_sampling, device=device)
         return ContinuousBatcher(engine, on_recompile=on_recompile,

@@ -5,7 +5,8 @@ Each ``csrc/*.cu`` file exposes a plain C interface (no PyTorch
 headers, so ``nvcc`` takes seconds, not minutes) and is compiled for
 ``sm_90a`` into ``build/torch_ext/`` at the repository root — a
 directory ``.gitignore`` lists. The library name carries a hash of the
-source and the flags, so an edited source never loads a stale build.
+source, of every header it includes with quotes (``csrc/*.cuh``) and of
+the flags, so an edited source or header never loads a stale build.
 Nothing here runs at import time: the CPU test suite imports every
 module on a machine with no ``nvcc``. A failed build raises; there is
 no fall-back to the plain PyTorch version."""
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,11 +44,25 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and, depth first, every file it includes with quotes
+    (resolved beside the including file, as ``nvcc`` does), each once."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _QUOTED_INCLUDE.findall(path.read_text()):
+            _sources(path.parent / inc, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

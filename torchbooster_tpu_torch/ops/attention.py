@@ -41,17 +41,28 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_auto_engaged(seq_len_q: int, seq_len_kv: int | None = None,
-                       device: str | torch.device = "cuda") -> bool:
+                       device: str | torch.device = "cuda",
+                       head_dim: int | None = None,
+                       dtype: torch.dtype | None = None) -> bool:
     """THE predicate ``attention(impl="auto")`` evaluates: the flash
-    kernels on a CUDA device whenever both lengths are tileable. The JAX
-    package's ``S >= 4096`` threshold is a TPU v5e crossover and does not
-    carry over; the H100 crossover is measured in PERF.md."""
-    from torchbooster_tpu_torch.ops.flash_attention import tileable
+    kernels on a CUDA device whenever both lengths are tileable and the
+    kernels are built for the head dim and dtype (``None`` leaves either
+    unchecked); elsewhere the reference, as the JAX dispatcher falls back
+    wherever its kernel does not engage. The JAX package's ``S >= 4096``
+    threshold is a TPU v5e crossover and does not carry over; the H100
+    crossover is measured in PERF.md."""
+    from torchbooster_tpu_torch.ops.flash_attention import (
+        HEAD_DIMS,
+        KERNEL_DTYPES,
+        tileable,
+    )
 
     if seq_len_kv is None:
         seq_len_kv = seq_len_q
-    return (torch.device(device).type == "cuda" and tileable(seq_len_q)
-            and tileable(seq_len_kv))
+    return (torch.device(device).type == "cuda"
+            and (head_dim is None or head_dim in HEAD_DIMS)
+            and (dtype is None or dtype in KERNEL_DTYPES)
+            and tileable(seq_len_q) and tileable(seq_len_kv))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,8 +73,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``"flash"`` (the kernels on the card, their plain blocked version on
     the CPU) or ``"reference"``."""
     if impl == "auto":
-        impl = ("flash" if flash_auto_engaged(q.shape[1], k.shape[1],
-                                              q.device) else "reference")
+        impl = ("flash" if flash_auto_engaged(
+            q.shape[1], k.shape[1], q.device, q.shape[-1], q.dtype)
+            else "reference")
     if impl == "reference":
         return mha_reference(q, k, v, causal, sm_scale)
     if impl != "flash":

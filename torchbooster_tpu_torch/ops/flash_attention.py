@@ -6,8 +6,8 @@
 :func:`flash_attention` is differentiable through a
 ``torch.autograd.Function``: its forward launches B1 and its backward
 launches B2 then B3, hand-written CUDA kernels (``csrc/flash_attention.cu``
-and, for the backward's bf16 ``"sm90"`` route, ``csrc/flash_bwd_sm90.cu``),
-on CUDA tensors. On CPU tensors it runs
+and, for the bf16 ``"sm90"`` routes, ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_bwd_sm90.cu``), on CUDA tensors. On CPU tensors it runs
 :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference` — the same math in plain
 PyTorch, blocked exactly like the TPU kernels — and only there. There is
@@ -15,13 +15,14 @@ no fall-back: a failed build or launch raises. ``launches_fwd``,
 ``launches_dq`` and ``launches_dkv`` count kernel launches; the plain
 path never touches them.
 
-The backward has three CUDA routes, planned before launch by
-:func:`plan_flash_bwd` and counted in ``launches_dq_by_route`` /
+The forward and the backward each have three CUDA routes, planned before
+launch by :func:`plan_flash_fwd` and :func:`plan_flash_bwd` and counted
+in ``launches_fwd_by_route``, ``launches_dq_by_route`` and
 ``launches_dkv_by_route``: ``"sm90"`` (bf16, head dim 64 or 128, ``1 <=
-S_q <= S_kv``: the ``wgmma`` kernels of ``csrc/flash_bwd_sm90.cu``),
-``"mma_sync"`` (other bf16 shapes, D 32 among them: the ``mma.sync``
-kernels of ``csrc/flash_attention.cu``) and ``"f32"`` (fp32, CUDA-core
-kernels of the same file).
+S_q <= S_kv``: the ``wgmma`` kernels of ``csrc/flash_fwd_sm90.cu`` and
+``csrc/flash_bwd_sm90.cu``), ``"mma_sync"`` (other bf16 shapes, D 32
+among them: the ``mma.sync`` kernels of ``csrc/flash_attention.cu``) and
+``"f32"`` (fp32, CUDA-core kernels of the same file).
 
 Shape contract (the TPU kernels'): q ``(BH, S_q, D)``, k/v ``(BH_kv,
 S_kv, D)`` with ``BH % BH_kv == 0``; q row ``b`` reads grouped k/v row
@@ -48,17 +49,19 @@ from torchbooster_tpu_torch.ops.attention import NEG_INF
 MIN_BLOCK = 8          # the TPU kernel's smallest tile edge
 DEFAULT_BLOCK = 1024   # the JAX package's default tile (both axes)
 HEAD_DIMS = (32, 64, 128)   # head dims the CUDA kernels are built for
-SM90_HEAD_DIMS = (64, 128)  # head dims of the backward's "sm90" route
+SM90_HEAD_DIMS = (64, 128)  # head dims of the "sm90" routes
 _SM90_MAX_S = 65535 * 64    # at most 65535 64-row tiles along grid.y
 
 launches_fwd = 0    # B1 launches (the main path's proof of route)
 launches_dq = 0     # B2 launches, every route
 launches_dkv = 0    # B3 launches, every route
-# B2 / B3 launches by the route plan_flash_bwd chose
+# B1 launches by the route plan_flash_fwd chose, B2 / B3 by plan_flash_bwd's
+launches_fwd_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
 launches_dq_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
 launches_dkv_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = tuple(_DTYPE_CODE)   # dtypes the CUDA kernels are built for
 
 
 def _pick_block(block: int, seq: int, name: str) -> int:
@@ -261,6 +264,17 @@ def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
     return "mma_sync"
 
 
+def plan_flash_fwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
+                   rep: int) -> str:
+    """The route of a B1 launch on the card, chosen before launch, by
+    :func:`plan_flash_bwd`'s rule: ``"f32"`` for fp32 (``flash_fwd``);
+    ``"sm90"`` for bf16 at head dim 64 or 128 with ``1 <= S_q <= S_kv``
+    (the ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cu``, which checks the
+    same before it launches); ``"mma_sync"`` (``flash_fwd_mma``) for every
+    other bf16 shape — D 32 and S_q > S_kv, as for the backward."""
+    return plan_flash_bwd(dtype, head_dim, s_q, s_kv, rep)
+
+
 def _bind(lib: ctypes.CDLL, specs: dict) -> None:
     for name, argtypes in specs.items():
         fn = getattr(lib, name)
@@ -282,6 +296,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_fwd_sm90() -> ctypes.CDLL:
+    from torchbooster_tpu_torch.ops import _build
+
+    lib = _build.load("flash_fwd_sm90")
+    _bind(lib, {"tb_flash_fwd_sm90": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P]})
+    return lib
+
+
 def _lib_sm90() -> ctypes.CDLL:
     from torchbooster_tpu_torch.ops import _build
 
@@ -300,7 +322,7 @@ def _check_cuda(q, k, v, *like_q, rows=()) -> None:
     ``rows`` (lse, delta) fp32 ``(BH, S_q)``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
                         "(fp32 or bf16)")
     if q.shape[-1] not in HEAD_DIMS:
@@ -335,43 +357,56 @@ def _forward(q, k, v, causal, sm_scale, block_q, block_k):
     return launch_fwd(q, k, v, causal, sm_scale)
 
 
-def launch_fwd(q, k, v, causal, sm_scale):
-    """B1 on CUDA tensors: ``(o, lse)``."""
+def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
+    """B1 on CUDA tensors: ``(o, lse)``. ``route`` defaults to the plan
+    of :func:`plan_flash_fwd` (the smoke times ``"mma_sync"`` beside
+    ``"sm90"`` on the same inputs); a route that cannot take the
+    operands raises."""
     global launches_fwd
     _check_cuda(q, k, v)
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
-    err = _lib().tb_flash_fwd(
-        _DTYPE_CODE[q.dtype], head_dim, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, bh_kv, s_q, s_kv,
-        int(causal), sm_scale, _stream(q))
+    route = _held_route(plan_flash_fwd, "forward", q, k, route,
+                        (q, k, v, o))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, bh_kv, s_q, s_kv, int(causal), sm_scale,
+            _stream(q))
+    if route == "sm90":
+        err = _lib_fwd_sm90().tb_flash_fwd_sm90(head_dim, *ptrs)
+    else:
+        err = _lib().tb_flash_fwd(_DTYPE_CODE[q.dtype], head_dim, *ptrs)
     if err != 0:
-        raise RuntimeError(f"flash_attention forward kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention forward kernel launch failed "
+                           f"({route}): CUDA error {err}")
     launches_fwd += 1
+    launches_fwd_by_route[route] += 1
     return o, lse
 
 
-def _bwd_route(q, k, route: str | None, *tensors) -> str:
-    """The backward's route for checked operands: the plan, or ``route``
-    when the caller names one (the smoke times ``"mma_sync"`` beside
-    ``"sm90"`` on the same inputs). A route that cannot take the operands
-    raises."""
+def _held_route(plan, what: str, q, k, route: str | None, tensors) -> str:
+    """The route of a launch on checked operands: ``plan``'s, or
+    ``route`` when the caller names one. A route that cannot take the
+    operands raises."""
     bh, s_q, head_dim = q.shape
-    plan = plan_flash_bwd(q.dtype, head_dim, s_q, k.shape[1],
-                          bh // k.shape[0])
-    route = plan if route is None else route
-    wants = {"sm90": plan == "sm90", "f32": q.dtype == torch.float32,
+    planned = plan(q.dtype, head_dim, s_q, k.shape[1], bh // k.shape[0])
+    route = planned if route is None else route
+    wants = {"sm90": planned == "sm90", "f32": q.dtype == torch.float32,
              "mma_sync": q.dtype == torch.bfloat16}
     if not wants.get(route, False):
-        raise ValueError(f"flash_attention backward: route {route!r} does "
-                         f"not take these operands (planned {plan!r})")
+        raise ValueError(f"flash_attention {what}: route {route!r} does "
+                         f"not take these operands (planned {planned!r})")
     if route == "sm90" and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("flash_attention backward: the sm90 kernels take "
+        raise ValueError(f"flash_attention {what}: the sm90 kernels take "
                          "16-byte aligned tensors")
     return route
+
+
+def _bwd_route(q, k, route: str | None, *tensors) -> str:
+    """The backward's route (:func:`_held_route` over
+    :func:`plan_flash_bwd`)."""
+    return _held_route(plan_flash_bwd, "backward", q, k, route, tensors)
 
 
 def launch_dq(q, k, v, o, lse, do, causal, sm_scale,
@@ -500,9 +535,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bool(causal), float(sm_scale), block_q, block_k)
 
 
-__all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "SM90_HEAD_DIMS", "dkv_reference",
-           "dq_reference", "flash_attention",
+__all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "KERNEL_DTYPES", "SM90_HEAD_DIMS",
+           "dkv_reference", "dq_reference", "flash_attention",
            "flash_attention_backward_reference", "flash_attention_reference",
            "launch_dkv", "launch_dq", "launch_fwd", "launches_dkv",
            "launches_dkv_by_route", "launches_dq", "launches_dq_by_route",
-           "launches_fwd", "plan_flash_bwd", "tileable", "wgmma_probe"]
+           "launches_fwd", "launches_fwd_by_route", "plan_flash_bwd",
+           "plan_flash_fwd", "tileable", "wgmma_probe"]
