@@ -6,18 +6,22 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's seven CUDA sources (nvcc, sm_90a), one
+2. build   — compile the port's eight CUDA sources (nvcc, sm_90a), one
    nvcc per source, all started together, and time it; print the
-   registers and spills ``-Xptxas -v`` reports for the B1 and B2/B3
+   registers and spills ``-Xptxas -v`` reports for the B4, B1 and B2/B3
    ``"sm90"`` kernels.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
    decode, S=5 linear verify, a tree-verify mask, and a prefix page shared
-   by two lanes; then time it (profiler device time, and CUDA events per
-   call) beside its plain version, its bound and
-   ``scaled_dot_product_attention`` over the same context, each timed
-   call reading another of 12 layer pools as the decode step does.
+   by two lanes; each case on the route ``plan_paged`` plans (every bf16-q
+   case on ``"sm90"``), those also forced to ``"simt"``, and two
+   ``"sm90"`` calls bit for bit; then time both routes (profiler device
+   time, and CUDA events per call) beside the plain version, the bound and
+   ``scaled_dot_product_attention`` over the same context, each timed call
+   reading another of 12 layer pools as the decode step does, at bf16 MHA
+   decode and at the prefix cache's layout (8 lanes, every slot behind one
+   4-page shared prefix).
 4. flash   — hold the flash kernels B1 (forward: o, lse), B2 (dq) and B3
    (dk, dv) against their plain versions: GPT-2-small training geometry
    (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
@@ -35,7 +39,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (tied embeddings x4), ``ServingConfig(page_size=64, n_pages=129,
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
    tokens, 32 new tokens each); every request must equal the port's
-   dense ``generate``, and the kernel must have launched on this path.
+   dense ``generate``, and the kernel must have launched on this path,
+   every launch on ``"simt"`` (``"sm90"`` at bf16).
 6. serve_bf16 — the same at bf16; prints decode tok/s, p50 TTFT and peak
    device memory beside the card's name and power limit, then replays the
    trace under the profiler for the device busy share and the top kernels.
@@ -102,12 +107,16 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "train", "conv", "resnet_train")
-SOURCES = ("paged_attention", "flash_attention", "flash_fwd_sm90",
-           "flash_bwd_sm90", "group_norm", "fused_block", "conv3x3_gn_sm90")
+SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
+           "flash_fwd_sm90", "flash_bwd_sm90", "group_norm", "fused_block",
+           "conv3x3_gn_sm90")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
 DEV = "cuda"
+# what a number timed by device_ms is; ``sum_ms`` beside it is the sum of
+# the kernels' own times, the measure of the smoke's earlier revisions
+DEVICE_TIME = "profiler device time, union of kernel intervals"
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 # GPT-2-small serving geometry of phases 3-5
@@ -131,7 +140,7 @@ def smi_line() -> str:
 def ptxas_kernels(text: str, pattern: str) -> dict:
     """Registers and spill bytes per kernel from ``nvcc -Xptxas -v``
     output, for the mangled entry names that ``pattern`` (a regex with the
-    kernel's name and its first template argument as groups) matches."""
+    kernel's name and then its template arguments as groups) matches."""
     import re
 
     out, name = {}, None
@@ -140,7 +149,8 @@ def ptxas_kernels(text: str, pattern: str) -> dict:
                       r"'?(\S+?)'?(?: for|$)", line)
         if m:
             k = re.search(pattern, m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else None
+            got = [g for g in k.groups() if g is not None] if k else []
+            name = f"{got[0]}<{','.join(got[1:])}>" if got else None
             continue
         if name is None:
             continue
@@ -153,6 +163,15 @@ def ptxas_kernels(text: str, pattern: str) -> dict:
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
+
+
+def kernel_name(signature: str) -> str:
+    """``paged_merge_sm90`` from the profiler's ``void (anonymous
+    namespace)::paged_merge_sm90<64>(...)``."""
+    import re
+
+    m = re.search(r"(\w+)[<(]", signature)
+    return m.group(1) if m else signature
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -190,15 +209,19 @@ def stream_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters: int = 50) -> float:
-    """Milliseconds of device (kernel) time per call, from the profiler:
-    the sum of every kernel's own device time over ``iters`` calls. The
-    host-side launch cost, which :func:`cuda_ms` includes, is left out.
-    Every call launches at least one kernel, so a window that recorded
-    fewer kernel launches than calls lost events (seen once on the card:
-    a 100 µs kernel read as 3.6 µs, and later whole windows of one-kernel
-    calls); it is profiled again, and 0.0 is returned when the second
-    window loses events too or the profiler records no device time."""
+def device_ms(fn, iters: int = 50, by_kernel: dict | None = None) -> float:
+    """Milliseconds of device time per call, from the profiler: the union
+    of the device intervals (kernels and copies) over ``iters`` calls, so
+    a kernel launched early under its predecessor by programmatic
+    dependent launch (B4's merge) counts once. ``by_kernel``, when given,
+    gets each kernel's own device milliseconds per call; their sum is the
+    measure of the smoke's earlier revisions, and equals the union where
+    no two kernels overlap. The host-side launch cost, which
+    :func:`cuda_ms` includes, is left out. Every call launches at least
+    one kernel, so a window that recorded fewer device intervals than
+    calls lost events (seen once on the card: a 100 µs kernel read as 3.6
+    µs, and later whole windows of one-kernel calls); it is profiled
+    again, and 0.0 is returned when the second window loses events too."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -209,18 +232,45 @@ def device_ms(fn, iters: int = 50) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        timed = [e for e in prof.key_averages()
-                 if getattr(e, "self_device_time_total", 0.0) > 0]
-        if sum(e.count for e in timed) >= iters:
-            return sum(e.self_device_time_total for e in timed) / iters / 1e3
+        spans = device_spans(prof)
+        if len(spans) < iters:
+            continue
+        if by_kernel is not None:
+            for start, stop, name in spans:
+                by_kernel[name] = by_kernel.get(name, 0.0) \
+                    + (stop - start) / iters / 1e3
+        return union_us(spans) / iters / 1e3
     return 0.0
 
 
+def device_spans(prof) -> list:
+    """``(start µs, end µs, name)`` of every device activity the profiler
+    recorded, in start order."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.time_range.end > e.time_range.start)
+
+
+def union_us(spans) -> float:
+    """Microseconds covered by at least one of the sorted ``spans``."""
+    busy, end = 0.0, -math.inf
+    for start, stop, _ in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
+
+
 # ---------------------------------------------------------------- kernel
-def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None):
+def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None,
+              prefix_pages: int = 0):
     """A pool, a compacted work list and queries at serving geometry.
     ``shared``: slots 0 and 1 share their first two (full) pages, listed
-    once in the work list with both slots on its lanes."""
+    once in the work list with both slots on its lanes. ``prefix_pages``:
+    every slot shares its first that many pages (the prefix cache's
+    layout, one lane per slot)."""
     from torchbooster_tpu_torch.models.gpt import _quantize_kv
 
     dev = DEV
@@ -228,7 +278,7 @@ def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None):
                       else rs.randint(64, 600, SLOTS), np.int64)
     if shared:
         lens[:2] = np.maximum(lens[:2], 2 * PS + 1)
-    n_lanes = SLOTS if shared else 1
+    n_lanes = SLOTS if shared or prefix_pages else 1
     free = list(rs.permutation(np.arange(1, N_PAGES)))
     table = {}
     for s in range(SLOTS):
@@ -236,6 +286,8 @@ def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None):
         table[s] = [int(free.pop()) for _ in range(need)]
     if shared:
         table[1][:2] = table[0][:2]
+    for s in range(1, SLOTS if prefix_pages else 1):
+        table[s][:prefix_pages] = table[0][:prefix_pages]
     holders: dict[int, list[tuple[int, int]]] = {}
     for s in range(SLOTS):
         for idx, p in enumerate(table[s]):
@@ -286,6 +338,110 @@ def kernel_inputs(case):
             dict(page_size=PS, tree_vis=case["tree_vis"]))
 
 
+def kv_dtype_of(pool: str) -> torch.dtype:
+    return {"bf16": torch.bfloat16, "fp32": torch.float32,
+            "int8": torch.int8}[pool]
+
+
+def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
+    """B4 at bf16 MHA decode over the serving geometry, every number from
+    this one call: the planned ``"sm90"`` route, ``"simt"`` forced on the
+    same inputs, the plain version (``plain``), SDPA over the same context
+    gathered dense (a yardstick the port never calls) and the bound. Each
+    timed call reads another of N_LAYERS layer pools (over 300 MB, past
+    the 50 MB L2), as the decode step does."""
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    case = make_case(rs, kv_heads=12, pool="bf16", q_dtype=torch.bfloat16,
+                     s_q=1, tree=False, shared=False, lens=lens,
+                     prefix_pages=prefix_pages)
+    args, kw = kernel_inputs(case)
+    q, pk, pv, rest = args[0], args[1], args[2], args[3:]
+    route = pa.plan_paged(q.dtype, pk.dtype, DH, PS, 1, 1)
+    if route != "sm90":
+        raise AssertionError(f"bf16 MHA decode planned {route!r}, not sm90")
+    layers = [(pk.clone(), pv.clone()) for _ in range(N_LAYERS)]
+    turn = itertools.count()
+
+    def runner(fn, **extra):
+        def run():
+            lk, lv = layers[next(turn) % N_LAYERS]
+            return fn(q, lk, lv, *rest, **kw, **extra)
+        return run
+
+    # SDPA over the same context gathered dense per slot (a shared page is
+    # copied into every slot that holds it), padded to the longest slot and
+    # masked; the gather is outside the timing
+    wp = case["work_pages"].long()
+    wr = case["work_refs"].cpu().numpy()
+    wpos = case["work_pos"].cpu().numpy()
+    max_len = int(lens.max()) + 1
+    dense = []
+    for lk, lv in layers:
+        kd = torch.zeros(SLOTS, H, max_len, DH, device="cuda",
+                         dtype=torch.bfloat16)
+        vd = torch.zeros_like(kd)
+        for i in range(case["n_live"]):
+            base = int(wpos[i]) * PS
+            n = min(PS, max_len - base)
+            for s in (int(x) for x in wr[i] if x >= 0):
+                if n > 0:
+                    kd[s, :, base:base + n] = lk[wp[i], :n].transpose(0, 1)
+                    vd[s, :, base:base + n] = lv[wp[i], :n].transpose(0, 1)
+        dense.append((kd, vd))
+    mask = (torch.arange(max_len, device="cuda")[None, :]
+            <= torch.as_tensor(lens, device="cuda")[:, None])
+    qd = q.transpose(1, 2)                               # (slots, H, 1, Dh)
+    attn_mask = mask[:, None, None, :]
+
+    def run_library():
+        kd, vd = dense[next(turn) % N_LAYERS]
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=attn_mask)
+
+    runs = {"sm90": runner(pa.paged_attention),
+            "simt": runner(pa.paged_attention, route="simt"),
+            "library": run_library}
+    if plain:
+        runs["plain"] = runner(pa.paged_attention_reference)
+    # device time (profiler) is the kernels' own time (both passes); call
+    # time (CUDA events around each call) adds the host launch path
+    iters = {"plain": 50}
+    call = {k: cuda_ms(f, iters=iters.get(k, 200)) for k, f in runs.items()}
+    per_kernel = {k: {} for k in runs}
+    dev = {k: device_ms(f, iters=iters.get(k, 200), by_kernel=per_kernel[k])
+           for k, f in runs.items()}
+    src = dev if all(dev.values()) else call
+    # the bound counts what these inputs need: each live page's tokens that
+    # some holder sees, read once (a shared page once for all its lanes),
+    # q read and the output written once, plus the work list and lengths
+    page_tokens = 0
+    for i in range(case["n_live"]):
+        base = int(wpos[i]) * PS
+        page_tokens += max(min(PS, max(0, int(lens[s]) + 1 - base))
+                           for s in wr[i] if s >= 0)
+    kv_bytes = 2 * page_tokens * H * DH * 2                # K and V, bf16
+    io_bytes = (2 * SLOTS * H * DH * 2 + wp.numel() * 4 * 2 + wr.size * 4
+                + SLOTS * 4)
+    flops = 4 * H * DH * int((lens + 1).sum())
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    sums = {k: sum(per_kernel[k].values()) if src is dev else None
+            for k in ("sm90", "simt")}
+    return {"ms": src["sm90"], "previous_ms": src["simt"],
+            "sum_ms": sums["sm90"], "previous_sum_ms": sums["simt"],
+            "plain_ms": src.get("plain"), "library_ms": src["library"],
+            "timed_route": route,
+            "timed_by": DEVICE_TIME if src is dev
+            else "CUDA events per call", "call_ms": call, "device_ms": dev,
+            "kernel_ms": {k: per_kernel[k] for k in ("sm90", "simt")},
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "live_pages": case["n_live"], "lanes": int(wr.shape[1]),
+            "page_tokens": page_tokens, "bytes": kv_bytes + io_bytes,
+            "flops": flops}
+
+
 def phase_kernel(report: dict) -> dict:
     from torchbooster_tpu_torch.ops import paged_attention as pa
 
@@ -300,114 +456,86 @@ def phase_kernel(report: dict) -> dict:
         ("mha_int8_tree5", dict(kv_heads=12, pool="int8", q_dtype=torch.bfloat16, s_q=5, tree=True, shared=False)),
         ("gqa_bf16_shared_prefix", dict(kv_heads=4, pool="bf16", q_dtype=torch.bfloat16, s_q=1, tree=False, shared=True)),
         ("mha_fp32_shared_tree5", dict(kv_heads=12, pool="fp32", q_dtype=torch.float32, s_q=5, tree=True, shared=True)),
+        # 8 lanes x rep 3 x S 5 = 120 query rows on each shared-prefix item:
+        # more than a ring slot's 64, so "sm90" stages them in two rounds
+        ("gqa_bf16_verify5_prefix", dict(kv_heads=4, pool="bf16", q_dtype=torch.bfloat16, s_q=5, tree=False, shared=False, prefix_pages=2)),
+        ("gqa_int8_tree5_prefix", dict(kv_heads=4, pool="int8", q_dtype=torch.bfloat16, s_q=5, tree=True, shared=False, prefix_pages=2)),
     ]
     worst = 0.0
     per_case = {}
+    repeat = {}
     for name, spec in cases:
         case = make_case(rs, **spec)
         args, kw = kernel_inputs(case)
-        got = pa.paged_attention(*args, **kw)
-        torch.cuda.synchronize()
+        route = pa.plan_paged(spec["q_dtype"], kv_dtype_of(spec["pool"]), DH,
+                              PS, spec["s_q"], H // spec["kv_heads"])
+        if (route == "sm90") != (spec["q_dtype"] == torch.bfloat16):
+            raise AssertionError(f"kernel case {name}: planned {route!r}")
         want = pa.paged_attention_reference(*args, **kw)
-        err = (got.float() - want.float()).abs().max().item()
         if spec["q_dtype"] == torch.bfloat16:
             atol = rtol = 2e-2
         else:
             atol, rtol = 1e-4, 1e-4
-        ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
-        per_case[name] = {"max_abs_err": err, "atol": atol, "rtol": rtol,
-                          "live_pages": case["n_live"]}
-        log(f"kernel {name}: max_abs_err={err:.3e} (atol {atol}, rtol "
-            f"{rtol}) live_pages={case['n_live']}")
-        if not ok or not math.isfinite(err):
-            raise AssertionError(f"kernel case {name} disagrees with "
-                                 f"paged_attention_reference: {err}")
-        worst = max(worst, err)
+        # the planned route, then "simt" forced on the same inputs
+        errs, outs = {}, {}
+        for r in dict.fromkeys((route, "simt")):
+            before = pa.launches_by_route[r]
+            got = pa.paged_attention(*args, **kw,
+                                     route=None if r == route else r)
+            torch.cuda.synchronize()
+            if pa.launches_by_route[r] != before + 1:
+                raise AssertionError(f"kernel case {name}: the {r!r} route "
+                                     f"did not launch")
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), atol=atol,
+                                rtol=rtol)
+            if not ok or not math.isfinite(err):
+                raise AssertionError(f"kernel case {name} ({r}) disagrees "
+                                     f"with paged_attention_reference: "
+                                     f"{err}")
+            errs[r], outs[r] = err, got
+        if route == "sm90":
+            again = pa.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(outs["sm90"], again):
+                raise AssertionError(f"kernel case {name}: two sm90 calls on "
+                                     f"the same inputs differ")
+            repeat[name] = True
+        per_case[name] = {"route": route, "max_abs_err": errs, "atol": atol,
+                          "rtol": rtol, "live_pages": case["n_live"]}
+        log(f"kernel {name}: route {route}, max_abs_err " + ", ".join(
+            f"{r} {e:.3e}" for r, e in errs.items())
+            + f" (atol {atol}, rtol {rtol}) live_pages={case['n_live']}")
+        worst = max(worst, errs[route])
     report["kernel_cases"] = per_case
+    log("paged repeat, bit for bit: " + ", ".join(
+        f"{n} (sm90) ok" for n in repeat))
 
     # timing at the main path's shapes: bf16 MHA decode, one lane, the
-    # serving prompts mid-decode. A decode step reads a different
-    # layer's pool on each launch, so every timed call rotates over
-    # N_LAYERS copies (over 300 MB, past the 50 MB L2) as the step does.
-    lens = np.asarray(PROMPT_LENS) + N_NEW // 2
-    case = make_case(rs, kv_heads=12, pool="bf16", q_dtype=torch.bfloat16,
-                     s_q=1, tree=False, shared=False, lens=lens)
-    args, kw = kernel_inputs(case)
-    q, pk, pv, rest = args[0], args[1], args[2], args[3:]
-    layers = [(pk.clone(), pv.clone()) for _ in range(N_LAYERS)]
-    turn = itertools.count()
-
-    def run_kernel():
-        lk, lv = layers[next(turn) % N_LAYERS]
-        return pa.paged_attention(q, lk, lv, *rest, **kw)
-
-    def run_plain():
-        lk, lv = layers[next(turn) % N_LAYERS]
-        return pa.paged_attention_reference(q, lk, lv, *rest, **kw)
-
-    # yardstick only: SDPA over the same context gathered dense (padded
-    # to the longest slot, masked); the gather is outside the timing
-    wp = case["work_pages"].long()
-    max_len = int(lens.max()) + 1
-    wr = case["work_refs"].cpu().numpy()
-    wpos = case["work_pos"].cpu().numpy()
-    dense = []
-    for lk, lv in layers:
-        kd = torch.zeros(SLOTS, H, max_len, DH, device="cuda",
-                         dtype=torch.bfloat16)
-        vd = torch.zeros_like(kd)
-        for i in range(case["n_live"]):
-            s, base = int(wr[i, 0]), int(wpos[i]) * PS
-            n = min(PS, max_len - base)
-            if n > 0:
-                kd[s, :, base:base + n] = lk[wp[i], :n].transpose(0, 1)
-                vd[s, :, base:base + n] = lv[wp[i], :n].transpose(0, 1)
-        dense.append((kd, vd))
-    mask = (torch.arange(max_len, device="cuda")[None, :]
-            <= torch.as_tensor(lens, device="cuda")[:, None])
-    qd = q.transpose(1, 2)                               # (slots, H, 1, Dh)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    attn_mask = mask[:, None, None, :]
-
-    def run_library():
-        kd, vd = dense[next(turn) % N_LAYERS]
-        return sdpa(qd, kd, vd, attn_mask=attn_mask)
-
-    # device time (profiler) is the kernel's own time; call time (CUDA
-    # events around each call) adds the host launch path
-    call = {"kernel": cuda_ms(run_kernel, iters=200),
-            "plain": cuda_ms(run_plain, iters=50),
-            "library": cuda_ms(run_library, iters=200)}
-    dev = {"kernel": device_ms(run_kernel, iters=200),
-           "plain": device_ms(run_plain, iters=50),
-           "library": device_ms(run_library, iters=200)}
-    src = dev if all(dev.values()) else call
-    ms, plain_ms, library_ms = src["kernel"], src["plain"], src["library"]
-    # the bound counts what these inputs need: each slot's visible K/V
-    # tokens (lengths + 1) read once, q read and the output written once,
-    # plus the work list and lengths
-    visible = int((lens + 1).sum())
-    kv_bytes = 2 * visible * H * DH * 2                   # K and V, bf16
-    io_bytes = 2 * SLOTS * H * DH * 2 + wp.numel() * 4 * 3 + SLOTS * 4
-    flops = 4 * H * DH * visible
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "timed_by": "profiler device time" if src is dev
-              else "CUDA events per call", "call_ms": call,
-              "device_ms": dev,
-              "bound_ms": max(t_bytes, t_ops),
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-              "live_pages": case["n_live"], "visible_tokens": visible,
-              "bytes": kv_bytes + io_bytes, "flops": flops}
-    log(f"kernel timing (bf16 MHA decode, {case['n_live']} live pages, "
-        f"{timing['timed_by']}): {ms * 1e3:.2f} us; plain "
-        f"{plain_ms * 1e3:.2f} us; sdpa over dense gather "
-        f"{library_ms * 1e3:.2f} us; bound {timing['bound_ms'] * 1e3:.2f} "
-        f"us ({timing['bound_by']}); per-call (events) kernel "
-        f"{call['kernel'] * 1e3:.1f} us, plain {call['plain'] * 1e3:.1f} "
-        f"us, sdpa {call['library'] * 1e3:.1f} us")
+    # serving prompts mid-decode; then the prefix-cache layout: 8 lanes,
+    # all 8 slots behind one 256-token (4-page) shared prompt prefix
+    timing = time_paged(rs, np.asarray(PROMPT_LENS) + N_NEW // 2)
+    prefix = time_paged(rs, np.asarray(PROMPT_LENS) + N_NEW // 2 + 4 * PS,
+                        prefix_pages=4, plain=False)
+    for label, t in (("bf16 MHA decode", timing),
+                     ("bf16 MHA decode, 8 lanes, 4-page shared prefix",
+                      prefix)):
+        plain = (f"; plain {t['plain_ms'] * 1e3:.2f} us"
+                 if t["plain_ms"] is not None else "")
+        log(f"kernel timing ({label}, {t['live_pages']} live pages, "
+            f"{t['timed_by']}): sm90 {t['ms'] * 1e3:.2f} us; simt "
+            f"{t['previous_ms'] * 1e3:.2f} us{plain}; sdpa over dense "
+            f"gather {t['library_ms'] * 1e3:.2f} us; bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); per-call "
+            f"(events) " + ", ".join(f"{k} {v * 1e3:.1f} us"
+                                     for k, v in t["call_ms"].items())
+            + "; each kernel's own device time " + "; ".join(
+                f"{r}: " + ", ".join(f"{kernel_name(n)} {v * 1e3:.2f} us"
+                                     for n, v in ks.items())
+                + f" (sum {sum(ks.values()) * 1e3:.2f} us)"
+                for r, ks in t["kernel_ms"].items()))
     report["kernel_timing"] = timing
+    report["kernel_timing_prefix"] = prefix
     return {"max_abs_err": worst, **timing}
 
 
@@ -598,7 +726,8 @@ def phase_flash(report: dict) -> dict:
     for key, (kern, plain, lib) in runs.items():
         call = {"kernel": cuda_ms(kern, iters=50),
                 "plain": cuda_ms(plain, iters=10)}
-        dev = {"kernel": device_ms(kern, iters=50),
+        own = {}
+        dev = {"kernel": device_ms(kern, iters=50, by_kernel=own),
                "plain": device_ms(plain, iters=10)}
         if lib is not None:
             call["library"] = cuda_ms(lib, iters=50)
@@ -608,7 +737,7 @@ def phase_flash(report: dict) -> dict:
             dev["previous"] = device_ms(previous[key], iters=50)
         stream = {}
         if all(dev.values()):
-            src, timed_by = dev, "profiler device time"
+            src, timed_by = dev, DEVICE_TIME
         else:
             # the profiler lost events: time the calls back to back
             fns = {"kernel": kern, "plain": plain, "library": lib,
@@ -622,6 +751,7 @@ def phase_flash(report: dict) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         timing[key] = {
             "ms": src["kernel"], "plain_ms": src["plain"],
+            "sum_ms": sum(own.values()) if src is dev else None,
             "library_ms": src.get("library"), "timed_by": timed_by,
             "call_ms": call, "device_ms": dev, "stream_ms": stream,
             "bound_ms": max(t_ops, t_bytes),
@@ -718,9 +848,11 @@ def serve(params, cfg, dtype: torch.dtype):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pa.launches = 0
+    pa.launches_by_route.update(dict.fromkeys(pa.launches_by_route, 0))
     metrics = batcher.run(reqs)
     torch.cuda.synchronize()
     launches = pa.launches
+    by_route = dict(pa.launches_by_route)
     metrics["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     if launches <= 0:
         raise AssertionError("the serving run never launched the kernel")
@@ -731,7 +863,12 @@ def serve(params, cfg, dtype: torch.dtype):
         if len(r.tokens) != N_NEW or not all(
                 0 <= t < cfg.vocab for t in r.tokens):
             raise AssertionError(f"{r.request_id}: bad tokens {r.tokens}")
-    return batcher, reqs, metrics, launches
+    # bf16 decode plans "sm90", fp32 "simt"; every launch on that route
+    want = "sm90" if dtype == torch.bfloat16 else "simt"
+    if by_route[want] != launches:
+        raise AssertionError(f"{dtype} serving: B4 launches by route "
+                             f"{by_route}, not all {want!r}")
+    return batcher, reqs, metrics, launches, by_route
 
 
 def dense_tokens(params, cfg, reqs, dtype):
@@ -748,8 +885,12 @@ def dense_tokens(params, cfg, reqs, dtype):
 
 def device_breakdown(batcher, cfg) -> dict:
     """Replay the same trace under the profiler (CUDA activity only):
-    device busy share of the wall time and the top kernels by device
-    time. The profiled run is not the one the tok/s figures come from."""
+    device busy share of the wall time and the top kernels by their own
+    device time. Busy time and B4's time are unions of device intervals,
+    so B4's merge, which starts under its first pass (programmatic
+    dependent launch), counts once; ``paged_kernel_sum_s`` is B4's kernels'
+    own times summed, the measure of the smoke's earlier revisions. The
+    profiled run is not the one the tok/s figures come from."""
     from torch.profiler import ProfilerActivity, profile
 
     reqs = requests(cfg)
@@ -759,31 +900,37 @@ def device_breakdown(batcher, cfg) -> dict:
         m = batcher.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
-                         for e in prof.key_averages()
-                         if e.self_device_time_total > 0),
-                        key=lambda kv: -kv[1])
-    busy = sum(t for _, t in per_kernel)
-    paged = sum(t for k, t in per_kernel if "paged_" in k)
+    spans = device_spans(prof)
+    own: dict = {}
+    for start, stop, name in spans:
+        own[name] = own.get(name, 0.0) + (stop - start) / 1e6
+    busy = union_us(spans) / 1e6
+    paged_spans = [sp for sp in spans if "paged_" in sp[2]]
+    paged = union_us(paged_spans) / 1e6
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall, "paged_kernel_s": paged,
+            "paged_kernel_sum_s": sum(stop - start
+                                      for start, stop, _ in paged_spans) / 1e6,
             "paged_share_of_device": paged / max(busy, 1e-12),
-            "decode_s": m["elapsed_s"], "top": per_kernel[:8]}
+            "decode_s": m["elapsed_s"],
+            "top": sorted(own.items(), key=lambda kv: -kv[1])[:8]}
 
 
 def phase_serve(params, cfg, dtype, smi: str, report: dict, key: str,
                 breakdown: bool = False):
-    batcher, reqs, m, launches = serve(params, cfg, dtype)
+    batcher, reqs, m, launches, by_route = serve(params, cfg, dtype)
     dense = dense_tokens(params, cfg, reqs, dtype)
     match = [r.tokens == d for r, d in zip(reqs, dense)]
     n_steps = launches // cfg.n_layers
     report[key] = {"metrics": m, "launches": launches,
                    "launches_per_step": cfg.n_layers,
+                   "launches_by_route": by_route,
                    "decode_steps": n_steps, "token_match": match,
                    "card": smi}
     log(f"{key}: {sum(match)}/{len(match)} requests token-exact vs dense "
         f"generate; kernel launches {launches} ({cfg.n_layers} per decode "
-        f"step); decode {m['decode_tok_s']} tok/s, p50 TTFT "
+        f"step), B4 by route {by_route}; decode {m['decode_tok_s']} tok/s, "
+        f"p50 TTFT "
         f"{m['ttft_p50_s']} s, peak mem {m['peak_mem_bytes'] / 2**20:.1f} "
         f"MiB [{smi}]")
     if breakdown:
@@ -791,8 +938,9 @@ def phase_serve(params, cfg, dtype, smi: str, report: dict, key: str,
         log(f"{key} profiled replay: wall {b['wall_s']:.3f} s, device busy "
             f"{b['device_busy_s']:.4f} s ({100 * b['device_busy_share']:.1f}"
             f"%), paged kernel {b['paged_kernel_s']:.5f} s "
-            f"({100 * b['paged_share_of_device']:.1f}% of device time)")
-    return match, launches
+            f"({100 * b['paged_share_of_device']:.1f}% of device time; its "
+            f"kernels' own times summed {b['paged_kernel_sum_s']:.5f} s)")
+    return match, launches, by_route
 
 
 # ----------------------------------------------------------------- train
@@ -1232,12 +1380,13 @@ def time_conv_case(gen, case) -> dict:
         call = {"kernel": cuda_ms(kern, iters=20),
                 "plain": cuda_ms(plain, iters=5, warmup=2),
                 "library": cuda_ms(lib, iters=20)}
-        dev = {"kernel": device_ms(kern, iters=20),
+        own = {}
+        dev = {"kernel": device_ms(kern, iters=20, by_kernel=own),
                "plain": device_ms(plain, iters=5),
                "library": device_ms(lib, iters=20)}
         stream = {}
         if all(dev.values()):
-            src, timed_by = dev, "profiler device time"
+            src, timed_by = dev, DEVICE_TIME
         else:
             # the profiler lost events: time the calls back to back
             stream = {"kernel": stream_ms(kern, iters=20),
@@ -1248,6 +1397,7 @@ def time_conv_case(gen, case) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         out[key] = {"ms": src["kernel"], "plain_ms": src["plain"],
+                    "sum_ms": sum(own.values()) if src is dev else None,
                     "library_ms": src["library"], "timed_by": timed_by,
                     "call_ms": call, "device_ms": dev, "stream_ms": stream,
                     "bound_ms": max(t_bytes, t_ops),
@@ -1353,7 +1503,8 @@ def phase_conv(report: dict) -> dict:
     report["conv_timing"] = timing
     report["conv_per_step"] = per_step
     res = {key: {**{k: timing[CONV_TIMED[key]][key][k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "ms", "sum_ms", "timed_by", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")},
         "max_abs_err": worst[key]} for key in worst}
     res["conv3x3"]["timed_route"] = timing[CONV_TIMED["conv3x3"]][
         "conv3x3"]["route"]
@@ -1597,12 +1748,15 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"(x{torch.cuda.device_count()}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    blank = {"launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
-             "bound_ms": None, "bound_by": None, "library_ms": None}
+    blank = {"launches": 0, "max_abs_err": None, "ms": None, "sum_ms": None,
+             "timed_by": None, "plain_ms": None, "bound_ms": None,
+             "bound_by": None, "library_ms": None}
     kernel = {"name": "paged_attention", "route": "cuda",
-              "source": "torchbooster_tpu_torch/ops/csrc/paged_attention.cu",
+              "source": "torchbooster_tpu_torch/ops/csrc/paged_decode_sm90.cu",
               "replaces": "torchbooster_tpu/ops/paged_attention.py:70",
-              **blank}
+              **blank, "timed_route": None,
+              "launches_by_route": dict.fromkeys(("sm90", "simt"), 0),
+              "previous_ms": None}
     csrc = "torchbooster_tpu_torch/ops/csrc"
     flash = {key: {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
                    "replaces": f"torchbooster_tpu/ops/flash_attention.py:{line}",
@@ -1640,40 +1794,51 @@ def main() -> int:
         report["ptxas"] = {n: _build.ptxas_info.get(n, "") for n in SOURCES}
         log(f"build: {', '.join(f'{n}.cu {sec:.1f} s' for n, sec in _build.build_seconds.items())}"
             f" (in parallel, {report['build_s']:.1f} s)")
-        for src, names in (("flash_fwd_sm90", "flash_fwd_sm90"),
-                           ("flash_bwd_sm90",
-                            "flash_dq_sm90|flash_dkv_sm90")):
+        for src, pattern in (
+                ("paged_decode_sm90",
+                 r"(paged_partials_sm90)ILi(\d+)ELi(\d+)E"
+                 r"|(paged_merge_sm90)ILi(\d+)E"),
+                ("flash_fwd_sm90", r"(flash_fwd_sm90)ILi(\d+)E"),
+                ("flash_bwd_sm90", r"(flash_dq_sm90|flash_dkv_sm90)ILi(\d+)E")):
             regs = report[f"ptxas_{src}"] = ptxas_kernels(
-                report["ptxas"][src], rf"({names})ILi(\d+)E")
+                report["ptxas"][src], pattern)
             log(f"ptxas {src}: " + "; ".join(
                 f"{n} {r.get('registers')} registers, spill stores "
                 f"{r.get('spill_stores')} / loads {r.get('spill_loads')} "
                 f"bytes" for n, r in sorted(regs.items())))
     if "kernel" in phases:
         res = phase_kernel(report)
-        kernel.update({k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+        kernel.update({k: res[k] for k in ("max_abs_err", "ms", "sum_ms",
+                                           "timed_by", "plain_ms",
                                            "bound_ms", "bound_by",
-                                           "library_ms")})
+                                           "library_ms", "timed_route",
+                                           "previous_ms")})
     if "flash" in phases:
         res = phase_flash(report)
         for key in flash:
             flash[key].update({k: res[key][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "timed_route", "previous_ms")})
+                "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "timed_route",
+                "previous_ms")})
     if "serve_fp32" in phases or "serve_bf16" in phases:
         params, cfg = gpt2_small()
         if "serve_fp32" in phases:
-            match, launches = phase_serve(params, cfg, torch.float32, smi,
-                                          report, "serve_fp32")
-            kernel["launches"] = launches
+            match, launches, by_route = phase_serve(
+                params, cfg, torch.float32, smi, report, "serve_fp32")
+            kernel["launches"] += launches
+            for r, n in by_route.items():
+                kernel["launches_by_route"][r] += n
             if not all(match):
                 raise AssertionError(f"fp32 paged serving disagrees with "
                                      f"dense generate on "
                                      f"{match.count(False)} requests")
         if "serve_bf16" in phases:
-            _, launches = phase_serve(params, cfg, torch.bfloat16, smi,
-                                      report, "serve_bf16", breakdown=True)
-            kernel["launches"] = kernel["launches"] or launches
+            _, launches, by_route = phase_serve(
+                params, cfg, torch.bfloat16, smi, report, "serve_bf16",
+                breakdown=True)
+            kernel["launches"] += launches
+            for r, n in by_route.items():
+                kernel["launches_by_route"][r] += n
         # freed so that the train phase's peak memory is its own
         del params
         torch.cuda.empty_cache()
@@ -1687,8 +1852,8 @@ def main() -> int:
         res = phase_conv(report)
         for key in conv_kernels:
             conv_kernels[key].update({k: res[key][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
+                "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")})
         conv_kernels["conv3x3"]["timed_route"] = res["conv3x3"]["timed_route"]
     if "resnet_train" in phases:
         launches = phase_resnet_train(report, smi)

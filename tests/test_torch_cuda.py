@@ -124,6 +124,147 @@ def test_paged_kernel_masked_lane_and_bad_operands_on_card():
     assert pa.launches == before
 
 
+# B4's "sm90" route at GPT-2-small serving geometry (12 heads of 64,
+# 64-token pages, 8 slots): name -> (kv heads, pool, S, tree mask, pages of
+# a prefix every slot shares). Every case plans "sm90". The two GQA verify
+# cases behind a shared prefix give an item 8 lanes x rep 3 x S 5 = 120
+# query rows, more than the 64 a ring slot holds, so the kernel stages
+# them in two rounds.
+SM90_PAGED = {
+    "gpt2_small_bf16_decode": (12, "bf16", 1, False, 0),
+    "gpt2_small_gqa4_verify5": (4, "bf16", 5, False, 0),
+    "gpt2_small_int8_tree5": (12, "int8", 5, True, 0),
+    "gpt2_small_8lane_shared_prefix": (12, "bf16", 1, False, 4),
+    "gpt2_small_gqa4_verify5_8lane_prefix": (4, "bf16", 5, False, 2),
+    "gpt2_small_gqa4_int8_tree5_8lane_prefix": (4, "int8", 5, True, 2),
+}
+
+
+def gpt2_paged_case(rs, *, kv_heads, pool, s_q, tree, prefix_pages,
+                    n_slots=8, ps=64, n_pages=80, n_heads=12, head_dim=64):
+    """bf16 queries over a pool at GPT-2-small width, the compacted walk
+    of ``BlockTables.kernel_args`` (live pages first, one lane per holder
+    when pages are shared) and, with ``tree``, a random candidate tree
+    per slot. Returns the kernel's operands on the card."""
+    lens = rs.randint(prefix_pages * ps + 1, 500, n_slots)
+    free = list(rs.permutation(np.arange(1, n_pages)))
+    tables = [[int(free.pop()) for _ in range(-(-int(n + s_q) // ps))]
+              for n in lens]
+    for t in tables[1:]:
+        t[:prefix_pages] = tables[0][:prefix_pages]
+    holders = {}
+    for s, pages in enumerate(tables):
+        for idx, p in enumerate(pages):
+            holders.setdefault(p, []).append((s, idx))
+    n_lanes = n_slots if prefix_pages else 1
+    wp = np.zeros(n_pages - 1, np.int32)
+    wr = np.full((n_pages - 1, n_lanes), -1, np.int32)
+    wpos = np.zeros(n_pages - 1, np.int32)
+    for i, p in enumerate(sorted(holders)):
+        wp[i], wpos[i] = p, holders[p][0][1]
+        for lane, (s, _) in enumerate(holders[p]):
+            wr[i, lane] = s
+    shape = (n_pages, ps, kv_heads, head_dim)
+    k = torch.as_tensor(rs.randn(*shape).astype(np.float32))
+    v = torch.as_tensor(rs.randn(*shape).astype(np.float32))
+    if pool == "int8":
+        pk = tuple(a.cuda() for a in _quantize_kv(k))
+        pv = tuple(a.cuda() for a in _quantize_kv(v))
+    else:
+        pk, pv = k.cuda().bfloat16(), v.cuda().bfloat16()
+    q = torch.as_tensor(rs.randn(n_slots, s_q, n_heads, head_dim).astype(
+        np.float32)).cuda().bfloat16()
+    tv = None
+    if tree:
+        tv = np.zeros((n_slots, s_q, s_q), np.int32)
+        for s in range(n_slots):
+            parent = [0] + [int(rs.randint(0, j)) for j in range(1, s_q)]
+            for j in range(s_q):
+                node = j
+                while True:
+                    tv[s, j, node] = 1
+                    if node == 0:
+                        break
+                    node = parent[node]
+        tv = torch.as_tensor(tv).cuda()
+    args = (q, pk, pv, *(torch.as_tensor(a).cuda() for a in
+                         (wp, wr, wpos, lens.astype(np.int32))))
+    return args, dict(page_size=ps, tree_vis=tv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SM90_PAGED))
+def test_paged_sm90_and_simt_match_plain_version_on_card(name):
+    """The planned "sm90" route and "simt" forced on the same inputs, each
+    held to the plain version. bf16 q: the sm90 kernel rounds P to bf16
+    before P V (a tensor-core operand), so 2e-2 as in the smoke."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    kv_heads, pool, s_q, tree, prefix = SM90_PAGED[name]
+    args, kw = gpt2_paged_case(np.random.RandomState(7), kv_heads=kv_heads,
+                               pool=pool, s_q=s_q, tree=tree,
+                               prefix_pages=prefix)
+    kv = args[1][0] if pool == "int8" else args[1]
+    assert pa.plan_paged(torch.bfloat16, kv.dtype, 64, 64, s_q,
+                         12 // kv_heads) == "sm90"
+    want = pa.paged_attention_reference(*args, **kw).float()
+    for route in ("sm90", "simt"):
+        before = pa.launches_by_route[route]
+        got = pa.paged_attention(*args, **kw, route=route)
+        torch.cuda.synchronize()
+        assert pa.launches_by_route[route] == before + 1
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SM90_PAGED))
+def test_paged_sm90_repeats_bit_for_bit_on_card(name):
+    """Fixed-order sums and no atomics: two calls agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    kv_heads, pool, s_q, tree, prefix = SM90_PAGED[name]
+    args, kw = gpt2_paged_case(np.random.RandomState(11), kv_heads=kv_heads,
+                               pool=pool, s_q=s_q, tree=tree,
+                               prefix_pages=prefix)
+    a = pa.paged_attention(*args, **kw)
+    b = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paged_sm90_masked_lane_and_refused_operands_on_card():
+    """A shared page wholly past one holder's length adds l = 0 and no NaN
+    to that slot; a forced "sm90" on operands it does not take (fp32 q,
+    page size 4) raises before any launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args, kw = gpt2_paged_case(np.random.RandomState(3), kv_heads=12,
+                               pool="bf16", s_q=1, tree=False,
+                               prefix_pages=4)
+    lens = args[6].clone()
+    lens[1] = 70                 # slot 1 sees 71 tokens of its 4 prefix pages
+    args = (*args[:6], lens)
+    got = pa.paged_attention(*args, **kw, route="sm90")
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    before = (pa.launches, dict(pa.launches_by_route))
+    with pytest.raises(ValueError):   # fp32 queries are "simt"'s
+        pa.paged_attention(args[0].float(), *args[1:], **kw, route="sm90")
+    x = paged_inputs(np.random.RandomState(3), s_q=1, quantized=False,
+                     tree=False)
+    small, _ = _on_card(x)
+    with pytest.raises(ValueError):   # 4-token pages, fp32
+        pa.paged_attention(small[0].bfloat16(), small[1].bfloat16(),
+                           small[2].bfloat16(), *small[3:],
+                           page_size=x["ps"], route="sm90")
+    assert (pa.launches, pa.launches_by_route) == before
+
+
 # B1-B3: (B, H, H_kv, S_q, S_kv, D, dtype, causal) — GPT-2-small training
 # geometry (also with 4 kv heads and the KV-cache alignment S_q < S_kv), the
 # GPT recipe default (d_model 256 / 8 heads = D 32, S 256, batch 32), head

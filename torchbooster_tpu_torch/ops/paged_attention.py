@@ -2,13 +2,19 @@
 of ``torchbooster_tpu/ops/paged_attention.py`` (TPU kernel
 ``_paged_kernel``, :70).
 
-:func:`paged_attention` launches the hand-written CUDA kernel
-(``csrc/paged_attention.cu``, two passes: per-(work entry, kv head)
-partials, then a per-(slot, head) merge) on CUDA tensors, and runs
-:func:`paged_attention_reference` — the same math in plain PyTorch —
-only on CPU tensors. There is no fall-back: a failed build or launch
-raises. ``launches`` counts kernel launches (pairs of passes); the
-plain path never touches it.
+:func:`paged_attention` launches a hand-written CUDA kernel on CUDA
+tensors (two passes: per-(work entry, kv head) partials, then a
+per-(slot, head) merge), and runs :func:`paged_attention_reference` —
+the same math in plain PyTorch — only on CPU tensors. It has two
+routes, planned before launch by :func:`plan_paged`: ``"sm90"``
+(``csrc/paged_decode_sm90.cu``: bf16 queries over a bf16 or int8 pool,
+TMA-copied page tiles, tensor-core products, a parallel merge) and
+``"simt"`` (``csrc/paged_attention.cu``: CUDA cores, every dtype and
+shape the wrapper takes). ``route=`` forces one; a route that cannot
+take the operands raises. There is no fall-back: a failed build or
+launch raises. ``launches`` counts kernel launches (pairs of passes),
+``launches_by_route`` the same by route; the plain path touches
+neither.
 
 Operands are exactly the TPU kernel's: ``q (slots, S, H, Dh)`` with
 ``S ∈ {1, 1 + draft_len}``, one layer's pool ``(n_pages, page_size,
@@ -18,7 +24,9 @@ scales (..., 1))`` pair — the compacted live-page walk ``work_pages
 ``BlockTables.kernel_args()``, ``lengths (slots,)`` and an optional
 ``tree_vis (slots, S, S)``. Returns ``(slots, S, H, Dh)`` in
 ``q.dtype``; rows of slots no work entry references are zeros here and
-garbage in the TPU kernel — callers ignore them.
+garbage in the TPU kernel — callers ignore them. Live entries come
+first in the walk (``kernel_args`` puts them there): the ``"sm90"``
+kernel ends its walk at the first entry whose lanes are all empty.
 """
 from __future__ import annotations
 
@@ -30,9 +38,35 @@ import torch
 from torchbooster_tpu_torch.ops.attention import NEG_INF
 
 launches = 0    # CUDA kernel launches (the main path's proof of route)
+# launches by the route plan_paged chose (or the caller forced)
+launches_by_route = {"sm90": 0, "simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SMEM = 232_448         # bytes of shared memory a CTA may use on sm_90
+# what the "sm90" kernel takes (csrc/paged_decode_sm90.cu checks the same)
+SM90_HEAD_DIMS = (32, 64, 128)
+SM90_MAX_PAGE = 128         # two ring slots of K/V at Dh 128 + 64 q rows fit
+SM90_MAX_ROWS = 64          # query rows per kv head, rep x S
+
+
+def plan_paged(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
+               page_size: int, s_q: int, rep: int) -> str:
+    """The route of a B4 launch on the card, chosen before launch:
+    ``"sm90"`` (``csrc/paged_decode_sm90.cu``) for bf16 queries over a
+    bf16 pool or an int8 pool (bf16 scales), head dim 32, 64 or 128, a
+    page size that is a multiple of 16 from 16 to 128 (the largest
+    whose two-slot ring of K/V tiles fits beside 64 query rows at head
+    dim 128) and at most 64 query rows (``rep * s_q``) per kv head;
+    ``"simt"`` (``csrc/paged_attention.cu``) for everything else — fp32
+    queries (so the fp32 serving path stays exact to 1e-4), fp32 pools,
+    other head dims and page sizes."""
+    if (q_dtype == torch.bfloat16
+            and kv_dtype in (torch.bfloat16, torch.int8)
+            and head_dim in SM90_HEAD_DIMS
+            and page_size % 16 == 0 and 16 <= page_size <= SM90_MAX_PAGE
+            and rep >= 1 and s_q >= 1 and rep * s_q <= SM90_MAX_ROWS):
+        return "sm90"
+    return "simt"
 
 
 def paged_attention_reference(q, pool_k, pool_v, work_pages, work_refs,
@@ -100,22 +134,48 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.tb_paged_attention
+def _bind(lib: ctypes.CDLL, name: str, n_codes: int, n_ints: int):
+    """``name`` with its argument types: ``n_codes`` dtype codes, 14
+    pointers, ``n_ints`` ints, the scale and the stream."""
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i] + [p] * 14 + [i] * 8 + [ctypes.c_float, p]
+        fn.argtypes = ([i] * n_codes + [p] * 14 + [i] * n_ints
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _route_for(route: str | None, planned: str) -> str:
+    """The launch's route: the plan's, or ``route`` when the caller
+    names one; a route that cannot take the operands raises before any
+    launch (the kernel checks pointer alignment itself and returns an
+    error code, which raises below)."""
+    route = planned if route is None else route
+    if route not in launches_by_route:
+        raise ValueError(f"paged_attention: unknown route {route!r} "
+                         f"(routes {sorted(launches_by_route)})")
+    if route == "sm90" and planned != "sm90":
+        raise ValueError("paged_attention: route 'sm90' does not take "
+                         "these operands (planned 'simt')")
+    return route
 
 
 def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
                     work_pos, lengths, *, page_size: int,
                     sm_scale: float | None = None,
-                    tree_vis=None) -> torch.Tensor:
+                    tree_vis=None, route: str | None = None) -> torch.Tensor:
     """Paged flash-decode attention: the CUDA kernel on CUDA tensors,
-    the plain version on CPU tensors (see the module docstring)."""
+    the plain version on CPU tensors (see the module docstring).
+    ``route`` (``"sm90"`` or ``"simt"``) forces a kernel; by default
+    :func:`plan_paged` picks it. On CPU tensors a named route is checked
+    against the plan the same way, and the plain version runs."""
     if q.device.type == "cpu":
+        if route is not None:
+            kv = pool_k[0] if isinstance(pool_k, tuple) else pool_k
+            _route_for(route, plan_paged(
+                q.dtype, kv.dtype, q.shape[3], page_size, q.shape[1],
+                q.shape[2] // kv.shape[2]))
         return paged_attention_reference(
             q, pool_k, pool_v, work_pages, work_refs, work_pos, lengths,
             page_size=page_size, sm_scale=sm_scale, tree_vis=tree_vis)
@@ -140,12 +200,14 @@ def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
         raise TypeError(f"paged_attention: q {q.dtype} / pool {kv.dtype} "
                         "not supported (q fp32|bf16; pool fp32|bf16 or "
                         "int8 with bf16 scales)")
-    if page_size > 1024 or s_q > 32 or head_dim > 256:
-        raise ValueError("paged_attention kernel takes page_size <= 1024, "
-                         "S <= 32 and head_dim <= 256")
+    route = _route_for(route, plan_paged(q.dtype, kv.dtype, head_dim,
+                                         page_size, s_q, n_heads // kv_heads))
+    if route == "simt" and (page_size > 1024 or s_q > 32 or head_dim > 256):
+        raise ValueError("paged_attention simt kernel takes page_size <= "
+                         "1024, S <= 32 and head_dim <= 256")
     smem = 4 * (page_size * (2 * head_dim + 1) + 4 * head_dim
                 + 4 * page_size)
-    if smem > _MAX_SMEM:
+    if route == "simt" and smem > _MAX_SMEM:
         raise ValueError(f"paged_attention: a {page_size}-token page at "
                          f"head_dim {head_dim} needs {smem} B of shared "
                          f"memory, over the card's {_MAX_SMEM}")
@@ -172,18 +234,28 @@ def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
     m_part = torch.empty((n_w, n_lanes, n_heads, s_q), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)
-    fn = _bind(_build.load("paged_attention"))
-    err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[kv.dtype], _ptr(q), _ptr(kv),
-             _ptr(kv_v), _ptr(scales[0]), _ptr(scales[1]), _ptr(wp),
-             _ptr(wr), _ptr(wpos), _ptr(ln), _ptr(tv), _ptr(out),
-             _ptr(o_part), _ptr(m_part), _ptr(l_part), n_slots, s_q,
-             n_heads, kv_heads, head_dim, page_size, n_w, n_lanes,
-             float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    # the sm90 kernel also takes the pool's page count (its tensor maps)
+    if route == "sm90":
+        fn = _bind(_build.load("paged_decode_sm90"),
+                   "tb_paged_attention_sm90", 1, 9)
+        codes, pages = (_DTYPE_CODE[kv.dtype],), (n_pages,)
+    else:
+        fn = _bind(_build.load("paged_attention"), "tb_paged_attention", 2, 8)
+        codes, pages = (_DTYPE_CODE[q.dtype], _DTYPE_CODE[kv.dtype]), ()
+    err = fn(*codes, _ptr(q), _ptr(kv), _ptr(kv_v), _ptr(scales[0]),
+             _ptr(scales[1]), _ptr(wp), _ptr(wr), _ptr(wpos), _ptr(ln),
+             _ptr(tv), _ptr(out), _ptr(o_part), _ptr(m_part), _ptr(l_part),
+             n_slots, s_q, n_heads, kv_heads, head_dim, page_size, *pages,
+             n_w, n_lanes, float(sm_scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged_attention kernel launch failed "
+                           f"({route}): CUDA error {err}")
     launches += 1
+    launches_by_route[route] += 1
     return out
 
 
-__all__ = ["launches", "paged_attention", "paged_attention_reference"]
+__all__ = ["SM90_HEAD_DIMS", "SM90_MAX_PAGE", "SM90_MAX_ROWS", "launches",
+           "launches_by_route", "paged_attention",
+           "paged_attention_reference", "plan_paged"]
