@@ -6,10 +6,11 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's eight CUDA sources (nvcc, sm_90a), one
+2. build   — compile the port's ten CUDA sources (nvcc, sm_90a), one
    nvcc per source, all started together, and time it; print the
    registers and spills ``-Xptxas -v`` reports for the B4, B1 and B2/B3
-   ``"sm90"`` kernels.
+   ``"sm90"`` kernels, the one-pass conv + GroupNorm kernel's B7 and B8
+   instances and B6's one-pass kernel.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
@@ -64,15 +65,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    geometries (56²x64->256 1x1, 56²x64 3x3, a 7²x2048 GroupNorm), a
    non-square 7x9 map, and widths off the 16-byte vectors (12 channels
    in, 40 out), and B8's one-pass routes at small batch (a cluster at B 3,
-   a partial pack at B 5); B8 logs the route each case took, and two bf16
-   calls on the same inputs must agree bit for bit; then time each kernel
-   at every ResNet-18 shape of the training path (profiler device time,
-   or CUDA events around back-to-back calls where the profiler loses
-   events; and CUDA events per call) beside its bound, its plain version,
-   B8's earlier two-pass kernel on the same inputs and a library yardstick
+   a partial pack at B 5); B6, B7 and B8 each on the route its plan
+   (``plan_gn_bwd``, ``plan_conv1x1``, ``plan_conv3x3``) names, asserted
+   by the per-route counters, every B6 ``"one_pass"`` and B7
+   ``"cluster"``/``"pack"`` case also forced onto the older route
+   (``"two_pass"``, ``"mma_sync"``) within the same tolerance, and two
+   bf16 calls on the same inputs agreeing bit for bit (B8, B7 on both
+   one-pass routes, B6 at a cluster of 4 and of 1); then time each kernel
+   at every ResNet-18 shape of the training path (profiler device time;
+   the port's launches also by replays of a CUDA graph of 20 calls, which
+   stands in for a column whose profiler window loses events, the plain
+   version and the library call falling back on their own to CUDA events
+   around back-to-back calls, and the line says which; and CUDA events
+   per call) beside its bound, its plain version, the older
+   route's kernel on the same inputs (B6, B7, B8) and a library yardstick
    (``F.group_norm`` on the channels-last view and its backward; for
-   B7/B8 the sequence cuDNN conv + ``F.group_norm`` + ReLU), with B8's
-   route and TFLOP/s over the product counted once.
+   B7/B8 the sequence cuDNN conv + ``F.group_norm`` + ReLU), with the
+   route, B6's and B7's CTAs per SM, and B8's TFLOP/s over the product
+   counted once.
 9. resnet_train — the ResNet recipe's ``main`` (``recipes/resnet.py``) on a
    config built in code from ``examples/img_cls/resnet/resnet.yml``'s
    values (ResNet-18, CIFAR stem, batch 512, bf16 over fp32 masters,
@@ -80,8 +90,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    augmentation) for 2 epochs of the ``cifar10`` twin (32 steps, and an
    eval pass of 2 batches after each epoch). Every loss finite and the
    last below the first; the launch counts of B5-B8 exact (per train step
-   B5 4, B6 4, B7 3, B8 13; per eval forward B5 4, B7 3, B8 13), B8's by
-   route (7 "cluster" and 6 "pack" per forward); one fp32
+   B5 4, B6 4, B7 3, B8 13; per eval forward B5 4, B7 3, B8 13), and by
+   route: B6 all ``"one_pass"``, B7 1 ``"cluster"`` and 2 ``"pack"`` per
+   forward, B8 7 ``"cluster"`` and 6 ``"pack"``; one fp32
    forward + backward with the kernels against ``fused=False`` and the
    plain GroupNorm (loss and gradient norm, rtol 1e-4). Prints step ms,
    img/s, the model-FLOP share of 989 TFLOP/s, peak memory, the host data
@@ -108,7 +119,8 @@ import torch
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "train", "conv", "resnet_train")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
-           "flash_fwd_sm90", "flash_bwd_sm90", "group_norm", "fused_block",
+           "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
+           "group_norm_bwd_sm90", "fused_block", "conv1x1_gn_sm90",
            "conv3x3_gn_sm90")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
@@ -150,7 +162,8 @@ def ptxas_kernels(text: str, pattern: str) -> dict:
         if m:
             k = re.search(pattern, m.group(1))
             got = [g for g in k.groups() if g is not None] if k else []
-            name = f"{got[0]}<{','.join(got[1:])}>" if got else None
+            name = (got[0] + (f"<{','.join(got[1:])}>" if got[1:] else "")
+                    if got else None)
             continue
         if name is None:
             continue
@@ -209,6 +222,42 @@ def stream_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Milliseconds per call from CUDA events around ``replays`` replays of
+    one CUDA graph that holds ``calls`` calls of ``fn`` (captured after
+    three warm calls on a side stream): the card's own time, without the
+    host's cost per call that :func:`stream_ms` counts when the host is
+    slower than the card, but with the short gaps between the graph's
+    kernels that :func:`device_ms` leaves out. For the port's own launch
+    functions, which stream capture takes as they are."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return a.elapsed_time(b) / (calls * replays)
+
+
+GRAPH_TIME = "CUDA graph of 20 calls, replayed between CUDA events"
+
+
 def device_ms(fn, iters: int = 50, by_kernel: dict | None = None) -> float:
     """Milliseconds of device time per call, from the profiler: the union
     of the device intervals (kernels and copies) over ``iters`` calls, so
@@ -220,14 +269,15 @@ def device_ms(fn, iters: int = 50, by_kernel: dict | None = None) -> float:
     :func:`cuda_ms` includes, is left out. Every call launches at least
     one kernel, so a window that recorded fewer device intervals than
     calls lost events (seen once on the card: a 100 µs kernel read as 3.6
-    µs, and later whole windows of one-kernel calls); it is profiled
-    again, and 0.0 is returned when the second window loses events too."""
+    µs, and later whole windows of one-kernel calls, two in a row in a
+    full run); it is profiled again, and 0.0 is returned when four windows
+    in a row lose events."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -1199,9 +1249,14 @@ CONV_EXTRA = [
     ("cluster_b3_32sq_3x3", "3x3", 3, 32, 32, 64, 64, 1),
     ("pack_rem_b5_4sq_3x3", "3x3", 5, 4, 4, 512, 512, 1),
 ]
-# B8 cases whose bf16 calls must repeat bit for bit
+# cases whose bf16 calls must repeat bit for bit: B8 on each route, B7 on
+# both one-pass routes ("cluster" at 16², "pack" of 8 at 4²), B6 at
+# clusters of 4, 2 and 1 CTAs
 CONV_REPEAT = ("stage0_3x3", "stage3_3x3", "pack_rem_b5_4sq_3x3",
-               "odd_cin12_cout40_3x3")
+               "odd_cin12_cout40_3x3", "stage1_proj", "stage3_proj",
+               "stem_gn", "stage1_gn", "nonsquare_7x9_gn")
+
+
 def groups_for(c: int) -> int:
     """The recipe's 32 groups, clipped to a divisor of ``c`` as
     ``layers.group_norm`` and the fused kernels' wrappers clip them."""
@@ -1232,20 +1287,46 @@ def conv_inputs(gen, kind, b, h, w, cin, cout, dtype):
                 scale=1.0 + 0.1 * randn(cout), bias=0.1 * randn(cout))
 
 
-def b8_route(case, dtype) -> str:
-    """The route B8 takes for ``case`` at ``dtype``."""
+def planned_route(case, dtype) -> str:
+    """The route ``case``'s kernel takes at ``dtype``: B8's and B7's from
+    their plans (``"f32"`` at fp32), B6's from ``plan_gn_bwd``."""
     from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
 
-    _, _, b, h, w, cin, cout, _ = case
+    _, kind, b, h, w, cin, cout, stride = case
+    if kind == "gn":
+        return gnk.plan_gn_bwd(b, h * w, cin, groups_for(cin), dtype).route
     if dtype != torch.bfloat16:
         return "f32"
+    if kind == "1x1":
+        return fb.plan_conv1x1(b, h, w, cin, cout, groups_for(cout),
+                               stride).route
     return fb.plan_conv3x3(b, h, w, cin, cout, groups_for(cout)).route
+
+
+# the older route each one-pass route is also forced onto and timed beside
+OLDER_ROUTE = {"one_pass": "two_pass", "cluster": "mma_sync",
+               "pack": "mma_sync"}
+
+
+def counted(counter: dict, route: str, call):
+    """``call()``, asserting that it moved ``counter`` (a per-route launch
+    count) by one on ``route`` and nowhere else."""
+    before = dict(counter)
+    res = call()
+    torch.cuda.synchronize()
+    if counter != {**before, route: before[route] + 1}:
+        raise AssertionError(f"expected one launch on the {route!r} route: "
+                             f"{counter} after {before}")
+    return res
 
 
 def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
     """One geometry through its kernel(s) and plain version(s): max abs
     error and the share of the allowance atol + rtol|ref| used, per
-    output. B8's per-route counter must move on the planned route."""
+    output. B6's, B7's and B8's per-route counters must move on the
+    planned route; a one-pass route's case runs forced onto the older
+    route too (outputs keyed ``<name>@<route>``)."""
     from torchbooster_tpu_torch.ops import fused_block as fb
     from torchbooster_tpu_torch.ops import group_norm as gnk
 
@@ -1253,31 +1334,37 @@ def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
     a = conv_inputs(gen, kind, b, h, w, cin, cout, dtype)
     x, s, bi = a["x"], a["scale"], a["bias"]
     g = groups_for(cout)
+    route = planned_route(case, dtype)
+    routes = [route] + ([OLDER_ROUTE[route]]
+                        if route in OLDER_ROUTE and kind != "3x3" else [])
     if kind == "gn":
         y, st = gnk.launch_fwd(x, s, bi, g, 1e-5, relu)
         torch.cuda.synchronize()
         y_ref, st_ref = gnk.group_norm_fwd_reference(x, s, bi, g, 1e-5, relu)
-        dx, part = gnk.launch_bwd(x, a["dy"], st_ref, s, bi, g, relu)
-        torch.cuda.synchronize()
         dx_ref, part_ref = gnk.group_norm_bwd_reference(
             x, a["dy"], st_ref, s, bi, g, relu)
-        pairs = {"y": (y, y_ref), "stats": (st, st_ref), "dx": (dx, dx_ref),
-                 "part": (part, part_ref)}
+        pairs = {"y": (y, y_ref), "stats": (st, st_ref)}
+        for i, r in enumerate(routes):
+            dx, part = counted(gnk.launches_bwd_by_route, r, lambda: (
+                gnk.launch_bwd(x, a["dy"], st_ref, s, bi, g, relu,
+                               route=None if i == 0 else r)))
+            tag = "" if i == 0 else f"@{r}"
+            pairs.update({f"dx{tag}": (dx, dx_ref),
+                          f"part{tag}": (part, part_ref)})
     else:
-        launch = fb.launch_1x1 if kind == "1x1" else fb.launch_3x3
-        extra = {"stride": stride} if kind == "1x1" else {}
-        route = b8_route(case, dtype) if kind == "3x3" else None
-        before = dict(fb.launches_3x3_by_route)
-        out, mu, rstd = launch(x, a["w"], s, bi, g, 1e-5, relu, **extra)
-        torch.cuda.synchronize()
-        if route is not None and fb.launches_3x3_by_route != {
-                **before, route: before[route] + 1}:
-            raise AssertionError(f"conv case {name} {dtype}: B8 did not take "
-                                 f"the {route!r} route: "
-                                 f"{fb.launches_3x3_by_route} after {before}")
         ref = fb.conv_gn_reference(x, a["w"], s, bi, g, 1e-5, relu, stride)
-        pairs = {"out": (out, ref[0]), "mu": (mu, ref[1]),
-                 "rstd": (rstd, ref[2])}
+        pairs = {}
+        for i, r in enumerate(routes):
+            if kind == "1x1":
+                got = counted(fb.launches_1x1_by_route, r, lambda: (
+                    fb.launch_1x1(x, a["w"], s, bi, g, 1e-5, relu, stride,
+                                  route=None if i == 0 else r)))
+            else:
+                got = counted(fb.launches_3x3_by_route, r, lambda: (
+                    fb.launch_3x3(x, a["w"], s, bi, g, 1e-5, relu)))
+            tag = "" if i == 0 else f"@{r}"
+            pairs.update({f"{k}{tag}": (o, want) for k, o, want in
+                          zip(("out", "mu", "rstd"), got, ref)})
     tol = CONV_TOL[dtype]
     errs, used = {}, {}
     for key, (got, want) in pairs.items():
@@ -1375,49 +1462,98 @@ def time_conv_case(gen, case) -> dict:
         runs[key] = (kern, lambda: fb.conv_gn_reference(
             x, a["w"], s, bi, GROUPS, 1e-5, relu, stride), library)
     work = conv_work(case, 2)
+    route = planned_route(case, dtype)
+    # the older route on the same inputs, timed beside the planned one: B8's
+    # two-pass mma_sync kernel (outside the launch counters), B7 forced onto
+    # "mma_sync", B6 onto "two_pass"
+    older = {"conv3x3": lambda: fb._launch(x, a["w"], s, bi, GROUPS, 1e-5,
+                                           relu, 1)}
+    if kind == "1x1" and route in OLDER_ROUTE:
+        older["conv1x1"] = lambda: fb.launch_1x1(
+            x, a["w"], s, bi, GROUPS, 1e-5, relu, stride,
+            route=OLDER_ROUTE[route])
+    if kind == "gn" and route in OLDER_ROUTE:
+        older["gn_bwd"] = lambda: gnk.launch_bwd(
+            x, a["dy"], st, s, bi, GROUPS, relu, route=OLDER_ROUTE[route])
     out = {}
     for key, (kern, plain, lib) in runs.items():
-        call = {"kernel": cuda_ms(kern, iters=20),
-                "plain": cuda_ms(plain, iters=5, warmup=2),
-                "library": cuda_ms(lib, iters=20)}
+        fns = {"kernel": kern, "plain": plain, "library": lib}
+        if key in older:
+            fns["previous"] = older[key]
+        iters = {"plain": 5}
+        call = {c: cuda_ms(fn, iters=iters.get(c, 20),
+                           warmup=2 if c == "plain" else 5)
+                for c, fn in fns.items()}
         own = {}
-        dev = {"kernel": device_ms(kern, iters=20, by_kernel=own),
-               "plain": device_ms(plain, iters=5),
-               "library": device_ms(lib, iters=20)}
-        stream = {}
-        if all(dev.values()):
-            src, timed_by = dev, DEVICE_TIME
-        else:
-            # the profiler lost events: time the calls back to back
-            stream = {"kernel": stream_ms(kern, iters=20),
-                      "plain": stream_ms(plain, iters=5, warmup=2),
-                      "library": stream_ms(lib, iters=20)}
-            src, timed_by = stream, "CUDA events over back-to-back calls"
+        dev = {c: device_ms(fn, iters=iters.get(c, 20),
+                            by_kernel=own if c == "kernel" else None)
+               for c, fn in fns.items()}
+        # the port's launches (kernel, older route) are also timed by
+        # replays of a CUDA graph; each column whose profiler window lost
+        # events takes that time, or, for the plain version and the library
+        # call, CUDA events around back-to-back calls
+        graphed = {c: graph_ms(fn) for c, fn in fns.items()
+                   if c in ("kernel", "previous")}
+        stream = {c: stream_ms(fn, iters=iters.get(c, 20),
+                               warmup=2 if c == "plain" else 5)
+                  for c, fn in fns.items() if not dev[c] and c not in graphed}
+        src = {c: dev[c] or graphed.get(c) or stream[c] for c in fns}
+        timed_by = {c: DEVICE_TIME if dev[c] else GRAPH_TIME if c in graphed
+                    else "CUDA events over back-to-back calls" for c in fns}
         nbytes, flops, peak = work[key]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         out[key] = {"ms": src["kernel"], "plain_ms": src["plain"],
-                    "sum_ms": sum(own.values()) if src is dev else None,
-                    "library_ms": src["library"], "timed_by": timed_by,
+                    "sum_ms": sum(own.values()) if dev["kernel"] else None,
+                    "library_ms": src["library"],
+                    "previous_ms": src.get("previous"),
+                    "timed_by": timed_by["kernel"], "column_timed_by": timed_by,
                     "call_ms": call, "device_ms": dev, "stream_ms": stream,
-                    "bound_ms": max(t_bytes, t_ops),
+                    "graph_ms": graphed, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops}
         extra = ""
+        if key != "gn_fwd":
+            out[key]["route"] = route
         if key == "conv3x3":
-            # the product counted once, whatever the route computes; beside
-            # it the two-pass mma_sync kernel (B8's earlier bf16 route) on
-            # the same inputs, outside the launch counters
-            out[key]["route"] = b8_route(case, dtype)
+            # the product counted once, whatever the route computes
             out[key]["tflops"] = flops / (src["kernel"] * 1e-3) / 1e12
-            two = lambda: fb._launch(x, a["w"], s, bi, GROUPS, 1e-5,  # noqa: E731
-                                     relu, 1)
-            out[key]["two_pass_ms"] = (device_ms(two, iters=10)
-                                       or stream_ms(two, iters=10))
-            extra = (f"; route {out[key]['route']}, "
-                     f"{out[key]['tflops']:.1f} TFLOP/s; two-pass mma_sync "
-                     f"{out[key]['two_pass_ms'] * 1e3:.1f} us")
-        log(f"conv timing {key} {name} (bf16, {out[key]['timed_by']}): "
+            out[key]["two_pass_ms"] = src["previous"]
+            extra = (f"; route {route}, {out[key]['tflops']:.1f} TFLOP/s; "
+                     f"two-pass mma_sync {src['previous'] * 1e3:.1f} us")
+        elif key in ("conv1x1", "gn_bwd"):
+            if key == "conv1x1":
+                plan = fb.plan_conv1x1(b, h, w, cin, cout, GROUPS, stride)
+                ctas = (fb.ctas_per_sm_1x1(plan) if route in OLDER_ROUTE
+                        else None)
+            else:
+                plan = gnk.plan_gn_bwd(b, h * w, cin, GROUPS, dtype)
+                ctas = (gnk.ctas_per_sm_bwd(plan, cin, GROUPS)
+                        if route in OLDER_ROUTE else None)
+            out[key]["ctas_per_sm"] = ctas
+            out[key]["plan"] = plan._asdict()
+            extra = f"; {plan}, {ctas} CTAs per SM"
+            if "previous" in src:
+                extra += (f"; {OLDER_ROUTE[route]} "
+                          f"{src['previous'] * 1e3:.1f} us")
+            if key == "gn_bwd" and route == "one_pass":
+                out[key]["plan_sweep"] = gn_bwd_plan_sweep(
+                    x, a["dy"], st, s, bi, relu, plan)
+            if key == "conv1x1" and route in OLDER_ROUTE:
+                out[key]["plan_sweep"] = conv1x1_tile_sweep(
+                    x, a["w"], s, bi, relu, stride, plan)
+        fell_back = [(how, [c for c in fns if not dev[c] and
+                            timed_by[c] == how])
+                     for how in (GRAPH_TIME,
+                                 "CUDA events over back-to-back calls")]
+        extra += (f"; CUDA graph replays: kernel "
+                  f"{graphed['kernel'] * 1e3:.1f} us" + (
+                      f", {OLDER_ROUTE.get(route, 'two-pass')} "
+                      f"{graphed['previous'] * 1e3:.1f} us"
+                      if "previous" in graphed else ""))
+        log(f"conv timing {key} {name} (bf16, {DEVICE_TIME}"
+            + "".join(f"; {how} for {', '.join(cs)}" for how, cs in fell_back
+                      if cs) + "): "
             f"kernel {src['kernel'] * 1e3:.1f} us; plain "
             f"{src['plain'] * 1e3:.1f} us; library {src['library'] * 1e3:.1f}"
             f" us; bound {out[key]['bound_ms'] * 1e3:.1f} us "
@@ -1425,29 +1561,113 @@ def time_conv_case(gen, case) -> dict:
     return out
 
 
-def repeat_check(gen) -> dict:
-    """Two bf16 B8 calls on the same inputs must give the same out, mu and
-    rstd bit for bit (fixed-order sums, no atomics, across a cluster's
-    CTAs too)."""
+def gn_bwd_plan_sweep(x, dy, st, s, bi, relu, planned) -> list:
+    """B6's one-pass kernel at the other plans :func:`gn_bwd_plan` offers
+    for these operands (the fewest CTAs a sample that let three, two or one
+    share an SM), outside the launch counters, each held to the planned
+    route's result and timed in device time: the data behind
+    ``plan_gn_bwd``'s rule."""
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    n, h, w, c = x.shape
+    want = gnk.launch_bwd(x, dy, st, s, bi, GROUPS, relu)
+    rows = []
+    for per_sm in (3, 2, 1):
+        plan = gnk.gn_bwd_plan(h * w, c, GROUPS, per_sm)
+        if plan is None or any(r["plan"] == plan._asdict() for r in rows):
+            continue
+        call = lambda: gnk._launch_one_pass(x, dy, st, s, bi, GROUPS,  # noqa: E731
+                                            relu, plan)
+        got = call()
+        torch.cuda.synchronize()
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, want))
+        if not err <= CONV_TOL[torch.bfloat16]:
+            raise AssertionError(f"gn_bwd at {plan}: {err} from the planned "
+                                 f"route")
+        ms = device_ms(call, iters=20) or graph_ms(call)
+        rows.append({"plan": plan._asdict(), "planned": plan == planned,
+                     "ctas_per_sm": gnk.ctas_per_sm_bwd(plan, c, GROUPS),
+                     "ms": ms, "max_abs_err_vs_planned": err})
+    log(f"gn_bwd plan sweep {tuple(x.shape)}: " + "; ".join(
+        f"cluster {r['plan']['cluster']} x {r['plan']['rows']} rows, "
+        f"{r['ctas_per_sm']} CTAs/SM"
+        f"{' (planned)' if r['planned'] else ''}: {r['ms'] * 1e3:.1f} us"
+        for r in rows))
+    return rows
+
+
+def conv1x1_tile_sweep(x, w, s, bi, relu, stride, planned) -> list:
+    """B7's one-pass kernel at each Cout tile its instances build (64, 128)
+    that the group width divides, on the planned route and outside the
+    launch counters, held to the planned tile's result and timed in device
+    time."""
     from torchbooster_tpu_torch.ops import fused_block as fb
+
+    want = fb.launch_1x1(x, w, s, bi, GROUPS, 1e-5, relu, stride)
+    rows = []
+    for bn in (64, 128):
+        plan = planned._replace(bn=bn)
+        if bn % (w.shape[3] // GROUPS):
+            continue
+        call = lambda: fb._launch_sm90(x, w, s, bi, GROUPS, 1e-5, relu,  # noqa: E731
+                                       stride, plan)
+        got = call()
+        torch.cuda.synchronize()
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, want))
+        if not err <= CONV_TOL[torch.bfloat16]:
+            raise AssertionError(f"conv1x1 at {plan}: {err} from the planned "
+                                 f"tile")
+        ms = device_ms(call, iters=20) or graph_ms(call)
+        rows.append({"plan": plan._asdict(), "planned": plan == planned,
+                     "ctas_per_sm": fb.ctas_per_sm_1x1(plan), "ms": ms,
+                     "max_abs_err_vs_planned": err})
+    log(f"conv1x1 tile sweep {tuple(x.shape)} -> {w.shape[3]}: " + "; ".join(
+        f"BN {r['plan']['bn']}, {r['ctas_per_sm']} CTAs/SM"
+        f"{' (planned)' if r['planned'] else ''}: {r['ms'] * 1e3:.1f} us"
+        for r in rows))
+    return rows
+
+
+def repeat_check(gen) -> dict:
+    """Two bf16 calls on the same inputs must agree bit for bit (fixed-order
+    sums, no atomics, across a cluster's CTAs too): B8's out, mu and rstd;
+    B7's on its one-pass routes; B6's dx and part on ``"one_pass"``."""
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
 
     cases = {c[0]: c for c in CONV_MAIN + CONV_EXTRA}
     out = {}
     for name in CONV_REPEAT:
-        _, kind, b, h, w, cin, cout, _ = cases[name]
+        case = cases[name]
+        _, kind, b, h, w, cin, cout, stride = case
         a = conv_inputs(gen, kind, b, h, w, cin, cout, torch.bfloat16)
         g = groups_for(cout)
-        first, second = (fb.launch_3x3(a["x"], a["w"], a["scale"], a["bias"],
-                                       g) for _ in range(2))
+        if kind == "gn":
+            _, st = gnk.group_norm_fwd_reference(a["x"], a["scale"],
+                                                 a["bias"], g, 1e-5, True)
+            call = lambda: gnk.launch_bwd(a["x"], a["dy"], st, a["scale"],  # noqa: E731
+                                          a["bias"], g, True)
+            what = "gn_bwd"
+        elif kind == "1x1":
+            call = lambda: fb.launch_1x1(a["x"], a["w"], a["scale"],  # noqa: E731
+                                         a["bias"], g, 1e-5, False, stride)
+            what = "conv1x1"
+        else:
+            call = lambda: fb.launch_3x3(a["x"], a["w"], a["scale"],  # noqa: E731
+                                         a["bias"], g)
+            what = "conv3x3"
+        first, second = call(), call()
         torch.cuda.synchronize()
         same = all(torch.equal(p, q) for p, q in zip(first, second))
-        route = b8_route(cases[name], torch.bfloat16)
-        out[name] = {"route": route, "bit_identical": same}
+        route = planned_route(case, torch.bfloat16)
+        out[name] = {"kernel": what, "route": route, "bit_identical": same}
         if not same:
-            raise AssertionError(f"conv3x3 {name} ({route}): two calls on the "
+            raise AssertionError(f"{what} {name} ({route}): two calls on the "
                                  f"same inputs differ")
-    log("conv3x3 repeat, bit for bit: " + ", ".join(
-        f"{n} ({r['route']}) ok" for n, r in out.items()))
+    log("conv repeat, bit for bit: " + ", ".join(
+        f"{r['kernel']} {n} ({r['route']}) ok" for n, r in out.items()))
     return out
 
 
@@ -1466,19 +1686,23 @@ def phase_conv(report: dict) -> dict:
             for relu in (True, False):
                 errs, used = check_conv_case(gen, case, dtype, relu)
                 for key, err in errs.items():
+                    if "@" in key:   # the older route, held but not reported
+                        continue
                     kk = which.get(key, "conv1x1" if kind == "1x1"
                                    else "conv3x3")
                     worst[kk] = max(worst[kk], err)
                 tag = f"{name}_{str(dtype)[6:]}_{'relu' if relu else 'norelu'}"
-                per_case[tag] = {"max_abs_err": errs, "allowance_used": used,
+                per_case[tag] = {"route": planned_route(case, dtype),
+                                 "max_abs_err": errs, "allowance_used": used,
                                  "atol": CONV_TOL[dtype],
                                  "rtol": CONV_TOL[dtype]}
-                log(f"conv {tag}: " + ", ".join(
-                    f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)" for k in errs)
+                log(f"conv {tag} ({planned_route(case, dtype)}): "
+                    + ", ".join(f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)"
+                                for k in errs)
                     + f" (atol = rtol = {CONV_TOL[dtype]})")
         torch.cuda.empty_cache()
     report["conv_cases"] = per_case
-    report["conv3x3_repeat"] = repeat_check(gen)
+    report["conv_repeat"] = repeat_check(gen)
     timing = {}
     for case in CONV_MAIN:
         timing[case[0]] = time_conv_case(gen, case)
@@ -1488,26 +1712,27 @@ def phase_conv(report: dict) -> dict:
     per_step = {}
     for key in worst:
         fields = ("ms", "plain_ms", "library_ms", "bound_ms") + (
-            ("two_pass_ms",) if key == "conv3x3" else ())
+            ("previous_ms",) if key != "gn_fwd" else ())
         per_step[key] = {
             f: sum(CONV_PER_STEP[n] * t[key][f] for n, t in timing.items()
                    if key in t)
             for f in fields}
         log(f"conv per training step {key}: kernel "
-            f"{per_step[key]['ms']:.3f} ms, plain "
-            f"{per_step[key]['plain_ms']:.3f} ms, library "
-            f"{per_step[key]['library_ms']:.3f} ms, bound "
-            f"{per_step[key]['bound_ms']:.3f} ms" + (
-                f", two-pass mma_sync {per_step[key]['two_pass_ms']:.3f} ms"
-                if key == "conv3x3" else ""))
+            f"{per_step[key]['ms']:.4f} ms, plain "
+            f"{per_step[key]['plain_ms']:.4f} ms, library "
+            f"{per_step[key]['library_ms']:.4f} ms, bound "
+            f"{per_step[key]['bound_ms']:.4f} ms" + (
+                f", older route {per_step[key]['previous_ms']:.4f} ms"
+                if key != "gn_fwd" else ""))
     report["conv_timing"] = timing
     report["conv_per_step"] = per_step
     res = {key: {**{k: timing[CONV_TIMED[key]][key][k] for k in (
         "ms", "sum_ms", "timed_by", "plain_ms", "library_ms", "bound_ms",
         "bound_by")},
         "max_abs_err": worst[key]} for key in worst}
-    res["conv3x3"]["timed_route"] = timing[CONV_TIMED["conv3x3"]][
-        "conv3x3"]["route"]
+    for key in ("conv1x1", "conv3x3", "gn_bwd"):
+        t = timing[CONV_TIMED[key]][key]
+        res[key].update(timed_route=t["route"], previous_ms=t["previous_ms"])
     return res
 
 
@@ -1630,7 +1855,7 @@ def resnet_breakdown(n_steps: int = 3) -> dict:
     busy = sum(v for _, v in per_kernel)
     ours = sum(v for k, v in per_kernel if any(
         n in k for n in ("gn_fwd", "gn_bwd", "conv_mma", "conv_f32",
-                         "group_moments", "conv3x3_gn_sm90")))
+                         "group_moments", "conv_gn_sm90")))
     return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
             "device_busy_s": busy, "device_busy_share": busy / wall,
             "device_ms_per_step": busy / n_steps * 1e3,
@@ -1653,15 +1878,19 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gnk.launches_fwd = gnk.launches_bwd = 0
     fb.launches_1x1 = fb.launches_3x3 = 0
-    for route in fb.launches_3x3_by_route:
-        fb.launches_3x3_by_route[route] = 0
+    for counter in (gnk.launches_bwd_by_route, fb.launches_1x1_by_route,
+                    fb.launches_3x3_by_route):
+        for route in counter:
+            counter[route] = 0
     t0 = time.perf_counter()
     res = recipe.main(conf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"gn_fwd": gnk.launches_fwd, "gn_bwd": gnk.launches_bwd,
                 "conv1x1": fb.launches_1x1, "conv3x3": fb.launches_3x3}
-    by_route = dict(fb.launches_3x3_by_route)
+    by_route = {"gn_bwd": dict(gnk.launches_bwd_by_route),
+                "conv1x1": dict(fb.launches_1x1_by_route),
+                "conv3x3": dict(fb.launches_3x3_by_route)}
     peak = torch.cuda.max_memory_allocated()
     losses = [st["loss"] for st in res["steps"]]
     n_steps = len(losses)
@@ -1677,11 +1906,16 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         raise AssertionError(f"resnet_train: launches {launches}, expected "
                              f"{expected} ({n_steps} steps, {n_eval} eval "
                              f"batches)")
-    # stages 0-1 (4 + 3 calls a forward) on clusters, 2-3 (3 + 3) packed
-    route_expected = {"cluster": 7 * fwd, "pack": 6 * fwd, "mma_sync": 0,
-                      "f32": 0}
+    # B8: stages 0-1 (4 + 3 calls a forward) on clusters, 2-3 (3 + 3)
+    # packed; B7: the 16² projection on a cluster, the 8² and 4² packed;
+    # B6: every norm's backward in one pass
+    route_expected = {
+        "gn_bwd": {"one_pass": 4 * n_steps, "two_pass": 0},
+        "conv1x1": {"cluster": fwd, "pack": 2 * fwd, "mma_sync": 0, "f32": 0},
+        "conv3x3": {"cluster": 7 * fwd, "pack": 6 * fwd, "mma_sync": 0,
+                    "f32": 0}}
     if by_route != route_expected:
-        raise AssertionError(f"resnet_train: B8 routes {by_route}, expected "
+        raise AssertionError(f"resnet_train: routes {by_route}, expected "
                              f"{route_expected}")
     # steady state: the second epoch's training loop (its 16 steps, host
     # fetch and augmentation included, ended by reading its metrics)
@@ -1692,7 +1926,7 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     params = recipe.ResNet.init(0, 18, 10, "cifar", device="cpu")
     flops = 3.0 * resnet_forward_flops(params) * RN_B
     out = {"losses": losses, "launches": launches, "expected": expected,
-           "conv3x3_by_route": by_route, "eval_batches": n_eval, "main_wall_s": wall,
+           "by_route": by_route, "eval_batches": n_eval, "main_wall_s": wall,
            "step_ms": step_s * 1e3, "img_per_s": RN_B / step_s,
            "host_data_ms_per_step": data_s * 1e3,
            "model_flops_per_step": flops,
@@ -1705,7 +1939,8 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         f"{out['img_per_s']:.0f} img/s, host data {data_s * 1e3:.1f} ms per "
         f"step, model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of "
         f"989 TFLOP/s, peak mem {peak / 2**30:.2f} GiB; launches {launches}, "
-        f"B8 by route {by_route} [{smi}]")
+        f"B6 by route {by_route['gn_bwd']}, B7 by route "
+        f"{by_route['conv1x1']}, B8 by route {by_route['conv3x3']} [{smi}]")
     out["fp32_kernels_vs_plain"] = resnet_fp32_check()
     torch.cuda.empty_cache()
     b = out["breakdown"] = resnet_breakdown()
@@ -1716,7 +1951,7 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         f"{100 * b['b5_b8_share_of_device']:.1f}% of device time; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in b["top"][:6]))
     report["resnet_train"] = out
-    return {**launches, "conv3x3_by_route": by_route}
+    return {**launches, "by_route": by_route}
 
 
 def main() -> int:
@@ -1774,13 +2009,15 @@ def main() -> int:
                     for key, name, src, ref in (
                         ("gn_fwd", "gn_fwd", "group_norm.cu",
                          "group_norm.py:69"),
-                        ("gn_bwd", "gn_bwd", "group_norm.cu",
+                        ("gn_bwd", "gn_bwd", "group_norm_bwd_sm90.cu",
                          "group_norm.py:106"),
-                        ("conv1x1", "conv1x1_gn", "fused_block.cu",
+                        ("conv1x1", "conv1x1_gn", "conv1x1_gn_sm90.cu",
                          "fused_block.py:70"),
                         ("conv3x3", "conv3x3_gn", "conv3x3_gn_sm90.cu",
                          "fused_block.py:238"))}
-    conv_kernels["conv3x3"].update(timed_route=None, launches_by_route=None)
+    for key in ("gn_bwd", "conv1x1", "conv3x3"):
+        conv_kernels[key].update(timed_route=None, launches_by_route=None,
+                                 previous_ms=None)
     t0 = time.perf_counter()
     if "build" in phases:
         # one nvcc per source, all started together
@@ -1799,7 +2036,10 @@ def main() -> int:
                  r"(paged_partials_sm90)ILi(\d+)ELi(\d+)E"
                  r"|(paged_merge_sm90)ILi(\d+)E"),
                 ("flash_fwd_sm90", r"(flash_fwd_sm90)ILi(\d+)E"),
-                ("flash_bwd_sm90", r"(flash_dq_sm90|flash_dkv_sm90)ILi(\d+)E")):
+                ("flash_bwd_sm90", r"(flash_dq_sm90|flash_dkv_sm90)ILi(\d+)E"),
+                ("conv1x1_gn_sm90", r"(conv_gn_sm90)ILi(\d+)ELi(\d+)E"),
+                ("conv3x3_gn_sm90", r"(conv_gn_sm90)ILi(\d+)ELi(\d+)E"),
+                ("group_norm_bwd_sm90", r"(gn_bwd_sm90)E")):
             regs = report[f"ptxas_{src}"] = ptxas_kernels(
                 report["ptxas"][src], pattern)
             log(f"ptxas {src}: " + "; ".join(
@@ -1854,13 +2094,15 @@ def main() -> int:
             conv_kernels[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")})
-        conv_kernels["conv3x3"]["timed_route"] = res["conv3x3"]["timed_route"]
+        for key in ("gn_bwd", "conv1x1", "conv3x3"):
+            conv_kernels[key].update(timed_route=res[key]["timed_route"],
+                                     previous_ms=res[key]["previous_ms"])
     if "resnet_train" in phases:
         launches = phase_resnet_train(report, smi)
         for key in conv_kernels:
             conv_kernels[key]["launches"] = launches[key]
-        conv_kernels["conv3x3"]["launches_by_route"] = \
-            launches["conv3x3_by_route"]
+        for key, counts in launches["by_route"].items():
+            conv_kernels[key]["launches_by_route"] = counts
     report["wall_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,

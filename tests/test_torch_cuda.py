@@ -539,6 +539,19 @@ CONV_CASES = {
     # tile, 12 and 20 groups (clipped from 32)
     "odd_c12_gn": ("gn", 4, 7, 9, 12, 12, 1),
     "odd_cin12_cout40_3x3": ("3x3", 4, 7, 9, 12, 40, 1),
+    # B7's one-pass routes: packs of 2 and 8 (the last pack partial), a
+    # non-square map (20 outputs, 6 a tile), a ragged Cout tile; its
+    # "mma_sync" route at Cin 12. B6's one-pass route over a cluster of 2,
+    # of 7 (ResNet-50's 7² x 2048 norm) and of 1, the last over more
+    # samples than the card holds CTAs at once
+    "stage2_proj_1x1_s2": ("1x1", 4, 16, 16, 128, 256, 2),
+    "pack_rem_b5_proj_1x1_s2": ("1x1", 5, 8, 8, 256, 512, 2),
+    "nonsquare_7x9_1x1_s2": ("1x1", 3, 7, 9, 64, 128, 2),
+    "cout40_1x1_s1": ("1x1", 2, 9, 9, 64, 40, 1),
+    "odd_cin12_cout40_1x1_s2": ("1x1", 4, 7, 9, 12, 40, 2),
+    "stage1_gn": ("gn", 4, 16, 16, 128, 128, 1),
+    "r50_7sq_gn_2048": ("gn", 2, 7, 7, 2048, 2048, 1),
+    "many_samples_7x9_gn": ("gn", 1000, 7, 9, 64, 64, 1),
 }
 # the route each bf16 3x3 case must take (fp32 always takes "f32")
 CONV3_ROUTE = {"stage0_3x3": "cluster", "stage3_3x3": "pack",
@@ -695,3 +708,149 @@ def test_conv_gn_autograd_and_bad_operands_on_card(no_tf32):
     with pytest.raises(ValueError, match="contiguous"):
         fb.launch_3x3(x.transpose(1, 2), w, s, b, 32)
     assert (gn.launches_fwd, fb.launches_3x3) == before
+
+
+# the older route each one-pass route is forced onto, on the same inputs
+OLDER_ROUTE = {"one_pass": "two_pass", "cluster": "mma_sync",
+               "pack": "mma_sync"}
+
+
+def _planned(name, dtype):
+    """B6's or B7's planned route for a ``CONV_CASES`` entry."""
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    kind, b, h, w, cin, cout, stride = CONV_CASES[name]
+    if kind == "gn":
+        return gn.plan_gn_bwd(b, h * w, cin, fb._resolve_groups(32, cin),
+                              dtype).route
+    if dtype == torch.float32:
+        return "f32"
+    return fb.plan_conv1x1(b, h, w, cin, cout, fb._resolve_groups(32, cout),
+                           stride).route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(n for n, c in CONV_CASES.items()
+                                        if c[0] in ("gn", "1x1")))
+def test_gn_bwd_and_conv1x1_routes_match_plain_versions_on_card(
+        name, dtype, relu, no_tf32):
+    """B6 (dx, partials) and B7 (out, mu, rstd) on the route their plans
+    name, each launch moving its per-route counter there; a one-pass case
+    also forced onto the older route on the same inputs; every result
+    against the plain version (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    kind, b, h, w, cin, cout, stride = CONV_CASES[name]
+    a = _conv_operands(kind, b, h, w, cin, cout, dtype)
+    tol = CONV_TOL[dtype]
+    g = fb._resolve_groups(32, cout)
+    planned = _planned(name, dtype)
+    routes = [None] + ([OLDER_ROUTE[planned]] if planned in OLDER_ROUTE
+                       else [])
+    if kind == "gn":
+        _, st = gn.group_norm_fwd_reference(a["x"], a["scale"], a["bias"], g,
+                                            1e-5, relu)
+        want = gn.group_norm_bwd_reference(a["x"], a["dy"], st, a["scale"],
+                                           a["bias"], g, relu)
+        counter = gn.launches_bwd_by_route
+        call = lambda r: gn.launch_bwd(a["x"], a["dy"], st, a["scale"],  # noqa: E731
+                                       a["bias"], g, relu, route=r)
+    else:
+        want = fb.conv_gn_reference(a["x"], a["w"], a["scale"], a["bias"],
+                                    g, 1e-5, relu, stride)
+        counter = fb.launches_1x1_by_route
+        call = lambda r: fb.launch_1x1(a["x"], a["w"], a["scale"],  # noqa: E731
+                                       a["bias"], g, 1e-5, relu, stride,
+                                       route=r)
+    for route in routes:
+        before = dict(counter)
+        got = call(route)
+        torch.cuda.synchronize()
+        took = route or planned
+        assert counter == {**before, took: before[took] + 1}
+        for one, ref in zip(got, want):
+            torch.testing.assert_close(one.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+    if kind == "gn" and planned == "one_pass":
+        # the one-pass kernel at the fewest CTAs a sample that fit one an SM
+        plan = gn.gn_bwd_plan(h * w, cin, g, 1)
+        got = gn._launch_one_pass(a["x"], a["dy"], st, a["scale"], a["bias"],
+                                  g, relu, plan)
+        for one, ref in zip(got, want):
+            torch.testing.assert_close(one.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stage1_proj_1x1_s2",
+                                  "pack_rem_b5_proj_1x1_s2", "stem_gn",
+                                  "stage1_gn", "many_samples_7x9_gn",
+                                  "r50_7sq_gn_2048"])
+def test_gn_bwd_and_conv1x1_one_pass_repeat_bit_for_bit_on_card(name):
+    """Two bf16 calls on B7's "cluster" and "pack" routes, and on B6's
+    "one_pass" route at clusters of 4, 2, 1 and 7 CTAs, give the same
+    results bit for bit: every sum runs in a fixed order with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    kind, b, h, w, cin, cout, stride = CONV_CASES[name]
+    a = _conv_operands(kind, b, h, w, cin, cout, torch.bfloat16, seed=2)
+    g = fb._resolve_groups(32, cout)
+    assert _planned(name, torch.bfloat16) in OLDER_ROUTE
+    if kind == "gn":
+        _, st = gn.group_norm_fwd_reference(a["x"], a["scale"], a["bias"], g)
+        first, second = (gn.launch_bwd(a["x"], a["dy"], st, a["scale"],
+                                       a["bias"], g, True) for _ in range(2))
+    else:
+        first, second = (fb.launch_1x1(a["x"], a["w"], a["scale"], a["bias"],
+                                       g, 1e-5, False, stride)
+                         for _ in range(2))
+    torch.cuda.synchronize()
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+def test_gn_bwd_and_conv1x1_refuse_routes_that_do_not_fit_on_card():
+    """A one-pass route named where the plan did not choose it (Cin 12, C
+    12, fp32, a pack forced onto "cluster") raises, as does an unknown
+    route; nothing launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    before = (dict(fb.launches_1x1_by_route), dict(gn.launches_bwd_by_route))
+    for name, dtype, route in (("odd_cin12_cout40_1x1_s2", torch.bfloat16,
+                                "pack"),
+                               ("stage1_proj_1x1_s2", torch.float32,
+                                "cluster"),
+                               ("stage2_proj_1x1_s2", torch.bfloat16,
+                                "cluster"),
+                               ("stage1_proj_1x1_s2", torch.bfloat16,
+                                "sm90")):
+        kind, b, h, w, cin, cout, stride = CONV_CASES[name]
+        a = _conv_operands(kind, b, h, w, cin, cout, dtype)
+        with pytest.raises(ValueError, match="route"):
+            fb.launch_1x1(a["x"], a["w"], a["scale"], a["bias"],
+                          fb._resolve_groups(32, cout), stride=stride,
+                          route=route)
+    for name, dtype, route in (("odd_c12_gn", torch.bfloat16, "one_pass"),
+                               ("stem_gn", torch.float32, "one_pass"),
+                               ("stem_gn", torch.bfloat16, "cluster")):
+        kind, b, h, w, cin, cout, _ = CONV_CASES[name]
+        a = _conv_operands(kind, b, h, w, cin, cout, dtype)
+        g = fb._resolve_groups(32, cin)
+        _, st = gn.group_norm_fwd_reference(a["x"], a["scale"], a["bias"], g)
+        with pytest.raises(ValueError, match="route"):
+            gn.launch_bwd(a["x"], a["dy"], st, a["scale"], a["bias"], g,
+                          route=route)
+    assert (fb.launches_1x1_by_route, gn.launches_bwd_by_route) == before

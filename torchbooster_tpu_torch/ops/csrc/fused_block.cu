@@ -4,10 +4,12 @@
 //   B7 `_fwd_kernel`  (:70, pallas_call :139)  1x1 conv + GN + ReLU, any
 //      stride (the strided slice of :391-392 becomes strided addressing)
 //   B8 `_fwd3_kernel` (:238, pallas_call :319) 3x3 conv, stride 1, padding
-//      1, + GN + ReLU: fp32, and the bf16 shapes that `plan_conv3x3`
-//      (ops/fused_block.py) sends to the "mma_sync" route (Cin or Cout off
-//      the multiples of 8, a sample over 1024 positions); the other bf16
-//      shapes run the one-pass wgmma kernel of conv3x3_gn_sm90.cu
+//      1, + GN + ReLU
+// for fp32, and for the bf16 shapes that `plan_conv1x1` / `plan_conv3x3`
+// (ops/fused_block.py) send to the "mma_sync" route (Cin or Cout off the
+// multiples of 8, a sample over 1024 output positions); the other bf16
+// shapes run the one-pass wgmma kernel of conv_gn_sm90.cuh (entry points in
+// conv1x1_gn_sm90.cu and conv3x3_gn_sm90.cu).
 // Both are one implicit GEMM here: out[b, m, n] = sum over taps (ky, kx) and
 // input channels k of x[b, ih, iw, k] * w[ky, kx, k, n], with ih = oh *
 // stride + ky - pad and iw = ow * stride + kx - pad (zero outside the image:
@@ -65,9 +67,9 @@
 // computing (no cp.async or TMA pipeline), and the product runs twice. With
 // 16-row tiles (WM = 1, the 4 x 4 maps) each warp does only four mma per
 // shared-memory round trip, and every sample re-reads the whole weight, so
-// that case runs at under half the others' rate. conv3x3_gn_sm90.cu takes
-// those steps for B8 (one pass, packed samples, a cp.async ring, wgmma);
-// B7 still runs here.
+// that case runs at under half the others' rate. conv_gn_sm90.cuh takes
+// those steps for the bf16 shapes it runs (one pass, packed samples, a
+// cp.async ring, wgmma).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

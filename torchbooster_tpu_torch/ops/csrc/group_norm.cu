@@ -3,7 +3,9 @@
 // Replaces the two Pallas TPU kernels of torchbooster_tpu/ops/group_norm.py
 // (bound together by the custom_vjp at :190-263):
 //   B5 `_fwd_kernel` (:69, pallas_call :202)  -> gn_fwd
-//   B6 `_bwd_kernel` (:106, pallas_call :236) -> gn_bwd
+//   B6 `_bwd_kernel` (:106, pallas_call :236) -> gn_bwd, route "two_pass":
+//      fp32 and the shapes `plan_gn_bwd` (ops/group_norm.py) does not send
+//      to the one-pass kernel of group_norm_bwd_sm90.cu
 // Operands are the TPU kernels': x and dy (N, H*W, C) in bf16 or fp32, C
 // innermost; scale and bias (C,) fp32 (the wrapper casts them); stats
 // (N, 2, C) fp32 = per-channel group mean and 1/sqrt(var + eps); part
@@ -33,7 +35,8 @@
 // and writes y, B6 reads x and dy and writes dx. The second pass re-reads
 // the slab; at ResNet shapes a CTA's slab is 32-256 KB and is usually still
 // in the 50 MB L2 when the second pass reaches it, but nothing here holds it
-// on chip. Keeping the slab in shared memory where it fits is the next step.
+// on chip. group_norm_bwd_sm90.cu holds B6's slab in shared memory (one
+// read); B5's forward could do the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -4,8 +4,9 @@ the 1×1 conv, and ``_fwd3_kernel`` :238, the 3×3 stride-1 conv).
 
 :func:`conv1x1_gn_relu` (B7) and :func:`conv3x3_gn_relu` (B8) are
 differentiable through ``torch.autograd.Function``s whose forwards launch
-the hand-written CUDA kernels of ``csrc/fused_block.cu`` and
-``csrc/conv3x3_gn_sm90.cu`` on CUDA tensors and run
+the hand-written CUDA kernels of ``csrc/conv1x1_gn_sm90.cu``,
+``csrc/conv3x3_gn_sm90.cu`` (both instances of ``csrc/conv_gn_sm90.cuh``)
+and ``csrc/fused_block.cu`` on CUDA tensors and run
 :func:`conv_gn_reference` — the same math in plain PyTorch — on CPU
 tensors, and only there. The backwards are plain PyTorch, as the JAX
 package's are plain XLA: B7's is ``_conv1x1_gn_bwd`` (:184-216), which
@@ -13,7 +14,8 @@ recomputes y from x and w; B8's is the autograd of the reference
 formulation ``_ref_conv3x3_gn`` (:283-305) recomputed from (x, w, scale,
 bias), as at :345-352. There is no fall-back: a failed build or launch
 raises. ``launches_1x1`` and ``launches_3x3`` count kernel launches,
-``launches_3x3_by_route`` B8's by the route :func:`plan_conv3x3` chose.
+``launches_1x1_by_route`` and ``launches_3x3_by_route`` the same by the
+route :func:`plan_conv1x1` or :func:`plan_conv3x3` chose.
 
 What the kernels keep of the TPU ones: the weight is cast to x's dtype
 before the product (:365, :397), the product accumulates in fp32, the
@@ -21,8 +23,8 @@ group moments come from the fp32 y and are NOT clamped (:84, :273, unlike
 ``ops/group_norm.py``), and B7 returns per-channel mu and rstd ``(B,
 Cout)`` for its backward. The VMEM budget of ``fits``/``fits3`` is a TPU
 limit and is not ported: the CUDA kernels tile the product and reduce the
-moments across CTAs (see the source notes), so any size runs. B8's
-"pack" route takes up ``_samples_per_cell``'s idea (several samples in
+moments across CTAs (see the source notes), so any size runs. The
+"pack" routes take up ``_samples_per_cell``'s idea (several samples in
 one grid cell) for maps of at most 128 positions.
 """
 from __future__ import annotations
@@ -35,23 +37,27 @@ import torch.nn.functional as F
 
 launches_1x1 = 0    # B7 launches (the main path's proof of route)
 launches_3x3 = 0    # B8 launches, every route
-# B8 launches by route: bf16 "cluster" and "pack" (conv3x3_gn_sm90.cu),
+# launches by route: bf16 "cluster" and "pack" (the one-pass kernel of
+# conv_gn_sm90.cuh: conv1x1_gn_sm90.cu for B7, conv3x3_gn_sm90.cu for B8),
 # bf16 "mma_sync" and fp32 "f32" (the two-pass kernels of fused_block.cu)
+launches_1x1_by_route = {"cluster": 0, "pack": 0, "mma_sync": 0, "f32": 0}
 launches_3x3_by_route = {"cluster": 0, "pack": 0, "mma_sync": 0, "f32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_CODE = {"cluster": 1, "pack": 2}
 _SM90_BM = 128          # tile rows of the one-pass kernel
 _SM90_BN = (64, 128, 256)
+# B7's Cout tiles: at most 128, so two CTAs share an SM (conv_gn_sm90.cuh)
+_SM90_BN_1X1 = (64, 128)
 _MAX_CLUSTER = 8        # CTAs holding one sample (portable cluster size)
 _MAX_PACK = 8           # samples sharing one tile
 
 
-class Conv3x3Plan(NamedTuple):
-    """How B8 runs one bf16 call: ``route`` ``"cluster"`` (one sample over
-    ``cluster`` CTAs of ``bm`` rows), ``"pack"`` (``p`` samples in one
-    ``bm``-row tile) or ``"mma_sync"`` (the two-pass kernel of
-    ``fused_block.cu``), with ``bn`` output channels a tile."""
+class ConvPlan(NamedTuple):
+    """How B7 or B8 runs one bf16 call: ``route`` ``"cluster"`` (one
+    sample over ``cluster`` CTAs of ``bm`` rows), ``"pack"`` (``p``
+    samples in one ``bm``-row tile) or ``"mma_sync"`` (the two-pass kernel
+    of ``fused_block.cu``), with ``bn`` output channels a tile."""
     route: str
     bm: int
     bn: int
@@ -59,33 +65,49 @@ class Conv3x3Plan(NamedTuple):
     cluster: int
 
 
-def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
-                 groups: int) -> Conv3x3Plan:
-    """The route of a bf16 B8 call, chosen before launch. The one-pass
-    ``wgmma`` kernel takes Cin and Cout multiples of 8 and a Cout tile
-    (64, 128 or 256) that is a multiple of the group width; a sample of M
-    = H·W rows takes ``ceil(M / 128)`` CTAs of one cluster (at most 8)
-    when M > 128, else ``min(8, 128 // M)`` samples share a tile. Every
-    other shape (odd widths, M > 1024 such as ResNet-50's 56² maps) takes
-    the two-pass ``mma_sync`` kernel, whose tile height follows M."""
-    m = h * w
+def _plan_one_pass(b: int, m: int, cin: int, cout: int, groups: int,
+                   bns: tuple) -> ConvPlan:
+    """The one-pass kernel's rule over M = Ho·Wo output rows a sample:
+    Cin and Cout multiples of 8 and a Cout tile from ``bns`` that is a
+    multiple of the group width; ``ceil(M / 128)`` CTAs of one cluster (at
+    most 8) when M > 128, else ``min(8, 128 // M)`` samples a tile. Every
+    other shape takes the two-pass ``mma_sync`` kernel, whose tile height
+    follows M."""
     mma_bm = 16 if m <= 16 else (32 if m <= 32 else 64)
-    fallback = Conv3x3Plan("mma_sync", mma_bm, 64, 1, 1)
+    fallback = ConvPlan("mma_sync", mma_bm, 64, 1, 1)
     if b < 1 or m < 1 or cin % 8 or cout % 8 or groups < 1 or cout % groups:
         return fallback
     gw = cout // groups
-    fits = [n for n in _SM90_BN if n % gw == 0]
+    fits = [n for n in bns if n % gw == 0]
     if not fits:
         return fallback
-    want = min(cout, _SM90_BN[-1])
+    want = min(cout, bns[-1])
     bn = next((n for n in fits if n >= want), fits[-1])
     bm = _SM90_BM
     if m <= bm:
-        return Conv3x3Plan("pack", bm, bn, min(_MAX_PACK, bm // m), 1)
+        return ConvPlan("pack", bm, bn, min(_MAX_PACK, bm // m), 1)
     cluster = -(-m // bm)
     if cluster > _MAX_CLUSTER or b > 65535:
         return fallback
-    return Conv3x3Plan("cluster", bm, bn, 1, cluster)
+    return ConvPlan("cluster", bm, bn, 1, cluster)
+
+
+def plan_conv3x3(b: int, h: int, w: int, cin: int, cout: int,
+                 groups: int) -> ConvPlan:
+    """The route of a bf16 B8 call (stride 1, M = H·W), chosen before
+    launch by :func:`_plan_one_pass` with Cout tiles of 64, 128 or 256.
+    Odd widths and M > 1024 (ResNet-50's 56² maps) take ``mma_sync``."""
+    return _plan_one_pass(b, h * w, cin, cout, groups, _SM90_BN)
+
+
+def plan_conv1x1(b: int, h: int, w: int, cin: int, cout: int, groups: int,
+                 stride: int = 1) -> ConvPlan:
+    """The route of a bf16 B7 call, chosen before launch by
+    :func:`_plan_one_pass` over its output map (M = ceil(H / s)·ceil(W /
+    s)), with Cout tiles of 64 or 128. Cin 12 and M > 1024 (ResNet-50's
+    56² 1×1s) take ``mma_sync``."""
+    m = -(-h // stride) * -(-w // stride)
+    return _plan_one_pass(b, m, cin, cout, groups, _SM90_BN_1X1)
 
 
 def _resolve_groups(groups: int, c: int) -> int:
@@ -199,15 +221,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _lib_sm90() -> ctypes.CDLL:
+def _lib_sm90(name: str) -> ctypes.CDLL:
+    """``conv3x3_gn_sm90`` (B8) or ``conv1x1_gn_sm90`` (B7): the one-pass
+    kernel of ``csrc/conv_gn_sm90.cuh`` behind one entry point each."""
     from torchbooster_tpu_torch.ops import _build
 
-    lib = _build.load("conv3x3_gn_sm90")
-    fn = lib.tb_conv3x3_gn_sm90
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 7 + [i] * 6 + [f] + [i] * 6 + [p]
-        fn.restype = ctypes.c_int
+    lib = _build.load(name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    specs = {"conv3x3_gn_sm90": {
+        "tb_conv3x3_gn_sm90": [p] * 7 + [i] * 6 + [f] + [i] * 6 + [p]},
+        "conv1x1_gn_sm90": {
+        "tb_conv1x1_gn_sm90": [p] * 7 + [i] * 7 + [f] + [i] * 6 + [p],
+        "tb_conv1x1_gn_sm90_occupancy": [i]}}[name]
+    for fname, argtypes in specs.items():
+        fn = getattr(lib, fname)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -278,37 +308,81 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 def _launch_sm90(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, groups: int, eps: float, relu: bool,
-                 plan: Conv3x3Plan):
-    """One call of ``tb_conv3x3_gn_sm90`` (B8's one-pass route) on checked
-    bf16 operands."""
+                 stride: int, plan: ConvPlan):
+    """One call of the one-pass kernel on checked bf16 operands:
+    ``tb_conv3x3_gn_sm90`` (B8) for a 3×3 w, read as its (taps, Cout, Cin)
+    copy; ``tb_conv1x1_gn_sm90`` (B7) for a 1×1 w at ``stride``, read as it
+    lies."""
     b, h, wd, cin = x.shape
     cout = w.shape[3]
-    wt = _weight_taps(w)
-    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    wt = _weight_taps(w) if w.shape[0] == 3 else w
+    ho, wo = -(-h // stride), -(-wd // stride)
+    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
     mu = torch.empty((b, cout), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mu)
-    err = _lib_sm90().tb_conv3x3_gn_sm90(
-        x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), b, h, wd, cin, cout,
-        groups, float(eps), int(relu), _ROUTE_CODE[plan.route], plan.bm,
-        plan.bn, plan.p, plan.cluster,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), b, h, wd, cin,
+            cout, groups)
+    tail = (float(eps), int(relu), _ROUTE_CODE[plan.route], plan.bm,
+            plan.bn, plan.p, plan.cluster,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if w.shape[0] == 3:
+        err = _lib_sm90("conv3x3_gn_sm90").tb_conv3x3_gn_sm90(*ptrs, *tail)
+    else:
+        err = _lib_sm90("conv1x1_gn_sm90").tb_conv1x1_gn_sm90(*ptrs, stride,
+                                                             *tail)
     if err != 0:
-        raise RuntimeError(f"conv3x3_gn kernel launch failed ({plan}): CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"conv_gn one-pass kernel launch failed "
+                           f"({w.shape[0]}x{w.shape[0]}, {plan}): CUDA error "
+                           f"{err}")
     return out, mu, rstd
 
 
+def ctas_per_sm_1x1(plan: ConvPlan) -> int:
+    """CTAs of B7's one-pass kernel that share one SM at ``plan``'s Cout
+    tile (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the
+    card."""
+    return _lib_sm90("conv1x1_gn_sm90").tb_conv1x1_gn_sm90_occupancy(plan.bn)
+
+
+def _held_route(planned: str, route: str | None, dtype: torch.dtype,
+                what: str) -> str:
+    """The route of a launch on checked operands: ``planned`` (``"f32"``
+    for fp32), or ``route`` when the caller names one. ``"mma_sync"`` takes
+    any bf16 operands, the one-pass routes only what they were planned for;
+    a route that cannot take the operands raises."""
+    if dtype == torch.float32:
+        planned = "f32"
+    route = planned if route is None else route
+    wants = {"f32": dtype == torch.float32,
+             "mma_sync": dtype == torch.bfloat16,
+             "cluster": planned == "cluster", "pack": planned == "pack"}
+    if not wants.get(route, False):
+        raise ValueError(f"{what}: route {route!r} does not take these "
+                         f"operands (planned {planned!r})")
+    return route
+
+
 def launch_1x1(x, w, scale, bias, groups: int, eps: float = 1e-5,
-               relu: bool = True, stride: int = 1):
-    """B7 on CUDA tensors, w ``(1, 1, Cin, Cout)``: ``(out, mu, rstd)``."""
+               relu: bool = True, stride: int = 1, route: str | None = None):
+    """B7 on CUDA tensors, w ``(1, 1, Cin, Cout)``: ``(out, mu, rstd)``.
+    bf16 takes the route :func:`plan_conv1x1` plans, fp32 the CUDA-core
+    two-pass kernel; ``route`` forces another (``"mma_sync"``, B7's earlier
+    bf16 kernel, on the same inputs); a route that cannot take the operands
+    raises."""
     global launches_1x1
     if w.shape[:2] != (1, 1):
         raise ValueError(f"launch_1x1: w must be (1, 1, Cin, Cout), got "
                          f"{tuple(w.shape)}")
     _check_cuda(x, w, scale, bias)
-    res = _launch(x, w, scale, bias, groups, eps, relu, stride)
+    plan = plan_conv1x1(*x.shape, w.shape[3], groups, stride)
+    route = _held_route(plan.route, route, x.dtype, "launch_1x1")
+    if route in _ROUTE_CODE:
+        res = _launch_sm90(x, w, scale, bias, groups, eps, relu, stride, plan)
+    else:
+        res = _launch(x, w, scale, bias, groups, eps, relu, stride)
     launches_1x1 += 1
+    launches_1x1_by_route[route] += 1
     return res
 
 
@@ -322,12 +396,10 @@ def launch_3x3(x, w, scale, bias, groups: int, eps: float = 1e-5,
         raise ValueError(f"launch_3x3: w must be (3, 3, Cin, Cout), got "
                          f"{tuple(w.shape)}")
     _check_cuda(x, w, scale, bias)
-    route = "f32"
-    if x.dtype == torch.bfloat16:
-        plan = plan_conv3x3(*x.shape, w.shape[3], groups)
-        route = plan.route
+    plan = plan_conv3x3(*x.shape, w.shape[3], groups)
+    route = _held_route(plan.route, None, x.dtype, "launch_3x3")
     if route in _ROUTE_CODE:
-        res = _launch_sm90(x, w, scale, bias, groups, eps, relu, plan)
+        res = _launch_sm90(x, w, scale, bias, groups, eps, relu, 1, plan)
     else:
         res = _launch(x, w, scale, bias, groups, eps, relu, 1)
     launches_3x3 += 1
@@ -424,7 +496,8 @@ def conv3x3_gn_relu(x: torch.Tensor, kernel: torch.Tensor,
                             scale, bias, groups, float(eps), bool(relu))
 
 
-__all__ = ["Conv3x3Plan", "conv1x1_gn_backward", "conv1x1_gn_relu",
-           "conv3x3_gn_relu", "conv_gn_reference", "launch_1x1", "launch_3x3",
-           "launches_1x1", "launches_3x3", "launches_3x3_by_route",
-           "plan_conv3x3", "ref_conv3x3_gn"]
+__all__ = ["ConvPlan", "conv1x1_gn_backward", "conv1x1_gn_relu",
+           "conv3x3_gn_relu", "conv_gn_reference", "ctas_per_sm_1x1",
+           "launch_1x1", "launch_3x3", "launches_1x1",
+           "launches_1x1_by_route", "launches_3x3", "launches_3x3_by_route",
+           "plan_conv1x1", "plan_conv3x3", "ref_conv3x3_gn"]

@@ -4,12 +4,13 @@
 
 :func:`group_norm_fused` is differentiable through a
 ``torch.autograd.Function``: its forward launches B5 and its backward B6,
-the hand-written CUDA kernels of ``csrc/group_norm.cu``, on CUDA tensors.
-On CPU tensors it runs :func:`group_norm_fwd_reference` and
-:func:`group_norm_bwd_reference` — the same math in plain PyTorch — and
-only there. There is no fall-back: a failed build or launch raises.
-``launches_fwd`` and ``launches_bwd`` count kernel launches; the plain path
-never touches them.
+the hand-written CUDA kernels of ``csrc/group_norm.cu`` and
+``csrc/group_norm_bwd_sm90.cu``, on CUDA tensors. On CPU tensors it runs
+:func:`group_norm_fwd_reference` and :func:`group_norm_bwd_reference` — the
+same math in plain PyTorch — and only there. There is no fall-back: a
+failed build or launch raises. ``launches_fwd`` and ``launches_bwd`` count
+kernel launches, ``launches_bwd_by_route`` B6's by the route
+:func:`plan_gn_bwd` chose; the plain path never touches them.
 
 Numerics are the TPU kernels', not the docstring's: B5 clamps the group
 variance at 0 (:87), B6 recomputes the ReLU mask as ``xhat * scale + bias
@@ -21,13 +22,74 @@ does at :258.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 launches_fwd = 0    # B5 launches (the main path's proof of route)
-launches_bwd = 0    # B6 launches
+launches_bwd = 0    # B6 launches, every route
+# B6 launches by route: "one_pass" (group_norm_bwd_sm90.cu: x and dy read
+# once into shared memory) and "two_pass" (gn_bwd of group_norm.cu)
+launches_bwd_by_route = {"one_pass": 0, "two_pass": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_CLUSTER = 8          # CTAs holding one sample (portable cluster size)
+_MAX_C = 2048             # channels of one CTA: 8 a thread, 256 threads
+_SM_SMEM = 233472         # shared memory of one SM (228 KB), 1 KB a CTA kept
+_CTA_SMEM = 232448        # the most one CTA may have (227 KB)
+
+
+class GnBwdPlan(NamedTuple):
+    """How B6 runs one call: ``route`` ``"one_pass"`` (each sample's H·W
+    positions in ``cluster`` runs of ``rows`` positions, one CTA each) or
+    ``"two_pass"``."""
+    route: str
+    cluster: int
+    rows: int
+
+
+def gn_bwd_smem_bytes(rows: int, c: int, groups: int) -> int:
+    """Shared memory of one ``"one_pass"`` CTA (``smem_bytes`` of
+    ``csrc/group_norm_bwd_sm90.cu``): its x and dy runs, the partials of
+    its thread rows (at least two rows: they also take the cluster totals),
+    the channel sums and the group means."""
+    trows = 256 // (c // 8)
+    return (rows * c * 4 + max(trows, 2) * c * 4 + 2 * c * 4
+            + 2 * groups * 4)
+
+
+def gn_bwd_plan(hw: int, c: int, groups: int,
+                ctas_per_sm: int) -> GnBwdPlan | None:
+    """The ``"one_pass"`` plan with the fewest CTAs a sample (at most 8)
+    whose shared memory lets ``ctas_per_sm`` of them share an SM; None if
+    no count does."""
+    cap = min(_SM_SMEM // ctas_per_sm - 1024, _CTA_SMEM)
+    for cluster in range(1, _MAX_CLUSTER + 1):
+        rows = -(-hw // cluster)
+        if gn_bwd_smem_bytes(rows, c, groups) <= cap:
+            return GnBwdPlan("one_pass", -(-hw // rows), rows)
+    return None
+
+
+def plan_gn_bwd(n: int, hw: int, c: int, groups: int,
+                dtype: torch.dtype) -> GnBwdPlan:
+    """The route of a B6 call, chosen before launch. ``"one_pass"`` takes
+    bf16 with C a multiple of 8 (at most 2048): a sample's H·W positions
+    split into ``cluster`` runs of ``rows = ceil(H·W / cluster)``, with the
+    fewest CTAs (at most 8) whose shared memory lets three share an SM,
+    else 8 if one CTA's fits the card. fp32 and every other shape take
+    ``"two_pass"`` (``gn_bwd``)."""
+    two_pass = GnBwdPlan("two_pass", 1, hw)
+    if (dtype != torch.bfloat16 or not 1 <= n <= 65535 or hw < 1 or c % 8
+            or c > _MAX_C or groups < 1 or c % groups):
+        return two_pass
+    plan = gn_bwd_plan(hw, c, groups, 3)
+    if plan is not None:
+        return plan
+    rows = -(-hw // _MAX_CLUSTER)
+    if gn_bwd_smem_bytes(rows, c, groups) <= _CTA_SMEM:
+        return GnBwdPlan("one_pass", -(-hw // rows), rows)
+    return two_pass
 
 
 def _group_combine(per_c: torch.Tensor, groups: int,
@@ -92,12 +154,26 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     specs = {"tb_gn_fwd": [i] + [p] * 5 + [i] * 4 + [f, i, p],
              "tb_gn_bwd": [i] + [p] * 7 + [i] * 4 + [i, p]}
+    _bind(lib, specs)
+    return lib
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    from torchbooster_tpu_torch.ops import _build
+
+    lib = _build.load("group_norm_bwd_sm90")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _bind(lib, {"tb_gn_bwd_sm90": [p] * 7 + [i] * 7 + [p],
+                "tb_gn_bwd_sm90_occupancy": [i] * 3})
+    return lib
+
+
+def _bind(lib: ctypes.CDLL, specs: dict) -> None:
     for name, argtypes in specs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    return lib
 
 
 def _check_cuda(x, scale, bias, groups, *like_x, stats=None) -> None:
@@ -155,22 +231,60 @@ def launch_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def launch_bwd(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
                scale: torch.Tensor, bias: torch.Tensor, groups: int,
-               relu: bool = False):
-    """B6 on CUDA tensors: ``(dx, part)``."""
+               relu: bool = False, route: str | None = None):
+    """B6 on CUDA tensors: ``(dx, part)``. ``route`` defaults to the plan of
+    :func:`plan_gn_bwd`; ``"two_pass"`` forces ``gn_bwd`` on the same
+    inputs, and ``"one_pass"`` where it was not planned raises."""
     global launches_bwd
     _check_cuda(x, scale, bias, groups, dy, stats=stats)
     n, h, w, c = x.shape
+    plan = plan_gn_bwd(n, h * w, c, groups, x.dtype)
+    route = plan.route if route is None else route
+    if route not in launches_bwd_by_route or (
+            route == "one_pass" and plan.route != "one_pass"):
+        raise ValueError(f"group_norm backward: route {route!r} does not "
+                         f"take these operands (planned {plan.route!r})")
+    if route == "one_pass":
+        res = _launch_one_pass(x, dy, stats, scale, bias, groups, relu, plan)
+    else:
+        dx = torch.empty_like(x)
+        part = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+        err = _lib().tb_gn_bwd(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
+            stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), n, h * w, c, groups, int(relu),
+            _stream(x))
+        if err != 0:
+            raise RuntimeError(f"group_norm backward kernel launch failed "
+                               f"(two_pass): CUDA error {err}")
+        res = dx, part
+    launches_bwd += 1
+    launches_bwd_by_route[route] += 1
+    return res
+
+
+def _launch_one_pass(x, dy, stats, scale, bias, groups: int, relu: bool,
+                     plan: GnBwdPlan):
+    """One call of ``tb_gn_bwd_sm90`` at ``plan`` on operands
+    :func:`_check_cuda` passed (the smoke also times it at the other plans
+    :func:`gn_bwd_plan` offers)."""
+    n, h, w, c = x.shape
     dx = torch.empty_like(x)
     part = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
-    err = _lib().tb_gn_bwd(_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
-                           stats.data_ptr(), scale.data_ptr(),
-                           bias.data_ptr(), dx.data_ptr(), part.data_ptr(), n,
-                           h * w, c, groups, int(relu), _stream(x))
+    err = _lib_sm90().tb_gn_bwd_sm90(
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), dx.data_ptr(), part.data_ptr(), n, h * w, c, groups,
+        int(relu), plan.rows, plan.cluster, _stream(x))
     if err != 0:
-        raise RuntimeError(f"group_norm backward kernel launch failed: CUDA "
-                           f"error {err}")
-    launches_bwd += 1
+        raise RuntimeError(f"group_norm backward kernel launch failed "
+                           f"({plan}): CUDA error {err}")
     return dx, part
+
+
+def ctas_per_sm_bwd(plan: GnBwdPlan, c: int, groups: int) -> int:
+    """CTAs of B6's one-pass kernel that share one SM at ``plan``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    return _lib_sm90().tb_gn_bwd_sm90_occupancy(plan.rows, c, groups)
 
 
 class _GroupNorm(torch.autograd.Function):
@@ -216,6 +330,8 @@ def group_norm_fused(scale: torch.Tensor, bias: torch.Tensor,
                             float(eps), bool(relu))
 
 
-__all__ = ["group_norm_bwd_reference", "group_norm_fused",
-           "group_norm_fwd_reference", "launch_bwd", "launch_fwd",
-           "launches_bwd", "launches_fwd"]
+__all__ = ["GnBwdPlan", "ctas_per_sm_bwd", "gn_bwd_plan", "gn_bwd_smem_bytes",
+           "group_norm_bwd_reference",
+           "group_norm_fused", "group_norm_fwd_reference", "launch_bwd",
+           "launch_fwd", "launches_bwd", "launches_bwd_by_route",
+           "launches_fwd", "plan_gn_bwd"]
