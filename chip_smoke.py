@@ -6,11 +6,11 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device  — require a CUDA card; print ``nvidia-smi`` name and power limit.
-2. build   — compile the port's ten CUDA sources (nvcc, sm_90a), one
+2. build   — compile the port's eleven CUDA sources (nvcc, sm_90a), one
    nvcc per source, all started together, and time it; print the
    registers and spills ``-Xptxas -v`` reports for the B4, B1 and B2/B3
    ``"sm90"`` kernels, the one-pass conv + GroupNorm kernel's B7 and B8
-   instances and B6's one-pass kernel.
+   instances and B5's and B6's one-pass kernels.
 3. kernel  — hold the paged flash-decode kernel (B4) against its plain
    PyTorch version at GPT-2-small width (H=12, Dh=64, 64-token pages, 129
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
@@ -64,25 +64,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    each stage, the stride-2 projections), ResNet-50 224² bottleneck
    geometries (56²x64->256 1x1, 56²x64 3x3, a 7²x2048 GroupNorm), a
    non-square 7x9 map, and widths off the 16-byte vectors (12 channels
-   in, 40 out), and B8's one-pass routes at small batch (a cluster at B 3,
-   a partial pack at B 5); B6, B7 and B8 each on the route its plan
-   (``plan_gn_bwd``, ``plan_conv1x1``, ``plan_conv3x3``) names, asserted
-   by the per-route counters, every B6 ``"one_pass"`` and B7
-   ``"cluster"``/``"pack"`` case also forced onto the older route
-   (``"two_pass"``, ``"mma_sync"``) within the same tolerance, and two
-   bf16 calls on the same inputs agreeing bit for bit (B8, B7 on both
-   one-pass routes, B6 at a cluster of 4 and of 1); then time each kernel
+   in, 40 out), B8's one-pass routes at small batch (a cluster at B 3,
+   a partial pack at B 5) and B5's packed route at B 3 (the last CTA
+   holding one sample); B5-B8 each on the route its plan
+   (``plan_gn_fwd``, ``plan_gn_bwd``, ``plan_conv1x1``, ``plan_conv3x3``)
+   names, asserted by the per-route counters, every B5 and B6
+   ``"one_pass"`` and B7 ``"cluster"``/``"pack"`` case also forced onto the
+   older route (``"two_pass"``, ``"mma_sync"``) within the same tolerance,
+   and two bf16 calls on the same inputs agreeing bit for bit (B8, B7 on
+   both one-pass routes, B6 at a cluster of 4 and of 1, B5 at a cluster of
+   2, of 1 and two samples a CTA); then time each kernel
    at every ResNet-18 shape of the training path (profiler device time;
    the port's launches also by replays of a CUDA graph of 20 calls, which
    stands in for a column whose profiler window loses events, the plain
    version and the library call falling back on their own to CUDA events
    around back-to-back calls, and the line says which; and CUDA events
    per call) beside its bound, its plain version, the older
-   route's kernel on the same inputs (B6, B7, B8) and a library yardstick
+   route's kernel on the same inputs (B5-B8) and a library yardstick
    (``F.group_norm`` on the channels-last view and its backward; for
    B7/B8 the sequence cuDNN conv + ``F.group_norm`` + ReLU), with the
-   route, B6's and B7's CTAs per SM, and B8's TFLOP/s over the product
-   counted once.
+   route, B5's, B6's and B7's CTAs per SM, and B8's TFLOP/s over the
+   product counted once; B5's and B6's one-pass kernels are also timed at
+   the other plans their rules passed over.
 9. resnet_train — the ResNet recipe's ``main`` (``recipes/resnet.py``) on a
    config built in code from ``examples/img_cls/resnet/resnet.yml``'s
    values (ResNet-18, CIFAR stem, batch 512, bf16 over fp32 masters,
@@ -91,7 +94,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    eval pass of 2 batches after each epoch). Every loss finite and the
    last below the first; the launch counts of B5-B8 exact (per train step
    B5 4, B6 4, B7 3, B8 13; per eval forward B5 4, B7 3, B8 13), and by
-   route: B6 all ``"one_pass"``, B7 1 ``"cluster"`` and 2 ``"pack"`` per
+   route: B5 and B6 all ``"one_pass"``, B7 1 ``"cluster"`` and 2 ``"pack"`` per
    forward, B8 7 ``"cluster"`` and 6 ``"pack"``; one fp32
    forward + backward with the kernels against ``fused=False`` and the
    plain GroupNorm (loss and gradient norm, rtol 1e-4). Prints step ms,
@@ -120,8 +123,8 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "train", "conv", "resnet_train")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
            "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
-           "group_norm_bwd_sm90", "fused_block", "conv1x1_gn_sm90",
-           "conv3x3_gn_sm90")
+           "group_norm_fwd_sm90", "group_norm_bwd_sm90", "fused_block",
+           "conv1x1_gn_sm90", "conv3x3_gn_sm90")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
@@ -1248,6 +1251,8 @@ CONV_EXTRA = [
     # a pack of 8 whose only pack holds 5 samples
     ("cluster_b3_32sq_3x3", "3x3", 3, 32, 32, 64, 64, 1),
     ("pack_rem_b5_4sq_3x3", "3x3", 5, 4, 4, 512, 512, 1),
+    # B5's two samples a CTA, the last CTA holding one
+    ("pack_rem_b3_8sq_gn", "gn", 3, 8, 8, 256, 256, 1),
 ]
 # cases whose bf16 calls must repeat bit for bit: B8 on each route, B7 on
 # both one-pass routes ("cluster" at 16², "pack" of 8 at 4²), B6 at
@@ -1255,6 +1260,9 @@ CONV_EXTRA = [
 CONV_REPEAT = ("stage0_3x3", "stage3_3x3", "pack_rem_b5_4sq_3x3",
                "odd_cin12_cout40_3x3", "stage1_proj", "stage3_proj",
                "stem_gn", "stage1_gn", "nonsquare_7x9_gn")
+# B5's: a cluster of 2 CTAs (the stem), one CTA of 16 and of 63 positions,
+# two samples a CTA
+GN_FWD_REPEAT = ("stem_gn", "stage3_gn", "nonsquare_7x9_gn", "stage2_gn")
 
 
 def groups_for(c: int) -> int:
@@ -1287,15 +1295,18 @@ def conv_inputs(gen, kind, b, h, w, cin, cout, dtype):
                 scale=1.0 + 0.1 * randn(cout), bias=0.1 * randn(cout))
 
 
-def planned_route(case, dtype) -> str:
+def planned_route(case, dtype, key: str = "gn_bwd") -> str:
     """The route ``case``'s kernel takes at ``dtype``: B8's and B7's from
-    their plans (``"f32"`` at fp32), B6's from ``plan_gn_bwd``."""
+    their plans (``"f32"`` at fp32); for a GroupNorm case, B5's
+    (``plan_gn_fwd``) when ``key`` is ``"gn_fwd"``, else B6's
+    (``plan_gn_bwd``)."""
     from torchbooster_tpu_torch.ops import fused_block as fb
     from torchbooster_tpu_torch.ops import group_norm as gnk
 
     _, kind, b, h, w, cin, cout, stride = case
     if kind == "gn":
-        return gnk.plan_gn_bwd(b, h * w, cin, groups_for(cin), dtype).route
+        plan = gnk.plan_gn_fwd if key == "gn_fwd" else gnk.plan_gn_bwd
+        return plan(b, h * w, cin, groups_for(cin), dtype).route
     if dtype != torch.bfloat16:
         return "f32"
     if kind == "1x1":
@@ -1324,9 +1335,9 @@ def counted(counter: dict, route: str, call):
 def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
     """One geometry through its kernel(s) and plain version(s): max abs
     error and the share of the allowance atol + rtol|ref| used, per
-    output. B6's, B7's and B8's per-route counters must move on the
-    planned route; a one-pass route's case runs forced onto the older
-    route too (outputs keyed ``<name>@<route>``)."""
+    output. B5's-B8's per-route counters must move on the planned route; a
+    one-pass route's case runs forced onto the older route too (outputs
+    keyed ``<name>@<route>``)."""
     from torchbooster_tpu_torch.ops import fused_block as fb
     from torchbooster_tpu_torch.ops import group_norm as gnk
 
@@ -1338,12 +1349,18 @@ def check_conv_case(gen, case, dtype, relu) -> tuple[dict, dict]:
     routes = [route] + ([OLDER_ROUTE[route]]
                         if route in OLDER_ROUTE and kind != "3x3" else [])
     if kind == "gn":
-        y, st = gnk.launch_fwd(x, s, bi, g, 1e-5, relu)
-        torch.cuda.synchronize()
         y_ref, st_ref = gnk.group_norm_fwd_reference(x, s, bi, g, 1e-5, relu)
         dx_ref, part_ref = gnk.group_norm_bwd_reference(
             x, a["dy"], st_ref, s, bi, g, relu)
-        pairs = {"y": (y, y_ref), "stats": (st, st_ref)}
+        pairs = {}
+        fwd = planned_route(case, dtype, "gn_fwd")
+        for i, r in enumerate([fwd] + ([OLDER_ROUTE[fwd]]
+                                       if fwd in OLDER_ROUTE else [])):
+            y, st = counted(gnk.launches_fwd_by_route, r, lambda: (
+                gnk.launch_fwd(x, s, bi, g, 1e-5, relu,
+                               route=None if i == 0 else r)))
+            tag = "" if i == 0 else f"@{r}"
+            pairs.update({f"y{tag}": (y, y_ref), f"stats{tag}": (st, st_ref)})
         for i, r in enumerate(routes):
             dx, part = counted(gnk.launches_bwd_by_route, r, lambda: (
                 gnk.launch_bwd(x, a["dy"], st_ref, s, bi, g, relu,
@@ -1462,21 +1479,27 @@ def time_conv_case(gen, case) -> dict:
         runs[key] = (kern, lambda: fb.conv_gn_reference(
             x, a["w"], s, bi, GROUPS, 1e-5, relu, stride), library)
     work = conv_work(case, 2)
-    route = planned_route(case, dtype)
+    routes = {key: planned_route(case, dtype, key) for key in runs}
     # the older route on the same inputs, timed beside the planned one: B8's
     # two-pass mma_sync kernel (outside the launch counters), B7 forced onto
-    # "mma_sync", B6 onto "two_pass"
+    # "mma_sync", B5 and B6 onto "two_pass"
     older = {"conv3x3": lambda: fb._launch(x, a["w"], s, bi, GROUPS, 1e-5,
                                            relu, 1)}
-    if kind == "1x1" and route in OLDER_ROUTE:
+    if routes.get("conv1x1") in OLDER_ROUTE:
         older["conv1x1"] = lambda: fb.launch_1x1(
             x, a["w"], s, bi, GROUPS, 1e-5, relu, stride,
-            route=OLDER_ROUTE[route])
-    if kind == "gn" and route in OLDER_ROUTE:
+            route=OLDER_ROUTE[routes["conv1x1"]])
+    if routes.get("gn_fwd") in OLDER_ROUTE:
+        older["gn_fwd"] = lambda: gnk.launch_fwd(
+            x, s, bi, GROUPS, 1e-5, relu,
+            route=OLDER_ROUTE[routes["gn_fwd"]])
+    if routes.get("gn_bwd") in OLDER_ROUTE:
         older["gn_bwd"] = lambda: gnk.launch_bwd(
-            x, a["dy"], st, s, bi, GROUPS, relu, route=OLDER_ROUTE[route])
+            x, a["dy"], st, s, bi, GROUPS, relu,
+            route=OLDER_ROUTE[routes["gn_bwd"]])
     out = {}
     for key, (kern, plain, lib) in runs.items():
+        route = routes[key]
         fns = {"kernel": kern, "plain": plain, "library": lib}
         if key in older:
             fns["previous"] = older[key]
@@ -1513,19 +1536,22 @@ def time_conv_case(gen, case) -> dict:
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": nbytes, "flops": flops}
         extra = ""
-        if key != "gn_fwd":
-            out[key]["route"] = route
+        out[key]["route"] = route
         if key == "conv3x3":
             # the product counted once, whatever the route computes
             out[key]["tflops"] = flops / (src["kernel"] * 1e-3) / 1e12
             out[key]["two_pass_ms"] = src["previous"]
             extra = (f"; route {route}, {out[key]['tflops']:.1f} TFLOP/s; "
                      f"two-pass mma_sync {src['previous'] * 1e3:.1f} us")
-        elif key in ("conv1x1", "gn_bwd"):
+        else:
             if key == "conv1x1":
                 plan = fb.plan_conv1x1(b, h, w, cin, cout, GROUPS, stride)
                 ctas = (fb.ctas_per_sm_1x1(plan) if route in OLDER_ROUTE
                         else None)
+            elif key == "gn_fwd":
+                plan = gnk.plan_gn_fwd(b, h * w, cin, GROUPS, dtype)
+                ctas = (gnk.ctas_per_sm_fwd(plan, cin, GROUPS)
+                        if route in OLDER_ROUTE else None)
             else:
                 plan = gnk.plan_gn_bwd(b, h * w, cin, GROUPS, dtype)
                 ctas = (gnk.ctas_per_sm_bwd(plan, cin, GROUPS)
@@ -1536,6 +1562,9 @@ def time_conv_case(gen, case) -> dict:
             if "previous" in src:
                 extra += (f"; {OLDER_ROUTE[route]} "
                           f"{src['previous'] * 1e3:.1f} us")
+            if key == "gn_fwd" and route == "one_pass":
+                out[key]["plan_sweep"] = gn_fwd_plan_sweep(
+                    x, s, bi, relu, plan)
             if key == "gn_bwd" and route == "one_pass":
                 out[key]["plan_sweep"] = gn_bwd_plan_sweep(
                     x, a["dy"], st, s, bi, relu, plan)
@@ -1559,6 +1588,43 @@ def time_conv_case(gen, case) -> dict:
             f" us; bound {out[key]['bound_ms'] * 1e3:.1f} us "
             f"({out[key]['bound_by']}){extra}")
     return out
+
+
+def gn_fwd_plan_sweep(x, s, bi, relu, planned) -> list:
+    """B5's one-pass kernel at the other plans :func:`gn_fwd_plan` offers
+    for these operands (the fewest CTAs a sample that let four, three, two
+    or one share an SM; two, four or eight whole samples a CTA where their
+    shared memory fits an SM), outside the launch counters, each held to the
+    planned route's result and timed in device time: the data behind
+    ``plan_gn_fwd``'s rule."""
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    n, h, w, c = x.shape
+    want = gnk.launch_fwd(x, s, bi, GROUPS, 1e-5, relu)
+    rows = []
+    for pack, per_sm in itertools.product((1, 2, 4, 8), (4, 3, 2, 1)):
+        plan = gnk.gn_fwd_plan(h * w, c, GROUPS, per_sm, pack)
+        if plan is None or any(r["plan"] == plan._asdict() for r in rows):
+            continue
+        call = lambda: gnk._launch_fwd_one_pass(x, s, bi, GROUPS, 1e-5,  # noqa: E731
+                                                relu, plan)
+        got = call()
+        torch.cuda.synchronize()
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, want))
+        if not err <= CONV_TOL[torch.bfloat16]:
+            raise AssertionError(f"gn_fwd at {plan}: {err} from the planned "
+                                 f"route")
+        ms = device_ms(call, iters=20) or graph_ms(call)
+        rows.append({"plan": plan._asdict(), "planned": plan == planned,
+                     "ctas_per_sm": gnk.ctas_per_sm_fwd(plan, c, GROUPS),
+                     "ms": ms, "max_abs_err_vs_planned": err})
+    log(f"gn_fwd plan sweep {tuple(x.shape)}: " + "; ".join(
+        f"cluster {r['plan']['cluster']} x {r['plan']['rows']} rows, pack "
+        f"{r['plan']['pack']}, {r['ctas_per_sm']} CTAs/SM"
+        f"{' (planned)' if r['planned'] else ''}: {r['ms'] * 1e3:.1f} us"
+        for r in rows))
+    return rows
 
 
 def gn_bwd_plan_sweep(x, dy, st, s, bi, relu, planned) -> list:
@@ -1633,18 +1699,24 @@ def conv1x1_tile_sweep(x, w, s, bi, relu, stride, planned) -> list:
 def repeat_check(gen) -> dict:
     """Two bf16 calls on the same inputs must agree bit for bit (fixed-order
     sums, no atomics, across a cluster's CTAs too): B8's out, mu and rstd;
-    B7's on its one-pass routes; B6's dx and part on ``"one_pass"``."""
+    B7's on its one-pass routes; B6's dx and part and B5's y and stats on
+    ``"one_pass"``."""
     from torchbooster_tpu_torch.ops import fused_block as fb
     from torchbooster_tpu_torch.ops import group_norm as gnk
 
     cases = {c[0]: c for c in CONV_MAIN + CONV_EXTRA}
     out = {}
-    for name in CONV_REPEAT:
+    for name, fwd in [(n, False) for n in CONV_REPEAT] + [
+            (n, True) for n in GN_FWD_REPEAT]:
         case = cases[name]
         _, kind, b, h, w, cin, cout, stride = case
         a = conv_inputs(gen, kind, b, h, w, cin, cout, torch.bfloat16)
         g = groups_for(cout)
-        if kind == "gn":
+        if fwd:
+            call = lambda: gnk.launch_fwd(a["x"], a["scale"], a["bias"],  # noqa: E731
+                                          g, 1e-5, True)
+            what = "gn_fwd"
+        elif kind == "gn":
             _, st = gnk.group_norm_fwd_reference(a["x"], a["scale"],
                                                  a["bias"], g, 1e-5, True)
             call = lambda: gnk.launch_bwd(a["x"], a["dy"], st, a["scale"],  # noqa: E731
@@ -1661,13 +1733,14 @@ def repeat_check(gen) -> dict:
         first, second = call(), call()
         torch.cuda.synchronize()
         same = all(torch.equal(p, q) for p, q in zip(first, second))
-        route = planned_route(case, torch.bfloat16)
-        out[name] = {"kernel": what, "route": route, "bit_identical": same}
+        route = planned_route(case, torch.bfloat16, what)
+        out[f"{what} {name}"] = {"kernel": what, "route": route,
+                                 "bit_identical": same}
         if not same:
             raise AssertionError(f"{what} {name} ({route}): two calls on the "
                                  f"same inputs differ")
     log("conv repeat, bit for bit: " + ", ".join(
-        f"{r['kernel']} {n} ({r['route']}) ok" for n, r in out.items()))
+        f"{n} ({r['route']}) ok" for n, r in out.items()))
     return out
 
 
@@ -1692,11 +1765,14 @@ def phase_conv(report: dict) -> dict:
                                    else "conv3x3")
                     worst[kk] = max(worst[kk], err)
                 tag = f"{name}_{str(dtype)[6:]}_{'relu' if relu else 'norelu'}"
-                per_case[tag] = {"route": planned_route(case, dtype),
+                route = planned_route(case, dtype)
+                if kind == "gn":   # B5's route, then B6's
+                    route = f"{planned_route(case, dtype, 'gn_fwd')}/{route}"
+                per_case[tag] = {"route": route,
                                  "max_abs_err": errs, "allowance_used": used,
                                  "atol": CONV_TOL[dtype],
                                  "rtol": CONV_TOL[dtype]}
-                log(f"conv {tag} ({planned_route(case, dtype)}): "
+                log(f"conv {tag} ({route}): "
                     + ", ".join(f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)"
                                 for k in errs)
                     + f" (atol = rtol = {CONV_TOL[dtype]})")
@@ -1711,8 +1787,7 @@ def phase_conv(report: dict) -> dict:
     # counts; B6 runs once per B5)
     per_step = {}
     for key in worst:
-        fields = ("ms", "plain_ms", "library_ms", "bound_ms") + (
-            ("previous_ms",) if key != "gn_fwd" else ())
+        fields = ("ms", "plain_ms", "library_ms", "bound_ms", "previous_ms")
         per_step[key] = {
             f: sum(CONV_PER_STEP[n] * t[key][f] for n, t in timing.items()
                    if key in t)
@@ -1721,16 +1796,15 @@ def phase_conv(report: dict) -> dict:
             f"{per_step[key]['ms']:.4f} ms, plain "
             f"{per_step[key]['plain_ms']:.4f} ms, library "
             f"{per_step[key]['library_ms']:.4f} ms, bound "
-            f"{per_step[key]['bound_ms']:.4f} ms" + (
-                f", older route {per_step[key]['previous_ms']:.4f} ms"
-                if key != "gn_fwd" else ""))
+            f"{per_step[key]['bound_ms']:.4f} ms, older route "
+            f"{per_step[key]['previous_ms']:.4f} ms")
     report["conv_timing"] = timing
     report["conv_per_step"] = per_step
     res = {key: {**{k: timing[CONV_TIMED[key]][key][k] for k in (
         "ms", "sum_ms", "timed_by", "plain_ms", "library_ms", "bound_ms",
         "bound_by")},
         "max_abs_err": worst[key]} for key in worst}
-    for key in ("conv1x1", "conv3x3", "gn_bwd"):
+    for key in ("conv1x1", "conv3x3", "gn_fwd", "gn_bwd"):
         t = timing[CONV_TIMED[key]][key]
         res[key].update(timed_route=t["route"], previous_ms=t["previous_ms"])
     return res
@@ -1878,8 +1952,8 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gnk.launches_fwd = gnk.launches_bwd = 0
     fb.launches_1x1 = fb.launches_3x3 = 0
-    for counter in (gnk.launches_bwd_by_route, fb.launches_1x1_by_route,
-                    fb.launches_3x3_by_route):
+    for counter in (gnk.launches_fwd_by_route, gnk.launches_bwd_by_route,
+                    fb.launches_1x1_by_route, fb.launches_3x3_by_route):
         for route in counter:
             counter[route] = 0
     t0 = time.perf_counter()
@@ -1888,7 +1962,8 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     wall = time.perf_counter() - t0
     launches = {"gn_fwd": gnk.launches_fwd, "gn_bwd": gnk.launches_bwd,
                 "conv1x1": fb.launches_1x1, "conv3x3": fb.launches_3x3}
-    by_route = {"gn_bwd": dict(gnk.launches_bwd_by_route),
+    by_route = {"gn_fwd": dict(gnk.launches_fwd_by_route),
+                "gn_bwd": dict(gnk.launches_bwd_by_route),
                 "conv1x1": dict(fb.launches_1x1_by_route),
                 "conv3x3": dict(fb.launches_3x3_by_route)}
     peak = torch.cuda.max_memory_allocated()
@@ -1908,8 +1983,9 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
                              f"batches)")
     # B8: stages 0-1 (4 + 3 calls a forward) on clusters, 2-3 (3 + 3)
     # packed; B7: the 16² projection on a cluster, the 8² and 4² packed;
-    # B6: every norm's backward in one pass
+    # B5 and B6: every norm's forward and backward in one pass
     route_expected = {
+        "gn_fwd": {"one_pass": 4 * fwd, "two_pass": 0},
         "gn_bwd": {"one_pass": 4 * n_steps, "two_pass": 0},
         "conv1x1": {"cluster": fwd, "pack": 2 * fwd, "mma_sync": 0, "f32": 0},
         "conv3x3": {"cluster": 7 * fwd, "pack": 6 * fwd, "mma_sync": 0,
@@ -1939,6 +2015,7 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
         f"{out['img_per_s']:.0f} img/s, host data {data_s * 1e3:.1f} ms per "
         f"step, model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of "
         f"989 TFLOP/s, peak mem {peak / 2**30:.2f} GiB; launches {launches}, "
+        f"B5 by route {by_route['gn_fwd']}, "
         f"B6 by route {by_route['gn_bwd']}, B7 by route "
         f"{by_route['conv1x1']}, B8 by route {by_route['conv3x3']} [{smi}]")
     out["fp32_kernels_vs_plain"] = resnet_fp32_check()
@@ -2007,7 +2084,7 @@ def main() -> int:
                           "source": f"torchbooster_tpu_torch/ops/csrc/{src}",
                           "replaces": f"torchbooster_tpu/ops/{ref}", **blank}
                     for key, name, src, ref in (
-                        ("gn_fwd", "gn_fwd", "group_norm.cu",
+                        ("gn_fwd", "gn_fwd", "group_norm_fwd_sm90.cu",
                          "group_norm.py:69"),
                         ("gn_bwd", "gn_bwd", "group_norm_bwd_sm90.cu",
                          "group_norm.py:106"),
@@ -2015,7 +2092,7 @@ def main() -> int:
                          "fused_block.py:70"),
                         ("conv3x3", "conv3x3_gn", "conv3x3_gn_sm90.cu",
                          "fused_block.py:238"))}
-    for key in ("gn_bwd", "conv1x1", "conv3x3"):
+    for key in ("gn_fwd", "gn_bwd", "conv1x1", "conv3x3"):
         conv_kernels[key].update(timed_route=None, launches_by_route=None,
                                  previous_ms=None)
     t0 = time.perf_counter()
@@ -2039,6 +2116,7 @@ def main() -> int:
                 ("flash_bwd_sm90", r"(flash_dq_sm90|flash_dkv_sm90)ILi(\d+)E"),
                 ("conv1x1_gn_sm90", r"(conv_gn_sm90)ILi(\d+)ELi(\d+)E"),
                 ("conv3x3_gn_sm90", r"(conv_gn_sm90)ILi(\d+)ELi(\d+)E"),
+                ("group_norm_fwd_sm90", r"(gn_fwd_sm90)E"),
                 ("group_norm_bwd_sm90", r"(gn_bwd_sm90)E")):
             regs = report[f"ptxas_{src}"] = ptxas_kernels(
                 report["ptxas"][src], pattern)
@@ -2094,7 +2172,7 @@ def main() -> int:
             conv_kernels[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")})
-        for key in ("gn_bwd", "conv1x1", "conv3x3"):
+        for key in ("gn_fwd", "gn_bwd", "conv1x1", "conv3x3"):
             conv_kernels[key].update(timed_route=res[key]["timed_route"],
                                      previous_ms=res[key]["previous_ms"])
     if "resnet_train" in phases:

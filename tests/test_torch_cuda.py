@@ -552,6 +552,8 @@ CONV_CASES = {
     "stage1_gn": ("gn", 4, 16, 16, 128, 128, 1),
     "r50_7sq_gn_2048": ("gn", 2, 7, 7, 2048, 2048, 1),
     "many_samples_7x9_gn": ("gn", 1000, 7, 9, 64, 64, 1),
+    # B5's two samples a CTA (ResNet-18's 8² x 256 norm), the last CTA one
+    "pack_rem_b3_8sq_gn": ("gn", 3, 8, 8, 256, 256, 1),
 }
 # the route each bf16 3x3 case must take (fp32 always takes "f32")
 CONV3_ROUTE = {"stage0_3x3": "cluster", "stage3_3x3": "pack",
@@ -854,3 +856,116 @@ def test_gn_bwd_and_conv1x1_refuse_routes_that_do_not_fit_on_card():
             gn.launch_bwd(a["x"], a["dy"], st, a["scale"], a["bias"], g,
                           route=route)
     assert (fb.launches_1x1_by_route, gn.launches_bwd_by_route) == before
+
+
+# B5's GroupNorm geometries (its planned route: "one_pass" at bf16 but C 12)
+GN_CASES = sorted(n for n, c in CONV_CASES.items() if c[0] == "gn")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("name", GN_CASES)
+def test_gn_fwd_routes_match_plain_version_on_card(name, relu):
+    """B5 (y, stats) at bf16 on the route ``plan_gn_fwd`` names, its
+    per-route counter moving there, and forced onto ``"two_pass"`` on the
+    same inputs; both against the plain version within one bf16 ulp of y.
+    B6 on its planned route from the one-pass stats holds to the plain
+    backward; the one-pass kernel at the sweep's other plans (four or three
+    CTAs an SM, two samples a CTA) holds too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    kind, b, h, w, cin, cout, _ = CONV_CASES[name]
+    a = _conv_operands(kind, b, h, w, cin, cout, torch.bfloat16)
+    tol = CONV_TOL[torch.bfloat16]
+    g = fb._resolve_groups(32, cin)
+    x, s, bi = a["x"], a["scale"], a["bias"]
+    plan = gn.plan_gn_fwd(b, h * w, cin, g, torch.bfloat16)
+    assert plan.route == ("two_pass" if cin % 8 else "one_pass")
+    want = gn.group_norm_fwd_reference(x, s, bi, g, 1e-5, relu)
+    results = {}
+    for route in [None] + (["two_pass"] if plan.route == "one_pass" else []):
+        before = dict(gn.launches_fwd_by_route)
+        results[route] = gn.launch_fwd(x, s, bi, g, 1e-5, relu, route=route)
+        torch.cuda.synchronize()
+        took = route or plan.route
+        assert gn.launches_fwd_by_route == {**before, took: before[took] + 1}
+        for one, ref in zip(results[route], want):
+            torch.testing.assert_close(one.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+    y, st = results[None]
+    dx, part = gn.launch_bwd(x, a["dy"], st, s, bi, g, relu)
+    for one, ref in zip((dx, part), gn.group_norm_bwd_reference(
+            x, a["dy"], st, s, bi, g, relu)):
+        torch.testing.assert_close(one.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+    if plan.route == "one_pass":
+        for other in (gn.gn_fwd_plan(h * w, cin, g, 4),
+                      gn.gn_fwd_plan(h * w, cin, g, 3),
+                      gn.gn_fwd_plan(h * w, cin, g, 1, pack=2)):
+            if other is None:
+                continue
+            got = gn._launch_fwd_one_pass(x, s, bi, g, 1e-5, relu, other)
+            for one, ref in zip(got, want):
+                torch.testing.assert_close(one.float(), ref.float(),
+                                           atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stem_gn", "stage1_gn", "stage3_gn",
+                                  "many_samples_7x9_gn", "r50_7sq_gn_2048",
+                                  "pack_rem_b3_8sq_gn"])
+def test_gn_fwd_one_pass_repeats_bit_for_bit_on_card(name):
+    """Two bf16 B5 calls on ``"one_pass"`` (clusters of 2, 1 and 5 CTAs;
+    two samples a CTA) give the same y and stats bit for bit: every sum
+    runs in a fixed order with no atomics, across a cluster's CTAs too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    kind, b, h, w, cin, cout, _ = CONV_CASES[name]
+    a = _conv_operands(kind, b, h, w, cin, cout, torch.bfloat16, seed=2)
+    g = fb._resolve_groups(32, cin)
+    assert gn.plan_gn_fwd(b, h * w, cin, g, torch.bfloat16).route \
+        == "one_pass"
+    first, second = (gn.launch_fwd(a["x"], a["scale"], a["bias"], g, 1e-5,
+                                   True) for _ in range(2))
+    torch.cuda.synchronize()
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+def test_gn_fwd_refuses_routes_and_operands_it_does_not_take_on_card():
+    """``"one_pass"`` named where the plan did not choose it (C 12, fp32)
+    raises, as do an unknown route and operands the kernels do not take
+    (fp16, a strided x, scale on the CPU, stats-shaped scale); nothing
+    launches and no counter moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    before = (gn.launches_fwd, dict(gn.launches_fwd_by_route))
+    for name, dtype, route in (("odd_c12_gn", torch.bfloat16, "one_pass"),
+                               ("stem_gn", torch.float32, "one_pass"),
+                               ("stem_gn", torch.bfloat16, "cluster")):
+        kind, b, h, w, cin, cout, _ = CONV_CASES[name]
+        a = _conv_operands(kind, b, h, w, cin, cout, dtype)
+        with pytest.raises(ValueError, match="route"):
+            gn.launch_fwd(a["x"], a["scale"], a["bias"],
+                          fb._resolve_groups(32, cin), route=route)
+    a = _conv_operands("gn", 4, 16, 16, 128, 128, torch.bfloat16)
+    x, s, bi = a["x"], a["scale"], a["bias"]
+    with pytest.raises(TypeError, match="dtype"):
+        gn.launch_fwd(x.half(), s, bi, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.launch_fwd(x[:, :, ::2], s, bi, 32)
+    with pytest.raises(ValueError, match="expected"):
+        gn.launch_fwd(x, s.cpu(), bi, 32)
+    with pytest.raises(ValueError, match="expected"):
+        gn.launch_fwd(x, s.bfloat16(), bi, 32)
+    assert (gn.launches_fwd, gn.launches_fwd_by_route) == before

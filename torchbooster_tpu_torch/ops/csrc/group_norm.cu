@@ -1,11 +1,13 @@
 // GroupNorm(+ReLU) forward and backward over NHWC, for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of torchbooster_tpu/ops/group_norm.py
-// (bound together by the custom_vjp at :190-263):
+// (bound together by the custom_vjp at :190-263), each as route "two_pass":
+// fp32 and the shapes (C off the 16-byte vectors, over 2048 channels, a
+// sample run too large for 8 CTAs) that `plan_gn_fwd` and `plan_gn_bwd`
+// (ops/group_norm.py) do not send to the one-pass kernels of
+// group_norm_fwd_sm90.cu and group_norm_bwd_sm90.cu:
 //   B5 `_fwd_kernel` (:69, pallas_call :202)  -> gn_fwd
-//   B6 `_bwd_kernel` (:106, pallas_call :236) -> gn_bwd, route "two_pass":
-//      fp32 and the shapes `plan_gn_bwd` (ops/group_norm.py) does not send
-//      to the one-pass kernel of group_norm_bwd_sm90.cu
+//   B6 `_bwd_kernel` (:106, pallas_call :236) -> gn_bwd
 // Operands are the TPU kernels': x and dy (N, H*W, C) in bf16 or fp32, C
 // innermost; scale and bias (C,) fp32 (the wrapper casts them); stats
 // (N, 2, C) fp32 = per-channel group mean and 1/sqrt(var + eps); part
@@ -33,10 +35,9 @@
 // What bounds it: a normalisation does a handful of flops per element, far
 // below the card's ~295 flop/byte ridge, so the bound is bytes: B5 reads x
 // and writes y, B6 reads x and dy and writes dx. The second pass re-reads
-// the slab; at ResNet shapes a CTA's slab is 32-256 KB and is usually still
-// in the 50 MB L2 when the second pass reaches it, but nothing here holds it
-// on chip. group_norm_bwd_sm90.cu holds B6's slab in shared memory (one
-// read); B5's forward could do the same.
+// the slab, from the 50 MB L2 at best: nothing here holds it on chip. The
+// one-pass kernels hold a sample's run in shared memory and read it once;
+// these two-pass ones stay for the operands they do not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

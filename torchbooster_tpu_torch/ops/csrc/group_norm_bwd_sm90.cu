@@ -44,7 +44,8 @@
 //   - its per-channel partials of S_xh and S_dy add across its threads in a
 //     fixed order, then across the cluster over distributed shared memory in
 //     rank order (every rank's sum loaded at once, then added in order), as
-//     conv_gn_sm90.cuh's cluster route exchanges its moments, so every CTA
+//     conv_gn_sm90.cuh's cluster route exchanges its moments (the exchange
+//     is group_norm_sm90.cuh's, shared with B5's forward), so every CTA
 //     derives the same group means bit for bit, with no atomics; a second
 //     cluster barrier keeps each CTA's sums alive until its peers have read
 //     them. Rank 0 writes part.
@@ -64,18 +65,11 @@
 
 #include <math.h>
 
-#include "sm90_wgmma.cuh"
+#include "group_norm_sm90.cuh"
 
 namespace {
 
-using namespace sm90;
-
-constexpr int kThreads = 256;
-constexpr int kVec = 8;          // bf16 channels per 16-byte chunk
-constexpr int kMaxCluster = 8;   // CTAs per sample (portable cluster size)
-constexpr int kMaxC = kVec * kThreads;
-constexpr int kParts = 4;        // cp.async groups a run lands in, at most
-constexpr int kMinPartRows = 16; // positions of one group, at least
+using namespace gn_sm90;
 
 // shared memory of one CTA, in bytes: the slab of x and dy, the thread
 // rows' partials [max(trows, 2)][C] (one sum at a time; then the cluster
@@ -83,26 +77,6 @@ constexpr int kMinPartRows = 16; // positions of one group, at least
 int smem_bytes(int rows, int c, int groups) {
   const int trows = kThreads / (c / kVec);
   return rows * c * 4 + (trows > 2 ? trows : 2) * c * 4 + 2 * c * 4 + 2 * groups * 4;
-}
-
-// 8 bf16 at a 16-byte-aligned shared address as fp32
-__device__ __forceinline__ void load8(float (&out)[kVec], const bf16* p) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// 8 fp32 at a 16-byte-aligned global address
-__device__ __forceinline__ void ldg8(float (&out)[kVec], const float* p) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
-  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
 }
 
 // grid (cs, N) in clusters of (cs, 1, 1) when cs > 1; 256 threads;
@@ -171,10 +145,7 @@ gn_bwd_sm90(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   for (int k = 0; k < kParts; ++k) {
     const int lo = k * part_rows, hi = min(lo + part_rows, nrows);
     if (lo >= nrows) break;  // the same for every thread
-    if (k == 0) cp_async_wait<kParts - 1>();
-    if (k == 1) cp_async_wait<kParts - 2>();
-    if (k == 2) cp_async_wait<kParts - 3>();
-    if (k == 3) cp_async_wait<0>();
+    wait_part(k);
     if (!own) __syncthreads();
     if (!active) continue;
     for (int p = lo + (trow - lo % trows + trows) % trows; p < hi; p += trows) {
@@ -214,23 +185,8 @@ gn_bwd_sm90(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   }
   const float* sums = csum;
   if (cs > 1) {
-    // every CTA's channel sums are in its shared memory: each rank's sum of
-    // a channel is loaded at once, then added in rank order
-    cluster_sync();
-    for (int j = tid; j < 2 * c; j += kThreads) {
-      float v[kMaxCluster];
-#pragma unroll
-      for (int rk = 0; rk < kMaxCluster; ++rk)
-        if (rk < cs) v[rk] = ld_cluster(csum + j, rk);
-      float t = 0.f;
-#pragma unroll
-      for (int rk = 0; rk < kMaxCluster; ++rk)
-        if (rk < cs) t += v[rk];
-      red[j] = t;
-    }
-    // peers have read this CTA's sums (it may now exit), and the totals in
-    // red are visible
-    cluster_sync();
+    // every rank's channel sums, added in rank order, land in `red`
+    cluster_totals(csum, red, 2 * c, cs);
     sums = red;
   }
 
@@ -293,7 +249,7 @@ bool plan_ok(int n, int hw, int c, int groups, int rows, int cs) {
          groups > 0 && c % groups == 0 && cs >= 1 && cs <= kMaxCluster && rows > 0 &&
          static_cast<long long>(rows) * cs >= hw &&
          static_cast<long long>(rows) * (cs - 1) < hw &&
-         smem_bytes(rows, c, groups) <= 227 * 1024;
+         smem_bytes(rows, c, groups) <= kMaxSmem;
 }
 
 }  // namespace
@@ -309,29 +265,9 @@ extern "C" int tb_gn_bwd_sm90(const void* x, const void* dy, const float* stats,
                               float* part, int n, int hw, int c, int groups, int relu,
                               int rows, int cs, void* stream) {
   if (!plan_ok(n, hw, c, groups, rows, cs)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = smem_bytes(rows, c, groups);
-  cudaError_t err = set_smem(gn_bwd_sm90, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(cs, n, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 0;
-  if (cs > 1) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cs;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.numAttrs = 1;
-  }
-  err = cudaLaunchKernelEx(&cfg, gn_bwd_sm90, static_cast<const bf16*>(x),
-                           static_cast<const bf16*>(dy), stats, scale, bias,
-                           static_cast<bf16*>(dx), part, hw, c, groups, rows, cs, relu);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch(gn_bwd_sm90, dim3(cs, n, 1), cs, smem_bytes(rows, c, groups), stream,
+                static_cast<const bf16*>(x), static_cast<const bf16*>(dy), stats, scale, bias,
+                static_cast<bf16*>(dx), part, hw, c, groups, rows, cs, relu);
 }
 
 // CTAs of a (rows, c, groups) plan that share one SM (registers, shared memory
@@ -339,11 +275,5 @@ extern "C" int tb_gn_bwd_sm90(const void* x, const void* dy, const float* stats,
 // -1 for a plan the kernel cannot run or on error
 extern "C" int tb_gn_bwd_sm90_occupancy(int rows, int c, int groups) {
   if (!plan_ok(1, rows, c, groups, rows, 1)) return -1;
-  const int smem = smem_bytes(rows, c, groups);
-  int blocks = 0;
-  if (set_smem(gn_bwd_sm90, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gn_bwd_sm90, kThreads, smem) !=
-          cudaSuccess)
-    return -1;
-  return blocks;
+  return occupancy(gn_bwd_sm90, smem_bytes(rows, c, groups));
 }

@@ -1,10 +1,10 @@
 // PTX helpers shared by the Hopper (sm_90a) kernels: flash-attention
 // (flash_fwd_sm90.cu, B1; flash_bwd_sm90.cu, B2 and B3), paged decode
 // (paged_decode_sm90.cu, B4), the one-pass conv + GroupNorm kernels
-// (conv_gn_sm90.cuh, B7 and B8) and the one-pass GroupNorm backward
-// (group_norm_bwd_sm90.cu, B6): 16-byte cp.async copies with zero fill, the
-// async-proxy fence, wgmma fence / commit / wait, the SW128 shared-memory
-// descriptors (K-major, and MN-major through the transpose bit), wgmma with A
+// (conv_gn_sm90.cuh, B7 and B8) and the one-pass GroupNorm forward and
+// backward (group_norm_sm90.cuh, B5 and B6): 16-byte cp.async copies with
+// zero fill, the async-proxy fence, wgmma fence / commit / wait, the SW128
+// shared-memory descriptors (K-major, and MN-major through the transpose bit), wgmma with A
 // from shared memory (ss) or registers (rs), the accumulator-to-register-A
 // re-pack, the SW128 tile copy, and the thread-block-cluster barrier and
 // distributed-shared-memory read. The card tests hold the two operand forms

@@ -4,13 +4,17 @@
 
 :func:`group_norm_fused` is differentiable through a
 ``torch.autograd.Function``: its forward launches B5 and its backward B6,
-the hand-written CUDA kernels of ``csrc/group_norm.cu`` and
-``csrc/group_norm_bwd_sm90.cu``, on CUDA tensors. On CPU tensors it runs
-:func:`group_norm_fwd_reference` and :func:`group_norm_bwd_reference` — the
-same math in plain PyTorch — and only there. There is no fall-back: a
+hand-written CUDA kernels, on CUDA tensors. Each has two routes, chosen
+before launch by :func:`plan_gn_fwd` and :func:`plan_gn_bwd`:
+``"one_pass"`` (bf16, C a multiple of 8 up to 2048: a sample's run read once
+into shared memory, ``csrc/group_norm_fwd_sm90.cu`` and
+``csrc/group_norm_bwd_sm90.cu``) and ``"two_pass"`` (fp32 and every other
+shape: ``gn_fwd`` and ``gn_bwd`` of ``csrc/group_norm.cu``). On CPU tensors
+it runs :func:`group_norm_fwd_reference` and :func:`group_norm_bwd_reference`
+— the same math in plain PyTorch — and only there. There is no fall-back: a
 failed build or launch raises. ``launches_fwd`` and ``launches_bwd`` count
-kernel launches, ``launches_bwd_by_route`` B6's by the route
-:func:`plan_gn_bwd` chose; the plain path never touches them.
+kernel launches, ``launches_fwd_by_route`` and ``launches_bwd_by_route`` the
+same by route; the plain path never touches them.
 
 Numerics are the TPU kernels', not the docstring's: B5 clamps the group
 variance at 0 (:87), B6 recomputes the ReLU mask as ``xhat * scale + bias
@@ -26,8 +30,11 @@ from typing import NamedTuple
 
 import torch
 
-launches_fwd = 0    # B5 launches (the main path's proof of route)
+launches_fwd = 0    # B5 launches, every route (the main path's proof)
 launches_bwd = 0    # B6 launches, every route
+# B5 launches by route: "one_pass" (group_norm_fwd_sm90.cu: x read once into
+# shared memory) and "two_pass" (gn_fwd of group_norm.cu)
+launches_fwd_by_route = {"one_pass": 0, "two_pass": 0}
 # B6 launches by route: "one_pass" (group_norm_bwd_sm90.cu: x and dy read
 # once into shared memory) and "two_pass" (gn_bwd of group_norm.cu)
 launches_bwd_by_route = {"one_pass": 0, "two_pass": 0}
@@ -37,6 +44,96 @@ _MAX_CLUSTER = 8          # CTAs holding one sample (portable cluster size)
 _MAX_C = 2048             # channels of one CTA: 8 a thread, 256 threads
 _SM_SMEM = 233472         # shared memory of one SM (228 KB), 1 KB a CTA kept
 _CTA_SMEM = 232448        # the most one CTA may have (227 KB)
+_PACK_MIN_BYTES = 32768   # a sample's x at which B5 packs two a CTA
+
+
+class GnFwdPlan(NamedTuple):
+    """How B5 runs one call: ``route`` ``"one_pass"`` (each sample's H·W
+    positions in ``cluster`` runs of ``rows`` positions, one CTA each; or,
+    at ``pack`` > 1, ``pack`` whole samples a CTA) or ``"two_pass"``."""
+    route: str
+    cluster: int
+    rows: int
+    pack: int
+
+
+def gn_fwd_smem_bytes(rows: int, c: int, groups: int, pack: int = 1) -> int:
+    """Shared memory of one ``"one_pass"`` B5 CTA (``smem_bytes`` of
+    ``csrc/group_norm_fwd_sm90.cu``): its x run of ``pack`` x ``rows``
+    positions, the partials of its thread rows (one sum at a time and at
+    least two rows at pack 1, as they also take the cluster totals; both
+    sums of every sample packed), the channel sums and the group
+    statistics."""
+    trows = 256 // (c // 8)
+    red = max(trows, 2) if pack == 1 else 2 * pack * trows
+    return 2 * pack * rows * c + red * c * 4 + 8 * pack * c + 8 * pack * groups
+
+
+def _smem_cap(ctas_per_sm: int) -> int:
+    """The most shared memory one CTA may have for ``ctas_per_sm`` to share
+    an SM (the card keeps 1 KB a CTA)."""
+    return min(_SM_SMEM // ctas_per_sm - 1024, _CTA_SMEM)
+
+
+def _fewest_ctas(hw: int, fits) -> tuple[int, int] | None:
+    """``(cluster, rows)``: the fewest CTAs a sample, at most 8, whose runs
+    of ``rows = ceil(H·W / cluster)`` positions ``fits(rows)``; None if no
+    count does."""
+    for cluster in range(1, _MAX_CLUSTER + 1):
+        rows = -(-hw // cluster)
+        if fits(rows):
+            return -(-hw // rows), rows
+    return None
+
+
+def _one_pass_takes(n: int, hw: int, c: int, groups: int,
+                    dtype: torch.dtype) -> bool:
+    """The operands both one-pass kernels take: bf16, C a multiple of 8 up
+    to 2048, ``groups`` dividing C, at most 65535 samples (the grid's y)."""
+    return (dtype == torch.bfloat16 and 1 <= n <= 65535 and hw >= 1
+            and c % 8 == 0 and c <= _MAX_C and groups >= 1
+            and c % groups == 0)
+
+
+def gn_fwd_plan(hw: int, c: int, groups: int, ctas_per_sm: int,
+                pack: int = 1) -> GnFwdPlan | None:
+    """The ``"one_pass"`` B5 plan whose shared memory lets ``ctas_per_sm``
+    CTAs share an SM: at ``pack`` 1 the fewest CTAs a sample (at most 8);
+    at ``pack`` > 1 one CTA of ``pack`` whole samples. None if none fits."""
+    cap = _smem_cap(ctas_per_sm)
+    if pack > 1:
+        if gn_fwd_smem_bytes(hw, c, groups, pack) <= cap:
+            return GnFwdPlan("one_pass", 1, hw, pack)
+        return None
+    got = _fewest_ctas(hw, lambda rows: gn_fwd_smem_bytes(rows, c, groups)
+                       <= cap)
+    return None if got is None else GnFwdPlan("one_pass", *got, 1)
+
+
+def plan_gn_fwd(n: int, hw: int, c: int, groups: int,
+                dtype: torch.dtype) -> GnFwdPlan:
+    """The route of a B5 call, chosen before launch. ``"one_pass"`` takes
+    bf16 with C a multiple of 8 (at most 2048) and at most 65535 samples: a
+    sample's H·W positions split into ``cluster`` runs of ``rows =
+    ceil(H·W / cluster)``, with the fewest CTAs (at most 8) whose shared
+    memory lets three share an SM, else 8 if one CTA's fits the card. A
+    sample that one CTA holds, whose x is at least 32 KB, goes two to a CTA
+    where that CTA's shared memory still lets two share an SM (the smoke's
+    plan sweep: faster at 8² x 256, slower at 4² x 512's 16 KB and where
+    only one CTA fits an SM). fp32 and every other shape take
+    ``"two_pass"`` (``gn_fwd``)."""
+    two_pass = GnFwdPlan("two_pass", 1, hw, 1)
+    if not _one_pass_takes(n, hw, c, groups, dtype):
+        return two_pass
+    plan = gn_fwd_plan(hw, c, groups, 3)
+    if plan is not None:
+        if plan.cluster == 1 and 2 * hw * c >= _PACK_MIN_BYTES:
+            return gn_fwd_plan(hw, c, groups, 2, pack=2) or plan
+        return plan
+    rows = -(-hw // _MAX_CLUSTER)
+    if gn_fwd_smem_bytes(rows, c, groups) <= _CTA_SMEM:
+        return GnFwdPlan("one_pass", -(-hw // rows), rows, 1)
+    return two_pass
 
 
 class GnBwdPlan(NamedTuple):
@@ -63,12 +160,10 @@ def gn_bwd_plan(hw: int, c: int, groups: int,
     """The ``"one_pass"`` plan with the fewest CTAs a sample (at most 8)
     whose shared memory lets ``ctas_per_sm`` of them share an SM; None if
     no count does."""
-    cap = min(_SM_SMEM // ctas_per_sm - 1024, _CTA_SMEM)
-    for cluster in range(1, _MAX_CLUSTER + 1):
-        rows = -(-hw // cluster)
-        if gn_bwd_smem_bytes(rows, c, groups) <= cap:
-            return GnBwdPlan("one_pass", -(-hw // rows), rows)
-    return None
+    cap = _smem_cap(ctas_per_sm)
+    got = _fewest_ctas(hw, lambda rows: gn_bwd_smem_bytes(rows, c, groups)
+                       <= cap)
+    return None if got is None else GnBwdPlan("one_pass", *got)
 
 
 def plan_gn_bwd(n: int, hw: int, c: int, groups: int,
@@ -80,8 +175,7 @@ def plan_gn_bwd(n: int, hw: int, c: int, groups: int,
     else 8 if one CTA's fits the card. fp32 and every other shape take
     ``"two_pass"`` (``gn_bwd``)."""
     two_pass = GnBwdPlan("two_pass", 1, hw)
-    if (dtype != torch.bfloat16 or not 1 <= n <= 65535 or hw < 1 or c % 8
-            or c > _MAX_C or groups < 1 or c % groups):
+    if not _one_pass_takes(n, hw, c, groups, dtype):
         return two_pass
     plan = gn_bwd_plan(hw, c, groups, 3)
     if plan is not None:
@@ -158,6 +252,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _lib_fwd_sm90() -> ctypes.CDLL:
+    from torchbooster_tpu_torch.ops import _build
+
+    lib = _build.load("group_norm_fwd_sm90")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _bind(lib, {"tb_gn_fwd_sm90": [p] * 5 + [i] * 4 + [f] + [i] * 4 + [p],
+                "tb_gn_fwd_sm90_occupancy": [i] * 4})
+    return lib
+
+
 def _lib_sm90() -> ctypes.CDLL:
     from torchbooster_tpu_torch.ops import _build
 
@@ -210,23 +314,70 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _held_route(plan, route: str | None, counter: dict, what: str) -> str:
+    """``route``, or the planned one when None; a route that is unknown, or
+    ``"one_pass"`` where the plan did not choose it, raises."""
+    route = plan.route if route is None else route
+    if route not in counter or (route == "one_pass"
+                                and plan.route != "one_pass"):
+        raise ValueError(f"group_norm {what}: route {route!r} does not take "
+                         f"these operands (planned {plan.route!r})")
+    return route
+
+
 def launch_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               groups: int, eps: float = 1e-5, relu: bool = False):
-    """B5 on CUDA tensors (scale and bias fp32): ``(y, stats)``."""
+               groups: int, eps: float = 1e-5, relu: bool = False,
+               route: str | None = None):
+    """B5 on CUDA tensors (scale and bias fp32): ``(y, stats)``. ``route``
+    defaults to the plan of :func:`plan_gn_fwd`; ``"two_pass"`` forces
+    ``gn_fwd`` on the same inputs, and ``"one_pass"`` where it was not
+    planned raises."""
     global launches_fwd
     _check_cuda(x, scale, bias, groups)
     n, h, w, c = x.shape
+    plan = plan_gn_fwd(n, h * w, c, groups, x.dtype)
+    route = _held_route(plan, route, launches_fwd_by_route, "forward")
+    if route == "one_pass":
+        res = _launch_fwd_one_pass(x, scale, bias, groups, eps, relu, plan)
+    else:
+        y = torch.empty_like(x)
+        stats = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+        err = _lib().tb_gn_fwd(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), stats.data_ptr(), n, h * w, c,
+            groups, float(eps), int(relu), _stream(x))
+        if err != 0:
+            raise RuntimeError(f"group_norm forward kernel launch failed "
+                               f"(two_pass): CUDA error {err}")
+        res = y, stats
+    launches_fwd += 1
+    launches_fwd_by_route[route] += 1
+    return res
+
+
+def _launch_fwd_one_pass(x, scale, bias, groups: int, eps: float, relu: bool,
+                         plan: GnFwdPlan):
+    """One call of ``tb_gn_fwd_sm90`` at ``plan`` on operands
+    :func:`_check_cuda` passed (the smoke also times it at the other plans
+    :func:`gn_fwd_plan` offers)."""
+    n, h, w, c = x.shape
     y = torch.empty_like(x)
     stats = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
-    err = _lib().tb_gn_fwd(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                           scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                           stats.data_ptr(), n, h * w, c, groups, float(eps),
-                           int(relu), _stream(x))
+    err = _lib_fwd_sm90().tb_gn_fwd_sm90(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        stats.data_ptr(), n, h * w, c, groups, float(eps), int(relu),
+        plan.rows, plan.cluster, plan.pack, _stream(x))
     if err != 0:
-        raise RuntimeError(f"group_norm forward kernel launch failed: CUDA "
-                           f"error {err}")
-    launches_fwd += 1
+        raise RuntimeError(f"group_norm forward kernel launch failed "
+                           f"({plan}): CUDA error {err}")
     return y, stats
+
+
+def ctas_per_sm_fwd(plan: GnFwdPlan, c: int, groups: int) -> int:
+    """CTAs of B5's one-pass kernel that share one SM at ``plan``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
+    return _lib_fwd_sm90().tb_gn_fwd_sm90_occupancy(plan.rows, c, groups,
+                                                    plan.pack)
 
 
 def launch_bwd(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
@@ -239,11 +390,7 @@ def launch_bwd(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
     _check_cuda(x, scale, bias, groups, dy, stats=stats)
     n, h, w, c = x.shape
     plan = plan_gn_bwd(n, h * w, c, groups, x.dtype)
-    route = plan.route if route is None else route
-    if route not in launches_bwd_by_route or (
-            route == "one_pass" and plan.route != "one_pass"):
-        raise ValueError(f"group_norm backward: route {route!r} does not "
-                         f"take these operands (planned {plan.route!r})")
+    route = _held_route(plan, route, launches_bwd_by_route, "backward")
     if route == "one_pass":
         res = _launch_one_pass(x, dy, stats, scale, bias, groups, relu, plan)
     else:
@@ -330,8 +477,10 @@ def group_norm_fused(scale: torch.Tensor, bias: torch.Tensor,
                             float(eps), bool(relu))
 
 
-__all__ = ["GnBwdPlan", "ctas_per_sm_bwd", "gn_bwd_plan", "gn_bwd_smem_bytes",
-           "group_norm_bwd_reference",
+__all__ = ["GnBwdPlan", "GnFwdPlan", "ctas_per_sm_bwd", "ctas_per_sm_fwd",
+           "gn_bwd_plan", "gn_bwd_smem_bytes", "gn_fwd_plan",
+           "gn_fwd_smem_bytes", "group_norm_bwd_reference",
            "group_norm_fused", "group_norm_fwd_reference", "launch_bwd",
            "launch_fwd", "launches_bwd", "launches_bwd_by_route",
-           "launches_fwd", "plan_gn_bwd"]
+           "launches_fwd", "launches_fwd_by_route", "plan_gn_bwd",
+           "plan_gn_fwd"]
