@@ -45,6 +45,26 @@ Phases, in order; any failure exits non-zero and prints no result:
 6. serve_bf16 — the same at bf16; prints decode tok/s, p50 TTFT and peak
    device memory beside the card's name and power limit, then replays the
    trace under the profiler for the device busy share and the top kernels.
+6a. serve_spec_bf16 / serve_spec_fp32 — the same model and pool with
+   ``speculative: true, draft_len: 4`` (S = 5 verify rows a slot) built
+   through ``ServingConfig.make``: 8 requests with repetitive prompts of
+   64-512 tokens (tiled patterns), 64 new tokens each. Every request
+   equals the dense ``generate``; some draft is accepted; one verify shape
+   and no decode step; B4 launches exactly 12 a verify step, all on
+   ``"sm90"`` at bf16 and ``"simt"`` at fp32. Prints the accept rate,
+   tokens per verify step, decode tok/s and p50 TTFT beside the plain
+   decode engine's on the same prompts.
+6b. serve_tree — the same at bf16 with ``spec_tree: true,
+   spec_tree_width: 2`` on ambiguous repetitive prompts (the final n-gram
+   seen twice with two continuations, the older one the model's own
+   pick): 8/8 token-exact, at least one side-branch acceptance counted by
+   the engine, one verify shape, every launch on ``"sm90"``.
+6c. serve_fork — ``parallel_sampling: true`` at bf16: two requests (256
+   and 100 prompt tokens), n = best_of = 4, 32 new tokens. Greedy: every
+   branch equals the dense ``generate``, prompt pages shared (read
+   through 4 lanes) and tail pages copied, every B4 launch on ``"sm90"``;
+   seeded (temperature 0.8, top-k 50): each branch equals the engine's
+   own run admitted alone with ``(seed, branch)``.
 7. train   — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
    built in code from ``examples/lm/gpt/gpt.yml``'s values with the model
    at GPT-2-small width: batch 8 x 1024, 20 steps, bf16 over fp32 masters,
@@ -120,7 +140,10 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
+          "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
           "train", "conv", "resnet_train")
+SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
+                "serve_spec_fp32", "serve_tree", "serve_fork")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
            "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
            "group_norm_fwd_sm90", "group_norm_bwd_sm90", "fused_block",
@@ -888,6 +911,13 @@ def requests(cfg):
             for i, n in enumerate(PROMPT_LENS)]
 
 
+def reset_paged_counts() -> None:
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    pa.launches = 0
+    pa.launches_by_route.update(dict.fromkeys(pa.launches_by_route, 0))
+
+
 def serve(params, cfg, dtype: torch.dtype):
     from torchbooster_tpu_torch.config import ServingConfig
     from torchbooster_tpu_torch.ops import paged_attention as pa
@@ -900,8 +930,7 @@ def serve(params, cfg, dtype: torch.dtype):
     reqs = requests(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
-    pa.launches_by_route.update(dict.fromkeys(pa.launches_by_route, 0))
+    reset_paged_counts()
     metrics = batcher.run(reqs)
     torch.cuda.synchronize()
     launches = pa.launches
@@ -924,13 +953,13 @@ def serve(params, cfg, dtype: torch.dtype):
     return batcher, reqs, metrics, launches, by_route
 
 
-def dense_tokens(params, cfg, reqs, dtype):
+def dense_tokens(params, cfg, reqs, dtype, n_new: int = N_NEW):
     from torchbooster_tpu_torch.models.gpt import generate
 
     out = []
     for r in reqs:
         ids = torch.as_tensor(r.prompt, device="cuda").long()[None]
-        full = generate(params, ids, cfg, n_new=N_NEW, temperature=0.0,
+        full = generate(params, ids, cfg, n_new=n_new, temperature=0.0,
                         compute_dtype=dtype)
         out.append(full[0, len(r.prompt):].tolist())
     return out
@@ -994,6 +1023,265 @@ def phase_serve(params, cfg, dtype, smi: str, report: dict, key: str,
             f"({100 * b['paged_share_of_device']:.1f}% of device time; its "
             f"kernels' own times summed {b['paged_kernel_sum_s']:.5f} s)")
     return match, launches, by_route
+
+
+# ---------------------------------------------- speculative and fork serving
+SPEC_NEW = 64          # new tokens a request in the speculative phases
+DRAFT_LEN = 4          # S = 5 verify rows a slot
+FORK_LENS = (256, 100)
+FORK_NEW = 32
+FORK_N = 4             # n = best_of
+
+
+def repetitive_prompt(rs, n: int, vocab: int) -> np.ndarray:
+    """``n`` tokens of a tiled random pattern of 3-8 tokens (the JAX
+    suite's ``_repetitive_prompt``)."""
+    pat = rs.randint(0, vocab, int(rs.randint(3, 9))).astype(np.int32)
+    return np.resize(pat, n).astype(np.int32)
+
+
+def ambiguous_prompt(params, cfg, dtype, rs, n: int) -> np.ndarray:
+    """About ``n`` tokens of a tiled pattern ``R`` cut by one n-gram ``u v
+    f`` seen twice: ``R + [u, v, f, t] + R + [u, v, f, w] + R + [u, v]``,
+    where ``f`` and ``t`` are the dense model's own first two greedy picks
+    after the whole prompt (found by iterating to a fixed point), and
+    ``w`` another token. After the first token (``f``) the tree drafter
+    sees two continuations of the suffix: ``w`` (the most recent, the
+    primary branch) and ``t`` (the side branch), and the model picks
+    ``t``: an ambiguous repetitive prompt whose side branch is right."""
+    from torchbooster_tpu_torch.serving import Request
+
+    vocab = cfg.vocab
+    for _ in range(8):
+        pat = rs.randint(0, vocab, int(rs.randint(3, 9))).astype(np.int32)
+        seg = np.resize(pat, max((n - 10) // 3 // len(pat), 1) * len(pat))
+        u, v, w = (int(x) for x in rs.randint(0, vocab, 3))
+        f = t = v
+        for _ in range(4):
+            prompt = np.concatenate([seg, [u, v, f, t], seg, [u, v, f, w],
+                                     seg, [u, v]]).astype(np.int32)
+            got = dense_tokens(params, cfg, [Request(prompt=prompt)], dtype,
+                               n_new=2)[0]
+            if got == [f, t] and t != w:
+                return prompt
+            f, t = got
+            if t == w:
+                w = (w + 1) % vocab
+    raise AssertionError("no ambiguous prompt reached a fixed point")
+
+
+def spec_run(batcher, cfg, dtype, prompts, tree: bool) -> dict:
+    """One run of the speculative ``batcher`` over ``prompts`` (SPEC_NEW
+    new tokens each), with the exact B4 launch count and route checks."""
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import Request
+
+    eng = batcher.engine
+    steps0, slot_steps0 = eng.spec_steps, eng.spec_slot_steps
+    side0 = eng.tree_side_accepts
+    reqs = [Request(prompt=p, max_new_tokens=SPEC_NEW, request_id=f"s{i}")
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_paged_counts()
+    m = batcher.run(reqs)
+    torch.cuda.synchronize()
+    launches, by_route = pa.launches, dict(pa.launches_by_route)
+    steps = eng.spec_steps - steps0
+    want = "sm90" if dtype == torch.bfloat16 else "simt"
+    if launches != cfg.n_layers * steps or by_route[want] != launches:
+        raise AssertionError(
+            f"{dtype} speculative serving: {launches} B4 launches by route "
+            f"{by_route} over {steps} verify steps, not {cfg.n_layers} a "
+            f"step all on {want!r}")
+    if eng.verify_compiles != 1 or eng.decode_compiles != 0:
+        raise AssertionError(f"verify step took {eng.verify_compiles} "
+                             f"shapes, decode {eng.decode_compiles}")
+    if m["n_spec_accepted"] <= 0:
+        raise AssertionError("no draft was accepted")
+    side = eng.tree_side_accepts - side0
+    if tree and side <= 0:
+        raise AssertionError("no side branch of a tree was accepted")
+    eng.tables.check()
+    slot_steps = eng.spec_slot_steps - slot_steps0
+    # tokens the verify steps delivered (the prefill's first tokens apart)
+    delivered = m["new_tokens"] - len(prompts)
+    return {"reqs": reqs, "metrics": m, "launches": launches,
+            "by_route": by_route, "spec_steps": steps,
+            "slot_steps": slot_steps, "side_accepts": side,
+            "tokens_per_step": delivered / max(steps, 1),
+            "tokens_per_slot_step": delivered / max(slot_steps, 1)}
+
+
+def phase_serve_spec(params, cfg, dtype, smi: str, report: dict, key: str,
+                     tree: bool = False) -> tuple[int, dict]:
+    """A speculative serving phase built through ``ServingConfig.make``
+    (``speculative: true, draft_len: 4[, spec_tree: true,
+    spec_tree_width: 2]``): every request equal to the dense
+    ``generate``; the plain decode engine (``serve_bf16``'s
+    configuration) on the same prompts in turns with it (plain, spec,
+    spec, plain), so their times compare within the call."""
+    from torchbooster_tpu_torch.config import ServingConfig
+    from torchbooster_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(7)
+    if tree:
+        prompts = [ambiguous_prompt(params, cfg, dtype, rs, n)
+                   for n in PROMPT_LENS]
+    else:
+        prompts = [repetitive_prompt(rs, n, cfg.vocab) for n in PROMPT_LENS]
+    spec = ServingConfig(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+                         speculative=True, draft_len=DRAFT_LEN,
+                         spec_tree=tree, spec_tree_width=2).make(
+        params, cfg, compute_dtype=dtype, on_recompile="raise")
+    if spec.engine.decode_backend != "kernel" \
+            or spec.engine.draft_len != DRAFT_LEN:
+        raise AssertionError("the CUDA speculative engine is not on the "
+                             "kernel backend with draft_len 4")
+    plain = ServingConfig(page_size=PS, n_pages=N_PAGES,
+                          max_slots=SLOTS).make(params, cfg,
+                                                compute_dtype=dtype)
+    dense = None
+    runs, plain_runs = [], []
+    for turn in ("plain", "spec", "spec", "plain"):
+        if turn == "spec":
+            run = spec_run(spec, cfg, dtype, prompts, tree)
+            runs.append(run)
+            got = [r.tokens for r in run["reqs"]]
+        else:
+            reqs = [Request(prompt=p, max_new_tokens=SPEC_NEW)
+                    for p in prompts]
+            plain_runs.append(plain.run(reqs))
+            torch.cuda.synchronize()
+            got = [r.tokens for r in reqs]
+        if dense is None:
+            dense = dense_tokens(params, cfg, [Request(prompt=p)
+                                               for p in prompts],
+                                 dtype, n_new=SPEC_NEW)
+        match = [g == d for g, d in zip(got, dense)]
+        if not all(match):
+            raise AssertionError(f"{key} ({turn}): {match.count(False)} of "
+                                 f"{len(match)} requests differ from dense "
+                                 "generate")
+    m = runs[-1]["metrics"]
+    report[key] = {
+        "runs": [{k: v for k, v in r.items() if k != "reqs"} for r in runs],
+        "plain_runs": plain_runs, "token_match": match, "card": smi}
+    tok_s = [r["metrics"]["decode_tok_s"] for r in runs]
+    plain_tok_s = [pm["decode_tok_s"] for pm in plain_runs]
+    log(f"{key}: {len(match)}/{len(match)} requests token-exact vs dense "
+        f"generate in both runs; {runs[-1]['spec_steps']} verify steps a "
+        f"run, B4 launches {runs[-1]['launches']} ({cfg.n_layers} a step), "
+        f"by route {runs[-1]['by_route']}; accept rate "
+        f"{m['spec_accept_rate']} ({m['n_spec_accepted']}/"
+        f"{m['n_spec_proposed']}), "
+        f"{runs[-1]['tokens_per_slot_step']:.2f} tokens a slot a verify "
+        f"step, {runs[-1]['tokens_per_step']:.2f} a verify step, "
+        + (f"{runs[-1]['side_accepts']} side-branch acceptances, " if tree
+           else "")
+        + f"decode {tok_s} tok/s, p50 TTFT "
+        f"{[r['metrics']['ttft_p50_s'] for r in runs]} s; the plain decode "
+        f"engine on the same prompts (before and after) {plain_tok_s} "
+        f"tok/s, p50 TTFT {[pm['ttft_p50_s'] for pm in plain_runs]} s "
+        f"[{smi}]")
+    return (sum(r["launches"] for r in runs),
+            {k: sum(r["by_route"][k] for r in runs)
+             for k in runs[0]["by_route"]})
+
+
+def phase_serve_fork(params, cfg, smi: str, report: dict) -> tuple[int, dict]:
+    """``parallel_sampling``: two requests (FORK_LENS prompt tokens), n =
+    best_of = 4, at bf16. Greedy: every branch equals dense ``generate``,
+    full prompt pages are shared through several lanes and tail pages
+    copied. Seeded sampling (temperature 0.8, top-k 50): each branch
+    equals the engine's own run admitted alone with ``(seed, branch)``."""
+    from torchbooster_tpu_torch.config import ServingConfig
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import (ContinuousBatcher, Request,
+                                                best_completions)
+
+    dtype = torch.bfloat16
+    rs = np.random.RandomState(11)
+    prompts = [rs.randint(0, cfg.vocab, n).astype(np.int32)
+               for n in FORK_LENS]
+
+    def family(batcher) -> tuple[list, int]:
+        reqs = [Request(prompt=p, max_new_tokens=FORK_NEW, n=FORK_N,
+                        best_of=FORK_N, seed=100 + i, request_id=f"f{i}")
+                for i, p in enumerate(prompts)]
+        batcher.start_session()
+        for r in reqs:
+            batcher.submit(r)
+        max_lanes = 0
+        while any(r.branches is None or any(b.finished_at is None
+                                            for b in r.branches)
+                  for r in reqs):
+            batcher.step()
+            refs = batcher.engine.tables.kernel_args()["work_refs"]
+            max_lanes = max(max_lanes, int((refs >= 0).sum(axis=1).max()))
+        batcher.finish_session()
+        return reqs, max_lanes
+
+    conf = dict(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+                parallel_sampling=True)
+    greedy = ServingConfig(**conf).make(params, cfg, compute_dtype=dtype,
+                                        on_recompile="raise")
+    eng = greedy.engine
+    torch.cuda.synchronize()
+    reset_paged_counts()
+    reqs, max_lanes = family(greedy)
+    torch.cuda.synchronize()
+    launches, by_route = pa.launches, dict(pa.launches_by_route)
+    dense = dense_tokens(params, cfg, reqs, dtype, n_new=FORK_NEW)
+    greedy_match = [b.tokens == d for r, d in zip(reqs, dense)
+                    for b in r.branches]
+    if not all(greedy_match):
+        raise AssertionError(f"serve_fork: {greedy_match.count(False)} greedy "
+                             "branches differ from dense generate")
+    if eng.forks != len(reqs) or eng.fork_pages <= 0 or eng.cow_copies <= 0:
+        raise AssertionError(f"serve_fork: forks {eng.forks}, fork pages "
+                             f"{eng.fork_pages}, tail copies "
+                             f"{eng.cow_copies}")
+    if max_lanes < FORK_N:
+        raise AssertionError(f"serve_fork: shared pages were read through "
+                             f"at most {max_lanes} lanes")
+    if launches <= 0 or launches % cfg.n_layers or by_route["sm90"] \
+            != launches or eng.decode_compiles != 1:
+        raise AssertionError(f"serve_fork: B4 launches {launches} by route "
+                             f"{by_route}, {eng.decode_compiles} decode "
+                             "shapes")
+    eng.tables.check()
+    sampled = ServingConfig(**conf, temperature=0.8, top_k=50).make(
+        params, cfg, compute_dtype=dtype, on_recompile="raise")
+    reqs_s, _ = family(sampled)
+    seeded_match = []
+    for r in reqs_s:
+        for b in r.branches:
+            ind = Request(prompt=r.prompt, max_new_tokens=FORK_NEW,
+                          seed=r.seed)
+            ind.branch = b.branch
+            ContinuousBatcher(sampled.engine).run([ind])
+            seeded_match.append(ind.tokens == b.tokens)
+    if not all(seeded_match):
+        raise AssertionError(f"serve_fork: {seeded_match.count(False)} seeded "
+                             "branches differ from their independent runs")
+    distinct = [len({tuple(b.tokens) for b in r.branches}) for r in reqs_s]
+    best = [[b.branch for b in best_completions(r)] for r in reqs_s]
+    report["serve_fork"] = {
+        "launches": launches, "launches_by_route": by_route,
+        "forks": eng.forks, "fork_pages": eng.fork_pages,
+        "cow_copies": eng.cow_copies, "max_lanes": max_lanes,
+        "greedy_match": greedy_match, "seeded_match": seeded_match,
+        "distinct_sampled_branches": distinct, "best_of_order": best,
+        "card": smi}
+    log(f"serve_fork: {sum(greedy_match)}/{len(greedy_match)} greedy branches "
+        f"token-exact vs dense generate; {sum(seeded_match)}/"
+        f"{len(seeded_match)} seeded branches (temperature 0.8, top-k 50) "
+        f"equal their independent (seed, branch) runs, {distinct} distinct "
+        f"streams a request, best_of order {best}; forks {eng.forks}, pages "
+        f"shared {eng.fork_pages}, tail copies {eng.cow_copies}, shared "
+        f"pages read through up to {max_lanes} lanes; B4 launches "
+        f"{launches} by route {by_route} [{smi}]")
+    return launches, by_route
 
 
 # ----------------------------------------------------------------- train
@@ -2138,7 +2426,7 @@ def main() -> int:
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "timed_route",
                 "previous_ms")})
-    if "serve_fp32" in phases or "serve_bf16" in phases:
+    if set(SERVE_PHASES) & set(phases):
         params, cfg = gpt2_small()
         if "serve_fp32" in phases:
             match, launches, by_route = phase_serve(
@@ -2154,6 +2442,20 @@ def main() -> int:
             _, launches, by_route = phase_serve(
                 params, cfg, torch.bfloat16, smi, report, "serve_bf16",
                 breakdown=True)
+            kernel["launches"] += launches
+            for r, n in by_route.items():
+                kernel["launches_by_route"][r] += n
+        for key, dtype, tree in (("serve_spec_bf16", torch.bfloat16, False),
+                                 ("serve_spec_fp32", torch.float32, False),
+                                 ("serve_tree", torch.bfloat16, True)):
+            if key in phases:
+                launches, by_route = phase_serve_spec(
+                    params, cfg, dtype, smi, report, key, tree=tree)
+                kernel["launches"] += launches
+                for r, n in by_route.items():
+                    kernel["launches_by_route"][r] += n
+        if "serve_fork" in phases:
+            launches, by_route = phase_serve_fork(params, cfg, smi, report)
             kernel["launches"] += launches
             for r, n in by_route.items():
                 kernel["launches_by_route"][r] += n

@@ -265,6 +265,78 @@ def test_paged_sm90_masked_lane_and_refused_operands_on_card():
     assert (pa.launches, pa.launches_by_route) == before
 
 
+def _spec_engines(spec_tree):
+    """A small bf16 GPT on the card (head dim 64, 16-token pages, decisive
+    head) served speculatively with draft_len 4 (S = 5) by two engines:
+    B4 (``"kernel"``) and the pool sweep."""
+    from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+    from torchbooster_tpu_torch.serving import PagedEngine
+
+    cfg = GPTConfig(vocab=97, n_layers=2, d_model=128, n_heads=2,
+                    seq_len=128)
+    params = GPT.init(0, cfg, device="cuda")
+    params["wte"]["table"] *= 4.0
+    kw = dict(page_size=16, n_pages=24, max_slots=3, speculative=True,
+              draft_len=4, spec_tree=spec_tree,
+              compute_dtype=torch.bfloat16)
+    return {b: PagedEngine(params, cfg, decode_backend=b, **kw)
+            for b in ("kernel", "sweep")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_tree", [False, True], ids=["linear", "tree"])
+def test_engine_spec_verify_on_sm90_matches_sweep_on_card(spec_tree,
+                                                          monkeypatch):
+    """The engine's verify step at S = 5 (and its tree mask) through B4 on
+    ``"sm90"``: every launch on that route, each launch's output within
+    2e-2 of the plain version on the same operands, and every token equal
+    to the same engine on the pool sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from torchbooster_tpu_torch.serving import engine as engine_mod
+
+    errs, s_qs = [], set()
+
+    def checked(q, pk, pv, *walk, page_size, tree_vis=None):
+        out = pa.paged_attention(q, pk, pv, *walk, page_size=page_size,
+                                 tree_vis=tree_vis)
+        want = pa.paged_attention_reference(q, pk, pv, *walk,
+                                            page_size=page_size,
+                                            tree_vis=tree_vis)
+        live = walk[1][walk[1] >= 0].unique().long()
+        errs.append(float((out[live].float() - want[live].float())
+                          .abs().max()))
+        s_qs.add(q.shape[1])
+        return out
+
+    monkeypatch.setattr(engine_mod, "paged_attention", checked)
+    rs = np.random.RandomState(0)
+    prompts = [np.tile(rs.randint(0, 97, n).astype(np.int32), r)
+               for n, r in ((3, 6), (5, 4), (7, 3))]
+    if spec_tree:                      # ambiguous: two continuations
+        pat = rs.randint(0, 97, 5).astype(np.int32)
+        prompts[0] = np.concatenate([pat, [11], pat, [13], pat, [11], pat])
+    streams = {}
+    before = dict(pa.launches_by_route)
+    for backend, eng in _spec_engines(spec_tree).items():
+        slots = {eng.admit(p)[0]: [] for p in prompts}
+        for _ in range(10):
+            assert eng.grow_slots() == []
+            for slot, toks in eng.spec_step().items():
+                slots[slot].extend(toks)
+        streams[backend] = [slots[s][:20] for s in sorted(slots)]
+        assert eng.verify_compiles == 1 and eng.decode_compiles == 0
+        eng.tables.check()
+        if backend == "kernel":
+            n_steps = eng.spec_steps
+            assert eng.spec_accepted > 0
+    torch.cuda.synchronize()
+    assert pa.launches_by_route["sm90"] - before["sm90"] == 2 * n_steps
+    assert pa.launches_by_route["simt"] == before["simt"]
+    assert s_qs == {5} and max(errs) <= 2e-2, max(errs)
+    assert streams["kernel"] == streams["sweep"]
+
+
 # B1-B3: (B, H, H_kv, S_q, S_kv, D, dtype, causal) — GPT-2-small training
 # geometry (also with 4 kv heads and the KV-cache alignment S_q < S_kv), the
 # GPT recipe default (d_model 256 / 8 heads = D 32, S 256, batch 32), head

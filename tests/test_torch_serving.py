@@ -14,7 +14,8 @@ vocab 97, 4-token pages, decisive tied head).
   tables evolve exactly like the JAX package's under the same ops;
 - one decode shape across admit/retire/evict churn; preemption keeps
   every stream token-exact;
-- options this slice does not port raise, naming the ROADMAP item.
+- ``ServingConfig`` YAML knobs reach the engine; options not ported yet
+  raise, naming the ROADMAP item.
 """
 import numpy as np
 import pytest
@@ -211,16 +212,42 @@ def test_serving_config_yaml_and_unported_options(tmp_path):
     assert batcher.engine.quantized
     with pytest.raises(ValueError, match="unknown serving keys"):
         ServingConfig.from_dict({"page_sise": 4})
+    # speculative decoding and parallel sampling are ported: they build
+    # on the CPU (n = 2 needs the parallel-sampling engine)
     for key in ("speculative", "parallel_sampling"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingConfig(page_size=4, n_pages=8, **{key: True}).make(
-                tp, cfg, device="cpu")
+        eng = ServingConfig(page_size=4, n_pages=8, draft_len=3,
+                            **{key: True}).make(tp, cfg, device="cpu").engine
+        assert getattr(eng, key if key == "speculative" else "parallel")
+    with pytest.raises(ValueError, match="parallel_sampling"):
+        batcher.run([Request(prompt=np.arange(3), max_new_tokens=4, n=2)])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PagedEngine(tp, cfg, page_size=4, n_pages=8, tp=2, device="cpu")
-    for bad in (dict(n=2), dict(adapter="a0"),
+    for key in ("structured", "lora_rank", "lora_max_live", "host_spill",
+                "prefill_only"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
+                        **{key: 1})
+    for bad in (dict(adapter="a0"),
                 dict(response_format={"type": "json_object"}, eos_id=1)):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             batcher.run([Request(prompt=np.arange(3), **bad)])
+
+
+def test_serving_config_yaml_draft_and_tree_knobs_reach_the_engine(tmp_path):
+    """``draft_len``, ``ngram_min`` and ``spec_tree_width`` of a YAML
+    ``serving:`` block reach the engine (``make`` passes all three, as
+    the JAX ``make`` does)."""
+    path = tmp_path / "serve.yaml"
+    path.write_text("serving:\n  page_size: 4\n  n_pages: 16\n"
+                    "  speculative: true\n  draft_len: 3\n"
+                    "  ngram_min: 1\n  spec_tree: true\n"
+                    "  spec_tree_width: 3\n")
+    _, _, tp, cfg = _model()
+    eng = ServingConfig.load(path).make(tp, cfg, compute_dtype="float32",
+                                        device="cpu").engine
+    assert eng.draft_len == 3
+    assert eng._drafter.ngram_min == 1
+    assert eng.tree_width == eng._drafter.width == 3
 
 
 def _docs_serving_block() -> str:

@@ -420,10 +420,8 @@ class ServingConfig:
     takes the JAX package's names, ``"xla"`` (the pool sweep) and
     ``"pallas"`` (the paged flash-decode kernel), and the port's own,
     ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
-    the sweep on the CPU. Any other name raises in :meth:`make`. Options
-    of the JAX engine that are not ported yet (``speculative``,
-    ``spec_tree``, ``parallel_sampling``, ``tp > 1``) raise
-    ``NotImplementedError`` when enabled."""
+    the sweep on the CPU. Any other name raises in :meth:`make`.
+    ``tp > 1``, not ported yet, raises ``NotImplementedError``."""
 
     page_size: int = 64
     n_pages: int = 256
@@ -508,7 +506,9 @@ class ServingConfig:
             prefill_chunk_pages=self.prefill_chunk_pages,
             decode_backend=_DECODE_BACKENDS[self.decode_backend],
             tp=self.tp,
-            speculative=self.speculative, spec_tree=self.spec_tree,
+            speculative=self.speculative, draft_len=self.draft_len,
+            ngram_min=self.ngram_min, spec_tree=self.spec_tree,
+            tree_width=self.spec_tree_width,
             parallel_sampling=self.parallel_sampling, device=device)
         return ContinuousBatcher(engine, on_recompile=on_recompile,
                                  tracer=tracer)

@@ -389,11 +389,113 @@ def _make_pick(temperature: float, top_k: int | None, top_p: float | None):
              logits: torch.Tensor) -> torch.Tensor:
         if temperature == 0:
             return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(
-            _filter_logits(logits, temperature, top_k, top_p), dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[..., 0]
+        return _sample(gen, _filter_logits(logits, temperature, top_k, top_p))
 
     return pick
+
+
+def _sample(gen: torch.Generator | None,
+            logits: torch.Tensor) -> torch.Tensor:
+    """One categorical draw per row of ``(..., vocab)`` fp32 logits."""
+    probs = torch.softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
+    return torch.multinomial(probs, 1, generator=gen).reshape(
+        logits.shape[:-1])
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)
+
+
+def branch_generator(seed: int, branch: int, depth: int,
+                     device: torch.device) -> torch.Generator:
+    """The generator of branch ``branch``'s pick at context length
+    ``depth``: seeded from a fixed mix of the three integers, so the
+    token a branch samples there is a pure function of ``(seed, branch,
+    depth, logits)``, whatever else shares the batch — the port's
+    counterpart of the JAX engine's ``fold_in(fold_in(key, branch),
+    depth)`` (JAX PRNG streams cannot be reproduced in torch)."""
+    mixed = _splitmix64(_splitmix64(_splitmix64(int(seed)) ^ int(branch))
+                        ^ int(depth))
+    return torch.Generator(device=device).manual_seed(mixed >> 1)
+
+
+def _make_branch_pick(temperature: float, top_k: int | None,
+                      top_p: float | None):
+    """``pick(gens, logits) -> (ids, logprobs)``, the per-branch rule of
+    copy-on-write parallel sampling (``gpt.py:1181``): ``logits`` is
+    ``(B, vocab)`` and ``gens`` one :func:`branch_generator` per row
+    (``None`` rows take the filtered argmax: slots nobody reads).
+    ``logprobs`` are the picked ids' log-probabilities under the
+    distribution sampled from — the filtered one at ``temperature > 0``,
+    the raw softmax under greedy — which ``best_of`` ranks by."""
+
+    def pick(gens, logits: torch.Tensor):
+        if temperature == 0:
+            ids = torch.argmax(logits, dim=-1)
+            lp = torch.log_softmax(logits.float(), dim=-1)
+        else:
+            f = _filter_logits(logits, temperature, top_k, top_p)
+            ids = torch.argmax(f, dim=-1)
+            for i, gen in enumerate(gens):
+                if gen is not None:
+                    ids[i] = _sample(gen, f[i])
+            lp = torch.log_softmax(f, dim=-1)
+        return ids, torch.gather(lp, -1, ids[:, None])[:, 0]
+
+    return pick
+
+
+def _make_spec_pick(temperature: float, top_k: int | None,
+                    top_p: float | None):
+    """``verify(gen, logits, draft, parent=None) -> (accept, token)``,
+    the per-position pick and acceptance rule of speculative decoding
+    (``gpt.py:1216``). ``logits`` is ``(B, K + 1, vocab)``, ``draft``
+    ``(B, K)`` proposed ids with ``-1`` for no proposal (never
+    accepted). Greedy: ``accept = argmax == draft`` and ``token`` the
+    argmax chain, so emitting ``draft[:a] + [token[a]]`` is the
+    non-speculative greedy stream exactly. ``temperature > 0``:
+    rejection sampling against the point-mass draft over
+    :func:`_filter_logits` — accept ``d_j`` with probability
+    ``p_j(d_j)``, on rejection sample ``p_j`` without ``d_j``, and a
+    bonus sample from ``p_K``; draws come from ``gen``. ``parent``
+    (greedy only) tests each tree node's token against the pick at its
+    parent node; the chain ``parent[j] = j`` is the linear rule."""
+
+    def verify(gen: torch.Generator | None, logits: torch.Tensor,
+               draft: torch.Tensor, parent: torch.Tensor | None = None):
+        k = draft.shape[1]
+        valid = draft >= 0
+        if temperature == 0:
+            picks = torch.argmax(logits, dim=-1)
+            at = picks[:, :k] if parent is None \
+                else torch.gather(picks, 1, parent.long())
+            return valid & (at == draft), picks
+        if parent is not None:
+            raise ValueError(
+                "tree-structured speculative verification is greedy-only: "
+                "sampling acceptance over sibling branches needs "
+                "without-replacement residuals (set temperature=0 for "
+                "spec_tree)")
+        f = _filter_logits(logits, temperature, top_k, top_p)
+        d_c = draft.clamp(0, logits.shape[-1] - 1).long()
+        p_d = torch.gather(torch.softmax(f[:, :k], dim=-1), 2,
+                           d_c[..., None])[..., 0]
+        u = torch.rand(draft.shape, generator=gen, device=logits.device)
+        accept = valid & (u < p_d)
+        hit = F.one_hot(d_c, logits.shape[-1]).bool() & valid[..., None]
+        resid = f[:, :k].masked_fill(hit, -math.inf)
+        # a draft that held all the filtered mass leaves an empty
+        # residual; it is always accepted (u < 1), so its stand-in, the
+        # unmasked row, is never emitted
+        empty = torch.isneginf(resid).all(dim=-1, keepdim=True)
+        resid = torch.where(empty, f[:, :k], resid)
+        bonus = _sample(gen, f[:, k])
+        return accept, torch.cat([_sample(gen, resid), bonus[:, None]], dim=1)
+
+    return verify
 
 
 def _embed(params: dict, ids: torch.Tensor,

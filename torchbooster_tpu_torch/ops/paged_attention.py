@@ -69,6 +69,33 @@ def plan_paged(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
     return "simt"
 
 
+def _simt_limits(head_dim: int, page_size: int, s_q: int) -> None:
+    """Raise where the ``"simt"`` kernel cannot take the operands."""
+    if page_size > 1024 or s_q > 32 or head_dim > 256:
+        raise ValueError(
+            f"paged_attention simt kernel takes page_size <= 1024, S <= 32 "
+            f"and head_dim <= 256 (got page_size={page_size}, S={s_q}, "
+            f"head_dim={head_dim})")
+    smem = 4 * (page_size * (2 * head_dim + 1) + 4 * head_dim
+                + 4 * page_size)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"paged_attention: a {page_size}-token page at "
+                         f"head_dim {head_dim} needs {smem} B of shared "
+                         f"memory, over the card's {_MAX_SMEM}")
+
+
+def check_paged(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
+                page_size: int, s_q: int, rep: int) -> str:
+    """The route a launch with these operands takes (:func:`plan_paged`),
+    or ``ValueError`` naming the limit when no route takes them — for
+    callers that fix the shape up front (the serving engine checks its
+    decode and verify steps at construction)."""
+    route = plan_paged(q_dtype, kv_dtype, head_dim, page_size, s_q, rep)
+    if route == "simt":
+        _simt_limits(head_dim, page_size, s_q)
+    return route
+
+
 def paged_attention_reference(q, pool_k, pool_v, work_pages, work_refs,
                               work_pos, lengths, *, page_size: int,
                               sm_scale: float | None = None,
@@ -202,15 +229,8 @@ def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
                         "int8 with bf16 scales)")
     route = _route_for(route, plan_paged(q.dtype, kv.dtype, head_dim,
                                          page_size, s_q, n_heads // kv_heads))
-    if route == "simt" and (page_size > 1024 or s_q > 32 or head_dim > 256):
-        raise ValueError("paged_attention simt kernel takes page_size <= "
-                         "1024, S <= 32 and head_dim <= 256")
-    smem = 4 * (page_size * (2 * head_dim + 1) + 4 * head_dim
-                + 4 * page_size)
-    if route == "simt" and smem > _MAX_SMEM:
-        raise ValueError(f"paged_attention: a {page_size}-token page at "
-                         f"head_dim {head_dim} needs {smem} B of shared "
-                         f"memory, over the card's {_MAX_SMEM}")
+    if route == "simt":
+        _simt_limits(head_dim, page_size, s_q)
     tensors = [q, kv, kv_v, *(s for s in scales if s is not None)]
     for t in tensors:
         if t.device != q.device or not t.is_contiguous():
@@ -256,6 +276,6 @@ def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
     return out
 
 
-__all__ = ["SM90_HEAD_DIMS", "SM90_MAX_PAGE", "SM90_MAX_ROWS", "launches",
-           "launches_by_route", "paged_attention",
+__all__ = ["SM90_HEAD_DIMS", "SM90_MAX_PAGE", "SM90_MAX_ROWS", "check_paged",
+           "launches", "launches_by_route", "paged_attention",
            "paged_attention_reference", "plan_paged"]

@@ -1,9 +1,14 @@
 """Paged serving — the port of ``torchbooster_tpu/serving``: block
-tables (kv_pages), the paged engine (engine), the continuous batcher
-(batcher) and its scheduler policies (frontend.scheduler)."""
+tables (kv_pages), the paged engine (engine), speculative drafting and
+verify (speculative), the continuous batcher (batcher) and its
+scheduler policies (frontend.scheduler)."""
 from __future__ import annotations
 
-from torchbooster_tpu_torch.serving.batcher import ContinuousBatcher, Request
+from torchbooster_tpu_torch.serving.batcher import (
+    ContinuousBatcher,
+    Request,
+    best_completions,
+)
 from torchbooster_tpu_torch.serving.engine import PagedEngine
 from torchbooster_tpu_torch.serving.kv_pages import (
     NULL_PAGE,
@@ -11,6 +16,12 @@ from torchbooster_tpu_torch.serving.kv_pages import (
     PoolExhausted,
     make_pool,
 )
+from torchbooster_tpu_torch.serving.speculative import (
+    NO_DRAFT,
+    PromptLookupDrafter,
+    TreeLookupDrafter,
+)
 
-__all__ = ["BlockTables", "ContinuousBatcher", "NULL_PAGE", "PagedEngine",
-           "PoolExhausted", "Request", "make_pool"]
+__all__ = ["BlockTables", "ContinuousBatcher", "NO_DRAFT", "NULL_PAGE",
+           "PagedEngine", "PoolExhausted", "PromptLookupDrafter", "Request",
+           "TreeLookupDrafter", "best_completions", "make_pool"]

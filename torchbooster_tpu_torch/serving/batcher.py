@@ -12,6 +12,14 @@ PREEMPTED: pushed back to the front of the queue with its generated
 tokens folded into its prompt (folded once, however often it is
 preempted), to re-prefill later.
 
+On a speculative engine each step is a verify step and a slot emits a
+burst of 1 to ``draft_len + 1`` tokens; stop checks run per token in
+order, so EOS or ``max_new_tokens`` cuts a burst where sequential decode
+would stop. On a parallel-sampling engine an ``n``/``best_of`` request
+prefills once and forks into ``best_of`` copy-on-write branches, which
+ride every scheduling path as internal child requests;
+:func:`best_completions` ranks them by cumulative logprob.
+
 :meth:`ContinuousBatcher.step` is the pumpable per-iteration core and
 :meth:`run` drives it over a whole trace, returning a metrics dict.
 Every run feeds the telemetry registry (``serving_*``), lands one row
@@ -19,14 +27,15 @@ per step in the flight recorder, and is watched by a
 :class:`RecompileSentinel` over the engine's count of distinct decode
 step shapes, which must stay 1.
 
-Not ported here (``ROADMAP.md`` A5/A6): n-way ``fork`` sampling,
-structured ``response_format`` decoding, LoRA ``adapter`` requests and
-speculative bursts — requests asking for them are rejected at submit.
+Not ported here (``ROADMAP.md`` A6): structured ``response_format``
+decoding and LoRA ``adapter`` requests — requests asking for them are
+rejected at submit.
 """
 from __future__ import annotations
 
 import time
 import uuid
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -43,6 +52,7 @@ from torchbooster_tpu_torch.observability.flight import (
 from torchbooster_tpu_torch.observability.recompile import POLICIES
 from torchbooster_tpu_torch.observability.tracing import RequestTracer
 from torchbooster_tpu_torch.serving.engine import PagedEngine
+from torchbooster_tpu_torch.serving.kv_pages import PoolExhausted
 from torchbooster_tpu_torch.serving.frontend.scheduler import (
     FCFSPolicy,
     SchedulerPolicy,
@@ -54,10 +64,14 @@ class Request:
     """One generation request, compared by identity (the scheduler
     queues and cancels BY OBJECT). ``arrival`` is an offset in seconds
     from the batcher's clock start; ``eos_id=None`` never stops early;
-    ``priority``/``deadline_ms`` matter only under an SLO policy. The
-    ``n``/``best_of``/``response_format``/``adapter`` fields exist for
-    the JAX package's request surface and are rejected at submit unless
-    they ask for nothing (n = 1, plain text, base model)."""
+    ``priority``/``deadline_ms`` matter only under an SLO policy.
+    ``n`` completions are returned from ``best_of`` (default ``n``)
+    decoded branches (a parallel-sampling engine); ``seed`` pins the
+    request's sampling streams (branch b samples stream ``(seed, b)``;
+    None derives it from the request id). The ``response_format``/
+    ``adapter`` fields exist for the JAX package's request surface and
+    are rejected at submit unless they ask for nothing (plain text, base
+    model)."""
     prompt: np.ndarray
     max_new_tokens: int = 32
     eos_id: int | None = None
@@ -67,6 +81,7 @@ class Request:
     arrival_time: float | None = None
     n: int = 1
     best_of: int | None = None
+    seed: int | None = None
     response_format: dict | None = None
     adapter: str = ""
     request_id: str = ""
@@ -78,6 +93,14 @@ class Request:
     finish_reason: str | None = None
     shed: bool = False
     cancelled: bool = False
+    # fork bookkeeping: branch 0 is the submitted request; siblings are
+    # internal child Requests pointing back via ``parent``; ``branches``
+    # (branch 0 only) lists the family once forked; ``cum_logprob``
+    # sums the picked tokens' logprobs for best_of ranking
+    parent: "Request | None" = None
+    branch: int = 0
+    branches: "list | None" = None
+    cum_logprob: float = 0.0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -92,11 +115,35 @@ class Request:
         if self.deadline_ms is not None and self.deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0, got "
                              f"{self.deadline_ms}")
+        if not isinstance(self.n, int) or self.n < 1:
+            raise ValueError(f"n must be an int >= 1, got {self.n!r}")
+        if self.best_of is not None and (
+                not isinstance(self.best_of, int) or self.best_of < self.n):
+            raise ValueError(f"best_of must be an int >= n ({self.n}), got "
+                             f"{self.best_of!r}")
+        if self.seed is not None and not isinstance(self.seed, int):
+            raise TypeError(f"seed must be an int or None, got "
+                            f"{type(self.seed).__name__}")
         if not self.request_id:
             self.request_id = "req-" + uuid.uuid4().hex[:16]
+        if self.seed is None:
+            self.seed = zlib.crc32(self.request_id.encode()) & 0x7fffffff
         # the ORIGINAL prompt length: preemption folds generated tokens
         # into ``prompt``, so the true context is base_len + len(tokens)
         self.base_len = int(self.prompt.size)
+
+    @property
+    def n_branches(self) -> int:
+        """Branches decoded: ``best_of`` when set, else ``n``."""
+        return self.best_of if self.best_of is not None else self.n
+
+
+def best_completions(req: Request) -> list[Request]:
+    """The ``n`` best of a finished request's ``best_of`` branches by
+    cumulative logprob (ties keep branch order); ``[req]`` for a
+    request that never forked."""
+    family = req.branches or [req]
+    return sorted(family, key=lambda r: -r.cum_logprob)[:req.n]
 
 
 class _Session:
@@ -125,6 +172,12 @@ class _Session:
         self.hits0 = eng.prefix_hit_pages
         self.lookups0 = eng.prefix_lookup_pages
         self.chunks0 = eng.prefill_chunks
+        self.spec_steps0 = eng.spec_steps
+        self.spec_prop0 = eng.spec_proposed
+        self.spec_acc0 = eng.spec_accepted
+        self.forks0 = eng.forks
+        self.fork_pages0 = eng.fork_pages
+        self.cow0 = eng.cow_copies
         self.closed = False
 
     def sample(self, series: list[float], value: float) -> None:
@@ -170,10 +223,6 @@ class ContinuousBatcher:
 
     # ---- capacity & estimates ------------------------------------
     def _check_fits(self, req: Request) -> None:
-        if req.n != 1 or req.best_of not in (None, 1):
-            raise ValueError(
-                "n/best_of > 1 (copy-on-write fork sampling) is not "
-                "ported yet (ROADMAP.md A6)")
         if req.response_format is not None \
                 and req.response_format.get("type") != "text":
             raise ValueError(
@@ -183,16 +232,48 @@ class ContinuousBatcher:
             raise ValueError(
                 f"request names adapter {req.adapter!r}: LoRA lanes are "
                 "not ported yet (ROADMAP.md A6)")
+        eng = self.engine
         worst = req.base_len + req.max_new_tokens
-        if worst > self.engine.cfg.seq_len:
+        if worst > eng.cfg.seq_len:
             raise ValueError(
                 f"prompt ({req.base_len}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds cfg.seq_len "
-                f"({self.engine.cfg.seq_len})")
-        if self.engine.tables.pages_for(worst) > self.engine.n_pages - 1:
+                f"({eng.cfg.seq_len})")
+        nb = req.n_branches
+        if nb > 1:
+            if not eng.parallel:
+                raise ValueError(
+                    f"n/best_of > 1 ({req.n}/{req.best_of}) needs a "
+                    "parallel-sampling engine: set "
+                    "serving.parallel_sampling: true")
+            if nb > eng.max_slots:
+                raise ValueError(
+                    f"best_of ({nb}) exceeds serving.max_slots "
+                    f"({eng.max_slots}): every branch decodes in its own "
+                    "slot")
+            # the whole family alone: the full prompt pages once
+            # (shared) + every branch's private tail and output pages
+            shared = req.base_len // eng.page_size
+            per_branch = eng.tables.pages_for(worst) - shared
+            if shared + nb * per_branch > eng.n_pages - 1:
+                raise ValueError(
+                    f"request needs {shared} shared prompt pages + {nb} x "
+                    f"{per_branch} per-branch pages but the pool holds "
+                    f"{eng.n_pages - 1}; grow serving.n_pages or lower "
+                    "best_of")
+        # grow_slots demands 1 + draft_len write positions ahead of the
+        # cursor every speculative step: admit against that peak, or a
+        # request sized to the pool starves on its last page and
+        # preempt-thrashes itself
+        reserve = min(worst + eng.draft_len, eng.cfg.seq_len) \
+            if eng.speculative else worst
+        if eng.tables.pages_for(reserve) > eng.n_pages - 1:
             raise ValueError(
-                f"request needs {worst} tokens of pages but the pool "
-                f"holds {self._capacity}; grow serving.n_pages")
+                f"request needs {reserve} tokens of pages "
+                + (f"({worst} prompt+output + the speculative write-ahead) "
+                   if reserve > worst else "")
+                + f"but the pool holds {self._capacity}; grow "
+                "serving.n_pages")
 
     def est_ttft_s(self, req: Request) -> float:
         """Estimated seconds to ``req``'s first token were it seated
@@ -210,6 +291,16 @@ class ContinuousBatcher:
             [req.prompt, np.asarray(req.tokens[folded:], np.int32)])
         matched = self.engine.tables.match_pages(ctx)
         return len(ctx) - len(matched) * self.engine.page_size
+
+    def _reserved_slots(self) -> int:
+        """Slots spoken for by mid-prefill n-way requests: their
+        ``best_of - 1`` siblings fork the moment prefill completes, so
+        plain admissions must not seat into them."""
+        s = self._s
+        if s is None:
+            return 0
+        return sum(r.n_branches - 1 for r in s.filling.values()
+                   if r.branches is None and r.n_branches > 1)
 
     @property
     def occupancy(self) -> float:
@@ -287,6 +378,22 @@ class ContinuousBatcher:
                                   "prefill chunks issued"),
             "hit_rate": reg.gauge("serving_prefix_hit_rate",
                                   "prefix-cache page hit rate over this run"),
+            "spec_prop": reg.counter(
+                "serving_spec_proposed_total",
+                "draft tokens proposed to the speculative verify step"),
+            "spec_acc": reg.counter("serving_spec_accepted_total",
+                                    "draft tokens the verify step accepted"),
+            "spec_rate": reg.gauge(
+                "serving_spec_accept_rate",
+                "accepted/proposed draft tokens over this run"),
+            "fork_pages": reg.counter(
+                "serving_fork_pages_total",
+                "pages shared into sibling branches at fork "
+                "(copy-on-write parallel sampling)"),
+            "cow_copies": reg.counter(
+                "serving_cow_copies_total",
+                "private tail pages copied at fork (the only bytes n-way "
+                "sampling duplicates)"),
         }
         if self.policy.slo:
             inst.update({
@@ -311,9 +418,11 @@ class ContinuousBatcher:
                     "n": 0, "completed": 0, "shed": 0, "ttft": [],
                     "tpot": [], "ttft_hit": 0, "ttft_n": 0,
                     "tpot_hit": 0, "tpot_n": 0}
-        # the decode step's first shape signature is legitimate; any
-        # later one is a broken fixed-shape contract
-        step_shapes = lambda: self.engine.decode_compiles
+        # the step's first shape signature is legitimate; any later one
+        # is a broken fixed-shape contract (one watch covers the decode
+        # and the verify step)
+        step_shapes = lambda: (self.engine.decode_compiles
+                               + self.engine.verify_compiles)
         self._sentinel = RecompileSentinel(
             step_shapes, on_recompile=self.on_recompile,
             expected=0 if step_shapes() else 1,
@@ -367,9 +476,12 @@ class ContinuousBatcher:
             inst["slo_hit" if hit else "slo_miss"].inc(cls=cls.name,
                                                        kind=kind)
 
-    def _maybe_stop(self, slot: int, token: int) -> bool:
+    def _maybe_stop(self, slot: int, token: int,
+                    finish: bool = True) -> bool:
         """Append ``token``, evaluate the stop conditions, retire when
-        done. Returns True when the request finished."""
+        done (``finish=False`` leaves the retire to the caller, which
+        emits a whole burst's event first). Returns True when the
+        request finished."""
         s = self._s
         req = s.live[slot]
         req.tokens.append(int(token))
@@ -383,7 +495,8 @@ class ContinuousBatcher:
         full = req.base_len + len(req.tokens) >= self.engine.cfg.seq_len
         if hit_eos or len(req.tokens) >= req.max_new_tokens or full:
             req.finish_reason = "stop" if hit_eos else "length"
-            self._finish_request(slot)
+            if finish:
+                self._finish_request(slot)
             return True
         return False
 
@@ -414,31 +527,37 @@ class ContinuousBatcher:
     def _drain_cancels(self, events: list) -> None:
         s = self._s
         while self._inbox_cancel:
-            req = self._inbox_cancel.popleft()
-            if req.finished_at is not None:
-                continue                      # raced completion
-            if any(req is q for q in s.queue):
-                s.queue.remove(req)
-                self._terminal(req, events, "cancelled")
-                continue
-            for table in (s.filling, s.live):
-                slot = next((sl for sl, r in table.items() if r is req),
-                            None)
-                if slot is not None:
-                    table.pop(slot)
-                    s.admit_order.remove(slot)
-                    self.engine.retire(slot)
+            root = self._inbox_cancel.popleft()
+            # cancelling an n-way request cancels its whole family
+            for req in (root.branches or [root]):
+                if req.finished_at is not None:
+                    continue                  # raced completion
+                if any(req is q for q in s.queue):
+                    s.queue.remove(req)
                     self._terminal(req, events, "cancelled")
-                    break
+                    continue
+                for table in (s.filling, s.live):
+                    slot = next((sl for sl, r in table.items()
+                                 if r is req), None)
+                    if slot is not None:
+                        table.pop(slot)
+                        s.admit_order.remove(slot)
+                        self.engine.retire(slot)
+                        self._terminal(req, events, "cancelled")
+                        break
 
-    def _preempt_one(self, s: _Session) -> bool:
+    def _preempt_one(self, s: _Session,
+                     exclude: frozenset | set = frozenset()) -> bool:
         """Evict ONE policy-chosen seated victim to the front of the
         queue with its not-yet-folded generated tokens folded into its
-        prompt. Returns False when nothing is seated."""
-        if not s.admit_order:
+        prompt; ``exclude`` shields slots the caller is working on (a
+        forking parent). Returns False when no victim is eligible."""
+        order = [sl for sl in s.admit_order if sl not in exclude]
+        if not order:
             return False
-        seated = {**s.filling, **s.live}
-        victim = self.policy.select_victim(list(s.admit_order), seated, self)
+        seated = {sl: r for sl, r in {**s.filling, **s.live}.items()
+                  if sl not in exclude}
+        victim = self.policy.select_victim(order, seated, self)
         req = s.live.pop(victim) if victim in s.live \
             else s.filling.pop(victim)
         s.admit_order.remove(victim)
@@ -454,6 +573,48 @@ class ContinuousBatcher:
         self._inst["preemptions"].inc()
         return True
 
+    def _fork_request(self, slot: int, req: Request, events: list) -> None:
+        """Split a just-prefilled n-way request into its ``best_of``
+        copy-on-write branches (``batcher.py:1128``): the engine forks
+        the pages and samples every branch's first token; siblings ride
+        every scheduling path as child Requests from here on. Under pool
+        pressure the fork preempts policy victims — never its own
+        family — and retries (``_check_fits`` guarantees the family fits
+        an empty pool, so this ends)."""
+        s = self._s
+        while True:
+            try:
+                branches = self.engine.fork(slot, req.n_branches)
+                break
+            except PoolExhausted:
+                if not self._preempt_one(s, exclude={slot}):
+                    raise
+        req.branch = 0
+        family = [req]
+        for b, (sb, _, _) in enumerate(branches[1:], start=1):
+            child = Request(
+                prompt=req.prompt, max_new_tokens=req.max_new_tokens,
+                eos_id=req.eos_id, arrival=req.arrival,
+                priority=req.priority, deadline_ms=req.deadline_ms,
+                arrival_time=req.arrival_time,
+                request_id=f"{req.request_id}#{b}", seed=req.seed)
+            child.parent = req
+            child.branch = b
+            child.admitted_at = req.admitted_at
+            s.live[sb] = child
+            s.admit_order.append(sb)
+            family.append(child)
+        req.branches = family
+        if self.tracer.enabled:
+            self.tracer.emit(req.request_id, "forked",
+                             n_branches=req.n_branches,
+                             shared_pages=int(req.base_len
+                                              // self.engine.page_size))
+        for (sb, tok, lp), branch_req in zip(branches, family):
+            branch_req.cum_logprob += lp
+            self._maybe_stop(sb, int(tok))
+            events.append((branch_req, [int(tok)]))
+
     def step(self) -> list[tuple[Request, list[int]]]:
         """ONE scheduling iteration: drain the inboxes, shed (policy),
         seat admissible requests (policy order), issue one prefill
@@ -463,25 +624,31 @@ class ContinuousBatcher:
         if self._s is None:
             raise RuntimeError("no active session: start_session() first")
         s, eng = self._s, self.engine
-        c0 = eng.decode_compiles + eng.prefill_compiles
-        st = {"wall": 0.0, "prefill": False, "decode": False}
+        compiles = lambda: (eng.decode_compiles + eng.verify_compiles
+                            + eng.prefill_compiles)
+        c0 = compiles()
+        st = {"wall": 0.0, "prefill": False, "decode": False,
+              "spec": False, "prop": 0, "acc": 0}
         events: list = []
         try:
             self._step_body(s, st, events)
         finally:
-            recompiled = (eng.decode_compiles + eng.prefill_compiles) > c0
+            recompiled = compiles() > c0
             self.flight.record(
-                kind=step_kind_code(st["prefill"], st["decode"], False),
+                kind=step_kind_code(st["prefill"], st["decode"],
+                                    st["spec"]),
                 slots_live=len(s.live), slots_filling=len(s.filling),
                 pages_live=int(eng.tables.n_live_pages),
                 pages_free=int(eng.tables.n_free_pages),
                 pages_cached=int(eng.tables.n_cached_pages),
                 queue_depth=len(s.queue),
-                tokens=sum(len(t) for _, t in events), accept_rate=0.0,
+                tokens=sum(len(t) for _, t in events),
+                accept_rate=st["acc"] / st["prop"] if st["prop"] else 0.0,
                 wall_s=st["wall"], recompiled=recompiled,
                 inflight=([r.request_id for r in (*s.filling.values(),
                                                   *s.live.values())]
-                          if recompiled else ()))
+                          if recompiled else ()),
+                branches=eng.branch_slot_count)
         return events
 
     def _step_body(self, s: _Session, st: dict, events: list) -> None:
@@ -510,7 +677,15 @@ class ContinuousBatcher:
             if req is None:
                 break
             hits0 = self.engine.prefix_hit_pages
-            slot = self.engine.admit_begin(req.prompt)
+            # an n-way request needs its whole family's slots free (it
+            # seats one now and reserves the rest for its fork); plain
+            # requests must not eat into standing reservations
+            need = req.n_branches if req.branches is None else 1
+            slot = None
+            if self.engine.tables.n_free_slots() - self._reserved_slots() \
+                    >= need:
+                slot = self.engine.admit_begin(req.prompt, seed=req.seed,
+                                               branch=req.branch)
             if slot is None:
                 if self.policy.stop_on_admit_failure:
                     break
@@ -545,8 +720,15 @@ class ContinuousBatcher:
                 slot, first = done
                 req = s.filling.pop(slot)
                 s.live[slot] = req
-                self._maybe_stop(slot, first)    # the prefill's token
-                events.append((req, [int(first)]))
+                if req.n_branches > 1 and req.branches is None:
+                    # one prefill, best_of branches from token one
+                    self._fork_request(slot, req, events)
+                else:
+                    # the first token's logprob counts too (n = 1 and
+                    # re-admitted branches alike); frees the fork stash
+                    req.cum_logprob += self.engine.take_first_logprob(slot)
+                    self._maybe_stop(slot, first)    # the prefill's token
+                    events.append((req, [int(first)]))
         self._inst["slots"].set(len(s.live))
         self._inst["pages"].set(self.engine.tables.n_free_pages)
         if not s.live:
@@ -561,6 +743,9 @@ class ContinuousBatcher:
         if not s.live:
             return
         t_step = self.clock()
+        if self.engine.speculative:
+            self._spec_arm(s, st, events, t_step)
+            return
         tokens = self.engine.step()
         dt = self.clock() - t_step
         s.decode_time += dt
@@ -574,12 +759,60 @@ class ContinuousBatcher:
         s.decoded += len(s.live)
         self._inst["tokens"].inc(len(s.live))
         self._drain_cancels(events)
+        lps = self.engine.step_logprobs     # None unless parallel sampling
         for slot in list(s.live):
             req = s.live[slot]
+            if lps is not None:
+                req.cum_logprob += float(lps[slot])
             if self.tracer.enabled:
                 self.tracer.emit(req.request_id, "tokens", n=1)
             self._maybe_stop(slot, int(tokens[slot]))
             events.append((req, [int(tokens[slot])]))
+
+    def _spec_arm(self, s: _Session, st: dict, events: list,
+                  t_step: float) -> None:
+        """One speculative step (``batcher.py:1434``): each slot emits a
+        burst; stop checks run per token in order, so EOS or
+        ``max_new_tokens`` cuts the burst where sequential decode would
+        stop, and only delivered tokens count."""
+        eng = self.engine
+        prop0, acc0 = eng.spec_proposed, eng.spec_accepted
+        emitted = eng.spec_step()
+        dt = self.clock() - t_step
+        s.decode_time += dt
+        self.est_step_s = dt if not self.est_step_s \
+            else 0.8 * self.est_step_s + 0.2 * dt
+        st["spec"] = True
+        st["wall"] += dt
+        st["prop"] = eng.spec_proposed - prop0
+        st["acc"] = eng.spec_accepted - acc0
+        if self.tracer.enabled:
+            self.tracer.emit(None, "spec_verify_step", dur_s=round(dt, 6),
+                             slots=len(emitted), proposed=st["prop"],
+                             accepted=st["acc"])
+        # a cancel that landed while the step ran drops the whole burst
+        self._drain_cancels(events)
+        delivered = 0
+        for slot in sorted(emitted):
+            req = s.live.get(slot)
+            if req is None:
+                continue
+            burst: list[int] = []
+            finished = False
+            for tok in emitted[slot]:
+                burst.append(int(tok))
+                finished = self._maybe_stop(slot, int(tok), finish=False)
+                if finished:
+                    break
+            delivered += len(burst)
+            if self.tracer.enabled:
+                self.tracer.emit(req.request_id, "tokens", n=len(burst),
+                                 spec=True)
+            events.append((req, burst))
+            if finished:
+                self._finish_request(slot)
+        s.decoded += delivered
+        self._inst["tokens"].inc(delivered)
 
     def _land(self, s: _Session) -> None:
         """Gauges and counters land on engine truth at session exit."""
@@ -594,6 +827,14 @@ class ContinuousBatcher:
         inst["hit_pages"].inc(hit_pages)
         inst["chunks"].inc(self.engine.prefill_chunks - s.chunks0)
         inst["hit_rate"].set(hit_pages / max(lookups, 1))
+        eng = self.engine
+        n_prop = eng.spec_proposed - s.spec_prop0
+        n_acc = eng.spec_accepted - s.spec_acc0
+        inst["spec_prop"].inc(n_prop)
+        inst["spec_acc"].inc(n_acc)
+        inst["spec_rate"].set(n_acc / max(n_prop, 1))
+        inst["fork_pages"].inc(eng.fork_pages - s.fork_pages0)
+        inst["cow_copies"].inc(eng.cow_copies - s.cow0)
         self._s = None
         self._sentinel = None
 
@@ -617,6 +858,9 @@ class ContinuousBatcher:
             "ttft_hit_rate": round(cs["ttft_hit"] / max(cs["ttft_n"], 1), 4),
             "tpot_hit_rate": round(cs["tpot_hit"] / max(cs["tpot_n"], 1), 4),
         } for name, cs in s.per_class.items()}
+        eng = self.engine
+        n_prop = eng.spec_proposed - s.spec_prop0
+        n_acc = eng.spec_accepted - s.spec_acc0
         return {
             "n_requests": s.n_seen,
             "new_tokens": s.new_tokens,
@@ -634,6 +878,18 @@ class ContinuousBatcher:
             "prefix_hit_rate": round(
                 (self.engine.prefix_hit_pages - s.hits0)
                 / max(self.engine.prefix_lookup_pages - s.lookups0, 1), 4),
+            # speculation (zero on a non-speculative engine): tokens a
+            # step are spec_mean_accepted + 1 (the fallback/bonus pick)
+            "n_spec_steps": eng.spec_steps - s.spec_steps0,
+            "n_spec_proposed": n_prop,
+            "n_spec_accepted": n_acc,
+            "spec_accept_rate": round(n_acc / max(n_prop, 1), 4),
+            "spec_mean_accepted": round(
+                n_acc / max(eng.spec_steps - s.spec_steps0, 1), 4),
+            # copy-on-write parallel sampling (zero without forks)
+            "n_forks": eng.forks - s.forks0,
+            "fork_pages": eng.fork_pages - s.fork_pages0,
+            "n_cow_copies": eng.cow_copies - s.cow0,
             "n_shed": s.n_shed,
             "n_cancelled": s.n_cancelled,
             "deadline_hit_rate": round(ttft_hit / ttft_n, 4)
@@ -669,4 +925,4 @@ class ContinuousBatcher:
         return self._metrics(s)
 
 
-__all__ = ["ContinuousBatcher", "Request"]
+__all__ = ["ContinuousBatcher", "Request", "best_completions"]

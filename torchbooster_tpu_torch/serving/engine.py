@@ -18,13 +18,21 @@ cache — the port of ``torchbooster_tpu/serving/engine.py``.
   the JAX package's ``"xla"`` backend and the plain version of the
   whole step. ``decode_backend=None`` picks the kernel on CUDA and the
   sweep on the CPU.
+- **speculative decoding** (``speculative=True``, ``serving/
+  speculative.py``) replaces the decode step with a verify step over
+  ``1 + draft_len`` positions a slot, the decode step's forward with
+  S query rows (``spec_tree=True`` verifies a tree of drafts through
+  an ancestor mask, then compacts the accepted path's K/V).
+- **parallel sampling** (``parallel_sampling=True``) forks a prefilled
+  slot into n copy-on-write branches (:meth:`fork`), each sampling from
+  its own counter-based stream (``models/gpt.py`` ``branch_generator``).
 
 PyTorch runs eagerly, so the JAX package's one-compile contract
-becomes a fixed operand-shape contract: the decode step's operand
-shapes depend only on pool geometry, and ``decode_compiles`` counts
-the DISTINCT shape signatures the step has seen (it must stay 1 —
-what a CUDA-graph capture of the step will need). The pool is updated
-in place.
+becomes a fixed operand-shape contract: the decode and verify steps'
+operand shapes depend only on pool geometry (and ``draft_len``), and
+``decode_compiles``/``verify_compiles`` count the DISTINCT shape
+signatures each step has seen (each must stay 1 — what a CUDA-graph
+capture of the step will need). The pool is updated in place.
 """
 from __future__ import annotations
 
@@ -39,25 +47,36 @@ from torchbooster_tpu_torch.models.gpt import (
     _check_pos,
     _grouped_cache_attention,
     _lm_head,
+    _make_branch_pick,
     _make_pick,
     _quantize_kv,
+    branch_generator,
     cast_params,
     layer_params,
     map_tensors,
 )
-from torchbooster_tpu_torch.ops.paged_attention import paged_attention
+from torchbooster_tpu_torch.ops.paged_attention import (
+    check_paged,
+    paged_attention,
+)
 from torchbooster_tpu_torch.serving.kv_pages import (
     NULL_PAGE,
     BlockTables,
     make_pool,
 )
+from torchbooster_tpu_torch.serving.speculative import (
+    NO_DRAFT,
+    PromptLookupDrafter,
+    TreeLookupDrafter,
+    accept_count,
+    make_verify_fn,
+    tree_accept_path,
+    tree_masks,
+)
 
 # options of the JAX engine this slice does not port, and the
 # ROADMAP.md item that will
 _UNPORTED = {
-    "speculative": "A5 speculative verify through B4",
-    "parallel_sampling": "A6 copy-on-write fork",
-    "spec_tree": "A5 tree verify through B4",
     "structured": "A6 structured generation",
     "lora_rank": "A6 LoRA lanes",
     "lora_max_live": "A6 LoRA lanes",
@@ -70,16 +89,26 @@ def _layer_pool(pool, i: int):
     return (pool[0][i], pool[1][i]) if isinstance(pool, tuple) else pool[i]
 
 
+def _pool_arrays(pool) -> tuple:
+    """The pool's stacked tensors: K and V, or their values and scales."""
+    return tuple(a for half in (pool["k"], pool["v"])
+                 for a in (half if isinstance(half, tuple) else (half,)))
+
+
 class PagedEngine:
     """Continuous-batching decode over a paged KV pool with an optional
-    prompt-prefix cache. ``admit_begin``/``prefill_step``/``step``/
-    ``retire`` are the lifecycle the batcher drives; ``admit`` seats
-    one request and drains its chunks. ``cache_dtype="int8"`` stores
-    quantized pages; ``temperature=0`` decodes greedily, otherwise
-    sampling draws from a ``torch.Generator`` seeded with ``seed``.
-    ``dense_control`` builds the dense-bytes A/B geometry (one
-    ``seq_len`` page per slot; the sweep backend only — such a page is
-    too large for the kernel's shared-memory tile)."""
+    prompt-prefix cache. ``admit_begin``/``prefill_step``/``step`` (or
+    ``spec_step``)/``retire`` are the lifecycle the batcher drives;
+    ``admit`` seats one request and drains its chunks.
+    ``cache_dtype="int8"`` stores quantized pages; ``temperature=0``
+    decodes greedily, otherwise sampling draws from a
+    ``torch.Generator`` seeded with ``seed`` (per branch, with
+    ``parallel_sampling``). ``speculative`` drafts up to ``draft_len``
+    tokens a step by prompt lookup (n-grams from ``ngram_min``) and
+    verifies them in one step; ``spec_tree`` drafts up to
+    ``tree_width`` branches. ``dense_control`` builds the dense-bytes
+    A/B geometry (one ``seq_len`` page per slot; the sweep backend only
+    — such a page is too large for the kernel's shared-memory tile)."""
 
     def __init__(self, params: dict, cfg: GPTConfig, *,
                  page_size: int = 64, n_pages: int = 128,
@@ -88,6 +117,9 @@ class PagedEngine:
                  temperature: float = 0.0, top_k: int | None = None,
                  top_p: float | None = None, seed: int = 0,
                  prefix_cache: bool = False, prefill_chunk_pages: int = 4,
+                 speculative: bool = False, draft_len: int = 4,
+                 ngram_min: int = 2, spec_tree: bool = False,
+                 tree_width: int = 2, parallel_sampling: bool = False,
                  decode_backend: str | None = None, tp: int = 1,
                  device: str | torch.device = "cuda", **unported):
         for name, value in unported.items():
@@ -111,6 +143,29 @@ class PagedEngine:
         if cache_dtype not in (None, "int8"):
             raise ValueError(f"cache_dtype must be None or 'int8', got "
                              f"{cache_dtype!r}")
+        if speculative and not 1 <= draft_len < page_size:
+            # 1 + draft_len writes a step stay within one page past the
+            # cursor's
+            raise ValueError(
+                f"speculative decoding needs 1 <= draft_len < page_size, "
+                f"got draft_len={draft_len} with page_size={page_size}")
+        if spec_tree and not speculative:
+            raise ValueError(
+                "spec_tree=True needs speculative=True: tree drafting "
+                "generalizes the draft+verify path, there is no tree "
+                "without a verify step")
+        if spec_tree and temperature != 0:
+            raise ValueError(
+                f"spec_tree needs greedy decoding (temperature=0, got "
+                f"{temperature}): sampling acceptance across sibling "
+                "branches needs without-replacement residuals the verify "
+                "rule does not carry")
+        if parallel_sampling and speculative:
+            raise ValueError(
+                "parallel_sampling and speculative are mutually exclusive: "
+                "the per-branch sampling streams and logprobs ride the "
+                "plain decode step — serve n-way traffic on a "
+                "non-speculative engine")
         self.device = resolve_device(device)
         if decode_backend is None:
             decode_backend = "kernel" if self.device.type == "cuda" \
@@ -120,20 +175,32 @@ class PagedEngine:
                              f"flash-decode kernel) or 'sweep' (the pool "
                              f"sweep), got {decode_backend!r}")
         _check_pos(params, cfg)
+        self.quantized = cache_dtype == "int8"
+        self.speculative = bool(speculative)
+        self.draft_len = draft_len
+        if decode_backend == "kernel":
+            # a step shape no B4 route takes must fail here, not at the
+            # first step (and never quietly drop to the sweep)
+            check_paged(compute_dtype,
+                        torch.int8 if self.quantized else compute_dtype,
+                        cfg.head_dim, page_size,
+                        1 + (draft_len if self.speculative else 0),
+                        cfg.n_heads // cfg.kv_heads)
         self.decode_backend = decode_backend
         self.cfg = cfg
         self.page_size = page_size
         self.n_pages = n_pages
         self.max_slots = max_slots
         self.compute_dtype = compute_dtype
-        self.quantized = cache_dtype == "int8"
         self.prefix_cache = bool(prefix_cache)
+        self.parallel = bool(parallel_sampling)
         self.params = cast_params(
             map_tensors(params, lambda t: t.to(self.device)), compute_dtype)
         self._layers = [layer_params(self.params["blocks"], i)
                         for i in range(cfg.n_layers)]
         self.tables = BlockTables(cfg, page_size, n_pages, max_slots,
-                                  prefix_cache=prefix_cache)
+                                  prefix_cache=prefix_cache,
+                                  parallel=self.parallel)
         self.prefill_chunk_pages = min(prefill_chunk_pages,
                                        self.tables.max_pages_per_slot)
         self.chunk_tokens = self.prefill_chunk_pages * page_size
@@ -143,13 +210,42 @@ class PagedEngine:
                               device=self.device)
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
         self._pick = _make_pick(temperature, top_k, top_p)
+        self._branch_pick = _make_branch_pick(temperature, top_k, top_p)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._pending: list[dict] = []
         self.prefill_chunks = 0
         self.prefix_hit_pages = 0
         self.prefix_lookup_pages = 0
         self._decode_shapes: set = set()
+        self._verify_shapes: set = set()
         self._chunk_shapes: set = set()
+        # speculative decoding: drafter + verify step exist only when on
+        self.spec_tree = bool(spec_tree)
+        self.tree_width = tree_width
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_steps = 0
+        self.spec_slot_steps = 0     # (slot, verify step) pairs
+        self.tree_side_accepts = 0
+        self._drafter = None
+        self._verify = None
+        if self.speculative:
+            self._drafter = (
+                TreeLookupDrafter(draft_len, ngram_min=ngram_min,
+                                  width=tree_width) if self.spec_tree
+                else PromptLookupDrafter(draft_len, ngram_min=ngram_min))
+            self._verify = make_verify_fn(self)
+        # parallel sampling: per-slot request seed and branch index
+        # (each pick's generator is branch_generator(seed, branch,
+        # context length)), and the prompt-final logits fork() samples
+        # sibling branches' first tokens from
+        self.forks = 0
+        self.fork_pages = 0      # pages SHARED into children at fork
+        self.cow_copies = 0      # private tail pages copied at fork
+        self._seed_of = np.zeros(max_slots, np.int64)
+        self._branch_of = np.zeros(max_slots, np.int32)
+        self._fork_state: dict[int, dict] = {}
+        self.step_logprobs: np.ndarray | None = None
 
     @classmethod
     def dense_control(cls, params: dict, cfg: GPTConfig, *,
@@ -176,7 +272,7 @@ class PagedEngine:
         pages and attending prior context through the pool. Pad tokens
         of the final chunk write at positions >= ``s0`` (or into the
         null page past the table), which every mask excludes. Returns
-        the token picked from position ``s0 - 1`` (meaningful only on
+        the (1, vocab) logits of position ``s0 - 1`` (meaningful only on
         the chunk that holds it)."""
         cfg, ps, dev = self.cfg, self.page_size, self.device
         C = ids.shape[1]
@@ -232,38 +328,68 @@ class PagedEngine:
 
             x, _ = _block_core(bp, x, cfg, attend, positions=positions[None])
         last = x[:, min(max(s0 - 1 - start, 0), C - 1)][:, None]
-        logits = _lm_head(self.params, last)[:, 0]
-        return self._pick(self._gen, logits)
+        return _lm_head(self.params, last)[:, 0]
 
     @torch.no_grad()
-    def _decode_fn(self, tables, lengths, refs, page_pos, active, last_ids,
-                   work=None) -> torch.Tensor:
-        """One decode step over all slots; returns (max_slots,) ids
-        (garbage at inactive slots). ``work`` = the kernel backend's
-        ``(work_pages, work_refs, work_pos)``."""
+    def _forward_fn(self, in_ids, tables, lengths, refs, page_pos, active,
+                    work=None, depth=None, tree_vis=None) -> torch.Tensor:
+        """The paged step over all slots: ``in_ids (max_slots, S)`` at
+        storage positions ``lengths + [0, S)``, roped and embedded at
+        ``lengths + depth`` (``depth`` None: the storage positions). Every
+        position's K/V lands in the slot's pages BEFORE the read — dead
+        slots and positions past the horizon write the null page — so
+        each query reads its own and its predecessors' K/V back in pool
+        dtype; position ``j`` sees ``<= lengths + j`` (with ``tree_vis``:
+        prior context and its ancestors). S = 1 is the decode step, S = 1
+        + draft_len the speculative verify (``speculative.py:300``).
+        ``work`` = the kernel backend's ``(work_pages, work_refs,
+        work_pos)``. Returns (max_slots, S, vocab) logits (garbage at
+        inactive slots)."""
         cfg, ps, dev = self.cfg, self.page_size, self.device
-        n_slots = last_ids.shape[0]
-        x = self._embed(last_ids[:, None], lengths[:, None])
+        n_slots, S = in_ids.shape
+        mp = tables.shape[1]
+        positions = lengths[:, None] + torch.arange(S, device=dev)
+        sem_pos = positions if depth is None else lengths[:, None] + depth
+        # sentinel ids embed as 0 and horizon positions at the last row:
+        # garbage that acceptance and the null-page writes keep out of
+        # every live value
+        pos_c = sem_pos.clamp(max=cfg.seq_len - 1)
+        x = self._embed(in_ids.clamp(0, cfg.vocab - 1), pos_c)
+        pidx = positions // ps
+        rows = torch.arange(n_slots, device=dev)[:, None]
+        w_page = torch.where((pidx < mp) & active[:, None],
+                             tables[rows, pidx.clamp(max=mp - 1)],
+                             torch.full_like(pidx, NULL_PAGE))
+        w_off = positions % ps
         if self.decode_backend == "sweep":
-            # page -> lane bookkeeping shared by every layer: a page's
-            # token j sits at page_pos*ps + j and is visible to a lane
-            # iff <= that slot's length; empty lanes divert to the trash
-            # segment n_slots; page 0 (the null page) is never read
+            # (page, lane, position) routing shared by every layer: a
+            # page's token t sits at page_pos*ps + t; empty lanes divert
+            # to the trash segment n_slots*S; page 0 is never read
             refs_t = refs[1:]
             n_lanes = refs_t.shape[1]
-            seg = torch.where(refs_t >= 0, refs_t,
-                              torch.full_like(refs_t, n_slots)).reshape(-1)
             ref_c = refs_t.clamp(0, n_slots - 1)
+            j = torch.arange(S, device=dev)
+            seg = torch.where(refs_t[:, :, None] >= 0,
+                              ref_c[:, :, None] * S + j,
+                              torch.full_like(ref_c[:, :, None],
+                                              n_slots * S)).reshape(-1)
             tok_pos = page_pos[1:, None] * ps + torch.arange(ps, device=dev)
             ref_len = torch.where(refs_t >= 0, lengths[ref_c],
                                   torch.full_like(refs_t, -1))
-            visible = tok_pos[:, None, :] <= ref_len[:, :, None]
-        # this step's write target per slot: the (always private) page
-        # holding position ``lengths``; dead slots scribble the null page
-        arange = torch.arange(n_slots, device=dev)
-        w_page = torch.where(active, tables[arange, lengths // ps],
-                             torch.zeros_like(lengths))
-        w_off = lengths % ps
+            off = tok_pos[:, None, None, :] - ref_len[:, :, None, None]
+            if tree_vis is None:
+                visible = off <= j[None, None, :, None]     # (P, R, S, ps)
+            else:
+                # prior context (offset <= 0) is visible to every node,
+                # a draft row at offset i in (0, S) only to the nodes it
+                # is an ancestor-or-self of
+                off = off[:, :, 0]                          # (P, R, ps)
+                tv = tree_vis[ref_c].bool()                 # (P, R, S, S)
+                sel = torch.gather(tv, 3, off.clamp(0, S - 1)[:, :, None]
+                                   .expand(-1, -1, S, -1))  # (P, R, S, ps)
+                visible = (off <= 0)[:, :, None] | (
+                    ((off > 0) & (off < S))[:, :, None] & sel)
+            visible = visible.reshape(-1, n_lanes * S, ps)
         len32 = lengths.to(torch.int32)
 
         for i, bp in enumerate(self._layers):
@@ -271,55 +397,95 @@ class PagedEngine:
             pv = _layer_pool(self.pool["v"], i)
 
             def attend(q, k, v, pk=pk, pv=pv):
-                # this step's K/V land in the pool BEFORE the read: the
-                # token written at ``lengths`` must see itself
                 if self.quantized:
                     for pool, new in ((pk, k), (pv, v)):
                         vals, scales = _quantize_kv(new)
-                        pool[0][w_page, w_off] = vals[:, 0]
-                        pool[1][w_page, w_off] = scales[:, 0]
+                        pool[0][w_page, w_off] = vals
+                        pool[1][w_page, w_off] = scales
                 else:
-                    pk[w_page, w_off] = k[:, 0].to(pk.dtype)
-                    pv[w_page, w_off] = v[:, 0].to(pv.dtype)
+                    pk[w_page, w_off] = k.to(pk.dtype)
+                    pv[w_page, w_off] = v.to(pv.dtype)
                 if self.decode_backend == "kernel":
                     o = paged_attention(q, pk, pv, *work, len32,
-                                        page_size=ps)
+                                        page_size=ps, tree_vis=tree_vis)
                     return o.to(q.dtype), None
                 rk = tuple(a[1:] for a in pk) if self.quantized else pk[1:]
                 rv = tuple(a[1:] for a in pv) if self.quantized else pv[1:]
-                q_lanes = q[:, 0][ref_c]                 # (P, R, H, Dh)
+                # ONE pool read serves every lane's S positions: queries
+                # gather to (P, R*S, H, Dh)
+                q_lanes = q[ref_c].reshape(ref_c.shape[0], n_lanes * S,
+                                           cfg.n_heads, cfg.head_dim)
                 o_p, m_p, l_p = _grouped_cache_attention(
                     q_lanes, rk, rv, visible[:, None, None], state=True)
-                n_pp = o_p.shape[0]
-                o_f = o_p.reshape(n_pp * n_lanes, *o_p.shape[2:])
-                m_f = m_p.movedim(-1, 1).reshape(n_pp * n_lanes,
-                                                 *m_p.shape[1:3])
-                l_f = l_p.movedim(-1, 1).reshape(n_pp * n_lanes,
-                                                 *l_p.shape[1:3])
-                m_s = torch.full((n_slots + 1, *m_f.shape[1:]),
+                n_seg = o_p.shape[0] * n_lanes * S
+                o_f = o_p.reshape(n_seg, *o_p.shape[2:])
+                m_f = m_p.movedim(-1, 1).reshape(n_seg, *m_p.shape[1:3])
+                l_f = l_p.movedim(-1, 1).reshape(n_seg, *l_p.shape[1:3])
+                m_s = torch.full((n_slots * S + 1, *m_f.shape[1:]),
                                  -float("inf"), device=dev)
                 m_s = m_s.scatter_reduce(
                     0, seg.view(-1, 1, 1).expand_as(m_f), m_f,
                     reduce="amax")
                 w = torch.exp(m_f - m_s[seg])
                 l_s = torch.zeros_like(m_s).index_add(0, seg, l_f * w)
-                o_s = torch.zeros((n_slots + 1, *o_f.shape[1:]),
+                o_s = torch.zeros((n_slots * S + 1, *o_f.shape[1:]),
                                   device=dev).index_add(0, seg,
                                                         o_f * w[..., None])
-                o = o_s[:n_slots] / l_s[:n_slots].clamp_min(1e-30)[..., None]
-                return o.reshape(n_slots, 1, cfg.n_heads,
+                o = o_s[:n_slots * S] / l_s[:n_slots * S].clamp_min(
+                    1e-30)[..., None]
+                return o.reshape(n_slots, S, cfg.n_heads,
                                  cfg.head_dim).to(q.dtype), None
 
-            x, _ = _block_core(bp, x, cfg, attend, positions=lengths[:, None])
-        logits = _lm_head(self.params, x)[:, 0]
-        return self._pick(self._gen, logits)
+            x, _ = _block_core(bp, x, cfg, attend, positions=pos_c)
+        return _lm_head(self.params, x)
+
+    @torch.no_grad()
+    def _compact_fn(self, tables, lengths, active, src_off) -> None:
+        """Tree verify's post-acceptance K/V compaction (``engine.py:
+        971``): offset ``j`` of every slot takes the K/V rows stored at
+        offset ``src_off[slot, j]`` (the accepted path's node ids, which
+        never sit below their path index), over every layer, values and
+        scales. All sources are gathered into a temporary before any
+        write lands; identity rows copy onto themselves and inactive
+        slots into the null page, so duplicate targets fall on the null
+        page only, which nothing reads."""
+        ps, dev = self.page_size, self.device
+        n_slots, S = src_off.shape
+        mp = tables.shape[1]
+        rows = torch.arange(n_slots, device=dev)[:, None]
+
+        def locate(pos):
+            pidx = pos // ps
+            page = torch.where((pidx < mp) & active[:, None],
+                               tables[rows, pidx.clamp(max=mp - 1)],
+                               torch.full_like(pidx, NULL_PAGE))
+            return page, pos % ps
+
+        dst_page, dst_off = locate(lengths[:, None]
+                                   + torch.arange(S, device=dev))
+        src_page, src_sub = locate(lengths[:, None] + src_off)
+        for a in _pool_arrays(self.pool):
+            a[:, dst_page, dst_off] = a[:, src_page, src_sub]
+
+    @torch.no_grad()
+    def _cow_fn(self, src_pages, dst_pages) -> None:
+        """Fork's copy-on-write tail copy (``engine.py:955``): pool page
+        ``dst_pages[i]`` becomes a copy of ``src_pages[i]`` across every
+        layer, values and scales, in one index copy per pool tensor.
+        ``(max_slots,)`` id vectors padded with null->null copies."""
+        for a in _pool_arrays(self.pool):
+            a[:, dst_pages] = a[:, src_pages]
 
     # ---- lifecycle --------------------------------------------------
-    def admit_begin(self, prompt_ids: np.ndarray) -> int | None:
+    def admit_begin(self, prompt_ids: np.ndarray, seed: int | None = None,
+                    branch: int = 0) -> int | None:
         """Seat one request: map cached prefix pages into its block
         table, allocate private pages for the rest, and queue its
         chunked prefill. Returns the slot, or None when no slot or not
-        enough pages (the batcher keeps it queued)."""
+        enough pages (the batcher keeps it queued). ``seed``/``branch``
+        matter with ``parallel_sampling``: the slot samples branch
+        ``branch`` of the request's stream ``seed``, so branch b of an
+        n-way fork equals a run admitted with ``(seed, branch=b)``."""
         prompt = np.ascontiguousarray(prompt_ids, np.int32).reshape(-1)
         s0 = len(prompt)
         slot = self.tables.free_slot()
@@ -342,6 +508,10 @@ class PagedEngine:
             return None
         self.prefix_lookup_pages += (s0 - 1) // self.page_size
         self.prefix_hit_pages += len(matched)
+        self._seed_of[slot] = 0 if seed is None else int(seed) & 0x7fffffff
+        self._branch_of[slot] = int(branch)
+        if self._drafter is not None:
+            self._drafter.begin(slot, prompt)
         start = len(matched) * self.page_size
         n_chunks = -(-(s0 - start) // self.chunk_tokens)
         padded = np.zeros(start + n_chunks * self.chunk_tokens, np.int32)
@@ -363,36 +533,59 @@ class PagedEngine:
     def pending_slots(self) -> list[int]:
         return [p["slot"] for p in self._pending]
 
+    def _branch_gens(self, slots, depths) -> list:
+        """One :func:`branch_generator` per listed slot (None under
+        greedy, which samples nothing)."""
+        if self.temperature == 0:
+            return [None] * len(slots)
+        return [branch_generator(self._seed_of[s], self._branch_of[s], d,
+                                 self.device) for s, d in zip(slots, depths)]
+
     def prefill_step(self) -> tuple[int, int] | None:
         """Run ONE chunk of the oldest queued prefill. Returns ``(slot,
         first_token)`` when that request's prefill completed (the slot
         is then active and its full prompt pages registered), else
-        None."""
+        None. With ``parallel_sampling`` the first token is branch
+        ``branch``'s pick at depth ``s0`` and the prompt-final logits
+        are kept for :meth:`fork`."""
         if not self._pending:
             return None
         p = self._pending[0]
-        C = self.chunk_tokens
+        slot, C = p["slot"], self.chunk_tokens
         ids = torch.as_tensor(p["ids"][p["start"]:p["start"] + C],
                               dtype=torch.long).to(self.device)[None]
-        table_row = torch.as_tensor(self.tables.tables[p["slot"]],
+        table_row = torch.as_tensor(self.tables.tables[slot],
                                     dtype=torch.long).to(self.device)
         self._chunk_shapes.add((tuple(ids.shape), tuple(table_row.shape)))
         with torch.profiler.record_function("serving_prefill_chunk"):
-            tok = self._chunk_fn(ids, p["start"], p["s0"], table_row)
+            logits = self._chunk_fn(ids, p["start"], p["s0"], table_row)
         self.prefill_chunks += 1
         p["start"] += C
+        if not self.parallel:
+            tok = self._pick(self._gen, logits)
         if p["start"] < p["s0"]:
             return None
         self._pending.pop(0)
+        if self.parallel:
+            tok, lp = self._branch_pick(
+                self._branch_gens([slot], [p["s0"]]), logits)
+            # ONE device->host copy for the token and its logprob
+            tok, lp = torch.stack([tok.double(), lp.double()]).cpu()
+            self._fork_state[slot] = {"logits": logits,
+                                      "logprob": float(lp[0]),
+                                      "s0": int(p["s0"])}
         first = int(tok[0])
-        self.tables.activate(p["slot"], first)
-        self.tables.register_prefix(p["slot"], p["ids"][:p["s0"]])
-        return p["slot"], first
+        self.tables.activate(slot, first)
+        self.tables.register_prefix(slot, p["ids"][:p["s0"]])
+        if self._drafter is not None:
+            self._drafter.observe(slot, [first])
+        return slot, first
 
-    def admit(self, prompt_ids: np.ndarray) -> tuple[int, int] | None:
+    def admit(self, prompt_ids: np.ndarray, seed: int | None = None,
+              branch: int = 0) -> tuple[int, int] | None:
         """Seat one request and drain prefill chunks until ITS first
         token lands; returns ``(slot, first_token)`` or None."""
-        slot = self.admit_begin(prompt_ids)
+        slot = self.admit_begin(prompt_ids, seed=seed, branch=branch)
         if slot is None:
             return None
         while True:
@@ -400,12 +593,83 @@ class PagedEngine:
             if done is not None and done[0] == slot:
                 return done
 
+    def fork(self, parent_slot: int, n_branches: int
+             ) -> list[tuple[int, int, float]]:
+        """Fork a just-prefilled slot into ``n_branches`` sampling
+        branches (``engine.py:1457``): every FULL page of the parent is
+        SHARED into each child's table (one read serves all branches
+        through the refs lanes), the partial tail page is copied once
+        per child (:meth:`_cow_fn`), and branch b samples its own first
+        token from the parent's prompt-final logits with its own stream
+        — so the branches diverge from token one exactly as independent
+        runs admitted with ``(seed, branch=b)`` would. Returns ``[(slot,
+        first_token, first_logprob)]`` for all branches, branch 0 (the
+        parent) first. Must run before the parent's first decode step;
+        raises ``PoolExhausted`` when slots or pages run out, leaving
+        the parent as it was (the caller preempts and retries)."""
+        if not self.parallel:
+            raise RuntimeError(
+                "fork() needs PagedEngine(parallel_sampling=True)")
+        if n_branches < 2:
+            raise ValueError(f"n_branches must be >= 2, got {n_branches}")
+        st = self._fork_state.get(parent_slot)
+        if st is None or int(self.tables.lengths[parent_slot]) \
+                != int(self.tables.prompt_len[parent_slot]):
+            raise RuntimeError(
+                f"slot {parent_slot} is not at its prefill boundary: "
+                "fork() must run before the parent's first decode step "
+                "(branches diverge from token one)")
+        if int(self._branch_of[parent_slot]) != 0:
+            raise RuntimeError(
+                f"slot {parent_slot} is itself branch "
+                f"{int(self._branch_of[parent_slot])}: only branch 0 "
+                "forks (re-forking a branch would alias streams)")
+        # peek above, pop only past the fallible part: an exhaustion
+        # here leaves the stash for the retry
+        children = self.tables.fork(parent_slot, n_branches - 1)
+        self._fork_state.pop(parent_slot)
+        length = int(self.tables.lengths[parent_slot])
+        n_full = length // self.page_size
+        self.forks += 1
+        self.fork_pages += n_full * len(children)
+        if length % self.page_size:
+            src = np.zeros(self.max_slots, np.int64)
+            dst = np.zeros(self.max_slots, np.int64)
+            src[:len(children)] = self.tables.tables[parent_slot, n_full]
+            dst[:len(children)] = self.tables.tables[children, n_full]
+            with torch.profiler.record_function("serving_fork_cow"):
+                self._cow_fn(torch.as_tensor(src).to(self.device),
+                             torch.as_tensor(dst).to(self.device))
+            self.cow_copies += len(children)
+        for b, child in enumerate(children, start=1):
+            self._seed_of[child] = self._seed_of[parent_slot]
+            self._branch_of[child] = b
+        toks, lps = self._branch_pick(
+            self._branch_gens(children, [st["s0"]] * len(children)),
+            st["logits"].expand(len(children), -1).contiguous())
+        toks, lps = torch.stack([toks.double(), lps.double()]).cpu()
+        out = [(parent_slot, int(self.tables.last_ids[parent_slot]),
+                st["logprob"])]
+        for child, tok, lp in zip(children, toks.tolist(), lps.tolist()):
+            self.tables.activate(child, int(tok))
+            out.append((child, int(tok), float(lp)))
+        return out
+
+    def take_first_logprob(self, slot: int) -> float:
+        """Consume a just-prefilled slot's first-token logprob (parallel
+        mode), dropping its fork stash; 0.0 when nothing is stashed."""
+        st = self._fork_state.pop(slot, None)
+        return 0.0 if st is None else st["logprob"]
+
     def grow_slots(self) -> list[int]:
-        """Pre-allocate each active slot's next write page (evicting
-        cached prefixes under pressure). Returns the slots that could
-        NOT get one (the batcher preempts). Call before every step."""
+        """Pre-allocate each active slot's upcoming write pages (evicting
+        cached prefixes under pressure): one position ahead, ``1 +
+        draft_len`` in speculative mode (the verify step writes every
+        drafted position). Returns the slots that could NOT get them
+        (the batcher preempts). Call before every step."""
+        ahead = 1 + (self.draft_len if self.speculative else 0)
         return [int(slot) for slot in np.flatnonzero(self.tables.active)
-                if not self.tables.ensure_write_pages(int(slot), 1)]
+                if not self.tables.ensure_write_pages(int(slot), ahead)]
 
     def _kernel_operands(self) -> tuple | None:
         """The kernel backend's compacted live-page walk on the device;
@@ -416,10 +680,9 @@ class PagedEngine:
         return tuple(torch.as_tensor(ka[k]).to(self.device)
                      for k in ("work_pages", "work_refs", "work_pos"))
 
-    def step(self) -> np.ndarray:
-        """One decode step over every ACTIVE slot; advances lengths/
-        last_ids for those and returns the (max_slots,) token ids
-        (garbage at inactive or mid-prefill slots)."""
+    def _step_args(self) -> tuple[np.ndarray, dict, tuple | None]:
+        """The active mask (host), the table operands on the device and
+        the kernel's walk; raises when a slot reached the horizon."""
         active = self.tables.active.copy()
         if active.any() and (self.tables.lengths[active]
                              >= self.cfg.seq_len).any():
@@ -429,31 +692,162 @@ class PagedEngine:
                 for k, v in self.tables.device_args().items()}
         args = {k: v.long() if v.dtype == torch.int32 else v
                 for k, v in args.items()}
-        work = self._kernel_operands()
-        self._decode_shapes.add(tuple(
-            (k, tuple(v.shape), str(v.dtype)) for k, v in args.items())
-            + tuple(tuple(w.shape) for w in (work or ())))
+        return active, args, self._kernel_operands()
+
+    @staticmethod
+    def _signature(tensors: dict) -> tuple:
+        return tuple((k, tuple(v.shape), str(v.dtype))
+                     for k, v in tensors.items() if v is not None)
+
+    def step(self) -> np.ndarray:
+        """One decode step over every ACTIVE slot; advances lengths/
+        last_ids for those and returns the (max_slots,) token ids
+        (garbage at inactive or mid-prefill slots). With
+        ``parallel_sampling`` each slot samples its branch's stream and
+        ``step_logprobs`` holds the picks' logprobs."""
+        active, args, work = self._step_args()
+        self._decode_shapes.add(self._signature(
+            {**args, **dict(zip(("wp", "wr", "wpos"), work or ()))}))
         with torch.profiler.record_function("decode_step"):
-            tokens = self._decode_fn(args["tables"], args["lengths"],
-                                     args["refs"], args["page_pos"],
-                                     args["active"], args["last_ids"],
-                                     work)
-        tokens = tokens.cpu().numpy()
+            logits = self._forward_fn(
+                args["last_ids"][:, None], args["tables"], args["lengths"],
+                args["refs"], args["page_pos"], args["active"], work)[:, 0]
+        if self.parallel:
+            slots = np.flatnonzero(active)
+            gens = [None] * self.max_slots
+            for s, gen in zip(slots, self._branch_gens(
+                    slots, self.tables.lengths[slots] + 1)):
+                gens[s] = gen
+            tokens, lps = self._branch_pick(gens, logits)
+            # ONE device->host copy for both results
+            tokens, lps = torch.stack([tokens.double(), lps.double()]).cpu()
+            self.step_logprobs = lps.numpy()
+            tokens = tokens.long().numpy()
+        else:
+            tokens = self._pick(self._gen, logits).cpu().numpy()
         for slot in np.flatnonzero(active):
             self.tables.advance(int(slot), int(tokens[slot]))
+            if self._drafter is not None:
+                self._drafter.observe(int(slot), [int(tokens[slot])])
         return tokens
+
+    def spec_step(self) -> dict[int, list[int]]:
+        """One speculative step over every ACTIVE slot (``engine.py:
+        1704``): draft on the host, verify all ``1 + draft_len``
+        positions in ONE step, accept the longest confirmed prefix (tree
+        mode: the accepted root-to-leaf path, compacted into place) and
+        advance each slot over its accepted tokens plus the fallback or
+        bonus pick — 1 to ``draft_len + 1`` tokens a slot. Rejected
+        positions are never advanced over: their K/V sits past
+        ``lengths``, invisible, and the next step overwrites it. One
+        device->host copy a step. Returns ``{slot: [tokens]}``."""
+        if not self.speculative:
+            raise RuntimeError(
+                "spec_step() needs a PagedEngine(speculative=True); the "
+                "cold engine decodes through step()")
+        active, args, work = self._step_args()
+        k = self.draft_len
+        drafts = np.full((self.max_slots, k), NO_DRAFT, np.int32)
+        parents = np.tile(np.arange(k, dtype=np.int32), (self.max_slots, 1))
+        for slot in np.flatnonzero(active):
+            slot = int(slot)
+            if self.spec_tree:
+                d, parents[slot] = self._drafter.draft_tree(slot)
+            else:
+                d = self._drafter.draft(slot)
+            # horizon cap: drafted position j writes at lengths + 1 + j,
+            # which must stay inside the slot's table (the step also
+            # diverts overflow writes to the null page)
+            room = int(self.cfg.seq_len - self.tables.lengths[slot]) - 1
+            if room < k:
+                d[max(room, 0):] = NO_DRAFT
+            drafts[slot] = d
+            self.spec_proposed += int((d >= 0).sum())
+        in_ids = torch.cat([args["last_ids"][:, None],
+                            torch.as_tensor(drafts).to(self.device).long()],
+                           dim=1)
+        tree = None
+        if self.spec_tree:
+            depth, vis = tree_masks(parents)
+            tree = tuple(torch.as_tensor(a).to(self.device).long()
+                         for a in (parents, depth, vis))
+        self._verify_shapes.add(self._signature(
+            {**args, "in_ids": in_ids,
+             **dict(zip(("wp", "wr", "wpos"), work or ())),
+             **dict(zip(("parents", "depth", "vis"), tree or ()))}))
+        with torch.profiler.record_function("spec_verify_step"):
+            accept, token = self._verify(
+                args["tables"], args["lengths"], args["refs"],
+                args["page_pos"], args["active"], in_ids, work, tree)
+            # ONE device->host copy for both results
+            both = torch.cat([accept.long(), token], dim=1).cpu().numpy()
+        accept, token = both[:, :k].astype(bool), both[:, k:]
+        self.spec_steps += 1
+        self.spec_slot_steps += int(active.sum())
+        out: dict[int, list[int]] = {}
+        paths: dict[int, list[int]] = {}
+        for slot in np.flatnonzero(active):
+            slot = int(slot)
+            if self.spec_tree:
+                path = tree_accept_path(accept[slot], parents[slot])
+                a = len(path)
+                emitted = [int(drafts[slot, p - 1]) for p in path] \
+                    + [int(token[slot, path[-1] if path else 0])]
+                paths[slot] = path
+                self.tree_side_accepts += int(path != list(range(1, a + 1)))
+            else:
+                a = accept_count(accept[slot])
+                emitted = [int(t) for t in drafts[slot, :a]] \
+                    + [int(token[slot, a])]
+            # a request may accept its way up to seq_len, never past it
+            room = int(self.cfg.seq_len - self.tables.lengths[slot])
+            emitted = emitted[:room]
+            self.spec_accepted += min(a, len(emitted))
+            out[slot] = emitted
+        if self.spec_tree:
+            # compaction BEFORE lengths advance: the accepted path's rows
+            # move down to the positions the new lengths will expose
+            src_off = np.tile(np.arange(k + 1), (self.max_slots, 1))
+            for slot, path in paths.items():
+                src_off[slot, 1:len(path) + 1] = path
+            with torch.profiler.record_function("spec_tree_compact"):
+                self._compact_fn(args["tables"], args["lengths"],
+                                 args["active"],
+                                 torch.as_tensor(src_off).to(self.device))
+        for slot, emitted in out.items():
+            for t in emitted:
+                self.tables.advance(slot, t)
+            self._drafter.observe(slot, emitted)
+        return out
 
     def retire(self, slot: int) -> None:
         """Release the slot (cancelling any in-flight prefill); shared
         prefix pages stay resident for later hits."""
         self._pending = [p for p in self._pending if p["slot"] != slot]
+        if self._drafter is not None:
+            self._drafter.reset(slot)
+        self._fork_state.pop(slot, None)
+        self._seed_of[slot] = 0
+        self._branch_of[slot] = 0
         self.tables.retire(slot)
+
+    @property
+    def branch_slot_count(self) -> int:
+        """Active slots decoding as a fork branch b > 0."""
+        return int(np.count_nonzero(self.tables.active
+                                    & (self._branch_of > 0)))
 
     @property
     def decode_compiles(self) -> int:
         """Distinct decode-step operand-shape signatures seen — the
         fixed-shape contract's observable (stays 1 across churn)."""
         return len(self._decode_shapes)
+
+    @property
+    def verify_compiles(self) -> int:
+        """Distinct verify-step operand-shape signatures (stays 1 across
+        accept-length and slot churn; 0 when not speculative)."""
+        return len(self._verify_shapes)
 
     @property
     def prefill_compiles(self) -> int:

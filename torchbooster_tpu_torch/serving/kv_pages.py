@@ -31,7 +31,7 @@ inactive slots' write targets point at it, its refcount stays 0, and
 every attention read masks it out.
 
 Not ported yet (``ROADMAP.md`` A6): the host spill tier
-(``HostPagePool``) and copy-on-write ``fork``.
+(``HostPagePool``).
 """
 from __future__ import annotations
 
@@ -110,10 +110,16 @@ class BlockTables:
     or 1, and retire frees every page — the cold control the parity
     suite measures the cache against.
 
+    ``parallel=True`` keeps the multi-lane ``refs`` table even without
+    the prefix cache: :meth:`fork` maps one slot's FULL pages into n
+    sibling slots' tables (copy-on-write parallel sampling, OpenAI
+    ``n``/``best_of``), so a page needs a lane per potential sharer
+    exactly as prefix sharing does.
     """
 
     def __init__(self, cfg: GPTConfig, page_size: int, n_pages: int,
-                 max_slots: int, prefix_cache: bool = False):
+                 max_slots: int, prefix_cache: bool = False,
+                 parallel: bool = False):
         if page_size < 1 or n_pages < 2 or max_slots < 1:
             raise ValueError(
                 f"need page_size >= 1, n_pages >= 2 (page 0 is the "
@@ -126,24 +132,26 @@ class BlockTables:
         self.max_pages_per_slot = -(-cfg.seq_len // page_size)
         self.seq_len = cfg.seq_len
         self.prefix_cache = bool(prefix_cache)
+        self.parallel = bool(parallel)
         self.tables = np.full((max_slots, self.max_pages_per_slot),
                               NULL_PAGE, np.int32)
         self.lengths = np.zeros(max_slots, np.int32)
-        # write floors: cow_len is the copy-on-write boundary — the
-        # shared/cached prefix pages mapped at seat time end here, so
-        # the write cursor (== lengths) must never drop below it;
-        # prompt_len is the stricter floor (registered prefix pages all
-        # sit inside the prompt)
+        # rewind floors: cow_len is the copy-on-write boundary — the
+        # shared/cached prefix pages mapped at seat time (or shared at
+        # a fork) end here, so the write cursor (== lengths) must never
+        # drop below it; prompt_len is the stricter floor at seat time
+        # (registered prefix pages all sit inside the prompt)
         self.cow_len = np.zeros(max_slots, np.int32)
         self.prompt_len = np.zeros(max_slots, np.int32)
         self.refcount = np.zeros(n_pages, np.int32)
-        # reference lanes: with the prefix cache
+        # reference lanes: with the prefix cache (or fork sharing)
         # every slot may share one page, so a page needs max_slots
-        # lanes; without it no page ever has more than one holder
+        # lanes; without either no page ever has more than one holder
         # and the lane axis collapses to 1 — the cold engine's decode
         # sweep then pays ZERO extra query-side compute for the
         # sharing machinery
-        self.n_ref_lanes = max_slots if self.prefix_cache else 1
+        share = self.prefix_cache or self.parallel
+        self.n_ref_lanes = max_slots if share else 1
         self.refs = np.full((n_pages, self.n_ref_lanes), -1, np.int32)
         self.page_pos = np.zeros(n_pages, np.int32)
         self.active = np.zeros(max_slots, bool)
@@ -180,6 +188,12 @@ class BlockTables:
         """Lowest unseated slot id, or None when all are occupied."""
         idle = np.flatnonzero(~self.active & (self.lengths == 0))
         return int(idle[0]) if idle.size else None
+
+    def n_free_slots(self) -> int:
+        """How many slots :meth:`free_slot` could hand out — the one
+        definition of 'unseated', shared with the batcher's admission
+        gate."""
+        return int(np.count_nonzero(~self.active & (self.lengths == 0)))
 
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
@@ -262,6 +276,71 @@ class BlockTables:
         self.active[slot] = True
         self.last_ids[slot] = first_id
 
+    def fork(self, parent_slot: int, n_children: int) -> list[int]:
+        """Fork ``parent_slot`` into ``n_children`` sibling slots for
+        copy-on-write parallel sampling: every FULL page of the parent
+        maps shared into each child's table (refcount++, a refs lane per
+        sharer), and only the partial TAIL page allocates a private page
+        per child, since every branch's next writes land there. The
+        device copy of the tail is the engine's (``PagedEngine.fork``);
+        this is host bookkeeping only.
+
+        The parent's and the children's copy-on-write floors rise to the
+        shared-page boundary, so no branch may rewind into a shared
+        page. Children come back INACTIVE with the parent's length (the
+        caller samples and activates each branch's first token). On
+        exhaustion every partially forked child is rolled back and
+        :class:`PoolExhausted` propagates."""
+        if not self.parallel:
+            raise RuntimeError(
+                "fork() needs BlockTables(parallel=True): without the "
+                "multi-lane refs table a page cannot carry a second "
+                "holder")
+        if n_children < 1:
+            raise ValueError(f"n_children must be >= 1, got {n_children}")
+        if not self.active[parent_slot] or not self.lengths[parent_slot]:
+            raise ValueError(
+                f"slot {parent_slot} is not active — fork at the prefill "
+                "boundary, after activate()")
+        length = int(self.lengths[parent_slot])
+        n_full = length // self.page_size
+        n_live = self.pages_for(length)
+        parent_row = self.tables[parent_slot]
+        children: list[int] = []
+        try:
+            for _ in range(n_children):
+                slot = self.free_slot()
+                if slot is None:
+                    raise PoolExhausted(
+                        f"no free slot to fork into ({self.max_slots} "
+                        "slots all seated)")
+                mapped = 0
+                try:
+                    for i in range(n_full):
+                        self._ref(slot, i, int(parent_row[i]))
+                        mapped += 1
+                    if n_live > n_full:
+                        self._alloc(slot, np.asarray([n_full]))
+                except PoolExhausted:
+                    # lengths is not set yet, so retire() would see an
+                    # empty slot and leak the refs: unwind by hand
+                    for i in reversed(range(mapped)):
+                        self._unref(slot, int(self.tables[slot, i]))
+                    self.tables[slot, :mapped] = NULL_PAGE
+                    raise
+                self.lengths[slot] = length
+                self.prompt_len[slot] = self.prompt_len[parent_slot]
+                self.cow_len[slot] = n_full * self.page_size
+                self.last_ids[slot] = 0
+                children.append(slot)
+        except PoolExhausted:
+            for slot in children:
+                self.retire(slot)
+            raise
+        self.cow_len[parent_slot] = max(int(self.cow_len[parent_slot]),
+                                        n_full * self.page_size)
+        return children
+
     def register_prefix(self, slot: int, prompt: np.ndarray) -> int:
         """Publish the slot's FULL prompt pages into the prefix index
         (call once prefill has written them — their content is final:
@@ -311,6 +390,39 @@ class BlockTables:
         except RuntimeError:
             return False
         return True
+
+    def rewind(self, slot: int, new_length: int,
+               last_id: int | None = None) -> None:
+        """Reset the slot's length to drop speculatively written
+        positions. ``PagedEngine.spec_step`` never needs it (it only
+        advances over accepted tokens, so rejected K/V is born past
+        ``lengths``), but any caller that must shrink a slot goes
+        through here, so the floors are enforced in one place. Pages
+        past ``new_length`` stay allocated: private write-ahead pages,
+        never registered. The floor is ``max(prompt_len, cow_len)``:
+        below it registered prompt pages or shared pages would be
+        reopened to writes. A rewind that drops positions must pass
+        ``last_id``, the accepted pending token at ``new_length``, or
+        the next step would decode from a rejected token."""
+        if not self.lengths[slot]:
+            raise ValueError(f"slot {slot} is not seated")
+        floor = max(int(self.prompt_len[slot]), int(self.cow_len[slot]))
+        if not floor <= new_length <= int(self.lengths[slot]):
+            raise ValueError(
+                f"rewind target {new_length} outside [prompt_len="
+                f"{floor}, lengths={int(self.lengths[slot])}] for slot "
+                f"{slot} — a rewind below the prompt (and the "
+                f"copy-on-write boundary at {int(self.cow_len[slot])}) "
+                "would expose registered/shared prefix pages to decode "
+                "writes")
+        if new_length < int(self.lengths[slot]):
+            if last_id is None:
+                raise ValueError(
+                    f"rewinding slot {slot} drops the token last_ids "
+                    "points at; pass last_id (the accepted pending token "
+                    f"at position {new_length})")
+            self.last_ids[slot] = last_id
+        self.lengths[slot] = new_length
 
     def advance(self, slot: int, token_id: int) -> None:
         """Record one decoded token (already written on device at
@@ -481,14 +593,14 @@ class BlockTables:
                 assert self.page_pos[p] == idx, (slot, idx, p)
                 assert slot in set(self.refs[p].tolist()), (slot, p)
                 if self.refcount[p] > 1:
-                    # shared pages (prefix hits) must
+                    # shared pages (prefix hits and fork sharing) must
                     # sit entirely BELOW every holder's write floor —
-                    # max(cow_len, prompt_len) — so the write cursor (== lengths,
-                    # never below that floor) can never touch one: a
-                    # CoW tail page is never shared. Prefix-shared
-                    # full PROMPT pages are covered by prompt_len (a
-                    # registering slot's cow_len stays at its matched
-                    # boundary).
+                    # max(cow_len, prompt_len), the floor rewind
+                    # enforces — so the write cursor (== lengths, never
+                    # below that floor) can never touch one: a CoW tail
+                    # page is never shared. Prefix-shared full PROMPT
+                    # pages are covered by prompt_len; fork-shared pages
+                    # past the prompt by the raised cow_len.
                     assert (idx + 1) * self.page_size <= max(
                         int(self.cow_len[slot]),
                         int(self.prompt_len[slot])), (
@@ -509,7 +621,7 @@ class BlockTables:
                         f"registered prefix page {p} reachable past "
                         f"slot {slot}'s length")
             if self.lengths[slot]:
-                # the write floors: the write cursor (== lengths)
+                # the rewind floors: the write cursor (== lengths)
                 # never re-enters the shared/cached prefix region, nor
                 # the registered prompt pages
                 assert self.lengths[slot] >= self.cow_len[slot], (
