@@ -27,15 +27,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    (dk, dv) against their plain versions: GPT-2-small training geometry
    (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
    S_q 256 < S_kv 1024, ragged S 1000, D 32 (the recipe default's heads),
-   D 128 at S 1024, and non-causal bf16 and fp32 cases; B1 on the route
-   ``plan_flash_fwd`` plans and B2 and B3 on the route ``plan_flash_bwd``
-   plans (every bf16 case but D 32 on ``"sm90"``), two bf16 calls of each
+   D 128 at S 1024, non-causal bf16 and fp32 cases, and gpt-long's head
+   dim 48 (16 heads over 8: GQA at S 2048 bf16 and S 1024 fp32, and S_q
+   256 < S_kv 1024); B1 on the route ``plan_flash_fwd`` plans and B2 and
+   B3 on the route ``plan_flash_bwd`` plans (every bf16 case but D 32 and
+   D 48 on ``"sm90"``, those on ``"mma_sync"``), two bf16 calls of each
    bit for bit; then time each kernel at the training geometry (profiler
    device time, or CUDA events around back-to-back calls where the
    profiler loses events) beside its plain version, its bound and SDPA
    (forward, and its backward), B1, B2 and B3 on ``"sm90"`` and on
-   ``"mma_sync"`` on the same inputs, and sweep S for the ``"auto"``
-   crossover against ``mha_reference``.
+   ``"mma_sync"`` on the same inputs; the same at gpt-long's geometry (B
+   8, H 16 over 8, S 8192, D 48, on ``"mma_sync"``, SDPA over K/V
+   expanded to 16 heads); and sweep S for the ``"auto"`` crossover
+   against ``mha_reference``.
 5. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
    (tied embeddings x4), ``ServingConfig(page_size=64, n_pages=129,
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
@@ -77,6 +81,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    gradient norm, rtol 1e-4). Prints step ms, tokens/s, the model-FLOP
    share of 989 TFLOP/s, peak memory, and a profiled device busy share
    with the top kernels.
+7a. train_long — the GPT recipe's ``setup`` and ``main`` at
+   ``examples/lm/gpt/gpt-long.yml``'s widths, built in code with the
+   overrides ``LONG_OVERRIDES`` lists (one card, mesh ``dp``; 12 steps, a
+   2-step warmup, a checkpoint every 4 steps into a temp dir, one
+   validation batch): batch 8 x 8192 byte tokens of the repo's own
+   ``*.py`` and ``*.md`` text (``text_file``), 12 layers, d_model 768, 16
+   heads over 8 kv heads (D 48), rope, dropout 0.1, remat, chunked head,
+   AdamW with decay on matrices only, a cos/cos cycle, then a 128-token
+   top-p 0.95 sample. Checks: B1 24, B2 12 and B3 12 launches a step (and
+   12 B1 each for the eval batch and the sample's prefill), all on
+   ``"mma_sync"``, and no ``mha_reference`` call; finite losses whose last
+   3 average below the first; ``ckpt_04``, ``ckpt_08``, ``ckpt_12``; a
+   fresh ``setup`` resumes at step 12 with params, AdamW moments, step and
+   generator bit for bit, and one more step from both trainers agrees bit
+   for bit; one generator state gives one loss, and the eval loss (no
+   generator) is the dropout-0 loss bit for bit; 136 byte tokens printed
+   as text. Prints the median step ms of steps 3-12, tokens/s, the
+   model-FLOP share of 989 TFLOP/s (dense and causal attention FLOPs
+   stated), peak memory, the checkpoint's bytes with the save's blocking
+   and background-write ms, the validation loss, and a profiled busy
+   share with B1-B3's share of device time.
 8. conv    — hold the GroupNorm kernels B5 (forward) and B6 (backward) and
    the fused conv + GroupNorm kernels B7 (1x1, any stride) and B8 (3x3,
    stride 1) against their plain versions, in bf16 and fp32, with and
@@ -141,7 +166,7 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
-          "train", "conv", "resnet_train")
+          "train", "train_long", "conv", "resnet_train")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
@@ -633,7 +658,16 @@ FLASH_CASES = [
      False),
     ("mha_fp32_noncausal_s512", 4, 12, 12, 512, 512, 64, torch.float32,
      False),
+    # gpt-long's heads (d_model 768 / 16 = D 48, 16 over 8 kv heads)
+    ("gqa2_d48_bf16_causal", 2, 16, 8, 2048, 2048, 48, torch.bfloat16, True),
+    ("gqa2_d48_fp32_causal", 1, 16, 8, 1024, 1024, 48, torch.float32, True),
+    ("d48_bf16_kvcache_sq256_skv1024", 8, 16, 8, 256, 1024, 48,
+     torch.bfloat16, True),
 ]
+# head dims whose bf16 cases run the "mma_sync" kernels (no "sm90" build)
+MMA_SYNC_DIMS = (32, 48)
+# gpt-long's attention (examples/lm/gpt/gpt-long.yml): B, H, H_kv, S, D
+LONG_GEOMETRY = (8, 16, 8, 8192, 48)
 # atol = rtol, per dtype. bf16: the kernels round P and dS to bf16 before
 # their second product (tensor-core operands) where the plain version
 # keeps fp32, so outputs differ by a few bf16 ulp of their own size;
@@ -647,6 +681,15 @@ def flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype):
         return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
     return (rand(b * h, s_q, d), rand(b * h_kv, s_kv, d),
             rand(b * h_kv, s_kv, d), rand(b * h, s_q, d))
+
+
+def expected_route(dtype, d) -> str:
+    """The route the flash plans must give a case: ``"f32"`` at fp32,
+    ``"mma_sync"`` at the bf16 head dims without an ``"sm90"`` build,
+    ``"sm90"`` at every other bf16 case of ``FLASH_CASES``."""
+    if dtype == torch.float32:
+        return "f32"
+    return "mma_sync" if d in MMA_SYNC_DIMS else "sm90"
 
 
 def visible_pairs(s_q, s_kv, causal):
@@ -670,11 +713,13 @@ def phase_flash(report: dict) -> dict:
     for name, b, h, h_kv, s_q, s_kv, d, dtype, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
         scale = 1.0 / math.sqrt(d)
-        # B1 on its planned route (every bf16 case but D 32 on "sm90")
+        # B1 on its planned route: every bf16 case on "sm90" but D 32 and
+        # D 48, which take "mma_sync"
         fwd_route = fa.plan_flash_fwd(dtype, d, s_q, s_kv, h // h_kv)
-        if dtype == torch.bfloat16 and d != 32 and fwd_route != "sm90":
+        if fwd_route != expected_route(dtype, d):
             raise AssertionError(f"flash case {name}: B1 planned "
-                                 f"{fwd_route!r}, not 'sm90'")
+                                 f"{fwd_route!r}, not "
+                                 f"{expected_route(dtype, d)!r}")
         before = fa.launches_fwd_by_route[fwd_route]
         o, lse = fa.launch_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -683,11 +728,11 @@ def phase_flash(report: dict) -> dict:
                                  f"{fwd_route!r} route")
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
         # the backward pair on the same inputs: the plain forward's o/lse,
-        # on the planned route (every bf16 case but D 32 on "sm90")
+        # on the planned route (as B1's)
         route = fa.plan_flash_bwd(dtype, d, s_q, s_kv, h // h_kv)
-        if dtype == torch.bfloat16 and d != 32 and route != "sm90":
+        if route != expected_route(dtype, d):
             raise AssertionError(f"flash case {name}: planned {route!r}, "
-                                 f"not 'sm90'")
+                                 f"not {expected_route(dtype, d)!r}")
         before = (fa.launches_dq_by_route[route],
                   fa.launches_dkv_by_route[route])
         dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal, scale)
@@ -723,21 +768,9 @@ def phase_flash(report: dict) -> dict:
         dq_ref = fa.dq_reference(*args)
         dk_ref, dv_ref = fa.dkv_reference(*args)
         tol = FLASH_TOL[dtype]
-        errs, used = {}, {}
-        for key, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
-                               ("dq", dq, dq_ref), ("dk", dk, dk_ref),
-                               ("dv", dv, dv_ref)):
-            got, want = got.float(), want.float()
-            diff = (got - want).abs()
-            errs[key] = diff.max().item()
-            # the largest share of its allowance atol + rtol|want| that
-            # any element uses: <= 1 is what torch.allclose accepts
-            used[key] = (diff / (tol + tol * want.abs())).max().item()
-            if not (used[key] <= 1.0 and math.isfinite(errs[key])):
-                raise AssertionError(f"flash case {name}: {key} disagrees "
-                                     f"with the plain version: max abs "
-                                     f"err {errs[key]} (atol = rtol = "
-                                     f"{tol})")
+        errs, used = hold_flash(f"flash case {name}", tol, (
+            ("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+            ("dk", dk, dk_ref), ("dv", dv, dv_ref)))
         worst["fwd"] = max(worst["fwd"], errs["o"], errs["lse"])
         worst["dq"] = max(worst["dq"], errs["dq"])
         worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
@@ -757,14 +790,68 @@ def phase_flash(report: dict) -> dict:
         f"{n} ({r['route']}) ok" for n, r in repeat.items()))
 
     # timing at the training path's shapes (bf16 MHA causal, B 8, H 12,
-    # S 1024, D 64), each kernel beside its plain half and SDPA
-    name, b, h, h_kv, s_q, s_kv, d, dtype, causal = FLASH_CASES[0]
-    q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
+    # S 1024, D 64), each kernel beside its plain half, SDPA and the
+    # "mma_sync" route on the same inputs
+    _, b, h, h_kv, s_q, _, d, _, _ = FLASH_CASES[0]
+    timing = time_flash(gen, b, h, h_kv, s_q, d, worst, previous=True)
+    log(f"flash timing B2 + B3: sm90 {(timing['dq']['ms'] + timing['dkv']['ms']) * 1e3:.1f}"
+        f" us, mma_sync {(timing['dq']['previous_ms'] + timing['dkv']['previous_ms']) * 1e3:.1f}"
+        f" us, sdpa backward {timing['dq']['library_ms'] * 1e3:.1f} us")
+    report["flash_timing"] = timing
+    # and at gpt-long's (B 8, H 16 over 8 kv heads, S 8192, D 48), where
+    # "mma_sync" is the planned route; its max abs errors are those of the
+    # timed inputs alone
+    b, h, h_kv, s_len, d = LONG_GEOMETRY
+    long = time_flash(gen, b, h, h_kv, s_len, d, None, previous=False,
+                      plain_iters=3)
+    log(f"flash timing gpt-long B1 + B2 + B3: mma_sync "
+        f"{sum(long[k]['ms'] for k in ('fwd', 'dq', 'dkv')):.3f} ms; sdpa "
+        f"forward + backward {long['sdpa_fwd_bwd_ms']:.3f} ms")
+    report["flash_timing_long"] = long
+    report["auto_crossover"] = crossover()
+    return {**timing, "long": long}
+
+
+def hold_flash(label: str, tol: float, pairs) -> tuple[dict, dict]:
+    """Each ``(key, got, want)`` of ``pairs`` held to atol = rtol = ``tol``
+    (raises on a miss). Returns the max abs errors and, per key, the
+    largest share of its allowance atol + rtol|want| that any element
+    uses: <= 1 is what torch.allclose accepts."""
+    errs, used = {}, {}
+    for key, got, want in pairs:
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        errs[key] = diff.max().item()
+        used[key] = (diff / (tol + tol * want.abs())).max().item()
+        if not (used[key] <= 1.0 and math.isfinite(errs[key])):
+            raise AssertionError(f"{label}: {key} disagrees with the plain "
+                                 f"version: max abs err {errs[key]} (atol "
+                                 f"= rtol = {tol})")
+    return errs, used
+
+
+def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
+               plain_iters: int = 10) -> dict:
+    """B1, B2 and B3 at bf16, causal, ``(B, H, H_kv, S, D)``, each on its
+    planned route beside its plain version, its bound and SDPA (the
+    forward; its backward, whose dQ, dK and dV stand beside B2 + B3;
+    grouped K/V are expanded to the query heads before SDPA's timed
+    calls), and with ``previous`` the ``"mma_sync"`` route on the same
+    inputs. Each kernel's output on the timed inputs is held to its plain
+    version's (bf16 atol = rtol of ``FLASH_TOL``); a kernel's
+    ``max_abs_err`` is that error, or the larger of it and ``worst``'s
+    (the checked cases' at this head dim) where ``worst`` is given."""
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    dtype = torch.bfloat16
+    q, k, v, do = flash_inputs(gen, b, h, h_kv, s_len, s_len, d, dtype)
     scale = 1.0 / math.sqrt(d)
+    route = fa.plan_flash_fwd(dtype, d, s_len, s_len, h // h_kv)
     o, lse = fa.launch_fwd(q, k, v, True, scale)
     _, delta = fa.launch_dq(q, k, v, o, lse, do, True, scale)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4, k4, v4, do4 = (t.reshape(b, -1, t.shape[1], d) for t in (q, k, v, do))
+    q4, k4, v4, do4 = (t.reshape(b, -1, s_len, d) for t in (q, k, v, do))
+    k4, v4 = (t.repeat_interleave(h // h_kv, dim=1) for t in (k4, v4))
     q4g, k4g, v4g = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
     out4 = sdpa(q4g, k4g, v4g, is_causal=True)
     bwd_args = (q, k, v, o, lse, do, True, scale)
@@ -779,10 +866,10 @@ def phase_flash(report: dict) -> dict:
         "dkv": (lambda: fa.launch_dkv(q, k, v, lse, do, delta, True, scale),
                 lambda: fa.dkv_reference(*bwd_args), None),
     }
-    pairs = b * h * visible_pairs(s_q, s_kv, True)
+    pairs = b * h * visible_pairs(s_len, s_len, True)
     el = torch.finfo(dtype).bits // 8
-    n_q, n_kv = b * h * s_q * d, b * h_kv * s_kv * d
-    rows = b * h * s_q
+    n_q, n_kv = b * h * s_len * d, b * h_kv * s_len * d
+    rows = b * h * s_len
     # products per kernel (2 flops per multiply-add over D for each visible
     # pair): B1 QK^T, PV; B2 QK^T, dO V^T, dS K; B3 QK^T, dO V^T, P^T dO,
     # dS^T Q. Bytes: each input read once, each output written once.
@@ -791,34 +878,56 @@ def phase_flash(report: dict) -> dict:
             "dkv": (4 * 2, (2 * n_q + 4 * n_kv) * el + rows * 8)}
     # B1, B2 and B3 on their earlier route, on the same inputs (outside
     # the main path's launch counts)
-    previous = {
+    older = {
         "fwd": lambda: fa.launch_fwd(q, k, v, True, scale,
                                      route="mma_sync"),
         "dq": lambda: fa.launch_dq(q, k, v, o, lse, do, True, scale,
                                    route="mma_sync"),
         "dkv": lambda: fa.launch_dkv(q, k, v, lse, do, delta, True, scale,
-                                     route="mma_sync")}
-    timing = {}
+                                     route="mma_sync")} if previous else {}
+    # one output of each kernel and of its plain version on these inputs
+    tol = FLASH_TOL[dtype]
+    label = f"flash timed inputs B{b} H{h} H_kv{h_kv} S{s_len} D{d}"
+    o_ref, lse_ref = runs["fwd"][1]()
+    dq_ref = runs["dq"][1]()
+    delta_ref = (o.float() * do.float()).sum(dim=-1)
+    dk, dv = runs["dkv"][0]()
+    dk_ref, dv_ref = runs["dkv"][1]()
+    dq = runs["dq"][0]()[0]
+    errs, used = hold_flash(label, tol, (
+        ("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+        ("delta", delta, delta_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)))
+    log(f"{label}: " + ", ".join(f"{n} {errs[n]:.2e} ({100 * used[n]:.0f}%)"
+                                 for n in errs)
+        + f" (max abs err vs the plain version, % of atol + rtol|ref| "
+        f"used; atol = rtol = {tol}); route {route}")
+    measured = {"fwd": max(errs["o"], errs["lse"]),
+                "dq": max(errs["dq"], errs["delta"]),
+                "dkv": max(errs["dk"], errs["dv"])}
+    del o_ref, lse_ref, dq_ref, delta_ref, dk, dv, dk_ref, dv_ref, dq
+    timing = {"checked": {"max_abs_err": errs, "allowance_used": used,
+                          "atol": tol, "rtol": tol}}
     for key, (kern, plain, lib) in runs.items():
         call = {"kernel": cuda_ms(kern, iters=50),
-                "plain": cuda_ms(plain, iters=10)}
+                "plain": cuda_ms(plain, iters=plain_iters)}
         own = {}
         dev = {"kernel": device_ms(kern, iters=50, by_kernel=own),
-               "plain": device_ms(plain, iters=10)}
+               "plain": device_ms(plain, iters=plain_iters)}
         if lib is not None:
             call["library"] = cuda_ms(lib, iters=50)
             dev["library"] = device_ms(lib, iters=50)
-        if key in previous:
-            call["previous"] = cuda_ms(previous[key], iters=50)
-            dev["previous"] = device_ms(previous[key], iters=50)
+        if key in older:
+            call["previous"] = cuda_ms(older[key], iters=50)
+            dev["previous"] = device_ms(older[key], iters=50)
         stream = {}
         if all(dev.values()):
             src, timed_by = dev, DEVICE_TIME
         else:
             # the profiler lost events: time the calls back to back
             fns = {"kernel": kern, "plain": plain, "library": lib,
-                   "previous": previous.get(key)}
-            stream = {n: stream_ms(fn, iters=10 if n == "plain" else 50)
+                   "previous": older.get(key)}
+            stream = {n: stream_ms(fn, iters=plain_iters if n == "plain"
+                                   else 50)
                       for n, fn in fns.items() if fn is not None}
             src, timed_by = stream, "CUDA events over back-to-back calls"
         prods, nbytes = work[key]
@@ -833,34 +942,31 @@ def phase_flash(report: dict) -> dict:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
-            "tflops": flops / src["kernel"] / 1e9,
-            "max_abs_err": worst[key]}
+            "tflops": flops / src["kernel"] / 1e9, "timed_route": route,
+            "max_abs_err": max(measured[key], worst[key]) if worst
+            else measured[key], "timed_inputs_max_abs_err": measured[key]}
         lib_txt = (f"; sdpa {src['library'] * 1e3:.1f} us"
                    if lib is not None else "")
-        route_txt = ""
-        if key in previous:
+        route_txt = f" (route {route})"
+        if key in older:
             timing[key].update(
-                timed_route="sm90", previous_route="mma_sync",
-                previous_ms=src["previous"],
+                previous_route="mma_sync", previous_ms=src["previous"],
                 previous_tflops=flops / src["previous"] / 1e9)
-            route_txt = (f" (route sm90); mma_sync {src['previous'] * 1e3:.1f}"
-                         f" us, {timing[key]['previous_tflops']:.1f} TFLOP/s")
-        log(f"flash timing {key} (bf16 MHA causal B{b} H{h} S{s_q} D{d}, "
-            f"{timing[key]['timed_by']}): kernel {src['kernel'] * 1e3:.1f} "
+            route_txt += (f"; mma_sync {src['previous'] * 1e3:.1f} us, "
+                          f"{timing[key]['previous_tflops']:.1f} TFLOP/s")
+        log(f"flash timing {key} (bf16 causal B{b} H{h} H_kv{h_kv} "
+            f"S{s_len} D{d}, {timed_by}): kernel {src['kernel'] * 1e3:.1f} "
             f"us{route_txt}; plain {src['plain'] * 1e3:.1f} us{lib_txt}; "
             f"bound {timing[key]['bound_ms'] * 1e3:.1f} us "
-            f"({timing[key]['bound_by']}); achieved "
-            f"{timing[key]['tflops']:.1f} TFLOP/s")
+            f"({timing[key]['bound_by']}, {flops / 1e12:.3f} TFLOP); "
+            f"achieved {timing[key]['tflops']:.1f} TFLOP/s")
     # the SDPA yardstick's backward computes dQ, dK and dV in one call: it
     # stands beside B2 and B3 together
     timing["dkv"]["library_ms"] = timing["dq"]["library_ms"]
     timing["sdpa_fwd_bwd_ms"] = timing["fwd"]["library_ms"] \
         + timing["dq"]["library_ms"]
-    log(f"flash timing B2 + B3: sm90 {(timing['dq']['ms'] + timing['dkv']['ms']) * 1e3:.1f}"
-        f" us, mma_sync {(timing['dq']['previous_ms'] + timing['dkv']['previous_ms']) * 1e3:.1f}"
-        f" us, sdpa backward {timing['dq']['library_ms'] * 1e3:.1f} us")
-    report["flash_timing"] = timing
-    report["auto_crossover"] = crossover()
+    del q, k, v, do, q4g, k4g, v4g, out4
+    torch.cuda.empty_cache()
     return timing
 
 
@@ -1429,11 +1535,7 @@ def phase_train(report: dict, smi: str) -> dict:
     cfg = conf.model.make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
-    for counts in (fa.launches_fwd_by_route, fa.launches_dq_by_route,
-                   fa.launches_dkv_by_route):
-        for route in counts:
-            counts[route] = 0
+    reset_flash_counts()
     t0 = time.perf_counter()
     res = recipe.main(conf)
     torch.cuda.synchronize()
@@ -1494,6 +1596,362 @@ def phase_train(report: dict, smi: str) -> dict:
         f"{k[:40]} {v * 1e3:.1f} ({n})"
         for k, v, n in b["host_top_one_step"][:8]))
     report["train"] = out
+    return {**launches, "by_route": by_route}
+
+
+# ------------------------------------------------------------- train_long
+LONG_STEPS = 12
+LONG_SAVE_EVERY = 4
+LONG_SAMPLE = 128
+# gpt-long.yml's keys that phase train_long sets otherwise, and why
+LONG_OVERRIDES = {
+    "env.distributed": "one card; the sp:8 mesh waits for ROADMAP A5",
+    "env.mesh": "one card; the sp:8 mesh waits for ROADMAP A5",
+    "dataset.root": "the repo's *.py and *.md text, nothing fetched",
+    "n_iter": "time", "scheduler.n_iter": "time",
+    "scheduler.warmup": "the loss moves within 12 steps",
+    "save_every": "saves at 4, 8 and 12", "checkpoint_root": "a temp dir",
+    "log_every": "a record a step", "eval_batches": "time"}
+
+
+def gpt_long_config(corpus, checkpoint_root, n_iter: int = LONG_STEPS):
+    """``examples/lm/gpt/gpt-long.yml``'s values built in code (the card's
+    machine reads no YAML), with the keys of ``LONG_OVERRIDES`` set for
+    one card and a short run."""
+    from torchbooster_tpu_torch.config import (
+        DatasetConfig,
+        EnvConfig,
+        LoaderConfig,
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes.gpt import Config, ModelConfig
+
+    return Config(
+        n_iter=n_iter, seed=42, clip=1.0, accumulate_every=1, log_every=1,
+        save_every=LONG_SAVE_EVERY, checkpoint_root=str(checkpoint_root),
+        sample_tokens=LONG_SAMPLE, sample_temperature=0.8, sample_top_p=0.95,
+        eval_batches=1,
+        model=ModelConfig(vocab=256, n_layers=12, d_model=768, n_heads=16,
+                          n_kv_heads=8, seq_len=8192, pos="rope",
+                          dropout=0.1, remat=True, sp_strategy="auto",
+                          chunked_head=True),
+        env=EnvConfig(distributed=False, precision="bf16", mesh="dp"),
+        loader=LoaderConfig(batch_size=8, num_workers=0, drop_last=True),
+        optim=OptimizerConfig(name="adamw", lr=3e-4, weight_decay=0.1,
+                              decay_matrices_only=True),
+        scheduler=SchedulerConfig(name="cycle", n_iter=n_iter, warmup=2,
+                                  decay=("cos", "cos")),
+        dataset=DatasetConfig(name="text_file", root=str(corpus)))
+
+
+def repo_corpus(path: Path) -> int:
+    """Every ``*.py`` and ``*.md`` file of this checkout, concatenated in
+    sorted path order into ``path`` (hidden directories and build
+    outputs left out); returns its bytes."""
+    root = Path(__file__).resolve().parent
+    skip = {"build", "chiprun_out", "chip_checkout", "__pycache__"}
+    files = sorted(f for ext in ("*.py", "*.md") for f in root.rglob(ext)
+                   if not any(part.startswith(".") or part in skip
+                              for part in f.relative_to(root).parts))
+    with path.open("wb") as out:
+        for f in files:
+            out.write(f.read_bytes())
+    return path.stat().st_size
+
+
+def long_flops_per_step(cfg, n_params: int, b: int) -> dict:
+    """Model FLOPs a step: 6 x parameters x tokens for the matmuls (the
+    tied head counted once) plus causal attention's products, 2 D per
+    visible (query, key) pair each: 2 in the forward and 5 in the
+    backward (dV, dP, dQ, dK and the recomputed scores). The remat
+    recompute and the backward kernels' second recompute are not
+    counted."""
+    s, d = cfg.seq_len, cfg.head_dim
+    dense = 6.0 * n_params * b * s
+    product = 2.0 * d * visible_pairs(s, s, True) * b * cfg.n_heads
+    attn = 7 * product * cfg.n_layers
+    return {"dense": dense, "attention": attn, "total": dense + attn,
+            "causal_product": product}
+
+
+def reset_flash_counts() -> None:
+    from torchbooster_tpu_torch.ops import attention as at
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    for counts in (fa.launches_fwd_by_route, fa.launches_dq_by_route,
+                   fa.launches_dkv_by_route):
+        for route in counts:
+            counts[route] = 0
+    at.reference_calls = 0
+
+
+def state_diff(a, b) -> dict:
+    """Leaves of two train states that differ, by name: parameters,
+    AdamW's moments and step count, the step and the generator state."""
+    from torchbooster_tpu_torch.utils import tree_leaves
+
+    out = {}
+    for i, (x, y) in enumerate(zip(tree_leaves(a.params),
+                                   tree_leaves(b.params), strict=True)):
+        if not torch.equal(x, y):
+            out[f"param{i}"] = (x - y).abs().max().item()
+    sa, sb = a.optimizer.state_dict()["state"], \
+        b.optimizer.state_dict()["state"]
+    for i in sa:
+        for key in sa[i]:
+            if not torch.equal(sa[i][key], sb[i][key]):
+                out[f"optimizer{i}.{key}"] = (
+                    sa[i][key] - sb[i][key]).abs().max().item()
+    if a.step != b.step:
+        out["step"] = (a.step, b.step)
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        out["generator"] = "differs"
+    return out
+
+
+def long_dropout_checks(t, batch) -> dict:
+    """The dropout rules on the trainer's params and one batch: the same
+    generator state gives the same loss bit for bit (the training
+    forward, remat on), another state another loss; the eval loss (no
+    generator) equals a dropout-0 forward bit for bit."""
+    import dataclasses
+
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.ops.losses import lm_head_cross_entropy
+
+    gen = t.state.generator
+    start = gen.get_state()
+    losses = []
+    for _ in range(2):
+        gen.set_state(start)
+        losses.append(t.loss_fn(t.state.params, batch, gen)[0].detach())
+    moved = t.loss_fn(t.state.params, batch, gen)[0].detach()
+    gen.set_state(start)
+    with torch.no_grad():
+        evaluated = t.loss_fn(t.state.params, batch, None)[0]
+        cfg0 = dataclasses.replace(t.cfg, dropout=0.0)
+        hidden = GPT.apply(t.state.params, batch["ids"], cfg0,
+                           compute_dtype=t.conf.env.compute_dtype(),
+                           return_hidden=True, generator=gen)
+        plain = lm_head_cross_entropy(hidden, GPT.head_table(t.state.params),
+                                      batch["labels"])
+    gen.set_state(start)
+    out = {"same_state": [x.item() for x in losses],
+           "other_state": moved.item(), "eval": evaluated.item(),
+           "dropout0": plain.item()}
+    if not torch.equal(losses[0], losses[1]):
+        raise AssertionError(f"train_long: one generator state, two losses "
+                             f"{out['same_state']}")
+    if torch.equal(moved, losses[0]):
+        raise AssertionError("train_long: a moved generator gave the same "
+                             "loss: no dropout was drawn")
+    if not torch.equal(evaluated, plain):
+        raise AssertionError(f"train_long: eval loss {out['eval']} is not "
+                             f"the dropout-0 loss {out['dropout0']}")
+    return out
+
+
+def long_breakdown(t, n_steps: int = 2) -> dict:
+    """``n_steps`` more steps of a trainer under the profiler (CUDA
+    activity): device busy share of the wall time, B1-B3's share of the
+    device time and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [t.batch(next(t.batches)[1]) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            t.state, m = t.step(t.state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
+                         for e in events), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in per_kernel)
+    flash = {name: sum(v for k, v in per_kernel if f"::{name}<" in k)
+             for name in ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")}
+    return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
+            "device_busy_s": busy, "device_busy_share": busy / wall,
+            "device_ms_per_step": busy / n_steps * 1e3,
+            "flash_ms_per_step": {k: v / n_steps * 1e3
+                                  for k, v in flash.items()},
+            "flash_share_of_device": sum(flash.values()) / max(busy, 1e-12),
+            "kernels_per_step": sum(e.count for e in events) / n_steps,
+            "top": per_kernel[:12]}
+
+
+def phase_train_long(report: dict, smi: str) -> dict:
+    """The GPT recipe's ``main`` at ``gpt-long.yml``'s widths on one card
+    (batch 8 x 8192 bytes of the repo's own text, 12 layers, d_model 768,
+    16 heads over 8 kv heads, rope, dropout 0.1, remat, chunked head,
+    AdamW with decay on matrices only, a cos/cos cycle), 12 steps with a
+    checkpoint every 4, one validation batch and a 128-token top-p
+    sample; then the resume, dropout and breakdown checks. Returns the
+    flash launch counts of the ``main`` run."""
+    import tempfile
+
+    from torchbooster_tpu_torch.data.tokenizer import ByteTokenizer
+    from torchbooster_tpu_torch.ops import attention as at
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+    from torchbooster_tpu_torch.utils import tree_leaves
+
+    with tempfile.TemporaryDirectory(prefix="train_long_") as tmp:
+        tmp = Path(tmp)
+        corpus_bytes = repo_corpus(tmp / "corpus.txt")
+        conf = gpt_long_config(tmp / "corpus.txt", tmp / "checkpoints")
+        cfg = conf.model.make()
+        b, s = conf.loader.batch_size, cfg.seq_len
+        # the validation split (5%) must hold one batch of windows
+        need = math.ceil(b * (s + 1) / 0.05)
+        if corpus_bytes < need:
+            raise AssertionError(f"train_long: corpus of {corpus_bytes} "
+                                 f"bytes; one validation batch needs {need}")
+        t1 = recipe.setup(conf)
+        if t1.start_iter != 0:
+            raise AssertionError("train_long: a fresh directory resumed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        res = recipe.run(t1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                    "dkv": fa.launches_dkv}
+        by_route = {"fwd": dict(fa.launches_fwd_by_route),
+                    "dq": dict(fa.launches_dq_by_route),
+                    "dkv": dict(fa.launches_dkv_by_route)}
+        reference_calls = at.reference_calls
+        peak = torch.cuda.max_memory_allocated()
+
+        # 1. attention routes: per step B1 twice a layer (remat), B2 and B3
+        # once; one B1 a layer for the eval batch and for the sample's
+        # prefill; all on "mma_sync" (bf16, D 48); never the reference
+        n_l = cfg.n_layers
+        expected = {"fwd": 2 * n_l * LONG_STEPS + 2 * n_l,
+                    "dq": n_l * LONG_STEPS, "dkv": n_l * LONG_STEPS}
+        route_expected = {k: {"sm90": 0, "mma_sync": n, "f32": 0}
+                          for k, n in expected.items()}
+        if launches != expected or by_route != route_expected:
+            raise AssertionError(f"train_long: flash launches {by_route}, "
+                                 f"expected {route_expected}")
+        if reference_calls:
+            raise AssertionError(f"train_long: mha_reference called "
+                                 f"{reference_calls} times")
+        # 2. the loss: finite, and the mean of the last 3 below the first
+        losses = [r["loss"] for r in res["log"]]
+        if len(losses) != LONG_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_long: losses {losses}")
+        if not sum(losses[-3:]) / 3 < losses[0]:
+            raise AssertionError(f"train_long: the loss did not fall: "
+                                 f"{losses}")
+        # 4. checkpoints at 4, 8 and 12 under the JAX path scheme
+        names = sorted(p.name for p in (tmp / "checkpoints").iterdir())
+        want_names = [f"ckpt_{i:02d}" for i in range(
+            LONG_SAVE_EVERY, LONG_STEPS + 1, LONG_SAVE_EVERY)]
+        if names != want_names:
+            raise AssertionError(f"train_long: checkpoints {names}, "
+                                 f"expected {want_names}")
+        saves = [{k: r[k] for k in ("step", "block_s", "bytes", "write_s")}
+                 for r in t1.save_cb.saves]
+        # 5. the sample: 8 prompt + 128 new byte tokens
+        sample = res["sample"]
+        if len(sample) != 8 + LONG_SAMPLE or not all(
+                0 <= i < 256 for i in sample):
+            raise AssertionError(f"train_long: sample {sample}")
+        text = ByteTokenizer().decode(sample)
+
+        el = [r["elapsed_s"] for r in res["log"]]
+        # steps 3-12: the time between the records of steps 2 and 12
+        step_s = sorted(el[i] - el[i - 1] for i in range(2, LONG_STEPS))
+        step_med = step_s[len(step_s) // 2 - 1: len(step_s) // 2 + 1]
+        step_med = sum(step_med) / len(step_med)
+        n_params = sum(p.numel() for p in tree_leaves(t1.state.params))
+        flops = long_flops_per_step(cfg, n_params, b)
+        out = {"losses": losses, "val_loss": res.get("val_loss"),
+               "launches": launches, "by_route": by_route,
+               "expected": expected, "reference_calls": reference_calls,
+               "main_wall_s": wall, "step_ms_median": step_med * 1e3,
+               "step_ms": [x * 1e3 for x in step_s],
+               "tokens_per_s": b * s / step_med, "n_params": n_params,
+               "flops": flops,
+               "mfu_of_989_tflops": flops["total"] / step_med / BF16_FLOPS,
+               "peak_mem_bytes": peak, "corpus_bytes": corpus_bytes,
+               "checkpoints": names, "saves": saves, "sample": sample,
+               "sample_text": text, "overrides": LONG_OVERRIDES,
+               "card": smi}
+        log(f"train_long: gpt-long.yml at one card (overrides: "
+            + "; ".join(f"{k} ({v})" for k, v in LONG_OVERRIDES.items())
+            + f"); corpus {corpus_bytes} bytes; {n_params / 1e6:.2f} M "
+            f"params; loss {losses[0]:.4f} -> {losses[-1]:.4f} (last 3 "
+            f"mean {sum(losses[-3:]) / 3:.4f}); val loss "
+            f"{res.get('val_loss', float('nan')):.4f}; step "
+            f"{out['step_ms_median']:.1f} ms (median of steps 3-12), "
+            f"{out['tokens_per_s']:.0f} tokens/s, model FLOP share "
+            f"{100 * out['mfu_of_989_tflops']:.2f}% of 989 TFLOP/s "
+            f"({flops['dense'] / 1e12:.1f} TFLOP dense + "
+            f"{flops['attention'] / 1e12:.1f} TFLOP causal attention a "
+            f"step), peak mem {peak / 2**30:.2f} GiB; flash launches "
+            f"{by_route}, mha_reference calls {reference_calls} [{smi}]")
+        log("train_long checkpoints: " + ", ".join(names) + "; " + "; ".join(
+            f"step {r['step']}: {r['bytes']} bytes, {r['block_s'] * 1e3:.1f} "
+            f"ms blocking (device to host), {r['write_s'] * 1e3:.1f} ms "
+            f"background write" for r in saves))
+        log(f"train_long sample ({len(sample)} tokens): {text!r}")
+
+        # 4. resume: a fresh setup restores step 12 bit for bit, and one
+        # more step on one batch from both trainers agrees bit for bit
+        t2 = recipe.setup(conf)
+        if (t2.start_iter, t2.state.step) != (LONG_STEPS, LONG_STEPS):
+            raise AssertionError(f"train_long: resumed at {t2.start_iter}")
+        diff = state_diff(t1.state, t2.state)
+        if diff:
+            raise AssertionError(f"train_long: the restored state differs: "
+                                 f"{diff}")
+        batch = t1.batch(next(t1.batches)[1])
+        t1.state, m1 = t1.step(t1.state, batch)
+        t2.state, m2 = t2.step(t2.state, batch)
+        after = state_diff(t1.state, t2.state)
+        same_loss = torch.equal(m1["loss"], m2["loss"])
+        if after or not same_loss:
+            raise AssertionError(f"train_long: one step from the original "
+                                 f"and the restored trainer: losses "
+                                 f"{m1['loss'].item()} / {m2['loss'].item()}"
+                                 f", leaves that differ {after}")
+        out["resume"] = {"step": t2.state.step, "loss": m1["loss"].item(),
+                         "bit_identical": True}
+        log(f"train_long resume: setup restored step {LONG_STEPS}, params, "
+            f"AdamW moments, step and generator bit for bit; one more step "
+            f"from both: loss {m1['loss'].item():.6f}, state bit for bit")
+        del t2
+        torch.cuda.empty_cache()
+
+        # 3. dropout: reproducible, and off without a generator
+        drop = out["dropout"] = long_dropout_checks(t1, batch)
+        log(f"train_long dropout: one generator state twice "
+            f"{drop['same_state'][0]:.6f} / {drop['same_state'][1]:.6f} "
+            f"(bit for bit), a moved state {drop['other_state']:.6f}; eval "
+            f"{drop['eval']:.6f} = dropout 0 {drop['dropout0']:.6f} (bit for "
+            f"bit)")
+
+        bd = out["breakdown"] = long_breakdown(t1)
+        log(f"train_long profiled: {bd['steps']} steps, "
+            f"{bd['step_ms']:.1f} ms/step, device "
+            f"{bd['device_ms_per_step']:.1f} ms/step, busy "
+            f"{100 * bd['device_busy_share']:.1f}%, "
+            f"{bd['kernels_per_step']:.0f} kernels a step; B1-B3 "
+            f"{100 * bd['flash_share_of_device']:.1f}% of device time ("
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                        bd["flash_ms_per_step"].items())
+            + " a step); top: " + "; ".join(
+                f"{k[:60]} {v * 1e3:.1f} ms" for k, v in bd["top"][:6]))
+        del t1
+        torch.cuda.empty_cache()
+    report["train_long"] = out
     return {**launches, "by_route": by_route}
 
 
@@ -2365,9 +2823,15 @@ def main() -> int:
                  ("fwd", "flash_fwd", "flash_fwd_sm90.cu", 104),
                  ("dq", "flash_dq", "flash_bwd_sm90.cu", 227),
                  ("dkv", "flash_dkv", "flash_bwd_sm90.cu", 265))}
+    # the file each route's launches come from: "ms" and "source" are the
+    # "sm90" kernels' (GPT-2 small's D 64); gpt-long's D 48 runs
+    # flash_attention.cu's "mma_sync" kernels ("gpt_long" below)
     for key in flash:
         flash[key].update(timed_route=None, launches_by_route=None,
-                          previous_ms=None)
+                          previous_ms=None, sources_by_route={
+                              "sm90": flash[key]["source"],
+                              "mma_sync": f"{csrc}/flash_attention.cu",
+                              "f32": f"{csrc}/flash_attention.cu"})
     conv_kernels = {key: {"name": name, "route": "cuda",
                           "source": f"torchbooster_tpu_torch/ops/csrc/{src}",
                           "replaces": f"torchbooster_tpu/ops/{ref}", **blank}
@@ -2426,6 +2890,11 @@ def main() -> int:
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "timed_route",
                 "previous_ms")})
+            # the same kernel at gpt-long's geometry (D 48, "mma_sync")
+            long = flash[key]["gpt_long"] = {k: res["long"][key][k] for k in (
+                "max_abs_err", "ms", "timed_by", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "timed_route", "tflops")}
+            long["source"] = flash[key]["sources_by_route"][long["timed_route"]]
     if set(SERVE_PHASES) & set(phases):
         params, cfg = gpt2_small()
         if "serve_fp32" in phases:
@@ -2462,12 +2931,21 @@ def main() -> int:
         # freed so that the train phase's peak memory is its own
         del params
         torch.cuda.empty_cache()
-    if "train" in phases:
-        launches = phase_train(report, smi)
-        for key in flash:
-            flash[key]["launches"] = launches[key]
-        for key in flash:
-            flash[key]["launches_by_route"] = launches["by_route"][key]
+    # B1-B3 launch on two paths: GPT-2 small's training (D 64, "sm90")
+    # and gpt-long's (D 48, "mma_sync"); the counts add up
+    for key, phase in (("train", phase_train),
+                       ("train_long", phase_train_long)):
+        if key not in phases:
+            continue
+        launches = phase(report, smi)
+        for k in flash:
+            flash[k]["launches"] += launches[k]
+            if key == "train_long":
+                flash[k].setdefault("gpt_long", {})["launches"] = launches[k]
+            counts = flash[k]["launches_by_route"] or dict.fromkeys(
+                ("sm90", "mma_sync", "f32"), 0)
+            flash[k]["launches_by_route"] = {
+                r: n + launches["by_route"][k][r] for r, n in counts.items()}
     if "conv" in phases:
         res = phase_conv(report)
         for key in conv_kernels:

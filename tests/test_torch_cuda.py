@@ -353,6 +353,10 @@ FLASH_CASES = {
     "d128_ragged130_fp32": (2, 4, 4, 130, 130, 128, torch.float32, True),
     "d128_s1024_bf16": (4, 8, 8, 1024, 1024, 128, torch.bfloat16, True),
     "noncausal_s512_bf16": (4, 12, 12, 512, 512, 64, torch.bfloat16, False),
+    # gpt-long's head dim (768 / 16 heads) and its GQA group of 2
+    "gpt_long_d48_gqa2_bf16": (2, 16, 8, 1024, 1024, 48, torch.bfloat16,
+                               True),
+    "d48_gqa2_ragged200_fp32": (2, 4, 2, 200, 200, 48, torch.float32, True),
 }
 # the route each case's B1 (plan_flash_fwd) and B2/B3 (plan_flash_bwd) must
 # take: the two plans agree on every case
@@ -361,7 +365,9 @@ FLASH_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
                "recipe_default_d32_bf16": "mma_sync",
                "d128_gqa2_ragged200_bf16": "sm90",
                "d128_ragged130_fp32": "f32", "d128_s1024_bf16": "sm90",
-               "noncausal_s512_bf16": "sm90"}
+               "noncausal_s512_bf16": "sm90",
+               "gpt_long_d48_gqa2_bf16": "mma_sync",
+               "d48_gqa2_ragged200_fp32": "f32"}
 
 
 def _flash_operands(name, seed=0):
@@ -565,7 +571,7 @@ def test_flash_autograd_and_bad_operands_on_card():
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     before = fa.launches_fwd
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(*(torch.randn(2, 64, 48, device="cuda")
+        fa.flash_attention(*(torch.randn(2, 64, 96, device="cuda")
                              for _ in range(3)))
     with pytest.raises(ValueError, match="every operand"):
         fa.flash_attention(q, k.bfloat16(), v)
@@ -1041,3 +1047,70 @@ def test_gn_fwd_refuses_routes_and_operands_it_does_not_take_on_card():
     with pytest.raises(ValueError, match="expected"):
         gn.launch_fwd(x, s.bfloat16(), bi, 32)
     assert (gn.launches_fwd, gn.launches_fwd_by_route) == before
+
+
+@pytest.mark.cuda
+def test_dropout_masks_on_a_cuda_generator_on_card():
+    """The model's dropout draws its mask on the card from a generator
+    there: kept share 0.9 +- 0.005 over 10^6 elements, kept values
+    exactly ``x / 0.9`` in bf16, one generator state one mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA generator has no CPU mode")
+    from torchbooster_tpu_torch.models.gpt import _dropout
+
+    x = torch.randn(1000, 1000, device="cuda").bfloat16()
+    gen = torch.Generator("cuda").manual_seed(0)
+    state = gen.get_state()
+    y = _dropout(x, 0.1, gen)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.9) <= 0.005
+    assert torch.equal(y[kept], (x / 0.9)[kept])
+    gen.set_state(state)
+    assert torch.equal(_dropout(x, 0.1, gen), y)
+    assert not torch.equal(_dropout(x, 0.1, gen), y)
+
+
+@pytest.mark.cuda
+def test_save_callback_round_trip_of_a_cuda_train_state_on_card(tmp_path):
+    """A ``TrainState`` on the card (params, AdamW moments after a step,
+    the step and its CUDA generator) saved and restored into a fresh one
+    in place, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torchbooster_tpu_torch.callbacks import SaveCallback
+    from torchbooster_tpu_torch.config import OptimizerConfig
+    from torchbooster_tpu_torch.utils import TrainState, tree_leaves
+
+    tx = OptimizerConfig(name="adamw", lr=1e-2, weight_decay=0.1).make()
+
+    def fresh(seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        params = {"w": torch.randn(64, 32, device="cuda", generator=gen),
+                  "b": torch.zeros(32, device="cuda")}
+        return TrainState.create(params, tx, generator=seed)
+
+    state = fresh(1)
+    loss = (state.params["w"].square().sum() + state.params["b"].sum())
+    loss.backward()
+    state.optimizer.step()
+    state.step = 1
+    torch.rand(3, generator=state.generator, device="cuda")
+    assert state.generator.device.type == "cuda"
+    cb = SaveCallback(every=1, n_iter=10, root=tmp_path)
+    cb.save(1, state=state)
+    other = fresh(2)
+    restored = cb.restore(like={"state": other})
+    assert restored["state"] is other and other.step == 1
+    for a, b in zip(tree_leaves(other.params), tree_leaves(state.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    sa = other.optimizer.state_dict()["state"]
+    sb = state.optimizer.state_dict()["state"]
+    for i in sb:
+        for key in sb[i]:
+            assert torch.equal(sa[i][key].cpu(), sb[i][key].cpu())
+    assert torch.equal(other.generator.get_state(),
+                       state.generator.get_state())
+    assert torch.equal(torch.rand(5, generator=other.generator,
+                                  device="cuda"),
+                       torch.rand(5, generator=state.generator,
+                                  device="cuda"))

@@ -174,8 +174,8 @@ def test_plain_forward_counts_no_route():
 
 
 @pytest.mark.parametrize("head_dim,dtype,engaged", [
-    (48, BF16, False), (96, BF16, False), (16, BF16, False),
-    (48, F32, False), (64, torch.float16, False),
+    (48, BF16, True), (96, BF16, False), (16, BF16, False),
+    (48, F32, True), (64, torch.float16, False),
     (32, BF16, True), (64, BF16, True), (128, BF16, True),
     (32, F32, True), (64, F32, True), (128, F32, True),
 ])

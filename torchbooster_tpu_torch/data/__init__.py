@@ -5,6 +5,7 @@ from torchbooster_tpu_torch.data.sources import (
     register_dataset,
     resolve_dataset,
 )
+from torchbooster_tpu_torch.data.tokenizer import ByteTokenizer
 
-__all__ = ["DataLoader", "default_collate", "register_dataset",
-           "resolve_dataset"]
+__all__ = ["ByteTokenizer", "DataLoader", "default_collate",
+           "register_dataset", "resolve_dataset"]

@@ -1,8 +1,9 @@
 """Dataset resolution — the port of ``torchbooster_tpu/data/sources.py``'s
 chain, as far as the data it can serve: the builtin registry (the
-synthetic families, byte-identical to the JAX package's), then the
-offline step of the chain that turns ``mnist``, ``cifar10`` and
-``imagenet`` into their synthetic twins with the JAX package's warning.
+synthetic families and the byte-level ``text_file`` corpus, byte-identical
+to the JAX package's), then the offline step of the chain that turns
+``mnist``, ``cifar10`` and ``imagenet`` into their synthetic twins with
+the JAX package's warning.
 
 The local record stores, the raw MNIST/CIFAR readers and HuggingFace wait
 for the data path (``ROADMAP.md`` A9): where ``root`` holds a store or a
@@ -85,6 +86,41 @@ def _synthetic_lm(conf: Any, split: Split, seq_len: int = 256,
         choice = rng.randint(0, 4, n)
         state = transitions[state, choice]
     return ArrayDataset(tokens)
+
+
+@register_dataset("text_file")
+def _text_file(conf: Any, split: Split, seq_len: int = 256,
+               stride: int = 0, **kw):
+    """Byte-level LM corpus from a local text file (``root`` names the
+    file): UTF-8 bytes are the tokens (vocab 256; ``ByteTokenizer``
+    decodes samples back to text). A positional 90/5/5 train /
+    validation / test split, so the held-out sets are disjoint; windows
+    of ``seq_len`` every ``stride`` (default: non-overlapping). The JAX
+    package's arrays, byte for byte."""
+    from torchbooster_tpu_torch.data.tokenizer import ByteTokenizer
+
+    vocab = kw.get("vocab", 0)
+    if vocab and vocab < 256:
+        raise ValueError(
+            f"text_file dataset emits byte tokens 0..255; model vocab "
+            f"{vocab} < 256 would index out of range")
+    path = Path(conf.root)
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"text_file dataset: root={conf.root!r} is not a file")
+    raw = ByteTokenizer().encode(path.read_bytes())
+    cut1, cut2 = int(len(raw) * 0.90), int(len(raw) * 0.95)
+    data = {Split.TRAIN: raw[:cut1],
+            Split.VALIDATION: raw[cut1:cut2],
+            Split.TEST: raw[cut2:]}[split]
+    stride = stride or seq_len
+    if len(data) < seq_len:
+        raise ValueError(
+            f"text_file dataset: split {split.value!r} has {len(data)} "
+            f"tokens < seq_len={seq_len}")
+    windows = np.lib.stride_tricks.sliding_window_view(
+        data, seq_len)[::stride].copy()
+    return ArrayDataset(windows)
 
 
 _SYNTHETIC_TWINS = {"mnist": "synthetic_mnist", "cifar10": "synthetic_cifar10",

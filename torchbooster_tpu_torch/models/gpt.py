@@ -9,7 +9,7 @@ plain copy (``interop.params_from_jax``): block tensors are stacked on
 a leading layer axis, dense kernels are ``(in, out)``, and the qkv
 projection's columns are ``q | k | v`` at GQA widths. Not ported here
 (``ROADMAP.md``): the tensor/expert/sequence/pipeline-parallel
-branches, LoRA deltas, dropout and MoE blocks.
+branches, LoRA deltas and MoE blocks.
 """
 from __future__ import annotations
 
@@ -129,8 +129,8 @@ class GPT:
     def apply(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
               compute_dtype: torch.dtype = torch.bfloat16,
               remat: bool = True, attn_impl: str = "auto",
-              return_aux: bool = False,
-              return_hidden: bool = False) -> torch.Tensor:
+              return_aux: bool = False, return_hidden: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
         """Full causal forward → logits (B, S, vocab), or the final-norm
         hidden states (B, S, d) with ``return_hidden`` (for the chunked
         LM-head loss, ``ops.losses.lm_head_cross_entropy`` with
@@ -144,31 +144,52 @@ class GPT:
         outputs (``dots_with_no_batch_dims_saveable``) and recomputes
         the rest; full per-block recompute gives the same numbers for
         another memory/time trade, and launches the attention forward
-        twice per layer and step."""
+        twice per layer and step.
+
+        ``generator`` turns on ``cfg.dropout`` (the JAX ``dropout_rng``):
+        inverted dropout on the embedding sum and on each block's
+        attention-projection and MLP branches, masks drawn on the
+        generator's device. Without one the forward is deterministic
+        (eval, sampling). Each block's masks are drawn from a copy of
+        the generator's state taken before the block runs (the JAX
+        package splits its layer keys before the scan), so the remat
+        recompute draws the forward's masks again, bit for bit; the
+        generator then moves on past the block's draws."""
         b, s = ids.shape
         _check_pos(params, cfg)
         if s > cfg.seq_len:
             raise ValueError(f"sequence length {s} exceeds "
                              f"cfg.seq_len={cfg.seq_len}")
-        if cfg.dropout:
-            raise NotImplementedError(
-                "dropout > 0 is not ported yet (ROADMAP.md A1)")
-        x = _embed(params, ids, compute_dtype)
+        drop = cfg.dropout if generator is not None else 0.0
+        x = _dropout(_embed(params, ids, compute_dtype), drop, generator)
 
         def attend(q, k, v):
             # grouped K/V go to the dispatcher as they are: the flash
             # kernels index grouped rows, the reference expands them
             return attention(q, k, v, causal=True, impl=attn_impl), None
 
-        def block(bp: dict, x: torch.Tensor) -> torch.Tensor:
-            return _block_core(bp, x, cfg, attend)[0]
+        def block(bp: dict, x: torch.Tensor, rng_state, after: list):
+            gen = None
+            if drop:
+                gen = torch.Generator(generator.device)
+                gen.set_state(rng_state)
+            x = _block_core(bp, x, cfg, attend, dropout=drop,
+                            generator=gen)[0]
+            if drop:
+                after[:] = [gen.get_state()]
+            return x
 
         for i in range(cfg.n_layers):
             bp = layer_params(params["blocks"], i)
+            rng_state = generator.get_state() if drop else None
+            after: list = []
             if remat and torch.is_grad_enabled():
-                x = checkpoint(block, bp, x, use_reentrant=False)
+                x = checkpoint(block, bp, x, rng_state, after,
+                               use_reentrant=False)
             else:
-                x = block(bp, x)
+                x = block(bp, x, rng_state, after)
+            if drop:
+                generator.set_state(after[0])
         out = L.layer_norm(params["ln_f"], x) if return_hidden \
             else _lm_head(params, x)
         if return_aux:
@@ -230,11 +251,28 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (``gpt.py:759``): keep each element with
+    probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in x's
+    dtype; the identity at rate 0 or without a generator. The mask is
+    drawn on x's device from ``generator``, which lies there too."""
+    if not rate or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
-                positions: torch.Tensor | None = None):
+                positions: torch.Tensor | None = None, dropout: float = 0.0,
+                generator: torch.Generator | None = None):
     """The transformer block shared by every path (full forward,
     prefill chunk, cached decode). ``attend(q, k, v) -> (o, extras)``
-    supplies the attention flavor. Returns ``(x, extras)``."""
+    supplies the attention flavor; ``dropout`` with a ``generator``
+    drops the two residual branches (:func:`_dropout`). Returns ``(x,
+    extras)``."""
     b, s, d = x.shape
     n_heads, kv_heads, head_dim = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     h = L.layer_norm(bp["ln1"], x)
@@ -249,13 +287,15 @@ def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
         q = _rope(q, positions, cfg.rope_base)
         k = _rope(k, positions, cfg.rope_base)
     o, extras = attend(q, k, v)
-    x = x + L.dense(bp["attn_proj"], o.reshape(b, s, q_width))
+    x = x + _dropout(L.dense(bp["attn_proj"], o.reshape(b, s, q_width)),
+                     dropout, generator)
     h = L.layer_norm(bp["ln2"], x)
     if "mlp_fc3" in bp:
         h = F.silu(L.dense(bp["mlp_fc1"], h)) * L.dense(bp["mlp_fc3"], h)
     else:   # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(L.dense(bp["mlp_fc1"], h), approximate="tanh")
-    return x + L.dense(bp["mlp_fc2"], h), extras
+    return x + _dropout(L.dense(bp["mlp_fc2"], h), dropout,
+                        generator), extras
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

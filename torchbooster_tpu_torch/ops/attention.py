@@ -12,6 +12,10 @@ import torch
 
 NEG_INF = -1e30   # the JAX package's mask value (never -inf)
 
+# calls of ``mha_reference``: on the card a run shows with it that no
+# attention of its path fell back from the flash kernels
+reference_calls = 0
+
 
 def expand_kv_heads(kv: torch.Tensor, rep: int) -> torch.Tensor:
     """Grouped → query head expansion: query head ``h`` reads grouped
@@ -24,6 +28,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   sm_scale: float | None = None) -> torch.Tensor:
     """softmax(QKᵀ·scale + mask)V over (B, S, H, D), softmax in fp32.
     Grouped (GQA) k/v expand to the query head count."""
+    global reference_calls
+    reference_calls += 1
     head_dim = q.shape[-1]
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
@@ -95,4 +101,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = ["NEG_INF", "attention", "expand_kv_heads", "flash_auto_engaged",
-           "mha_reference"]
+           "mha_reference", "reference_calls"]

@@ -8,14 +8,17 @@
 // Operands are the TPU kernels': q (BH, S_q, D), k/v (BH_kv, S_kv, D) with
 // BH % BH_kv == 0 and q row b reading grouped k/v row b / rep (GQA), o and
 // dO like q, lse fp32 (BH, S_q) (plain rows, not the TPU's 8-lane padding).
-// Head dims 32, 64, 128. Two routes of the same algorithm, chosen by dtype:
-// bf16 runs the *_mma kernels (tensor cores, mma.sync m16n8k16, fp32
+// Head dims 32, 48, 64, 128. Two routes of the same algorithm, chosen by
+// dtype: bf16 runs the *_mma kernels (tensor cores, mma.sync m16n8k16, fp32
 // accumulators; P and dS round to bf16 before their second product, as in
 // FlashAttention-2); fp32 runs CUDA-core fp32 products throughout, so fp32
-// inputs stay within 1e-4 of the plain version. The bf16 backward at head
-// dims 64 and 128 runs the wgmma kernels of flash_bwd_sm90.cu instead (the
-// "sm90" route, planned by `plan_flash_bwd`); flash_dq_mma and
-// flash_dkv_mma keep D 32 and are timed beside them.
+// inputs stay within 1e-4 of the plain version. The bf16 forward and
+// backward at head dims 64 and 128 run the wgmma kernels of
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu instead (the "sm90" route,
+// planned by `plan_flash_fwd` / `plan_flash_bwd`); the *_mma kernels keep
+// D 32 (64-byte rows, a swizzle the wgmma kernels do not build) and D 48
+// (96-byte rows, which fit none of the 32/64/128-byte swizzles), and are
+// timed beside them.
 //
 // Numerics follow the TPU kernels: q is scaled before the product
 // ((q * scale) K^T; the tensor-core route scales the fp32 scores, the same
@@ -1033,16 +1036,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 // The plain C interface (loaded with ctypes). dtype: 0 fp32, 1 bf16; every
 // pointer is a contiguous device buffer; returns the CUDA error code of the
-// launch (0 on success). Head dims other than 32/64/128 and unknown dtypes
+// launch (0 on success). Head dims other than 32/48/64/128 and unknown dtypes
 // return cudaErrorInvalidValue without launching.
 #define TB_DISPATCH(FN, ...)                                                   \
   do {                                                                         \
     if (dtype == kF32) {                                                       \
       if (head_dim == 32) return FN<float, 32>(__VA_ARGS__);                   \
+      if (head_dim == 48) return FN<float, 48>(__VA_ARGS__);                   \
       if (head_dim == 64) return FN<float, 64>(__VA_ARGS__);                   \
       if (head_dim == 128) return FN<float, 128>(__VA_ARGS__);                 \
     } else if (dtype == kBF16) {                                               \
       if (head_dim == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);           \
+      if (head_dim == 48) return FN<__nv_bfloat16, 48>(__VA_ARGS__);           \
       if (head_dim == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);           \
       if (head_dim == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);         \
     }                                                                          \

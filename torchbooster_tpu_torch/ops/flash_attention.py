@@ -20,8 +20,8 @@ launch by :func:`plan_flash_fwd` and :func:`plan_flash_bwd` and counted
 in ``launches_fwd_by_route``, ``launches_dq_by_route`` and
 ``launches_dkv_by_route``: ``"sm90"`` (bf16, head dim 64 or 128, ``1 <=
 S_q <= S_kv``: the ``wgmma`` kernels of ``csrc/flash_fwd_sm90.cu`` and
-``csrc/flash_bwd_sm90.cu``), ``"mma_sync"`` (other bf16 shapes, D 32
-among them: the ``mma.sync`` kernels of ``csrc/flash_attention.cu``) and
+``csrc/flash_bwd_sm90.cu``), ``"mma_sync"`` (other bf16 shapes, D 32 and
+D 48 among them: the ``mma.sync`` kernels of ``csrc/flash_attention.cu``) and
 ``"f32"`` (fp32, CUDA-core kernels of the same file).
 
 Shape contract (the TPU kernels'): q ``(BH, S_q, D)``, k/v ``(BH_kv,
@@ -48,7 +48,7 @@ from torchbooster_tpu_torch.ops.attention import NEG_INF
 
 MIN_BLOCK = 8          # the TPU kernel's smallest tile edge
 DEFAULT_BLOCK = 1024   # the JAX package's default tile (both axes)
-HEAD_DIMS = (32, 64, 128)   # head dims the CUDA kernels are built for
+HEAD_DIMS = (32, 48, 64, 128)   # head dims the CUDA kernels are built for
 SM90_HEAD_DIMS = (64, 128)  # head dims of the "sm90" routes
 _SM90_MAX_S = 65535 * 64    # at most 65535 64-row tiles along grid.y
 
@@ -254,8 +254,9 @@ def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
     ``1 <= S_q <= S_kv`` (ragged lengths and any GQA group included: what
     ``csrc/flash_bwd_sm90.cu`` checks before it launches); ``"mma_sync"``
     for every other bf16 shape — D 32, whose 64-byte rows need a 64-byte
-    swizzle the ``wgmma`` kernels do not build, and S_q > S_kv, where
-    causal rows see no key."""
+    swizzle the ``wgmma`` kernels do not build, D 48, whose 96-byte rows
+    fit none of the 32/64/128-byte swizzles, and S_q > S_kv, where causal
+    rows see no key."""
     if dtype == torch.float32:
         return "f32"
     if (head_dim in SM90_HEAD_DIMS and rep >= 1
@@ -271,7 +272,7 @@ def plan_flash_fwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
     ``"sm90"`` for bf16 at head dim 64 or 128 with ``1 <= S_q <= S_kv``
     (the ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cu``, which checks the
     same before it launches); ``"mma_sync"`` (``flash_fwd_mma``) for every
-    other bf16 shape — D 32 and S_q > S_kv, as for the backward."""
+    other bf16 shape — D 32, D 48 and S_q > S_kv, as for the backward."""
     return plan_flash_bwd(dtype, head_dim, s_q, s_kv, rep)
 
 
@@ -317,7 +318,7 @@ def _lib_sm90() -> ctypes.CDLL:
 def _check_cuda(q, k, v, *like_q, rows=()) -> None:
     """What the kernels take, checked before any pointer is passed:
     contiguous CUDA tensors on one device in one dtype of fp32/bf16, q
-    ``(BH, S_q, D)`` with D 32, 64 or 128, k and v ``(BH_kv, S_kv, D)``
+    ``(BH, S_q, D)`` with D 32, 48, 64 or 128, k and v ``(BH_kv, S_kv, D)``
     with ``BH % BH_kv == 0``, ``like_q`` (o, dO) shaped like q, and
     ``rows`` (lse, delta) fp32 ``(BH, S_q)``."""
     if q.device.type != "cuda":

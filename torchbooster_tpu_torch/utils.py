@@ -58,10 +58,16 @@ class TrainState:
     """Everything the train step threads through: the parameter tree
     (leaf tensors that require grad), the torch optimizer the
     :class:`~torchbooster_tpu_torch.config.Transform` built over it, the
-    step count, the generator handed to the loss, and the EMA tree.
-    ``grad_acc`` marks gradient accumulation: the running sum of the
-    micro-steps' gradients lives in the leaves' ``.grad`` between
-    boundaries (the JAX state's ``grad_acc`` tree)."""
+    step count, the generator handed to the loss (on the parameters'
+    device; the JAX state's ``rng``), and the EMA tree. ``grad_acc``
+    marks gradient accumulation: the running sum of the micro-steps'
+    gradients lives in the leaves' ``.grad`` between boundaries (the JAX
+    state's ``grad_acc`` tree).
+
+    :meth:`state_dict` and :meth:`load_state_dict` carry all of it but
+    the accumulating gradients across a checkpoint
+    (``callbacks.SaveCallback``); loading writes into the live tensors,
+    optimizer and generator in place."""
 
     params: Any
     optimizer: torch.optim.Optimizer
@@ -74,14 +80,42 @@ class TrainState:
     def create(cls, params: Any, tx: Any,
                generator: torch.Generator | int = 0,
                accumulate: bool = False, ema: bool = False) -> "TrainState":
-        for p in tree_leaves(params):
+        leaves = tree_leaves(params)
+        for p in leaves:
             p.requires_grad_(True)
         if isinstance(generator, int):
-            generator = torch.Generator().manual_seed(generator)
+            device = leaves[0].device if leaves else "cpu"
+            generator = torch.Generator(device).manual_seed(generator)
         ema_tree = _tree_map(lambda p: p.detach().clone(), params) \
             if ema else None
         return cls(params=params, optimizer=tx.init(params),
                    generator=generator, grad_acc=accumulate, ema=ema_tree)
+
+    def state_dict(self) -> dict:
+        """Live references to what a checkpoint holds: parameters, the
+        optimizer's state dict, the step, the generator's state and the
+        EMA tree. ``callbacks.SaveCallback`` copies it to the host."""
+        return {"params": _tree_map(torch.Tensor.detach, self.params),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step,
+                "generator": None if self.generator is None
+                else self.generator.get_state(),
+                "ema": self.ema}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Load a :meth:`state_dict` (host or device tensors) in place."""
+        for p, q in zip(tree_leaves(self.params),
+                        tree_leaves(state["params"]), strict=True):
+            p.copy_(q)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        if self.generator is not None:
+            self.generator.set_state(state["generator"])
+        if self.ema is not None:
+            for e, q in zip(tree_leaves(self.ema), tree_leaves(state["ema"]),
+                            strict=True):
+                e.copy_(q)
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -219,7 +253,8 @@ def freeze(labels: Callable[[str], bool], tx: Any) -> Frozen:
 def make_eval_step(loss_fn: Callable, has_aux: bool = True,
                    compute_dtype: torch.dtype | None = None) -> Callable:
     """``eval_step(params, batch, generator) -> metrics``, without
-    gradients."""
+    gradients. Callers pass ``None`` for the generator, as the JAX
+    recipes drop the key, so that dropout stays off."""
 
     @torch.no_grad()
     def eval_fn(params: Any, batch: Any, generator: Any) -> dict:
