@@ -80,8 +80,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    backward with the flash kernels against ``mha_reference`` (loss and
    gradient norm, rtol 1e-4). Prints step ms, tokens/s, the model-FLOP
    share of 989 TFLOP/s, peak memory, and a profiled device busy share
-   with the top kernels.
-7a. train_long — the GPT recipe's ``setup`` and ``main`` at
+   with the top kernels. Remat here and in every phase below follows
+   the JAX policy: the blocks' dense products are saved, everything
+   else (B1 among it) is recomputed in backward.
+7a. gpt2_import — a GPT-2 small checkpoint laid out as HF's
+   ``GPT2LMHeadModel.state_dict()`` (``transformer.`` keys, Conv1D
+   ``(in, out)`` weights, ``lm_head.weight`` tied; numpy from a seed,
+   wte x4) imported by ``load_torch_gpt2`` onto the card: the config is
+   GPT-2 small's and every tensor equals its source bit for bit. Then
+   8 steps of ``utils.make_step`` from the imported params with each of
+   lamb, lion and adafactor (``gpt2_train_config``'s batch 8 x 1024,
+   bf16, remat, chunked head, clip 1.0, ``synthetic_lm``; the lr of
+   ``GPT2_LR``): finite losses, the last below the first; B1 24, B2 12
+   and B3 12 launches a step, all ``"sm90"``; one more update on the
+   card against the same optimizer on the CPU from the same params,
+   gradients and state; adafactor's state under 1% of the fp32 params.
+   Prints step ms, tokens/s, peak memory and optimizer-state bytes. The
+   adafactor-tuned model is then served as phases 5 and 6 serve: 8/8
+   token-exact against the dense ``generate`` at bf16 (B4 ``"sm90"``)
+   and at fp32 (``"simt"``).
+7b. train_long — the GPT recipe's ``setup`` and ``main`` at
    ``examples/lm/gpt/gpt-long.yml``'s widths, built in code with the
    overrides ``LONG_OVERRIDES`` lists (one card, mesh ``dp``; 12 steps, a
    2-step warmup, a checkpoint every 4 steps into a temp dir, one
@@ -166,7 +184,7 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
-          "train", "train_long", "conv", "resnet_train")
+          "train", "gpt2_import", "train_long", "conv", "resnet_train")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
@@ -1599,6 +1617,329 @@ def phase_train(report: dict, smi: str) -> dict:
     return {**launches, "by_route": by_route}
 
 
+# ----------------------------------------------------------- gpt2_import
+GPT2_STEPS = 8
+# each optimizer's learning rate for the fine-tune (the cycle schedule's
+# peak, a 2-step warmup): lion moves every entry by lr, so it takes
+# AdamW's; lamb's and adafactor's steps are relative to each leaf's norm
+GPT2_LR = {"lamb": 1e-2, "lion": 3e-4, "adafactor": 3e-2}
+GPT2_SERVED = "adafactor"       # the fine-tuned model that is served
+# one update at the peak lr on the card against the same optimizer on
+# the CPU, per leaf: the difference of the updated params over the
+# largest entry of the leaf's update. The elementwise rules round alike;
+# lamb's norms and adafactor's means sum up to 38.6 M fp32 entries in
+# another order on each side (both within ~1e-7 of the exact sum), and
+# that factor scales the leaf's whole update; 2 ulp of an entry of size
+# 1 (the layer-norm weights), where the updated entry rounds the other
+# way, pass in any case
+GPT2_UPDATE_RTOL = 1e-5
+GPT2_UPDATE_ATOL = 2.4e-7
+# HF GPT2LMHeadModel's per-layer keys → the port's (block, leaf)
+GPT2_LAYER_KEYS = {
+    "ln_1.weight": ("ln1", "scale"), "ln_1.bias": ("ln1", "bias"),
+    "attn.c_attn.weight": ("attn_qkv", "kernel"),
+    "attn.c_attn.bias": ("attn_qkv", "bias"),
+    "attn.c_proj.weight": ("attn_proj", "kernel"),
+    "attn.c_proj.bias": ("attn_proj", "bias"),
+    "ln_2.weight": ("ln2", "scale"), "ln_2.bias": ("ln2", "bias"),
+    "mlp.c_fc.weight": ("mlp_fc1", "kernel"),
+    "mlp.c_fc.bias": ("mlp_fc1", "bias"),
+    "mlp.c_proj.weight": ("mlp_fc2", "kernel"),
+    "mlp.c_proj.bias": ("mlp_fc2", "bias")}
+GPT2_TOP_KEYS = {"wte.weight": ("wte", "table"),
+                 "wpe.weight": ("wpe", "table"),
+                 "ln_f.weight": ("ln_f", "scale"),
+                 "ln_f.bias": ("ln_f", "bias")}
+
+
+def gpt2_shapes(cfg) -> dict:
+    """The keys of HF ``GPT2LMHeadModel.state_dict()`` at ``cfg``'s
+    widths, with their shapes (Conv1D weights ``(in, out)``)."""
+    d, h = cfg.d_model, cfg.mlp_ratio * cfg.d_model
+    layer = {"ln_1.weight": (d,), "ln_1.bias": (d,),
+             "attn.c_attn.weight": (d, 3 * d), "attn.c_attn.bias": (3 * d,),
+             "attn.c_proj.weight": (d, d), "attn.c_proj.bias": (d,),
+             "ln_2.weight": (d,), "ln_2.bias": (d,),
+             "mlp.c_fc.weight": (d, h), "mlp.c_fc.bias": (h,),
+             "mlp.c_proj.weight": (h, d), "mlp.c_proj.bias": (d,)}
+    out = {"transformer.wte.weight": (cfg.vocab, d),
+           "transformer.wpe.weight": (cfg.seq_len, d)}
+    for i in range(cfg.n_layers):
+        out.update({f"transformer.h.{i}.{k}": s for k, s in layer.items()})
+    out.update({"transformer.ln_f.weight": (d,),
+                "transformer.ln_f.bias": (d,),
+                "lm_head.weight": (cfg.vocab, d)})
+    return out
+
+
+def gpt2_state_dict(cfg, seed: int = 0) -> dict:
+    """A GPT-2 checkpoint laid out as HF ``GPT2LMHeadModel.state_dict()``
+    is (the ``transformer.`` prefix, Conv1D ``(in, out)`` weights),
+    numpy fp32 drawn from ``np.random.RandomState(seed)``: every tensor
+    N(0, 0.02), the layer-norm weights 1 + N(0, 0.02), ``wte`` scaled by
+    4 (the decisive head of :func:`gpt2_small`), and ``lm_head.weight``
+    the ``wte`` array itself (GPT-2's tied head)."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+    for key, shape in gpt2_shapes(cfg).items():
+        if key == "lm_head.weight":
+            sd[key] = sd["transformer.wte.weight"]
+            continue
+        a = (rs.standard_normal(shape) * 0.02).astype(np.float32)
+        if key.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight")):
+            a += 1.0
+        elif key == "transformer.wte.weight":
+            a *= 4.0
+        sd[key] = a
+    return sd
+
+
+def imported_leaf(params: dict, key: str) -> torch.Tensor:
+    """The port tensor that HF key ``key`` was imported into."""
+    key = key.removeprefix("transformer.")
+    if key in GPT2_TOP_KEYS:
+        block, leaf = GPT2_TOP_KEYS[key]
+        return params[block][leaf]
+    _, i, rest = key.split(".", 2)
+    block, leaf = GPT2_LAYER_KEYS[rest]
+    return params["blocks"][block][leaf][int(i)]
+
+
+def gpt2_import_check(sd: dict, params: dict, cfg) -> None:
+    """The imported config is GPT-2 small's, and every imported tensor
+    equals its source bit for bit."""
+    from torchbooster_tpu_torch.models.gpt import GPTConfig
+
+    if cfg != GPTConfig():
+        raise AssertionError(f"gpt2_import: config {cfg}, expected GPT-2 "
+                             f"small's {GPTConfig()}")
+    if "head" in params:
+        raise AssertionError("gpt2_import: an untied head was imported")
+    for key, want in sd.items():
+        if key == "lm_head.weight":
+            continue
+        got = imported_leaf(params, key)
+        if got.dtype != torch.float32 or got.device.type != "cuda" or \
+                not torch.equal(got.cpu(), torch.from_numpy(want)):
+            raise AssertionError(f"gpt2_import: {key} is not its source "
+                                 f"bit for bit")
+
+
+def gpt2_finetune_config(name: str):
+    """``gpt2_train_config`` (GPT-2 small, batch 8 x 1024, bf16 over fp32
+    masters, remat, chunked head, clip 1.0, ``synthetic_lm``) for
+    ``GPT2_STEPS`` steps with optimizer ``name`` at ``GPT2_LR[name]``
+    (lamb and lion keep gpt.yml's betas and decay; adafactor ignores
+    them, as the JAX package does)."""
+    import dataclasses
+
+    conf = gpt2_train_config(GPT2_STEPS, sample_tokens=0)
+    return dataclasses.replace(conf, optim=dataclasses.replace(
+        conf.optim, name=name, lr=GPT2_LR[name]))
+
+
+def gpt2_update_check(state, tx, loss_fn, batch, lr: float) -> dict:
+    """One more update of the fine-tuned state at learning rate ``lr`` on
+    the card, and the same update by the same optimizer on the CPU from
+    the same fp32 params, gradients and optimizer state. Returns the
+    largest difference of the updated params, and the largest of each
+    leaf's difference over the largest entry of its update; raises where
+    a leaf differs by more than ``GPT2_UPDATE_RTOL`` of that entry plus
+    ``GPT2_UPDATE_ATOL``."""
+    from torchbooster_tpu_torch.models.gpt import map_tensors
+    from torchbooster_tpu_torch.utils import _paths, tree_leaves
+
+    for p in tree_leaves(state.params):
+        p.grad = None
+    loss_fn(state.params, batch, state.generator)[0].backward()
+    before = map_tensors(state.params, lambda t: t.detach().cpu())
+    host = map_tensors(before, torch.clone)
+    for p, q in zip(tree_leaves(host), tree_leaves(state.params)):
+        p.grad = q.grad.cpu()
+    host_opt = tx.init(host)
+    host_opt.load_state_dict(state.optimizer.state_dict())
+    for opt in (state.optimizer, host_opt):
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+    out = {"max_abs_err": 0.0, "max_rel_to_update": 0.0, "worst_leaf": None}
+    for (path, p0), card, cpu in zip(_paths(before), tree_leaves(
+            state.params), tree_leaves(host), strict=True):
+        card = card.detach().cpu()
+        err = (card - cpu).abs().max().item()
+        scale = (card - p0).abs().max().item()
+        rel = err / max(scale, 1e-30)
+        if not err <= GPT2_UPDATE_RTOL * scale + GPT2_UPDATE_ATOL:
+            raise AssertionError(
+                f"one update on the card and on the CPU differ by {err} on "
+                f"{path}, whose update reaches {scale} (rtol "
+                f"{GPT2_UPDATE_RTOL}, atol {GPT2_UPDATE_ATOL})")
+        if err > out["max_abs_err"]:
+            out["max_abs_err"] = err
+        if rel > out["max_rel_to_update"]:
+            out.update(max_rel_to_update=rel, worst_leaf=path)
+    return out
+
+
+def gpt2_finetune(name: str, imported: dict, cfg, smi: str) -> tuple:
+    """``GPT2_STEPS`` steps of ``utils.make_step`` from the imported
+    params with optimizer ``name``; returns ``(report, flash launches by
+    kernel and route, the fine-tuned params)``."""
+    from torchbooster_tpu_torch import utils
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.models.gpt import map_tensors
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    conf = gpt2_finetune_config(name)
+    loss_fn = recipe.make_loss(conf, cfg)
+    tx = conf.optim.make(conf.scheduler.make(conf.optim))
+    state = utils.TrainState.create(
+        map_tensors(imported, lambda t: t.clone()), tx,
+        generator=conf.seed)
+    step = utils.make_step(loss_fn, tx, clip=conf.clip)
+    data = conf.dataset.make(Split.TRAIN, seq_len=cfg.seq_len + 1,
+                             vocab=cfg.vocab)
+    batches = utils.iter_loader(conf.loader.make(data, shuffle=True,
+                                                 seed=conf.seed))
+
+    def to_card(tokens):
+        tokens = torch.from_numpy(np.ascontiguousarray(tokens)).long()
+        tokens = tokens.pin_memory().to(DEV, non_blocking=True)
+        return {"ids": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    losses, step_s = [], []
+    for _ in range(GPT2_STEPS):
+        batch = to_card(next(batches)[1])
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                "dkv": fa.launches_dkv}
+    by_route = {"fwd": dict(fa.launches_fwd_by_route),
+                "dq": dict(fa.launches_dq_by_route),
+                "dkv": dict(fa.launches_dkv_by_route)}
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt2_import {name}: losses {losses}")
+    n_l = cfg.n_layers
+    # the remat policy recomputes B1 (its output is no saved product)
+    expected = {"fwd": 2 * n_l * GPT2_STEPS, "dq": n_l * GPT2_STEPS,
+                "dkv": n_l * GPT2_STEPS}
+    route_expected = {k: {"sm90": n, "mma_sync": 0, "f32": 0}
+                      for k, n in expected.items()}
+    if launches != expected or by_route != route_expected:
+        raise AssertionError(f"gpt2_import {name}: flash launches "
+                             f"{by_route}, expected {route_expected}")
+    state_bytes = sum(v.numel() * v.element_size()
+                      for leaf in state.optimizer.state.values()
+                      for v in leaf.values())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in utils.tree_leaves(state.params))
+    if name == "adafactor" and not state_bytes < 0.01 * param_bytes:
+        raise AssertionError(f"gpt2_import adafactor: state {state_bytes} "
+                             f"bytes against {param_bytes} of params: the "
+                             f"moments did not factor")
+    update = gpt2_update_check(state, tx, loss_fn,
+                               to_card(next(batches)[1]), conf.optim.lr)
+    # steady state: the median of steps 3-8
+    steady = sorted(step_s[2:])
+    step_ms = (steady[(len(steady) - 1) // 2]
+               + steady[len(steady) // 2]) / 2 * 1e3
+    out = {"lr": GPT2_LR[name], "losses": losses, "step_ms": step_ms,
+           "step_ms_each": [s * 1e3 for s in step_s],
+           "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
+           "peak_mem_bytes": peak, "optimizer_state_bytes": state_bytes,
+           "param_bytes": param_bytes,
+           "state_share_of_params": state_bytes / param_bytes,
+           "launches": launches, "by_route": by_route,
+           "update_vs_cpu": update,
+           "update_tol": {"rtol": GPT2_UPDATE_RTOL,
+                          "atol": GPT2_UPDATE_ATOL},
+           "card": smi}
+    log(f"gpt2_import {name} (lr {GPT2_LR[name]}): {GPT2_STEPS} steps at "
+        f"batch {TRAIN_B} x {TRAIN_S}, {conf.env.precision}, remat "
+        f"policy, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.1f} ms "
+        f"(median of steps 3-{GPT2_STEPS}), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak mem {peak / 2**30:.2f} GiB, optimizer state "
+        f"{state_bytes} bytes ({100 * out['state_share_of_params']:.3f}% "
+        f"of the fp32 params' {param_bytes}); B1-B3 by route {by_route}; "
+        f"one update at lr {conf.optim.lr}, card vs CPU: max abs err "
+        f"{update['max_abs_err']:.3g}, at most "
+        f"{update['max_rel_to_update']:.3g} of a leaf's largest update "
+        f"entry ({update['worst_leaf']}; rtol {GPT2_UPDATE_RTOL}) [{smi}]")
+    params = state.params
+    del state
+    return out, {**launches, "by_route": by_route}, params
+
+
+def phase_gpt2_import(report: dict, smi: str) -> dict:
+    """Import a GPT-2 small checkpoint in HF's layout, fine-tune it with
+    lamb, lion and adafactor, and serve one fine-tuned model at bf16 and
+    fp32. Returns the flash launch counts of the fine-tunes and the
+    paged kernel's of the serving runs."""
+    from torchbooster_tpu_torch.models.gpt import (
+        GPTConfig,
+        load_torch_gpt2,
+        map_tensors,
+    )
+
+    t0 = time.perf_counter()
+    sd = gpt2_state_dict(GPTConfig())
+    imported, cfg = load_torch_gpt2(sd, device=DEV)
+    gpt2_import_check(sd, imported, cfg)
+    import_s = time.perf_counter() - t0
+    n_params = sum(a.size for k, a in sd.items() if k != "lm_head.weight")
+    log(f"gpt2_import: {len(sd)} HF tensors ({n_params} parameters, "
+        f"lm_head tied) imported bit for bit into GPT-2 small "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.seq_len} positions), {import_s:.1f} s with the draw")
+    del sd
+    out: dict = {"import_s": import_s}
+    flash = {"fwd": 0, "dq": 0, "dkv": 0,
+             "by_route": {k: dict.fromkeys(("sm90", "mma_sync", "f32"), 0)
+                          for k in ("fwd", "dq", "dkv")}}
+    served = None
+    for name in GPT2_LR:
+        res, launches, params = gpt2_finetune(name, imported, cfg, smi)
+        out[name] = res
+        for k in ("fwd", "dq", "dkv"):
+            flash[k] += launches[k]
+            for r, n in launches["by_route"][k].items():
+                flash["by_route"][k][r] += n
+        if name == GPT2_SERVED:
+            served = map_tensors(params, lambda t: t.detach())
+        del params
+        torch.cuda.empty_cache()
+    del imported
+    paged = {"launches": 0, "by_route": {"sm90": 0, "simt": 0}}
+    for dtype, key in ((torch.bfloat16, "serve_bf16"),
+                       (torch.float32, "serve_fp32")):
+        sub: dict = {}
+        match, launches, by_route = phase_serve(
+            served, cfg, dtype, smi, sub, f"gpt2_import {key} "
+            f"({GPT2_SERVED}-tuned)")
+        out[key] = next(iter(sub.values()))
+        if not all(match):
+            raise AssertionError(f"gpt2_import {key}: the {GPT2_SERVED}-"
+                                 f"tuned model disagrees with dense "
+                                 f"generate on {match.count(False)} "
+                                 f"requests")
+        paged["launches"] += launches
+        for r, n in by_route.items():
+            paged["by_route"][r] += n
+    out["served"] = GPT2_SERVED
+    report["gpt2_import"] = out
+    del served
+    torch.cuda.empty_cache()
+    return {"flash": flash, "paged": paged}
+
+
 # ------------------------------------------------------------- train_long
 LONG_STEPS = 12
 LONG_SAVE_EVERY = 4
@@ -2931,13 +3272,22 @@ def main() -> int:
         # freed so that the train phase's peak memory is its own
         del params
         torch.cuda.empty_cache()
-    # B1-B3 launch on two paths: GPT-2 small's training (D 64, "sm90")
-    # and gpt-long's (D 48, "mma_sync"); the counts add up
+    # B1-B3 launch on three paths: GPT-2 small's training and the imported
+    # GPT-2's fine-tunes (D 64, "sm90"), and gpt-long's (D 48,
+    # "mma_sync"); the counts add up, as B4's do with the imported
+    # model's serving
     for key, phase in (("train", phase_train),
+                       ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long)):
         if key not in phases:
             continue
         launches = phase(report, smi)
+        if key == "gpt2_import":
+            paged = launches["paged"]
+            kernel["launches"] += paged["launches"]
+            for r, n in paged["by_route"].items():
+                kernel["launches_by_route"][r] += n
+            launches = launches["flash"]
         for k in flash:
             flash[k]["launches"] += launches[k]
             if key == "train_long":

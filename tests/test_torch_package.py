@@ -1,9 +1,9 @@
 """Package guards of ``torchbooster_tpu_torch``.
 
 - importing every module of the port loads neither ``jax`` nor anything
-  of ``torchbooster_tpu`` nor PyYAML (the card's machine has none), runs
-  no recipe and starts no ``nvcc`` (kernels build at first launch, never
-  at import);
+  of ``torchbooster_tpu`` nor PyYAML nor ``transformers`` (the card's
+  machine has none), runs no recipe and starts no ``nvcc`` (kernels
+  build at first launch, never at import);
 - ``chip_smoke.py`` refuses to run without a CUDA card: non-zero exit and
   no result line.
 """
@@ -36,6 +36,8 @@ print(json.dumps({
     "jax_pkg": sorted(m for m in sys.modules if m == "torchbooster_tpu"
                       or m.startswith("torchbooster_tpu.")),
     "yaml": sorted(m for m in sys.modules if m == "yaml"),
+    "transformers": sorted(m for m in sys.modules if m == "transformers"
+                           or m.startswith("transformers.")),
     "scipy": sorted(m for m in sys.modules if m == "scipy"),
     "nvcc": [a for a in started if "nvcc" in a],
     "built": sorted(_build.build_seconds),
@@ -54,9 +56,12 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "metrics", "dataset", "data.sources", "data.pipeline",
                  "recipes.gpt", "ops.group_norm", "ops.fused_block",
                  "models.layers", "models.resnet", "data.transforms",
-                 "recipes.resnet", "interop"):
+                 "recipes.resnet", "interop", "optim",
+                 "models.torch_interop"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
+    # the GPT-2 import reads a state dict; it never imports transformers
+    assert got["transformers"] == []
     # scipy (the rotation augmentation) is imported when a transform is
     # built, not at import
     assert got["scipy"] == []

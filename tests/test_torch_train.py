@@ -250,14 +250,15 @@ def test_cycle_scheduler_matches_jax(decay):
 
 # ---------------------------------------------------------------- make_step
 def _trajectory(optim, sched, clip, accumulate_every, ema_decay=None,
-                n_steps=10):
+                n_steps=10, widths=SMALL):
     """10 steps of the JAX and of the port ``make_step`` from the same
-    parameters and batches; returns both loss lists and final states."""
-    jcfg, cfg = JCfg(**SMALL), GPTConfig(**SMALL)
+    parameters and batches, at ``widths``; returns both loss lists and
+    final states."""
+    jcfg, cfg = JCfg(**widths), GPTConfig(**widths)
     jp = JGPT.init(jax.random.PRNGKey(0), jcfg)
     tp = params_from_jax(jax.device_get(jp), cfg, "cpu")
     rs = np.random.RandomState(5)
-    batches = [rs.randint(0, 97, (4, 17)).astype(np.int32)
+    batches = [rs.randint(0, widths["vocab"], (4, 17)).astype(np.int32)
                for _ in range(n_steps)]
 
     jopt = JOptimizerConfig(**optim)
@@ -502,9 +503,11 @@ def test_entry_points_default_to_the_card_and_unported_options_raise():
         EnvConfig(mesh="dp:2,tp:2").make("cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         EnvConfig(distributed=True).make("cpu")
+    # lamb, lion and adafactor are ported (tests/test_torch_optim.py)
     for name in ("lamb", "lion", "adafactor"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            OptimizerConfig(name=name).make()
+        tx = OptimizerConfig(name=name).make()
+        assert isinstance(tx.init({"w": torch.zeros(2, 2)}),
+                          torch.optim.Optimizer)
     with pytest.raises(NotImplementedError, match="A9"):
         LoaderConfig(num_workers=2).make([0, 1])
     with pytest.raises(NotImplementedError, match="A8"):

@@ -4,21 +4,25 @@ for the training and serving slices:
 - ``BaseConfig.load``: YAML with ``#include`` splicing, string
   pseudo-annotation type resolution (``tuple(float, float)``, nested
   config classes by name) and scalar coercion (``1e-3`` strings,
-  ``1_024`` ints, comma tuples such as ``betas: 0.9, 0.95``);
+  ``1_024`` ints, comma tuples such as ``betas: 0.9, 0.95``); with
+  ``hyperparams=True`` a generator of configs over the sweep leaves
+  (``parse_sweep``: ``arange``, ``linspace``, ``logspace``,
+  ``geomspace``, ``range`` and quoted literal lists, never ``eval``);
 - the factories the GPT recipe uses: ``EnvConfig`` (compute dtype and
-  device), ``LoaderConfig``, ``OptimizerConfig`` (adamw/adam/sgd over
-  torch optimizers, driven by a schedule), ``SchedulerConfig`` and
-  ``DatasetConfig`` (the builtin registry);
+  device), ``LoaderConfig``, ``OptimizerConfig`` (adamw, adam, sgd,
+  lamb, lion and adafactor, driven by a schedule), ``SchedulerConfig``
+  and ``DatasetConfig`` (the builtin registry);
 - ``ServingConfig`` with its core fields and a single-replica ``make``.
 
-Not ported yet (``ROADMAP.md`` A2, A7, A8): hyperparameter sweeps,
-meshes and distributed environments, loader workers, the ``lamb``,
-``lion`` and ``adafactor`` optimizers, and the serving router, disagg
-and front-door sub-blocks. Configurations that need them raise
+Not ported yet (``ROADMAP.md`` A-4 to A-6): meshes and distributed
+environments, loader workers, and the serving router, disagg and
+front-door sub-blocks. Configurations that need them raise
 ``NotImplementedError``. PyYAML is imported only when a file is read."""
 from __future__ import annotations
 
+import ast
 import builtins
+import copy
 import dataclasses
 import itertools
 import logging
@@ -26,8 +30,9 @@ import re
 import sys
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 
 from torchbooster_tpu_torch._device import resolve_device
@@ -154,6 +159,82 @@ def resolve_types(cls: type, data: dict[str, Any] | None) -> dict[str, Any]:
     return kwargs
 
 
+# ------------------------------------------------------------- sweeps
+_SWEEP_CALL = re.compile(
+    r"^\s*(arange|linspace|logspace|geomspace|range)\s*\((.*)\)\s*$")
+
+
+def parse_sweep(text: Any) -> list[Any] | None:
+    """The values of a sweep expression in a YAML string leaf, or None
+    when the leaf is not one. Parsed without ``eval``:
+    ``arange(start, stop[, step])``, ``linspace(a, b, n)``,
+    ``logspace(a, b, n)`` and ``geomspace(a, b, n)`` with numpy's
+    semantics, ``range(...)`` with Python's, and a quoted literal list
+    such as ``"[1, 2, 3]"``."""
+    if not isinstance(text, str):
+        return None
+    stripped = text.strip()
+    if stripped.startswith("[") and stripped.endswith("]"):
+        try:
+            parsed = ast.literal_eval(stripped)
+        except (ValueError, SyntaxError):
+            return None
+        return list(parsed) if isinstance(parsed, (list, tuple)) else None
+    match = _SWEEP_CALL.match(stripped)
+    if not match:
+        return None
+    func, args_text = match.groups()
+    try:
+        args = [ast.literal_eval(arg.strip())
+                for arg in args_text.split(",") if arg.strip()]
+    except (ValueError, SyntaxError):
+        return None
+    if not all(isinstance(a, (int, float)) for a in args):
+        return None
+    try:
+        if func == "range":
+            return list(range(*[int(a) for a in args]))
+        values = getattr(np, func)(*args)
+    except (TypeError, ValueError):
+        return None
+    return [v.item() for v in np.asarray(values).ravel()]
+
+
+class HyperParameterConfig:
+    """The sweep over a YAML document's string leaves that
+    :func:`parse_sweep` reads as sweeps: every combination, in
+    ``itertools.product`` order over the leaves in document order (the
+    last leaf turns fastest), yields one typed config of ``cls``."""
+
+    def __init__(self, cls: type, stream: str):
+        self.cls = cls
+        self.data = _yaml().safe_load(stream) or {}
+        self.axes: list[tuple[tuple[Any, ...], list[Any]]] = []
+        self._find(self.data, ())
+
+    def _find(self, node: Any, path: tuple[Any, ...]) -> None:
+        if isinstance(node, dict):
+            for key, value in node.items():
+                self._find(value, (*path, key))
+        elif isinstance(node, list):
+            for i, value in enumerate(node):
+                self._find(value, (*path, i))
+        else:
+            values = parse_sweep(node)
+            if values is not None:
+                self.axes.append((path, values))
+
+    def gen_cfg(self) -> Iterator[Any]:
+        for combo in itertools.product(*(v for _, v in self.axes)):
+            data = copy.deepcopy(self.data)
+            for (path, _), value in zip(self.axes, combo):
+                node = data
+                for key in path[:-1]:
+                    node = node[key]
+                node[path[-1]] = value
+            yield self.cls(**resolve_types(self.cls, data))
+
+
 @dataclass
 class BaseConfig:
     """Base class for typed YAML configs: ``@dataclass`` subclasses
@@ -164,9 +245,14 @@ class BaseConfig:
                                   "make()")
 
     @classmethod
-    def load(cls, path: str | Path):
-        """One config from the YAML file ``path`` (``#include`` spliced)."""
-        data = _yaml().safe_load("\n".join(read_lines(path))) or {}
+    def load(cls, path: str | Path, hyperparams: bool = False):
+        """One config from the YAML file ``path`` (``#include``
+        spliced), or with ``hyperparams`` a generator of one config per
+        point of its sweep (:class:`HyperParameterConfig`)."""
+        stream = "\n".join(read_lines(path))
+        if hyperparams:
+            return HyperParameterConfig(cls, stream).gen_cfg()
+        data = _yaml().safe_load(stream) or {}
         return cls(**resolve_types(cls, data))
 
 
@@ -303,8 +389,7 @@ class Transform:
 
 @dataclass
 class OptimizerConfig(BaseConfig):
-    """Optimizer factory: ``adamw``, ``adam`` and ``sgd`` over the torch
-    optimizers, with the JAX package's semantics:
+    """Optimizer factory with the JAX package's semantics:
 
     - ``adamw``: ``torch.optim.AdamW`` in its default implementation
       computes what ``optax.adamw`` does — bias-corrected moments, eps
@@ -315,12 +400,18 @@ class OptimizerConfig(BaseConfig):
       semantics the JAX package reproduces for ``dampening``; weight
       decay adds ``wd·p`` to the gradient first;
     - ``amsgrad`` (adam/adamw): torch's rule, which the JAX package
-      reproduces.
+      reproduces;
+    - ``lamb``, ``lion`` and ``adafactor``: the optax chains of
+      ``optim.py`` — lamb with ``betas``, ``eps`` and the decay, lion
+      with ``betas`` (``b2`` is ``betas[1]``) and the decay, adafactor at
+      optax's defaults, ignoring ``betas``, ``eps``, ``weight_decay`` and
+      ``decay_matrices_only`` as the JAX package does.
 
-    ``lamb``, ``lion`` and ``adafactor`` are not ported yet (ROADMAP.md
-    A2) and raise ``NotImplementedError``."""
+    ``decay_matrices_only`` keeps the decay off rank <= 1 leaves, and
+    ``agc`` clips every unit's gradient before any of them
+    (:class:`Transform`)."""
 
-    name: str = "adamw"                # sgd | adam | adamw
+    name: str = "adamw"     # sgd | adam | adamw | lamb | lion | adafactor
     lr: float = 1e-3
     momentum: float = 0.0
     dampening: float = 0.0
@@ -336,6 +427,8 @@ class OptimizerConfig(BaseConfig):
              ) -> Transform:
         """A :class:`Transform`; ``schedule`` (a pure step → lr function,
         see ``scheduler.py``) drives the learning rate, else ``lr``."""
+        from torchbooster_tpu_torch import optim
+
         name = self.name.lower()
         betas = tuple(float(b) for b in self.betas)
         if name == "sgd":
@@ -353,10 +446,15 @@ class OptimizerConfig(BaseConfig):
             factory = lambda groups, lr: torch.optim.AdamW(
                 groups, lr=lr, betas=betas, eps=self.eps,
                 amsgrad=self.amsgrad)
-        elif name in ("lamb", "lion", "adafactor"):
-            raise NotImplementedError(
-                f"optimizer {self.name!r} is not ported yet (ROADMAP.md "
-                f"A2); use adamw, adam or sgd")
+        elif name == "lamb":
+            factory = lambda groups, lr: optim.Lamb(
+                groups, lr=lr, betas=betas, eps=self.eps)
+        elif name == "lion":
+            factory = lambda groups, lr: optim.Lion(groups, lr=lr,
+                                                    betas=betas)
+        elif name == "adafactor":
+            factory = lambda groups, lr: optim.Adafactor(
+                [{"params": g["params"]} for g in groups], lr=lr)
         else:
             raise NameError(f"unknown optimizer {self.name!r}")
         return Transform(factory=factory,
@@ -514,6 +612,7 @@ class ServingConfig:
                                  tracer=tracer)
 
 
-__all__ = ["BaseConfig", "DatasetConfig", "EnvConfig", "LoaderConfig",
-           "OptimizerConfig", "SchedulerConfig", "ServingConfig",
-           "Transform", "read_lines", "resolve_types"]
+__all__ = ["BaseConfig", "DatasetConfig", "EnvConfig",
+           "HyperParameterConfig", "LoaderConfig", "OptimizerConfig",
+           "SchedulerConfig", "ServingConfig", "Transform", "parse_sweep",
+           "read_lines", "resolve_types"]

@@ -1,8 +1,10 @@
 """GPT language model — the port of ``torchbooster_tpu/models/gpt.py``:
-config, init, the training forward ``GPT.apply`` (per-block remat,
-attention through the ``ops.attention`` dispatcher), the block math,
-the cached-attention numerics core shared by the dense ``generate``
-control and the paged engine, and the next-token rules.
+config, init, the training forward ``GPT.apply`` (per-block remat
+under the JAX package's policy, attention through the ``ops.attention``
+dispatcher), the block math, the cached-attention numerics core shared
+by the dense ``generate`` control and the paged engine, the next-token
+rules, and ``load_torch_gpt2``, the import of a HuggingFace GPT-2
+checkpoint.
 
 Layouts follow the JAX package so parameters cross frameworks with a
 plain copy (``interop.params_from_jax``): block tensors are stacked on
@@ -13,15 +15,22 @@ branches, LoRA deltas and MoE blocks.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from torchbooster_tpu_torch._device import resolve_device
 from torchbooster_tpu_torch.models import layers as L
+from torchbooster_tpu_torch.models.torch_interop import to_numpy
 from torchbooster_tpu_torch.ops.attention import NEG_INF, attention
 
 
@@ -139,12 +148,16 @@ class GPT:
         gradients land on the fp32 masters. ``return_aux`` adds the MoE
         load-balance loss, 0 for these dense blocks.
 
-        ``remat`` recomputes each block in backward (non-reentrant
-        ``torch.utils.checkpoint``). The JAX package keeps the matmul
-        outputs (``dots_with_no_batch_dims_saveable``) and recomputes
-        the rest; full per-block recompute gives the same numbers for
-        another memory/time trade, and launches the attention forward
-        twice per layer and step.
+        ``remat`` checkpoints each block under the JAX package's policy,
+        ``dots_with_no_batch_dims_saveable``: the outputs of the block's
+        dense products (``aten.mm``/``aten.addmm``, which a ``(B, S, d)
+        @ (d, n)`` folds to) are saved, and everything else, the
+        attention products with their batch dims among it, is recomputed
+        in backward (non-reentrant ``torch.utils.checkpoint`` with a
+        selective-checkpoint context). The attention kernels run outside
+        the dispatcher's view, so the flash forward runs again in the
+        recompute: twice per layer and step, as in the JAX package,
+        whose policy saves no ``pallas_call`` output either.
 
         ``generator`` turns on ``cfg.dropout`` (the JAX ``dropout_rng``):
         inverted dropout on the embedding sum and on each block's
@@ -185,7 +198,8 @@ class GPT:
             after: list = []
             if remat and torch.is_grad_enabled():
                 x = checkpoint(block, bp, x, rng_state, after,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=_REMAT_CONTEXT)
             else:
                 x = block(bp, x, rng_state, after)
             if drop:
@@ -209,6 +223,20 @@ class GPT:
     def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
                  **kw) -> torch.Tensor:
         return generate(params, ids, cfg, **kw)
+
+
+# the JAX remat policy: products without batch dims are saved
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+
+
+def _dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                   _dots_with_no_batch_dims_saveable)
 
 
 def map_tensors(tree, fn):
@@ -625,5 +653,67 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
     return torch.cat([ids, torch.stack(out, dim=1).to(ids.dtype)], dim=1)
 
 
+# GPT-2's published widths: d_model → heads
+_GPT2_HEADS = {768: 12, 1024: 16, 1280: 20, 1600: 25}
+
+
+def load_torch_gpt2(state_dict, n_heads: int | None = None,
+                    device: str | torch.device = "cuda"
+                    ) -> tuple[dict, GPTConfig]:
+    """``(params, cfg)`` from a HuggingFace GPT-2 ``state_dict``
+    (``gpt.py:1456``): ``GPT2Model`` or ``GPT2LMHeadModel`` keys, with
+    or without the ``transformer.`` prefix, torch tensors or numpy
+    arrays. HF's Conv1D weights are ``(in, out)``, this package's dense
+    ``kernel`` layout, so every tensor maps without a transpose; the
+    per-layer tensors stack onto the leading layer axis. GPT-2 ties its
+    head to ``wte``, so ``lm_head.weight`` is ignored and the model is
+    tied; so are HF's attention buffers. ``n_heads`` defaults from
+    d_model through GPT-2's family table (768, 1024, 1280, 1600) and
+    raises ``ValueError`` for other widths. The params come back in fp32
+    on ``device``; ``cfg.seq_len`` is the checkpoint's ``n_positions``."""
+    sd = {(k[12:] if k.startswith("transformer.") else k): v
+          for k, v in state_dict.items()}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("h."))
+    vocab, d_model = to_numpy(sd["wte.weight"]).shape
+    n_pos = to_numpy(sd["wpe.weight"]).shape[0]
+    if n_heads is None:
+        if d_model not in _GPT2_HEADS:
+            raise ValueError(f"n_heads not inferable for d_model={d_model}; "
+                             f"pass n_heads= explicitly")
+        n_heads = _GPT2_HEADS[d_model]
+    cfg = GPTConfig(vocab=vocab, n_layers=n_layers, d_model=d_model,
+                    n_heads=n_heads, seq_len=n_pos, tie_embeddings=True)
+    dev = resolve_device(device)
+
+    def leaf(a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(dev)
+
+    def one(key: str) -> torch.Tensor:
+        return leaf(to_numpy(sd[key]))
+
+    def stack(fmt: str) -> torch.Tensor:
+        return leaf(np.stack([to_numpy(sd[fmt.format(i)])
+                              for i in range(n_layers)]))
+
+    def pair(fmt: str, names=("kernel", "bias")) -> dict:
+        return {names[0]: stack(f"h.{{}}.{fmt}.weight"),
+                names[1]: stack(f"h.{{}}.{fmt}.bias")}
+
+    norm = ("scale", "bias")
+    blocks = {"ln1": pair("ln_1", names=norm),
+              "attn_qkv": pair("attn.c_attn"),
+              "attn_proj": pair("attn.c_proj"),
+              "ln2": pair("ln_2", names=norm),
+              "mlp_fc1": pair("mlp.c_fc"),
+              "mlp_fc2": pair("mlp.c_proj")}
+    params = {"wte": {"table": one("wte.weight")},
+              "wpe": {"table": one("wpe.weight")},
+              "blocks": blocks,
+              "ln_f": {"scale": one("ln_f.weight"), "bias": one("ln_f.bias")}}
+    return params, cfg
+
+
 __all__ = ["GPT", "GPTConfig", "cast_params", "generate", "layer_params",
-           "map_tensors"]
+           "load_torch_gpt2", "map_tensors"]
