@@ -69,6 +69,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    through 4 lanes) and tail pages copied, every B4 launch on ``"sm90"``;
    seeded (temperature 0.8, top-k 50): each branch equals the engine's
    own run admitted alone with ``(seed, branch)``.
+6d. serve_structured — ``structured: {enabled: true}`` at bf16: the five
+   ``SCHEMA_LIBRARY`` schemas (prompts of 64-256 tokens, ``max_new_tokens``
+   the schema's budget, EOS 50256) and three unconstrained riders (64-512
+   tokens, 32 new). Every constrained completion conforms and stops on
+   EOS, every rider equals the dense ``generate``, one decode shape,
+   every B4 launch on ``"sm90"``. Then ``speculative: true, draft_len: 4``
+   on the same trace: the constrained streams equal the plain structured
+   run's, one verify shape, 12 B4 launches a verify step. Then one
+   constrained request with n = best_of = 4 (temperature 0.8, top-k 50)
+   on a parallel-sampling engine: every branch conforms. Prints each
+   schema's token-DFA compile ms at vocab 50257, the masked share of the
+   vocabulary, decode tok/s with structured on and off (the same prompts
+   and budgets unconstrained, in turns), and B4's device µs a call at
+   S = 1 and S = 5 from profiled replays of the trace.
+6e. serve_wq — ``weights: {dtype: int8}`` and ``{dtype: int4,
+   group_size: 64}`` beside the full-precision engine, at fp32 and bf16,
+   on the serving trace of phase 5, and int8 weights with ``cache_dtype:
+   int8`` at bf16: every arm equals the dense ``generate`` over its own
+   (quantized) tree, with ``cache_dtype="int8"`` for the int8 pool; int8
+   equals the full-precision engine 8/8 at fp32; one decode shape an
+   arm; B4 on ``"simt"`` at fp32 and ``"sm90"`` at bf16, the int8 pool
+   included. Prints each arm's matches against the full-precision stream,
+   ``weight_stream_bytes`` for bf16, int8 and int4, decode tok/s and peak
+   memory.
+6f. serve_lora — ``adapters: {rank: 8, max_live: 4}`` with six adapters
+   (``random_adapter(1..6, cfg, 8, std=0.25)``) on the trace of phase 5,
+   two requests base and six through an adapter each, at fp32 and bf16:
+   seating waits on lanes and evicts; base riders equal the LoRA-off
+   engine's streams, every adapter changes its stream, and at fp32 each
+   adapter request equals the dense ``generate`` over its merged weights
+   (``W_qkv + A_q B_q``, ``W_proj + A_p B_p``); one decode shape, one
+   lane-writer shape, no pin left, tables consistent, B4 on its planned
+   route. Prints the per-adapter metrics and decode tok/s with LoRA on
+   and off (the same prompts, all base).
 7. train   — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
    built in code from ``examples/lm/gpt/gpt.yml``'s values with the model
    at GPT-2-small width: batch 8 x 1024, 20 steps, bf16 over fp32 masters,
@@ -184,9 +218,11 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
-          "train", "gpt2_import", "train_long", "conv", "resnet_train")
+          "serve_structured", "serve_wq", "serve_lora", "train",
+          "gpt2_import", "train_long", "conv", "resnet_train")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
-                "serve_spec_fp32", "serve_tree", "serve_fork")
+                "serve_spec_fp32", "serve_tree", "serve_fork",
+                "serve_structured", "serve_wq", "serve_lora")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
            "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
            "group_norm_fwd_sm90", "group_norm_bwd_sm90", "fused_block",
@@ -1405,6 +1441,433 @@ def phase_serve_fork(params, cfg, smi: str, report: dict) -> tuple[int, dict]:
         f"shared {eng.fork_pages}, tail copies {eng.cow_copies}, shared "
         f"pages read through up to {max_lanes} lanes; B4 launches "
         f"{launches} by route {by_route} [{smi}]")
+    return launches, by_route
+
+
+# ------------------------------- structured, quantized and LoRA serving
+STRUCT_EOS = 50256     # GPT-2's end-of-text id: outside the byte alphabet
+STRUCT_LENS = (64, 100, 150, 200, 256)
+RIDER_LENS = (64, 300, 512)
+STRUCT_N = 4           # branches of the parallel-sampling request
+WQ_GROUP = 64          # int4 scale group
+LORA_RANK, LORA_LIVE, LORA_STD = 8, 4, 0.25
+LORA_ADAPTERS = 6
+
+
+def structured_trace(cfg, constrained: bool = True) -> list:
+    """The five ``SCHEMA_LIBRARY`` schemas (``max_new_tokens`` their
+    budget, EOS 50256) and three unconstrained riders (N_NEW tokens).
+    ``constrained=False`` sends the schema requests' prompts unconstrained
+    with the same token budget (the structured-off yardstick)."""
+    from torchbooster_tpu_torch.serving import Request
+    from torchbooster_tpu_torch.serving.structured import (
+        SCHEMA_LIBRARY, library_response_format, schema_budget)
+
+    rs = np.random.RandomState(13)
+    reqs = []
+    for i, (sid, n) in enumerate(zip(sorted(SCHEMA_LIBRARY), STRUCT_LENS)):
+        prompt = rs.randint(0, cfg.vocab, n).astype(np.int32)
+        kw = (dict(response_format=library_response_format(sid),
+                   eos_id=STRUCT_EOS) if constrained else {})
+        reqs.append(Request(prompt=prompt, max_new_tokens=schema_budget(sid),
+                            request_id=f"{sid}", **kw))
+    for i, n in enumerate(RIDER_LENS):
+        reqs.append(Request(prompt=rs.randint(0, cfg.vocab, n).astype(
+            np.int32), max_new_tokens=N_NEW, request_id=f"rider{i}"))
+    return reqs
+
+
+def schema_text(tokens: list) -> str:
+    toks = tokens[:-1] if tokens and tokens[-1] == STRUCT_EOS else tokens
+    return "".join(chr(int(t)) for t in toks if int(t) < 256)
+
+
+def paged_us_per_call(run) -> float:
+    """B4's device µs a call over one profiled serving run: the union of
+    its kernels' intervals over the run, over its launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    reset_paged_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = [sp for sp in device_spans(prof) if "paged_" in sp[2]]
+    return union_us(spans) / max(pa.launches, 1)
+
+
+def phase_serve_structured(params, cfg, smi: str, report: dict
+                           ) -> tuple[int, dict]:
+    """``structured: {enabled: true}`` at bf16 on the five library
+    schemas and three riders: every constrained completion conforms and
+    stops on EOS, every rider equals the dense ``generate``, one decode
+    shape, every B4 launch on ``"sm90"``. Then ``speculative: true,
+    draft_len: 4`` on the same trace (constrained streams equal the
+    plain structured run's, one verify shape, 12 B4 launches a verify
+    step) and one constrained ``n = 4`` request on a parallel-sampling
+    engine (every branch conforms)."""
+    from torchbooster_tpu_torch.config import ServingConfig, StructuredConfig
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import Request
+    from torchbooster_tpu_torch.serving.structured import (
+        SCHEMA_LIBRARY, conforms, library_response_format, schema_budget)
+
+    dtype = torch.bfloat16
+    geo = dict(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+               structured=StructuredConfig(enabled=True))
+    batcher = ServingConfig(**geo).make(params, cfg, compute_dtype=dtype,
+                                        on_recompile="raise")
+    eng = batcher.engine
+    if not eng.structured or eng.decode_backend != "kernel":
+        raise AssertionError("the structured engine is not on the kernel "
+                             "backend")
+    compile_ms = {}
+    for sid in sorted(SCHEMA_LIBRARY):
+        t = time.perf_counter()
+        dfa = eng.structured_compile(library_response_format(sid))
+        compile_ms[sid] = {"ms": 1e3 * (time.perf_counter() - t),
+                           "states": dfa.n_states}
+    launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
+
+    def counted_run(b, reqs):
+        nonlocal launches
+        torch.cuda.synchronize()
+        reset_paged_counts()
+        m = b.run(reqs)
+        torch.cuda.synchronize()
+        launches += pa.launches
+        for r, n in pa.launches_by_route.items():
+            by_route[r] += n
+        return m, pa.launches, dict(pa.launches_by_route)
+
+    def check_constrained(reqs, label):
+        for r in reqs:
+            if r.response_format is None:
+                continue
+            if r.finish_reason != "stop" or r.tokens[-1] != STRUCT_EOS \
+                    or not conforms(r.response_format, schema_text(r.tokens)):
+                raise AssertionError(f"{label} {r.request_id}: "
+                                     f"{schema_text(r.tokens)!r} "
+                                     f"({r.finish_reason}) does not conform")
+
+    torch.cuda.reset_peak_memory_stats()
+    reqs = structured_trace(cfg)
+    m, n, routes = counted_run(batcher, reqs)
+    # the run's masked share of the vocabulary, unrounded
+    masked_frac = eng.structured_masked_sum / max(
+        eng.structured_masked_rows, 1)
+    check_constrained(reqs, "serve_structured")
+    if n <= 0 or routes["sm90"] != n or eng.decode_compiles != 1:
+        raise AssertionError(f"serve_structured: B4 {n} by route {routes}, "
+                             f"{eng.decode_compiles} decode shapes")
+    riders = [r for r in reqs if r.response_format is None]
+    dense = dense_tokens(params, cfg, riders, dtype)
+    rider_match = [r.tokens == d for r, d in zip(riders, dense)]
+    if not all(rider_match):
+        raise AssertionError(f"serve_structured: riders {rider_match} vs "
+                             "dense generate")
+    eng.tables.check()
+    # the same prompts with structured off (the schema requests sent
+    # unconstrained with the same budgets), in turns with it
+    plain = ServingConfig(page_size=PS, n_pages=N_PAGES,
+                          max_slots=SLOTS).make(params, cfg,
+                                                compute_dtype=dtype)
+    tok_s_on, tok_s_off = [m["decode_tok_s"]], []
+    for turn in ("off", "on", "off"):
+        if turn == "on":
+            tok_s_on.append(counted_run(batcher, structured_trace(cfg))[0]
+                            ["decode_tok_s"])
+        else:
+            tok_s_off.append(plain.run(structured_trace(
+                cfg, constrained=False))["decode_tok_s"])
+    want = {r.request_id: r.tokens for r in reqs}
+    # speculative verify over the same trace
+    spec = ServingConfig(**geo, speculative=True, draft_len=DRAFT_LEN).make(
+        params, cfg, compute_dtype=dtype, on_recompile="raise")
+    seng = spec.engine
+    spec_reqs = structured_trace(cfg)
+    sm, sn, sroutes = counted_run(spec, spec_reqs)
+    check_constrained(spec_reqs, "serve_structured (speculative)")
+    spec_match = {r.request_id: r.tokens == want[r.request_id]
+                  for r in spec_reqs}
+    if not all(spec_match[r.request_id] for r in spec_reqs
+               if r.response_format is not None):
+        raise AssertionError(f"serve_structured: speculative streams "
+                             f"{spec_match} vs the plain structured run")
+    if seng.verify_compiles != 1 or seng.decode_compiles != 0 \
+            or sn != cfg.n_layers * seng.spec_steps \
+            or sroutes["sm90"] != sn:
+        raise AssertionError(
+            f"serve_structured (speculative): {sn} B4 launches by route "
+            f"{sroutes} over {seng.spec_steps} verify steps, "
+            f"{seng.verify_compiles} verify shapes")
+    seng.tables.check()
+    # B4's device time a call inside the serving trace: decode (S = 1)
+    # and verify (S = 5), each over one profiled replay
+    us_s1 = paged_us_per_call(lambda: batcher.run(structured_trace(cfg)))
+    us_s5 = paged_us_per_call(lambda: spec.run(structured_trace(cfg)))
+    # one constrained n = 4 request on a parallel-sampling engine
+    par = ServingConfig(**geo, parallel_sampling=True, temperature=0.8,
+                        top_k=50).make(params, cfg, compute_dtype=dtype,
+                                       on_recompile="raise")
+    rf = library_response_format("verdict")
+    fam = Request(prompt=np.random.RandomState(17).randint(
+        0, cfg.vocab, 100).astype(np.int32),
+        max_new_tokens=schema_budget("verdict"), eos_id=STRUCT_EOS,
+        response_format=rf, n=STRUCT_N, best_of=STRUCT_N, seed=5)
+    counted_run(par, [fam])
+    check_constrained(fam.branches, "serve_structured (n = 4)")
+    if len(fam.branches) != STRUCT_N or par.engine.decode_compiles != 1:
+        raise AssertionError("serve_structured: the n = 4 family did not "
+                             "fork or took more than one decode shape")
+    par.engine.tables.check()
+    texts = {r.request_id: schema_text(r.tokens) for r in reqs
+             if r.response_format is not None}
+    report["serve_structured"] = {
+        "compile_ms": compile_ms, "metrics": m, "spec_metrics": sm,
+        "masked_frac": masked_frac,
+        "launches": launches, "launches_by_route": by_route,
+        "rider_match": rider_match, "spec_match": spec_match,
+        "texts": texts,
+        "branch_texts": [schema_text(b.tokens) for b in fam.branches],
+        "decode_tok_s_on": tok_s_on, "decode_tok_s_off": tok_s_off,
+        "spec_decode_tok_s": sm["decode_tok_s"],
+        "paged_us_per_call_s1": us_s1, "paged_us_per_call_s5": us_s5,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": smi}
+    log(f"serve_structured: schema compile at vocab {cfg.vocab} "
+        + ", ".join(f"{k} {v['ms']:.1f} ms ({v['states']} states)"
+                    for k, v in compile_ms.items())
+        + f"; 5/5 constrained completions conform and stop on EOS "
+        f"{texts}; riders {sum(rider_match)}/{len(rider_match)} token-exact "
+        f"vs dense generate; masked share {masked_frac!r}; "
+        f"decode tok/s structured on {tok_s_on}, off {tok_s_off} (same "
+        f"prompts and budgets, in turns); speculative (draft_len 4): "
+        f"constrained streams equal the plain run's, "
+        f"{seng.spec_steps} verify steps, B4 {sn} ({cfg.n_layers} a step) "
+        f"by route {sroutes}, accept rate {sm['spec_accept_rate']}, decode "
+        f"{sm['decode_tok_s']} tok/s; n = {STRUCT_N}: "
+        f"{len(fam.branches)}/{STRUCT_N} branches conform "
+        f"{[schema_text(b.tokens) for b in fam.branches]}; B4 device "
+        f"{us_s1:.2f} µs a call at S = 1 and {us_s5:.2f} at S = 5 in the "
+        f"profiled replays; B4 launches {launches} by route {by_route} "
+        f"[{smi}]")
+    return launches, by_route
+
+
+def phase_serve_wq(params, cfg, smi: str, report: dict
+                   ) -> tuple[int, dict, int]:
+    """``weights: {dtype: int8}`` and ``{dtype: int4, group_size: 64}``
+    at fp32 and bf16 on the serving trace: each quantized engine equals
+    the dense ``generate`` over the same quantized tree, int8 at fp32
+    equals the full-precision engine 8/8, one decode shape an arm; the
+    int8-weights + ``cache_dtype: int8`` arm at bf16 puts every B4 launch
+    on ``"sm90"`` over the int8 pool and equals the dense ``generate``
+    with ``cache_dtype="int8"``. Returns B4's launches, by route, and
+    the int8-pool launches."""
+    from torchbooster_tpu_torch.config import ServingConfig, WeightsConfig
+    from torchbooster_tpu_torch.models.gpt import cast_params, generate
+    from torchbooster_tpu_torch.models.quant import (quantize_params,
+                                                     weight_stream_bytes)
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
+    arms, streams = {}, {}
+    int8_pool = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "fp32" if dtype == torch.float32 else "bf16"
+        want = "simt" if dtype == torch.float32 else "sm90"
+        for wname, kv in (("full", ""), ("int8", ""), ("int4", ""),
+                          ("int8", "int8")):
+            if kv and dtype == torch.float32:
+                continue
+            weights = WeightsConfig(dtype="bf16" if wname == "full"
+                                    else wname, group_size=WQ_GROUP)
+            batcher = ServingConfig(
+                page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+                cache_dtype=kv, weights=weights).make(
+                params, cfg, compute_dtype=dtype, on_recompile="raise")
+            reqs = requests(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_paged_counts()
+            m = batcher.run(reqs)
+            torch.cuda.synchronize()
+            n, routes = pa.launches, dict(pa.launches_by_route)
+            peak = torch.cuda.max_memory_allocated()
+            launches += n
+            for r, c in routes.items():
+                by_route[r] += c
+            key = f"{dname}_{wname}" + (f"_kv{kv}" if kv else "")
+            if n <= 0 or routes[want] != n \
+                    or batcher.engine.decode_compiles != 1:
+                raise AssertionError(f"serve_wq {key}: B4 {n} by route "
+                                     f"{routes}, "
+                                     f"{batcher.engine.decode_compiles} "
+                                     "decode shapes")
+            if kv:
+                int8_pool += n
+            tree = batcher.engine.params if wname == "full" else \
+                quantize_params(params, wname, group_size=WQ_GROUP)
+            dense = []
+            for r in reqs:
+                ids = torch.as_tensor(r.prompt, device="cuda").long()[None]
+                dense.append(generate(
+                    tree, ids, cfg, n_new=N_NEW, temperature=0.0,
+                    compute_dtype=dtype, cache_dtype=kv or None)[
+                        0, len(r.prompt):].tolist())
+            match = [r.tokens == d for r, d in zip(reqs, dense)]
+            if not all(match):
+                raise AssertionError(f"serve_wq {key}: {match} vs dense "
+                                     "generate over the same tree")
+            streams[key] = [r.tokens for r in reqs]
+            arms[key] = {"decode_tok_s": m["decode_tok_s"],
+                         "ttft_p50_s": m["ttft_p50_s"], "peak_mem_bytes": peak,
+                         "launches": n, "launches_by_route": routes,
+                         "dense_match": match}
+            batcher.engine.tables.check()
+            del batcher
+            torch.cuda.empty_cache()
+    vs_full = {k: sum(a == b for a, b in zip(v, streams[
+        "fp32_full" if k.startswith("fp32") else "bf16_full"]))
+        for k, v in streams.items() if "full" not in k}
+    if vs_full["fp32_int8"] != len(PROMPT_LENS):
+        raise AssertionError(f"serve_wq: int8 matches the full-precision "
+                             f"engine on {vs_full['fp32_int8']}/8 requests "
+                             "at fp32")
+    stream_bytes = {"bf16": weight_stream_bytes(cast_params(
+        params, torch.bfloat16))}
+    for w in ("int8", "int4"):
+        stream_bytes[w] = weight_stream_bytes(quantize_params(
+            params, w, group_size=WQ_GROUP))
+    report["serve_wq"] = {"arms": arms, "match_vs_full": vs_full,
+                          "weight_stream_bytes": stream_bytes,
+                          "launches": launches, "launches_by_route": by_route,
+                          "int8_pool_launches": int8_pool, "card": smi}
+    log(f"serve_wq: every arm token-exact vs dense generate over its own "
+        f"tree (8/8), int8 8/8 vs the full-precision engine at fp32; "
+        f"matches vs the full-precision stream {vs_full}; weight stream "
+        f"bytes {stream_bytes}; decode tok/s "
+        + ", ".join(f"{k} {a['decode_tok_s']}" for k, a in arms.items())
+        + "; peak MiB "
+        + ", ".join(f"{k} {a['peak_mem_bytes'] / 2**20:.1f}"
+                    for k, a in arms.items())
+        + f"; B4 launches {launches} by route {by_route}, {int8_pool} of "
+        f"them over the int8 pool on \"sm90\" [{smi}]")
+    return launches, by_route, int8_pool
+
+
+def merged_params(params: dict, adapter: dict) -> dict:
+    """The dense model an adapter defines: ``W_qkv + A_q B_q`` and
+    ``W_proj + A_p B_p`` per layer (fp32)."""
+    def t(a):
+        return torch.as_tensor(a, device="cuda")
+
+    blocks = dict(params["blocks"])
+    for name, a, b in (("attn_qkv", "a_qkv", "b_qkv"),
+                       ("attn_proj", "a_proj", "b_proj")):
+        blocks[name] = {**blocks[name], "kernel": blocks[name]["kernel"]
+                        + t(adapter[a]) @ t(adapter[b])}
+    return {**params, "blocks": blocks}
+
+
+def phase_serve_lora(params, cfg, smi: str, report: dict
+                     ) -> tuple[int, dict]:
+    """``adapters: {rank: 8, max_live: 4}`` with six adapters on eight
+    requests (two base): seating waits on lanes and evicts. Base riders
+    equal the LoRA-off engine at bf16 and fp32, each adapter request at
+    fp32 equals the dense ``generate`` over its merged weights; one
+    decode shape, one lane-writer shape, no pin left, tables consistent,
+    B4 on its planned route."""
+    from torchbooster_tpu_torch.config import AdaptersConfig, ServingConfig
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import Request, random_adapter
+
+    adapters = {f"a{i}": random_adapter(i, cfg, LORA_RANK, std=LORA_STD)
+                for i in range(1, LORA_ADAPTERS + 1)}
+    names = ["", "a1", "a2", "a3", "", "a4", "a5", "a6"]
+    launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "fp32" if dtype == torch.float32 else "bf16"
+        want = "simt" if dtype == torch.float32 else "sm90"
+        conf = dict(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS)
+        lora = ServingConfig(**conf, adapters=AdaptersConfig(
+            rank=LORA_RANK, max_live=LORA_LIVE)).make(
+            params, cfg, compute_dtype=dtype, on_recompile="raise")
+        eng = lora.engine
+        for name, w in adapters.items():
+            eng.adapters.register(name, w)
+        reqs = [Request(prompt=r.prompt, max_new_tokens=N_NEW, adapter=a,
+                        request_id=f"{a or 'base'}{i}")
+                for i, (r, a) in enumerate(zip(requests(cfg), names))]
+        torch.cuda.synchronize()
+        reset_paged_counts()
+        m = lora.run(reqs)
+        torch.cuda.synchronize()
+        n, routes = pa.launches, dict(pa.launches_by_route)
+        launches += n
+        for r, c in routes.items():
+            by_route[r] += c
+        if n <= 0 or routes[want] != n:
+            raise AssertionError(f"serve_lora {dname}: B4 {n} by route "
+                                 f"{routes}")
+        if eng.decode_compiles != 1 or eng.lora_load_compiles != 1 \
+                or eng.adapters.pinned_count != 0 \
+                or eng.adapters.evictions <= 0:
+            raise AssertionError(
+                f"serve_lora {dname}: {eng.decode_compiles} decode shapes, "
+                f"{eng.lora_load_compiles} writer shapes, "
+                f"{eng.adapters.pinned_count} pins left, "
+                f"{eng.adapters.evictions} evictions")
+        eng.tables.check()
+        off = ServingConfig(**conf).make(params, cfg, compute_dtype=dtype,
+                                         on_recompile="raise")
+        base = [Request(prompt=r.prompt, max_new_tokens=N_NEW)
+                for r in reqs]
+        m_off = off.run(base)
+        base_match = [r.tokens == b.tokens for r, b in zip(reqs, base)
+                      if not r.adapter]
+        steered = [r.tokens != b.tokens for r, b in zip(reqs, base)
+                   if r.adapter]
+        if not all(base_match):
+            raise AssertionError(f"serve_lora {dname}: base riders "
+                                 f"{base_match} vs the LoRA-off engine")
+        if not all(steered):
+            raise AssertionError(f"serve_lora {dname}: adapters {steered} "
+                                 "did not change their streams")
+        merged_match = None
+        if dtype == torch.float32:
+            merged_match = []
+            for r in reqs:
+                if not r.adapter:
+                    continue
+                dense = dense_tokens(merged_params(params, adapters[
+                    r.adapter]), cfg, [r], dtype)[0]
+                merged_match.append(r.tokens == dense)
+            if not all(merged_match):
+                raise AssertionError(f"serve_lora fp32: adapters "
+                                     f"{merged_match} vs dense generate "
+                                     "over the merged weights")
+        out[dname] = {"metrics": m, "off_decode_tok_s": m_off["decode_tok_s"],
+                      "launches": n, "launches_by_route": routes,
+                      "base_match": base_match, "steered": steered,
+                      "merged_match": merged_match,
+                      "registry": eng.adapters.debug()}
+        log(f"serve_lora {dname}: base riders {sum(base_match)}/"
+            f"{len(base_match)} equal the LoRA-off engine, "
+            f"{sum(steered)}/{len(steered)} adapters steer"
+            + (f", {sum(merged_match)}/{len(merged_match)} equal dense "
+               "generate over merged weights" if merged_match else "")
+            + f"; loads {m['n_adapter_loads']}, evictions "
+            f"{m['n_adapter_evictions']}, hits {m['n_adapter_hits']}, per "
+            f"adapter {m['adapters']}; decode {m['decode_tok_s']} tok/s with "
+            f"LoRA, {m_off['decode_tok_s']} without (same prompts); B4 {n} "
+            f"by route {routes} [{smi}]")
+        del lora, off
+        torch.cuda.empty_cache()
+    report["serve_lora"] = {**out, "launches": launches,
+                            "launches_by_route": by_route, "card": smi}
     return launches, by_route
 
 
@@ -3155,7 +3618,7 @@ def main() -> int:
               "replaces": "torchbooster_tpu/ops/paged_attention.py:70",
               **blank, "timed_route": None,
               "launches_by_route": dict.fromkeys(("sm90", "simt"), 0),
-              "previous_ms": None}
+              "launches_int8_pool": 0, "previous_ms": None}
     csrc = "torchbooster_tpu_torch/ops/csrc"
     flash = {key: {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
                    "replaces": f"torchbooster_tpu/ops/flash_attention.py:{line}",
@@ -3269,6 +3732,16 @@ def main() -> int:
             kernel["launches"] += launches
             for r, n in by_route.items():
                 kernel["launches_by_route"][r] += n
+        for key, phase in (("serve_structured", phase_serve_structured),
+                           ("serve_wq", phase_serve_wq),
+                           ("serve_lora", phase_serve_lora)):
+            if key not in phases:
+                continue
+            launches, by_route, *int8_pool = phase(params, cfg, smi, report)
+            kernel["launches"] += launches
+            for r, n in by_route.items():
+                kernel["launches_by_route"][r] += n
+            kernel["launches_int8_pool"] += sum(int8_pool)
         # freed so that the train phase's peak memory is its own
         del params
         torch.cuda.empty_cache()

@@ -57,7 +57,10 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "recipes.gpt", "ops.group_norm", "ops.fused_block",
                  "models.layers", "models.resnet", "data.transforms",
                  "recipes.resnet", "interop", "optim",
-                 "models.torch_interop"):
+                 "models.torch_interop", "models.quant",
+                 "serving.adapters", "serving.structured",
+                 "serving.structured.compiler",
+                 "serving.structured.state"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

@@ -15,7 +15,8 @@ vocab 97, 4-token pages, decisive tied head).
 - one decode shape across admit/retire/evict churn; preemption keeps
   every stream token-exact;
 - ``ServingConfig`` YAML knobs reach the engine; options not ported yet
-  raise, naming the ROADMAP item.
+  raise, naming the ROADMAP item; structured and LoRA engines build, and
+  a plain engine rejects their requests with the JAX package's errors.
 """
 import numpy as np
 import pytest
@@ -222,15 +223,22 @@ def test_serving_config_yaml_and_unported_options(tmp_path):
         batcher.run([Request(prompt=np.arange(3), max_new_tokens=4, n=2)])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PagedEngine(tp, cfg, page_size=4, n_pages=8, tp=2, device="cpu")
-    for key in ("structured", "lora_rank", "lora_max_live", "host_spill",
-                "prefill_only"):
+    # structured generation and LoRA lanes are ported: they build
+    eng = PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
+                      structured=True, lora_rank=2, lora_max_live=1)
+    assert eng.structured and eng.lora and eng.adapters is not None
+    for key in ("host_spill", "prefill_only"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
                         **{key: 1})
-    for bad in (dict(adapter="a0"),
-                dict(response_format={"type": "json_object"}, eos_id=1)):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            batcher.run([Request(prompt=np.arange(3), **bad)])
+    # on a plain engine both requests fail with the JAX package's errors
+    for bad, err in ((dict(adapter="a0"), "engine has no LoRA lanes"),
+                     (dict(response_format={"type": "json_object"},
+                           eos_id=1),
+                      "needs a structured-generation engine")):
+        with pytest.raises(ValueError, match=err):
+            batcher.run([Request(prompt=np.arange(3), max_new_tokens=4,
+                                 **bad)])
 
 
 def test_serving_config_yaml_draft_and_tree_knobs_reach_the_engine(tmp_path):

@@ -505,6 +505,88 @@ class DatasetConfig(BaseConfig):
         return resolve_dataset(self, split, **kwargs)
 
 
+@dataclass
+class StructuredConfig(BaseConfig):
+    """``serving.structured:`` (``torchbooster_tpu/config.py:735``):
+    ``enabled: true`` builds the engine with the token-DFA machinery, so
+    requests may carry a constraining ``response_format``
+    (``json_object``, ``json_schema``, ``regex``; each needs an
+    ``eos_id``). Off, such a request is rejected at submit."""
+
+    enabled: bool = False              # token-DFA constrained decoding
+
+
+@dataclass
+class WeightsConfig(BaseConfig):
+    """``serving.weights:`` (``config.py:765``): ``dtype: int8``
+    quantizes every block dense kernel per output channel and the
+    embedding table per row, once, before the engine is built; ``int4``
+    packs two values a byte with scales per ``group_size`` input rows
+    (even, dividing every kernel's input dim). ``bf16`` (the default)
+    leaves the params untouched."""
+
+    dtype: str = "bf16"                # bf16 (off) | int8 | int4
+    group_size: int = 64               # int4 scale group (input rows)
+
+    def quantize(self, params: dict) -> dict:
+        """Apply this block to a params tree (identity at bf16)."""
+        if self.dtype in ("", "bf16"):
+            return params
+        from torchbooster_tpu_torch.models.quant import quantize_params
+
+        return quantize_params(params, self.dtype,
+                               group_size=self.group_size)
+
+
+@dataclass
+class AdaptersConfig(BaseConfig):
+    """``serving.adapters:`` (``config.py:811``): ``rank > 0`` builds
+    ``max_live + 1`` device adapter lanes (lane 0 the zero adapter) on
+    the attention projections; register adapters through
+    ``batcher.engine.adapters.register(name, weights)`` and name them in
+    ``Request(adapter=...)``. Smaller ranks zero-pad to ``rank``."""
+
+    rank: int = 0                      # 0 = off; the lanes' rank
+    max_live: int = 4                  # device adapter lanes
+
+
+def _from_mapping(cls: type, data: dict, prefix: str):
+    """A ``serving:`` dataclass (or one of its nested blocks, named
+    ``prefix`` in errors) from a YAML mapping, each value coerced to its
+    field's type."""
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = sorted(set(data) - set(names))
+    if unknown:
+        raise ValueError(f"unknown {prefix} keys {unknown}; known: "
+                         f"{sorted(names)}")
+    kw = {}
+    for key, value in data.items():
+        kind = names[key].type
+        if kind in _NESTED_SERVING:
+            if not isinstance(value, dict):
+                raise TypeError(f"{prefix}.{key} must be a mapping, got "
+                                f"{value!r}")
+            kw[key] = _from_mapping(_NESTED_SERVING[kind], value,
+                                    f"{prefix}.{key}")
+        elif kind == "bool":
+            if not isinstance(value, bool):
+                raise TypeError(f"{prefix}.{key} must be true/false, got "
+                                f"{value!r}")
+            kw[key] = value
+        elif kind == "int":
+            kw[key] = int(str(value).replace("_", ""))
+        elif kind == "float":
+            kw[key] = float(value)   # PyYAML reads 1e-3 as a string
+        else:
+            kw[key] = "" if value is None else str(value)
+    return cls(**kw)
+
+
+_NESTED_SERVING = {"StructuredConfig": StructuredConfig,
+                   "WeightsConfig": WeightsConfig,
+                   "AdaptersConfig": AdaptersConfig}
+
+
 # ServingConfig.decode_backend -> the PagedEngine backend: the JAX
 # package's names, the port's own, and "" for the engine's device default
 _DECODE_BACKENDS = {"": None, "xla": "sweep", "sweep": "sweep",
@@ -519,7 +601,11 @@ class ServingConfig:
     ``"pallas"`` (the paged flash-decode kernel), and the port's own,
     ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
     the sweep on the CPU. Any other name raises in :meth:`make`.
-    ``tp > 1``, not ported yet, raises ``NotImplementedError``."""
+    ``tp > 1``, not ported yet, raises ``NotImplementedError``, and so
+    does a ``host_spill:`` block. The nested ``structured:``,
+    ``weights:`` and ``adapters:`` blocks are
+    :class:`StructuredConfig`, :class:`WeightsConfig` and
+    :class:`AdaptersConfig`."""
 
     page_size: int = 64
     n_pages: int = 256
@@ -539,32 +625,23 @@ class ServingConfig:
     decode_backend: str = ""    # "" auto | "xla"/"sweep" | "pallas"/"kernel"
     tp: int = 1
     seed: int = 0                      # sampling generator seed
+    structured: StructuredConfig = dataclasses.field(
+        default_factory=StructuredConfig)  # constrained decoding
+    weights: WeightsConfig = dataclasses.field(
+        default_factory=WeightsConfig)  # int8/int4 weight serving
+    adapters: AdaptersConfig = dataclasses.field(
+        default_factory=AdaptersConfig)  # batched multi-LoRA lanes
 
     @classmethod
     def from_dict(cls, data: dict | None) -> "ServingConfig":
         """Build from a ``serving:`` mapping; unknown keys are loud
         (a typo must not silently serve the default)."""
         data = dict(data or {})
-        names = {f.name: f for f in dataclasses.fields(cls)}
-        unknown = sorted(set(data) - set(names))
-        if unknown:
-            raise ValueError(f"unknown serving keys {unknown}; known: "
-                             f"{sorted(names)}")
-        kw = {}
-        for key, value in data.items():
-            kind = names[key].type
-            if kind == "bool":
-                if not isinstance(value, bool):
-                    raise TypeError(f"serving.{key} must be true/false, "
-                                    f"got {value!r}")
-                kw[key] = value
-            elif kind == "int":
-                kw[key] = int(str(value).replace("_", ""))
-            elif kind == "float":
-                kw[key] = float(value)   # PyYAML reads 1e-3 as a string
-            else:
-                kw[key] = "" if value is None else str(value)
-        return cls(**kw)
+        if "host_spill" in data:
+            raise NotImplementedError(
+                "serving.host_spill is not ported yet (ROADMAP.md A-3 host "
+                "spill tier)")
+        return _from_mapping(cls, data, "serving")
 
     @classmethod
     def load(cls, path: str | Path) -> "ServingConfig":
@@ -581,7 +658,8 @@ class ServingConfig:
         """Build the engine and its batcher (the single-replica branch
         of the JAX ``make``); returns the
         :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`.
-        ``compute_dtype`` defaults to bf16."""
+        ``compute_dtype`` defaults to bf16. The ``weights:`` block
+        quantizes ``params`` once, before the engine is built."""
         from torchbooster_tpu_torch.serving import (
             ContinuousBatcher,
             PagedEngine,
@@ -593,6 +671,7 @@ class ServingConfig:
             raise ValueError(f"serving.decode_backend must be one of "
                              f"{sorted(_DECODE_BACKENDS)}, got "
                              f"{self.decode_backend!r}")
+        params = self.weights.quantize(params)
         engine = PagedEngine(
             params, model_cfg, page_size=self.page_size,
             n_pages=self.n_pages, max_slots=self.max_slots,
@@ -607,12 +686,18 @@ class ServingConfig:
             speculative=self.speculative, draft_len=self.draft_len,
             ngram_min=self.ngram_min, spec_tree=self.spec_tree,
             tree_width=self.spec_tree_width,
-            parallel_sampling=self.parallel_sampling, device=device)
+            parallel_sampling=self.parallel_sampling,
+            structured=self.structured.enabled,
+            lora_rank=self.adapters.rank,
+            lora_max_live=(self.adapters.max_live
+                           if self.adapters.rank > 0 else 0),
+            device=device)
         return ContinuousBatcher(engine, on_recompile=on_recompile,
                                  tracer=tracer)
 
 
-__all__ = ["BaseConfig", "DatasetConfig", "EnvConfig",
+__all__ = ["AdaptersConfig", "BaseConfig", "DatasetConfig", "EnvConfig",
            "HyperParameterConfig", "LoaderConfig", "OptimizerConfig",
-           "SchedulerConfig", "ServingConfig", "Transform", "parse_sweep",
-           "read_lines", "resolve_types"]
+           "SchedulerConfig", "ServingConfig", "StructuredConfig",
+           "Transform", "WeightsConfig", "parse_sweep", "read_lines",
+           "resolve_types"]

@@ -37,12 +37,22 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _shapes(cfg: GPTConfig) -> dict:
+def _shapes(cfg: GPTConfig, tree: dict) -> dict:
+    """The leaves that pin ``cfg``'s widths, in the tree's own form:
+    full precision, or quantized (``models/quant.py``: a per-row int8
+    ``qtable``, int8 ``qkernel``s, or int4 ones packed two a byte along
+    the input axis as uint8)."""
     n, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
     qkv = d + 2 * cfg.kv_heads * hd
-    return {("wte", "table"): (cfg.vocab, d),
-            ("blocks", "attn_qkv", "kernel"): (n, d, qkv),
-            ("blocks", "attn_proj", "kernel"): (n, d, d),
+    table = "qtable" if "qtable" in tree.get("wte", {}) else "table"
+    kernel, din = "kernel", d
+    q = tree.get("blocks", {}).get("attn_qkv", {}).get("qkernel")
+    if q is not None:
+        kernel = "qkernel"
+        din = d // 2 if np.asarray(q).dtype == np.uint8 else d
+    return {("wte", table): (cfg.vocab, d),
+            ("blocks", "attn_qkv", kernel): (n, din, qkv),
+            ("blocks", "attn_proj", kernel): (n, din, d),
             ("ln_f", "scale"): (d,)}
 
 
@@ -50,8 +60,9 @@ def params_from_jax(tree: dict, cfg: GPTConfig,
                     device: str | torch.device = "cuda") -> dict:
     """A JAX GPT parameter tree (numpy leaves) → the port's parameters,
     checked against ``cfg``'s widths so a mismatched checkpoint fails
-    here instead of inside the first matmul."""
-    for path, want in _shapes(cfg).items():
+    here instead of inside the first matmul. Quantized trees cross as
+    they are: int8 as int8, packed int4 as uint8, scales as fp32."""
+    for path, want in _shapes(cfg, tree).items():
         leaf = tree
         for key in path:
             leaf = leaf[key]

@@ -11,7 +11,7 @@ plain copy (``interop.params_from_jax``): block tensors are stacked on
 a leading layer axis, dense kernels are ``(in, out)``, and the qkv
 projection's columns are ``q | k | v`` at GQA widths. Not ported here
 (``ROADMAP.md``): the tensor/expert/sequence/pipeline-parallel
-branches, LoRA deltas and MoE blocks.
+branches (so LoRA deltas run at tp 1 only) and MoE blocks.
 """
 from __future__ import annotations
 
@@ -251,9 +251,12 @@ def map_tensors(tree, fn):
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
     """Floating leaves cast to ``dtype`` ONCE — numerically what the
     JAX package's per-op ``astype(x.dtype)`` computes, without paying
-    the cast on every step."""
-    return map_tensors(params, lambda t: t.to(dtype)
-                       if t.is_floating_point() else t)
+    the cast on every step. Quantized weights (``models/quant.py``) keep
+    their integer leaves and their fp32 ``qscale``: the int4 unpack and
+    the quantized embedding multiply by the scale in fp32."""
+    return {k: cast_params(v, dtype) if isinstance(v, dict)
+            else v.to(dtype) if v.is_floating_point() and k != "qscale"
+            else v for k, v in params.items()}
 
 
 def layer_params(blocks: dict, i: int) -> dict:
@@ -295,16 +298,26 @@ def _dropout(x: torch.Tensor, rate: float,
 
 def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
                 positions: torch.Tensor | None = None, dropout: float = 0.0,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, lora=None):
     """The transformer block shared by every path (full forward,
     prefill chunk, cached decode). ``attend(q, k, v) -> (o, extras)``
     supplies the attention flavor; ``dropout`` with a ``generator``
-    drops the two residual branches (:func:`_dropout`). Returns ``(x,
-    extras)``."""
+    drops the two residual branches (:func:`_dropout`). ``lora`` =
+    ``((a_qkv, b_qkv, a_proj, b_proj), lane_ids)``, this layer's
+    adapter stacks ``(lanes, ...)`` and one lane id a batch row
+    (``gpt.py:872``): row b adds ``h @ A[g] @ B[g]`` of its lane g to the
+    qkv output and to the O projection before its bias, each stack cast
+    to the activations' dtype, so lane 0's zero stacks are an exact
+    no-op. Returns ``(x, extras)``."""
     b, s, d = x.shape
     n_heads, kv_heads, head_dim = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     h = L.layer_norm(bp["ln1"], x)
     qkv = L.dense(bp["attn_qkv"], h)
+    if lora is not None:
+        (la_q, lb_q, la_p, lb_p), lane_ids = lora
+        dq = torch.einsum("bsd,bdr->bsr", h, la_q[lane_ids].to(h.dtype))
+        qkv = qkv + torch.einsum("bsr,bro->bso", dq,
+                                 lb_q[lane_ids].to(h.dtype))
     q_width, kv_dim = n_heads * head_dim, kv_heads * head_dim
     q = qkv[..., :q_width].reshape(b, s, n_heads, head_dim)
     k = qkv[..., q_width:q_width + kv_dim].reshape(b, s, kv_heads, head_dim)
@@ -315,7 +328,14 @@ def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
         q = _rope(q, positions, cfg.rope_base)
         k = _rope(k, positions, cfg.rope_base)
     o, extras = attend(q, k, v)
-    x = x + _dropout(L.dense(bp["attn_proj"], o.reshape(b, s, q_width)),
+    o_flat = o.reshape(b, s, q_width)
+    proj_delta = None
+    if lora is not None:
+        dp = torch.einsum("bsd,bdr->bsr", o_flat,
+                          la_p[lane_ids].to(o_flat.dtype))
+        proj_delta = torch.einsum("bsr,bro->bso", dp,
+                                  lb_p[lane_ids].to(o_flat.dtype))
+    x = x + _dropout(L.dense(bp["attn_proj"], o_flat, delta=proj_delta),
                      dropout, generator)
     h = L.layer_norm(bp["ln2"], x)
     if "mlp_fc3" in bp:
@@ -413,7 +433,13 @@ def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.layer_norm(params["ln_f"], x)
     if "head" in params:
         return L.dense(params["head"], x)
-    return x @ params["wte"]["table"].to(x.dtype).T
+    wte = params["wte"]
+    if "qtable" in wte:
+        # tied head over the per-row int8 table: each row's scale lands
+        # on the vocab axis of the logits (``gpt.py:1091``)
+        y = x @ wte["qtable"].to(x.dtype).T
+        return y * wte["qscale"][:, 0].to(x.dtype)
+    return x @ wte["table"].to(x.dtype).T
 
 
 def _mask_logits(logits: torch.Tensor,

@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from torchbooster_tpu_torch.models.quant import qmatmul
 from torchbooster_tpu_torch.ops import group_norm as gn
 
 
@@ -51,8 +52,18 @@ def norm_init(channels: int, dtype: torch.dtype = torch.float32) -> dict:
 
 
 # -------------------------------------------------------------------- dense
-def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params["kernel"].to(x.dtype)
+def dense(params: dict, x: torch.Tensor,
+          delta: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ kernel (+ delta) + bias``; a quantized dict (``qkernel``,
+    ``models/quant.py``) widens its kernel inside the product. ``delta``
+    (a LoRA ranked product) is added before the bias, as the JAX
+    package's ``_row_dense`` adds it."""
+    if "qkernel" in params:
+        y = qmatmul(params, x)
+    else:
+        y = x @ params["kernel"].to(x.dtype)
+    if delta is not None:
+        y = y + delta
     if "bias" in params:
         y = y + params["bias"].to(x.dtype)
     return y
@@ -146,6 +157,10 @@ def layer_norm(params: dict, x: torch.Tensor,
 
 def embedding(params: dict, ids: torch.Tensor,
               dtype: torch.dtype | None = None) -> torch.Tensor:
+    if "qtable" in params:
+        # per-row int8 table: dequantize only the gathered rows, in fp32
+        out = params["qtable"][ids].float() * params["qscale"][ids].float()
+        return out.to(dtype) if dtype is not None else out
     rows = params["table"][ids]
     return rows.to(dtype) if dtype is not None else rows
 

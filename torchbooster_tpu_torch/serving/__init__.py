@@ -1,9 +1,14 @@
 """Paged serving — the port of ``torchbooster_tpu/serving``: block
 tables (kv_pages), the paged engine (engine), speculative drafting and
 verify (speculative), the continuous batcher (batcher) and its
-scheduler policies (frontend.scheduler)."""
+scheduler policies (frontend.scheduler), structured generation
+(structured) and the LoRA adapter registry (adapters)."""
 from __future__ import annotations
 
+from torchbooster_tpu_torch.serving.adapters import (
+    AdapterRegistry,
+    random_adapter,
+)
 from torchbooster_tpu_torch.serving.batcher import (
     ContinuousBatcher,
     Request,
@@ -22,6 +27,7 @@ from torchbooster_tpu_torch.serving.speculative import (
     TreeLookupDrafter,
 )
 
-__all__ = ["BlockTables", "ContinuousBatcher", "NO_DRAFT", "NULL_PAGE",
+__all__ = ["AdapterRegistry", "BlockTables", "ContinuousBatcher", "NO_DRAFT", "NULL_PAGE",
            "PagedEngine", "PoolExhausted", "PromptLookupDrafter", "Request",
-           "TreeLookupDrafter", "best_completions", "make_pool"]
+           "TreeLookupDrafter", "best_completions", "make_pool",
+           "random_adapter"]

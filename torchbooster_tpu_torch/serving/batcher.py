@@ -27,9 +27,12 @@ per step in the flight recorder, and is watched by a
 :class:`RecompileSentinel` over the engine's count of distinct decode
 step shapes, which must stay 1.
 
-Not ported here (``ROADMAP.md`` A6): structured ``response_format``
-decoding and LoRA ``adapter`` requests — requests asking for them are
-rejected at submit.
+A request may carry an OpenAI ``response_format`` (a structured engine
+binds its automaton cursor at seat time and replays a preempted
+request's folded tokens into it) and an ``adapter`` name (a LoRA
+engine pins the adapter's lane at seat time, leaving the request queued
+while every lane is pinned, and drops the pin wherever the slot is
+given up). Both are validated at submit.
 """
 from __future__ import annotations
 
@@ -53,6 +56,9 @@ from torchbooster_tpu_torch.observability.recompile import POLICIES
 from torchbooster_tpu_torch.observability.tracing import RequestTracer
 from torchbooster_tpu_torch.serving.engine import PagedEngine
 from torchbooster_tpu_torch.serving.kv_pages import PoolExhausted
+from torchbooster_tpu_torch.serving.structured import (
+    validate_response_format,
+)
 from torchbooster_tpu_torch.serving.frontend.scheduler import (
     FCFSPolicy,
     SchedulerPolicy,
@@ -68,10 +74,11 @@ class Request:
     ``n`` completions are returned from ``best_of`` (default ``n``)
     decoded branches (a parallel-sampling engine); ``seed`` pins the
     request's sampling streams (branch b samples stream ``(seed, b)``;
-    None derives it from the request id). The ``response_format``/
-    ``adapter`` fields exist for the JAX package's request surface and
-    are rejected at submit unless they ask for nothing (plain text, base
-    model)."""
+    None derives it from the request id). ``response_format`` (None or
+    ``{"type": "text"}``: unconstrained; ``json_object``,
+    ``json_schema``, ``regex`` need a structured engine and an
+    ``eos_id``) constrains the output; ``adapter`` names a registered
+    LoRA adapter (``""``: the base model)."""
     prompt: np.ndarray
     max_new_tokens: int = 32
     eos_id: int | None = None
@@ -112,6 +119,11 @@ class Request:
         if not isinstance(self.priority, str):
             raise TypeError(f"priority must be a class NAME (str), got "
                             f"{type(self.priority).__name__}")
+        if not isinstance(self.adapter, str):
+            raise TypeError(
+                f"adapter must be a registered adapter NAME (str, '' = "
+                f"base model), got {type(self.adapter).__name__} "
+                f"{self.adapter!r}")
         if self.deadline_ms is not None and self.deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0, got "
                              f"{self.deadline_ms}")
@@ -124,6 +136,17 @@ class Request:
         if self.seed is not None and not isinstance(self.seed, int):
             raise TypeError(f"seed must be an int or None, got "
                             f"{type(self.seed).__name__}")
+        if self.response_format is not None:
+            if not isinstance(self.response_format, dict):
+                raise TypeError(
+                    f"response_format must be a dict or None, got "
+                    f"{type(self.response_format).__name__}")
+            if self.response_format.get("type") != "text" \
+                    and self.eos_id is None:
+                raise ValueError(
+                    "a constraining response_format requires eos_id: the "
+                    "automaton terminates the output by forcing EOS at an "
+                    "accepting state")
         if not self.request_id:
             self.request_id = "req-" + uuid.uuid4().hex[:16]
         if self.seed is None:
@@ -178,6 +201,16 @@ class _Session:
         self.forks0 = eng.forks
         self.fork_pages0 = eng.fork_pages
         self.cow0 = eng.cow_copies
+        self.structured0 = eng.structured_requests
+        self.smasked0 = eng.structured_masked_sum
+        self.srows0 = eng.structured_masked_rows
+        # per-adapter attribution ("" = base) and the registry's counter
+        # baselines, all zero on an engine without LoRA
+        self.per_adapter: dict[str, dict] = {}
+        ad = eng.adapters
+        self.aloads0 = ad.loads if ad is not None else 0
+        self.aevict0 = ad.evictions if ad is not None else 0
+        self.ahits0 = ad.hits if ad is not None else 0
         self.closed = False
 
     def sample(self, series: list[float], value: float) -> None:
@@ -223,15 +256,6 @@ class ContinuousBatcher:
 
     # ---- capacity & estimates ------------------------------------
     def _check_fits(self, req: Request) -> None:
-        if req.response_format is not None \
-                and req.response_format.get("type") != "text":
-            raise ValueError(
-                "constrained response_format decoding is not ported yet "
-                "(ROADMAP.md A6 structured generation)")
-        if req.adapter:
-            raise ValueError(
-                f"request names adapter {req.adapter!r}: LoRA lanes are "
-                "not ported yet (ROADMAP.md A6)")
         eng = self.engine
         worst = req.base_len + req.max_new_tokens
         if worst > eng.cfg.seq_len:
@@ -274,6 +298,40 @@ class ContinuousBatcher:
                    if reserve > worst else "")
                 + f"but the pool holds {self._capacity}; grow "
                 "serving.n_pages")
+        if req.response_format is not None:
+            # schema validation first: a bad spec names its fault
+            # whatever the engine
+            validate_response_format(req.response_format)
+            if req.response_format.get("type") != "text":
+                if not eng.structured:
+                    raise ValueError(
+                        "response_format type "
+                        f"{req.response_format['type']!r} needs a "
+                        "structured-generation engine: set "
+                        "serving.structured.enabled: true")
+                # compile now (cached on the engine): an unsatisfiable
+                # schema or an EOS inside its alphabet fails at submit
+                dfa = eng.structured_compile(req.response_format)
+                if not 0 <= req.eos_id < eng.cfg.vocab:
+                    raise ValueError(
+                        f"eos_id {req.eos_id} outside the vocabulary "
+                        f"(size {eng.cfg.vocab})")
+                if bool(dfa.mask[:, req.eos_id].any()):
+                    raise ValueError(
+                        f"eos_id {req.eos_id} renders a character the "
+                        "schema can emit — the EOS bit would shadow a "
+                        "legal content token; pick an EOS id outside the "
+                        "schema alphabet")
+        if req.adapter:
+            # an unknown name, or any adapter on an engine without lanes,
+            # fails here; the seat-time acquire fails only on pins
+            if not eng.lora:
+                raise ValueError(
+                    f"request names adapter {req.adapter!r} but the engine "
+                    "has no LoRA lanes: set serving.adapters.rank > 0")
+            if not eng.adapters.known(req.adapter):
+                raise ValueError(f"unknown adapter {req.adapter!r} — "
+                                 f"registered: {eng.adapters.names}")
 
     def est_ttft_s(self, req: Request) -> float:
         """Estimated seconds to ``req``'s first token were it seated
@@ -395,6 +453,27 @@ class ContinuousBatcher:
                 "private tail pages copied at fork (the only bytes n-way "
                 "sampling duplicates)"),
         }
+        if self.engine.structured:
+            inst["structured"] = reg.counter(
+                "serving_structured_requests_total",
+                "constrained (response_format) requests admitted")
+            inst["structured_frac"] = reg.gauge(
+                "serving_structured_masked_frac",
+                "mean masked-vocabulary fraction over committed "
+                "constrained cursor rows this run")
+        if self.engine.lora:
+            inst["adapter_tokens"] = reg.counter(
+                "serving_adapter_tokens_total",
+                "tokens delivered per adapter name (per-tenant billing)")
+            inst["adapter_reqs"] = reg.counter(
+                "serving_adapter_requests_total",
+                "requests reaching a terminal state per adapter name")
+            inst["adapter_loads"] = reg.counter(
+                "serving_adapter_loads_total",
+                "adapter lane hot-loads (cold load or refresh)")
+            inst["adapter_evictions"] = reg.counter(
+                "serving_adapter_evictions_total",
+                "cached adapter lanes displaced (LRU)")
         if self.policy.slo:
             inst.update({
                 "slo_ttft": reg.histogram("serving_slo_ttft_seconds",
@@ -434,6 +513,27 @@ class ContinuousBatcher:
             return None
         return self._s.per_class[self.policy.cls_of(req).name]
 
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the request's lane pin: one per seated slot, so every
+        path that gives a seated slot up comes through here once."""
+        if req.adapter:
+            self.engine.adapters.release(req.adapter)
+
+    def _account_adapter(self, req: Request) -> None:
+        """Per-adapter attribution at a request's terminal event: tokens
+        delivered and requests closed under its adapter name ('' =
+        base); nothing on an engine without LoRA."""
+        if not self.engine.lora:
+            return
+        ad = self._s.per_adapter.setdefault(
+            req.adapter, {"n_requests": 0, "new_tokens": 0})
+        ad["n_requests"] += 1
+        ad["new_tokens"] += len(req.tokens)
+        label = req.adapter or "base"
+        self._inst["adapter_reqs"].inc(adapter=label)
+        if req.tokens:
+            self._inst["adapter_tokens"].inc(len(req.tokens), adapter=label)
+
     def _finish_request(self, slot: int) -> None:
         s, inst = self._s, self._inst
         req = s.live.pop(slot)
@@ -441,12 +541,14 @@ class ContinuousBatcher:
         req.finished_at = self.clock() - s.t0
         inst["retired"].inc()
         s.new_tokens += len(req.tokens)
+        self._account_adapter(req)
         s.sample(s.lat, req.finished_at - req.arrival)
         inst["lat"].observe(req.finished_at - req.arrival)
         if req.first_token_at is not None:
             s.sample(s.ttft, req.first_token_at - req.arrival)
             inst["ttft"].observe(req.first_token_at - req.arrival)
         self.engine.retire(slot)
+        self._release_adapter(req)
         if self.tracer.enabled:
             self.tracer.emit(req.request_id, "retired",
                              reason=req.finish_reason or "",
@@ -509,6 +611,7 @@ class ContinuousBatcher:
             self.tracer.emit(req.request_id, reason,
                              n_tokens=len(req.tokens))
         s.new_tokens += len(req.tokens)
+        self._account_adapter(req)
         events.append((req, []))
         cs = self._class_stats(req)
         if reason == "shed":
@@ -543,6 +646,7 @@ class ContinuousBatcher:
                         table.pop(slot)
                         s.admit_order.remove(slot)
                         self.engine.retire(slot)
+                        self._release_adapter(req)
                         self._terminal(req, events, "cancelled")
                         break
 
@@ -562,6 +666,9 @@ class ContinuousBatcher:
             else s.filling.pop(victim)
         s.admit_order.remove(victim)
         self.engine.retire(victim)
+        # the pin drops with the seat (no billing); the re-seat acquires
+        # whatever lane the registry then gives
+        self._release_adapter(req)
         folded = len(req.prompt) - req.base_len
         if self.tracer.enabled:
             self.tracer.emit(req.request_id, "preempted", slot=victim,
@@ -597,10 +704,15 @@ class ContinuousBatcher:
                 eos_id=req.eos_id, arrival=req.arrival,
                 priority=req.priority, deadline_ms=req.deadline_ms,
                 arrival_time=req.arrival_time,
-                request_id=f"{req.request_id}#{b}", seed=req.seed)
+                request_id=f"{req.request_id}#{b}", seed=req.seed,
+                response_format=req.response_format, adapter=req.adapter)
             child.parent = req
             child.branch = b
             child.admitted_at = req.admitted_at
+            if child.adapter:
+                # one pin a seated slot: the sibling pins the lane (held
+                # resident by the parent's pin) the fork gave its slot
+                self.engine.adapters.acquire(child.adapter)
             s.live[sb] = child
             s.admit_order.append(sb)
             family.append(child)
@@ -648,7 +760,9 @@ class ContinuousBatcher:
                 inflight=([r.request_id for r in (*s.filling.values(),
                                                   *s.live.values())]
                           if recompiled else ()),
-                branches=eng.branch_slot_count)
+                branches=eng.branch_slot_count,
+                structured=eng.structured_slot_count,
+                adapters=eng.adapter_slot_count)
         return events
 
     def _step_body(self, s: _Session, st: dict, events: list) -> None:
@@ -684,8 +798,17 @@ class ContinuousBatcher:
             slot = None
             if self.engine.tables.n_free_slots() - self._reserved_slots() \
                     >= need:
-                slot = self.engine.admit_begin(req.prompt, seed=req.seed,
-                                               branch=req.branch)
+                # the adapter pin before the seat: None when every lane
+                # is pinned keeps the request queued, as a full pool
+                # does; a seat that then fails drops the pin again
+                lane = (self.engine.adapters.acquire(req.adapter)
+                        if req.adapter else 0)
+                if lane is not None:
+                    slot = self.engine.admit_begin(
+                        req.prompt, seed=req.seed, branch=req.branch,
+                        adapter_lane=lane)
+                    if slot is None:
+                        self._release_adapter(req)
             if slot is None:
                 if self.policy.stop_on_admit_failure:
                     break
@@ -696,6 +819,13 @@ class ContinuousBatcher:
             s.admit_order.append(slot)
             s.n_admissions += 1
             self._inst["admissions"].inc()
+            if self.engine.structured and req.response_format is not None:
+                # bind the cursor at seat time; a preempted request's
+                # folded tokens (prompt past base_len) replay into it
+                if self.engine.structured_begin(
+                        slot, req.response_format, req.eos_id,
+                        prefix_tokens=req.prompt[req.base_len:]):
+                    self._inst["structured"].inc()
             if self.tracer.enabled:
                 self.tracer.emit(
                     req.request_id, "seated", slot=slot,
@@ -835,6 +965,14 @@ class ContinuousBatcher:
         inst["spec_rate"].set(n_acc / max(n_prop, 1))
         inst["fork_pages"].inc(eng.fork_pages - s.fork_pages0)
         inst["cow_copies"].inc(eng.cow_copies - s.cow0)
+        if "structured" in inst:
+            rows = eng.structured_masked_rows - s.srows0
+            inst["structured_frac"].set(
+                (eng.structured_masked_sum - s.smasked0) / max(rows, 1))
+        if "adapter_loads" in inst:
+            inst["adapter_loads"].inc(eng.adapters.loads - s.aloads0)
+            inst["adapter_evictions"].inc(eng.adapters.evictions
+                                          - s.aevict0)
         self._s = None
         self._sentinel = None
 
@@ -890,6 +1028,21 @@ class ContinuousBatcher:
             "n_forks": eng.forks - s.forks0,
             "fork_pages": eng.fork_pages - s.fork_pages0,
             "n_cow_copies": eng.cow_copies - s.cow0,
+            # structured generation (zero on an unconstrained run)
+            "n_structured": eng.structured_requests - s.structured0,
+            "structured_masked_frac": round(
+                (eng.structured_masked_sum - s.smasked0)
+                / max(eng.structured_masked_rows - s.srows0, 1), 4),
+            # LoRA lanes: registry churn, and requests and delivered
+            # tokens by adapter name (empty without LoRA)
+            "n_adapter_loads": (eng.adapters.loads - s.aloads0
+                                if eng.adapters is not None else 0),
+            "n_adapter_evictions": (eng.adapters.evictions - s.aevict0
+                                    if eng.adapters is not None else 0),
+            "n_adapter_hits": (eng.adapters.hits - s.ahits0
+                               if eng.adapters is not None else 0),
+            "adapters": {name: dict(ad) for name, ad
+                         in sorted(s.per_adapter.items())},
             "n_shed": s.n_shed,
             "n_cancelled": s.n_cancelled,
             "deadline_hit_rate": round(ttft_hit / ttft_n, 4)

@@ -26,13 +26,25 @@ cache — the port of ``torchbooster_tpu/serving/engine.py``.
 - **parallel sampling** (``parallel_sampling=True``) forks a prefilled
   slot into n copy-on-write branches (:meth:`fork`), each sampling from
   its own counter-based stream (``models/gpt.py`` ``branch_generator``).
+- **structured generation** (``structured=True``, ``serving/
+  structured/``) keeps one token-DFA cursor a constrained slot and masks
+  every pick (prefill's first token, decode, each verify position) with
+  the fused ``(max_slots, vocab)`` legality mask, uploaded each step into
+  one preallocated device buffer.
+- **LoRA lanes** (``lora_rank``/``lora_max_live``, ``serving/
+  adapters.py``) stack ``lora_max_live`` adapters beside the zero
+  adapter on a device lane axis; each slot's lane id rides every step in
+  a preallocated device buffer and ``_block_core`` adds the slot's ranked
+  deltas. Quantized weights (``models/quant.py``) need nothing here: the
+  block math dispatches on the tree.
 
 PyTorch runs eagerly, so the JAX package's one-compile contract
 becomes a fixed operand-shape contract: the decode and verify steps'
 operand shapes depend only on pool geometry (and ``draft_len``), and
 ``decode_compiles``/``verify_compiles`` count the DISTINCT shape
 signatures each step has seen (each must stay 1 — what a CUDA-graph
-capture of the step will need). The pool is updated in place.
+capture of the step will need). The pool, the legality masks and the
+lane ids are updated in place.
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ from torchbooster_tpu_torch.models.gpt import (
     _lm_head,
     _make_branch_pick,
     _make_pick,
+    _mask_logits,
     _quantize_kv,
     branch_generator,
     cast_params,
@@ -59,6 +72,7 @@ from torchbooster_tpu_torch.ops.paged_attention import (
     check_paged,
     paged_attention,
 )
+from torchbooster_tpu_torch.serving.adapters import AdapterRegistry
 from torchbooster_tpu_torch.serving.kv_pages import (
     NULL_PAGE,
     BlockTables,
@@ -73,16 +87,48 @@ from torchbooster_tpu_torch.serving.speculative import (
     tree_accept_path,
     tree_masks,
 )
+from torchbooster_tpu_torch.serving.structured import (
+    SlotCursors,
+    bytes_vocab,
+    compile_response_format,
+)
 
-# options of the JAX engine this slice does not port, and the
-# ROADMAP.md item that will
+# options of the JAX engine the port does not have yet, and the
+# ROADMAP.md item that will bring them
 _UNPORTED = {
-    "structured": "A6 structured generation",
-    "lora_rank": "A6 LoRA lanes",
-    "lora_max_live": "A6 LoRA lanes",
-    "host_spill": "A6 host spill tier",
-    "prefill_only": "A7 disaggregated serving",
+    "host_spill": "A-3 host spill tier",
+    "prefill_only": "A-4 disaggregated serving",
 }
+
+
+class _Staged:
+    """A fixed device buffer refreshed in place from host numpy. On a
+    card the values go through a pinned host copy and an asynchronous
+    copy; an event keeps the next refresh from overwriting the pinned
+    copy before the previous upload has read it. The device tensor keeps
+    its shape and address for the engine's lifetime."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype,
+                 device: torch.device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        self._host = self._event = None
+        if device.type == "cuda":
+            self._host = torch.zeros(shape, dtype=dtype, pin_memory=True)
+            self._event = torch.cuda.Event()
+        self._recorded = False
+
+    def upload(self, values: np.ndarray) -> torch.Tensor:
+        src = torch.from_numpy(np.ascontiguousarray(values))
+        if self._host is None:
+            self.dev.copy_(src)
+            return self.dev
+        if self._recorded:
+            self._event.synchronize()
+        self._host.copy_(src)
+        self.dev.copy_(self._host, non_blocking=True)
+        self._event.record()
+        self._recorded = True
+        return self.dev
 
 
 def _layer_pool(pool, i: int):
@@ -108,7 +154,11 @@ class PagedEngine:
     verifies them in one step; ``spec_tree`` drafts up to
     ``tree_width`` branches. ``dense_control`` builds the dense-bytes
     A/B geometry (one ``seq_len`` page per slot; the sweep backend only
-    — such a page is too large for the kernel's shared-memory tile)."""
+    — such a page is too large for the kernel's shared-memory tile).
+    ``structured=True`` enables ``response_format`` decoding over
+    ``structured_vocab`` (default ``bytes_vocab(cfg.vocab)``);
+    ``lora_rank``/``lora_max_live`` (both positive) build the adapter
+    lanes and ``self.adapters``, their registry."""
 
     def __init__(self, params: dict, cfg: GPTConfig, *,
                  page_size: int = 64, n_pages: int = 128,
@@ -121,6 +171,8 @@ class PagedEngine:
                  ngram_min: int = 2, spec_tree: bool = False,
                  tree_width: int = 2, parallel_sampling: bool = False,
                  decode_backend: str | None = None, tp: int = 1,
+                 structured: bool = False, structured_vocab=None,
+                 lora_rank: int = 0, lora_max_live: int = 0,
                  device: str | torch.device = "cuda", **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -166,6 +218,15 @@ class PagedEngine:
                 "the per-branch sampling streams and logprobs ride the "
                 "plain decode step — serve n-way traffic on a "
                 "non-speculative engine")
+        if structured_vocab is not None and not structured:
+            raise ValueError(
+                "structured_vocab without structured=True does nothing: "
+                "the token-DFA compiler only runs on a structured engine")
+        if (lora_rank > 0) != (lora_max_live > 0):
+            raise ValueError(
+                f"lora_rank={lora_rank} with lora_max_live={lora_max_live}: "
+                "enable batched LoRA with BOTH positive — rank and lane "
+                "count are step shapes, half a configuration cannot build")
         self.device = resolve_device(device)
         if decode_backend is None:
             decode_backend = "kernel" if self.device.type == "cuda" \
@@ -246,6 +307,58 @@ class PagedEngine:
         self._branch_of = np.zeros(max_slots, np.int32)
         self._fork_state: dict[int, dict] = {}
         self.step_logprobs: np.ndarray | None = None
+        # structured generation: per-slot automaton cursors fused into
+        # one (max_slots, vocab) legality mask on the host, uploaded each
+        # step into preallocated device buffers (the seating slot's row
+        # for a prefill chunk; one row a position for the verify step)
+        self.structured = bool(structured)
+        self._cursors = None
+        self._svocab = None
+        self._sdfa_cache: dict = {}
+        self.structured_requests = 0
+        if self.structured:
+            vocab = (list(structured_vocab) if structured_vocab is not None
+                     else bytes_vocab(cfg.vocab))
+            if len(vocab) != cfg.vocab:
+                raise ValueError(
+                    f"structured_vocab has {len(vocab)} entries but the "
+                    f"model's vocabulary is {cfg.vocab} — the token-DFA "
+                    "mask must cover every logit")
+            self._svocab = vocab
+            self._cursors = SlotCursors(max_slots, cfg.vocab)
+            self._smask = _Staged((max_slots, cfg.vocab), torch.bool,
+                                  self.device)
+            self._smask_row = _Staged((1, cfg.vocab), torch.bool,
+                                      self.device)
+            if self.speculative:
+                self._smask_verify = np.ones(
+                    (max_slots, 1 + draft_len, cfg.vocab), bool)
+                self._smask_verify_dev = _Staged(
+                    self._smask_verify.shape, torch.bool, self.device)
+        # LoRA lanes: (n_layers, max_live + 1, ...) stacks in the compute
+        # dtype, lane 0 the zero adapter; each slot's lane id (0 = base)
+        # on the host and, every step, in a preallocated device buffer
+        self.lora = lora_rank > 0
+        self.lora_rank = int(lora_rank)
+        self.lora_max_live = int(lora_max_live)
+        self._slot_lanes = np.zeros(max_slots, np.int64)
+        self._lora_buf = None
+        self._lora_write_shapes: set = set()
+        self.adapters = None
+        if self.lora:
+            lanes, d = self.lora_max_live + 1, cfg.d_model
+            qkv_out = d + 2 * cfg.kv_heads * cfg.head_dim
+            shapes = {"a_qkv": (cfg.n_layers, lanes, d, self.lora_rank),
+                      "b_qkv": (cfg.n_layers, lanes, self.lora_rank,
+                                qkv_out),
+                      "a_proj": (cfg.n_layers, lanes, d, self.lora_rank),
+                      "b_proj": (cfg.n_layers, lanes, self.lora_rank, d)}
+            self._lora_buf = {k: torch.zeros(v, dtype=compute_dtype,
+                                             device=self.device)
+                              for k, v in shapes.items()}
+            self._lanes_dev = _Staged((max_slots,), torch.long, self.device)
+            self._lane_chunk = _Staged((1,), torch.long, self.device)
+            self.adapters = AdapterRegistry(self)
 
     @classmethod
     def dense_control(cls, params: dict, cfg: GPTConfig, *,
@@ -264,9 +377,19 @@ class PagedEngine:
                                 dtype=self.compute_dtype)
         return x
 
+    def _lora_layer(self, i: int, lanes: torch.Tensor | None):
+        """Layer ``i``'s ``_block_core(lora=...)`` operand: its four lane
+        stacks and the batch rows' lane ids; None with LoRA off."""
+        if lanes is None:
+            return None
+        b = self._lora_buf
+        return ((b["a_qkv"][i], b["b_qkv"][i], b["a_proj"][i],
+                 b["b_proj"][i]), lanes)
+
     @torch.no_grad()
     def _chunk_fn(self, ids: torch.Tensor, start: int, s0: int,
-                  table_row: torch.Tensor) -> torch.Tensor:
+                  table_row: torch.Tensor,
+                  lanes: torch.Tensor | None = None) -> torch.Tensor:
         """ONE prefill chunk: forward ``ids`` (1, C) at positions
         ``start + [0, C)``, writing each layer's K/V into the slot's
         pages and attending prior context through the pool. Pad tokens
@@ -326,13 +449,15 @@ class PagedEngine:
                 o = (oA * mv(wA) + oB * mv(wB)) / mv(l)
                 return o.reshape(1, C, cfg.n_heads, head_dim).to(q.dtype), None
 
-            x, _ = _block_core(bp, x, cfg, attend, positions=positions[None])
+            x, _ = _block_core(bp, x, cfg, attend, positions=positions[None],
+                               lora=self._lora_layer(i, lanes))
         last = x[:, min(max(s0 - 1 - start, 0), C - 1)][:, None]
         return _lm_head(self.params, last)[:, 0]
 
     @torch.no_grad()
     def _forward_fn(self, in_ids, tables, lengths, refs, page_pos, active,
-                    work=None, depth=None, tree_vis=None) -> torch.Tensor:
+                    work=None, depth=None, tree_vis=None,
+                    lanes=None) -> torch.Tensor:
         """The paged step over all slots: ``in_ids (max_slots, S)`` at
         storage positions ``lengths + [0, S)``, roped and embedded at
         ``lengths + depth`` (``depth`` None: the storage positions). Every
@@ -343,8 +468,8 @@ class PagedEngine:
         prior context and its ancestors). S = 1 is the decode step, S = 1
         + draft_len the speculative verify (``speculative.py:300``).
         ``work`` = the kernel backend's ``(work_pages, work_refs,
-        work_pos)``. Returns (max_slots, S, vocab) logits (garbage at
-        inactive slots)."""
+        work_pos)``; ``lanes`` the slots' LoRA lane ids. Returns
+        (max_slots, S, vocab) logits (garbage at inactive slots)."""
         cfg, ps, dev = self.cfg, self.page_size, self.device
         n_slots, S = in_ids.shape
         mp = tables.shape[1]
@@ -436,7 +561,8 @@ class PagedEngine:
                 return o.reshape(n_slots, S, cfg.n_heads,
                                  cfg.head_dim).to(q.dtype), None
 
-            x, _ = _block_core(bp, x, cfg, attend, positions=pos_c)
+            x, _ = _block_core(bp, x, cfg, attend, positions=pos_c,
+                               lora=self._lora_layer(i, lanes))
         return _lm_head(self.params, x)
 
     @torch.no_grad()
@@ -478,14 +604,24 @@ class PagedEngine:
 
     # ---- lifecycle --------------------------------------------------
     def admit_begin(self, prompt_ids: np.ndarray, seed: int | None = None,
-                    branch: int = 0) -> int | None:
+                    branch: int = 0, adapter_lane: int = 0) -> int | None:
         """Seat one request: map cached prefix pages into its block
         table, allocate private pages for the rest, and queue its
         chunked prefill. Returns the slot, or None when no slot or not
         enough pages (the batcher keeps it queued). ``seed``/``branch``
         matter with ``parallel_sampling``: the slot samples branch
         ``branch`` of the request's stream ``seed``, so branch b of an
-        n-way fork equals a run admitted with ``(seed, branch=b)``."""
+        n-way fork equals a run admitted with ``(seed, branch=b)``.
+        ``adapter_lane`` (LoRA) is the slot's lane from
+        ``AdapterRegistry.acquire``, 0 the base model; the caller holds
+        the pin until retire."""
+        if adapter_lane and not self.lora:
+            raise ValueError(
+                f"adapter_lane={adapter_lane} on an engine without lora: "
+                "build with lora_rank/lora_max_live")
+        if not 0 <= adapter_lane <= self.lora_max_live:
+            raise ValueError(f"adapter_lane {adapter_lane} out of range "
+                             f"[0, {self.lora_max_live}]")
         prompt = np.ascontiguousarray(prompt_ids, np.int32).reshape(-1)
         s0 = len(prompt)
         slot = self.tables.free_slot()
@@ -510,6 +646,7 @@ class PagedEngine:
         self.prefix_hit_pages += len(matched)
         self._seed_of[slot] = 0 if seed is None else int(seed) & 0x7fffffff
         self._branch_of[slot] = int(branch)
+        self._slot_lanes[slot] = int(adapter_lane)
         if self._drafter is not None:
             self._drafter.begin(slot, prompt)
         start = len(matched) * self.page_size
@@ -556,19 +693,28 @@ class PagedEngine:
                               dtype=torch.long).to(self.device)[None]
         table_row = torch.as_tensor(self.tables.tables[slot],
                                     dtype=torch.long).to(self.device)
+        lanes = (self._lane_chunk.upload(self._slot_lanes[slot:slot + 1])
+                 if self.lora else None)
         self._chunk_shapes.add((tuple(ids.shape), tuple(table_row.shape)))
         with torch.profiler.record_function("serving_prefill_chunk"):
-            logits = self._chunk_fn(ids, p["start"], p["s0"], table_row)
+            logits = self._chunk_fn(ids, p["start"], p["s0"], table_row,
+                                    lanes)
+        # the seating slot's legality row masks the first-token pick
+        # (all-True when unconstrained: an exact no-op); the logits a
+        # fork samples its siblings from stay unmasked
+        picked = _mask_logits(
+            logits, self._smask_row.upload(self._cursors.mask[slot:slot + 1])
+            if self.structured else None)
         self.prefill_chunks += 1
         p["start"] += C
         if not self.parallel:
-            tok = self._pick(self._gen, logits)
+            tok = self._pick(self._gen, picked)
         if p["start"] < p["s0"]:
             return None
         self._pending.pop(0)
         if self.parallel:
             tok, lp = self._branch_pick(
-                self._branch_gens([slot], [p["s0"]]), logits)
+                self._branch_gens([slot], [p["s0"]]), picked)
             # ONE device->host copy for the token and its logprob
             tok, lp = torch.stack([tok.double(), lp.double()]).cpu()
             self._fork_state[slot] = {"logits": logits,
@@ -579,6 +725,10 @@ class PagedEngine:
         self.tables.register_prefix(slot, p["ids"][:p["s0"]])
         if self._drafter is not None:
             self._drafter.observe(slot, [first])
+        if self.structured:
+            # fork() rebases children, so a parent about to fork is
+            # already right: branch 0 keeps this very token
+            self._cursors.observe(slot, [first])
         return slot, first
 
     def admit(self, prompt_ids: np.ndarray, seed: int | None = None,
@@ -644,14 +794,28 @@ class PagedEngine:
         for b, child in enumerate(children, start=1):
             self._seed_of[child] = self._seed_of[parent_slot]
             self._branch_of[child] = b
+            # branches decode through the parent's adapter (the batcher
+            # pins it once a branch)
+            self._slot_lanes[child] = self._slot_lanes[parent_slot]
+        logits = st["logits"].expand(len(children), -1).contiguous()
+        constrained = self.structured and self._cursors.active(parent_slot)
+        if constrained:
+            # every branch's first pick replays an independent
+            # constrained run: the automaton's START-state row
+            logits = _mask_logits(logits, torch.as_tensor(
+                self._cursors.start_row(parent_slot)).to(self.device))
         toks, lps = self._branch_pick(
-            self._branch_gens(children, [st["s0"]] * len(children)),
-            st["logits"].expand(len(children), -1).contiguous())
+            self._branch_gens(children, [st["s0"]] * len(children)), logits)
         toks, lps = torch.stack([toks.double(), lps.double()]).cpu()
         out = [(parent_slot, int(self.tables.last_ids[parent_slot]),
                 st["logprob"])]
         for child, tok, lp in zip(children, toks.tolist(), lps.tolist()):
             self.tables.activate(child, int(tok))
+            if constrained:
+                # the child's cursor rebases to the start and observes
+                # its own first token
+                self._cursors.fork_child(parent_slot, child)
+                self._cursors.observe(child, [int(tok)])
             out.append((child, int(tok), float(lp)))
         return out
 
@@ -699,6 +863,11 @@ class PagedEngine:
         return tuple((k, tuple(v.shape), str(v.dtype))
                      for k, v in tensors.items() if v is not None)
 
+    def _mode_operands(self, smask, lanes) -> dict:
+        """The structured and LoRA operands of a step, by name, for its
+        shape signature (empty with both off)."""
+        return {"smask": smask, "lanes": lanes, **(self._lora_buf or {})}
+
     def step(self) -> np.ndarray:
         """One decode step over every ACTIVE slot; advances lengths/
         last_ids for those and returns the (max_slots,) token ids
@@ -706,12 +875,21 @@ class PagedEngine:
         ``parallel_sampling`` each slot samples its branch's stream and
         ``step_logprobs`` holds the picks' logprobs."""
         active, args, work = self._step_args()
+        smask = (self._smask.upload(self._cursors.mask)
+                 if self.structured else None)
+        lanes = (self._lanes_dev.upload(self._slot_lanes)
+                 if self.lora else None)
         self._decode_shapes.add(self._signature(
-            {**args, **dict(zip(("wp", "wr", "wpos"), work or ()))}))
+            {**args, **dict(zip(("wp", "wr", "wpos"), work or ())),
+             **self._mode_operands(smask, lanes)}))
         with torch.profiler.record_function("decode_step"):
             logits = self._forward_fn(
                 args["last_ids"][:, None], args["tables"], args["lengths"],
-                args["refs"], args["page_pos"], args["active"], work)[:, 0]
+                args["refs"], args["page_pos"], args["active"], work,
+                lanes=lanes)[:, 0]
+            # constrained rows knock illegal tokens to the dtype's
+            # minimum; unconstrained rows are all-True (a no-op)
+            logits = _mask_logits(logits, smask)
         if self.parallel:
             slots = np.flatnonzero(active)
             gens = [None] * self.max_slots
@@ -729,6 +907,8 @@ class PagedEngine:
             self.tables.advance(int(slot), int(tokens[slot]))
             if self._drafter is not None:
                 self._drafter.observe(int(slot), [int(tokens[slot])])
+            if self.structured:
+                self._cursors.observe(int(slot), [int(tokens[slot])])
         return tokens
 
     def spec_step(self) -> dict[int, list[int]]:
@@ -749,6 +929,10 @@ class PagedEngine:
         k = self.draft_len
         drafts = np.full((self.max_slots, k), NO_DRAFT, np.int32)
         parents = np.tile(np.arange(k, dtype=np.int32), (self.max_slots, 1))
+        vmask = None
+        if self.structured:
+            vmask = self._smask_verify
+            vmask[:] = True
         for slot in np.flatnonzero(active):
             slot = int(slot)
             if self.spec_tree:
@@ -761,6 +945,16 @@ class PagedEngine:
             room = int(self.cfg.seq_len - self.tables.lengths[slot]) - 1
             if room < k:
                 d[max(room, 0):] = NO_DRAFT
+            if self.structured and self._cursors.active(slot):
+                # drafts checked against the automaton: a chain truncates
+                # at its first illegal token, a tree prunes the illegal
+                # node and its subtree (to the never-accepted NO_DRAFT);
+                # each position's row masks its fallback or bonus pick
+                if self.spec_tree:
+                    d, rows = self._cursors.tree_rows(slot, d, parents[slot])
+                else:
+                    d, rows = self._cursors.draft_rows(slot, d)
+                vmask[slot] = rows
             drafts[slot] = d
             self.spec_proposed += int((d >= 0).sum())
         in_ids = torch.cat([args["last_ids"][:, None],
@@ -771,14 +965,20 @@ class PagedEngine:
             depth, vis = tree_masks(parents)
             tree = tuple(torch.as_tensor(a).to(self.device).long()
                          for a in (parents, depth, vis))
+        smask = (self._smask_verify_dev.upload(vmask)
+                 if self.structured else None)
+        lanes = (self._lanes_dev.upload(self._slot_lanes)
+                 if self.lora else None)
         self._verify_shapes.add(self._signature(
             {**args, "in_ids": in_ids,
              **dict(zip(("wp", "wr", "wpos"), work or ())),
-             **dict(zip(("parents", "depth", "vis"), tree or ()))}))
+             **dict(zip(("parents", "depth", "vis"), tree or ())),
+             **self._mode_operands(smask, lanes)}))
         with torch.profiler.record_function("spec_verify_step"):
             accept, token = self._verify(
                 args["tables"], args["lengths"], args["refs"],
-                args["page_pos"], args["active"], in_ids, work, tree)
+                args["page_pos"], args["active"], in_ids, work, tree,
+                smask, lanes)
             # ONE device->host copy for both results
             both = torch.cat([accept.long(), token], dim=1).cpu().numpy()
         accept, token = both[:, :k].astype(bool), both[:, k:]
@@ -818,6 +1018,10 @@ class PagedEngine:
             for t in emitted:
                 self.tables.advance(slot, t)
             self._drafter.observe(slot, emitted)
+            if self.structured:
+                # the cursor stops at EOS itself; tokens past it in the
+                # burst are the tail the batcher drops
+                self._cursors.observe(slot, emitted)
         return out
 
     def retire(self, slot: int) -> None:
@@ -826,10 +1030,103 @@ class PagedEngine:
         self._pending = [p for p in self._pending if p["slot"] != slot]
         if self._drafter is not None:
             self._drafter.reset(slot)
+        if self.structured:
+            self._cursors.reset(slot)
         self._fork_state.pop(slot, None)
         self._seed_of[slot] = 0
         self._branch_of[slot] = 0
+        # a reused slot decodes the base model until its next seat (the
+        # registry pin is the batcher's to release)
+        self._slot_lanes[slot] = 0
         self.tables.retire(slot)
+
+    # ---- structured generation -----------------------------------
+    def structured_compile(self, spec: dict):
+        """``response_format`` spec -> token-level DFA over this engine's
+        vocabulary (None for ``{"type": "text"}``), through the engine's
+        fingerprint cache: each distinct schema compiles once. Raises
+        ``ValueError`` on a bad spec or an unsatisfiable schema."""
+        if not self.structured:
+            raise RuntimeError(
+                "structured_compile() needs PagedEngine(structured=True)")
+        return compile_response_format(spec, self._svocab,
+                                       cache=self._sdfa_cache)
+
+    def structured_begin(self, slot: int, spec: dict, eos_id: int,
+                         prefix_tokens=()) -> bool:
+        """Bind a seated slot's automaton cursor before its prefill
+        chunks run (so the first-token pick is masked). ``prefix_tokens``
+        are a preempted request's folded generated tokens, replayed so
+        the automaton resumes where it stopped. Returns whether the spec
+        constrains (``{"type": "text"}`` does not)."""
+        if not self.structured:
+            raise RuntimeError(
+                "structured_begin() needs PagedEngine(structured=True)")
+        dfa = self.structured_compile(spec)
+        if dfa is None:
+            return False
+        self._cursors.begin(slot, dfa, eos_id, prefix_tokens=prefix_tokens)
+        self.structured_requests += 1
+        return True
+
+    @property
+    def structured_slot_count(self) -> int:
+        """Seated slots under an automaton constraint (host integers)."""
+        return self._cursors.live_count if self._cursors is not None else 0
+
+    @property
+    def structured_masked_sum(self) -> float:
+        """Cumulative masked-vocabulary fraction over committed cursor
+        rows (the numerator of ``structured_masked_frac``)."""
+        return self._cursors.masked_sum if self._cursors is not None \
+            else 0.0
+
+    @property
+    def structured_masked_rows(self) -> int:
+        return self._cursors.masked_rows if self._cursors is not None \
+            else 0
+
+    # ---- LoRA lanes ------------------------------------------------
+    @torch.no_grad()
+    def _lora_write_fn(self, lane: torch.Tensor, stacks: dict) -> None:
+        """The one adapter writer: lane ``lane`` (a ``(1,)`` device
+        tensor, a value) of all four stacks is overwritten in place."""
+        for k, buf in self._lora_buf.items():
+            buf.index_copy_(1, lane, stacks[k].to(buf.dtype)[:, None])
+
+    def lora_load(self, lane: int, stacks: dict) -> None:
+        """Write one adapter's host stacks (lane-less ``(n_layers,
+        ...)``, already rank-padded by the registry) into device lane
+        ``lane``."""
+        if not self.lora:
+            raise RuntimeError("lora_load() needs a PagedEngine(lora_rank="
+                               "..., lora_max_live=...)")
+        if not 1 <= lane <= self.lora_max_live:
+            raise ValueError(f"lane {lane} out of range [1, "
+                             f"{self.lora_max_live}] — lane 0 is the "
+                             "reserved zero adapter")
+        lane_t = torch.tensor([lane], device=self.device)
+        new = {k: torch.as_tensor(np.asarray(stacks[k])).to(self.device)
+               for k in self._lora_buf}
+        self._lora_write_shapes.add(self._signature(
+            {"lane": lane_t, **new}))
+        with torch.profiler.record_function("lora_load"):
+            self._lora_write_fn(lane_t, new)
+
+    @property
+    def lora_load_compiles(self) -> int:
+        """Distinct operand-shape signatures of the adapter writer: 1
+        whatever load/evict churn the registry drives, 0 before the first
+        load and with LoRA off."""
+        return len(self._lora_write_shapes)
+
+    @property
+    def adapter_slot_count(self) -> int:
+        """Active slots decoding through a non-zero adapter lane."""
+        if not self.lora:
+            return 0
+        return int(np.count_nonzero(self.tables.active
+                                    & (self._slot_lanes > 0)))
 
     @property
     def branch_slot_count(self) -> int:

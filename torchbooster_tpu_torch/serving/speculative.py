@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from torchbooster_tpu_torch.models.gpt import _make_spec_pick
+from torchbooster_tpu_torch.models.gpt import _make_spec_pick, _mask_logits
 
 # "no proposal" marker in a fixed-width draft row: never accepted (ids
 # are non-negative), and its fallback pick is an ordinary one, so an
@@ -218,7 +218,8 @@ def make_verify_fn(engine):
     """The engine's multi-token verify step (``speculative.py:300``).
 
     ``fn(tables, lengths, refs, page_pos, active, in_ids, work=None,
-    tree=None) -> (accept, token)``: ``in_ids (max_slots, 1 + k)`` holds
+    tree=None, smask=None, lanes=None) -> (accept, token)``: ``in_ids
+    (max_slots, 1 + k)`` holds
     each slot's pending token then its ``NO_DRAFT``-padded draft;
     ``work`` is the kernel backend's live-page walk; ``tree`` the tree
     mode's ``(parents (B, k), depth (B, S), vis (B, S, S))``. Node ``j``
@@ -226,17 +227,22 @@ def make_verify_fn(engine):
     embeds at ``lengths + depth[j]`` and attends prior context plus its
     ancestors; on the chain both are ``lengths + j``. The forward is the
     engine's (``PagedEngine._forward_fn``, whose S = 1 case is the decode
-    step), the pick ``_make_spec_pick``; ``accept`` is ``(B, k)`` bool,
-    ``token`` ``(B, 1 + k)``."""
+    step, through the slots' LoRA ``lanes``), the pick
+    ``_make_spec_pick``; ``accept`` is ``(B, k)`` bool, ``token`` ``(B, 1
+    + k)``. ``smask`` (structured generation, ``speculative.py:300``) is
+    the ``(B, 1 + k, vocab)`` legality row of every position, applied to
+    the logits before the pick, so fallback and bonus picks are legal
+    (drafts were checked against the automaton on the host)."""
     spec_pick = _make_spec_pick(engine.temperature, engine.top_k,
                                 engine.top_p)
 
     def verify_fn(tables, lengths, refs, page_pos, active, in_ids,
-                  work=None, tree=None):
+                  work=None, tree=None, smask=None, lanes=None):
         parents, depth, vis = tree if tree is not None else (None,) * 3
         logits = engine._forward_fn(in_ids, tables, lengths, refs,
                                     page_pos, active, work, depth=depth,
-                                    tree_vis=vis)
+                                    tree_vis=vis, lanes=lanes)
+        logits = _mask_logits(logits, smask)
         return spec_pick(engine._gen, logits, in_ids[:, 1:], parent=parents)
 
     return verify_fn
