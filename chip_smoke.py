@@ -103,6 +103,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    lane-writer shape, no pin left, tables consistent, B4 on its planned
    route. Prints the per-adapter metrics and decode tok/s with LoRA on
    and off (the same prompts, all base).
+6g. serve_spill — ``prefix_cache: true, host_spill: {enabled: true,
+   budget_mb: 256}`` over a 33-page pool, bf16 over an int8 pool (B4
+   ``"sm90"``) and fp32 over a wide pool (``"simt"``): five probes (an
+   8-page prefix + 16 tokens, 32 new), each driven through the engine
+   cold, as an HBM prefix hit and — after rounds of distinct 2-4-page
+   prompts have demoted its 8 pages — as a host hit whose pages promote
+   through 4-lane staging in two groups. Every stream equals the dense
+   ``generate`` at the pool's cache dtype; one decode and one promotion
+   shape; promoted bytes equal ``promotion_traffic``; tables consistent.
+   Prints TTFT cold / HBM / host (seat to first token), promotion GB/s
+   (bytes over the synchronized ``issue_promotions``), spills, host hits,
+   peak memory and ``spill_breakeven`` at the measured rate.
+6h. serve_disagg — ``cache_dtype: int8``, the spill tier and ``disagg:
+   {enabled: true, min_prefill_pages: 4}`` at bf16: a ``DisaggPair``
+   (prefill engine and its worker thread on the same card) pumped over 8
+   requests at 0 (prompts 640, 800 and 960 through the prefill engine,
+   64-192 straight to decode, 32 new), beside the unified batcher on the
+   same trace. Streams equal the unified run's; streamed payload bytes
+   equal ``disagg_traffic``, pages ``(len - 1) // 64`` each, none
+   stranded; the decode engine one decode, prefill and promotion shape,
+   the prefill engine no decode; every B4 launch ``"sm90"`` over the int8
+   pool. Prints p50 TTFT of the short and the long requests, decode
+   tok/s, framed bytes and memory, on and off.
 7. train   — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
    built in code from ``examples/lm/gpt/gpt.yml``'s values with the model
    at GPT-2-small width: batch 8 x 1024, 20 steps, bf16 over fp32 masters,
@@ -218,11 +241,13 @@ import torch
 
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
-          "serve_structured", "serve_wq", "serve_lora", "train",
+          "serve_structured", "serve_wq", "serve_lora", "serve_spill",
+          "serve_disagg", "train",
           "gpt2_import", "train_long", "conv", "resnet_train")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
-                "serve_structured", "serve_wq", "serve_lora")
+                "serve_structured", "serve_wq", "serve_lora",
+                "serve_spill", "serve_disagg")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
            "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
            "group_norm_fwd_sm90", "group_norm_bwd_sm90", "fused_block",
@@ -1869,6 +1894,363 @@ def phase_serve_lora(params, cfg, smi: str, report: dict
     report["serve_lora"] = {**out, "launches": launches,
                             "launches_by_route": by_route, "card": smi}
     return launches, by_route
+
+
+# --------------------------------------- host spill tier, disaggregation
+SPILL_PREFIX_PAGES = 8     # the probe's shared prefix, in 64-token pages
+SPILL_TAIL = 16            # its own tail tokens
+SPILL_REPEATS = 5          # probes a tier, each with its own prefix
+SPILL_N_PAGES = 33         # a pool the churn overflows (32 usable pages)
+SPILL_BUDGET_MB = 256.0
+DISAGG_LENS = (640, 64, 800, 96, 128, 960, 160, 192)   # 3 long, 5 short
+DISAGG_MIN_PAGES = 4
+
+
+def n_params_of(params) -> int:
+    from torchbooster_tpu_torch.utils import tree_leaves
+
+    return sum(int(p.numel()) for p in tree_leaves(params))
+
+
+def warm_up(batcher, cfg) -> None:
+    """One short request before a timed run, so that first-use costs
+    (cuBLAS handles, the kernels' build) fall outside it."""
+    from torchbooster_tpu_torch.serving import Request
+
+    prompt = np.random.RandomState(99).randint(0, cfg.vocab, 2 * PS + 5)
+    batcher.run([Request(prompt=prompt.astype(np.int32), max_new_tokens=4)])
+    torch.cuda.synchronize()
+
+
+def spill_probe(eng, prompt, n_new: int) -> dict:
+    """One request driven through the engine alone: seat, promote (timed
+    and synchronized on its own), prefill to the first token (the TTFT:
+    seat to first token on the host), then decode to ``n_new``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot = eng.admit_begin(prompt)
+    if slot is None:
+        raise AssertionError("serve_spill: the probe did not seat")
+    b0 = eng.promoted_bytes
+    tp = time.perf_counter()
+    n_prom = eng.issue_promotions()
+    torch.cuda.synchronize()
+    prom_s = time.perf_counter() - tp
+    while True:
+        done = eng.prefill_step()
+        if done is not None and done[0] == slot:
+            break
+    ttft = time.perf_counter() - t0
+    toks = [done[1]]
+    for _ in range(n_new - 1):
+        if eng.grow_slots():
+            raise AssertionError("serve_spill: the probe starved for pages")
+        toks.append(int(eng.step()[slot]))
+    eng.retire(slot)
+    return {"tokens": toks, "ttft_s": ttft, "promoted": n_prom,
+            "promote_s": prom_s, "promoted_bytes": eng.promoted_bytes - b0}
+
+
+def spill_churn(batcher, rs, keys, cfg) -> int:
+    """Serve rounds of eight distinct 2-4-page prompts until every probe
+    key has left the HBM index for the host pool; returns the rounds."""
+    from torchbooster_tpu_torch.serving import Request
+
+    tables = batcher.engine.tables
+    for rounds in range(1, 41):
+        batcher.run([Request(prompt=rs.randint(0, cfg.vocab, int(
+            rs.randint(2, 5)) * PS - int(rs.randint(0, 8))).astype(np.int32),
+            max_new_tokens=2) for _ in range(SLOTS)])
+        if all(k in tables.host_pool and k not in tables._index
+               for k in keys):
+            return rounds
+    raise AssertionError("serve_spill: churn never demoted the probe prefix")
+
+
+def phase_serve_spill(params, cfg, smi: str, report: dict
+                      ) -> tuple[int, dict, int]:
+    """The host spill tier at GPT-2 small width: per arm (bf16 over an
+    int8 pool, B4 on ``"sm90"``; fp32 over a wide pool, ``"simt"``), five
+    probes of an 8-page prefix + 16 tokens, each served cold, as an HBM
+    prefix hit and, after churn has demoted its 8 pages, as a host hit
+    whose 8 pages promote through 4-lane staging (two groups back to
+    back). Every stream equals the dense ``generate`` at the pool's cache
+    dtype; one decode and one promotion shape; promoted bytes equal
+    ``promotion_traffic``; tables consistent. Returns B4's launches, by
+    route, and those over the int8 pool."""
+    from torchbooster_tpu_torch.comms.accounting import (promotion_traffic,
+                                                         spill_breakeven)
+    from torchbooster_tpu_torch.config import HostSpillConfig, ServingConfig
+    from torchbooster_tpu_torch.models.gpt import generate
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
+    int8_pool, arms = 0, {}
+    n_par = n_params_of(params)
+    for dname, dtype, kv, want in (("bf16_int8", torch.bfloat16, "int8",
+                                    "sm90"),
+                                   ("fp32_wide", torch.float32, "", "simt")):
+        batcher = ServingConfig(
+            page_size=PS, n_pages=SPILL_N_PAGES, max_slots=SLOTS,
+            cache_dtype=kv, prefix_cache=True,
+            host_spill=HostSpillConfig(enabled=True,
+                                       budget_mb=SPILL_BUDGET_MB)).make(
+            params, cfg, compute_dtype=dtype, on_recompile="raise")
+        eng = batcher.engine
+        rs = np.random.RandomState(7)
+        warm_up(batcher, cfg)
+        probes = [np.concatenate([
+            rs.randint(0, cfg.vocab, SPILL_PREFIX_PAGES * PS),
+            rs.randint(0, cfg.vocab, SPILL_TAIL)]).astype(np.int32)
+            for _ in range(SPILL_REPEATS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_paged_counts()
+        runs = {"cold": [], "hbm": [], "host": []}
+        rounds = []
+        for probe in probes:
+            keys = [probe[:(i + 1) * PS].tobytes()
+                    for i in range(SPILL_PREFIX_PAGES)]
+            runs["cold"].append(spill_probe(eng, probe, N_NEW))
+            runs["hbm"].append(spill_probe(eng, probe, N_NEW))
+            rounds.append(spill_churn(batcher, rs, keys, cfg))
+            runs["host"].append(spill_probe(eng, probe, N_NEW))
+        torch.cuda.synchronize()
+        n, routes = pa.launches, dict(pa.launches_by_route)
+        peak = torch.cuda.max_memory_allocated()
+        launches += n
+        for r, c in routes.items():
+            by_route[r] += c
+        if kv:
+            int8_pool += n
+        if n <= 0 or routes[want] != n:
+            raise AssertionError(f"serve_spill {dname}: B4 {n} by route "
+                                 f"{routes}, not all {want!r}")
+        dense = []
+        for probe in probes:
+            ids = torch.as_tensor(probe, device="cuda").long()[None]
+            dense.append(generate(params, ids, cfg, n_new=N_NEW,
+                                  temperature=0.0, compute_dtype=dtype,
+                                  cache_dtype=kv or None)[
+                0, len(probe):].tolist())
+        match = {tier: [r["tokens"] == d for r, d in zip(rs_, dense)]
+                 for tier, rs_ in runs.items()}
+        if not all(all(v) for v in match.values()):
+            raise AssertionError(f"serve_spill {dname}: streams vs dense "
+                                 f"generate {match}")
+        if any(r["promoted"] != SPILL_PREFIX_PAGES for r in runs["host"]) \
+                or any(r["promoted"] for r in runs["cold"] + runs["hbm"]):
+            raise AssertionError(f"serve_spill {dname}: promoted pages "
+                                 + str({t: [r["promoted"] for r in v]
+                                        for t, v in runs.items()}))
+        lanes = eng._promote_lanes
+        groups = -(-SPILL_PREFIX_PAGES // lanes)
+        if groups < 2:
+            raise AssertionError(f"serve_spill {dname}: {lanes} lanes take "
+                                 "the probe's pages in one group")
+        model = promotion_traffic(eng.promotions, page_size=PS,
+                                  kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+                                  n_layers=cfg.n_layers)
+        if eng.promoted_bytes != model["total_bytes"]:
+            raise AssertionError(f"serve_spill {dname}: promoted "
+                                 f"{eng.promoted_bytes} bytes, model "
+                                 f"{model['total_bytes']}")
+        if eng.promote_compiles != 1 or eng.decode_compiles != 1:
+            raise AssertionError(f"serve_spill {dname}: "
+                                 f"{eng.promote_compiles} promotion and "
+                                 f"{eng.decode_compiles} decode shapes")
+        eng.tables.check()
+        gbs = [r["promoted_bytes"] / r["promote_s"] / 1e9
+               for r in runs["host"]]
+        flops = (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS) / 1e12
+        be = spill_breakeven(n_params=n_par, page_size=PS,
+                             per_page_bytes=model["per_page_bytes"],
+                             h2d_gbs=float(np.median(gbs)),
+                             flops_tps=flops, n_pages=SPILL_PREFIX_PAGES)
+        ttft = {t: [r["ttft_s"] for r in v] for t, v in runs.items()}
+        stats = eng.debug_stats()
+        arms[dname] = {
+            "ttft_s": ttft, "promote_s": [r["promote_s"] for r in runs["host"]],
+            "promotion_gbs": gbs, "lanes": lanes, "groups_per_seat": groups,
+            "churn_rounds": rounds, "spills": eng.spills,
+            "promotions": eng.promotions, "host_hit_pages": eng.host_hit_pages,
+            "promoted_bytes": eng.promoted_bytes,
+            "per_page_bytes": model["per_page_bytes"],
+            "host_bytes_used": stats["host_bytes_used"],
+            "host_evictions": stats["host_evictions"], "peak_mem_bytes": peak,
+            "breakeven": be, "launches": n, "launches_by_route": routes,
+            "match": match}
+        med = {t: float(np.median(v)) * 1e3 for t, v in ttft.items()}
+        log(f"serve_spill {dname}: 5 probes x cold/HBM/host token-exact vs "
+            f"dense generate (cache {kv or 'wide'}); TTFT ms median cold "
+            f"{med['cold']:.2f}, HBM hit {med['hbm']:.2f}, host hit "
+            f"{med['host']:.2f} (each "
+            + ", ".join(f"{t} " + "/".join(f"{x * 1e3:.2f}" for x in v)
+                        for t, v in ttft.items())
+            + f"); promotion {SPILL_PREFIX_PAGES} pages in {groups} groups of "
+            f"{lanes} lanes, GB/s " + "/".join(f"{g:.2f}" for g in gbs)
+            + f"; spills {eng.spills}, promotions {eng.promotions}, host "
+            f"hits {eng.host_hit_pages}, promoted bytes {eng.promoted_bytes} "
+            f"== promotion_traffic; breakeven {be['breakeven_pages']:.3g} "
+            f"pages (host {be['host_s_per_page'] * 1e6:.1f} us/page, "
+            f"recompute {be['recompute_s_per_page'] * 1e6:.1f} us/page at "
+            f"{flops:.0f} TFLOP/s); peak {peak / 2**20:.1f} MiB; one decode "
+            f"and one promotion shape; B4 {n} by route {routes} [{smi}]")
+        del batcher, eng
+        torch.cuda.empty_cache()
+    report["serve_spill"] = {**arms, "launches": launches,
+                             "launches_by_route": by_route,
+                             "int8_pool_launches": int8_pool, "card": smi}
+    return launches, by_route, int8_pool
+
+
+def pump(srv, reqs) -> tuple[dict, float]:
+    """Drive a batcher or a ``DisaggPair`` over requests arriving at 0
+    until it drains; returns the metrics and the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.start_session()
+    for r in reqs:
+        srv.submit(r, arrival=0.0)
+    deadline = t0 + 300
+    while srv.has_work:
+        if time.perf_counter() > deadline:
+            raise AssertionError("the serving pump did not drain")
+        srv.step()
+        decode = getattr(srv, "decode", None)
+        if decode is not None and not decode.has_work:
+            time.sleep(0.0005)       # only the prefill worker has work
+    m = srv.finish_session()
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def pool_bytes(eng) -> int:
+    return sum(a.numel() * a.element_size()
+               for half in (eng.pool["k"], eng.pool["v"])
+               for a in (half if isinstance(half, tuple) else (half,)))
+
+
+def phase_serve_disagg(params, cfg, smi: str, report: dict
+                       ) -> tuple[int, dict, int]:
+    """``disagg: {enabled: true, min_prefill_pages: 4}`` over an int8
+    pool at bf16 with the spill tier: eight requests at 0 (three of
+    640-960 tokens through the prefill engine, five of 64-192 straight to
+    decode), 32 new tokens each, beside the same trace through the
+    unified batcher in the same call. Every stream equals the unified
+    run's; streamed payload bytes equal ``disagg_traffic``; one decode,
+    prefill and promotion shape on the decode engine, none decoded on the
+    prefill engine; every B4 launch ``"sm90"`` over the int8 pool."""
+    from torchbooster_tpu_torch.comms.accounting import disagg_traffic
+    from torchbooster_tpu_torch.config import (DisaggConfig, HostSpillConfig,
+                                               ServingConfig)
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import DisaggPair, Request
+
+    rs = np.random.RandomState(11)
+    prompts = [rs.randint(0, cfg.vocab, n).astype(np.int32)
+               for n in DISAGG_LENS]
+    longs = [i for i, n in enumerate(DISAGG_LENS)
+             if (n - 1) // PS >= DISAGG_MIN_PAGES]
+    launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
+    out, streams = {}, {}
+    warm_up(ServingConfig(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+                          cache_dtype="int8").make(
+        params, cfg, compute_dtype=torch.bfloat16), cfg)
+    for arm in ("off", "on"):
+        conf = ServingConfig(
+            page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+            cache_dtype="int8", prefix_cache=True,
+            host_spill=HostSpillConfig(enabled=True,
+                                       budget_mb=SPILL_BUDGET_MB),
+            disagg=DisaggConfig(enabled=arm == "on",
+                                min_prefill_pages=DISAGG_MIN_PAGES))
+        srv = conf.make(params, cfg, compute_dtype=torch.bfloat16,
+                        on_recompile="raise")
+        if (arm == "on") != isinstance(srv, DisaggPair):
+            raise AssertionError(f"serve_disagg {arm}: make built "
+                                 f"{type(srv).__name__}")
+        reqs = [Request(prompt=p, max_new_tokens=N_NEW, request_id=f"d{i}")
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_paged_counts()
+        m, wall = pump(srv, reqs)
+        n, routes = pa.launches, dict(pa.launches_by_route)
+        launches += n
+        for r, c in routes.items():
+            by_route[r] += c
+        if n <= 0 or routes["sm90"] != n:
+            raise AssertionError(f"serve_disagg {arm}: B4 {n} by route "
+                                 f"{routes}, not all \"sm90\"")
+        dec = srv.decode.engine if arm == "on" else srv.engine
+        if dec.decode_compiles != 1 or dec.prefill_compiles != 1:
+            raise AssertionError(f"serve_disagg {arm}: decode engine "
+                                 f"{dec.decode_compiles} decode, "
+                                 f"{dec.prefill_compiles} prefill shapes")
+        ttft = [r.first_token_at - r.arrival for r in reqs]
+        res = {"metrics": m, "wall_s": wall, "launches": n,
+               "launches_by_route": routes,
+               "ttft_long_p50_s": float(np.median([ttft[i] for i in longs])),
+               "ttft_short_p50_s": float(np.median(
+                   [t for i, t in enumerate(ttft) if i not in longs])),
+               "ttft_s": ttft, "peak_mem_bytes":
+                   torch.cuda.max_memory_allocated(),
+               "decode_pool_bytes": pool_bytes(dec)}
+        if arm == "on":
+            d = m["disagg"]
+            want_bytes = sum(disagg_traffic(
+                DISAGG_LENS[i], page_size=PS, kv_heads=cfg.kv_heads,
+                head_dim=cfg.head_dim, n_layers=cfg.n_layers)["total_bytes"]
+                for i in longs)
+            want_pages = sum((DISAGG_LENS[i] - 1) // PS for i in longs)
+            if (d["page_bytes_streamed"], d["pages_streamed"],
+                    d["stranded"], d["prefill_requests"]) \
+                    != (want_bytes, want_pages, 0, len(longs)):
+                raise AssertionError(f"serve_disagg: stream {d} vs "
+                                     f"{want_bytes} bytes, {want_pages} "
+                                     f"pages over {len(longs)} requests")
+            if dec.promote_compiles != 1 or srv.prefill.decode_compiles \
+                    or srv.prefill.prefill_compiles != 1:
+                raise AssertionError(
+                    f"serve_disagg: decode engine {dec.promote_compiles} "
+                    f"promotion shapes, prefill engine "
+                    f"{srv.prefill.decode_compiles} decode and "
+                    f"{srv.prefill.prefill_compiles} prefill shapes")
+            res["disagg"] = d
+            res["prefill_pool_bytes"] = pool_bytes(srv.prefill)
+            res["promotions"] = dec.promotions
+        dec.tables.check()
+        streams[arm] = [r.tokens for r in reqs]
+        out[arm] = res
+        del srv, dec
+        torch.cuda.empty_cache()
+    match = [a == b for a, b in zip(streams["off"], streams["on"])]
+    if not all(match) or any(len(t) != N_NEW for t in streams["on"]):
+        raise AssertionError(f"serve_disagg: disaggregated streams vs the "
+                             f"unified batcher's {match}")
+    on, off = out["on"], out["off"]
+    d = on["disagg"]
+    log(f"serve_disagg: 8/8 streams equal the unified batcher's; "
+        f"{d['prefill_requests']} long prompts streamed {d['pages_streamed']} "
+        f"pages, {d['page_bytes_streamed']} payload bytes == disagg_traffic, "
+        f"{d['framed_bytes_streamed']} framed; p50 TTFT short "
+        f"{on['ttft_short_p50_s'] * 1e3:.1f} ms on / "
+        f"{off['ttft_short_p50_s'] * 1e3:.1f} ms off, long "
+        f"{on['ttft_long_p50_s'] * 1e3:.1f} / "
+        f"{off['ttft_long_p50_s'] * 1e3:.1f} ms; decode tok/s "
+        f"{on['metrics']['decode_tok_s']} on / "
+        f"{off['metrics']['decode_tok_s']} off; pools decode "
+        f"{on['decode_pool_bytes'] / 2**20:.1f} + prefill "
+        f"{on['prefill_pool_bytes'] / 2**20:.1f} MiB (unified "
+        f"{off['decode_pool_bytes'] / 2**20:.1f}), peak "
+        f"{on['peak_mem_bytes'] / 2**20:.1f} / "
+        f"{off['peak_mem_bytes'] / 2**20:.1f} MiB; decode engine one decode, "
+        f"prefill and promotion shape, prefill engine no decode; B4 "
+        f"{launches} by route {by_route}, all over the int8 pool [{smi}]")
+    report["serve_disagg"] = {**out, "match": match, "launches": launches,
+                              "launches_by_route": by_route, "card": smi}
+    return launches, by_route, launches
 
 
 # ----------------------------------------------------------------- train
@@ -3734,7 +4116,9 @@ def main() -> int:
                 kernel["launches_by_route"][r] += n
         for key, phase in (("serve_structured", phase_serve_structured),
                            ("serve_wq", phase_serve_wq),
-                           ("serve_lora", phase_serve_lora)):
+                           ("serve_lora", phase_serve_lora),
+                           ("serve_spill", phase_serve_spill),
+                           ("serve_disagg", phase_serve_disagg)):
             if key not in phases:
                 continue
             launches, by_route, *int8_pool = phase(params, cfg, smi, report)

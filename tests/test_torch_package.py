@@ -60,7 +60,8 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "models.torch_interop", "models.quant",
                  "serving.adapters", "serving.structured",
                  "serving.structured.compiler",
-                 "serving.structured.state"):
+                 "serving.structured.state", "comms", "comms.accounting",
+                 "serving.disagg", "serving.router", "serving.router.rpc"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

@@ -32,7 +32,7 @@ from torchbooster_tpu.serving import (ContinuousBatcher as JaxBatcher,
                                       PagedEngine as JaxEngine,
                                       Request as JaxRequest)
 from torchbooster_tpu.serving.adapters import random_adapter as jax_adapter
-from torchbooster_tpu_torch.config import ServingConfig
+from torchbooster_tpu_torch.config import HostSpillConfig, ServingConfig
 from torchbooster_tpu_torch.interop import params_from_jax, to_numpy
 from torchbooster_tpu_torch.models import quant as q
 from torchbooster_tpu_torch.models.gpt import (GPTConfig, _block_core,
@@ -436,5 +436,9 @@ def test_weights_adapters_yaml_blocks(tmp_path):
     with pytest.raises(ValueError, match="weights dtype"):
         ServingConfig(page_size=4, n_pages=8).from_dict(
             {"weights": {"dtype": "fp8"}}).make(tp, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingConfig.from_dict({"host_spill": {"enabled": True}})
+    # the host_spill: block is ported: it resolves into HostSpillConfig
+    spill = ServingConfig.from_dict(
+        {"prefix_cache": True,
+         "host_spill": {"enabled": True, "budget_mb": 8}}).host_spill
+    assert isinstance(spill, HostSpillConfig)
+    assert (spill.enabled, spill.budget_mb) == (True, 8.0)

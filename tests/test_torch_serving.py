@@ -227,10 +227,23 @@ def test_serving_config_yaml_and_unported_options(tmp_path):
     eng = PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
                       structured=True, lora_rank=2, lora_max_live=1)
     assert eng.structured and eng.lora and eng.adapters is not None
-    for key in ("host_spill", "prefill_only"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
-                        **{key: 1})
+    # the host spill tier and prefill-only engines are ported: they
+    # build, with the JAX package's validation; unknown options still
+    # raise TypeError
+    with pytest.raises(ValueError, match="host_spill=True needs "
+                                         "prefix_cache=True"):
+        PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
+                    host_spill=True)
+    eng = PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
+                      host_spill=True, prefix_cache=True)
+    assert eng.host_spill and eng.tables.host_pool is not None
+    eng = PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
+                      prefill_only=True)
+    with pytest.raises(RuntimeError, match="prefill_only"):
+        eng.step()
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        PagedEngine(tp, cfg, page_size=4, n_pages=8, device="cpu",
+                    host_spil=True)
     # on a plain engine both requests fail with the JAX package's errors
     for bad, err in ((dict(adapter="a0"), "engine has no LoRA lanes"),
                      (dict(response_format={"type": "json_object"},

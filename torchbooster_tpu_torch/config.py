@@ -550,6 +550,41 @@ class AdaptersConfig(BaseConfig):
     max_live: int = 4                  # device adapter lanes
 
 
+@dataclass
+class HostSpillConfig(BaseConfig):
+    """``serving.host_spill:`` (``config.py:704``): ``enabled: true``
+    (needs ``prefix_cache: true``) turns LRU eviction of registered
+    prefix pages into DEMOTION — the page's K/V go to a host pool as int8
+    plus fp32 per-(token, head) scales (int8 pools copy losslessly),
+    bounded by ``budget_mb`` — and a later request matching the chain
+    promotes them back through one fixed-shape device write instead of
+    recomputing their prefill. Off, eviction frees pages and nothing is
+    staged."""
+
+    enabled: bool = False              # demote instead of free
+    budget_mb: float = 64.0            # host LRU pool byte budget
+
+
+@dataclass
+class DisaggConfig(BaseConfig):
+    """``serving.disagg:`` (``config.py:902``): ``enabled: true`` makes
+    :meth:`ServingConfig.make` return a
+    :class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair` — a
+    prefill-only engine and the decode batcher joined by a framed page
+    stream in the host-spill demotion format. Requests with at least
+    ``min_prefill_pages`` full prompt pages prefill on the prefill pool
+    and enter the decode pool through its host tier's promotion write;
+    shorter ones go straight to the decode batcher. Needs ``prefix_cache:
+    true`` and ``host_spill.enabled: true``. ``prefill_n_pages`` /
+    ``prefill_max_slots`` size the prefill pool (0 = the serving
+    geometry)."""
+
+    enabled: bool = False              # split prefill/decode pools
+    min_prefill_pages: int = 1         # full pages to route long
+    prefill_n_pages: int = 0           # 0 = serving.n_pages
+    prefill_max_slots: int = 0         # 0 = serving.max_slots
+
+
 def _from_mapping(cls: type, data: dict, prefix: str):
     """A ``serving:`` dataclass (or one of its nested blocks, named
     ``prefix`` in errors) from a YAML mapping, each value coerced to its
@@ -584,7 +619,9 @@ def _from_mapping(cls: type, data: dict, prefix: str):
 
 _NESTED_SERVING = {"StructuredConfig": StructuredConfig,
                    "WeightsConfig": WeightsConfig,
-                   "AdaptersConfig": AdaptersConfig}
+                   "AdaptersConfig": AdaptersConfig,
+                   "HostSpillConfig": HostSpillConfig,
+                   "DisaggConfig": DisaggConfig}
 
 
 # ServingConfig.decode_backend -> the PagedEngine backend: the JAX
@@ -602,10 +639,11 @@ class ServingConfig:
     ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
     the sweep on the CPU. Any other name raises in :meth:`make`.
     ``tp > 1``, not ported yet, raises ``NotImplementedError``, and so
-    does a ``host_spill:`` block. The nested ``structured:``,
-    ``weights:`` and ``adapters:`` blocks are
-    :class:`StructuredConfig`, :class:`WeightsConfig` and
-    :class:`AdaptersConfig`."""
+    does a ``router:`` block. The nested ``structured:``, ``weights:``,
+    ``adapters:``, ``host_spill:`` and ``disagg:`` blocks are
+    :class:`StructuredConfig`, :class:`WeightsConfig`,
+    :class:`AdaptersConfig`, :class:`HostSpillConfig` and
+    :class:`DisaggConfig`."""
 
     page_size: int = 64
     n_pages: int = 256
@@ -631,16 +669,19 @@ class ServingConfig:
         default_factory=WeightsConfig)  # int8/int4 weight serving
     adapters: AdaptersConfig = dataclasses.field(
         default_factory=AdaptersConfig)  # batched multi-LoRA lanes
+    host_spill: HostSpillConfig = dataclasses.field(
+        default_factory=HostSpillConfig)  # host-memory page spill tier
+    disagg: DisaggConfig = dataclasses.field(
+        default_factory=DisaggConfig)  # split prefill/decode pools
 
     @classmethod
     def from_dict(cls, data: dict | None) -> "ServingConfig":
         """Build from a ``serving:`` mapping; unknown keys are loud
         (a typo must not silently serve the default)."""
         data = dict(data or {})
-        if "host_spill" in data:
+        if "router" in data:
             raise NotImplementedError(
-                "serving.host_spill is not ported yet (ROADMAP.md A-3 host "
-                "spill tier)")
+                "serving.router: router blocks are not ported (A-4)")
         return _from_mapping(cls, data, "serving")
 
     @classmethod
@@ -655,11 +696,14 @@ class ServingConfig:
              on_recompile: str = "warn",
              device: str | torch.device = "cuda",
              tracer: Any = None):
-        """Build the engine and its batcher (the single-replica branch
+        """Build the engine and its batcher (the single-replica branches
         of the JAX ``make``); returns the
-        :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`.
-        ``compute_dtype`` defaults to bf16. The ``weights:`` block
-        quantizes ``params`` once, before the engine is built."""
+        :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`, or,
+        with ``disagg.enabled``, a
+        :class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair` over a
+        prefill-only engine and that batcher. ``compute_dtype`` defaults
+        to bf16. The ``weights:`` block quantizes ``params`` once, before
+        any engine is built."""
         from torchbooster_tpu_torch.serving import (
             ContinuousBatcher,
             PagedEngine,
@@ -672,32 +716,64 @@ class ServingConfig:
                              f"{sorted(_DECODE_BACKENDS)}, got "
                              f"{self.decode_backend!r}")
         params = self.weights.quantize(params)
-        engine = PagedEngine(
-            params, model_cfg, page_size=self.page_size,
-            n_pages=self.n_pages, max_slots=self.max_slots,
-            cache_dtype=self.cache_dtype or None,
-            compute_dtype=compute_dtype or torch.bfloat16,
-            temperature=self.temperature, top_k=self.top_k or None,
-            top_p=self.top_p or None, seed=self.seed,
-            prefix_cache=self.prefix_cache,
-            prefill_chunk_pages=self.prefill_chunk_pages,
-            decode_backend=_DECODE_BACKENDS[self.decode_backend],
-            tp=self.tp,
-            speculative=self.speculative, draft_len=self.draft_len,
-            ngram_min=self.ngram_min, spec_tree=self.spec_tree,
-            tree_width=self.spec_tree_width,
-            parallel_sampling=self.parallel_sampling,
-            structured=self.structured.enabled,
-            lora_rank=self.adapters.rank,
-            lora_max_live=(self.adapters.max_live
-                           if self.adapters.rank > 0 else 0),
-            device=device)
-        return ContinuousBatcher(engine, on_recompile=on_recompile,
+
+        def build_engine(*, prefill_only=False, n_pages=None,
+                         max_slots=None, host_spill=None):
+            return PagedEngine(
+                params, model_cfg, page_size=self.page_size,
+                n_pages=n_pages or self.n_pages,
+                max_slots=max_slots or self.max_slots,
+                cache_dtype=self.cache_dtype or None,
+                compute_dtype=compute_dtype or torch.bfloat16,
+                temperature=self.temperature, top_k=self.top_k or None,
+                top_p=self.top_p or None, seed=self.seed,
+                prefix_cache=self.prefix_cache,
+                prefill_chunk_pages=self.prefill_chunk_pages,
+                decode_backend=_DECODE_BACKENDS[self.decode_backend],
+                tp=self.tp,
+                speculative=self.speculative, draft_len=self.draft_len,
+                ngram_min=self.ngram_min, spec_tree=self.spec_tree,
+                tree_width=self.spec_tree_width,
+                parallel_sampling=self.parallel_sampling,
+                structured=self.structured.enabled,
+                lora_rank=self.adapters.rank,
+                lora_max_live=(self.adapters.max_live
+                               if self.adapters.rank > 0 else 0),
+                host_spill=(self.host_spill.enabled if host_spill is None
+                            else host_spill),
+                host_spill_mb=self.host_spill.budget_mb,
+                prefill_only=prefill_only, device=device)
+
+        if self.disagg.enabled:
+            from torchbooster_tpu_torch.serving.disagg import DisaggPair
+
+            if not (self.prefix_cache and self.host_spill.enabled):
+                raise ValueError(
+                    "serving.disagg needs prefix_cache: true and "
+                    "host_spill.enabled: true — the page stream lands in "
+                    "the decode pool's host tier")
+            if self.disagg.min_prefill_pages < 1:
+                raise ValueError(
+                    f"serving.disagg.min_prefill_pages must be >= 1, got "
+                    f"{self.disagg.min_prefill_pages}")
+            decode = ContinuousBatcher(build_engine(),
+                                       on_recompile=on_recompile,
+                                       tracer=tracer)
+            prefill = build_engine(
+                prefill_only=True,
+                n_pages=self.disagg.prefill_n_pages or None,
+                max_slots=self.disagg.prefill_max_slots or None,
+                host_spill=False)
+            return DisaggPair(
+                prefill, decode,
+                min_prefill_pages=self.disagg.min_prefill_pages)
+        return ContinuousBatcher(build_engine(), on_recompile=on_recompile,
                                  tracer=tracer)
 
 
-__all__ = ["AdaptersConfig", "BaseConfig", "DatasetConfig", "EnvConfig",
-           "HyperParameterConfig", "LoaderConfig", "OptimizerConfig",
+__all__ = ["AdaptersConfig", "BaseConfig", "DatasetConfig", "DisaggConfig",
+           "EnvConfig", "HostSpillConfig", "HyperParameterConfig",
+           "LoaderConfig", "OptimizerConfig",
            "SchedulerConfig", "ServingConfig", "StructuredConfig",
            "Transform", "WeightsConfig", "parse_sweep", "read_lines",
            "resolve_types"]

@@ -2,7 +2,8 @@
 tables (kv_pages), the paged engine (engine), speculative drafting and
 verify (speculative), the continuous batcher (batcher) and its
 scheduler policies (frontend.scheduler), structured generation
-(structured) and the LoRA adapter registry (adapters)."""
+(structured), the LoRA adapter registry (adapters), prefill/decode
+disaggregation (disagg) and the router's wire codec (router.rpc)."""
 from __future__ import annotations
 
 from torchbooster_tpu_torch.serving.adapters import (
@@ -14,10 +15,12 @@ from torchbooster_tpu_torch.serving.batcher import (
     Request,
     best_completions,
 )
+from torchbooster_tpu_torch.serving.disagg import DisaggPair
 from torchbooster_tpu_torch.serving.engine import PagedEngine
 from torchbooster_tpu_torch.serving.kv_pages import (
     NULL_PAGE,
     BlockTables,
+    HostPagePool,
     PoolExhausted,
     make_pool,
 )
@@ -27,7 +30,8 @@ from torchbooster_tpu_torch.serving.speculative import (
     TreeLookupDrafter,
 )
 
-__all__ = ["AdapterRegistry", "BlockTables", "ContinuousBatcher", "NO_DRAFT", "NULL_PAGE",
+__all__ = ["AdapterRegistry", "BlockTables", "ContinuousBatcher",
+           "DisaggPair", "HostPagePool", "NO_DRAFT", "NULL_PAGE",
            "PagedEngine", "PoolExhausted", "PromptLookupDrafter", "Request",
            "TreeLookupDrafter", "best_completions", "make_pool",
            "random_adapter"]

@@ -33,6 +33,15 @@ request's folded tokens into it) and an ``adapter`` name (a LoRA
 engine pins the adapter's lane at seat time, leaving the request queued
 while every lane is pinned, and drops the pin wherever the slot is
 given up). Both are validated at submit.
+
+On an engine with the host spill tier, queued promotions are issued
+right before each prefill chunk, and the tier's traffic lands in the
+registry, the flight rows and the metrics. The control surface an
+external driver reads — ``has_work``, ``session_active``, ``inflight``,
+``readiness``, ``drain_unfinished``, ``drain_queued`` and
+``debug_snapshot`` — is the JAX batcher's, so a front door or a
+:class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair` pumps this
+batcher as it pumps that one.
 """
 from __future__ import annotations
 
@@ -195,6 +204,9 @@ class _Session:
         self.hits0 = eng.prefix_hit_pages
         self.lookups0 = eng.prefix_lookup_pages
         self.chunks0 = eng.prefill_chunks
+        self.spills0 = eng.spills
+        self.promotions0 = eng.promotions
+        self.host_hits0 = eng.host_hit_pages
         self.spec_steps0 = eng.spec_steps
         self.spec_prop0 = eng.spec_proposed
         self.spec_acc0 = eng.spec_accepted
@@ -360,6 +372,10 @@ class ContinuousBatcher:
         return sum(r.n_branches - 1 for r in s.filling.values()
                    if r.branches is None and r.n_branches > 1)
 
+    def _free_slot_count(self) -> int:
+        # the tables' own definition of unseated, shared with seating
+        return self.engine.tables.n_free_slots()
+
     @property
     def occupancy(self) -> float:
         avail = self.engine.tables.n_available_pages
@@ -369,6 +385,93 @@ class ContinuousBatcher:
     def queue_depth(self) -> int:
         s = self._s
         return len(self._inbox_submit) + (len(s.queue) if s else 0)
+
+    @property
+    def has_work(self) -> bool:
+        """Whether the open session has anything left to pump: queued,
+        seated or inboxed requests."""
+        s = self._s
+        return s is not None and bool(
+            s.queue or s.live or s.filling
+            or self._inbox_submit or self._inbox_cancel)
+
+    @property
+    def session_active(self) -> bool:
+        """Whether a pumpable session is open."""
+        return self._s is not None
+
+    @property
+    def inflight(self) -> int:
+        """Seated requests (prefilling + decoding)."""
+        s = self._s
+        return 0 if s is None else len(s.live) + len(s.filling)
+
+    def readiness(self) -> dict:
+        """The readiness payload (``batcher.py:555``): queue depth,
+        free/cached/host pages, in-flight count, occupancy, the EWMA step
+        estimate, and a staleness stamp (``step_seq``, the flight
+        recorder's step count, beside ``stamped_s`` on the session
+        clock). Host counters only."""
+        eng = self.engine
+        return {
+            "status": "ok",
+            "queue_depth": self.queue_depth,
+            "pages_free": int(eng.tables.n_free_pages),
+            "pages_cached": int(eng.tables.n_cached_pages),
+            "pages_host": int(eng.tables.n_host_pages),
+            "inflight": self.inflight,
+            "occupancy": round(self.occupancy, 4),
+            "est_step_s": round(self.est_step_s, 6),
+            "step_seq": int(self.flight.n_recorded),
+            "stamped_s": (round(self.clock() - self._s.t0, 6)
+                          if self._s is not None else 0.0),
+        }
+
+    def drain_unfinished(self, retire_seated: bool = True) -> list:
+        """Remove and return EVERY unfinished request of the session.
+        Seated requests leave with their generated tokens folded into
+        their prompts (the preemption fold), so a re-admission elsewhere
+        re-prefills the full context and keeps the delivered tokens.
+        ``retire_seated=False`` skips the engine retires (an engine that
+        died is not to be trusted); adapter pins drop either way."""
+        if self._s is None:
+            return []
+        s = self._s
+        out: list[Request] = []
+        while self._inbox_submit:
+            out.append(self._inbox_submit.popleft())
+        out.extend(s.queue)
+        s.queue.clear()
+        seated = sorted([*s.filling.items(), *s.live.items()],
+                        key=lambda item: item[0])
+        s.filling.clear()
+        s.live.clear()
+        s.admit_order.clear()
+        for slot, req in seated:
+            if retire_seated:
+                self.engine.retire(slot)
+            self._release_adapter(req)
+            n = self._fold(req)
+            if self.tracer.enabled:
+                self.tracer.emit(req.request_id, "drained", slot=slot,
+                                 fold_tokens=n)
+            out.append(req)
+        return out
+
+    def drain_queued(self, n: int) -> list:
+        """Remove and return up to ``n`` QUEUED (never seated) requests
+        from the BACK of the queue, in arrival order — the cheap end of
+        the readmission-cost scale (no engine state, no fold)."""
+        if self._s is None or n < 1:
+            return []
+        s = self._s
+        while self._inbox_submit:
+            s.queue.append(self._inbox_submit.popleft())
+        out: list[Request] = []
+        while s.queue and len(out) < n:
+            out.append(s.queue.pop())
+        out.reverse()
+        return out
 
     # ---- external driver surface ---------------------------------
     def submit(self, req: Request, arrival: float | None = None) -> None:
@@ -453,6 +556,18 @@ class ContinuousBatcher:
                 "private tail pages copied at fork (the only bytes n-way "
                 "sampling duplicates)"),
         }
+        if self.engine.host_spill:
+            # spill-tier traffic, only with the tier (the spill-less
+            # registry view is unchanged)
+            inst["spills"] = reg.counter(
+                "serving_page_spills_total",
+                "KV pages demoted HBM -> host at eviction")
+            inst["promotions"] = reg.counter(
+                "serving_page_promotions_total",
+                "KV pages promoted host -> HBM at seat time")
+            inst["host_hits"] = reg.counter(
+                "serving_host_hit_pages_total",
+                "prompt pages matched in the host spill tier")
         if self.engine.structured:
             inst["structured"] = reg.counter(
                 "serving_structured_requests_total",
@@ -602,30 +717,40 @@ class ContinuousBatcher:
             return True
         return False
 
-    def _terminal(self, req: Request, events: list, reason: str) -> None:
-        """Close a request that never finished (shed or cancelled)."""
+    def _cancel_request(self, req: Request, events: list) -> None:
+        """Close a cancelled request; its delivered tokens count and are
+        billed."""
         s = self._s
+        req.cancelled = True
         req.finished_at = self.clock() - s.t0
-        req.finish_reason = reason
+        req.finish_reason = "cancelled"
         if self.tracer.enabled:
-            self.tracer.emit(req.request_id, reason,
+            self.tracer.emit(req.request_id, "cancelled",
                              n_tokens=len(req.tokens))
+        s.n_cancelled += 1
         s.new_tokens += len(req.tokens)
         self._account_adapter(req)
         events.append((req, []))
+        if self._class_stats(req) is not None:
+            self._inst["slo_cancel"].inc(cls=self.policy.cls_of(req).name)
+
+    def _shed_request(self, req: Request, events: list) -> None:
+        """Close a request the policy shed from the queue."""
+        s = self._s
+        req.shed = True
+        req.finished_at = self.clock() - s.t0
+        req.finish_reason = "shed"
+        if self.tracer.enabled:
+            self.tracer.emit(req.request_id, "shed",
+                             waited_s=round(req.finished_at
+                                            - req.arrival, 6))
+        s.n_shed += 1
+        self._account_adapter(req)
+        events.append((req, []))
         cs = self._class_stats(req)
-        if reason == "shed":
-            req.shed = True
-            s.n_shed += 1
-            if cs is not None:
-                cs["shed"] += 1
-                self._inst["slo_shed"].inc(cls=self.policy.cls_of(req).name)
-        else:
-            req.cancelled = True
-            s.n_cancelled += 1
-            if cs is not None:
-                self._inst["slo_cancel"].inc(
-                    cls=self.policy.cls_of(req).name)
+        if cs is not None:
+            cs["shed"] += 1
+            self._inst["slo_shed"].inc(cls=self.policy.cls_of(req).name)
 
     def _drain_cancels(self, events: list) -> None:
         s = self._s
@@ -637,7 +762,7 @@ class ContinuousBatcher:
                     continue                  # raced completion
                 if any(req is q for q in s.queue):
                     s.queue.remove(req)
-                    self._terminal(req, events, "cancelled")
+                    self._cancel_request(req, events)
                     continue
                 for table in (s.filling, s.live):
                     slot = next((sl for sl, r in table.items()
@@ -647,8 +772,19 @@ class ContinuousBatcher:
                         s.admit_order.remove(slot)
                         self.engine.retire(slot)
                         self._release_adapter(req)
-                        self._terminal(req, events, "cancelled")
+                        self._cancel_request(req, events)
                         break
+
+    @staticmethod
+    def _fold(req: Request) -> int:
+        """Fold the request's not-yet-folded generated tokens into its
+        prompt, so a re-seat resumes from its full context (the prompt
+        always holds ``base_len`` + the folded tokens, so a second fold
+        never repeats one); returns how many were folded."""
+        folded = len(req.prompt) - req.base_len
+        req.prompt = np.concatenate(
+            [req.prompt, np.asarray(req.tokens[folded:], np.int32)])
+        return len(req.tokens) - folded
 
     def _preempt_one(self, s: _Session,
                      exclude: frozenset | set = frozenset()) -> bool:
@@ -669,12 +805,10 @@ class ContinuousBatcher:
         # the pin drops with the seat (no billing); the re-seat acquires
         # whatever lane the registry then gives
         self._release_adapter(req)
-        folded = len(req.prompt) - req.base_len
+        n = self._fold(req)
         if self.tracer.enabled:
             self.tracer.emit(req.request_id, "preempted", slot=victim,
-                             fold_tokens=len(req.tokens) - folded)
-        req.prompt = np.concatenate(
-            [req.prompt, np.asarray(req.tokens[folded:], np.int32)])
+                             fold_tokens=n)
         s.queue.insert(0, req)
         s.n_preemptions += 1
         self._inst["preemptions"].inc()
@@ -739,6 +873,10 @@ class ContinuousBatcher:
         compiles = lambda: (eng.decode_compiles + eng.verify_compiles
                             + eng.prefill_compiles)
         c0 = compiles()
+        # this step's tier traffic (deltas of the engine's counters); the
+        # promotion write's one shape is the contract, so it is left out
+        # of the recompile diff
+        sp0, pr0, hh0 = eng.spills, eng.promotions, eng.host_hit_pages
         st = {"wall": 0.0, "prefill": False, "decode": False,
               "spec": False, "prop": 0, "acc": 0}
         events: list = []
@@ -753,6 +891,10 @@ class ContinuousBatcher:
                 pages_live=int(eng.tables.n_live_pages),
                 pages_free=int(eng.tables.n_free_pages),
                 pages_cached=int(eng.tables.n_cached_pages),
+                pages_host=int(eng.tables.n_host_pages),
+                spills=eng.spills - sp0,
+                promotions=eng.promotions - pr0,
+                host_hit_pages=eng.host_hit_pages - hh0,
                 queue_depth=len(s.queue),
                 tokens=sum(len(t) for _, t in events),
                 accept_rate=st["acc"] / st["prop"] if st["prop"] else 0.0,
@@ -781,7 +923,7 @@ class ContinuousBatcher:
         self._drain_cancels(events)
         for req in self.policy.shed(s.queue, now(), self):
             s.queue.remove(req)
-            self._terminal(req, events, "shed")
+            self._shed_request(req, events)
         # --- seat every admissible request the policy picks (FCFS
         # stops at the first failed seat: head-of-line order) ---
         tried: set[int] = set()
@@ -796,8 +938,7 @@ class ContinuousBatcher:
             # requests must not eat into standing reservations
             need = req.n_branches if req.branches is None else 1
             slot = None
-            if self.engine.tables.n_free_slots() - self._reserved_slots() \
-                    >= need:
+            if self._free_slot_count() - self._reserved_slots() >= need:
                 # the adapter pin before the seat: None when every lane
                 # is pinned keeps the request queued, as a full pool
                 # does; a seat that then fails drops the pin again
@@ -836,6 +977,11 @@ class ContinuousBatcher:
                 req.admitted_at = now()
         # --- ONE prefill chunk per iteration, interleaved with decode ---
         if self.engine.has_pending:
+            # host->device promotions go out BEFORE the chunk, on the
+            # same stream: the chunk that attends promoted pages runs
+            # after their write
+            if self.engine.host_spill:
+                self.engine.issue_promotions()
             t_chunk = self.clock()
             done = self.engine.prefill_step()
             dt = self.clock() - t_chunk
@@ -944,6 +1090,55 @@ class ContinuousBatcher:
         s.decoded += delivered
         self._inst["tokens"].inc(delivered)
 
+    def debug_snapshot(self, timeline_tail: int = 20) -> dict:
+        """Live per-request view for ``/debug/requests`` (``batcher.py:
+        1521``): every queued, prefilling and decoding request's state
+        and, with tracing on, the tail of its event timeline. Runs on the
+        thread that drives :meth:`step`."""
+        s = self._s
+        timelines: dict[str, list] = {}
+        if self.tracer.enabled:
+            for e in self.tracer.events():
+                rid = e["request_id"]
+                if rid is not None:
+                    timelines.setdefault(rid, []).append(e)
+
+        def view(req: Request, state: str, slot: int | None = None) -> dict:
+            d = {
+                "request_id": req.request_id, "state": state,
+                "priority": req.priority,
+                "adapter": req.adapter,
+                "prompt_len": int(req.base_len),
+                "n_tokens": len(req.tokens),
+                "arrival_s": round(req.arrival, 6),
+                "admitted_at_s": None if req.admitted_at is None
+                else round(req.admitted_at, 6),
+                "first_token_at_s": None if req.first_token_at is None
+                else round(req.first_token_at, 6),
+            }
+            if slot is not None:
+                d["slot"] = slot
+            if self.tracer.enabled:
+                d["timeline_tail"] = \
+                    timelines.get(req.request_id, [])[-timeline_tail:]
+            return d
+
+        out: dict = {"active_session": s is not None,
+                     "tracing_enabled": self.tracer.enabled,
+                     "queue_depth": self.queue_depth if s is not None
+                     else len(self._inbox_submit),
+                     "requests": []}
+        if s is None:
+            return out
+        out["session_now_s"] = round(self.clock() - s.t0, 6)
+        for req in s.queue:
+            out["requests"].append(view(req, "queued"))
+        for slot, req in sorted(s.filling.items()):
+            out["requests"].append(view(req, "prefill", slot))
+        for slot, req in sorted(s.live.items()):
+            out["requests"].append(view(req, "decode", slot))
+        return out
+
     def _land(self, s: _Session) -> None:
         """Gauges and counters land on engine truth at session exit."""
         if s.closed:
@@ -969,6 +1164,10 @@ class ContinuousBatcher:
             rows = eng.structured_masked_rows - s.srows0
             inst["structured_frac"].set(
                 (eng.structured_masked_sum - s.smasked0) / max(rows, 1))
+        if "spills" in inst:
+            inst["spills"].inc(eng.spills - s.spills0)
+            inst["promotions"].inc(eng.promotions - s.promotions0)
+            inst["host_hits"].inc(eng.host_hit_pages - s.host_hits0)
         if "adapter_loads" in inst:
             inst["adapter_loads"].inc(eng.adapters.loads - s.aloads0)
             inst["adapter_evictions"].inc(eng.adapters.evictions
@@ -1024,6 +1223,11 @@ class ContinuousBatcher:
             "spec_accept_rate": round(n_acc / max(n_prop, 1), 4),
             "spec_mean_accepted": round(
                 n_acc / max(eng.spec_steps - s.spec_steps0, 1), 4),
+            # the host spill tier (zero without it): demotions,
+            # promotions, and the prompt pages matched in the host tier
+            "n_spills": eng.spills - s.spills0,
+            "n_promotions": eng.promotions - s.promotions0,
+            "host_hit_pages": eng.host_hit_pages - s.host_hits0,
             # copy-on-write parallel sampling (zero without forks)
             "n_forks": eng.forks - s.forks0,
             "fork_pages": eng.fork_pages - s.fork_pages0,

@@ -37,14 +37,25 @@ cache — the port of ``torchbooster_tpu/serving/engine.py``.
   a preallocated device buffer and ``_block_core`` adds the slot's ranked
   deltas. Quantized weights (``models/quant.py``) need nothing here: the
   block math dispatches on the tree.
+- **the host spill tier** (``host_spill=True``, needs ``prefix_cache``)
+  turns LRU eviction of registered prefix pages into DEMOTION to a
+  host pool (int8 + fp32 scales, :meth:`_spill_fetch`); a later seat
+  that matches the chain there PROMOTES the pages back through one
+  fixed-shape write a group of ``prefill_chunk_pages`` pages
+  (:meth:`issue_promotions`) instead of recomputing their prefill.
+- **prefill-only** (``prefill_only=True``) is the prefill side of
+  disaggregated serving (``serving/disagg.py``): it admits and prefills,
+  hands its finished pages out through :meth:`export_pages`, and refuses
+  to decode.
 
 PyTorch runs eagerly, so the JAX package's one-compile contract
 becomes a fixed operand-shape contract: the decode and verify steps'
 operand shapes depend only on pool geometry (and ``draft_len``), and
 ``decode_compiles``/``verify_compiles`` count the DISTINCT shape
 signatures each step has seen (each must stay 1 — what a CUDA-graph
-capture of the step will need). The pool, the legality masks and the
-lane ids are updated in place.
+capture of the step will need; ``promote_compiles`` likewise counts the
+promotion write's). The pool, the legality masks, the lane ids and the
+promotion staging are updated in place.
 """
 from __future__ import annotations
 
@@ -73,9 +84,14 @@ from torchbooster_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
 from torchbooster_tpu_torch.serving.adapters import AdapterRegistry
+from torchbooster_tpu_torch.models.quant import (
+    weight_stream_bytes,
+    weights_dtype,
+)
 from torchbooster_tpu_torch.serving.kv_pages import (
     NULL_PAGE,
     BlockTables,
+    HostPagePool,
     make_pool,
 )
 from torchbooster_tpu_torch.serving.speculative import (
@@ -93,12 +109,23 @@ from torchbooster_tpu_torch.serving.structured import (
     compile_response_format,
 )
 
-# options of the JAX engine the port does not have yet, and the
-# ROADMAP.md item that will bring them
-_UNPORTED = {
-    "host_spill": "A-3 host spill tier",
-    "prefill_only": "A-4 disaggregated serving",
-}
+# the demotion payload, one page across every layer: what the host pool
+# stores, the promotion stages and the page stream frames
+_PAGE_DTYPES = {"k": np.int8, "k_scale": np.float32,
+                "v": np.int8, "v_scale": np.float32}
+_PAGE_FIELDS = tuple(_PAGE_DTYPES)
+
+
+def _quantize_page_np(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side mirror of ``models.gpt._quantize_kv`` for one page slab
+    (float32 in): symmetric per-(token, head) int8 over the head dim,
+    FLOAT32 scales (the promotion write casts to the pool's scale dtype,
+    so an int8 pool round-trips through the host tier exactly and a wide
+    pool pays the int8 cache's noise, never more)."""
+    scale = np.max(np.abs(x), axis=-1, keepdims=True) / 127.0
+    scale = np.maximum(scale, 1e-8).astype(np.float32)
+    q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    return q, scale
 
 
 class _Staged:
@@ -158,7 +185,12 @@ class PagedEngine:
     ``structured=True`` enables ``response_format`` decoding over
     ``structured_vocab`` (default ``bytes_vocab(cfg.vocab)``);
     ``lora_rank``/``lora_max_live`` (both positive) build the adapter
-    lanes and ``self.adapters``, their registry."""
+    lanes and ``self.adapters``, their registry. ``host_spill`` (with
+    ``prefix_cache``) demotes evicted prefix pages to a host pool of
+    ``host_spill_mb`` MiB and promotes them back on a match;
+    ``prefill_only`` builds the prefill side of a
+    :class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair`, whose
+    ``step``/``spec_step`` raise."""
 
     def __init__(self, params: dict, cfg: GPTConfig, *,
                  page_size: int = 64, n_pages: int = 128,
@@ -173,15 +205,9 @@ class PagedEngine:
                  decode_backend: str | None = None, tp: int = 1,
                  structured: bool = False, structured_vocab=None,
                  lora_rank: int = 0, lora_max_live: int = 0,
-                 device: str | torch.device = "cuda", **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"PagedEngine got an unexpected option "
-                                f"{name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP.md "
-                    f"{_UNPORTED[name]})")
+                 host_spill: bool = False, host_spill_mb: float = 64.0,
+                 prefill_only: bool = False,
+                 device: str | torch.device = "cuda"):
         if tp != 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) is not ported yet "
@@ -218,6 +244,11 @@ class PagedEngine:
                 "the per-branch sampling streams and logprobs ride the "
                 "plain decode step — serve n-way traffic on a "
                 "non-speculative engine")
+        if host_spill and not prefix_cache:
+            raise ValueError(
+                "host_spill=True needs prefix_cache=True: the spill tier "
+                "demotes REGISTERED prefix pages at eviction — without the "
+                "prefix index there is nothing to demote or promote")
         if structured_vocab is not None and not structured:
             raise ValueError(
                 "structured_vocab without structured=True does nothing: "
@@ -277,6 +308,39 @@ class PagedEngine:
         self.prefill_chunks = 0
         self.prefix_hit_pages = 0
         self.prefix_lookup_pages = 0
+        # the host spill tier: eviction demotes registered prefix pages
+        # to a host pool, and a later seat promotes them back through
+        # one fixed-shape write a group of ``lanes`` pages, staged
+        # through preallocated pinned buffers (each upload waits on the
+        # previous copy's event, so group g+1 never overwrites group g's
+        # pages before the copy has read them). Off, nothing is staged.
+        self.host_spill = bool(host_spill)
+        self.spills = 0          # pages demoted HBM -> host
+        self.promotions = 0      # pages promoted host -> HBM
+        self.host_hit_pages = 0  # seat-time matches served host-tier
+        self.promoted_bytes = 0  # host payload bytes staged for promotion
+        self._promote_lanes = 0
+        self._promote_shapes: set = set()
+        if self.host_spill:
+            self.tables.host_pool = HostPagePool(
+                max(1, int(host_spill_mb * (1 << 20))))
+            self.tables.spill_fetch = self._spill_fetch
+            lanes = self._promote_lanes = self.prefill_chunk_pages
+            shape = (lanes, cfg.n_layers, page_size, cfg.kv_heads,
+                     cfg.head_dim)
+            self._stage = {name: np.zeros(shape if name in ("k", "v")
+                                          else shape[:-1] + (1,), dtype)
+                           for name, dtype in _PAGE_DTYPES.items()}
+            self._stage_dev = {
+                name: _Staged(a.shape, torch.from_numpy(a).dtype,
+                              self.device)
+                for name, a in self._stage.items()}
+            self._stage_dst = _Staged((lanes,), torch.long, self.device)
+        # prefill-only (the prefill side of serving/disagg.py): admits
+        # and prefills, exports pages, never decodes
+        self.prefill_only = bool(prefill_only)
+        self.exported_pages = 0  # pages exported via export_pages
+        self.exported_bytes = 0  # their payload bytes (quantized)
         self._decode_shapes: set = set()
         self._verify_shapes: set = set()
         self._chunk_shapes: set = set()
@@ -402,6 +466,11 @@ class PagedEngine:
         n_cp = C // ps
         mp = table_row.shape[0]
         positions = start + torch.arange(C, device=dev)
+        # after a prefix hit the final chunk starts on a page, not a chunk,
+        # boundary, so its pad rows can pass the horizon: they embed and
+        # rope at the last position, as the decode step's do, and every
+        # mask keeps them out of the real rows
+        positions = positions.clamp(max=cfg.seq_len - 1)
         x = self._embed(ids, positions[None])
         pidx = start // ps + torch.arange(n_cp, device=dev)
         w_pages = torch.where(pidx < mp, table_row[pidx.clamp(max=mp - 1)],
@@ -602,6 +671,116 @@ class PagedEngine:
         for a in _pool_arrays(self.pool):
             a[:, dst_pages] = a[:, src_pages]
 
+    # ---- the host spill tier ----------------------------------------
+    def _spill_fetch(self, p: int) -> dict:
+        """Demotion payload for pool page ``p`` (``engine.py:1009``):
+        int8 K/V values plus float32 per-(token, head) scales across every
+        layer, as host numpy arrays keyed like the staging buffers. The
+        tier's one deliberate device->host read, on the ADMISSION cadence
+        (an eviction inside ``seat``), never inside a decode step. int8
+        pools ship their stored values and scales verbatim (a lossless
+        round trip); wide pools quantize here, as ``_quantize_kv``
+        does."""
+        if self.quantized:
+            (k, ks), (v, vs) = ((vals[:, p].cpu().numpy(),
+                                 scales[:, p].float().cpu().numpy())
+                                for vals, scales in (self.pool["k"],
+                                                     self.pool["v"]))
+        else:
+            k, ks = _quantize_page_np(self.pool["k"][:, p].float().cpu()
+                                      .numpy())
+            v, vs = _quantize_page_np(self.pool["v"][:, p].float().cpu()
+                                      .numpy())
+        self.spills += 1
+        return {"k": k, "k_scale": ks, "v": v, "v_scale": vs}
+
+    @torch.no_grad()
+    def _promote_fn(self, k_q, k_s, v_q, v_s, dst) -> None:
+        """The host->device promotion write (``engine.py:1035``): staged
+        pages land at pool ids ``dst`` across every layer, in place, on
+        the current stream (so the chunk and the decode step that read
+        them are ordered after it). Fixed shapes — the ``(lanes,
+        n_layers, page_size, kv_heads, head_dim)`` staging block and a
+        ``(lanes,)`` id vector whose pad lanes target the null page,
+        which every read masks. Wide pools dequantize as ``(q.float() *
+        s).to(pool.dtype)``, the reference's rounding order."""
+        for half, q, sc in (("k", k_q, k_s), ("v", v_q, v_s)):
+            pool = self.pool[half]
+            vals, scl = q.movedim(0, 1), sc.movedim(0, 1)
+            if isinstance(pool, tuple):
+                pool[0][:, dst] = vals
+                pool[1][:, dst] = scl.to(pool[1].dtype)
+            else:
+                pool[:, dst] = (vals.float() * scl).to(pool.dtype)
+
+    def issue_promotions(self) -> int:
+        """Dispatch every queued host->device promotion (``engine.py:
+        1059``). The batcher calls this right before chunk issue;
+        ``prefill_step`` also fires it for directly driven engines.
+        Payloads stream through the fixed staging buffers in
+        ``lanes``-sized groups — the same write every group, a short last
+        group padded onto the null page — and the promoted keys re-enter
+        the prefix index at their seated table positions. Returns the
+        number of pages promoted (the copies are asynchronous)."""
+        if not self.host_spill:
+            return 0
+        n = 0
+        lanes = self._promote_lanes
+        for p in self._pending:
+            work = p.pop("promote", None)
+            if not work:
+                continue
+            keys, payloads = work["keys"], work["payloads"]
+            start_idx = work["start_idx"]
+            row = self.tables.tables[p["slot"]]
+            with torch.profiler.record_function("serving_promote"):
+                for g in range(0, len(keys), lanes):
+                    dst = np.zeros(lanes, np.int64)     # pad -> null page
+                    for i, pl in enumerate(payloads[g:g + lanes]):
+                        for name in _PAGE_FIELDS:
+                            self._stage[name][i] = pl[name]
+                        dst[i] = row[start_idx + g + i]
+                        self.promoted_bytes += sum(
+                            int(a.nbytes) for a in pl.values())
+                    ops = [self._stage_dev[name].upload(self._stage[name])
+                           for name in _PAGE_FIELDS]
+                    ops.append(self._stage_dst.upload(dst))
+                    self._promote_shapes.add(self._signature(
+                        dict(zip((*_PAGE_FIELDS, "dst"), ops))))
+                    k_q, k_s, v_q, v_s, d = ops
+                    self._promote_fn(k_q, k_s, v_q, v_s, d)
+            self.tables.promote_keys(p["slot"], keys, start_idx)
+            self.promotions += len(keys)
+            n += len(keys)
+        return n
+
+    def export_pages(self, slot: int,
+                     prompt_ids: np.ndarray) -> list[tuple[bytes, dict]]:
+        """The slot's leading FULL prompt pages as ``(chain_key,
+        payload)`` pairs in the demotion format (``engine.py:1109``),
+        keyed by the prefix index's chain. The ``(len - 1) // page_size``
+        cap matches the matcher's, so the importer always re-runs at
+        least the final chunk and samples the first token itself. Call
+        before :meth:`retire` frees the pages; device->host reads on the
+        per-request cadence, never inside a decode step."""
+        prompt = np.ascontiguousarray(prompt_ids, np.int32).reshape(-1)
+        limit = (len(prompt) - 1) // self.page_size
+        row = self.tables.tables[slot]
+        out: list[tuple[bytes, dict]] = []
+        for i in range(limit):
+            p = int(row[i])
+            if p == NULL_PAGE:
+                break
+            key = prompt[:(i + 1) * self.page_size].tobytes()
+            payload = self._spill_fetch(p)
+            self.spills -= 1   # an export is not a demotion: the page
+            #                    stays seated
+            self.exported_pages += 1
+            self.exported_bytes += sum(int(a.nbytes)
+                                       for a in payload.values())
+            out.append((key, payload))
+        return out
+
     # ---- lifecycle --------------------------------------------------
     def admit_begin(self, prompt_ids: np.ndarray, seed: int | None = None,
                     branch: int = 0, adapter_lane: int = 0) -> int | None:
@@ -632,29 +811,53 @@ class PagedEngine:
         if self.tables.pages_for(s0) - (s0 - 1) // self.page_size \
                 > self.tables.n_available_pages:
             return None
-        matched = self.tables.match_pages(prompt)
+        # ONE walk serves the capacity check and the seat; with the
+        # spill tier it continues past the HBM chain into the host pool
+        # (host matches still need pool pages allocated — only HBM hits
+        # discount the capacity — but skip their prefill)
+        matched, host_keys = self.tables.match_tiered(prompt)
         if self.tables.pages_for(s0) - len(matched) \
                 > self.tables.n_available_pages:
             return None
+        # pop the host payloads BEFORE seating: seat() can evict-demote,
+        # and a demotion landing in the host pool could LRU-evict the
+        # very pages just matched. Put back if the seat fails (or on a
+        # retire that beats the promotion).
+        payloads: list[dict] = []
+        for i, key in enumerate(host_keys):
+            pl = self.tables.host_pool.pop(key)
+            if pl is None:             # defensive: cut the chain at a gap
+                host_keys = host_keys[:i]
+                break
+            payloads.append(pl)
         try:
             self.tables.seat(slot, prompt, matched=matched)
         except RuntimeError:
             # mapping the matched pages made them un-evictable and the
             # private tail came up short: seat() rolled back, stay queued
+            for key, pl in zip(host_keys, payloads):
+                self.tables.host_pool.put(key, pl)
             return None
         self.prefix_lookup_pages += (s0 - 1) // self.page_size
         self.prefix_hit_pages += len(matched)
+        self.host_hit_pages += len(host_keys)
         self._seed_of[slot] = 0 if seed is None else int(seed) & 0x7fffffff
         self._branch_of[slot] = int(branch)
         self._slot_lanes[slot] = int(adapter_lane)
         if self._drafter is not None:
             self._drafter.begin(slot, prompt)
-        start = len(matched) * self.page_size
+        # chunking starts past BOTH tiers' matches: HBM hits are mapped
+        # shares, host hits are written by the promotion before the
+        # first chunk issues
+        start = (len(matched) + len(host_keys)) * self.page_size
         n_chunks = -(-(s0 - start) // self.chunk_tokens)
         padded = np.zeros(start + n_chunks * self.chunk_tokens, np.int32)
         padded[:s0] = prompt
-        self._pending.append({"slot": slot, "ids": padded, "s0": s0,
-                              "start": start})
+        pend = {"slot": slot, "ids": padded, "s0": s0, "start": start}
+        if host_keys:
+            pend["promote"] = {"keys": host_keys, "payloads": payloads,
+                               "start_idx": len(matched)}
+        self._pending.append(pend)
         return slot
 
     @property
@@ -687,6 +890,11 @@ class PagedEngine:
         are kept for :meth:`fork`."""
         if not self._pending:
             return None
+        if self.host_spill:
+            # a chunk must never attend host-matched pages that were not
+            # written yet (the batcher has already promoted; a directly
+            # driven engine has not)
+            self.issue_promotions()
         p = self._pending[0]
         slot, C = p["slot"], self.chunk_tokens
         ids = torch.as_tensor(p["ids"][p["start"]:p["start"] + C],
@@ -874,6 +1082,11 @@ class PagedEngine:
         (garbage at inactive or mid-prefill slots). With
         ``parallel_sampling`` each slot samples its branch's stream and
         ``step_logprobs`` holds the picks' logprobs."""
+        if self.prefill_only:
+            raise RuntimeError(
+                "step() on a prefill_only engine: the disaggregated prefill "
+                "pool exports pages (export_pages) instead of decoding — "
+                "route decode to the decode host")
         active, args, work = self._step_args()
         smask = (self._smask.upload(self._cursors.mask)
                  if self.structured else None)
@@ -921,6 +1134,11 @@ class PagedEngine:
         positions are never advanced over: their K/V sits past
         ``lengths``, invisible, and the next step overwrites it. One
         device->host copy a step. Returns ``{slot: [tokens]}``."""
+        if self.prefill_only:
+            raise RuntimeError(
+                "spec_step() on a prefill_only engine: the disaggregated "
+                "prefill pool exports pages (export_pages) instead of "
+                "decoding")
         if not self.speculative:
             raise RuntimeError(
                 "spec_step() needs a PagedEngine(speculative=True); the "
@@ -1027,6 +1245,13 @@ class PagedEngine:
     def retire(self, slot: int) -> None:
         """Release the slot (cancelling any in-flight prefill); shared
         prefix pages stay resident for later hits."""
+        for p in self._pending:
+            # a retire that beats the promotion: the popped host payloads
+            # go back to the host pool instead of vanishing
+            if p["slot"] == slot and "promote" in p:
+                work = p.pop("promote")
+                for key, pl in zip(work["keys"], work["payloads"]):
+                    self.tables.host_pool.put(key, pl)
         self._pending = [p for p in self._pending if p["slot"] != slot]
         if self._drafter is not None:
             self._drafter.reset(slot)
@@ -1150,6 +1375,77 @@ class PagedEngine:
     def prefill_compiles(self) -> int:
         """Distinct prefill-chunk shape signatures (stays 1)."""
         return len(self._chunk_shapes)
+
+    @property
+    def promote_compiles(self) -> int:
+        """Distinct promotion-write shape signatures: 1 whatever group
+        sizes the demote/promote churn produces (fixed staging, pad lanes
+        on the null page); 0 before the first host hit and without the
+        spill tier."""
+        return len(self._promote_shapes)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of eligible prompt pages served from the cache."""
+        return self.prefix_hit_pages / max(self.prefix_lookup_pages, 1)
+
+    def debug_stats(self) -> dict:
+        """Engine introspection for ``GET /debug/engine`` (``engine.py:
+        1875``): pool occupancy, prefix-cache and spill-tier stats, shape
+        counts — host integers only, never a device read."""
+        t = self.tables
+        host = t.host_pool
+        return {
+            "backend": self.decode_backend,
+            "tp": 1,
+            "speculative": self.speculative,
+            "spec_tree": self.spec_tree,
+            "parallel_sampling": self.parallel,
+            "quantized": self.quantized,
+            "page_size": self.page_size,
+            "n_pages": self.n_pages,
+            "max_slots": self.max_slots,
+            "pages_live": int(t.n_live_pages),
+            "pages_free": int(t.n_free_pages),
+            "pages_cached": int(t.n_cached_pages),
+            "pages_available": int(t.n_available_pages),
+            "pending_prefill_chunks": self.pending_chunk_count,
+            "prefill_chunks": self.prefill_chunks,
+            "prefix_hit_pages": self.prefix_hit_pages,
+            "prefix_lookup_pages": self.prefix_lookup_pages,
+            "prefix_hit_rate": round(self.prefix_hit_rate, 4),
+            "host_spill": self.host_spill,
+            "pages_host": int(t.n_host_pages),
+            "spills": self.spills,
+            "promotions": self.promotions,
+            "host_hit_pages": self.host_hit_pages,
+            "promoted_bytes": self.promoted_bytes,
+            "host_bytes_used": int(host.used_bytes) if host else 0,
+            "host_evictions": int(host.n_evictions) if host else 0,
+            "spec_steps": self.spec_steps,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "forks": self.forks,
+            "fork_pages": self.fork_pages,
+            "cow_copies": self.cow_copies,
+            "branch_slots": self.branch_slot_count,
+            "structured": self.structured,
+            "structured_requests": self.structured_requests,
+            "structured_slots": self.structured_slot_count,
+            "structured_schemas": len(self._sdfa_cache),
+            "weights_dtype": weights_dtype(self.params),
+            "weight_stream_bytes": weight_stream_bytes(self.params),
+            "lora": self.lora,
+            "lora_rank": self.lora_rank,
+            "lora_max_live": self.lora_max_live,
+            "adapters": (self.adapters.debug()
+                         if self.adapters is not None else None),
+            "compiles": {"decode": self.decode_compiles,
+                         "prefill": self.prefill_compiles,
+                         "verify": self.verify_compiles,
+                         "promote": self.promote_compiles,
+                         "lora_load": self.lora_load_compiles},
+        }
 
 
 __all__ = ["PagedEngine"]

@@ -30,8 +30,17 @@ Page 0 is RESERVED as the null page: free slots' table entries and
 inactive slots' write targets point at it, its refcount stays 0, and
 every attention read masks it out.
 
-Not ported yet (``ROADMAP.md`` A6): the host spill tier
-(``HostPagePool``).
+**The host spill tier.** With a :class:`HostPagePool` attached,
+eviction of a cached prefix page becomes a DEMOTION: the engine's
+``spill_fetch`` callback copies the page's K/V to host memory (int8
+values plus fp32 scales) under the same chain key the HBM index uses,
+and the pool slot returns to the free list. A host-resident page
+occupies no pool id and is never refcounted. :meth:`match_tiered`
+walks both tiers in one lookup — the HBM-resident prefix first, then
+its host-resident continuation — so the engine maps the HBM pages
+shared and PROMOTES the host pages back with one fixed-shape write
+instead of recomputing them. The host pool is itself LRU under a byte
+budget; pages that fall off its tail are gone for real.
 """
 from __future__ import annotations
 
@@ -68,6 +77,92 @@ def make_pool(cfg: GPTConfig, page_size: int, n_pages: int,
     else:
         mk = lambda: torch.zeros(shape, dtype=compute_dtype, device=device)
     return {"k": mk(), "v": mk()}
+
+
+class HostPagePool:
+    """The host-memory page spill tier: demoted prefix pages as
+    ``chain-key bytes -> payload`` entries under a byte budget.
+
+    A payload is an opaque dict of HOST numpy arrays (the engine's
+    demotion callback builds it: int8 K/V values + float32 scales for
+    one page across every layer) — this class only owns the residency
+    policy: LRU by insertion/touch tick, evict-oldest when a ``put``
+    would overflow ``budget_bytes``. Pure host bookkeeping with no
+    device handles, so entries move between pools with a plain numpy
+    copy (disaggregated serving streams them from one engine to
+    another).
+
+    Counters: ``n_spills`` pages demoted in, ``n_evictions`` pages
+    dropped by the budget, ``used_bytes`` current residency."""
+
+    def __init__(self, budget_bytes: int):
+        if budget_bytes < 1:
+            raise ValueError(
+                f"host pool budget must be >= 1 byte, got "
+                f"{budget_bytes}")
+        self.budget_bytes = int(budget_bytes)
+        self._pages: dict[bytes, dict] = {}
+        self._nbytes: dict[bytes, int] = {}
+        self._lru: dict[bytes, int] = {}
+        self._tick = 0
+        self.used_bytes = 0
+        self.n_spills = 0
+        self.n_evictions = 0
+
+    def __contains__(self, key: bytes) -> bool:
+        return key in self._pages
+
+    def __len__(self) -> int:
+        return len(self._pages)
+
+    def keys(self) -> list[bytes]:
+        return list(self._pages)
+
+    def get(self, key: bytes) -> dict | None:
+        """Peek a payload (no residency change)."""
+        return self._pages.get(key)
+
+    def put(self, key: bytes, payload: dict) -> list[bytes]:
+        """Insert (or refresh) a page; returns the keys the byte
+        budget pushed out. A payload larger than the whole budget is
+        refused by eviction-to-empty — the page just drops (returned
+        in the evicted list) rather than wedging the pool."""
+        nbytes = sum(int(a.nbytes) for a in payload.values())
+        self.pop(key)                    # refresh == replace
+        evicted: list[bytes] = []
+        while self._lru and self.used_bytes + nbytes > self.budget_bytes:
+            old = min(self._lru, key=self._lru.get)
+            self.pop(old)
+            self.n_evictions += 1
+            evicted.append(old)
+        if nbytes > self.budget_bytes:
+            self.n_evictions += 1
+            return evicted + [key]
+        self._tick += 1
+        self._pages[key] = payload
+        self._nbytes[key] = nbytes
+        self._lru[key] = self._tick
+        self.used_bytes += nbytes
+        self.n_spills += 1
+        return evicted
+
+    def pop(self, key: bytes) -> dict | None:
+        """Remove and return a payload (promotion consumes it)."""
+        payload = self._pages.pop(key, None)
+        if payload is not None:
+            self.used_bytes -= self._nbytes.pop(key)
+            del self._lru[key]
+        return payload
+
+    def check(self) -> None:
+        """Structural invariants (the spill churn tests' assert)."""
+        assert self._pages.keys() == self._nbytes.keys() \
+            == self._lru.keys(), "host pool key-map drift"
+        assert self.used_bytes == sum(self._nbytes.values()), (
+            "host pool byte accounting drift")
+        assert self.used_bytes <= self.budget_bytes, (
+            f"host pool over budget: {self.used_bytes} > "
+            f"{self.budget_bytes}")
 
 
 class BlockTables:
@@ -167,6 +262,15 @@ class BlockTables:
         # LIFO free list: recently-freed pages are re-issued first
         # (their bytes are hottest in cache); page 0 never enters
         self._free = list(range(n_pages - 1, 0, -1))
+        # the host spill tier (all optional; None = no tier): host_pool
+        # holds demoted pages' payloads, spill_fetch is the ENGINE's
+        # demotion callback (page id -> host payload dict — the one
+        # deliberate device read of the tier), on_tier_event a
+        # directory's feed ((kind, chain-key bytes) on register /
+        # demote / promote / evict / host_evict)
+        self.host_pool: HostPagePool | None = None
+        self.spill_fetch = None
+        self.on_tier_event = None
 
     # ---- queries -------------------------------------------------
     @property
@@ -183,6 +287,14 @@ class BlockTables:
         """Free + evictable — the admission capacity check (cached
         prefixes never block an admission; they evict under it)."""
         return len(self._free) + len(self._lru)
+
+    @property
+    def n_host_pages(self) -> int:
+        """Host-tier resident pages (0 with the spill tier off).
+        Deliberately NOT part of :attr:`n_available_pages`: a host
+        page occupies no pool id, so it neither consumes nor provides
+        admission capacity."""
+        return len(self.host_pool) if self.host_pool is not None else 0
 
     def free_slot(self) -> int | None:
         """Lowest unseated slot id, or None when all are occupied."""
@@ -217,6 +329,31 @@ class BlockTables:
                 break
             pages.append(p)
         return pages
+
+    def match_tiered(self, prompt: np.ndarray
+                     ) -> tuple[list[int], list[bytes]]:
+        """The two-tier chain walk, ONE lookup per page: the
+        HBM-resident prefix (page ids, exactly :meth:`match_pages`)
+        followed by its host-resident continuation (chain-key bytes the
+        engine promotes). Same ``(len - 1) // page_size`` cap across the
+        combined chain. A chain that leaves the host tier and re-enters
+        HBM is cut at the host miss — seat maps only a LEADING
+        contiguous run, and a mid-chain tier sandwich is a transient
+        (the stranded HBM page demotes or evicts on its own)."""
+        pages = self.match_pages(prompt)
+        if self.host_pool is None or not self.prefix_cache \
+                or len(prompt) < 1:
+            return pages, []
+        prompt = np.ascontiguousarray(prompt, np.int32)
+        limit = (len(prompt) - 1) // self.page_size
+        keys: list[bytes] = []
+        while len(pages) + len(keys) < limit:
+            key = prompt[:(len(pages) + len(keys) + 1)
+                         * self.page_size].tobytes()
+            if key not in self.host_pool:
+                break
+            keys.append(key)
+        return pages, keys
 
     # ---- mutations -----------------------------------------------
     def seat(self, slot: int, prompt: np.ndarray,
@@ -359,8 +496,34 @@ class BlockTables:
                 continue
             self._index[key] = p
             self._page_key[p] = key
+            if self.host_pool is not None:
+                # a freshly prefilled copy supersedes a stale host
+                # payload (the HBM bytes are exact, the host ones
+                # quantized) — one key never lives in both tiers
+                self.host_pool.pop(key)
+            if self.on_tier_event is not None:
+                self.on_tier_event("register", key)
             n_new += 1
         return n_new
+
+    def promote_keys(self, slot: int, keys: list[bytes],
+                     start_idx: int) -> None:
+        """Publish promoted pages back into the HBM prefix index:
+        ``keys[i]`` describes the content the engine's promotion wrote
+        into the slot's page at table index ``start_idx + i``. Host
+        bookkeeping only; first-writer-wins like
+        :meth:`register_prefix`, so a racing cold prefill that
+        registered the same chain keeps its entry and the promoted copy
+        stays private to its slot."""
+        for i, key in enumerate(keys):
+            p = int(self.tables[slot, start_idx + i])
+            if p == NULL_PAGE or key in self._index \
+                    or p in self._page_key:
+                continue
+            self._index[key] = p
+            self._page_key[p] = key
+            if self.on_tier_event is not None:
+                self.on_tier_event("promote", key)
 
     def ensure_write_pages(self, slot: int, n_tokens: int = 1) -> bool:
         """Make sure pages exist for the next ``n_tokens`` write
@@ -477,13 +640,30 @@ class BlockTables:
 
     def _evict(self, n: int) -> int:
         """Reclaim up to ``n`` LRU cached prefix pages into the free
-        list (dropping their index entries); returns how many."""
+        list (dropping their index entries); returns how many. With the
+        spill tier attached the reclaim is a DEMOTION: the page's K/V go
+        to the host pool (``spill_fetch``, the engine's quantize-and-copy
+        callback) under the same chain key before the pool slot frees,
+        so a later request promotes instead of recomputing. The pool
+        partition is unchanged either way."""
         got = 0
         while got < n and self._lru:
             p = min(self._lru, key=self._lru.get)
             del self._lru[p]
             key = self._page_key.pop(p)
             del self._index[key]
+            if self.host_pool is not None and self.spill_fetch is not None:
+                payload = self.spill_fetch(p)
+                if payload is not None:
+                    dropped = self.host_pool.put(key, payload)
+                    if self.on_tier_event is not None:
+                        self.on_tier_event("demote", key)
+                        for k in dropped:
+                            self.on_tier_event("host_evict", k)
+                elif self.on_tier_event is not None:
+                    self.on_tier_event("evict", key)
+            elif self.on_tier_event is not None:
+                self.on_tier_event("evict", key)
             self.page_pos[p] = 0
             self._free.append(int(p))
             got += 1
@@ -651,6 +831,17 @@ class BlockTables:
             assert self._page_key.get(p) == key, "index/page_key drift"
         for p in cached:
             assert p in self._page_key and self.refcount[p] == 0
+        if self.host_pool is not None:
+            # the spill tier's side of the partition: host pages occupy
+            # NO pool id, are never refcounted, and one chain key never
+            # lives in both tiers
+            self.host_pool.check()
+            for key in self.host_pool.keys():
+                assert key not in self._index, (
+                    "chain key resident in both tiers")
+                assert len(key) % (4 * self.page_size) == 0, (
+                    "host pool key is not page-aligned int32 bytes")
 
 
-__all__ = ["BlockTables", "NULL_PAGE", "PoolExhausted", "make_pool"]
+__all__ = ["BlockTables", "HostPagePool", "NULL_PAGE", "PoolExhausted",
+           "make_pool"]
