@@ -126,7 +126,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    the prefill engine no decode; every B4 launch ``"sm90"`` over the int8
    pool. Prints p50 TTFT of the short and the long requests, decode
    tok/s, framed bytes and memory, on and off.
-7. train   — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
+6i. serve_http — the serving geometry of phase 5 at bf16 through
+   ``ServingConfig.make`` from a ``serving:`` mapping with a ``frontend:
+   {policy: slo, port: 0}`` block, telemetry and request tracing on
+   (``ObservabilityConfig``), behind ``ServingFrontend`` in the phase's
+   own event loop: the 8 requests of phase 5 as 8 concurrent SSE clients
+   over localhost TCP, each equal to the dense ``generate``; a chat and a
+   unary completion; a client that leaves after 8 tokens (pages back,
+   tables consistent, no new decode shape); 429 + Retry-After for an
+   unmeetable deadline; ``/metrics``, ``/healthz?full=1``,
+   ``/debug/engine`` and ``/debug/trace`` with the JAX front door's keys;
+   then the same 8 requests pumped in-process, and one profiled 2-token
+   request whose one ``decode_step`` range holds 12 B4 calls, each a
+   partials and a merge kernel on ``"sm90"``. Prints client TTFT and
+   TPOT p50/p99, tok/s over the window beside the in-process pump's, and
+   the device busy share of a profiled replay of the 8 clients.
+6j. serve_replay — a ``LoadgenConfig`` Poisson workload (32 requests,
+   interactive:3 / batch:1, 1/8 with a recorded disconnect, prompts
+   64-512, 16-32 new) under ``policy: slo``: ``replay_inprocess`` twice
+   (identical streams and outcomes; uncancelled streams equal the dense
+   ``generate``, cancelled ones prefixes of it), then ``replay_http``
+   against a front door with ``capture_path`` (the capture holds the
+   offered requests; every request served in full both ways equals its
+   in-process stream). Prints both conformance reports.
+7. train  — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
    built in code from ``examples/lm/gpt/gpt.yml``'s values with the model
    at GPT-2-small width: batch 8 x 1024, 20 steps, bf16 over fp32 masters,
    remat, AdamW + cycle schedule (2-step warmup), clip 1.0, then a
@@ -242,12 +265,13 @@ import torch
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
-          "serve_disagg", "train",
+          "serve_disagg", "serve_http", "serve_replay", "train",
           "gpt2_import", "train_long", "conv", "resnet_train")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
-                "serve_spill", "serve_disagg")
+                "serve_spill", "serve_disagg", "serve_http",
+                "serve_replay")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
            "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
            "group_norm_fwd_sm90", "group_norm_bwd_sm90", "fused_block",
@@ -2253,6 +2277,546 @@ def phase_serve_disagg(params, cfg, smi: str, report: dict
     return launches, by_route, launches
 
 
+# ------------------------------------------------- the HTTP front door
+HTTP_CLASSES = "interactive:60000:0,batch:0:0"
+HTTP_DISCONNECT_AFTER = 8      # tokens a client reads before it leaves
+REPLAY_TTFT_MS = 5000          # the interactive class's TTFT deadline
+READINESS_KEYS = {"status", "queue_depth", "pages_free", "pages_cached",
+                  "pages_host", "inflight", "occupancy", "est_step_s",
+                  "step_seq", "stamped_s"}
+ENGINE_DEBUG_KEYS = {"engine", "occupancy", "queue_depth", "flight"}
+FLIGHT_KEYS = {"n_recorded", "capacity", "nbytes", "records", "anomalies"}
+
+
+def http_serving_config(classes: str):
+    """``ServingConfig.make``'s input: the GPT-2 small serving geometry
+    as a ``serving:`` mapping with a ``frontend:`` block (the SLO policy
+    over ``classes``, an ephemeral port)."""
+    from torchbooster_tpu_torch.config import ServingConfig
+
+    return ServingConfig.from_dict({
+        "page_size": PS, "n_pages": N_PAGES, "max_slots": SLOTS,
+        "frontend": {"policy": "slo", "classes": classes,
+                     "default_class": "batch", "port": 0}})
+
+
+async def http_request(port: int, method: str, path: str,
+                       payload=None, rid: str | None = None) -> dict:
+    """One HTTP exchange over localhost TCP, read to the server's close:
+    its status, headers and whole body. Streamed completions go through
+    ``replay_http``'s clients instead."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = b"" if payload is None else json.dumps(payload).encode()
+    head = f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+    if rid:
+        head += f"X-Request-Id: {rid}\r\n"
+    if body:
+        head += f"Content-Length: {len(body)}\r\n"
+    writer.write(head.encode() + b"\r\n" + body)
+    await writer.drain()
+    raw = await reader.readuntil(b"\r\n\r\n")
+    lines = raw.decode().split("\r\n")
+    out = {"status": int(lines[0].split(" ")[1]), "headers": {
+        k.strip().lower(): v.strip() for k, _, v in
+        (ln.partition(":") for ln in lines[1:] if ln)},
+        "body": await reader.read()}
+    writer.close()
+    return out
+
+
+def client_workload(reqs, tag: str, vocab: int,
+                    cancel_after: int | None = None):
+    """``reqs`` as a loadgen workload offered all at once (arrival 0,
+    class ``batch``), request ids ``<tag><i>``: ``replay_http`` sends
+    each as one concurrent SSE client, which leaves after
+    ``cancel_after`` tokens when that is set."""
+    from torchbooster_tpu_torch.serving.loadgen import (Workload,
+                                                        WorkloadRequest)
+
+    return Workload(requests=[WorkloadRequest(
+        arrival_s=0.0, max_new_tokens=r.max_new_tokens,
+        prompt=np.asarray(r.prompt), priority="batch",
+        request_id=f"{tag}{i}", cancel_after_tokens=cancel_after)
+        for i, r in enumerate(reqs)], kind="smoke", vocab=vocab)
+
+
+def served_exact(res, want: dict, where: str) -> None:
+    """Every client of the HTTP replay ``res`` was answered 200 and read
+    its stream to the end (none shed, errored or gone), and each
+    request's streamed tokens equal ``want[request_id]``."""
+    failed = {o["request_id"]: o.get("error", "shed" if o["shed"] else
+                                     "errored" if o["errored"] else
+                                     "cancelled")
+              for o in res.outcomes
+              if o["shed"] or o["errored"] or o["cancelled"]}
+    diff = sorted(rid for rid, toks in want.items()
+                  if res.streams.get(rid) != toks)
+    if failed or diff or res.report["n_errors"] \
+            or len(res.outcomes) != len(want):
+        raise AssertionError(f"{where}: HTTP clients failed {failed}; "
+                             f"streams differ on {diff}")
+
+
+async def wait_idle(batcher, timeout: float = 60.0) -> None:
+    import asyncio
+
+    deadline = time.perf_counter() + timeout
+    while batcher.has_work or batcher.inflight:
+        if time.perf_counter() > deadline:
+            raise AssertionError("the front door's pump did not go idle")
+        await asyncio.sleep(0.01)
+
+
+def report_line(rep: dict) -> str:
+    """The conformance report's counts, rates and per-class latency
+    percentiles on one line (the whole report is in the JSON file)."""
+    ms = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
+    head = (f"{rep['n_completed']} completed, {rep['n_cancelled']} "
+            f"cancelled, {rep['n_shed']} shed, {rep['n_errors']} errors, "
+            f"deadline hit {rep['deadline_hit_rate']}, {rep['total_tok_s']} "
+            f"tok/s, goodput {rep['goodput_tok_s']} tok/s over "
+            f"{rep['wall_s']} s")
+    classes = "; ".join(
+        f"{c} TTFT p50/p99 {ms(b['ttft_p50_s'])}/{ms(b['ttft_p99_s'])} ms, "
+        f"TPOT {ms(b['tpot_p50_s'])}/{ms(b['tpot_p99_s'])} ms"
+        for c, b in rep["classes"].items())
+    return f"{head}; {classes}"
+
+
+def b4_counts(pa) -> tuple:
+    return pa.launches, dict(pa.launches_by_route)
+
+
+def b4_delta(pa, before: tuple) -> tuple:
+    n0, r0 = before
+    return pa.launches - n0, {r: c - r0[r]
+                              for r, c in pa.launches_by_route.items()}
+
+
+def phase_serve_http(params, cfg, smi: str, report: dict
+                     ) -> tuple[int, dict]:
+    """GPT-2 small at bf16 over real localhost HTTP: ``ServingFrontend``
+    (``frontend: {policy: slo}``, port 0) in this phase's event loop, with
+    telemetry and request tracing on. 8 concurrent SSE clients (the
+    serving trace of phase 5) each equal the dense ``generate``; then a
+    chat and a unary completion, a client that leaves after 8 tokens
+    (pages back, tables consistent, no new decode shape), a 429 with
+    Retry-After for an unmeetable deadline (no page moved), ``/metrics``
+    with ``serving_*`` and ``span_seconds{name="decode_step"}``,
+    ``/healthz?full=1``, ``/debug/engine`` and ``/debug/trace`` with JAX's
+    keys, and the allocator gauges of ``record_memory_gauges`` on
+    ``/metrics``; the 8 clients again under the profiler for the device busy
+    share, each again equal to the dense ``generate``. The SSE clients are
+    ``replay_http``'s, and so are the TTFT/TPOT figures. After the front door stops, the same 8 requests are pumped
+    in-process (``start_session``/``submit``/``step``) for the cost of the
+    HTTP pump, and one profiled 2-token request's one ``decode_step``
+    range launches 12 B4 calls (one a layer), each a partials and a merge
+    kernel on ``"sm90"``."""
+    import asyncio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.config import (ObservabilityConfig,
+                                               TracingConfig)
+    from torchbooster_tpu_torch.observability import record_memory_gauges
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import Request
+    from torchbooster_tpu_torch.serving.loadgen import replay_http
+
+    obs_conf = ObservabilityConfig(enabled=True,
+                                   tracing=TracingConfig(enabled=True))
+    session = obs_conf.make()
+    registry = session.registry
+    registry.reset()
+    conf = http_serving_config(HTTP_CLASSES)
+    batcher = conf.make(params, cfg, compute_dtype=torch.bfloat16,
+                        on_recompile="raise",
+                        tracer=obs_conf.tracing.make())
+    eng = batcher.engine
+    if eng.decode_backend != "kernel" or type(batcher.policy).__name__ \
+            != "SLOPolicy":
+        raise AssertionError(f"serve_http: backend {eng.decode_backend}, "
+                             f"policy {type(batcher.policy).__name__}")
+    warm_up(batcher, cfg)
+    idle_free = int(eng.tables.n_free_pages)
+    reqs = requests(cfg)
+    dense = dense_tokens(params, cfg, reqs, torch.bfloat16)
+    fe = conf.frontend.make(batcher)
+    reset_paged_counts()
+    out: dict = {"card": smi}
+
+    async def scenario():
+        await fe.start()
+        port = fe.port
+        # 8 concurrent streaming clients
+        streams = await replay_http(port, client_workload(reqs, "h",
+                                                          cfg.vocab))
+        await wait_idle(batcher)
+        chat = await http_request(
+            port, "POST", "/v1/chat/completions",
+            {"messages": [{"role": "user", "content": " ".join(
+                str(int(t)) for t in reqs[0].prompt)}], "max_tokens": 8},
+            rid="chat0")
+        unary = await http_request(
+            port, "POST", "/v1/completions",
+            {"prompt": [int(t) for t in reqs[1].prompt],
+             "max_tokens": N_NEW, "stream": False}, rid="unary0")
+        # a client that leaves mid-decode
+        d0 = eng.decode_compiles
+        gone = await replay_http(port, client_workload(
+            reqs[7:], "gone", cfg.vocab, cancel_after=HTTP_DISCONNECT_AFTER))
+        await wait_idle(batcher)
+        after_gone = json.loads((await http_request(
+            port, "GET", "/healthz"))["body"])
+        eng.tables.check()          # the pump is idle: host tables only
+        gone_state = {"pages_free": after_gone["pages_free"],
+                      "decode_compiles_moved": eng.decode_compiles - d0}
+        # an unmeetable deadline: 429 before any page moves
+        shed = await http_request(
+            port, "POST", "/v1/completions",
+            {"prompt": [int(t) for t in reqs[2].prompt], "max_tokens": 4,
+             "priority": "interactive", "deadline_ms": 1e-6,
+             "stream": True}, rid="shed0")
+        await wait_idle(batcher)
+        free_after_shed = int(eng.tables.n_free_pages)
+        # introspection; the allocator gauges first, so /metrics has them
+        gauges = record_memory_gauges(registry)
+        metrics = (await http_request(port, "GET", "/metrics"))["body"]
+        health = await http_request(port, "GET", "/healthz?full=1")
+        engine_dbg = await http_request(port, "GET", "/debug/engine")
+        trace_dbg = await http_request(port, "GET",
+                                       "/debug/trace?id=h3")
+        # the same 8 clients under the profiler: the device busy share
+        # (their streams are held to the dense generate as the first 8)
+        with profile(activities=[ProfilerActivity.CUDA]) as busy_prof:
+            tb = time.perf_counter()
+            busy_streams = await replay_http(
+                port, client_workload(reqs, "p", cfg.vocab))
+            await wait_idle(batcher)
+            torch.cuda.synchronize()
+            busy_wall = time.perf_counter() - tb
+        session_metrics = await fe.stop()
+        return {"streams": streams, "busy_streams": busy_streams,
+                "chat": chat,
+                "unary": unary, "gone": gone, "gone_state": gone_state,
+                "shed": shed, "free_after_shed": free_after_shed,
+                "gauges": gauges,
+                "metrics": metrics.decode(), "health": health,
+                "engine_dbg": engine_dbg, "trace_dbg": trace_dbg,
+                "busy_prof": busy_prof, "busy_wall": busy_wall,
+                "session": session_metrics}
+
+    res = asyncio.run(scenario())
+    launches, by_route = pa.launches, dict(pa.launches_by_route)
+    # token-exact, every streamed request (both windows) and the unary one
+    want = {f"h{i}": d for i, d in enumerate(dense)}
+    served_exact(res["streams"], want, "serve_http")
+    served_exact(res["busy_streams"], {f"p{i}": d for i, d in
+                                       enumerate(dense)},
+                 "serve_http (profiled window)")
+    streams = [res["streams"].streams[rid] for rid in want]
+    match = [s == d for s, d in zip(streams, dense)]
+    unary = json.loads(res["unary"]["body"])
+    if res["unary"]["status"] != 200 \
+            or unary["choices"][0]["token_ids"] != dense[1]:
+        raise AssertionError(f"serve_http: unary completion {unary}")
+    chat = json.loads(res["chat"]["body"])
+    if res["chat"]["status"] != 200 or chat["object"] != "chat.completion" \
+            or chat["usage"]["completion_tokens"] != 8:
+        raise AssertionError(f"serve_http: chat completion {chat}")
+    gs = res["gone_state"]
+    (gone,), gone_toks = res["gone"].outcomes, res["gone"].streams["gone0"]
+    if not gone["cancelled"] or gone["errored"] or gone["shed"] \
+            or len(gone_toks) < HTTP_DISCONNECT_AFTER \
+            or gone_toks != dense[7][:len(gone_toks)]:
+        raise AssertionError(f"serve_http: the client that left read "
+                             f"{gone_toks} ({gone})")
+    if gs["pages_free"] != idle_free or gs["decode_compiles_moved"]:
+        raise AssertionError(f"serve_http: disconnect left {gs} (idle "
+                             f"{idle_free} free pages)")
+    shed = res["shed"]
+    if shed["status"] != 429 or "retry-after" not in shed["headers"] \
+            or res["free_after_shed"] != idle_free:
+        raise AssertionError(f"serve_http: shed answered {shed['status']} "
+                             f"{shed['headers']}, free pages "
+                             f"{res['free_after_shed']} / {idle_free}")
+    prom = res["metrics"]
+    if "serving_decode_tokens_total" not in prom \
+            or 'span_seconds_count{name="decode_step"}' not in prom \
+            or 'device_bytes_in_use{device="0"}' not in prom:
+        raise AssertionError("serve_http: /metrics lacks the serving, "
+                             "decode_step span or allocator series")
+    mem = res["gauges"].get(0, {})
+    if not 0 < mem.get("bytes_in_use", 0) <= mem.get("pool_bytes", 0) \
+            <= mem.get("bytes_limit", 0):
+        raise AssertionError(f"serve_http: allocator gauges {mem}")
+    health = json.loads(res["health"]["body"])
+    dbg = json.loads(res["engine_dbg"]["body"])
+    trace = json.loads(res["trace_dbg"]["body"])
+    if (res["health"]["status"], res["engine_dbg"]["status"],
+            res["trace_dbg"]["status"]) != (200, 200, 200) \
+            or set(health) != READINESS_KEYS \
+            or set(dbg) != ENGINE_DEBUG_KEYS \
+            or set(dbg["flight"]) != FLIGHT_KEYS \
+            or set(trace) != {"request_id", "events"} \
+            or trace["events"][0]["kind"] != "enqueued":
+        raise AssertionError(f"serve_http: introspection keys {set(health)}"
+                             f", {set(dbg)}, {set(trace)}")
+    if by_route["sm90"] != launches or launches <= 0:
+        raise AssertionError(f"serve_http: B4 by route {by_route}")
+    spans = device_spans(res["busy_prof"])
+    busy = union_us(spans) / 1e6
+    rep = res["streams"].report
+    lat = {k: rep["classes"]["batch"][k] for k in (
+        "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s")}
+    tokens = sum(len(s) for s in streams)
+    out.update({"launches": launches, "launches_by_route": by_route,
+                "token_match": match, "wall_s": rep["wall_s"],
+                "tok_s": rep["total_tok_s"], **lat,
+                "busy_wall_s": res["busy_wall"], "device_busy_s": busy,
+                "device_busy_share": busy / res["busy_wall"],
+                "disconnect": {**gs, "tokens_read": len(gone_toks)},
+                "retry_after": shed["headers"]["retry-after"],
+                "allocator": mem, "session": res["session"]})
+    # the HTTP pump against the in-process loop on the same requests
+    reset_paged_counts()
+    in_reqs = requests(cfg)
+    m, in_wall = pump(batcher, in_reqs)
+    if [r.tokens for r in in_reqs] != dense:
+        raise AssertionError("serve_http: the in-process pump's streams "
+                             "differ from the dense generate")
+    # one decode step under the profiler, on this thread (the profiler
+    # records CPU ranges of the thread that started it; the front door's
+    # steps run on its pump thread): a 2-token request decodes once after
+    # its prefill's first token
+    before = b4_counts(pa)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pump(batcher, [Request(prompt=reqs[0].prompt, max_new_tokens=2,
+                               request_id="one0")])
+    one_step = b4_delta(pa, before)
+    # the traced decode step: one decode_step range in the window, 12 B4
+    # calls (B4 runs in the decode step only; prefill attends plainly),
+    # each a partials and a merge kernel; the runtime launches the
+    # profiler places inside the range are reported beside them
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    ranges = [e.time_range for e in evs if e.name == "decode_step"
+              and e.device_type == DeviceType.CPU]
+    kernels = [e.name for e in evs if e.device_type == DeviceType.CUDA
+               and "paged_" in e.name]
+    partials = sum("partials" in k for k in kernels)
+    merges = sum("merge" in k for k in kernels)
+    launches_in = sum(
+        1 for e in evs if e.device_type == DeviceType.CPU
+        and "LaunchKernel" in e.name and ranges
+        and ranges[0].start <= e.time_range.start <= ranges[0].end)
+    n1, r1 = one_step
+    if len(ranges) != 1 or (partials, merges) != (cfg.n_layers,
+                                                  cfg.n_layers) \
+            or n1 != cfg.n_layers or r1["sm90"] != cfg.n_layers:
+        raise AssertionError(
+            f"serve_http: traced step {len(ranges)} decode_step ranges, "
+            f"{partials} partials + {merges} merge kernels, B4 {n1} by "
+            f"route {r1}, {launches_in} launches inside the range")
+    launches += pa.launches
+    for r, c in pa.launches_by_route.items():
+        by_route[r] += c
+    out.update({"launches": launches, "launches_by_route": by_route,
+                "inprocess_wall_s": in_wall,
+                "inprocess_tok_s": tokens / in_wall,
+                "inprocess_ttft_p50_s": m["ttft_p50_s"],
+                "one_step": {"decode_step_ranges": len(ranges),
+                             "partials": partials, "merges": merges,
+                             "launches": n1, "by_route": r1,
+                             "runtime_launches_in_range": launches_in}})
+    session.close()
+    registry.reset()
+    registry.enabled = False
+    log(f"serve_http: 8/8 SSE streams over localhost token-exact vs dense "
+        f"generate, unary and chat 200; client TTFT p50 "
+        f"{lat['ttft_p50_s'] * 1e3:.1f} / p99 {lat['ttft_p99_s'] * 1e3:.1f}"
+        f" ms, TPOT p50 {lat['tpot_p50_s'] * 1e3:.2f} / p99 "
+        f"{lat['tpot_p99_s'] * 1e3:.2f} ms, {out['tok_s']:.1f} tok/s "
+        f"over the {out['wall_s']:.3f} s window (in-process pump of the "
+        f"same 8: {in_wall:.3f} s, {out['inprocess_tok_s']:.1f} tok/s); "
+        f"device busy {100 * out['device_busy_share']:.1f}% of a profiled "
+        f"HTTP replay (8/8 token-exact too); disconnect after "
+        f"{len(gone_toks)} tokens:"
+        f" {gs['pages_free']}/{idle_free} pages free, no new decode shape;"
+        f" 429 Retry-After {shed['headers']['retry-after']}; allocator "
+        f"gauges {mem['bytes_in_use'] / 2**20:.1f} MiB in use, "
+        f"{mem['pool_bytes'] / 2**20:.1f} MiB reserved of "
+        f"{mem['bytes_limit'] / 2**30:.1f} GiB; one traced "
+        f"decode_step: {partials} partials + {merges} merge kernels, B4 "
+        f"{n1} {r1}, {launches_in} runtime launches in the range; B4 "
+        f"{launches} by route {by_route} [{smi}]")
+    report["serve_http"] = out
+    return launches, by_route
+
+
+def phase_serve_replay(params, cfg, smi: str, report: dict
+                       ) -> tuple[int, dict]:
+    """The loadgen harness at GPT-2 small, bf16: a ``LoadgenConfig``
+    Poisson workload (32 requests, classes interactive:3 / batch:1, 1/8
+    with a recorded disconnect, prompts 64-512, 16-32 new) served under
+    ``policy: slo``. ``replay_inprocess`` twice on the virtual clock:
+    identical streams and outcomes, each uncancelled stream the dense
+    ``generate`` and each cancelled one a prefix of it. Then
+    ``replay_http`` against a front door with ``capture_path``: the
+    capture holds the offered requests (prompts, classes, budgets: its
+    fingerprint with the offered arrival and cancel offsets equals the
+    offered one); no HTTP client errs or is shed, every request served in
+    full over HTTP equals its in-process stream (the dense ``generate``
+    where the in-process one was cancelled), and each client that left
+    at its recorded offset holds a prefix of the dense ``generate``."""
+    import asyncio
+    import dataclasses
+    import tempfile
+
+    from torchbooster_tpu_torch.config import LoadgenConfig
+    from torchbooster_tpu_torch.models.gpt import generate
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving.frontend import parse_classes
+    from torchbooster_tpu_torch.serving.loadgen import (Workload,
+                                                        replay_http,
+                                                        replay_inprocess)
+
+    wl = LoadgenConfig(source="poisson", n_requests=32,
+                       classes="interactive:3,batch:1", cancel_frac=0.125,
+                       prompt_len=(64, 512), max_new_tokens=(16, 32),
+                       vocab=cfg.vocab).make()
+    classes = f"interactive:{REPLAY_TTFT_MS}:0,batch:0:0"
+    conf = http_serving_config(classes)
+    batcher = conf.make(params, cfg, compute_dtype=torch.bfloat16,
+                        on_recompile="raise")
+    warm_up(batcher, cfg)
+    reset_paged_counts()
+    t0 = time.perf_counter()
+    runs = [replay_inprocess(batcher, wl) for _ in range(2)]
+    inproc_s = time.perf_counter() - t0
+    views = [(r.streams, r.outcomes) for r in runs]
+    if views[0] != views[1]:
+        raise AssertionError("serve_replay: two in-process replays differ")
+    dense = {}
+    for rec in wl:
+        ids = torch.as_tensor(rec.prompt_ids(wl.vocab), device="cuda")
+        full = generate(params, ids.long()[None], cfg,
+                        n_new=rec.max_new_tokens, temperature=0.0,
+                        compute_dtype=torch.bfloat16)
+        dense[rec.request_id] = full[0, ids.numel():].tolist()
+    inproc = runs[0]
+    flags = {r.request_id: (r.shed, r.cancelled) for r in inproc.requests}
+    bad = [rid for rid, toks in inproc.streams.items()
+           if flags[rid][0] or (toks != dense[rid] if not flags[rid][1]
+                                else toks != dense[rid][:len(toks)])]
+    if bad:
+        raise AssertionError(f"serve_replay: in-process streams vs dense "
+                             f"generate differ (or shed) on {bad}")
+    launches_inproc = pa.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_path = Path(tmp) / "capture.jsonl"
+        fe = dataclasses.replace(conf.frontend,
+                                 capture_path=str(cap_path)).make(batcher)
+
+        async def scenario():
+            await fe.start()
+            res = await replay_http(fe.port, wl,
+                                    classes=parse_classes(classes))
+            await fe.stop()
+            return res
+
+        t1 = time.perf_counter()
+        http = asyncio.run(scenario())
+        http_s = time.perf_counter() - t1
+        cap = Workload.load(cap_path)
+    cap_written = cap.fingerprint()
+    launches, by_route = pa.launches, dict(pa.launches_by_route)
+    if by_route["sm90"] != launches or launches <= launches_inproc:
+        raise AssertionError(f"serve_replay: B4 {launches} by route "
+                             f"{by_route}")
+    offered = {r.request_id: r for r in wl}
+    captured = {r.request_id: r for r in cap}
+    if set(captured) != set(offered):
+        raise AssertionError(f"serve_replay: captured ids "
+                             f"{sorted(set(captured) ^ set(offered))} differ")
+    for rid, rec in captured.items():
+        want = offered[rid]
+        if rec.prompt.tolist() != want.prompt.tolist() \
+                or (rec.priority, rec.max_new_tokens, rec.eos_id) \
+                != (want.priority, want.max_new_tokens, want.eos_id):
+            raise AssertionError(f"serve_replay: capture of {rid} differs")
+        # the capture times arrivals on the server's clock and records
+        # what was delivered before a disconnect landed
+        rec.arrival_s = want.arrival_s
+        rec.cancel_after_tokens = want.cancel_after_tokens
+    cap_fp = Workload(requests=list(captured.values()), kind=cap.kind,
+                      vocab=wl.vocab).fingerprint()
+    if cap_fp != wl.fingerprint():
+        raise AssertionError(f"serve_replay: capture fingerprint {cap_fp} "
+                             f"!= offered {wl.fingerprint()}")
+    # every HTTP client was answered: none errored, and none shed (none
+    # was shed in-process). A client that left holds a prefix of the
+    # dense generate and had a recorded disconnect offset it reached;
+    # every other HTTP stream equals its in-process stream, or the dense
+    # generate where the in-process one was cancelled (a prefix of it)
+    rec_of = {r.request_id: r for r in wl}
+    failed = {o["request_id"]: o.get("error", "shed" if o["shed"] else
+                                     "errored")
+              for o in http.outcomes if o["shed"] or o["errored"]}
+    if failed or http.report["n_errors"] or http.report["n_shed"] \
+            or sorted(http.streams) != sorted(rec_of):
+        raise AssertionError(f"serve_replay: HTTP clients failed {failed}")
+    left = {o["request_id"] for o in http.outcomes if o["cancelled"]}
+    stray = [rid for rid in sorted(left)
+             if rec_of[rid].cancel_after_tokens is None
+             or len(http.streams[rid]) < rec_of[rid].cancel_after_tokens
+             or http.streams[rid] != dense[rid][:len(http.streams[rid])]]
+    full = sorted(set(rec_of) - left)
+    diff = [rid for rid in full if http.streams[rid] != (
+        dense[rid] if flags[rid][1] else inproc.streams[rid])]
+    if stray or diff:
+        raise AssertionError(f"serve_replay: HTTP streams of clients that "
+                             f"left differ on {stray}, of the others on "
+                             f"{diff}")
+    both = [rid for rid in full if not flags[rid][1]]
+    # requests whose client left over HTTP but that ran in full
+    # in-process: their offset was reached on the last token
+    left_http_only = sorted(rid for rid in left if not flags[rid][1])
+    out = {"launches": launches, "launches_by_route": by_route,
+           "launches_inprocess": launches_inproc,
+           "inprocess_wall_s": inproc_s / 2, "http_wall_s": http_s,
+           "offered_fingerprint": wl.fingerprint(),
+           "capture_fingerprint_as_written": cap_written,
+           "http_streams_compared": len(both),
+           "http_streams_vs_dense_only": len(full) - len(both),
+           "http_clients_left": len(left),
+           "left_over_http_only": left_http_only,
+           "inprocess_report": inproc.report, "http_report": http.report,
+           "card": smi}
+    report["serve_replay"] = out
+    log(f"serve_replay: workload {wl.fingerprint()} (32 requests); two "
+        f"in-process replays identical, "
+        f"{sum(not any(f) for f in flags.values())} uncancelled streams "
+        f"equal dense generate, cancelled ones prefixes; capture holds the "
+        f"offered requests (fingerprint with the offered arrivals and "
+        f"cancel offsets {cap_fp}; as written {cap_written}); no HTTP "
+        f"client errored or shed; {len(both)} HTTP streams equal their "
+        f"in-process streams, {len(full) - len(both)} more the dense "
+        f"generate; {len(left)} clients left at their recorded offsets with "
+        f"dense prefixes ({len(left_http_only)} of them served in full "
+        f"in-process: {left_http_only}); B4 {launches} by "
+        f"route {by_route}; wall in-process {inproc_s / 2:.3f} s a replay, "
+        f"HTTP {http_s:.3f} s [{smi}]")
+    for name, rep in (("in-process", inproc.report),
+                      ("HTTP", http.report)):
+        log(f"serve_replay {name} report: " + report_line(rep))
+    return launches, by_route
+
+
 # ----------------------------------------------------------------- train
 TRAIN_STEPS = 20
 TRAIN_B, TRAIN_S = 8, 1024
@@ -4118,7 +4682,9 @@ def main() -> int:
                            ("serve_wq", phase_serve_wq),
                            ("serve_lora", phase_serve_lora),
                            ("serve_spill", phase_serve_spill),
-                           ("serve_disagg", phase_serve_disagg)):
+                           ("serve_disagg", phase_serve_disagg),
+                           ("serve_http", phase_serve_http),
+                           ("serve_replay", phase_serve_replay)):
             if key not in phases:
                 continue
             launches, by_route, *int8_pool = phase(params, cfg, smi, report)

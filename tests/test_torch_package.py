@@ -61,7 +61,13 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "serving.adapters", "serving.structured",
                  "serving.structured.compiler",
                  "serving.structured.state", "comms", "comms.accounting",
-                 "serving.disagg", "serving.router", "serving.router.rpc"):
+                 "serving.disagg", "serving.router", "serving.router.rpc",
+                 "observability", "observability.spans",
+                 "observability.export", "observability.device",
+                 "observability.slo", "serving.frontend",
+                 "serving.frontend.http", "serving.frontend.server",
+                 "serving.loadgen", "serving.loadgen.workload",
+                 "serving.loadgen.report", "serving.loadgen.replay"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

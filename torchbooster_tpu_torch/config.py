@@ -12,12 +12,16 @@ for the training and serving slices:
   device), ``LoaderConfig``, ``OptimizerConfig`` (adamw, adam, sgd,
   lamb, lion and adafactor, driven by a schedule), ``SchedulerConfig``
   and ``DatasetConfig`` (the builtin registry);
-- ``ServingConfig`` with its core fields and a single-replica ``make``.
+- ``ServingConfig`` with its core fields, its nested blocks (the
+  ``frontend:`` scheduler policy and HTTP server among them) and a
+  single-replica ``make``; ``LoadgenConfig`` (the capture/replay
+  workload source); ``ObservabilityConfig`` with its ``tracing:`` and
+  ``slo:`` blocks.
 
 Not ported yet (``ROADMAP.md`` A-4 to A-6): meshes and distributed
-environments, loader workers, and the serving router, disagg and
-front-door sub-blocks. Configurations that need them raise
-``NotImplementedError``. PyYAML is imported only when a file is read."""
+environments, loader workers, and the serving router. Configurations
+that need them raise ``NotImplementedError``. PyYAML is imported only
+when a file is read."""
 from __future__ import annotations
 
 import ast
@@ -585,6 +589,66 @@ class DisaggConfig(BaseConfig):
     prefill_max_slots: int = 0         # 0 = serving.max_slots
 
 
+@dataclass
+class FrontendConfig(BaseConfig):
+    """``serving.frontend:`` (``config.py:624``): the scheduler policy
+    and the asyncio OpenAI-compatible HTTP server.
+
+    ``policy`` selects the scheduler: ``fcfs`` (the default: strict
+    arrival order, never shed, youngest preemption victim) or ``slo``
+    (earliest-slack-first admission over ``classes``, 429 +
+    Retry-After when a TTFT deadline is already unmeetable, preemption
+    victims by re-admission cost). ``classes`` is the priority-class
+    table ``"name:ttft_ms:tpot_ms,..."`` in priority order, 0 disabling
+    a deadline; ``default_class`` names the class of requests that send
+    none (the first listed by default); ``shed_grace`` scales the shed
+    threshold. ``max_queue`` bounds the HTTP submit queue (429 beyond
+    it). ``capture_path`` records every accepted submit as a versioned
+    workload written when the server stops (``capture_scrub: true``
+    keeps length + seed recipes, never prompt content).
+    :meth:`ServingConfig.make` installs this block's policy on every
+    batcher it builds; :meth:`make` wraps a built batcher in the
+    server."""
+
+    host: str = "127.0.0.1"
+    port: int = 8000                   # 0 = ephemeral (tests, smoke)
+    policy: str = "fcfs"               # fcfs | slo
+    classes: str = ""                  # "name:ttft_ms:tpot_ms,..."
+    default_class: str = ""            # "" = first listed class
+    shed_grace: float = 1.0
+    max_queue: int = 64
+    capture_path: str = ""             # "" = no workload capture
+    capture_scrub: bool = False        # capture recipes, not prompts
+
+    def make_policy(self) -> Any:
+        """Build the scheduler policy object the batcher consumes."""
+        from torchbooster_tpu_torch.serving.frontend import (
+            FCFSPolicy, SLOPolicy, parse_classes)
+
+        if self.policy == "fcfs":
+            return FCFSPolicy()
+        if self.policy == "slo":
+            return SLOPolicy(parse_classes(self.classes),
+                             default=self.default_class,
+                             shed_grace=self.shed_grace)
+        raise ValueError(
+            f"frontend.policy must be 'fcfs' or 'slo', got "
+            f"{self.policy!r}")
+
+    def make(self, batcher: Any, codec: Any = None) -> Any:
+        """The :class:`~torchbooster_tpu_torch.serving.frontend.
+        ServingFrontend` over an already-built batcher (normally
+        ``ServingConfig.make(...)``'s). ``await frontend.start()`` binds
+        and serves."""
+        from torchbooster_tpu_torch.serving.frontend import ServingFrontend
+
+        return ServingFrontend(batcher, host=self.host,
+                               port=self.port, codec=codec,
+                               max_queue=self.max_queue,
+                               capture_path=self.capture_path or None,
+                               capture_scrub=self.capture_scrub)
+
+
 def _from_mapping(cls: type, data: dict, prefix: str):
     """A ``serving:`` dataclass (or one of its nested blocks, named
     ``prefix`` in errors) from a YAML mapping, each value coerced to its
@@ -617,7 +681,8 @@ def _from_mapping(cls: type, data: dict, prefix: str):
     return cls(**kw)
 
 
-_NESTED_SERVING = {"StructuredConfig": StructuredConfig,
+_NESTED_SERVING = {"FrontendConfig": FrontendConfig,
+                   "StructuredConfig": StructuredConfig,
                    "WeightsConfig": WeightsConfig,
                    "AdaptersConfig": AdaptersConfig,
                    "HostSpillConfig": HostSpillConfig,
@@ -639,11 +704,11 @@ class ServingConfig:
     ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
     the sweep on the CPU. Any other name raises in :meth:`make`.
     ``tp > 1``, not ported yet, raises ``NotImplementedError``, and so
-    does a ``router:`` block. The nested ``structured:``, ``weights:``,
-    ``adapters:``, ``host_spill:`` and ``disagg:`` blocks are
-    :class:`StructuredConfig`, :class:`WeightsConfig`,
-    :class:`AdaptersConfig`, :class:`HostSpillConfig` and
-    :class:`DisaggConfig`."""
+    does a ``router:`` block. The nested ``frontend:``, ``structured:``,
+    ``weights:``, ``adapters:``, ``host_spill:`` and ``disagg:`` blocks
+    are :class:`FrontendConfig`, :class:`StructuredConfig`,
+    :class:`WeightsConfig`, :class:`AdaptersConfig`,
+    :class:`HostSpillConfig` and :class:`DisaggConfig`."""
 
     page_size: int = 64
     n_pages: int = 256
@@ -663,6 +728,8 @@ class ServingConfig:
     decode_backend: str = ""    # "" auto | "xla"/"sweep" | "pallas"/"kernel"
     tp: int = 1
     seed: int = 0                      # sampling generator seed
+    frontend: FrontendConfig = dataclasses.field(
+        default_factory=FrontendConfig)  # HTTP front door + scheduler
     structured: StructuredConfig = dataclasses.field(
         default_factory=StructuredConfig)  # constrained decoding
     weights: WeightsConfig = dataclasses.field(
@@ -681,7 +748,8 @@ class ServingConfig:
         data = dict(data or {})
         if "router" in data:
             raise NotImplementedError(
-                "serving.router: router blocks are not ported (A-4)")
+                "serving.router: router blocks are not ported yet (the "
+                "engine fleet is the next slice of ROADMAP.md A-4)")
         return _from_mapping(cls, data, "serving")
 
     @classmethod
@@ -701,9 +769,11 @@ class ServingConfig:
         :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`, or,
         with ``disagg.enabled``, a
         :class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair` over a
-        prefill-only engine and that batcher. ``compute_dtype`` defaults
-        to bf16. The ``weights:`` block quantizes ``params`` once, before
-        any engine is built."""
+        prefill-only engine and that batcher. The ``frontend:`` block's
+        scheduler policy is built once and installed on the batcher
+        (``self.frontend.make(batcher)`` wraps it in the HTTP server).
+        ``compute_dtype`` defaults to bf16. The ``weights:`` block
+        quantizes ``params`` once, before any engine is built."""
         from torchbooster_tpu_torch.serving import (
             ContinuousBatcher,
             PagedEngine,
@@ -744,6 +814,9 @@ class ServingConfig:
                 host_spill_mb=self.host_spill.budget_mb,
                 prefill_only=prefill_only, device=device)
 
+        # one policy object serves every batcher built here (policies
+        # are stateless over their class tables)
+        policy = self.frontend.make_policy()
         if self.disagg.enabled:
             from torchbooster_tpu_torch.serving.disagg import DisaggPair
 
@@ -758,7 +831,7 @@ class ServingConfig:
                     f"{self.disagg.min_prefill_pages}")
             decode = ContinuousBatcher(build_engine(),
                                        on_recompile=on_recompile,
-                                       tracer=tracer)
+                                       policy=policy, tracer=tracer)
             prefill = build_engine(
                 prefill_only=True,
                 n_pages=self.disagg.prefill_n_pages or None,
@@ -768,12 +841,197 @@ class ServingConfig:
                 prefill, decode,
                 min_prefill_pages=self.disagg.min_prefill_pages)
         return ContinuousBatcher(build_engine(), on_recompile=on_recompile,
-                                 tracer=tracer)
+                                 policy=policy, tracer=tracer)
+
+
+@dataclass
+class LoadgenConfig(BaseConfig):
+    """The capture/replay harness's workload source (``config.py:1323``,
+    ``serving/loadgen``).
+
+    ``source`` is a synthetic kind (``poisson`` | ``bursty`` |
+    ``diurnal`` | ``sharegpt`` | ``longprompt_burst``) or a path to a
+    captured workload (recognized by a ``.jsonl``/``.json`` suffix or by
+    existing on disk). ``speed`` is the time compression replays default
+    to (recorded as the workload's ``meta["speed"]``). ``classes`` is a
+    ``"name:weight,..."`` priority mix; ``cancel_frac`` of requests get
+    a recorded client disconnect; ``prompt_len`` / ``max_new_tokens``
+    are inclusive ``(lo, hi)`` ranges; ``n_frac`` / ``n_max`` give
+    parallel-sampling fan-out, ``structured_frac`` a library
+    ``response_format``, ``tenants`` / ``prefix_pages`` /
+    ``prefix_page_size`` shared page-aligned tenant prefixes, and
+    ``long_prompt_len`` / ``long_frac`` the extra long prompts of
+    ``longprompt_burst``. ``make()`` returns the
+    :class:`~torchbooster_tpu_torch.serving.loadgen.workload.Workload`;
+    drive it with ``replay_inprocess(batcher, wl)`` or
+    ``replay_http(port, wl)``."""
+
+    source: str = "poisson"            # kind | capture-file path
+    n_requests: int = 32
+    rate: float = 8.0                  # offered req/s (synthetic)
+    speed: float = 1.0                 # replay time-compression x
+    seed: int = 0
+    vocab: int = 50257
+    prompt_len: tuple(int, int) = (16, 64)
+    max_new_tokens: tuple(int, int) = (8, 32)
+    classes: str = ""                  # "name:weight,..." mix
+    cancel_frac: float = 0.0           # recorded client disconnects
+    n_frac: float = 0.0                # fraction with n/best_of > 1
+    n_max: int = 4                     # largest synthetic n
+    structured_frac: float = 0.0       # fraction with response_format
+    tenants: int = 0                   # 0 = no shared tenant prefixes
+    prefix_pages: int = 0              # tenant system-prompt pages
+    prefix_page_size: int = 64         # page alignment of the prefix
+    long_prompt_len: tuple(int, int) = (256, 512)  # longprompt_burst
+    long_frac: float = 0.25            # extra long requests / n_requests
+
+    def make(self) -> Any:
+        from torchbooster_tpu_torch.serving.loadgen.workload import (
+            SYNTHETIC_KINDS, Workload, synthesize)
+
+        if self.speed <= 0:
+            raise ValueError(
+                f"loadgen.speed must be > 0, got {self.speed}")
+        src = self.source.strip()
+        if src.endswith((".jsonl", ".json")) or Path(src).exists():
+            wl = Workload.load(src)
+        elif src not in SYNTHETIC_KINDS:
+            raise ValueError(
+                f"loadgen.source={src!r}: expected a synthetic kind "
+                f"{SYNTHETIC_KINDS} or a capture file path (got "
+                "neither — a typo'd path would silently synthesize "
+                "the wrong traffic)")
+        else:
+            wl = synthesize(
+                src, n_requests=self.n_requests, rate=self.rate,
+                seed=self.seed, vocab=self.vocab,
+                prompt_len=tuple(self.prompt_len),
+                max_new_tokens=tuple(self.max_new_tokens),
+                classes=self.classes, cancel_frac=self.cancel_frac,
+                n_frac=self.n_frac, n_max=self.n_max,
+                structured_frac=self.structured_frac,
+                tenants=self.tenants,
+                prefix_pages=self.prefix_pages,
+                page_size=self.prefix_page_size,
+                long_prompt_len=tuple(self.long_prompt_len),
+                long_frac=self.long_frac)
+        # the replay default: drivers called without an explicit speed=
+        # read it back (meta never enters the content fingerprint)
+        wl.meta["speed"] = float(self.speed)
+        return wl
+
+
+@dataclass
+class TracingConfig(BaseConfig):
+    """``observability.tracing:`` (``config.py:1548``): ``enabled``
+    turns on the per-request lifecycle events of a ``ring_size`` ring.
+    ``make()`` builds the
+    :class:`~torchbooster_tpu_torch.observability.tracing.RequestTracer`
+    (pass it to ``ServingConfig.make(tracer=...)``); ``export(tracer)``
+    writes ``trace_path`` (JSONL) / ``chrome_path`` (Chrome trace-event
+    JSON) when set."""
+
+    enabled: bool = False
+    ring_size: int = 8192
+    trace_path: str = ""               # JSONL event dump on export()
+    chrome_path: str = ""              # Chrome trace dump on export()
+
+    def make(self) -> Any:
+        from torchbooster_tpu_torch.observability.tracing import (
+            RequestTracer)
+
+        return RequestTracer(enabled=self.enabled,
+                             ring_size=self.ring_size)
+
+    def export(self, tracer: Any) -> list:
+        """Write the configured trace file(s) from ``tracer``'s ring;
+        returns the paths written (empty when both paths are '')."""
+        written = []
+        if self.trace_path:
+            written.append(tracer.write_jsonl(self.trace_path))
+        if self.chrome_path:
+            written.append(tracer.write_chrome(self.chrome_path))
+        return written
+
+
+@dataclass
+class SLOBurnConfig(BaseConfig):
+    """``observability.slo:`` (``config.py:1594``): the multi-window
+    burn-rate alerting engine. ``make()`` builds the
+    :class:`~torchbooster_tpu_torch.observability.slo.SLOBurnEngine` (or
+    None when disabled); ``ObservabilityConfig.make()`` hands it to the
+    cadence exporter."""
+
+    enabled: bool = False
+    target: float = 0.99
+    fast_window_s: float = 60.0
+    slow_window_s: float = 600.0
+    fire_burn: float = 2.0
+    resolve_burn: float = 1.0
+    goodput_floor_tok_s: float = 0.0   # 0 disables the goodput alert
+
+    def make(self, sink: Any = None) -> Any:
+        if not self.enabled:
+            return None
+        from torchbooster_tpu_torch.observability.slo import SLOBurnEngine
+
+        return SLOBurnEngine(
+            target=self.target,
+            fast_window_s=self.fast_window_s,
+            slow_window_s=self.slow_window_s,
+            fire_burn=self.fire_burn,
+            resolve_burn=self.resolve_burn,
+            goodput_floor_tok_s=self.goodput_floor_tok_s,
+            sink=sink)
+
+
+@dataclass
+class ObservabilityConfig(BaseConfig):
+    """``observability:`` (``config.py:1641``): the telemetry switch and
+    exporter wiring. ``make()`` returns an
+    :class:`~torchbooster_tpu_torch.observability.Observability` session
+    handle (a context manager that flushes the exporter on exit); with
+    ``enabled: false`` it turns the default registry off and the handle
+    is inert. ``jsonl_path`` / ``prom_path`` ('' disables each) are
+    written every ``cadence_s``; ``on_recompile`` is ``ignore``,
+    ``warn`` or ``raise``; ``tracing:`` is :class:`TracingConfig` and
+    ``slo:`` :class:`SLOBurnConfig` (its engine rides the exporter
+    cadence)."""
+
+    enabled: bool = False
+    jsonl_path: str = ""
+    prom_path: str = ""
+    cadence_s: float = 10.0
+    on_recompile: str = "warn"         # ignore | warn | raise
+    tracing: TracingConfig = dataclasses.field(
+        default_factory=TracingConfig)  # request-scoped tracing
+    slo: SLOBurnConfig = dataclasses.field(
+        default_factory=SLOBurnConfig)  # burn-rate alerting
+
+    def make(self) -> Any:
+        from torchbooster_tpu_torch import observability as obs
+        from torchbooster_tpu_torch.observability.recompile import POLICIES
+
+        if self.on_recompile not in POLICIES:
+            raise ValueError(
+                f"on_recompile={self.on_recompile!r}: expected one "
+                f"of {POLICIES}")
+        if not self.enabled:
+            # authoritative: `enabled: false` turns the process default
+            # OFF even if an earlier session enabled it
+            return obs.Observability(obs.set_enabled(False),
+                                     on_recompile=self.on_recompile)
+        return obs.enable(jsonl_path=self.jsonl_path or None,
+                          prom_path=self.prom_path or None,
+                          cadence_s=self.cadence_s,
+                          on_recompile=self.on_recompile,
+                          slo=self.slo.make())
 
 
 __all__ = ["AdaptersConfig", "BaseConfig", "DatasetConfig", "DisaggConfig",
-           "EnvConfig", "HostSpillConfig", "HyperParameterConfig",
-           "LoaderConfig", "OptimizerConfig",
+           "EnvConfig", "FrontendConfig", "HostSpillConfig",
+           "HyperParameterConfig", "LoadgenConfig", "LoaderConfig",
+           "ObservabilityConfig", "OptimizerConfig", "SLOBurnConfig",
            "SchedulerConfig", "ServingConfig", "StructuredConfig",
-           "Transform", "WeightsConfig", "parse_sweep", "read_lines",
-           "resolve_types"]
+           "TracingConfig", "Transform", "WeightsConfig", "parse_sweep",
+           "read_lines", "resolve_types"]

@@ -1,9 +1,10 @@
 """Paged serving — the port of ``torchbooster_tpu/serving``: block
 tables (kv_pages), the paged engine (engine), speculative drafting and
-verify (speculative), the continuous batcher (batcher) and its
-scheduler policies (frontend.scheduler), structured generation
-(structured), the LoRA adapter registry (adapters), prefill/decode
-disaggregation (disagg) and the router's wire codec (router.rpc)."""
+verify (speculative), the continuous batcher (batcher), its scheduler
+policies and the asyncio HTTP front door (frontend), the workload
+capture/replay harness (loadgen), structured generation (structured),
+the LoRA adapter registry (adapters), prefill/decode disaggregation
+(disagg) and the router's wire codec (router.rpc)."""
 from __future__ import annotations
 
 from torchbooster_tpu_torch.serving.adapters import (

@@ -916,6 +916,7 @@ class ContinuousBatcher:
             if self.tracer.enabled:
                 self.tracer.emit(req.request_id, "enqueued",
                                  prompt_len=int(req.base_len),
+                                 priority=req.priority,
                                  arrival=round(req.arrival, 6))
             cs = self._class_stats(req)
             if cs is not None:
@@ -972,7 +973,9 @@ class ContinuousBatcher:
                     req.request_id, "seated", slot=slot,
                     prefix_hit_pages=int(self.engine.prefix_hit_pages
                                          - hits0),
-                    readmission=req.admitted_at is not None)
+                    readmission=req.admitted_at is not None,
+                    # adapter attribution only when one is in play
+                    **({"adapter": req.adapter} if req.adapter else {}))
             if req.admitted_at is None:
                 req.admitted_at = now()
         # --- ONE prefill chunk per iteration, interleaved with decode ---
@@ -982,6 +985,9 @@ class ContinuousBatcher:
             # after their write
             if self.engine.host_spill:
                 self.engine.issue_promotions()
+            # the chunk's slot, read only when tracing will use it
+            fill_slot = (self.engine.pending_slots[0]
+                         if self.tracer.enabled else -1)
             t_chunk = self.clock()
             done = self.engine.prefill_step()
             dt = self.clock() - t_chunk
@@ -991,7 +997,11 @@ class ContinuousBatcher:
             st["wall"] += dt
             if self.tracer.enabled:
                 self.tracer.emit(None, "serving_prefill_chunk",
-                                 dur_s=round(dt, 6))
+                                 dur_s=round(dt, 6), slot=fill_slot)
+                fr = s.filling.get(fill_slot)
+                if fr is not None:
+                    self.tracer.emit(fr.request_id, "prefill_chunk",
+                                     slot=fill_slot, dur_s=round(dt, 6))
             if done is not None:
                 slot, first = done
                 req = s.filling.pop(slot)
@@ -1265,6 +1275,12 @@ class ContinuousBatcher:
         self._s = s
         s.n_seen = len(requests)
         s.queue = sorted(requests, key=lambda r: r.arrival)
+        if self.tracer.enabled:
+            for r in s.queue:
+                self.tracer.emit(r.request_id, "enqueued",
+                                 prompt_len=int(r.base_len),
+                                 priority=r.priority,
+                                 arrival=round(r.arrival, 6))
         if self.policy.slo:
             for r in requests:
                 s.per_class[self.policy.cls_of(r).name]["n"] += 1

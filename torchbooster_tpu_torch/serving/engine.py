@@ -84,6 +84,7 @@ from torchbooster_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
 from torchbooster_tpu_torch.serving.adapters import AdapterRegistry
+from torchbooster_tpu_torch.observability.spans import span
 from torchbooster_tpu_torch.models.quant import (
     weight_stream_bytes,
     weights_dtype,
@@ -733,7 +734,7 @@ class PagedEngine:
             keys, payloads = work["keys"], work["payloads"]
             start_idx = work["start_idx"]
             row = self.tables.tables[p["slot"]]
-            with torch.profiler.record_function("serving_promote"):
+            with span("serving_promote"):
                 for g in range(0, len(keys), lanes):
                     dst = np.zeros(lanes, np.int64)     # pad -> null page
                     for i, pl in enumerate(payloads[g:g + lanes]):
@@ -904,7 +905,7 @@ class PagedEngine:
         lanes = (self._lane_chunk.upload(self._slot_lanes[slot:slot + 1])
                  if self.lora else None)
         self._chunk_shapes.add((tuple(ids.shape), tuple(table_row.shape)))
-        with torch.profiler.record_function("serving_prefill_chunk"):
+        with span("serving_prefill_chunk"):
             logits = self._chunk_fn(ids, p["start"], p["s0"], table_row,
                                     lanes)
         # the seating slot's legality row masks the first-token pick
@@ -995,7 +996,7 @@ class PagedEngine:
             dst = np.zeros(self.max_slots, np.int64)
             src[:len(children)] = self.tables.tables[parent_slot, n_full]
             dst[:len(children)] = self.tables.tables[children, n_full]
-            with torch.profiler.record_function("serving_fork_cow"):
+            with span("serving_fork_cow"):
                 self._cow_fn(torch.as_tensor(src).to(self.device),
                              torch.as_tensor(dst).to(self.device))
             self.cow_copies += len(children)
@@ -1095,7 +1096,7 @@ class PagedEngine:
         self._decode_shapes.add(self._signature(
             {**args, **dict(zip(("wp", "wr", "wpos"), work or ())),
              **self._mode_operands(smask, lanes)}))
-        with torch.profiler.record_function("decode_step"):
+        with span("decode_step"):
             logits = self._forward_fn(
                 args["last_ids"][:, None], args["tables"], args["lengths"],
                 args["refs"], args["page_pos"], args["active"], work,
@@ -1192,7 +1193,7 @@ class PagedEngine:
              **dict(zip(("wp", "wr", "wpos"), work or ())),
              **dict(zip(("parents", "depth", "vis"), tree or ())),
              **self._mode_operands(smask, lanes)}))
-        with torch.profiler.record_function("spec_verify_step"):
+        with span("spec_verify_step"):
             accept, token = self._verify(
                 args["tables"], args["lengths"], args["refs"],
                 args["page_pos"], args["active"], in_ids, work, tree,
@@ -1228,7 +1229,7 @@ class PagedEngine:
             src_off = np.tile(np.arange(k + 1), (self.max_slots, 1))
             for slot, path in paths.items():
                 src_off[slot, 1:len(path) + 1] = path
-            with torch.profiler.record_function("spec_tree_compact"):
+            with span("spec_tree_compact"):
                 self._compact_fn(args["tables"], args["lengths"],
                                  args["active"],
                                  torch.as_tensor(src_off).to(self.device))
@@ -1335,7 +1336,7 @@ class PagedEngine:
                for k in self._lora_buf}
         self._lora_write_shapes.add(self._signature(
             {"lane": lane_t, **new}))
-        with torch.profiler.record_function("lora_load"):
+        with span("lora_load"):
             self._lora_write_fn(lane_t, new)
 
     @property

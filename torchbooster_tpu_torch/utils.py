@@ -270,11 +270,13 @@ def instrument_step(step_fn: Callable, name: str = "train_step",
                     registry: Any = None) -> Callable:
     """Wrap a ``(state, batch) -> (state, metrics)`` step with telemetry
     on the port's registry: a ``step_seconds`` histogram of the host time
-    of each call, a ``steps_total`` counter. It adds no device sync; the
-    card runs asynchronously, so a call's host time is its enqueue time
-    and the steady-state mean tracks the device's step time. Disabled
-    telemetry costs one attribute check per call."""
-    from torchbooster_tpu_torch.observability import get_registry
+    of each call, a ``steps_total`` counter, and a ``span(name)`` around
+    the call (a profiler range and a ``span_seconds`` observation). It
+    adds no device sync; the card runs asynchronously, so a call's host
+    time is its enqueue time and the steady-state mean tracks the
+    device's step time. Disabled telemetry costs one attribute check per
+    call."""
+    from torchbooster_tpu_torch.observability import get_registry, span
 
     reg = registry if registry is not None else get_registry()
     hist = reg.histogram("step_seconds",
@@ -286,7 +288,8 @@ def instrument_step(step_fn: Callable, name: str = "train_step",
         if not reg.enabled:
             return step_fn(*args, **kwargs)
         t0 = time.perf_counter()
-        out = step_fn(*args, **kwargs)
+        with span(name, reg):
+            out = step_fn(*args, **kwargs)
         hist.observe(time.perf_counter() - t0, step=name)
         count.inc(1, step=name)
         return out
