@@ -149,6 +149,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    against a front door with ``capture_path`` (the capture holds the
    offered requests; every request served in full both ways equals its
    in-process stream). Prints both conformance reports.
+6k. serve_fleet — two replicas of the serving geometry on the one card,
+   built by ``ServingConfig.make`` from a ``router: {n_replicas: 2}``
+   block under ``policy: slo``: ``serve_replay``'s workload replayed
+   twice under ``round_robin`` and twice under ``affinity`` (identical
+   assignment logs and streams, equal to a one-replica replay and,
+   uncancelled, to the dense ``generate``), a shared-prefix workload
+   (affinity hits, requests at their key's home, more prefix-hit pages
+   than round robin), ``fleet.kill(1)`` mid-replay (readmissions equal
+   what ``kill`` returned, streams unchanged), a socket replica served on
+   loopback beside an in-process one (the same streams and assignment
+   log), and the front door over a fleet (8 SSE clients token-exact,
+   ``/debug/router``, ``/healthz?full=1``, ``/metrics``). No replica may
+   be buried outside the kill arm; B4's launches equal 12 per decode
+   step the batchers' flight rings hold, all ``"sm90"``. Prints the wall
+   time of a two-replica replay beside the one-replica one.
 7. train  — the GPT recipe's ``main`` (``recipes/gpt.py``) on a config
    built in code from ``examples/lm/gpt/gpt.yml``'s values with the model
    at GPT-2-small width: batch 8 x 1024, 20 steps, bf16 over fp32 masters,
@@ -265,13 +280,13 @@ import torch
 PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
-          "serve_disagg", "serve_http", "serve_replay", "train",
-          "gpt2_import", "train_long", "conv", "resnet_train")
+          "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
+          "train", "gpt2_import", "train_long", "conv", "resnet_train")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
                 "serve_spill", "serve_disagg", "serve_http",
-                "serve_replay")
+                "serve_replay", "serve_fleet")
 SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
            "flash_fwd_sm90", "flash_bwd_sm90", "group_norm",
            "group_norm_fwd_sm90", "group_norm_bwd_sm90", "fused_block",
@@ -2817,6 +2832,359 @@ def phase_serve_replay(params, cfg, smi: str, report: dict
     return launches, by_route
 
 
+# ------------------------------------------------------------ engine fleet
+FLEET_TENANTS = 2             # tenants of the shared-prefix workload
+FLEET_PREFIX_PAGES = 2        # their page-aligned shared prefix, in pages
+FLEET_KILL_AFTER = 40         # fleet steps before replica 1 may be killed
+FLEET_FLIGHT = 1 << 15        # a flight ring that holds every step here
+FLEET_MERGED_KEYS = {"n_requests", "new_tokens", "elapsed_s",
+                     "decode_tok_s", "total_tok_s", "latency_mean_s",
+                     "latency_p95_s", "ttft_mean_s", "n_admissions",
+                     "n_preemptions", "n_prefill_chunks",
+                     "prefix_hit_pages", "n_shed", "n_cancelled",
+                     "deadline_hit_rate", "router", "replicas", "classes"}
+SLO_GAUGES = ("serving_slo_ttft_hit_rate", "serving_slo_tpot_hit_rate",
+              "serving_slo_ttft_quantile", "serving_slo_tpot_quantile")
+
+
+def fleet_config(classes: str, routing: str, n_replicas: int = 2,
+                 prefix_cache: bool = False):
+    """The serving geometry as a ``serving:`` mapping with a ``frontend:
+    {policy: slo}`` block and a ``router:`` block of ``n_replicas``
+    (``affinity_pages: 2``)."""
+    from torchbooster_tpu_torch.config import ServingConfig
+
+    return ServingConfig.from_dict({
+        "page_size": PS, "n_pages": N_PAGES, "max_slots": SLOTS,
+        "prefix_cache": prefix_cache,
+        "frontend": {"policy": "slo", "classes": classes,
+                     "default_class": "batch", "port": 0},
+        "router": {"n_replicas": n_replicas, "policy": routing,
+                   "affinity_pages": FLEET_PREFIX_PAGES}})
+
+
+def dense_streams(params, cfg, wl) -> dict:
+    """Each request's dense greedy ``generate`` continuation at bf16."""
+    from torchbooster_tpu_torch.models.gpt import generate
+
+    out = {}
+    for rec in wl:
+        ids = torch.as_tensor(rec.prompt_ids(wl.vocab), device="cuda")
+        full = generate(params, ids.long()[None], cfg,
+                        n_new=rec.max_new_tokens, temperature=0.0,
+                        compute_dtype=torch.bfloat16)
+        out[rec.request_id] = full[0, ids.numel():].tolist()
+    return out
+
+
+def phase_serve_fleet(params, cfg, smi: str, report: dict
+                      ) -> tuple[int, dict]:
+    """The engine fleet at GPT-2 small, bf16: two replicas on the one
+    card, built by ``ServingConfig.make`` from a ``router: {n_replicas:
+    2}`` block under ``policy: slo``, driven by ``replay_inprocess`` with
+    ``serve_replay``'s workload and a shared-prefix one (2 tenants, a
+    2-page prefix). Gates: two replays under each policy give the same
+    ``assignment_log`` and streams, equal across policies and to a
+    one-replica replay; uncancelled streams equal the dense ``generate``,
+    cancelled ones prefixes of it; affinity finds the shared prefixes
+    (hits counted, requests at their key's home, more prefix-hit pages
+    than round robin); killing replica 1 mid-replay readmits exactly
+    what ``kill`` returned and every stream stays the same; no replica is
+    buried in any other arm (a B4 fault would bury one: it fails the
+    phase with its exception); a socket replica served on loopback gives
+    the in-process fleet's streams and ``assignment_log``; the front door
+    over a fleet streams the 8 requests token-exact and answers
+    ``/debug/router``, ``/healthz?full=1`` and ``/metrics``; B4's
+    launches equal 12 per decode step the batchers' flight rings hold,
+    every one on ``"sm90"``."""
+    import asyncio
+    import re
+
+    from torchbooster_tpu_torch.config import LoadgenConfig
+    from torchbooster_tpu_torch.observability import (FlightRecorder,
+                                                      get_registry)
+    from torchbooster_tpu_torch.observability.export import prometheus_text
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving.frontend import parse_classes
+    from torchbooster_tpu_torch.serving.loadgen import (replay_http,
+                                                        replay_inprocess)
+    from torchbooster_tpu_torch.serving.replica_server import serve_in_thread
+    from torchbooster_tpu_torch.serving.router import (EngineFleet,
+                                                       diff_routing,
+                                                       prefix_affinity_key,
+                                                       routing_artifact)
+
+    classes = f"interactive:{REPLAY_TTFT_MS}:0,batch:0:0"
+    load = dict(source="poisson", n_requests=32,
+                classes="interactive:3,batch:1", cancel_frac=0.125,
+                prompt_len=(64, 512), max_new_tokens=(16, 32),
+                vocab=cfg.vocab)
+    wl = LoadgenConfig(**load).make()
+    shared = LoadgenConfig(**{
+        **load, "n_requests": 16, "cancel_frac": 0.0,
+        "prompt_len": (64, 256), "tenants": FLEET_TENANTS,
+        "prefix_pages": FLEET_PREFIX_PAGES,
+        "prefix_page_size": PS}).make()
+    registry = get_registry()
+    registry.reset()
+    registry.enabled = True
+    batchers: list = []          # every batcher of the phase, for B4's count
+
+    def own(b):
+        b.flight = FlightRecorder(capacity=FLEET_FLIGHT)
+        batchers.append(b)
+        return b
+
+    def build(routing: str, n: int = 2, prefix_cache: bool = False,
+              klass: str = classes):
+        srv = fleet_config(klass, routing, n, prefix_cache).make(
+            params, cfg, compute_dtype=torch.bfloat16, on_recompile="raise")
+        for rep in getattr(srv, "replicas", ()):
+            own(rep.batcher)
+        if n == 1:
+            own(srv)
+        return srv
+
+    def counter(name: str, **labels) -> float:
+        return registry.counter(name).value(**labels)
+
+    def unburied(fleet, where: str) -> None:
+        """Gate 3: a buried replica here is a fault (a failing B4 build
+        or launch among them), never something to serve around."""
+        if fleet.last_error is not None:
+            raise AssertionError(f"serve_fleet {where}: a replica was "
+                                 f"buried") from fleet.last_error
+        if fleet.n_live != len(fleet.replicas) \
+                or counter("router_readmissions_total", reason="death"):
+            raise AssertionError(f"serve_fleet {where}: {fleet.n_live} of "
+                                 f"{len(fleet.replicas)} replicas live")
+
+    def replay(srv, workload, where: str):
+        registry.reset()
+        t = time.perf_counter()
+        res = replay_inprocess(srv, workload)
+        wall = time.perf_counter() - t
+        if not hasattr(srv, "replicas"):
+            return res, wall, []
+        unburied(srv, where)
+        return res, wall, list(srv.assignment_log)
+
+    try:
+        reset_paged_counts()
+        dense = dense_streams(params, cfg, wl)
+        dense_shared = dense_streams(params, cfg, shared)
+        single = build("affinity", n=1)
+        warm_up(single, cfg)
+        one, one_wall, _ = replay(single, wl, "one replica")
+        flags = {r.request_id: (r.shed, r.cancelled) for r in one.requests}
+        bad = [rid for rid, toks in one.streams.items()
+               if flags[rid][0] or (toks != dense[rid][:len(toks)]
+                                    if flags[rid][1] else toks != dense[rid])]
+        if bad:
+            raise AssertionError(f"serve_fleet: one-replica streams vs dense "
+                                 f"generate differ (or shed) on {bad}")
+        # gate 1: determinism and parity, both policies
+        runs, walls, arts = {}, {}, {}
+        for routing in ("round_robin", "affinity"):
+            pair = []
+            for i in range(2):
+                fleet = build(routing)
+                res, wall, order = replay(fleet, wl, f"{routing} run {i}")
+                pair.append((order, res.streams))
+                walls.setdefault(routing, []).append(wall)
+            if pair[0] != pair[1]:
+                raise AssertionError(f"serve_fleet: two {routing} replays "
+                                     f"differ")
+            if pair[0][1] != one.streams:
+                raise AssertionError(f"serve_fleet: {routing} streams differ "
+                                     f"from the one-replica replay")
+            if {rep for _, rep in pair[0][0]} != {0, 1}:
+                raise AssertionError(f"serve_fleet: {routing} used one "
+                                     f"replica only")
+            runs[routing] = (pair[0][0], res)
+            arts[routing] = routing_artifact(fleet, wl.fingerprint())
+            log(f"serve_fleet {routing}: two replays identical, streams "
+                f"equal the one-replica replay; wall {walls[routing]} s "
+                f"(one replica {one_wall:.3f} s)")
+        # affinity on the shared-prefix workload (prefix cache on), beside
+        # round robin on it
+        hits, homes = {}, {}
+        for routing in ("round_robin", "affinity"):
+            fleet = build(routing, prefix_cache=True)
+            res, _, order = replay(fleet, shared, f"{routing} shared")
+            diff = [rid for rid, toks in res.streams.items()
+                    if toks != dense_shared[rid]]
+            if diff:
+                raise AssertionError(f"serve_fleet: {routing} shared-prefix "
+                                     f"streams vs dense generate differ on "
+                                     f"{diff}")
+            hits[routing] = sum(m["prefix_hit_pages"]
+                                for m in res.metrics["replicas"])
+            if routing == "affinity":
+                aff_hits = counter("router_affinity_hits_total")
+                key_of = {rec.request_id: prefix_affinity_key(
+                    rec.prompt, PS, FLEET_PREFIX_PAGES) for rec in shared}
+                at_home = sum(fleet.routing._map.get(key_of[rid]) == rep
+                              for rid, rep in order)
+                homes = {"requests_at_home": at_home, "requests": len(order),
+                         "hit_pages_by_replica": [
+                             m["prefix_hit_pages"]
+                             for m in res.metrics["replicas"]]}
+        log(f"serve_fleet shared prefix: affinity hits {aff_hits}, {homes},"
+            f" prefix-hit pages {hits}")
+        if not aff_hits or homes["requests_at_home"] < len(shared) // 2 \
+                or hits["affinity"] <= hits["round_robin"]:
+            raise AssertionError(f"serve_fleet: affinity hits {aff_hits}, "
+                                 f"{homes}, prefix-hit pages {hits}")
+        # gate 2: replica death mid-replay
+        fleet = build("affinity")
+        killed: list = []
+        step = fleet.step
+
+        def step_then_kill():
+            # replay_inprocess pumps fleet.step(): replica 1 dies between
+            # two fleet steps, with work in flight
+            step_then_kill.n += 1
+            if not killed and step_then_kill.n > FLEET_KILL_AFTER \
+                    and fleet.replicas[1].inflight:
+                killed.append(fleet.kill(1))
+            return step()
+
+        step_then_kill.n = 0
+        fleet.step = step_then_kill
+        registry.reset()
+        dead = replay_inprocess(fleet, wl)
+        live_gauge = registry.gauge("router_replicas_live").value()
+        readmit = counter("router_readmissions_total", reason="death")
+        if not killed or not killed[0] or readmit != killed[0] \
+                or fleet.n_live != 1 or live_gauge != 1:
+            raise AssertionError(f"serve_fleet: kill returned {killed}, "
+                                 f"death readmissions {readmit}, live "
+                                 f"{fleet.n_live} (gauge {live_gauge})")
+        finished = [r for r in dead.requests if r.finished_at is not None]
+        if len(finished) != len(wl) or dead.streams != one.streams \
+                or set(dead.metrics) != FLEET_MERGED_KEYS \
+                or dead.metrics["n_requests"] != len(wl):
+            raise AssertionError(
+                f"serve_fleet: after the death {len(finished)}/{len(wl)} "
+                f"finished, streams differ on "
+                f"{[k for k in one.streams if dead.streams.get(k) != one.streams[k]]}"
+                f", merged keys {sorted(set(dead.metrics) ^ FLEET_MERGED_KEYS)}")
+        log(f"serve_fleet kill: {killed} readmitted, streams unchanged")
+        # gate 4: a socket replica beside an in-process one
+        handle = serve_in_thread(own(fleet_config(classes, "affinity", 1).make(
+            params, cfg, compute_dtype=torch.bfloat16, on_recompile="raise")))
+        try:
+            conf = fleet_config(classes, "affinity")
+            conf.router.replicas = ["inproc", handle.endpoint]
+            fleet = conf.make(params, cfg, compute_dtype=torch.bfloat16,
+                              on_recompile="raise")
+            own(fleet.replicas[0].batcher)
+            remote = fleet.replicas[1]
+            if type(remote).__name__ != "RemoteReplica" \
+                    or remote.readiness().get("status") != "ok":
+                raise AssertionError(f"serve_fleet: the socket replica is "
+                                     f"not ready: {remote.readiness()}")
+            sock, sock_wall, sock_log = replay(fleet, wl, "socket")
+            wire = (remote.wire_tx_bytes, remote.wire_rx_bytes)
+            remote.close()
+        finally:
+            handle.stop()
+        routed = diff_routing(arts["affinity"],
+                              routing_artifact(fleet, wl.fingerprint()))
+        if sock.streams != one.streams or sock_log != runs["affinity"][0] \
+                or routed:
+            raise AssertionError(f"serve_fleet: the socket fleet differs: "
+                                 f"{routed}")
+        log(f"serve_fleet socket: streams and assignment log equal, wall "
+            f"{sock_wall:.3f} s")
+        # gate 5: the front door over a fleet
+        fleet = build("affinity", klass=HTTP_CLASSES)
+        reqs = requests(cfg)
+        want = dict(zip((f"fleet{i}" for i in range(len(reqs))),
+                        dense_tokens(params, cfg, reqs, torch.bfloat16)))
+        fe = fleet_config(HTTP_CLASSES, "affinity").frontend.make(fleet)
+
+        async def scenario():
+            await fe.start()
+            res = await replay_http(fe.port,
+                                    client_workload(reqs, "fleet", cfg.vocab),
+                                    classes=parse_classes(HTTP_CLASSES))
+            pages = {path: await http_request(fe.port, "GET", path)
+                     for path in ("/debug/router", "/healthz?full=1",
+                                  "/metrics")}
+            await fe.stop()
+            return res, pages
+
+        registry.reset()
+        http, pages = asyncio.run(scenario())
+        unburied(fleet, "front door")
+        served_exact(http, want, "serve_fleet front door")
+        routed = json.loads(pages["/debug/router"]["body"])
+        health = json.loads(pages["/healthz?full=1"]["body"])
+        metrics = pages["/metrics"]["body"].decode()
+        per_replica = set(re.findall(
+            r'^router_requests_total\{[^}]*replica="(\d+)"', metrics,
+            re.MULTILINE))
+        if pages["/debug/router"]["status"] != 200 \
+                or len(routed["decisions"]) != len(reqs) \
+                or len(health["replicas"]) != 2 or per_replica != {"0", "1"}:
+            raise AssertionError(f"serve_fleet: /debug/router "
+                                 f"{pages['/debug/router']['status']}, "
+                                 f"{len(health.get('replicas', ()))} health "
+                                 f"rows, router_requests_total on {per_replica}")
+        text = prometheus_text(registry)
+        gauges = {(name, cls) for name in SLO_GAUGES
+                  for cls in ("interactive", "batch")
+                  if re.search(rf'^{name}\{{[^}}]*cls="{cls}"', text,
+                               re.MULTILINE)}
+        if any(f"# TYPE {name} gauge" not in metrics for name in SLO_GAUGES) \
+                or not {(n, "batch") for n in SLO_GAUGES} <= gauges:
+            raise AssertionError(f"serve_fleet: SLO gauges {sorted(gauges)}")
+        # gate 6: B4's launches, exactly 12 per decode step of every batcher
+        launches, by_route = pa.launches, dict(pa.launches_by_route)
+        steps = sum(sum("decode" in rec["kind"] for rec in b.flight.tail())
+                    for b in batchers)
+        if any(b.flight.n_recorded > FLEET_FLIGHT for b in batchers) \
+                or launches != cfg.n_layers * steps \
+                or by_route["sm90"] != launches:
+            raise AssertionError(f"serve_fleet: B4 {launches} by route "
+                                 f"{by_route}, {steps} decode steps")
+    finally:
+        registry.reset()
+        registry.enabled = False
+    out = {"launches": launches, "launches_by_route": by_route,
+           "decode_steps": steps, "n_batchers": len(batchers),
+           "two_replica_wall_s": walls, "one_replica_wall_s": one_wall,
+           "socket_wall_s": sock_wall, "wire_bytes": wire,
+           "affinity_hits": aff_hits, "prefix_hit_pages": hits,
+           "affinity_homes": homes, "readmissions_death": readmit,
+           "killed": killed[0], "http_report": http.report,
+           "two_replica_report": runs["affinity"][1].report,
+           "one_replica_report": one.report,
+           "offered_fingerprint": wl.fingerprint(),
+           "shared_fingerprint": shared.fingerprint(), "card": smi}
+    report["serve_fleet"] = out
+    log(f"serve_fleet: 2 GPT-2 small replicas on one card; workload "
+        f"{wl.fingerprint()} (32 requests) twice under round_robin and "
+        f"twice under affinity: identical assignment logs and streams, "
+        f"equal to the one-replica replay and (uncancelled) to dense "
+        f"generate; shared-prefix workload {shared.fingerprint()}: affinity "
+        f"hits {aff_hits:.0f}, {homes['requests_at_home']}/{homes['requests']}"
+        f" requests at their key's home, prefix-hit pages {hits}; killed "
+        f"replica 1: {killed[0]} readmitted (death counter {readmit:.0f}), "
+        f"streams unchanged; socket replica: streams and assignment log "
+        f"equal, {wire[0]} B sent / {wire[1]} B received; front door: 8/8 SSE"
+        f" streams token-exact; B4 {launches} = {cfg.n_layers} x {steps} "
+        f"decode steps, by route {by_route}; wall a replay: two replicas "
+        f"round_robin {walls['round_robin']} s, affinity {walls['affinity']}"
+        f" s, one replica {one_wall:.3f} s, socket {sock_wall:.3f} s [{smi}]")
+    for name, rep in (("two-replica affinity", runs["affinity"][1].report),
+                      ("one-replica", one.report)):
+        log(f"serve_fleet {name} report: " + report_line(rep))
+    return launches, by_route
+
+
 # ----------------------------------------------------------------- train
 TRAIN_STEPS = 20
 TRAIN_B, TRAIN_S = 8, 1024
@@ -4684,7 +5052,8 @@ def main() -> int:
                            ("serve_spill", phase_serve_spill),
                            ("serve_disagg", phase_serve_disagg),
                            ("serve_http", phase_serve_http),
-                           ("serve_replay", phase_serve_replay)):
+                           ("serve_replay", phase_serve_replay),
+                           ("serve_fleet", phase_serve_fleet)):
             if key not in phases:
                 continue
             launches, by_route, *int8_pool = phase(params, cfg, smi, report)

@@ -299,7 +299,9 @@ def test_disagg_validation_loud():
              "host_spill"),
             (lambda sc: setattr(sc, "prefix_cache", False), "prefix_cache"),
             (lambda sc: setattr(sc.disagg, "min_prefill_pages", 0),
-             "min_prefill_pages")):
+             "min_prefill_pages"),
+            (lambda sc: setattr(sc.router, "n_replicas", 2),
+             "multi-replica router")):
         msgs = []
         for mod, build in (
                 (tconfig, lambda sc: sc.make(tp, cfg,
@@ -313,9 +315,6 @@ def test_disagg_validation_loud():
                 build(sc)
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
-    with pytest.raises(NotImplementedError, match="router blocks are not "
-                                                  "ported"):
-        ServingConfig.from_dict({"router": {"n_replicas": 2}})
     pair = _make(disagg=True, min_prefill_pages=2)
     with pytest.raises(RuntimeError, match="prefill_only"):
         pair.prefill.step()

@@ -20,7 +20,8 @@ heads over 2, pages of 4, decisive tied head, fp32, greedy).
 - ``capture_path`` writes a workload both packages load to the same
   fingerprint;
 - the ``frontend:`` YAML block installs ``SLOPolicy`` on the batcher
-  ``ServingConfig.make`` returns; a ``router:`` key still raises.
+  ``ServingConfig.make`` returns; a ``router: {n_replicas: 2}`` block
+  builds an ``EngineFleet`` under that policy.
 """
 import asyncio
 import importlib.util
@@ -394,5 +395,14 @@ def test_frontend_yaml_block_installs_policy_and_router_raises(tmp_path):
         FrontendConfig(policy="lifo").make_policy()
     with pytest.raises(ValueError, match="unknown serving.frontend keys"):
         ServingConfig.from_dict({"frontend": {"polcy": "slo"}})
-    with pytest.raises(NotImplementedError, match="router"):
-        ServingConfig.from_dict({"router": {"n_replicas": 2}})
+    # the name predates the router's port: a router: block now builds
+    # the engine fleet, every replica under the frontend's policy
+    from torchbooster_tpu_torch.serving.router import EngineFleet
+
+    fleet = ServingConfig.from_dict({
+        "page_size": 4, "n_pages": 16, "max_slots": 2,
+        "frontend": {"policy": "slo", "classes": "rt:250:0,batch:0:0"},
+        "router": {"n_replicas": 2}}).make(
+        tp, cfg, compute_dtype="float32", device="cpu")
+    assert isinstance(fleet, EngineFleet) and len(fleet.replicas) == 2
+    assert isinstance(fleet.policy, SLOPolicy)

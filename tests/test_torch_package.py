@@ -67,7 +67,11 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "observability.slo", "serving.frontend",
                  "serving.frontend.http", "serving.frontend.server",
                  "serving.loadgen", "serving.loadgen.workload",
-                 "serving.loadgen.report", "serving.loadgen.replay"):
+                 "serving.loadgen.report", "serving.loadgen.replay",
+                 "serving.router.audit", "serving.router.directory",
+                 "serving.router.routing", "serving.router.health",
+                 "serving.router.replica", "serving.router.fleet",
+                 "serving.replica_server"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

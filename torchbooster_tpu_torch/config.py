@@ -13,14 +13,14 @@ for the training and serving slices:
   lamb, lion and adafactor, driven by a schedule), ``SchedulerConfig``
   and ``DatasetConfig`` (the builtin registry);
 - ``ServingConfig`` with its core fields, its nested blocks (the
-  ``frontend:`` scheduler policy and HTTP server among them) and a
-  single-replica ``make``; ``LoadgenConfig`` (the capture/replay
+  ``frontend:`` scheduler policy and HTTP server and the ``router:``
+  engine fleet among them) and its ``make``; ``LoadgenConfig`` (the capture/replay
   workload source); ``ObservabilityConfig`` with its ``tracing:`` and
   ``slo:`` blocks.
 
-Not ported yet (``ROADMAP.md`` A-4 to A-6): meshes and distributed
-environments, loader workers, and the serving router. Configurations
-that need them raise ``NotImplementedError``. PyYAML is imported only
+Not ported yet (``ROADMAP.md`` A-5 and A-6): meshes and distributed
+environments, tensor-parallel serving and loader workers.
+Configurations that need them raise ``NotImplementedError``. PyYAML is imported only
 when a file is read."""
 from __future__ import annotations
 
@@ -590,6 +590,107 @@ class DisaggConfig(BaseConfig):
 
 
 @dataclass
+class RouterHealthConfig(BaseConfig):
+    """``serving.router.health:`` (``config.py:842``): ``enabled: true``
+    attaches a :class:`~torchbooster_tpu_torch.serving.router.
+    FleetHealth` scorer to the fleet. Every ``every`` fleet steps it
+    folds flight-recorder anomalies, queue depth (``queue_limit``),
+    claimable pages (``min_free_pages``) and readiness staleness
+    (``stale_s``) into a hysteretic healthy/degraded/unhealthy state per
+    replica (``degrade_after`` bad observations a level down,
+    ``recover_after`` clean ones a level up), exported as
+    ``router_replica_health{replica}``. The scorer only observes; routing
+    consults it, through ``degraded_weight`` / ``unhealthy_weight``, only
+    under ``router.health_aware``."""
+
+    enabled: bool = False              # build the FleetHealth scorer
+    every: int = 8                     # fleet steps per observation
+    degrade_after: int = 2             # bad obs per level down
+    recover_after: int = 4             # clean obs per level up
+    queue_limit: int = 32              # queue-depth strike threshold
+    min_free_pages: int = 0            # claimable-pages threshold
+    stale_s: float = 2.0               # readiness staleness window
+    degraded_weight: float = 4.0       # health_aware multiplier
+    unhealthy_weight: float = 16.0     # health_aware multiplier
+
+    def make(self) -> Any:
+        """The :class:`FleetHealth` scorer (``None`` when disabled)."""
+        if not self.enabled:
+            return None
+        from torchbooster_tpu_torch.serving.router import FleetHealth
+
+        return FleetHealth(
+            every=self.every, degrade_after=self.degrade_after,
+            recover_after=self.recover_after,
+            queue_limit=self.queue_limit,
+            min_free_pages=self.min_free_pages, stale_s=self.stale_s,
+            degraded_weight=self.degraded_weight,
+            unhealthy_weight=self.unhealthy_weight)
+
+
+@dataclass
+class RouterConfig(BaseConfig):
+    """``serving.router:`` (``config.py:935``): the engine fleet.
+
+    ``n_replicas: 1`` (the default) changes nothing: ``ServingConfig.
+    make`` returns the plain batcher. With ``n_replicas > 1`` it builds
+    N identical engines and batchers on the one ``device``, sharing the
+    params, one scheduler-policy object and one ``RequestTracer``, and
+    returns an :class:`~torchbooster_tpu_torch.serving.router.
+    EngineFleet`. ``replicas`` builds a mixed fleet instead: each entry
+    is ``inproc`` (a local batcher) or a ``host:port`` endpoint (a
+    :class:`~torchbooster_tpu_torch.serving.router.rpc.RemoteReplica` to
+    a ``replica_server``); a non-empty list overrides ``n_replicas``.
+
+    ``policy`` is ``round_robin`` or ``affinity`` (prefix affinity over
+    at most ``affinity_pages`` full pages, spilling to the least-loaded
+    replica when the home replica's backlog is ``spill_queue`` over the
+    shallowest). ``rebalance_queue > 0`` migrates queued requests off a
+    hot-spot that lasts ``rebalance_after`` steps. ``directory`` keeps
+    the fleet-wide prefix directory; ``audit`` sizes the routing
+    decision ring (0 = off); ``health:`` is :class:`RouterHealthConfig`,
+    and ``health_aware`` (needs ``health.enabled``) lets spill and
+    keyless scoring down-weight degraded replicas."""
+
+    n_replicas: int = 1                # 1 = plain single batcher
+    replicas: list = dataclasses.field(
+        default_factory=list)          # "inproc" | "host:port" specs
+    policy: str = "affinity"           # round_robin | affinity
+    affinity_pages: int = 2            # full pages hashed into the key
+    spill_queue: int = 4               # hot-prefix spill threshold
+    rebalance_queue: int = 0           # 0 = hot-spot rebalance off
+    rebalance_after: int = 8           # sustained-imbalance steps
+    directory: bool = True             # fleet-wide prefix directory
+    audit: int = 256                   # decision audit ring (0 = off)
+    health_aware: bool = False         # health-weighted spill scoring
+    health: RouterHealthConfig = dataclasses.field(
+        default_factory=RouterHealthConfig)  # replica health scorer
+
+    def make_routing(self) -> Any:
+        from torchbooster_tpu_torch.serving.router import make_routing
+
+        return make_routing(self.policy,
+                            affinity_pages=self.affinity_pages,
+                            spill_queue=self.spill_queue)
+
+    def make(self, batchers: Any) -> Any:
+        """The :class:`EngineFleet` over already-built replicas
+        (normally ``ServingConfig.make``'s job)."""
+        from torchbooster_tpu_torch.serving.router import EngineFleet
+
+        if self.health_aware and not self.health.enabled:
+            raise ValueError(
+                "router.health_aware: true needs router.health."
+                "enabled: true (there is no scorer to consult)")
+        return EngineFleet(batchers, routing=self.make_routing(),
+                           rebalance_queue=self.rebalance_queue,
+                           rebalance_after=self.rebalance_after,
+                           directory=self.directory, audit=self.audit,
+                           health=self.health.make(),
+                           health_aware=self.health_aware)
+
+
+@dataclass
 class FrontendConfig(BaseConfig):
     """``serving.frontend:`` (``config.py:624``): the scheduler policy
     and the asyncio OpenAI-compatible HTTP server.
@@ -676,6 +777,9 @@ def _from_mapping(cls: type, data: dict, prefix: str):
             kw[key] = int(str(value).replace("_", ""))
         elif kind == "float":
             kw[key] = float(value)   # PyYAML reads 1e-3 as a string
+        elif kind == "list":
+            items = value.split(",") if isinstance(value, str) else value
+            kw[key] = [str(v).strip() for v in items or ()]
         else:
             kw[key] = "" if value is None else str(value)
     return cls(**kw)
@@ -686,7 +790,9 @@ _NESTED_SERVING = {"FrontendConfig": FrontendConfig,
                    "WeightsConfig": WeightsConfig,
                    "AdaptersConfig": AdaptersConfig,
                    "HostSpillConfig": HostSpillConfig,
-                   "DisaggConfig": DisaggConfig}
+                   "DisaggConfig": DisaggConfig,
+                   "RouterConfig": RouterConfig,
+                   "RouterHealthConfig": RouterHealthConfig}
 
 
 # ServingConfig.decode_backend -> the PagedEngine backend: the JAX
@@ -703,12 +809,13 @@ class ServingConfig:
     ``"pallas"`` (the paged flash-decode kernel), and the port's own,
     ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
     the sweep on the CPU. Any other name raises in :meth:`make`.
-    ``tp > 1``, not ported yet, raises ``NotImplementedError``, and so
-    does a ``router:`` block. The nested ``frontend:``, ``structured:``,
+    ``tp > 1``, not ported yet, raises ``NotImplementedError`` in the
+    engine. The nested ``frontend:``, ``router:``, ``structured:``,
     ``weights:``, ``adapters:``, ``host_spill:`` and ``disagg:`` blocks
-    are :class:`FrontendConfig`, :class:`StructuredConfig`,
-    :class:`WeightsConfig`, :class:`AdaptersConfig`,
-    :class:`HostSpillConfig` and :class:`DisaggConfig`."""
+    are :class:`FrontendConfig`, :class:`RouterConfig`,
+    :class:`StructuredConfig`, :class:`WeightsConfig`,
+    :class:`AdaptersConfig`, :class:`HostSpillConfig` and
+    :class:`DisaggConfig`."""
 
     page_size: int = 64
     n_pages: int = 256
@@ -730,6 +837,8 @@ class ServingConfig:
     seed: int = 0                      # sampling generator seed
     frontend: FrontendConfig = dataclasses.field(
         default_factory=FrontendConfig)  # HTTP front door + scheduler
+    router: RouterConfig = dataclasses.field(
+        default_factory=RouterConfig)  # engine-fleet replica scale-out
     structured: StructuredConfig = dataclasses.field(
         default_factory=StructuredConfig)  # constrained decoding
     weights: WeightsConfig = dataclasses.field(
@@ -745,12 +854,7 @@ class ServingConfig:
     def from_dict(cls, data: dict | None) -> "ServingConfig":
         """Build from a ``serving:`` mapping; unknown keys are loud
         (a typo must not silently serve the default)."""
-        data = dict(data or {})
-        if "router" in data:
-            raise NotImplementedError(
-                "serving.router: router blocks are not ported yet (the "
-                "engine fleet is the next slice of ROADMAP.md A-4)")
-        return _from_mapping(cls, data, "serving")
+        return _from_mapping(cls, dict(data or {}), "serving")
 
     @classmethod
     def load(cls, path: str | Path) -> "ServingConfig":
@@ -764,16 +868,19 @@ class ServingConfig:
              on_recompile: str = "warn",
              device: str | torch.device = "cuda",
              tracer: Any = None):
-        """Build the engine and its batcher (the single-replica branches
-        of the JAX ``make``); returns the
-        :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`, or,
-        with ``disagg.enabled``, a
+        """Build the engines and their batchers; returns the
+        :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`, with
+        ``disagg.enabled`` a
         :class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair` over a
-        prefill-only engine and that batcher. The ``frontend:`` block's
-        scheduler policy is built once and installed on the batcher
+        prefill-only engine and that batcher, and with a multi-replica
+        ``router:`` block an :class:`~torchbooster_tpu_torch.serving.
+        router.EngineFleet`. The ``frontend:`` block's scheduler policy
+        is built once and installed on every batcher
         (``self.frontend.make(batcher)`` wraps it in the HTTP server).
         ``compute_dtype`` defaults to bf16. The ``weights:`` block
-        quantizes ``params`` once, before any engine is built."""
+        quantizes ``params`` once, before any engine is built.
+        ``tracer`` is installed on every batcher; a fleet without one
+        gets one shared ``RequestTracer``."""
         from torchbooster_tpu_torch.serving import (
             ContinuousBatcher,
             PagedEngine,
@@ -786,6 +893,10 @@ class ServingConfig:
                              f"{sorted(_DECODE_BACKENDS)}, got "
                              f"{self.decode_backend!r}")
         params = self.weights.quantize(params)
+        n_replicas = self.router.n_replicas
+        if n_replicas < 1:
+            raise ValueError(f"serving.router.n_replicas must be >= 1, got "
+                             f"{n_replicas}")
 
         def build_engine(*, prefill_only=False, n_pages=None,
                          max_slots=None, host_spill=None):
@@ -820,6 +931,11 @@ class ServingConfig:
         if self.disagg.enabled:
             from torchbooster_tpu_torch.serving.disagg import DisaggPair
 
+            if n_replicas > 1 or self.router.replicas:
+                raise ValueError(
+                    "serving.disagg.enabled with a multi-replica router "
+                    "block: disaggregate AND replicate by building the "
+                    "fleet directly over DisaggPairs")
             if not (self.prefix_cache and self.host_spill.enabled):
                 raise ValueError(
                     "serving.disagg needs prefix_cache: true and "
@@ -840,8 +956,42 @@ class ServingConfig:
             return DisaggPair(
                 prefill, decode,
                 min_prefill_pages=self.disagg.min_prefill_pages)
-        return ContinuousBatcher(build_engine(), on_recompile=on_recompile,
-                                 policy=policy, tracer=tracer)
+        if self.router.replicas:
+            from torchbooster_tpu_torch.serving.router.rpc import (
+                RemoteReplica,
+            )
+
+            members = []
+            for i, spec in enumerate(self.router.replicas):
+                spec = str(spec).strip()
+                if spec == "inproc":
+                    members.append(ContinuousBatcher(
+                        build_engine(), on_recompile=on_recompile,
+                        policy=policy, tracer=tracer))
+                elif ":" in spec:
+                    members.append(RemoteReplica(spec, replica_id=i))
+                else:
+                    raise ValueError(
+                        f"serving.router.replicas[{i}]={spec!r}: expected "
+                        "'inproc' or a 'host:port' endpoint")
+            return self.router.make(members)
+        if n_replicas == 1:
+            return ContinuousBatcher(build_engine(),
+                                     on_recompile=on_recompile,
+                                     policy=policy, tracer=tracer)
+        # the fleet: N identical replicas on the one device, sharing the
+        # params, the policy and ONE tracer ring (so /debug/trace follows
+        # a request across replicas by its id)
+        if tracer is None:
+            from torchbooster_tpu_torch.observability.tracing import (
+                RequestTracer,
+            )
+
+            tracer = RequestTracer()
+        return self.router.make([
+            ContinuousBatcher(build_engine(), on_recompile=on_recompile,
+                              policy=policy, tracer=tracer)
+            for _ in range(n_replicas)])
 
 
 @dataclass

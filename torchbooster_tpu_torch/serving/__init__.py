@@ -4,7 +4,10 @@ verify (speculative), the continuous batcher (batcher), its scheduler
 policies and the asyncio HTTP front door (frontend), the workload
 capture/replay harness (loadgen), structured generation (structured),
 the LoRA adapter registry (adapters), prefill/decode disaggregation
-(disagg) and the router's wire codec (router.rpc)."""
+(disagg), and the engine fleet (router: ``EngineFleet``, its routing
+policies, prefix directory, health scorer, audit trail and socket
+replicas; the names below load it lazily) with its replica server
+(replica_server)."""
 from __future__ import annotations
 
 from torchbooster_tpu_torch.serving.adapters import (
@@ -31,8 +34,23 @@ from torchbooster_tpu_torch.serving.speculative import (
     TreeLookupDrafter,
 )
 
-__all__ = ["AdapterRegistry", "BlockTables", "ContinuousBatcher",
-           "DisaggPair", "HostPagePool", "NO_DRAFT", "NULL_PAGE",
-           "PagedEngine", "PoolExhausted", "PromptLookupDrafter", "Request",
+_ROUTER_NAMES = ("EngineFleet", "InProcessReplica", "AffinityRouting",
+                 "RoundRobinRouting", "PrefixDirectory")
+
+
+def __getattr__(name: str):
+    if name in _ROUTER_NAMES:         # lazy: the fleet layer
+        from torchbooster_tpu_torch.serving import router
+
+        return getattr(router, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["AdapterRegistry", "AffinityRouting", "BlockTables",
+           "ContinuousBatcher", "DisaggPair", "EngineFleet",
+           "HostPagePool", "InProcessReplica", "NO_DRAFT", "NULL_PAGE",
+           "PagedEngine", "PoolExhausted", "PrefixDirectory",
+           "PromptLookupDrafter", "Request", "RoundRobinRouting",
            "TreeLookupDrafter", "best_completions", "make_pool",
            "random_adapter"]

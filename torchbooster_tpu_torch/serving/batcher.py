@@ -556,6 +556,14 @@ class ContinuousBatcher:
                 "private tail pages copied at fork (the only bytes n-way "
                 "sampling duplicates)"),
         }
+        if self.engine.structured:
+            inst["structured"] = reg.counter(
+                "serving_structured_requests_total",
+                "constrained (response_format) requests admitted")
+            inst["structured_frac"] = reg.gauge(
+                "serving_structured_masked_frac",
+                "mean masked-vocabulary fraction over committed "
+                "constrained cursor rows this run")
         if self.engine.host_spill:
             # spill-tier traffic, only with the tier (the spill-less
             # registry view is unchanged)
@@ -568,18 +576,11 @@ class ContinuousBatcher:
             inst["host_hits"] = reg.counter(
                 "serving_host_hit_pages_total",
                 "prompt pages matched in the host spill tier")
-        if self.engine.structured:
-            inst["structured"] = reg.counter(
-                "serving_structured_requests_total",
-                "constrained (response_format) requests admitted")
-            inst["structured_frac"] = reg.gauge(
-                "serving_structured_masked_frac",
-                "mean masked-vocabulary fraction over committed "
-                "constrained cursor rows this run")
         if self.engine.lora:
             inst["adapter_tokens"] = reg.counter(
                 "serving_adapter_tokens_total",
-                "tokens delivered per adapter name (per-tenant billing)")
+                "tokens delivered per adapter name (per-tenant "
+                "billing attribution)")
             inst["adapter_reqs"] = reg.counter(
                 "serving_adapter_requests_total",
                 "requests reaching a terminal state per adapter name")
@@ -595,14 +596,34 @@ class ContinuousBatcher:
                                           "per-class arrival -> first token"),
                 "slo_tpot": reg.histogram("serving_slo_tpot_seconds",
                                           "per-class mean inter-token time"),
-                "slo_shed": reg.counter("serving_slo_shed_total",
-                                        "requests shed by the SLO policy"),
-                "slo_cancel": reg.counter("serving_slo_cancelled_total",
-                                          "requests cancelled by the client"),
-                "slo_hit": reg.counter("serving_slo_deadline_hit_total",
-                                       "deadline hits (kind=ttft|tpot)"),
-                "slo_miss": reg.counter("serving_slo_deadline_miss_total",
-                                        "deadline misses (kind=ttft|tpot)"),
+                "slo_shed": reg.counter(
+                    "serving_slo_shed_total",
+                    "requests shed by the SLO policy (per class)"),
+                "slo_cancel": reg.counter(
+                    "serving_slo_cancelled_total",
+                    "requests cancelled by the client (per class)"),
+                "slo_hit": reg.counter(
+                    "serving_slo_deadline_hit_total",
+                    "deadline hits (per class, kind=ttft|tpot)"),
+                "slo_miss": reg.counter(
+                    "serving_slo_deadline_miss_total",
+                    "deadline misses (per class, kind=ttft|tpot)"),
+                "slo_ttft_rate": reg.gauge(
+                    "serving_slo_ttft_hit_rate",
+                    "TTFT deadline hit rate over this run (per class)"),
+                "slo_tpot_rate": reg.gauge(
+                    "serving_slo_tpot_hit_rate",
+                    "TPOT deadline hit rate over this run (per class)"),
+                # live quantiles from the session reservoirs (labels cls
+                # and q=p50|p99), refreshed at every completion
+                "slo_ttft_q": reg.gauge(
+                    "serving_slo_ttft_quantile",
+                    "per-class TTFT quantile over the session "
+                    "reservoir (labels cls, q)"),
+                "slo_tpot_q": reg.gauge(
+                    "serving_slo_tpot_quantile",
+                    "per-class TPOT quantile over the session "
+                    "reservoir (labels cls, q)"),
             })
         self._inst = inst
         s = _Session(self)
@@ -682,6 +703,14 @@ class ContinuousBatcher:
                 / (len(req.tokens) - 1)
             s.sample(cs["tpot"], tpot)
             inst["slo_tpot"].observe(tpot, cls=cls.name)
+        # one percentile over the bounded reservoir per completion
+        for kind, vals in (("ttft", cs["ttft"]), ("tpot", cs["tpot"])):
+            if not vals:
+                continue
+            q50, q99 = np.percentile(np.asarray(vals, np.float64),
+                                     [50, 99]).tolist()
+            inst[f"slo_{kind}_q"].set(round(q50, 6), cls=cls.name, q="p50")
+            inst[f"slo_{kind}_q"].set(round(q99, 6), cls=cls.name, q="p99")
         for kind, value, target in (
                 ("ttft", ttft, self.policy.ttft_deadline_s(req)),
                 ("tpot", tpot, self.policy.tpot_deadline_s(req))):
@@ -1182,6 +1211,12 @@ class ContinuousBatcher:
             inst["adapter_loads"].inc(eng.adapters.loads - s.aloads0)
             inst["adapter_evictions"].inc(eng.adapters.evictions
                                           - s.aevict0)
+        if self.policy.slo:
+            for name, cs in s.per_class.items():
+                for kind in ("ttft", "tpot"):
+                    inst[f"slo_{kind}_rate"].set(
+                        cs[f"{kind}_hit"] / max(cs[f"{kind}_n"], 1),
+                        cls=name)
         self._s = None
         self._sentinel = None
 

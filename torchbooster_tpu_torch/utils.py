@@ -280,8 +280,8 @@ def instrument_step(step_fn: Callable, name: str = "train_step",
 
     reg = registry if registry is not None else get_registry()
     hist = reg.histogram("step_seconds",
-                         "host wall time per train-step call")
-    count = reg.counter("steps_total", "train steps called")
+                         "host wall time per train-step dispatch")
+    count = reg.counter("steps_total", "train steps dispatched")
 
     @functools.wraps(step_fn)
     def wrapped(*args: Any, **kwargs: Any) -> Any:
