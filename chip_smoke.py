@@ -258,6 +258,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain GroupNorm (loss and gradient norm, rtol 1e-4). Prints step ms,
    img/s, the model-FLOP share of 989 TFLOP/s, peak memory, the host data
    time per step and a profiled device busy share with the top kernels.
+10. resnet_data — the data path under ResNet-18: a full-size CIFAR-10
+   binary release (5 x 10,000 train and 10,000 test records, the
+   ``synthetic_cifar10`` twin's images quantized to uint8) written from a
+   seed into a temporary directory, which ``cifar10`` resolves as
+   ``local:cifar10_bin`` (read back equal to what was written);
+   ``BaseDataset.prepare`` turns both splits into ``train.bstore`` /
+   ``test.bstore`` under a second root, which resolves as ``store``;
+   4,096 records drawn from a seed read equal through the Python and the
+   native reader, each alone and in gathers of 512 (write and read MB/s).
+   Then the recipe's trainer (``setup``, ``to_device``, ``step``; the
+   YAML's values: batch 512, bf16, host augmentation) on the store, 4
+   warm-up and 24 timed steps under each loader: (a) ``num_workers: 0``,
+   (b) min(8, cpu count) threads, (c) as many spawn processes, (d) the
+   faster of (b) and (c) under ``prefetch_to_device(size=2)``. Every loss
+   finite, B5-B8's launches exact per step (B5 4, B6 4, B7 3, B8 13) and
+   by route, the labels in the same order in every mode; then 8 batches
+   without augmentation that (d)'s loader delivers on the card equal the
+   ``num_workers: 0`` host batches byte for byte. Prints each mode's step
+   ms, img/s, host data ms per step and profiled busy share.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel's route, error, times and launches. Longer
@@ -269,6 +288,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -281,7 +301,8 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
-          "train", "gpt2_import", "train_long", "conv", "resnet_train")
+          "train", "gpt2_import", "train_long", "conv", "resnet_train",
+          "resnet_data")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
@@ -4802,34 +4823,46 @@ def resnet_breakdown(n_steps: int = 3) -> dict:
             "top": per_kernel[:10]}
 
 
-def phase_resnet_train(report: dict, smi: str) -> dict:
-    """The ResNet recipe's ``main`` at the YAML's configuration on the
-    card; returns B5-B8's launch counts from this run."""
-    from torchbooster_tpu_torch.dataset import Split
+def reset_conv_counts() -> None:
     from torchbooster_tpu_torch.ops import fused_block as fb
     from torchbooster_tpu_torch.ops import group_norm as gnk
-    from torchbooster_tpu_torch.recipes import resnet as recipe
 
-    conf = resnet_train_config(RESNET_EPOCHS)
-    n_eval = RESNET_EPOCHS * (len(conf.dataset.make(Split.TEST)) // RN_B)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     gnk.launches_fwd = gnk.launches_bwd = 0
     fb.launches_1x1 = fb.launches_3x3 = 0
     for counter in (gnk.launches_fwd_by_route, gnk.launches_bwd_by_route,
                     fb.launches_1x1_by_route, fb.launches_3x3_by_route):
         for route in counter:
             counter[route] = 0
+
+
+def conv_counts() -> tuple[dict, dict]:
+    from torchbooster_tpu_torch.ops import fused_block as fb
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    return ({"gn_fwd": gnk.launches_fwd, "gn_bwd": gnk.launches_bwd,
+             "conv1x1": fb.launches_1x1, "conv3x3": fb.launches_3x3},
+            {"gn_fwd": dict(gnk.launches_fwd_by_route),
+             "gn_bwd": dict(gnk.launches_bwd_by_route),
+             "conv1x1": dict(fb.launches_1x1_by_route),
+             "conv3x3": dict(fb.launches_3x3_by_route)})
+
+
+def phase_resnet_train(report: dict, smi: str) -> dict:
+    """The ResNet recipe's ``main`` at the YAML's configuration on the
+    card; returns B5-B8's launch counts from this run."""
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.recipes import resnet as recipe
+
+    conf = resnet_train_config(RESNET_EPOCHS)
+    n_eval = RESNET_EPOCHS * (len(conf.dataset.make(Split.TEST)) // RN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_conv_counts()
     t0 = time.perf_counter()
     res = recipe.main(conf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gn_fwd": gnk.launches_fwd, "gn_bwd": gnk.launches_bwd,
-                "conv1x1": fb.launches_1x1, "conv3x3": fb.launches_3x3}
-    by_route = {"gn_fwd": dict(gnk.launches_fwd_by_route),
-                "gn_bwd": dict(gnk.launches_bwd_by_route),
-                "conv1x1": dict(fb.launches_1x1_by_route),
-                "conv3x3": dict(fb.launches_3x3_by_route)}
+    launches, by_route = conv_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [st["loss"] for st in res["steps"]]
     n_steps = len(losses)
@@ -4895,6 +4928,316 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     return {**launches, "by_route": by_route}
 
 
+# ----------------------------------------------------------- resnet_data
+RD_WARM, RD_TIMED = 4, 24      # steps a loader mode: warm-up, then timed
+RD_SAMPLE, RD_GATHER = 4096, 512   # records read back, records a gather
+RD_COPY_BATCHES = 8            # batches held byte for byte, prefetch vs host
+RD_TRAIN, RD_TEST, RD_PER_FILE = 50_000, 10_000, 10_000   # CIFAR-10's sizes
+# what each B5-B8 launches a train step at batch 512, bf16, and by route
+RD_PER_STEP = {"gn_fwd": 4, "gn_bwd": 4, "conv1x1": 3, "conv3x3": 13}
+RD_ROUTES = {"gn_fwd": {"one_pass": 4, "two_pass": 0},
+             "gn_bwd": {"one_pass": 4, "two_pass": 0},
+             "conv1x1": {"cluster": 1, "pack": 2, "mma_sync": 0, "f32": 0},
+             "conv3x3": {"cluster": 7, "pack": 6, "mma_sync": 0, "f32": 0}}
+
+
+def write_cifar10_release(root: Path) -> dict:
+    """A CIFAR-10 binary release at full size under ``root``: five
+    ``data_batch_*.bin`` of 10,000 records and a ``test_batch.bin`` of
+    10,000, each record a label byte and the CHW planes. The images are
+    the ``synthetic_cifar10`` twin's class-conditional images (50,000
+    train, 10,000 test), quantized to uint8, so the loss can fall."""
+    from torchbooster_tpu_torch.data import sources
+    from torchbooster_tpu_torch.dataset import Split
+
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for split, n, names in (
+            (Split.TRAIN, RD_TRAIN,
+             [f"data_batch_{i}.bin" for i in range(1, 6)]),
+            (Split.TEST, RD_TEST, ["test_batch.bin"])):
+        twin = sources._synthetic_classification(n, (32, 32, 3), 10, split)
+        images, labels = twin.arrays
+        pixels = np.clip(np.rint(images * 32.0 + 128.0), 0, 255).astype(
+            np.uint8)
+        records = np.concatenate(
+            [labels.astype(np.uint8)[:, None],
+             pixels.transpose(0, 3, 1, 2).reshape(n, 3072)], axis=1)
+        for i, name in enumerate(names):
+            (root / name).write_bytes(
+                records[i * RD_PER_FILE:(i + 1) * RD_PER_FILE].tobytes())
+        out[split.value] = (pixels, labels)
+    out["bytes"] = sum(f.stat().st_size for f in root.iterdir())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def store_read_check(path: Path) -> dict:
+    """``RD_SAMPLE`` records drawn from a seed, read through the Python
+    and the native reader, each alone and in gathers of ``RD_GATHER``: the
+    bytes must agree; MB/s of each (the store was just written, so reads
+    come from the page cache)."""
+    from torchbooster_tpu_torch.store import RecordReader
+
+    rs = np.random.RandomState(7)
+    with RecordReader(path) as probe:
+        n = len(probe)
+    idx = [int(i) for i in rs.randint(0, n, RD_SAMPLE)]
+    out, got = {}, {}
+    for native in (False, True):
+        name = "native" if native else "python"
+        with RecordReader(path, native=native) as reader:
+            if reader._native is not native:
+                raise AssertionError(f"store: the {name} reader read "
+                                     f"through the other path")
+            t0 = time.perf_counter()
+            alone = [reader.get(i) for i in idx]
+            t1 = time.perf_counter()
+            gathered = [r for s in range(0, RD_SAMPLE, RD_GATHER)
+                        for r in reader.get_batch(idx[s:s + RD_GATHER])]
+            t2 = time.perf_counter()
+        if alone != gathered:
+            raise AssertionError(f"store: the {name} reader's get and "
+                                 f"get_batch disagree")
+        got[name] = alone
+        mb = sum(map(len, alone)) / 1e6
+        out[name] = {"get_mb_per_s": mb / (t1 - t0),
+                     "get_batch_mb_per_s": mb / (t2 - t1)}
+    if got["python"] != got["native"]:
+        bad = sum(a != b for a, b in zip(got["python"], got["native"]))
+        raise AssertionError(f"store: the native and Python readers "
+                             f"disagree on {bad} of {RD_SAMPLE} records")
+    out["records"], out["mb"] = RD_SAMPLE, sum(map(len, got["native"])) / 1e6
+    return out
+
+
+def resnet_data_config(root: str, num_workers: int):
+    from torchbooster_tpu_torch.config import DatasetConfig, LoaderConfig
+
+    conf = resnet_train_config(1)
+    conf.dataset = DatasetConfig(name="cifar10", root=root)
+    conf.loader = LoaderConfig(batch_size=RN_B, num_workers=num_workers,
+                               drop_last=True)
+    return conf
+
+
+def resnet_data_mode(conf, mode: str, n_workers: int, smi: str) -> dict:
+    """``RD_WARM + RD_TIMED`` train steps of the recipe's trainer with the
+    loader of ``mode``: ``serial`` (``num_workers: 0``), ``thread``,
+    ``process``, or ``prefetch_<thread|process>`` (that loader under
+    ``prefetch_to_device(size=2)``). The timed steps run under the
+    profiler (CUDA activity) for the busy share. Every loss must be finite
+    and B5-B8's launches exact per step, by route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.data import DataLoader, prefetch_to_device
+    from torchbooster_tpu_torch.recipes import resnet as recipe
+
+    t = recipe.setup(conf)
+    workers = mode.replace("prefetch_", "")
+    if workers == "process":
+        loader = DataLoader(t.train_loader.dataset, batch_size=RN_B,
+                            shuffle=True, seed=conf.seed,
+                            num_workers=n_workers, workers="process",
+                            prefetch=conf.loader.prefetch)
+    else:
+        loader = t.train_loader
+    if loader.num_workers != (0 if mode == "serial" else n_workers):
+        raise AssertionError(f"resnet_data {mode}: the loader runs "
+                             f"{loader.num_workers} workers")
+    batches = prefetch_to_device(loader, t.device, size=2) \
+        if mode.startswith("prefetch") else iter(loader)
+    n_steps = RD_WARM + RD_TIMED
+    losses, data_s, labels = [], [], []
+    torch.cuda.synchronize()
+    reset_conv_counts()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for i in range(n_steps):
+        if i == RD_WARM:
+            torch.cuda.synchronize()
+            prof.start()
+            t0 = time.perf_counter()
+        t_fetch = time.perf_counter()
+        batch = next(batches)
+        images, y = recipe.to_device(batch, t.device)
+        data_s.append(time.perf_counter() - t_fetch)
+        if mode.startswith("prefetch") and not (
+                images.device.type == y.device.type == t.device.type):
+            raise AssertionError("resnet_data: prefetch_to_device yielded "
+                                 "tensors off the trainer's device")
+        labels.append(y)
+        t.state, m = t.step(t.state, (images, y))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.stop()
+    launches, by_route = conv_counts()
+    batches.close()
+    if workers == "process":
+        loader.close()
+    losses = torch.stack(losses).tolist()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"resnet_data {mode}: losses {losses}")
+    expected = {k: v * n_steps for k, v in RD_PER_STEP.items()}
+    route_expected = {k: {r: v * n_steps for r, v in routes.items()}
+                      for k, routes in RD_ROUTES.items()}
+    if launches != expected or by_route != route_expected:
+        raise AssertionError(
+            f"resnet_data {mode}: launches {launches} by route {by_route}, "
+            f"expected {expected} by route {route_expected}")
+    busy_us = union_us(device_spans(prof))
+    step_s = wall / RD_TIMED
+    out = {"mode": mode, "workers": 0 if mode == "serial" else n_workers,
+           "steps": n_steps, "timed_steps": RD_TIMED,
+           "step_ms": step_s * 1e3, "img_per_s": RN_B / step_s,
+           "host_data_ms_per_step": float(np.mean(data_s[RD_WARM:])) * 1e3,
+           "first_batch_s": data_s[0],
+           "device_busy_share": busy_us / 1e6 / wall,
+           "device_ms_per_step": busy_us / 1e3 / RD_TIMED,
+           "losses": losses, "launches": launches, "by_route": by_route,
+           "labels": torch.cat(labels).cpu().long().numpy(), "card": smi}
+    log(f"resnet_data {mode}: {out['workers']} workers, step "
+        f"{out['step_ms']:.1f} ms, {out['img_per_s']:.0f} img/s, host data "
+        f"{out['host_data_ms_per_step']:.1f} ms per step, device "
+        f"{out['device_ms_per_step']:.1f} ms per step, busy "
+        f"{100 * out['device_busy_share']:.1f}%, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, first batch {data_s[0]:.2f} s [{smi}]")
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefetch_copy_check(conf, workers: str, n_workers: int) -> dict:
+    """``RD_COPY_BATCHES`` batches of the train split without
+    augmentation: what ``prefetch_to_device`` delivers on the card from
+    the ``workers`` loader equals, byte for byte, the ``num_workers: 0``
+    host batches of the same seed and epoch (images and labels)."""
+    from torchbooster_tpu_torch.data import DataLoader, prefetch_to_device
+    from torchbooster_tpu_torch.dataset import Split
+
+    ds = conf.dataset.make(Split.TRAIN)
+    host = DataLoader(ds, batch_size=RN_B, shuffle=True, seed=conf.seed)
+    fast = DataLoader(ds, batch_size=RN_B, shuffle=True, seed=conf.seed,
+                      num_workers=n_workers, workers=workers)
+    on_card = prefetch_to_device(fast, DEV, size=2)
+    try:
+        for k, (want, got) in enumerate(zip(host, on_card)):
+            for name, w, g in zip(("images", "labels"), want, got):
+                if g.device.type != torch.device(DEV).type:
+                    raise AssertionError("prefetch_to_device yielded a "
+                                         "tensor off the card")
+                g = g.cpu().numpy()
+                if g.dtype != w.dtype or g.shape != w.shape or \
+                        g.tobytes() != w.tobytes():
+                    raise AssertionError(f"prefetch copy check: batch {k} "
+                                         f"{name} differ from the host "
+                                         f"batch")
+            if k + 1 == RD_COPY_BATCHES:
+                break
+    finally:
+        on_card.close()
+        fast.close()
+    return {"batches": RD_COPY_BATCHES, "workers": workers,
+            "n_workers": n_workers, "bytes_equal": True}
+
+
+def phase_resnet_data(report: dict, smi: str) -> dict:
+    """The data path under ResNet-18: a full-size CIFAR-10 binary release
+    written from a seed, its record store, and the recipe's trainer on
+    that store under four loader modes; returns B5-B8's launch counts
+    from the four runs."""
+    import tempfile
+
+    from torchbooster_tpu_torch.config import DatasetConfig
+    from torchbooster_tpu_torch.dataset import BaseDataset, Split
+
+    n_workers = min(8, os.cpu_count() or 1)
+    out: dict = {"cpu_count": os.cpu_count(), "n_workers": n_workers,
+                 "card": smi}
+    log(f"resnet_data: os.cpu_count() {os.cpu_count()}, {n_workers} "
+        f"loader workers")
+    with tempfile.TemporaryDirectory() as tmp:
+        release, store_root = Path(tmp) / "cifar10", Path(tmp) / "store"
+        rel = write_cifar10_release(release)
+        for split in (Split.TRAIN, Split.TEST):
+            ds = DatasetConfig(name="cifar10", root=str(release)).make(split)
+            if ds.resolution != "local:cifar10_bin":
+                raise AssertionError(f"resnet_data: the release resolved "
+                                     f"{ds.resolution}")
+            pixels, labels = rel[split.value]
+            images, got = ds.arrays
+            if len(ds) != len(labels) or \
+                    not np.array_equal(got, labels.astype(np.int32)) or \
+                    not np.array_equal(np.rint(images[:64] * 255.0),
+                                       pixels[:64].astype(np.float32)):
+                raise AssertionError("resnet_data: the CIFAR-10 reader "
+                                     "disagrees with the written release")
+            t0 = time.perf_counter()
+            path = BaseDataset.prepare(store_root, split,
+                                       (ds[i] for i in range(len(ds))))
+            secs = time.perf_counter() - t0
+            out[f"store_{split.value}"] = {
+                "records": len(ds), "bytes": path.stat().st_size,
+                "write_s": secs,
+                "write_mb_per_s": path.stat().st_size / 1e6 / secs}
+        out["release_bytes"], out["release_write_s"] = rel["bytes"], \
+            rel["seconds"]
+        del rel
+        for split in (Split.TRAIN, Split.TEST):
+            res = DatasetConfig(name="cifar10", root=str(store_root)).make(
+                split).resolution
+            if res != "store":
+                raise AssertionError(f"resnet_data: the store root "
+                                     f"resolved {res}")
+        rd = out["store_read"] = store_read_check(store_root / "train.bstore")
+        w = out["store_train"]
+        log(f"resnet_data store: release {out['release_bytes'] / 1e6:.1f} MB "
+            f"written in {out['release_write_s']:.2f} s; train.bstore "
+            f"{w['bytes'] / 1e6:.1f} MB of {w['records']} records at "
+            f"{w['write_mb_per_s']:.1f} MB/s (prepare: read, pickle, write); "
+            f"{RD_SAMPLE} records read back equal through both readers: "
+            f"python get {rd['python']['get_mb_per_s']:.1f} / get_batch "
+            f"{rd['python']['get_batch_mb_per_s']:.1f} MB/s, native get "
+            f"{rd['native']['get_mb_per_s']:.1f} / get_batch "
+            f"{rd['native']['get_batch_mb_per_s']:.1f} MB/s [{smi}]")
+
+        modes = {}
+        total = dict.fromkeys(RD_PER_STEP, 0)
+        by_route = {k: dict.fromkeys(v, 0) for k, v in RD_ROUTES.items()}
+
+        def run(mode: str) -> None:
+            workers = 0 if mode == "serial" else n_workers
+            m = modes[mode] = resnet_data_mode(
+                resnet_data_config(str(store_root), workers), mode,
+                n_workers, smi)
+            for k in total:
+                total[k] += m["launches"][k]
+                for r, n in m["by_route"][k].items():
+                    by_route[k][r] += n
+
+        for mode in ("serial", "thread", "process"):
+            run(mode)
+        best = min(("thread", "process"), key=lambda k: modes[k]["step_ms"])
+        run(f"prefetch_{best}")
+        # augmentation keys each worker's generator on its thread and
+        # process, so pixels differ by design; the labels' order may not
+        want = modes["serial"]["labels"]
+        for mode, m in modes.items():
+            if not np.array_equal(m.pop("labels"), want):
+                raise AssertionError(f"resnet_data {mode}: the label order "
+                                     f"differs from num_workers: 0's")
+        out["modes"] = modes
+        out["copy_check"] = prefetch_copy_check(
+            resnet_data_config(str(store_root), n_workers), best, n_workers)
+        log(f"resnet_data prefetch copy check: {RD_COPY_BATCHES} batches "
+            f"of prefetch_to_device over {n_workers} {best} workers equal "
+            f"the num_workers: 0 host batches byte for byte (images, "
+            f"labels)")
+    report["resnet_data"] = out
+    return {**total, "by_route": by_route}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4906,6 +5249,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "smoke test needs a CUDA card", file=sys.stderr)
         return 2
+    # the dataset chain's HuggingFace link (``cifar10`` without a local
+    # release) must not reach for the hub: the smoke needs no network
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
     root = Path(__file__).resolve().parent
     if not (root / "torchbooster_tpu_torch").is_dir():
         # never drive an installed copy: the smoke tests this checkout
@@ -5097,12 +5444,19 @@ def main() -> int:
         for key in ("gn_fwd", "gn_bwd", "conv1x1", "conv3x3"):
             conv_kernels[key].update(timed_route=res[key]["timed_route"],
                                      previous_ms=res[key]["previous_ms"])
-    if "resnet_train" in phases:
-        launches = phase_resnet_train(report, smi)
-        for key in conv_kernels:
-            conv_kernels[key]["launches"] = launches[key]
-        for key, counts in launches["by_route"].items():
-            conv_kernels[key]["launches_by_route"] = counts
+    # B5-B8 launch on two paths, the recipe's ``main`` over the twin and
+    # the trainer over the record store; the counts add up
+    for key, phase in (("resnet_train", phase_resnet_train),
+                       ("resnet_data", phase_resnet_data)):
+        if key not in phases:
+            continue
+        launches = phase(report, smi)
+        for k in conv_kernels:
+            conv_kernels[k]["launches"] += launches[k]
+            counts = conv_kernels[k]["launches_by_route"] or dict.fromkeys(
+                launches["by_route"][k], 0)
+            conv_kernels[k]["launches_by_route"] = {
+                r: n + launches["by_route"][k][r] for r, n in counts.items()}
     report["wall_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,

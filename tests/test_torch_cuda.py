@@ -1114,3 +1114,31 @@ def test_save_callback_round_trip_of_a_cuda_train_state_on_card(tmp_path):
                                   device="cuda"),
                        torch.rand(5, generator=state.generator,
                                   device="cuda"))
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_on_card_equals_host_batches():
+    """``prefetch_to_device`` over two epochs with more batches than its
+    staging ring: every batch lands on the card, equal byte for byte to
+    the host batch of the same seed and epoch, though its pinned buffer
+    was reused for later batches while the consumer still held it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pinned side-stream copy has "
+                    "no CPU mode")
+    from torchbooster_tpu_torch.data import DataLoader, prefetch_to_device
+    from torchbooster_tpu_torch.dataset import ArrayDataset
+
+    rs = np.random.RandomState(0)
+    x = rs.rand(160, 8, 8, 3).astype(np.float32)
+    y = rs.randint(0, 10, 160).astype(np.int32)
+    host = DataLoader(ArrayDataset(x, y), batch_size=16, seed=1)
+    fast = DataLoader(ArrayDataset(x, y), batch_size=16, seed=1,
+                      num_workers=2)
+    for _ in range(2):
+        held = list(prefetch_to_device(fast, "cuda", size=2))
+        want = list(host)
+        assert len(held) == len(want) == 10
+        for (images, labels), (wx, wy) in zip(held, want):
+            assert images.is_cuda and labels.is_cuda
+            assert images.cpu().numpy().tobytes() == wx.tobytes()
+            assert labels.cpu().numpy().tobytes() == wy.tobytes()

@@ -1,9 +1,10 @@
 """Package guards of ``torchbooster_tpu_torch``.
 
 - importing every module of the port loads neither ``jax`` nor anything
-  of ``torchbooster_tpu`` nor PyYAML nor ``transformers`` (the card's
-  machine has none), runs no recipe and starts no ``nvcc`` (kernels
-  build at first launch, never at import);
+  of ``torchbooster_tpu`` nor PyYAML nor ``transformers`` nor
+  ``datasets``, PIL or ``lmdb`` (the card's machine lacks them), runs no
+  recipe and starts neither ``nvcc`` nor ``g++`` (kernels and the native
+  record store build at first use, never at import);
 - ``chip_smoke.py`` refuses to run without a CUDA card: non-zero exit and
   no result line.
 """
@@ -39,7 +40,10 @@ print(json.dumps({
     "transformers": sorted(m for m in sys.modules if m == "transformers"
                            or m.startswith("transformers.")),
     "scipy": sorted(m for m in sys.modules if m == "scipy"),
+    "lazy": sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("datasets", "PIL", "lmdb")),
     "nvcc": [a for a in started if "nvcc" in a],
+    "gxx": [a for a in started if "g++" in a],
     "built": sorted(_build.build_seconds),
 }))
 """
@@ -71,7 +75,8 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "serving.router.audit", "serving.router.directory",
                  "serving.router.routing", "serving.router.health",
                  "serving.router.replica", "serving.router.fleet",
-                 "serving.replica_server"):
+                 "serving.replica_server", "store", "lmdb_compat",
+                 "data.idx", "data.cifar", "data.folder"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers
@@ -79,7 +84,9 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
     # scipy (the rotation augmentation) is imported when a transform is
     # built, not at import
     assert got["scipy"] == []
-    assert got["nvcc"] == [] and got["built"] == []
+    # the data path imports its optional readers where they are used
+    assert got["lazy"] == []
+    assert got["nvcc"] == [] and got["built"] == [] and got["gxx"] == []
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

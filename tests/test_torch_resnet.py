@@ -340,8 +340,9 @@ def test_resnet_params_round_trip_and_shape_check(resnet18):
 def test_synthetic_images_byte_identical_and_twin_chain(tmp_path, caplog):
     """The synthetic families give the JAX package's bytes; ``cifar10``
     with nothing under ``root`` resolves to its twin with the JAX
-    warning; a release under ``root`` that the JAX chain would read
-    raises instead of training on the twin."""
+    warning; a release under ``root`` is read instead of the twin (here
+    empty batch files, which fail as the JAX reader's do), and a name no
+    link answers exits."""
     # (synthetic_imagenet runs the same function at 224² and 1000
     # classes: 150M prototype draws, too slow to repeat here)
     for name in ("synthetic_cifar10", "synthetic_mnist"):
@@ -362,10 +363,13 @@ def test_synthetic_images_byte_identical_and_twin_chain(tmp_path, caplog):
     assert twin.arrays[0].tobytes() == want.arrays[0].tobytes()
     for f in [f"data_batch_{i}.bin" for i in range(1, 6)] + ["test_batch.bin"]:
         (tmp_path / f).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="CIFAR-10 records"):
         resolve_dataset(DatasetConfig(name="cifar10", root=str(tmp_path)),
                         Split.TRAIN)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="CIFAR-10 records"):
+        jax_resolve(DatasetConfig(name="cifar10", root=str(tmp_path)),
+                    JSplit.TRAIN)
+    with pytest.raises(SystemExit):
         resolve_dataset(DatasetConfig(name="coco"), Split.TRAIN)
 
 
@@ -488,7 +492,7 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A10"):
         recipe.load_pretrained(_tiny_conf(pretrained=str(ckpt)), params,
                                torch.Generator())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A10"):
         recipe.load_pretrained(_tiny_conf(pretrained=str(tmp_path)), params,
                                torch.Generator())
     if not torch.cuda.is_available():

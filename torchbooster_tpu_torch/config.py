@@ -8,20 +8,23 @@ for the training and serving slices:
   ``hyperparams=True`` a generator of configs over the sweep leaves
   (``parse_sweep``: ``arange``, ``linspace``, ``logspace``,
   ``geomspace``, ``range`` and quoted literal lists, never ``eval``);
-- the factories the GPT recipe uses: ``EnvConfig`` (compute dtype and
-  device), ``LoaderConfig``, ``OptimizerConfig`` (adamw, adam, sgd,
-  lamb, lion and adafactor, driven by a schedule), ``SchedulerConfig``
-  and ``DatasetConfig`` (the builtin registry);
+- the factories the recipes use: ``EnvConfig`` (compute dtype and
+  device), ``LoaderConfig`` (workers, prefetch depth and the distributed
+  shard passed through to the loader), ``OptimizerConfig`` (adamw, adam,
+  sgd, lamb, lion and adafactor, driven by a schedule),
+  ``SchedulerConfig`` and ``DatasetConfig`` (the whole resolution chain
+  of ``data/sources.py``: registry, record store, local release,
+  HuggingFace, synthetic twin);
 - ``ServingConfig`` with its core fields, its nested blocks (the
   ``frontend:`` scheduler policy and HTTP server and the ``router:``
   engine fleet among them) and its ``make``; ``LoadgenConfig`` (the capture/replay
   workload source); ``ObservabilityConfig`` with its ``tracing:`` and
   ``slo:`` blocks.
 
-Not ported yet (``ROADMAP.md`` A-5 and A-6): meshes and distributed
-environments, tensor-parallel serving and loader workers.
-Configurations that need them raise ``NotImplementedError``. PyYAML is imported only
-when a file is read."""
+Not ported yet (``ROADMAP.md`` A-5): meshes and distributed
+environments, and tensor-parallel serving. Configurations that need them
+raise ``NotImplementedError``. PyYAML is imported only when a file is
+read."""
 from __future__ import annotations
 
 import ast
@@ -300,27 +303,31 @@ class EnvConfig(BaseConfig):
 
 @dataclass
 class LoaderConfig(BaseConfig):
-    """Host loader settings. Batches come back as host numpy; the
-    caller copies them to the card (``pin_memory`` pins them first)."""
+    """Host loader settings. Batches come back as host numpy; wrap the
+    loader in ``data.prefetch_to_device`` to have them copied to the card
+    ahead of the step (``pin_memory`` is accepted and unused: that copy
+    always stages through pinned buffers)."""
 
     batch_size: int = 32
     num_workers: int = 0
     pin_memory: bool = False
     drop_last: bool = True
-    prefetch: int = 2
+    prefetch: int = 2                  # batches in flight past the one read
 
     def make(self, dataset: Any, shuffle: bool = True,
              distributed: bool = False, collate_fn: Callable | None = None,
              seed: int = 0) -> Any:
+        """The loader over ``dataset``: worker threads when
+        ``num_workers > 0``, and this process's shard of every global
+        batch when ``distributed``."""
         from torchbooster_tpu_torch.data import DataLoader
 
-        if self.num_workers > 0 or distributed:
-            raise NotImplementedError(
-                "loader workers and distributed sharding are not ported "
-                "yet (ROADMAP.md A9); use num_workers: 0")
         return DataLoader(dataset, batch_size=self.batch_size,
-                          shuffle=shuffle, drop_last=self.drop_last,
-                          collate_fn=collate_fn, seed=seed)
+                          shuffle=shuffle, distributed=distributed,
+                          drop_last=self.drop_last,
+                          num_workers=self.num_workers,
+                          prefetch=self.prefetch, collate_fn=collate_fn,
+                          seed=seed)
 
 
 def _unitwise_norm(x: torch.Tensor) -> torch.Tensor:
@@ -495,18 +502,23 @@ class SchedulerConfig(BaseConfig):
 
 @dataclass
 class DatasetConfig(BaseConfig):
-    """Dataset resolution over the builtin registry
-    (``data/sources.py``); other names raise."""
+    """Dataset resolution (``data/sources.py``): the builtin registry, a
+    record store under ``root``, a local MNIST or CIFAR-10 release,
+    HuggingFace ``datasets``, the synthetic twin, else exit."""
 
     name: str = "mnist"
     root: str = "dataset"
-    task: str = ""
+    task: str = ""                     # HF config name
     n_examples: int = 0                # synthetic-family size (0 = default)
 
-    def make(self, split: Any, **kwargs: Any) -> Any:
+    def make(self, split: Any, download: bool = True,
+             distributed: bool = False,
+             acceptance_fn: Callable | None = None, **kwargs: Any) -> Any:
         from torchbooster_tpu_torch.data import resolve_dataset
 
-        return resolve_dataset(self, split, **kwargs)
+        return resolve_dataset(
+            self, split, download=download, distributed=distributed,
+            acceptance_fn=acceptance_fn, **kwargs)
 
 
 @dataclass

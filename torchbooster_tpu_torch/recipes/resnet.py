@@ -10,14 +10,15 @@ is the JAX recipe's: the train split behind host-side augmentation
 (pad-crop, flip, rotation, random erasing; numpy and scipy on the host),
 the head swapped onto ``num_classes``, ``utils.make_step`` at the
 ``env.precision`` compute dtype, and an eval pass over the test split
-after every epoch. ``dataset: cifar10`` resolves offline to its
-``synthetic_cifar10`` twin, as in the JAX chain. On the card the conv +
-GroupNorm pairs run kernels B5-B8.
+after every epoch. ``dataset: cifar10`` resolves as in the JAX chain: a
+record store ``root/<split>.bstore``, else the CIFAR-10 binary release
+under ``root``, else (offline) its ``synthetic_cifar10`` twin. The YAML's
+``loader.num_workers`` runs the fetch and augmentation in that many
+threads. On the card the conv + GroupNorm pairs run kernels B5-B8.
 
 A ``pretrained`` checkpoint (a ``.pt`` torch ``state_dict`` or an orbax
-tree) waits for ``load_torch_state`` and the data path (``ROADMAP.md``
-A10, A9) and raises ``NotImplementedError``; so do meshes and loader
-workers (A8, A9)."""
+tree) waits for ``load_torch_state`` (``ROADMAP.md`` A10) and raises
+``NotImplementedError``; so do meshes (A8)."""
 from __future__ import annotations
 
 import sys
@@ -107,8 +108,8 @@ def load_pretrained(conf: Config, params: dict,
                     generator: torch.Generator) -> tuple[dict, str]:
     """``pretrained: ""`` swaps the head onto ``num_classes`` and keeps
     GroupNorm. A checkpoint path raises: importing a ``.pt`` state_dict
-    waits for ``load_torch_state`` (ROADMAP.md A10), an orbax tree for the
-    data path (A9). Returns ``(params, norm)``."""
+    waits for ``load_torch_state``, restoring an orbax tree for the image
+    family's port (both ROADMAP.md A10). Returns ``(params, norm)``."""
     path = Path(conf.pretrained) if conf.pretrained else None
     if path and not path.exists():
         raise FileNotFoundError(f"pretrained checkpoint not found: {path}")
@@ -119,14 +120,20 @@ def load_pretrained(conf: Config, params: dict,
     if path:
         raise NotImplementedError(
             f"pretrained {path}: restoring an orbax checkpoint is not "
-            f"ported yet (ROADMAP.md A9)")
+            f"ported yet (ROADMAP.md A10)")
     return ResNet.swap_head(params, generator, conf.num_classes), "group"
 
 
 def to_device(batch: Any, device: torch.device) -> tuple:
     """Host ``(images, labels)`` numpy → NHWC float and int64 tensors on
-    ``device``, copied from pinned memory on a card."""
+    ``device``, copied from pinned memory on a card. A batch whose tensors
+    are already on ``device`` (``data.prefetch_to_device``'s) passes as it
+    is."""
     images, labels = unpack(batch)
+    if all(isinstance(x, torch.Tensor) and x.device.type == device.type
+           and device.index in (None, x.device.index)
+           for x in (images, labels)):
+        return images, labels
     images = torch.from_numpy(np.ascontiguousarray(images, np.float32))
     labels = torch.from_numpy(np.asarray(labels)).long()
     if device.type == "cuda":
