@@ -302,7 +302,7 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
           "train", "gpt2_import", "train_long", "conv", "resnet_train",
-          "resnet_data")
+          "resnet_data", "train_comms")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
@@ -4094,6 +4094,382 @@ def phase_train_long(report: dict, smi: str) -> dict:
     return {**launches, "by_route": by_route}
 
 
+# ----------------------------------------------------------- train_comms
+COMMS_STEPS = 6
+# (name, (stage, wire, overlap)); "implicit" is the recipe's own path, no
+# comms: block, the gradient all-reduced over the data axes
+COMMS_LADDER = (("implicit", None), ("s0_fp32", (0, "fp32", False)),
+                ("s0_bf16", (0, "bf16", False)), ("s0_int8", (0, "int8", False)),
+                ("s1_fp32", (1, "fp32", False)), ("s1_int8", (1, "int8", False)),
+                ("s2_fp32_off", (2, "fp32", False)),
+                ("s2_fp32_on", (2, "fp32", True)),
+                ("s2_int8_on", (2, "int8", True)),
+                ("s3_fp32", (3, "fp32", True)), ("s3_int8", (3, "int8", True)))
+# the ladder runs without clipping: at world 1 the fp32 wires then give
+# the implicit run's parameters bit for bit (the elementwise AdamW over a
+# flat shard is the per-leaf update of the same elements). The one
+# difference clipping makes — the global norm summed over a flat shard
+# rather than leaf by leaf, a last-bit change of the clip scale —
+# reaches the bf16 casts of the weights and grows into lr-sized
+# differences of single entries within a few steps (tiny GPT on the
+# CPU: 6e-4 after 6 steps); the checkpoint run and the recipe run clip
+COMMS_PARAM_ATOL = 1e-6
+COMMS_INT8_RTOL = 5e-3          # JAX's tracking bound, tests/test_comms.py:193
+COMMS_CKPT = ("s2_int8_on", (2, "int8", True))
+COMMS_BACKEND = "nccl"          # on the card: no gloo, no group-less run
+# the profiler's names of the collectives (NCCL 2.28 under torch 2.11:
+# "_reduce_scatter_base", "_all_gather_base"), by kind
+NCCL_KINDS = {"all_reduce": "all_reduce",
+              "_reduce_scatter_base": "reduce_scatter",
+              "reduce_scatter": "reduce_scatter",
+              "reduce_scatter_tensor": "reduce_scatter",
+              "all_to_all": "all_to_all",
+              "_all_gather_base": "all_gather",
+              "all_gather": "all_gather",
+              "all_gather_into_tensor": "all_gather"}
+
+
+def nccl_profile(prof) -> tuple[dict, float, int]:
+    """The NCCL collectives a profiled window issued, by kind (the
+    profiler's host-side ``nccl:<op>`` records, one a collective), their
+    device microseconds and the number of device-side ``nccl:<op>``
+    ranges (an in-place all-reduce over one rank moves nothing and has
+    none)."""
+    from torch.autograd import DeviceType
+
+    counts = dict.fromkeys(("all_reduce", "reduce_scatter", "all_to_all",
+                            "all_gather"), 0)
+    device_us, device_ranges = 0.0, 0
+    for e in prof.events():
+        if not e.name.startswith("nccl:"):
+            continue
+        if e.device_type == DeviceType.CPU:
+            kind = NCCL_KINDS.get(e.name[len("nccl:"):])
+            if kind is None:
+                raise AssertionError(f"train_comms: unexpected NCCL op "
+                                     f"{e.name}")
+            counts[kind] += 1
+        elif e.device_type == DeviceType.CUDA:
+            device_us += e.time_range.end - e.time_range.start
+            device_ranges += 1
+    return counts, device_us, device_ranges
+
+
+def comms_batches(cfg) -> list:
+    """COMMS_STEPS batches of ids/labels (B x S) on the card, from one
+    numpy seed: every schedule trains on the same tokens."""
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (COMMS_STEPS, TRAIN_B, TRAIN_S + 1))).to(DEV)
+    return [{"ids": tokens[i, :, :-1], "labels": tokens[i, :, 1:]}
+            for i in range(COMMS_STEPS)]
+
+
+def flat_params(sched, state) -> torch.Tensor:
+    """The full parameters as one fp32 vector, in tree order."""
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    params = sched.gather_params(state) if sched is not None \
+        else state.params
+    return torch.cat([p.detach().reshape(-1).float()
+                      for _, p in tree_flatten(params)])
+
+
+def flash_snapshot() -> tuple:
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    return ({"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+             "dkv": fa.launches_dkv},
+            {"fwd": dict(fa.launches_fwd_by_route),
+             "dq": dict(fa.launches_dq_by_route),
+             "dkv": dict(fa.launches_dkv_by_route)})
+
+
+def comms_run(name, spec, mesh, conf, cfg, params0, batches,
+              clip=None) -> tuple:
+    """``COMMS_STEPS`` steps of the GPT-2 small train step under one
+    schedule, from ``params0``: steps 2-5 timed by the host clock around
+    a synchronize, step 6 under the profiler. Returns the record and the
+    final parameters as one vector."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch import utils
+    from torchbooster_tpu_torch.comms import accounting, make_schedule
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    tx = conf.optim.make(conf.scheduler.make(conf.optim))
+    loss_fn = recipe.make_loss(conf, cfg)
+    fresh = {k: v for k, v in utils._tree_map(lambda t: t.clone(),
+                                              params0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = None
+    if spec is None:
+        state = utils.TrainState.create(fresh, tx, generator=conf.seed)
+        step = utils.make_step(loss_fn, tx, clip=clip, mesh=mesh,
+                               rules=GPT.SHARDING_RULES)
+        planned = {"all_reduce": 2, "reduce_scatter": 0, "all_to_all": 0,
+                   "all_gather": 0}
+    else:
+        stage, wire, overlap = spec
+        sched = make_schedule(mesh, stage=stage, wire=wire, overlap=overlap)
+        state = sched.create_state(fresh, tx, generator=conf.seed)
+        step = utils.make_step(loss_fn, tx, clip=clip, comms=sched)
+    del fresh
+    before, before_route = flash_snapshot()
+    losses = []
+    t1 = None
+    for i, batch in enumerate(batches[:-1]):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / (len(batches) - 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t6 = time.perf_counter()
+        state, m = step(state, batches[-1])
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall6 = time.perf_counter() - t6
+    counts, nccl_us, nccl_ranges = nccl_profile(prof)
+    busy_us = union_us(device_spans(prof))
+    after, after_route = flash_snapshot()
+    n_steps = len(batches)
+    per_step = {k: (after[k] - before[k]) / n_steps for k in after}
+    by_route = {k: {r: (after_route[k][r] - before_route[k][r]) / n_steps
+                    for r in after_route[k]} for k in after_route}
+    if sched is not None:
+        planned = sched.collectives_per_step(clip is not None)
+    n_params = n_params_of(params0)
+    flat = flat_params(sched, state)
+    rec = {"losses": [float(x) for x in losses], "step_ms": step_s * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "profiled_step_ms": wall6 * 1e3,
+           "busy_share": busy_us / (wall6 * 1e6),
+           "nccl_device_ms": nccl_us / 1e3, "nccl_collectives": counts,
+           "nccl_device_ranges": nccl_ranges,
+           "planned_collectives": planned, "flash_per_step": per_step,
+           "flash_by_route_per_step": by_route,
+           "n_buckets": sched.plan().n_buckets
+           if sched is not None and sched.stage >= 2 else None}
+    mode = spec[1] if spec else "implicit"
+    stage = spec[0] if spec else 0
+    kw = dict(stage=stage, overlap=bool(spec and spec[2])) if stage >= 2 \
+        else {}
+    rec["bytes_per_step_world1"] = accounting.step_traffic(
+        n_params, 1, mode, stage >= 1, 512, **kw)["total_bytes"]
+    rec["bytes_per_step_world8_model"] = accounting.step_traffic(
+        n_params, 8, mode, stage >= 1, 512, **kw)["total_bytes"]
+    del state, step
+    return rec, flat
+
+
+def comms_checkpoint(mesh, conf, cfg, params0, batches, root: Path) -> dict:
+    """Stage 2 int8 with overlap and clip 1.0: save the sharded state at
+    step 3, run on to step 6; restore the save into a fresh state and
+    run steps 4-6 again. Losses and parameters must be bit-identical."""
+    import shutil
+
+    from torchbooster_tpu_torch import utils
+    from torchbooster_tpu_torch.callbacks import SaveCallback
+    from torchbooster_tpu_torch.comms import make_schedule
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    tx = conf.optim.make(conf.scheduler.make(conf.optim))
+    loss_fn = recipe.make_loss(conf, cfg)
+    stage, wire, overlap = COMMS_CKPT[1]
+    sched = make_schedule(mesh, stage=stage, wire=wire, overlap=overlap)
+
+    def fresh():
+        return sched.create_state(utils._tree_map(lambda t: t.clone(),
+                                                  params0), tx,
+                                  generator=conf.seed)
+
+    step = utils.make_step(loss_fn, tx, clip=conf.clip, comms=sched)
+    shutil.rmtree(root, ignore_errors=True)
+    cb = SaveCallback(1, COMMS_STEPS, root=root, sharded=True, comms=sched)
+    state, losses = fresh(), []
+    for i, batch in enumerate(batches):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        if i == 2:
+            torch.cuda.synchronize()
+            cb.save(3, state=state)
+    t = time.perf_counter()
+    cb.wait()
+    wait_s = time.perf_counter() - t
+    want = flat_params(sched, state)
+    want_ef = state.comms["ef1"].clone()
+    del state
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored = cb.restore(like={"state": fresh()})["state"]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    resumed = []
+    for batch in batches[3:]:
+        restored, m = step(restored, batch)
+        resumed.append(float(m["loss"]))
+    got = flat_params(sched, restored)
+    rec = cb.saves[0]
+    out = {"schedule": COMMS_CKPT[0], "clip": conf.clip, "losses": losses,
+           "resumed": resumed, "save_block_s": rec["block_s"],
+           "save_write_s": rec["write_s"], "save_wait_s": wait_s,
+           "bytes": rec["bytes"], "restore_s": restore_s,
+           "bit_exact": resumed == losses[3:] and torch.equal(got, want)
+           and torch.equal(restored.comms["ef1"], want_ef)}
+    shutil.rmtree(root, ignore_errors=True)
+    if not out["bit_exact"]:
+        raise AssertionError(
+            f"train_comms checkpoint: the resumed run differs: losses "
+            f"{resumed} vs {losses[3:]}, max param diff "
+            f"{float((got - want).abs().max())}")
+    return out
+
+
+def comms_ladder(smi: str) -> dict:
+    """Runs inside the world-1 NCCL group ``distributed.launch`` started:
+    the group's facts, every schedule of COMMS_LADDER with its gates, and
+    the sharded checkpoint's bit-exact resume."""
+    import torch.distributed as tdist
+
+    from torchbooster_tpu_torch import distributed as dist
+    from torchbooster_tpu_torch.config import EnvConfig
+    from torchbooster_tpu_torch.models.gpt import GPT
+
+    env = EnvConfig(distributed=True, precision="bf16", mesh="dp")
+    mesh = dist.get_mesh(env, device=DEV)
+    group = {"backend": tdist.get_backend(), "world": dist.get_world_size(),
+             "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+             "mesh": mesh.shape, "device": str(mesh.device)}
+    if group["backend"] != COMMS_BACKEND or group["world"] != 1 \
+            or not mesh.distributed:
+        raise AssertionError(f"train_comms: group {group}")
+    log(f"train_comms group: backend {group['backend']}, world "
+        f"{group['world']}, NCCL {group['nccl']}, mesh {group['mesh']} on "
+        f"{group['device']}")
+    conf = gpt2_train_config(COMMS_STEPS, sample_tokens=0)
+    cfg = conf.model.make()
+    params0 = GPT.init(conf.seed, cfg, device=DEV)
+    batches = comms_batches(cfg)
+    n_l = cfg.n_layers
+    flash_want = {"fwd": 2 * n_l, "dq": n_l, "dkv": n_l}
+    runs: dict = {}
+    ref = None
+    t0 = time.perf_counter()
+    for name, spec in COMMS_LADDER:
+        rec, flat = comms_run(name, spec, mesh, conf, cfg, params0, batches)
+        if ref is None:
+            ref = flat
+        losses = rec["losses"]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_comms {name}: losses {losses}")
+        wire = spec[1] if spec else "fp32"
+        rec["max_abs_param_diff_vs_implicit"] = float((flat - ref).abs().max())
+        if wire == "fp32" and rec["max_abs_param_diff_vs_implicit"] \
+                > COMMS_PARAM_ATOL:
+            raise AssertionError(
+                f"train_comms {name}: parameters differ from the implicit "
+                f"run's by {rec['max_abs_param_diff_vs_implicit']} "
+                f"(atol {COMMS_PARAM_ATOL})")
+        want_l = runs["implicit"]["losses"] if runs else losses
+        rec["max_loss_rel_diff_vs_implicit"] = max(
+            abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+        if wire == "int8" and rec["max_loss_rel_diff_vs_implicit"] \
+                > COMMS_INT8_RTOL:
+            raise AssertionError(
+                f"train_comms {name}: losses {losses} vs implicit {want_l} "
+                f"(rtol {COMMS_INT8_RTOL})")
+        if rec["flash_per_step"] != flash_want or any(
+                rec["flash_by_route_per_step"][k] != {
+                    "sm90": flash_want[k], "mma_sync": 0, "f32": 0}
+                for k in flash_want):
+            raise AssertionError(
+                f"train_comms {name}: B1-B3 a step {rec['flash_per_step']} "
+                f"by route {rec['flash_by_route_per_step']}, expected "
+                f"{flash_want} on sm90")
+        if rec["nccl_collectives"] != rec["planned_collectives"]:
+            raise AssertionError(
+                f"train_comms {name}: NCCL collectives a step "
+                f"{rec['nccl_collectives']}, planned "
+                f"{rec['planned_collectives']}")
+        runs[name] = rec
+        log(f"train_comms {name}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"step {rec['step_ms']:.1f} ms, peak mem "
+            f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, busy "
+            f"{100 * rec['busy_share']:.1f}% of the profiled step "
+            f"({rec['profiled_step_ms']:.1f} ms), NCCL device "
+            f"{rec['nccl_device_ms']:.3f} ms over {rec['nccl_device_ranges']}"
+            f" device ranges, collectives "
+            f"{rec['nccl_collectives']} (planned {rec['planned_collectives']}"
+            f", buckets {rec['n_buckets']}), bytes a step {rec['bytes_per_step_world1']}"
+            f" at world 1 ({rec['bytes_per_step_world8_model']} modelled at "
+            f"8 ranks); param max diff vs implicit "
+            f"{rec['max_abs_param_diff_vs_implicit']:.3g}, loss max rel diff "
+            f"{rec['max_loss_rel_diff_vs_implicit']:.3g} [{smi}]")
+        del flat
+    off, on = runs["s2_fp32_off"], runs["s2_fp32_on"]
+    if off["losses"] != on["losses"]:
+        raise AssertionError(f"train_comms: stage 2 overlap off/on losses "
+                             f"{off['losses']} / {on['losses']}")
+    # parameters: both equal the implicit run's bit for bit (gated above
+    # at COMMS_PARAM_ATOL); record the direct comparison too
+    ladder_s = time.perf_counter() - t0
+    del ref
+    root = Path(__file__).resolve().parent / "checkpoints" / "train_comms"
+    ckpt = comms_checkpoint(mesh, conf, cfg, params0, batches, root)
+    log(f"train_comms checkpoint ({ckpt['schedule']}, clip {ckpt['clip']}): "
+        f"saved at step 3, {ckpt['bytes'] / 2**30:.2f} GiB in "
+        f"{ckpt['save_block_s']:.3f} s blocking + {ckpt['save_write_s']:.3f}"
+        f" s background write; restored in {ckpt['restore_s']:.3f} s; steps "
+        f"4-6 {ckpt['resumed']} bit-identical to the uninterrupted run [{smi}]")
+    return {"group": group, "runs": runs, "ladder_s": ladder_s,
+            "checkpoint": ckpt}
+
+
+def phase_train_comms(report: dict, smi: str) -> dict:
+    """Data-parallel training through a world-1 NCCL group on the card:
+    the schedule ladder and the sharded checkpoint under
+    ``distributed.launch``, then the GPT recipe's ``launch_main`` with a
+    ``comms:`` block. Returns the flash kernels' launch counts."""
+    from torchbooster_tpu_torch import distributed as dist
+    from torchbooster_tpu_torch.config import CommsConfig, EnvConfig
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    out = dist.launch(comms_ladder, n_devices=1, distributed=True,
+                      device=DEV, args=(smi,))
+    # the recipe as a user runs it: launch_main with env.distributed and a
+    # comms: block (built in code: the card's machine has no PyYAML)
+    conf = gpt2_train_config(3, sample_tokens=0)
+    conf.env = EnvConfig(distributed=True, precision="bf16", mesh="dp")
+    conf.comms = CommsConfig(stage=2, wire="int8", overlap=True)
+    t = time.perf_counter()
+    res = recipe.launch_main(conf, device=DEV)
+    losses = [r["loss"] for r in res["log"]]
+    if len(losses) != 3 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_comms recipe: losses {losses}")
+    out["recipe"] = {"losses": losses, "wall_s": time.perf_counter() - t}
+    log(f"train_comms recipe: launch_main, distributed, mesh dp, comms "
+        f"{{stage: 2, wire: int8, overlap: true}}: losses {losses} in "
+        f"{out['recipe']['wall_s']:.1f} s [{smi}]")
+    out["wall_s"] = time.perf_counter() - t0
+    out["card"] = smi
+    report["train_comms"] = out
+    launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+                "dkv": fa.launches_dkv}
+    by_route = {"fwd": dict(fa.launches_fwd_by_route),
+                "dq": dict(fa.launches_dq_by_route),
+                "dkv": dict(fa.launches_dkv_by_route)}
+    return {**launches, "by_route": by_route}
+
+
 # ------------------------------------------------------------------ conv
 RN_B = 512            # the ResNet recipe's batch (examples/img_cls/resnet)
 GROUPS = 32
@@ -5411,13 +5787,14 @@ def main() -> int:
         # freed so that the train phase's peak memory is its own
         del params
         torch.cuda.empty_cache()
-    # B1-B3 launch on three paths: GPT-2 small's training and the imported
-    # GPT-2's fine-tunes (D 64, "sm90"), and gpt-long's (D 48,
-    # "mma_sync"); the counts add up, as B4's do with the imported
-    # model's serving
+    # B1-B3 launch on four paths: GPT-2 small's training on one card and
+    # through the NCCL group's schedule ladder, the imported GPT-2's
+    # fine-tunes (D 64, "sm90"), and gpt-long's (D 48, "mma_sync"); the
+    # counts add up, as B4's do with the imported model's serving
     for key, phase in (("train", phase_train),
                        ("gpt2_import", phase_gpt2_import),
-                       ("train_long", phase_train_long)):
+                       ("train_long", phase_train_long),
+                       ("train_comms", phase_train_comms)):
         if key not in phases:
             continue
         launches = phase(report, smi)

@@ -146,7 +146,8 @@ def test_state_dict_extraction():
     assert state_dict(sched) == {"step_count": 0}
     assert state_dict(5) == 5
     sd = state_dict(_state())
-    assert sorted(sd) == ["ema", "generator", "optimizer", "params", "step"]
+    assert sorted(sd) == ["comms", "ema", "generator", "optimizer", "params",
+                          "step"]
 
 
 @pytest.mark.parametrize("n_iter", [1, 9, 10, 12, 100, 10_000])
@@ -209,9 +210,38 @@ def test_uncommitted_write_is_invisible_to_latest_step(tmp_path,
     assert not any(p.name.startswith(".tmp") for p in tmp_path.iterdir())
 
 
-def test_sharded_checkpoints_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
-        SaveCallback(every=1, n_iter=10, sharded=True)
+def test_sharded_checkpoints_raise(tmp_path):
+    """``sharded=True`` is ported (tests/test_torch_zero.py holds it to
+    the JAX package): a one-process ZeRO state round-trips, and restoring
+    it onto another data-parallel world without the schedule raises."""
+    from torchbooster_tpu_torch.comms import make_schedule
+    from torchbooster_tpu_torch.config import OptimizerConfig
+    from torchbooster_tpu_torch.distributed import Mesh, make_mesh
+
+    tx = OptimizerConfig(name="adamw", lr=1e-2).make()
+    params = {"w": torch.arange(12.0).reshape(3, 4), "b": torch.ones(4)}
+    sched = make_schedule(make_mesh("dp", device="cpu"), stage=3,
+                          wire="fp32", bucket_size=4)
+    state = sched.create_state({k: v.clone() for k, v in params.items()}, tx)
+    state.optimizer.state[state.params]["exp_avg"] = torch.ones(16)
+    state.optimizer.state[state.params]["exp_avg_sq"] = torch.ones(16)
+    state.optimizer.state[state.params]["step"] = torch.tensor(1.0)
+    cb = SaveCallback(every=1, n_iter=10, root=tmp_path, sharded=True,
+                      comms=sched)
+    cb.save(1, state=state)
+    template = sched.create_state({k: v.clone() for k, v in params.items()},
+                                  tx)
+    restored = cb.restore(like={"state": template})["state"]
+    assert torch.equal(restored.params, state.params)
+    assert torch.equal(sched.gather_params(restored)["w"], params["w"])
+    two = Mesh(axis_names=("dp",), sizes=(2,), device=torch.device("cpu"))
+    other = make_schedule(two, stage=3, wire="fp32", bucket_size=4)
+    other.plan(params)
+    template.params = torch.zeros(other.plan().shard_size,
+                                  requires_grad=True)
+    with pytest.raises(ValueError, match="data-parallel world"):
+        SaveCallback(every=1, n_iter=10, root=tmp_path,
+                     sharded=True).restore(like={"state": template})
 
 
 def test_log_callback_returns_steps_per_s():

@@ -261,6 +261,9 @@ def test_gpt_long_config_load_matches_jax(monkeypatch):
     jgpt = _jax_recipe(monkeypatch)
     want = dataclasses.asdict(jgpt.Config.load(LONG_YML))
     got = dataclasses.asdict(recipe.Config.load(LONG_YML))
+    # the port's recipe also takes a comms: block, which the JAX example
+    # has no field for; gpt-long.yml has none
+    assert got.pop("comms") is None
     assert got == want
     assert got["model"]["dropout"] == 0.1 and got["save_every"] == 1000
     assert got["dataset"]["name"] == "text_file"

@@ -76,7 +76,9 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "serving.router.routing", "serving.router.health",
                  "serving.router.replica", "serving.router.fleet",
                  "serving.replica_server", "store", "lmdb_compat",
-                 "data.idx", "data.cifar", "data.folder"):
+                 "data.idx", "data.cifar", "data.folder", "distributed",
+                 "parallel", "parallel.sharding", "comms.quantized",
+                 "comms.zero", "comms.schedule"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

@@ -8,8 +8,10 @@ for the training and serving slices:
   ``hyperparams=True`` a generator of configs over the sweep leaves
   (``parse_sweep``: ``arange``, ``linspace``, ``logspace``,
   ``geomspace``, ``range`` and quoted literal lists, never ``eval``);
-- the factories the recipes use: ``EnvConfig`` (compute dtype and
-  device), ``LoaderConfig`` (workers, prefetch depth and the distributed
+- the factories the recipes use: ``EnvConfig`` (compute dtype, this
+  rank's device, and placement over the mesh of ``distributed``,
+  ``n_devices`` and ``mesh``), ``CommsConfig`` (the ``comms:`` block:
+  ZeRO stage, gradient wire format, overlap, buckets), ``LoaderConfig`` (workers, prefetch depth and the distributed
   shard passed through to the loader), ``OptimizerConfig`` (adamw, adam,
   sgd, lamb, lion and adafactor, driven by a schedule),
   ``SchedulerConfig`` and ``DatasetConfig`` (the whole resolution chain
@@ -21,10 +23,10 @@ for the training and serving slices:
   workload source); ``ObservabilityConfig`` with its ``tracing:`` and
   ``slo:`` blocks.
 
-Not ported yet (``ROADMAP.md`` A-5): meshes and distributed
-environments, and tensor-parallel serving. Configurations that need them
-raise ``NotImplementedError``. PyYAML is imported only when a file is
-read."""
+Not ported yet (``ROADMAP.md`` A-5b): the model-parallel mesh axes
+(``tp``, ``sp``, ``pp``, ``ep``) and tensor-parallel serving.
+Configurations that need them raise ``NotImplementedError``. PyYAML is
+imported only when a file is read."""
 from __future__ import annotations
 
 import ast
@@ -41,8 +43,6 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
-
-from torchbooster_tpu_torch._device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -266,39 +266,75 @@ class BaseConfig:
 # ----------------------------------------------------- runtime factories
 @dataclass
 class EnvConfig(BaseConfig):
-    """Execution environment: compute precision and the device. One
-    card (or the CPU) only: ``distributed``, several devices or machines,
-    and meshes with axes beyond a one-device ``dp`` wait for ROADMAP.md
-    A8 and raise."""
+    """Execution environment: compute precision, the device and the mesh.
+    One process runs per device (``distributed.launch``); ``mesh`` names
+    axes over the ranks (``dp``, ``fsdp``), and ``distributed: false``
+    degrades any topology to one device. Model-parallel axes (``tp``,
+    ``sp``, ``pp``, ``ep``) wait for ROADMAP.md A-5b and raise."""
 
     distributed: bool = False
     fp16: bool = False                 # alias → bf16 compute
     precision: str = ""                # "" (auto) | "fp32" | "bf16"
-    n_gpu: int = -1
-    n_devices: int = 0                 # 0 → the one device
+    n_gpu: int = -1                    # alias for n_devices (-1 unset)
+    n_devices: int = 0                 # 0 → one process's device
     n_machine: int = 1
     machine_rank: int = 0
-    dist_url: str = "auto"
-    mesh: str = "dp"
+    dist_url: str = "auto"             # rendezvous ("auto": a free port)
+    mesh: str = "dp"                   # axis spec: "dp" | "dp,fsdp:2"
 
     def compute_dtype(self) -> torch.dtype:
         if self.precision == "bf16" or (not self.precision and self.fp16):
             return torch.bfloat16
         return torch.float32
 
-    def make(self, device: str | torch.device = "cuda") -> torch.device:
-        """The device to train on (a card unless the caller passes
-        ``"cpu"``)."""
-        axes = [a.split(":") for a in self.mesh.replace(" ", "").split(",")
-                if a]
-        one_dp = all(a[0] == "dp" and (len(a) == 1 or int(a[1]) == 1)
-                     for a in axes)
-        if (self.distributed or self.n_machine > 1 or self.n_devices > 1
-                or self.n_gpu > 1 or not one_dp):
-            raise NotImplementedError(
-                f"env {self}: meshes, sharding and multi-device runs are "
-                f"not ported yet (ROADMAP.md A8); use one device, mesh: dp")
-        return resolve_device(device)
+    def devices(self) -> int:
+        """Processes to launch on this machine (``n_devices``, else
+        ``n_gpu``, else one)."""
+        return self.n_devices or (self.n_gpu if self.n_gpu > 0 else 1)
+
+    def device(self, device: str | torch.device = "cuda") -> torch.device:
+        """This rank's device: its card under a process group on the
+        card, else ``device`` (a card unless the caller passes
+        ``"cpu"``). The mesh (``distributed.get_mesh``) is validated on
+        the way."""
+        from torchbooster_tpu_torch import distributed as dist
+
+        return dist.get_mesh(self, device=device).device
+
+    def make(self, *args: Any, model: Any = None, rules: Any = None,
+             device: str | torch.device = "cuda") -> Any:
+        """Place objects over the mesh (JAX ``EnvConfig.make``): tensor
+        trees go to this rank's device, overwritten by rank 0's (DDP's
+        initial broadcast). Pass ``model=`` (anything with
+        ``SHARDING_RULES``) or ``rules=`` to lay parameters or a
+        ``TrainState`` out by the rule table instead; axes absent from
+        the mesh are dropped. One argument returns the object, several a
+        list; use :meth:`shard_batch` for data."""
+        from torchbooster_tpu_torch import distributed as dist
+
+        if rules is None and model is not None:
+            rules = getattr(model, "SHARDING_RULES", None)
+        mesh = dist.get_mesh(self, device=device)
+        if rules is None:
+            param_axes = [a for a, s in mesh.shape.items()
+                          if a != "dp" and s > 1]
+            if param_axes:
+                logging.warning(
+                    "mesh %r has parameter-sharding axes %s but no "
+                    "sharding rules were provided — parameters will "
+                    "fully replicate on every device. Pass "
+                    "make(..., model=<class with SHARDING_RULES>) or "
+                    "rules=[...] to shard.", self.mesh, param_axes)
+        placed = [dist.to_env(obj, mesh, rules=rules) for obj in args]
+        return placed[0] if len(placed) == 1 else placed
+
+    def shard_batch(self, batch: Any,
+                    device: str | torch.device = "cuda") -> Any:
+        """This rank's contiguous slice of a global host batch along its
+        leading axis over the mesh's data axes, on its device."""
+        from torchbooster_tpu_torch import distributed as dist
+
+        return dist.shard_batch(batch, dist.get_mesh(self, device=device))
 
 
 @dataclass
@@ -1084,6 +1120,104 @@ class LoadgenConfig(BaseConfig):
 
 
 @dataclass
+class CommsConfig(BaseConfig):
+    """Gradient-communication schedule (``comms/``): the ZeRO stage, the
+    wire format of the data-parallel gradient sync, and whether the sync
+    overlaps backward (JAX ``CommsConfig``).
+
+    YAML block::
+
+        comms:
+          stage: 0           # ZeRO ladder: 0 | 1 | 2 | 3
+          wire: fp32         # fp32 | bf16 | int8 (grad wire format)
+          overlap: false     # stage>=2: reduce-scatter inside backward
+          bucket_mb: 4.0     # comm-bucket size for the overlapped sync
+          bucket_size: 512   # int8 quantization bucket (fp32 scale each)
+
+    ``stage: 0`` all-reduces gradients explicitly; ``1`` shards the
+    optimizer update; ``2`` reduce-scatters gradients bucket by bucket —
+    during backward with ``overlap: true``; ``3`` also shards the
+    parameters at rest and gathers them in forward, inherently
+    overlapped, so ``overlap`` normalizes to true. ``wire: bf16``/``int8``
+    compress the gradient bytes 2x/about 4x (int8 carries error-feedback
+    residuals in ``TrainState.comms``). Omitting the block keeps the
+    implicit all-reduce. The legacy keys ``mode:`` and ``zero1:`` still
+    load, shimmed onto ``{stage: 0|1, wire: mode}`` with a deprecation
+    note, and cannot be mixed with the schedule keys."""
+
+    stage: int = -1                    # 0 | 1 | 2 | 3 (-1: unset/legacy)
+    wire: str = ""                     # fp32 | bf16 | int8 ("": unset)
+    overlap: bool = False              # stage>=2 only
+    bucket_mb: float = 4.0             # comm-bucket target (MB, fp32)
+    mode: str = "implicit"             # legacy: implicit|fp32|bf16|int8
+    zero1: bool = False                # legacy: stage-1 switch
+    bucket_size: int = 512
+
+    def make(self, env: Any = None, mesh: Any = None,
+             device: str | torch.device = "cuda") -> Any:
+        """The :class:`~torchbooster_tpu_torch.comms.CommsSchedule` for
+        ``mesh`` (or the ``env``'s mesh, on ``device``): pass it to
+        ``utils.make_step(comms=...)`` and build states with
+        ``.create_state(params, tx)``."""
+        from torchbooster_tpu_torch import distributed as dist
+        from torchbooster_tpu_torch.comms import make_schedule
+
+        if mesh is None:
+            mesh = dist.get_mesh(env, device=device)
+        selector_keys = {}
+        if self.stage != -1:
+            selector_keys["stage"] = self.stage
+        if self.wire:
+            selector_keys["wire"] = self.wire
+        if self.overlap:
+            selector_keys["overlap"] = self.overlap
+        tuning_keys = {}
+        if self.bucket_mb != 4.0:
+            tuning_keys["bucket_mb"] = self.bucket_mb
+        new_keys = {**selector_keys, **tuning_keys}
+        legacy_keys = {}
+        if self.mode != "implicit":
+            legacy_keys["mode"] = self.mode
+        if self.zero1:
+            legacy_keys["zero1"] = self.zero1
+        if new_keys and legacy_keys:
+            raise ValueError(
+                f"comms: block mixes legacy keys "
+                f"{sorted(legacy_keys)} with schedule keys "
+                f"{sorted(new_keys)} — express the whole plan as "
+                f"stage/wire/overlap (mode: {self.mode!r} zero1: "
+                f"{self.zero1} is comms: {{stage: "
+                f"{1 if self.zero1 else 0}, wire: {self.mode!r}}})")
+        if tuning_keys and not selector_keys:
+            raise ValueError(
+                f"comms: {{bucket_mb: {self.bucket_mb}}} only shapes "
+                f"the stage>=2 comm buckets — on its own it would "
+                f"silently replace the implicit psum with an explicit "
+                f"stage-0 sync. Add stage: (and wire:) to select the "
+                f"schedule, or drop bucket_mb.")
+        if new_keys:
+            return make_schedule(mesh,
+                                 stage=max(0, self.stage),
+                                 wire=self.wire or "fp32",
+                                 overlap=self.overlap,
+                                 bucket_mb=self.bucket_mb,
+                                 bucket_size=self.bucket_size)
+        # legacy shim: mode/zero1 map onto stages 0/1
+        stage = 1 if self.zero1 else 0
+        if legacy_keys:
+            logging.warning(
+                "comms: mode/zero1 are deprecated — this block is the "
+                "schedule comms: {stage: %d, wire: %s}; the schedule "
+                "keys also unlock stage 2/3 and overlap",
+                stage, self.mode)
+        from torchbooster_tpu_torch.comms import as_schedule, make_grad_comms
+
+        return as_schedule(make_grad_comms(
+            mesh, mode=self.mode, zero1=self.zero1,
+            bucket_size=self.bucket_size))
+
+
+@dataclass
 class TracingConfig(BaseConfig):
     """``observability.tracing:`` (``config.py:1548``): ``enabled``
     turns on the per-request lifecycle events of a ``ring_size`` ring.
@@ -1190,8 +1324,8 @@ class ObservabilityConfig(BaseConfig):
                           slo=self.slo.make())
 
 
-__all__ = ["AdaptersConfig", "BaseConfig", "DatasetConfig", "DisaggConfig",
-           "EnvConfig", "FrontendConfig", "HostSpillConfig",
+__all__ = ["AdaptersConfig", "BaseConfig", "CommsConfig", "DatasetConfig",
+           "DisaggConfig", "EnvConfig", "FrontendConfig", "HostSpillConfig",
            "HyperParameterConfig", "LoadgenConfig", "LoaderConfig",
            "ObservabilityConfig", "OptimizerConfig", "SLOBurnConfig",
            "SchedulerConfig", "ServingConfig", "StructuredConfig",

@@ -14,8 +14,9 @@ shard → decode → batch → prefetch to the card.
 
 ``batch_size`` is the **global** batch: each process yields
 ``batch_size // world`` examples a step. Rank and world size come from
-``torch.distributed`` when a process group is initialized, else 0 and 1,
-which is what the JAX package gives for one process."""
+``distributed.get_rank`` / ``get_world_size``: the process group's when
+one is initialized, else 0 and 1, which is what the JAX package gives
+for one process."""
 from __future__ import annotations
 
 import collections
@@ -33,13 +34,10 @@ from torchbooster_tpu_torch.dataset import IterableDataset
 
 
 def _process_topology() -> tuple[int, int]:
-    """``(rank, world size)`` of this process: ``torch.distributed``'s when
-    a process group is initialized, else ``(0, 1)``."""
-    import torch.distributed as tdist
+    """``(rank, world size)`` of this process (``distributed``'s helpers)."""
+    from torchbooster_tpu_torch import distributed
 
-    if tdist.is_available() and tdist.is_initialized():
-        return tdist.get_rank(), tdist.get_world_size()
-    return 0, 1
+    return distributed.get_rank(), distributed.get_world_size()
 
 
 def default_collate(examples: Sequence[Any]) -> Any:
@@ -322,10 +320,13 @@ class _Staging:
 
 
 def prefetch_to_device(loader: Iterable, device: str | torch.device = "cuda",
-                       size: int = 2) -> Iterator[Any]:
+                       size: int = 2, mesh: Any = None) -> Iterator[Any]:
     """Overlap host loading with the step: a background thread keeps
     ``size`` batches ready on ``device`` ahead of the consumer, every leaf
-    of each batch tree a tensor there. On a card the producer binds the
+    of each batch tree a tensor there. With ``mesh`` (JAX
+    ``_place_global``) the batch — already this rank's strided shard of
+    the global batch, from the loader — goes to this rank's device,
+    ``mesh.device``. On a card the producer binds the
     card, copies each batch from reused pinned buffers on a side stream
     and records an event; the consumer's current stream waits on that
     event and every tensor is recorded on it, so the caching allocator
@@ -335,7 +336,7 @@ def prefetch_to_device(loader: Iterable, device: str | torch.device = "cuda",
     early retires the thread."""
     from torchbooster_tpu_torch.observability import get_registry
 
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     cuda = device.type == "cuda"
     if cuda:
         if not torch.cuda.is_available():

@@ -70,7 +70,7 @@ def _check_cfg(cfg: GPTConfig) -> None:
         raise ValueError(f"unknown mlp {cfg.mlp!r}; use 'gelu' or 'swiglu'")
     if cfg.n_experts:
         raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md A8)")
+            "MoE blocks are not ported yet (ROADMAP.md A-5b)")
 
 
 def _check_pos(params: dict, cfg: GPTConfig) -> None:
@@ -82,11 +82,38 @@ def _check_pos(params: dict, cfg: GPTConfig) -> None:
         raise ValueError(f"params have no wpe table but cfg.pos={cfg.pos!r}")
 
 
+# path-regex → spec (``parallel.sharding``; leading entry = the stacked
+# layer axis), a copy of the JAX package's table: axes absent from the
+# mesh are dropped, so on the port's dp and fsdp meshes the blocks'
+# kernels shard over fsdp and everything else replicates.
+SHARDING_RULES = [
+    (r"wte/table", ()),
+    (r"wpe/table", (None, None)),
+    (r"attn_qkv/kernel", ("pp", "fsdp", "tp")),
+    (r"attn_qkv/bias", ("pp", "tp")),
+    (r"attn_proj/kernel", ("pp", "tp", "fsdp")),
+    (r"mlp_fc1/kernel", ("pp", "fsdp", "tp")),
+    (r"mlp_fc1/bias", ("pp", "tp")),
+    (r"mlp_fc3/kernel", ("pp", "fsdp", "tp")),
+    (r"mlp_fc3/bias", ("pp", "tp")),
+    (r"mlp_fc2/kernel", ("pp", "tp", "fsdp")),
+    (r"head/kernel", ("fsdp", "tp")),
+    (r"moe_gate/kernel", ("pp",)),
+    (r"moe_fc1/kernel", ("pp", "ep", None, "tp")),
+    (r"moe_fc1/bias", ("pp", "ep", "tp")),
+    (r"moe_fc2/kernel", ("pp", "ep", "tp", None)),
+    (r"moe_fc2/bias", ("pp", "ep", None)),
+    (r"blocks/", ("pp",)),
+    (r".*", ()),
+]
+
+
 class GPT:
     """``init(seed, cfg, device=...)`` → params (blocks stacked over the
     layer axis); ``apply(params, ids, cfg)`` → logits (B, S, vocab)."""
 
     Config = GPTConfig
+    SHARDING_RULES = SHARDING_RULES
 
     @staticmethod
     def init(seed: int | torch.Generator = 0, cfg: GPTConfig = GPTConfig(),

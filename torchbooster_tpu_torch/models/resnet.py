@@ -19,7 +19,7 @@ JAX gate refuses ResNet-50's 56²×64→256 conv3 at bf16; the port fuses it).
 Not ported yet (``ROADMAP.md`` A10), each raising ``NotImplementedError``:
 the norm-free ``norm="ws"`` variant, the space-to-depth stem
 (``stem_s2d``) and ``load_torch_state``. ``SHARDING_RULES`` waits for the
-meshes of A8."""
+image recipes across ranks (A-7)."""
 from __future__ import annotations
 
 import torch

@@ -1,7 +1,11 @@
-"""GPT language modeling on one card — the port of the JAX recipe
+"""GPT language modeling — the port of the JAX recipe
 ``examples/lm/gpt/gpt.py``, driven by the same YAML:
 
     python -m torchbooster_tpu_torch.recipes.gpt [config.yml]
+
+which runs :func:`main` under ``distributed.launch``: one process per
+card of ``env.n_devices`` (``n_gpu``), each in the NCCL group, or with
+``env.distributed: true`` on one card a world-1 group.
 
 (``examples/lm/gpt/gpt.yml`` by default, ``gpt-long.yml`` for the
 long-context run; a YAML is read, never written, and reading it needs
@@ -20,9 +24,15 @@ from its first batch, as in the JAX recipe), held-out loss over
 text at vocab 256. On the card, attention forward and backward run the
 flash kernels.
 
-Meshes, ``distributed: true`` and ``comms:`` are not ported yet
-(``ROADMAP.md`` A5, A8) and raise ``NotImplementedError``, as do MoE
-blocks."""
+Across ranks (``env.distributed: true``, ``env.mesh: dp`` or
+``dp,fsdp:N``): the loader gives each rank its strided shard of the
+global batch, the state is laid out by ``GPT.SHARDING_RULES`` (the block
+kernels shard over ``fsdp``) and ``make_step`` averages the gradient over
+the data axes; an optional ``comms:`` block (``CommsConfig``: ZeRO stage,
+wire format, overlap) replaces that with the explicit schedule and its
+sharded checkpoint. Only the primary rank prints and samples. The
+model-parallel axes (``tp``, ``sp``) and MoE blocks wait for
+``ROADMAP.md`` A-5b and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import sys
@@ -34,10 +44,12 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from torchbooster_tpu_torch import distributed as dist
 from torchbooster_tpu_torch import utils
 from torchbooster_tpu_torch.callbacks import SaveCallback
 from torchbooster_tpu_torch.config import (
     BaseConfig,
+    CommsConfig,
     DatasetConfig,
     EnvConfig,
     LoaderConfig,
@@ -109,6 +121,7 @@ class Config(BaseConfig):
     sample_top_p: float = 0.0       # > 0: nucleus filter for sampling
     sample_temperature: float = 0.8
     eval_batches: int = 0           # > 0: validation-split loss after training
+    comms: CommsConfig = None       # the comms: block (ZeRO ladder), or none
 
 
 @dataclass
@@ -126,6 +139,8 @@ class Trainer:
     batches: Iterator[tuple[int, Any]]
     save_cb: SaveCallback | None = None
     start_iter: int = 0
+    mesh: Any = None
+    comms: Any = None
 
     def batch(self, tokens: Any) -> dict:
         """Host tokens (B, S + 1) → ``ids``/``labels`` on the device,
@@ -159,11 +174,17 @@ def make_loss(conf: Config, cfg: GPTConfig) -> Callable:
 
 
 def setup(conf: Config, device: str | torch.device = "cuda") -> Trainer:
-    """Data, model, optimizer and the train step, on ``device``; with
-    ``save_every > 0``, the newest checkpoint under ``checkpoint_root``
-    restored into the fresh state (``resumed from step N``)."""
+    """Data, model, optimizer and the train step, on ``device`` (this
+    rank's card under a group); with ``save_every > 0``, the newest
+    checkpoint under ``checkpoint_root`` restored into the fresh state
+    (``resumed from step N``)."""
     utils.seed(conf.seed)
-    dev = conf.env.make(device)
+    dev = conf.env.device(device)
+    mesh = dist.get_mesh(conf.env, device=device)
+    if conf.model.n_experts or mesh.shape.get("sp", 1) > 1:
+        raise NotImplementedError(
+            "MoE blocks and sequence-parallel meshes are not ported yet "
+            "(ROADMAP.md A-5b)")
     cfg = conf.model.make()
     dataset = conf.dataset.make(Split.TRAIN, seq_len=cfg.seq_len + 1,
                                 vocab=cfg.vocab)
@@ -172,26 +193,44 @@ def setup(conf: Config, device: str | torch.device = "cuda") -> Trainer:
                               seed=conf.seed)
     loss_fn = make_loss(conf, cfg)
     tx = conf.optim.make(conf.scheduler.make(conf.optim))
-    # the step's generator lies on the card with the parameters
-    state = utils.TrainState.create(
-        GPT.init(conf.seed, cfg, device=dev), tx, generator=conf.seed,
-        accumulate=conf.accumulate_every > 1)
+    params = GPT.init(conf.seed, cfg, device=dev)
+    comms = conf.comms.make(mesh=mesh) if conf.comms is not None else None
+    if comms is not None:
+        # the schedule builds the state: replicated parameters, the
+        # optimizer over this rank's flat shard from stage 1 on
+        state = comms.create_state(params, tx, generator=conf.seed,
+                                   accumulate=conf.accumulate_every > 1)
+        step = utils.make_step(loss_fn, tx, clip=conf.clip,
+                               accumulate_every=conf.accumulate_every,
+                               comms=comms)
+    else:
+        # the step's generator lies on the card with the parameters; the
+        # YAML mesh lays the state out by the model's rule table
+        state = utils.TrainState.create(
+            params, tx, generator=conf.seed,
+            accumulate=conf.accumulate_every > 1)
+        state = conf.env.make(state, model=GPT, device=device)
+        step = utils.make_step(loss_fn, tx, clip=conf.clip,
+                               accumulate_every=conf.accumulate_every,
+                               mesh=mesh, rules=GPT.SHARDING_RULES)
     save_cb = None
     if conf.save_every:
         save_cb = SaveCallback(conf.save_every, conf.n_iter,
-                               root=conf.checkpoint_root)
-        if save_cb.restore(like={"state": state}) is not None:
+                               root=conf.checkpoint_root,
+                               sharded=comms is not None or mesh.distributed,
+                               comms=comms)
+        if save_cb.restore(like={"state": state}) is not None \
+                and dist.is_primary():
             print(f"resumed from step {state.step}", flush=True)
-    step = utils.instrument_step(utils.make_step(
-        loss_fn, tx, clip=conf.clip,
-        accumulate_every=conf.accumulate_every))
-    return Trainer(conf=conf, cfg=cfg, device=dev, state=state, step=step,
-                   loss_fn=loss_fn, batches=utils.iter_loader(loader),
-                   save_cb=save_cb, start_iter=state.step)
+    return Trainer(conf=conf, cfg=cfg, device=dev, state=state,
+                   step=utils.instrument_step(step), loss_fn=loss_fn,
+                   batches=utils.iter_loader(loader), save_cb=save_cb,
+                   start_iter=state.step, mesh=mesh, comms=comms)
 
 
 def main(conf: Config, device: str | torch.device = "cuda") -> dict:
-    """:func:`setup`, then :func:`run`."""
+    """:func:`setup`, then :func:`run` (on every rank under
+    ``distributed.launch``)."""
     return run(setup(conf, device))
 
 
@@ -218,11 +257,16 @@ def run(t: Trainer) -> dict:
             results["elapsed_s"] = time.perf_counter() - t0
             metrics.reset()
             log.append(results)
-            print({k: round(v, 4) if isinstance(v, float) else v
-                   for k, v in results.items()}, flush=True)
+            if dist.is_primary():
+                print({k: round(v, 4) if isinstance(v, float) else v
+                       for k, v in results.items()}, flush=True)
     if t.save_cb is not None:
         t.save_cb.wait()
     results = {**results, "log": log}
+    params = t.comms.gather_params(t.state) if t.comms is not None \
+        else t.state.params
+    if t.comms is None and t.mesh is not None and t.mesh.distributed:
+        params = _full_params(params, t.mesh)
     if conf.eval_batches > 0:
         eval_step = utils.make_eval_step(t.loss_fn)
         eval_loader = conf.loader.make(
@@ -234,24 +278,28 @@ def run(t: Trainer) -> dict:
             if i >= conf.eval_batches:
                 break
             # no generator: the eval forward stays deterministic
-            eval_metrics.update(eval_step(t.state.params, t.batch(tokens),
-                                          None))
+            eval_metrics.update(eval_step(params, t.batch(tokens), None))
         evals = eval_metrics.compute()
+        if evals and t.mesh is not None and t.mesh.distributed:
+            # each rank evaluated its shard: the mean over the ranks
+            evals = {k: float(np.mean(v))
+                     for k, v in dist.gather(evals).items()}
         if evals:
             results["val_loss"], results["val_ppl"] = evals["loss"], \
                 evals["ppl"]
-            print({"val_loss": round(evals["loss"], 4),
-                   "val_ppl": round(evals["ppl"], 4)}, flush=True)
-        else:
+            if dist.is_primary():
+                print({"val_loss": round(evals["loss"], 4),
+                       "val_ppl": round(evals["ppl"], 4)}, flush=True)
+        elif dist.is_primary():
             print("eval skipped: the validation split yielded no full "
                   "batches (drop_last)", flush=True)
-    if conf.sample_tokens > 0:
+    if conf.sample_tokens > 0 and dist.is_primary():
         # prompt with the first tokens of a training example
         _, tokens = next(t.batches)
         prompt = torch.as_tensor(np.asarray(tokens)[:1, :8]).long().to(
             t.device)
         sampled = generate(
-            t.state.params, prompt, t.cfg, n_new=conf.sample_tokens,
+            params, prompt, t.cfg, n_new=conf.sample_tokens,
             generator=torch.Generator(t.device).manual_seed(conf.seed),
             temperature=conf.sample_temperature, top_k=50,
             top_p=conf.sample_top_p or None)
@@ -264,5 +312,26 @@ def run(t: Trainer) -> dict:
     return results
 
 
+def _full_params(params: dict, mesh: Any) -> dict:
+    """The full parameter tree of a rule-sharded state (each sharded leaf
+    all-gathered), for evaluation and sampling."""
+    from torchbooster_tpu_torch.parallel.sharding import gather_leaf
+
+    with torch.no_grad():
+        return utils._tree_map(
+            lambda p: gather_leaf(p, getattr(p, "spec", ()), mesh), params)
+
+
+def launch_main(conf: Config, device: str = "cuda") -> Any:
+    """:func:`main` under ``distributed.launch`` with the YAML's ``env``
+    (the JAX recipe's ``__main__``): NCCL on the card, gloo with
+    ``device="cpu"``."""
+    return dist.launch(main, conf.env.devices(), conf.env.n_machine,
+                       conf.env.machine_rank, conf.env.dist_url,
+                       args=(conf, device), distributed=conf.env.distributed,
+                       device=device)
+
+
 if __name__ == "__main__":
-    main(Config.load(sys.argv[1] if len(sys.argv) > 1 else DEFAULT_YAML))
+    launch_main(Config.load(sys.argv[1] if len(sys.argv) > 1
+                            else DEFAULT_YAML))

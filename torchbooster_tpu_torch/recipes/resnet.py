@@ -18,7 +18,7 @@ threads. On the card the conv + GroupNorm pairs run kernels B5-B8.
 
 A ``pretrained`` checkpoint (a ``.pt`` torch ``state_dict`` or an orbax
 tree) waits for ``load_torch_state`` (``ROADMAP.md`` A10) and raises
-``NotImplementedError``; so do meshes (A8)."""
+``NotImplementedError``; so does a run across several ranks (A-7)."""
 from __future__ import annotations
 
 import sys
@@ -159,7 +159,13 @@ def setup(conf: Config, device: str | torch.device = "cuda") -> Trainer:
     """Data, model (head swapped), optimizer and the train and eval
     steps, on ``device``."""
     generator = utils.seed(conf.seed)
-    dev = conf.env.make(device)
+    dev = conf.env.device(device)
+    from torchbooster_tpu_torch import distributed as dist
+
+    if dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "the ResNet recipe runs on one device; data parallelism for "
+            "the image recipes waits for ROADMAP.md A-7")
     train_set = TransformDataset(conf.dataset.make(Split.TRAIN),
                                  augment(conf.seed))
     test_set = conf.dataset.make(Split.TEST)

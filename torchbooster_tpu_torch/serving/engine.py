@@ -212,7 +212,7 @@ class PagedEngine:
         if tp != 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) is not ported yet "
-                "(ROADMAP.md A8 serving/tp.py)")
+                "(ROADMAP.md A-5b serving/tp.py)")
         if cfg.seq_len % page_size:
             raise ValueError(f"page_size ({page_size}) must divide "
                              f"cfg.seq_len ({cfg.seq_len})")

@@ -9,9 +9,14 @@ state IN PLACE (parameters through the optimizer, the EMA tree with
 in-place lerps) and returns it — the counterpart of the JAX step's
 donated state. Parameters are a nested dict of leaf tensors (fp32
 masters); the loss function casts them to the compute dtype where it
-uses them, so their gradients arrive in fp32. Meshes, sharding rules and
-gradient comms are not ported yet (``ROADMAP.md`` A8): passing them
-raises."""
+uses them, so their gradients arrive in fp32.
+
+Across ranks (one process per device, ``distributed.launch``) the step
+takes a mesh: the implicit path all-reduces the batch-mean gradient over
+the data axes, sharding rules gather ``fsdp``-sharded leaves before the
+loss and reduce-scatter their gradients back, and a ``comms`` schedule
+replaces the all-reduce with the explicit fp32/bf16/int8 sync and the
+ZeRO stages 1-3 (``comms/``)."""
 from __future__ import annotations
 
 import functools
@@ -62,7 +67,11 @@ class TrainState:
     device; the JAX state's ``rng``), and the EMA tree. ``grad_acc``
     marks gradient accumulation: the running sum of the micro-steps'
     gradients lives in the leaves' ``.grad`` between boundaries (the JAX
-    state's ``grad_acc`` tree).
+    state's ``grad_acc`` tree). ``comms`` holds this rank's gradient
+    communication state, the int8 error-feedback residuals (JAX
+    ``TrainState.comms``; ``comms.GradComms.create_state`` fills it).
+    Under a ZeRO schedule the optimizer runs over this rank's flat shard
+    of the parameters, and at stage 3 ``params`` is that shard.
 
     :meth:`state_dict` and :meth:`load_state_dict` carry all of it but
     the accumulating gradients across a checkpoint
@@ -75,6 +84,7 @@ class TrainState:
     generator: torch.Generator | None = None
     grad_acc: bool = False
     ema: Any = None
+    comms: Any = None
 
     @classmethod
     def create(cls, params: Any, tx: Any,
@@ -100,7 +110,7 @@ class TrainState:
                 "step": self.step,
                 "generator": None if self.generator is None
                 else self.generator.get_state(),
-                "ema": self.ema}
+                "ema": self.ema, "comms": self.comms}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -116,6 +126,9 @@ class TrainState:
             for e, q in zip(tree_leaves(self.ema), tree_leaves(state["ema"]),
                             strict=True):
                 e.copy_(q)
+        if self.comms:
+            for key, value in self.comms.items():
+                value.copy_(state["comms"][key])
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -155,26 +168,151 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
     bias-corrected ramp ``min(decay, (1 + step) / (10 + step))``,
     frozen on non-boundary micro-steps. ``compute_dtype`` casts the
     floating leaves of the parameters and of the batch before the loss
-    (mixed precision over fp32 masters)."""
-    if mesh is not None or rules is not None or comms is not None:
-        raise NotImplementedError("make_step: meshes, sharding rules and "
-                                  "gradient comms are not ported yet "
-                                  "(ROADMAP.md A8)")
+    (mixed precision over fp32 masters).
+
+    Across ranks (JAX ``utils.make_step``): with ``mesh`` the gradient
+    is the batch mean over the mesh's data axes, all-reduced at the
+    update boundary, and the loss and aux metrics are averaged over the
+    ranks. ``rules`` (with ``mesh``) gathers each leaf the rule table
+    shards over ``fsdp`` before the loss and reduce-scatters its
+    gradient back (place the state with ``EnvConfig.make(state,
+    rules=...)``); clipping then sums the norm over the shards.
+    ``comms`` (a ``GradComms`` / ``CommsSchedule``, states from its
+    ``create_state``) replaces the all-reduce: ``fp32``/``bf16``/``int8``
+    explicit syncs through ``comms.quantized.reduce_flat``, ZeRO-1 through
+    ``comms.zero.sharded_update`` and stages 2-3 through
+    ``comms.schedule.sharded_step``, with clipping by the global norm
+    over the shards (one all-reduce). Explicit comms need replicated
+    parameters (no ``rules``), ZeRO does not compose with accumulation,
+    and stage 2 or above needs a state with a flat sharded optimizer."""
     accumulate = accumulate_every > 1
+    if rules is not None and mesh is None:
+        raise ValueError("make_step(rules=...) needs mesh= as well")
+    if mesh is not None:
+        from torchbooster_tpu_torch.distributed import check_model_axes
+
+        check_model_axes(mesh.axis_names, mesh.sizes, "make_step")
+    explicit = comms is not None and comms.mode != "implicit"
+    zero1 = bool(comms is not None and comms.zero1)
+    stage = int(getattr(comms, "stage", 1 if zero1 else 0)) \
+        if comms is not None else 0
+    if (explicit or zero1) and rules is not None:
+        raise ValueError(
+            "make_step(comms=...) explicit modes / zero1 need fully "
+            "replicated params — rules= is the model-parallel path; "
+            "use comms mode: implicit with it")
+    if zero1 and accumulate:
+        raise ValueError(
+            "comms zero1 does not compose with accumulate_every > 1 "
+            "(the accumulator would need the scatter layout); "
+            "accumulate on the implicit path instead")
+    if comms is None and mesh is not None and not mesh.distributed:
+        # one process without a group: every leaf is whole and local,
+        # there is nothing to gather or to sync
+        mesh = rules = None
+    sync_mesh = comms.mesh if comms is not None else mesh
+    noises: dict = {}
+
+    def noise_for(device: torch.device) -> Any:
+        from torchbooster_tpu_torch.comms.quantized import NoiseSource
+
+        key = str(device)
+        if key not in noises:
+            noises[key] = NoiseSource(device)
+        return noises[key]
+
+    def diff_fn(params: Any, batch: Any, generator: Any) -> Any:
+        if compute_dtype is not None:
+            # cast inside the differentiated function: the gradients
+            # flow back through the casts onto the fp32 masters
+            params = _cast_batch(params, compute_dtype)
+        return loss_fn(params, batch, generator)
+
+    def set_lr(state: TrainState) -> None:
+        lr = tx.learning_rate(state.step // accumulate_every)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+
+    def update_ema(state: TrainState) -> None:
+        d = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
+        with torch.no_grad():
+            for e, p in zip(tree_leaves(state.ema),
+                            tree_leaves(state.params)):
+                e.mul_(d).add_(p, alpha=1.0 - d)
+
+    def finish(state: TrainState, loss: torch.Tensor, aux: dict,
+               boundary: bool = True) -> tuple[TrainState, dict]:
+        if ema_decay is not None and state.ema is not None and boundary:
+            update_ema(state)
+        state.step += 1
+        return state, {"loss": loss.detach(),
+                       **{k: v.detach() if isinstance(v, torch.Tensor)
+                          else v for k, v in aux.items()}}
 
     def step_fn(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         if accumulate and not state.grad_acc:
             raise ValueError("accumulate_every > 1 needs a state created "
                              "with accumulate=True")
-        params = state.params
         if compute_dtype is not None:
-            # cast inside the differentiated function: the gradients
-            # flow back through the casts onto the fp32 masters
-            params = _cast_batch(params, compute_dtype)
             batch = _cast_batch(batch, compute_dtype)
-        loss, aux = _split(loss_fn(params, batch, state.generator), has_aux)
-        loss.backward()
+        if stage >= 2:
+            from torchbooster_tpu_torch.comms.schedule import sharded_step
+
+            set_lr(state)
+            loss, aux = sharded_step(
+                comms, diff_fn, tx, clip, state, batch, has_aux=has_aux,
+                noise=noise_for(sync_mesh.device))
+            return finish(state, loss, aux)
+        if explicit:
+            from torchbooster_tpu_torch.comms.quantized import (
+                value_and_grad_sync,
+            )
+
+            # the micro-steps' synced sum so far, apart from this step's
+            # local gradients
+            held = [p.grad for p in tree_leaves(state.params)]
+            for p in tree_leaves(state.params):
+                p.grad = None
+            (loss, aux), grads, state.comms = value_and_grad_sync(
+                diff_fn, state.params, state.comms or {}, batch,
+                state.generator, comms, has_aux=has_aux, scatter=zero1,
+                step=state.step, noise=noise_for(sync_mesh.device))
+            if not zero1:
+                _grads_from_flat(state.params, grads, held)
+        else:
+            loss, aux = _local_grads(diff_fn, state, batch, has_aux, mesh,
+                                     rules)
+            if sync_mesh is not None:
+                from torchbooster_tpu_torch.comms.quantized import (
+                    mean_metrics,
+                )
+
+                axes = sync_mesh.data_axes()
+                loss, aux = mean_metrics(loss.detach(), aux,
+                                         sync_mesh.group(axes),
+                                         sync_mesh.axes_size(axes))
         boundary = (state.step + 1) % accumulate_every == 0
+        if not explicit and sync_mesh is not None and boundary:
+            _sync_grads(state.params, sync_mesh)
+        if zero1:
+            from torchbooster_tpu_torch.comms.quantized import ravel
+            from torchbooster_tpu_torch.comms.zero import sharded_update
+            from torchbooster_tpu_torch.parallel.sharding import (
+                tree_flatten,
+            )
+
+            if not explicit:
+                leaves = [p for _, p in tree_flatten(state.params)]
+                grads = ravel([p.grad if p.grad is not None
+                               else torch.zeros_like(p) for p in leaves],
+                              comms.padded_size(sum(p.numel()
+                                                    for p in leaves)))
+                for p in leaves:
+                    p.grad = None
+            set_lr(state)
+            sharded_update(tx, comms, clip, grads, state.optimizer,
+                           state.params, scattered=explicit)
+            return finish(state, loss, aux)
         if boundary:
             leaves = tree_leaves(state.params)
             if accumulate:
@@ -182,28 +320,130 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
                     if p.grad is not None:
                         p.grad.div_(accumulate_every)
             if clip is not None:
-                torch.nn.utils.clip_grad_norm_(leaves, clip)
+                if mesh is not None and any(
+                        any(e is not None for e in _spec(p)) for p in leaves):
+                    _clip_sharded(leaves, clip, mesh)
+                else:
+                    torch.nn.utils.clip_grad_norm_(leaves, clip)
             tx.clip_units(state.params)
-            lr = tx.learning_rate(state.step // accumulate_every)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
+            set_lr(state)
             state.optimizer.step()
             # every leaf, not only the optimizer's: a frozen leaf
             # (``freeze``) gets a gradient too, which must not pile up
             for p in leaves:
                 p.grad = None
-        if ema_decay is not None and state.ema is not None and boundary:
-            d = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
-            with torch.no_grad():
-                for e, p in zip(tree_leaves(state.ema),
-                                tree_leaves(state.params)):
-                    e.mul_(d).add_(p, alpha=1.0 - d)
-        state.step += 1
-        return state, {"loss": loss.detach(),
-                       **{k: v.detach() if isinstance(v, torch.Tensor)
-                          else v for k, v in aux.items()}}
+        return finish(state, loss, aux, boundary)
 
     return step_fn
+
+
+def _spec(leaf: torch.Tensor) -> tuple:
+    """The spec ``parallel.sharding`` recorded on a sharded leaf (``()``:
+    replicated)."""
+    return getattr(leaf, "spec", ())
+
+
+def _local_grads(diff_fn: Callable, state: TrainState, batch: Any,
+                 has_aux: bool, mesh: Any, rules: Any
+                 ) -> tuple[torch.Tensor, dict]:
+    """Forward and backward on this rank's batch; with ``rules`` each
+    sharded leaf is gathered to full first, its gradient reduce-scattered
+    back onto the leaf."""
+    params = state.params
+    if rules is not None:
+        from torchbooster_tpu_torch.parallel.sharding import (
+            gather_leaf,
+            make_param_specs,
+            tree_get,
+            tree_map_with_path,
+        )
+
+        shapes = _tree_map(lambda p: torch.empty(
+            getattr(p, "global_shape", p.shape), device="meta"), params)
+        specs = make_param_specs(shapes, rules, mesh=mesh)
+
+        def full(path: tuple, leaf: torch.Tensor) -> torch.Tensor:
+            spec = tree_get(specs, path)
+            if any(e is not None for e in spec) and _spec(leaf) != spec:
+                raise ValueError(
+                    f"make_step(rules=...): leaf {'/'.join(map(str, path))}"
+                    f" is not laid out by the rules; place the state with "
+                    f"EnvConfig.make(state, rules=...) first")
+            return gather_leaf(leaf, spec, mesh)
+
+        params = tree_map_with_path(full, params)
+    loss, aux = _split(diff_fn(params, batch, state.generator), has_aux)
+    loss.backward()
+    return loss, aux
+
+
+@torch.no_grad()
+def _sync_grads(params: Any, mesh: Any) -> None:
+    """The implicit path's gradient sync: each leaf's gradient summed over
+    the data axes it replicates over (one coalesced all-reduce per set
+    of axes), then divided by the number of data shards — the batch
+    mean over the global batch."""
+    from torchbooster_tpu_torch.distributed import all_reduce
+    from torchbooster_tpu_torch.parallel.sharding import replication_axes
+
+    n = mesh.axes_size(mesh.data_axes())
+    by_axes: dict[tuple, list] = {}
+    for p in tree_leaves(params):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_axes.setdefault(replication_axes(_spec(p), mesh), []).append(p)
+    for axes, leaves in by_axes.items():
+        group = mesh.group(axes) if axes else None
+        if group is not None:
+            flat = torch.cat([p.grad.reshape(-1) for p in leaves])
+            all_reduce(flat, group)
+            off = 0
+            for p in leaves:
+                p.grad.copy_(flat[off:off + p.numel()].reshape(p.shape))
+                off += p.numel()
+        if n > 1:
+            for p in leaves:
+                p.grad.div_(n)
+
+
+@torch.no_grad()
+def _clip_sharded(leaves: list, clip: float, mesh: Any) -> None:
+    """Global-norm clipping when some leaves are sharded: the sums of
+    squares of the blocks add up over the axes they are sharded over."""
+    from torchbooster_tpu_torch.distributed import all_reduce
+    from torchbooster_tpu_torch.parallel.sharding import sharded_dims
+
+    grads = [p for p in leaves if p.grad is not None]
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    by_axes: dict[tuple, torch.Tensor] = {}
+    for p in grads:
+        axes = tuple(sorted({a for _, ax in sharded_dims(_spec(p))
+                             for a in ax}))
+        sq = p.grad.float().square().sum()
+        by_axes[axes] = by_axes.get(axes, 0) + sq
+    for axes, sq in by_axes.items():
+        if axes:
+            all_reduce(sq, mesh.group(axes))
+        total = total + sq
+    scale = torch.clamp(clip / (total.sqrt() + 1e-6), max=1.0)
+    for p in grads:
+        p.grad.mul_(scale)
+
+
+@torch.no_grad()
+def _grads_from_flat(params: Any, flat: torch.Tensor, held: list) -> None:
+    """Write a flat gradient (tree order, padded) into the leaves'
+    ``.grad``, added to the gradients ``held`` from earlier micro-steps
+    (``tree_leaves`` order; ``None`` where there are none)."""
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    before = {id(p): g for p, g in zip(tree_leaves(params), held)}
+    off = 0
+    for _, p in tree_flatten(params):
+        g = flat[off:off + p.numel()].reshape(p.shape).to(p.dtype)
+        prev = before[id(p)]
+        p.grad = g if prev is None else prev.add_(g)
+        off += p.numel()
 
 
 def _paths(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
