@@ -277,6 +277,44 @@ Phases, in order; any failure exits non-zero and prints no result:
    without augmentation that (d)'s loader delivers on the card equal the
    ``num_workers: 0`` host batches byte for byte. Prints each mode's step
    ms, img/s, host data ms per step and profiled busy share.
+11. train_comms — GPT-2 small through a world-1 NCCL group: 6 steps
+   under each of 11 gradient schedules (implicit, ZeRO stages 0-3, fp32,
+   bf16 and int8 wires, overlap off and on), a sharded checkpoint's
+   bit-exact resume, and the recipe's ``launch_main`` with a ``comms:``
+   block.
+12. moe     — GPT-2 small's width (12 layers, d 768, 12 heads, vocab
+   50257, seq 1024, learned positions) with every MLP an MoE layer of 8
+   experts, top-2 at capacity factor 1.25 (JAX ``GPTConfig``'s
+   defaults): the recipe's ``launch_main`` on a world-1 NCCL group with
+   ``mesh: "ep:1"``, 6 steps at batch 8, bf16, remat on, a sharded
+   checkpoint at the last step. Every loss finite, ``aux`` reported and
+   >= 0.9 at every step, B1 / B2 / B3 24 / 12 / 12 launches a step, all
+   ``"sm90"``. ``setup`` then resumes the trainer from the checkpoint in a
+   second world-1 group: each layer's dropped assignments in one
+   forward (printed), 2 profiled steps (busy share). The trained tree is
+   served on the paged engine at fp32: every stream token-exact against
+   the dense ``generate`` at the engine's capacity factor (``max(cf,
+   n_experts)``, as JAX's engine serves MoE blocks), B4 launches = 12 x
+   decode steps, all ``"simt"``. Prints step ms, tokens/s, peak memory
+   and the busy share.
+13. sp_fold — the ring's per-rank step functions (``parallel/ring.py``
+   ``ring_fwd_step`` / ``ring_bwd_step``) for all eight ranks of
+   gpt-long's ``sp:8`` in one process, the rotation done in-process: at
+   gpt-long's width (B 8, S 8192 = 8 x 1024, 16 heads over 8 kv heads, D
+   48, bf16 causal; ``"mma_sync"``) and the MoE model's (12 heads, S 1024,
+   D 64; ``"sm90"``). The fold's out, lse, dQ, dK and dV held to the
+   plain versions (``flash_attention_reference``,
+   ``flash_attention_backward_reference``) and to one whole-sequence
+   B1-B3 call on the same inputs: atol = rtol = 2e-2 element by element,
+   and ||err|| / ||ref|| <= 2^-6 in each of the 8 chunks (both printed);
+   the same fold with rank 7's visit to chunk 0 left out of the backward
+   must fail the norm check. B1 8 causal (diagonal) + 28 non-causal
+   launches a pass, B2 and B3 36 each, routes printed. At gpt-long's
+   width Ulysses' per-rank local attention (2 query heads over 1 kv
+   head, the whole sequence, through the dispatcher, forward and
+   backward) held the same way. Prints the
+   fold's ms beside one whole-sequence B1 + B2 + B3's (CUDA events a
+   call) and each call's B1-B3 kernels alone (profiler), a finding only.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel's route, error, times and launches. Longer
@@ -302,7 +340,7 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
           "train", "gpt2_import", "train_long", "conv", "resnet_train",
-          "resnet_data", "train_comms")
+          "resnet_data", "train_comms", "moe", "sp_fold")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
@@ -951,17 +989,26 @@ def phase_flash(report: dict) -> dict:
     return {**timing, "long": long}
 
 
-def hold_flash(label: str, tol: float, pairs) -> tuple[dict, dict]:
-    """Each ``(key, got, want)`` of ``pairs`` held to atol = rtol = ``tol``
-    (raises on a miss). Returns the max abs errors and, per key, the
-    largest share of its allowance atol + rtol|want| that any element
-    uses: <= 1 is what torch.allclose accepts."""
+def flash_errs(tol: float, pairs) -> tuple[dict, dict]:
+    """For each ``(key, got, want)`` of ``pairs``: the max abs error and
+    the largest share of its allowance atol + rtol|want| (atol = rtol =
+    ``tol``) that any element uses: <= 1 is what torch.allclose
+    accepts."""
     errs, used = {}, {}
     for key, got, want in pairs:
         got, want = got.float(), want.float()
         diff = (got - want).abs()
         errs[key] = diff.max().item()
         used[key] = (diff / (tol + tol * want.abs())).max().item()
+    return errs, used
+
+
+def hold_flash(label: str, tol: float, pairs) -> tuple[dict, dict]:
+    """Each ``(key, got, want)`` of ``pairs`` held to atol = rtol = ``tol``
+    (raises on a miss). Returns :func:`flash_errs`'s max abs errors and
+    shares of the allowance."""
+    errs, used = flash_errs(tol, pairs)
+    for key in errs:
         if not (used[key] <= 1.0 and math.isfinite(errs[key])):
             raise AssertionError(f"{label}: {key} disagrees with the plain "
                                  f"version: max abs err {errs[key]} (atol "
@@ -3744,8 +3791,8 @@ LONG_SAVE_EVERY = 4
 LONG_SAMPLE = 128
 # gpt-long.yml's keys that phase train_long sets otherwise, and why
 LONG_OVERRIDES = {
-    "env.distributed": "one card; the sp:8 mesh waits for ROADMAP A5",
-    "env.mesh": "one card; the sp:8 mesh waits for ROADMAP A5",
+    "env.distributed": "one card; sp:8 takes one process a card",
+    "env.mesh": "one card; sp:8 takes one process a card",
     "dataset.root": "the repo's *.py and *.md text, nothing fetched",
     "n_iter": "time", "scheduler.n_iter": "time",
     "scheduler.warmup": "the loss moves within 12 steps",
@@ -4468,6 +4515,528 @@ def phase_train_comms(report: dict, smi: str) -> dict:
                 "dq": dict(fa.launches_dq_by_route),
                 "dkv": dict(fa.launches_dkv_by_route)}
     return {**launches, "by_route": by_route}
+
+
+# ------------------------------------------------------------------- moe
+MOE_STEPS = 6
+# JAX GPTConfig's MoE defaults
+MOE_EXPERTS, MOE_TOP_K, MOE_CF = 8, 2, 1.25
+MOE_PROFILED = 2          # steps profiled for the busy share
+MOE_LENS = (64, 100, 150, 200)
+MOE_NEW = 16
+
+
+def moe_train_config(n_iter: int, root: Path):
+    """``gpt2_train_config`` with every block's MLP an MoE layer of
+    ``MOE_EXPERTS`` experts, top-``MOE_TOP_K`` at capacity factor
+    ``MOE_CF``, on a world-1 group with ``mesh: "ep:1"``, and a sharded
+    checkpoint at the last step under ``root``."""
+    from torchbooster_tpu_torch.config import EnvConfig
+
+    conf = gpt2_train_config(n_iter, sample_tokens=0)
+    conf.model.n_experts = MOE_EXPERTS
+    conf.model.top_k, conf.model.capacity_factor = MOE_TOP_K, MOE_CF
+    conf.env = EnvConfig(distributed=True, precision="bf16", mesh="ep:1")
+    conf.save_every, conf.checkpoint_root = n_iter, str(root)
+    return conf
+
+
+def flash_counts() -> dict:
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    return {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
+            "dkv": fa.launches_dkv,
+            "by_route": {"fwd": dict(fa.launches_fwd_by_route),
+                         "dq": dict(fa.launches_dq_by_route),
+                         "dkv": dict(fa.launches_dkv_by_route)}}
+
+
+def moe_resumed(conf) -> tuple[dict, dict]:
+    """Inside a world-1 group: the recipe's ``setup`` resumes the
+    trainer from ``launch_main``'s checkpoint; the restored parameters
+    (the trained tree, cloned), each layer's dropped assignments in one
+    no-grad forward over a batch, and ``MOE_PROFILED`` steps under the
+    profiler for the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.models import moe
+    from torchbooster_tpu_torch.models.gpt import GPT, map_tensors
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    t = recipe.setup(conf, DEV)
+    if t.start_iter != conf.n_iter:
+        raise AssertionError(f"moe: setup resumed at step {t.start_iter}, "
+                             f"not {conf.n_iter}")
+    trained = map_tensors(t.state.params, lambda p: p.detach().clone())
+    batch = t.batch(next(t.batches)[1])
+    n_tok = batch["ids"].numel()
+    capacity = max(int(MOE_TOP_K * n_tok / MOE_EXPERTS * MOE_CF + 0.5),
+                   MOE_TOP_K)
+    # a spy on ``moe._positions`` (looked up by ``moe_apply`` at call
+    # time): each layer's positions in expert; those at or past the
+    # capacity are the dropped assignments
+    real, seen = moe._positions, []
+
+    def spy(*args):
+        seen.append(real(*args))
+        return seen[-1]
+
+    moe._positions = spy
+    try:
+        with torch.no_grad():
+            _, aux = GPT.apply(t.state.params, batch["ids"], t.cfg,
+                               remat=False, return_aux=True, mesh=t.mesh)
+    finally:
+        moe._positions = real
+    dropped = [int((pos >= capacity).sum()) for pos in seen]
+    batches = [t.batch(next(t.batches)[1]) for _ in range(MOE_PROFILED)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            t.state, m = t.step(t.state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = union_us(device_spans(prof)) / 1e6
+    top = sorted(((e.key, e.self_device_time_total / 1e3 / MOE_PROFILED)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    return {"dropped_per_layer": dropped,
+            "assignments_per_layer": MOE_TOP_K * n_tok, "capacity": capacity,
+            "aux_no_grad": float(aux), "profiled_steps": MOE_PROFILED,
+            "profiled_step_ms": wall / MOE_PROFILED * 1e3,
+            "busy_share": busy / wall,
+            "device_ms_per_step": busy / MOE_PROFILED * 1e3,
+            "top_device_ms_per_step": top[:10]}, trained
+
+
+def moe_serve(params, cfg) -> dict:
+    """The trained tree on the paged engine at fp32 (B4 ``"simt"``):
+    every stream token-exact against the dense ``generate`` at the
+    engine's capacity (``serving_capacity``: at least ``n_experts``, JAX
+    ``engine.py:760``, so no token drops; the dense ``generate`` prefills
+    at ``cfg.capacity_factor`` as JAX's does), B4 launches = layers x
+    decode steps."""
+    import dataclasses
+
+    from torchbooster_tpu_torch.config import ServingConfig
+    from torchbooster_tpu_torch.models.gpt import serving_capacity
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+    from torchbooster_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(2)
+    reqs = [Request(prompt=rs.randint(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=MOE_NEW, request_id=f"m{i}")
+            for i, n in enumerate(MOE_LENS)]
+    batcher = ServingConfig(page_size=PS, n_pages=33, max_slots=4).make(
+        params, cfg, compute_dtype=torch.float32, on_recompile="raise")
+    eng = batcher.engine
+    steps = [0]
+    real_step = eng.step
+
+    def counted_step():
+        steps[0] += 1
+        return real_step()
+
+    eng.step = counted_step
+    reset_paged_counts()
+    t0 = time.perf_counter()
+    metrics = batcher.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_route = pa.launches, dict(pa.launches_by_route)
+    served = dataclasses.replace(cfg, capacity_factor=serving_capacity(cfg))
+    want = dense_tokens(params, served, reqs, torch.float32, n_new=MOE_NEW)
+    match = [r.tokens == w for r, w in zip(reqs, want)]
+    out = {"match": match, "b4_launches": launches, "b4_by_route": by_route,
+           "decode_steps": steps[0], "wall_s": wall,
+           "capacity_factor": served.capacity_factor,
+           "decode_tok_s": metrics.get("decode_tok_s")}
+    if not all(match):
+        raise AssertionError(f"moe serving: {match.count(False)} of "
+                             f"{len(match)} streams differ from the dense "
+                             f"generate")
+    if launches != cfg.n_layers * steps[0] or by_route["simt"] != launches:
+        raise AssertionError(f"moe serving: B4 launches {launches} by route "
+                             f"{by_route}, expected {cfg.n_layers} x "
+                             f"{steps[0]} decode steps on simt")
+    return out
+
+
+def phase_moe(report: dict, smi: str) -> dict:
+    """A GPT-2-small-width MoE trained through the recipe's
+    ``launch_main`` on a world-1 NCCL group (``mesh: "ep:1"``), resumed
+    from its checkpoint, then served. Returns B1-B3's launches (the
+    training, the drop-count forward and the profiled steps) and B4's."""
+    import shutil
+
+    from torchbooster_tpu_torch import distributed as dist
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    root = Path(__file__).resolve().parent / "checkpoints" / "moe"
+    shutil.rmtree(root, ignore_errors=True)
+    conf = moe_train_config(MOE_STEPS, root)
+    cfg = conf.model.make()
+    reset_flash_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = recipe.launch_main(conf, device=DEV)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trained_counts = flash_counts()
+    losses = [r["loss"] for r in res["log"]]
+    auxes = [r["aux"] for r in res["log"]]
+    if len(losses) != MOE_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"moe: losses {losses}")
+    if not all(a >= 0.9 for a in auxes):
+        raise AssertionError(f"moe: aux {auxes} (JAX's gate: >= 0.9)")
+    n_l = cfg.n_layers
+    # remat runs each block's forward twice a step
+    per_step = {"fwd": 2 * n_l, "dq": n_l, "dkv": n_l}
+    want = {k: v * MOE_STEPS for k, v in per_step.items()}
+    got = {k: trained_counts[k] for k in want}
+    if got != want or any(
+            trained_counts["by_route"][k] != {"sm90": want[k],
+                                              "mma_sync": 0, "f32": 0}
+            for k in want):
+        raise AssertionError(f"moe: B1-B3 launches {got} by route "
+                             f"{trained_counts['by_route']}, expected "
+                             f"{per_step} a step on sm90")
+    # steps 2 to 5; the last one also takes the checkpoint's host copy
+    el = [r["elapsed_s"] for r in res["log"]]
+    step_s = (el[-2] - el[0]) / (MOE_STEPS - 2)
+    out = {"losses": losses, "aux": auxes, "train_wall_s": train_wall,
+           "step_ms": step_s * 1e3,
+           "save_step_ms": (el[-1] - el[-2]) * 1e3,
+           "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+           "peak_mem_bytes": peak, "flash_per_step": per_step}
+    log(f"moe train: launch_main on a world-1 NCCL group, mesh ep:1, "
+        f"GPT-2 small width with {MOE_EXPERTS} experts top-{MOE_TOP_K} at "
+        f"capacity factor {MOE_CF}, batch {TRAIN_B} x {TRAIN_S}, bf16, "
+        f"remat; losses {[round(x, 4) for x in losses]}, aux "
+        f"{[round(x, 4) for x in auxes]}; step {out['step_ms']:.1f} ms "
+        f"(steps 2-{MOE_STEPS - 1}; step {MOE_STEPS} with the checkpoint "
+        f"save {out['save_step_ms']:.1f} ms), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak "
+        f"mem {peak / 2**30:.2f} GiB; B1/B2/B3 a step {per_step} on sm90 "
+        f"[{smi}]")
+    resumed, trained = dist.launch(moe_resumed, n_devices=1, distributed=True,
+                                   device=DEV, args=(conf,))
+    after = flash_counts()
+    # the resumed trainer: one no-grad forward, then the profiled steps
+    more = {k: after[k] - trained_counts[k] for k in want}
+    want_more = {k: v * MOE_PROFILED + (n_l if k == "fwd" else 0)
+                 for k, v in per_step.items()}
+    if more != want_more:
+        raise AssertionError(f"moe resumed: B1-B3 launches {more}, expected "
+                             f"{want_more}")
+    out["resumed"] = resumed
+    log(f"moe resumed from its sharded checkpoint at step {MOE_STEPS}: "
+        f"dropped assignments a layer {resumed['dropped_per_layer']} of "
+        f"{resumed['assignments_per_layer']} (capacity "
+        f"{resumed['capacity']} an expert); {MOE_PROFILED} profiled steps "
+        f"{resumed['profiled_step_ms']:.1f} ms a step, busy "
+        f"{100 * resumed['busy_share']:.1f}% ({resumed['device_ms_per_step']:.1f}"
+        f" ms of device time a step); top kernels, ms a step: "
+        + "; ".join(f"{k[:60]} {v:.1f}"
+                    for k, v in resumed["top_device_ms_per_step"][:6])
+        + f" [{smi}]")
+    out["n_params"] = n_params_of(trained)
+    serve_out = out["serve"] = moe_serve(trained, cfg)
+    log(f"moe serve: {len(MOE_LENS)} requests x {MOE_NEW} new tokens at "
+        f"fp32, capacity factor {serve_out['capacity_factor']}: "
+        f"{sum(serve_out['match'])}/{len(serve_out['match'])} token-exact "
+        f"vs the dense generate; B4 {serve_out['b4_launches']} launches = "
+        f"{n_l} x {serve_out['decode_steps']} decode steps, by route "
+        f"{serve_out['b4_by_route']} [{smi}]")
+    shutil.rmtree(root, ignore_errors=True)
+    out["card"] = smi
+    report["moe"] = out
+    # the training's launches and the resumed trainer's (its forward and
+    # profiled steps): B1-B3 on the MoE model's path
+    flash = {k: after[k] for k in ("fwd", "dq", "dkv")}
+    return {"flash": {**flash, "by_route": after["by_route"]},
+            "paged": {"launches": serve_out["b4_launches"],
+                      "by_route": serve_out["b4_by_route"]}}
+
+
+# --------------------------------------------------------------- sp_fold
+SP_RANKS = 8
+# (name, B, H, H_kv, S, D): gpt-long's width (examples/lm/gpt/gpt-long.yml,
+# mesh "sp:8") and the MoE model's (GPT-2 small's attention)
+SP_GEOMETRIES = (("gpt_long", 8, 16, 8, 8192, 48),
+                 ("moe_width", 8, 12, 12, 1024, 64))
+# the fold against the plain versions and against whole-sequence B1-B3,
+# bf16: each chunk's B1 output and B2/B3 gradients are rounded to bf16
+# before the fp32 merge or sum, so a few bf16 ulp more than one
+# whole-sequence call: atol = rtol, the flash checks' bf16 allowance
+SP_FOLD_TOL = FLASH_TOL[torch.bfloat16]
+# and per tensor, in each sp chunk of the sequence: ||got - want|| /
+# ||want|| at most four bf16 unit roundoffs (2^-8 each). At S 8192 an
+# element's allowance (atol 2e-2) is about as large as a late position's
+# output or a late key's dK/dV, so the element check sees a lost
+# contribution there only through its largest elements; the norm check
+# holds each chunk whole, and must fail the planted fault below
+SP_FOLD_REL = 4 * 2.0 ** -8
+# the planted fault: rank 7's visit to chunk 0 (the last step of the
+# ring, the smallest share of chunk 0's dK/dV) left out of the backward
+SP_FOLD_DROP = (SP_RANKS - 1, 0)
+
+
+def ring_fold(qs, ks, vs, dos, scale, drop: tuple | None = None) -> tuple:
+    """The port's ring (``parallel/ring.py`` ``ring_fwd_step`` /
+    ``ring_bwd_step``) for every rank of an ``sp`` ring in one process:
+    rank ``my`` at step ``t`` holds chunk ``(my - t) % n``, the rotation
+    done by indexing. The backward feeds each step the fold's global
+    out and lse, and each chunk's dK/dV accumulate in the order they
+    visit the ranks. ``drop=(my, src)`` leaves that visit out of the
+    backward: a planted fault that the checks must catch. Returns
+    ``(outs, lses, dqs, dks, dvs)`` per rank."""
+    from torchbooster_tpu_torch.parallel import ring
+
+    n = len(qs)
+    outs, lses = [], []
+    for my in range(n):
+        carry = None
+        for t in range(n):
+            src = (my - t) % n
+            carry = ring.ring_fwd_step(qs[my], ks[src], vs[src], src=src,
+                                       my=my, causal=True, sm_scale=scale,
+                                       carry=carry)
+        outs.append(carry[0].to(qs[my].dtype))
+        lses.append(carry[1])
+    dq, dk, dv = [None] * n, [None] * n, [None] * n
+    for t in range(n):
+        for my in range(n):
+            src = (my - t) % n
+            if (my, src) == drop:
+                continue
+            dq[my], dk[src], dv[src] = ring.ring_bwd_step(
+                qs[my], ks[src], vs[src], outs[my], lses[my], dos[my],
+                src=src, my=my, causal=True, sm_scale=scale, dq=dq[my],
+                dk=dk[src], dv=dv[src])
+    return outs, lses, dq, dk, dv
+
+
+def fold_geometry(gen, name, b, h, h_kv, s_len, d, smi) -> dict:
+    """One geometry: the ring fold held to the plain versions and to
+    whole-sequence B1-B3 over the same inputs (:func:`hold_fold`), and a
+    planted fault (a visit left out of the backward) shown to fail the
+    norm check; then (where the heads divide) Ulysses' per-rank local
+    attention held the same way; B1's causal and non-causal launches and
+    each route counted; the fold's summed flash-kernel device µs beside
+    one whole-sequence B1 + B2 + B3."""
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.ops.attention import attention
+
+    n, dtype = SP_RANKS, torch.bfloat16
+    q, k, v, do = flash_inputs(gen, b, h, h_kv, s_len, s_len, d, dtype)
+    scale = 1.0 / math.sqrt(d)
+    sl = s_len // n
+    chunk = lambda x: [x[:, r * sl:(r + 1) * sl].contiguous()
+                       for r in range(n)]
+    qs, ks, vs, dos = chunk(q), chunk(k), chunk(v), chunk(do)
+    before = flash_counts()
+    mask0 = dict(fa.launches_fwd_by_mask)
+    outs, lses, dqs, dks, dvs = ring_fold(qs, ks, vs, dos, scale)
+    torch.cuda.synchronize()
+    after = flash_counts()
+    masks = {m: fa.launches_fwd_by_mask[m] - mask0[m] for m in mask0}
+    launches = {key: after[key] - before[key] for key in ("fwd", "dq", "dkv")}
+    routes = {key: {r: after["by_route"][key][r] - before["by_route"][key][r]
+                    for r in after["by_route"][key]} for key in launches}
+    pairs = n * (n - 1) // 2
+    want_masks = {"causal": n, "full": pairs}
+    if masks != want_masks or launches != dict.fromkeys(launches, n + pairs):
+        raise AssertionError(f"sp_fold {name}: B1 by mask {masks}, "
+                             f"launches {launches}; expected {want_masks}, "
+                             f"{n + pairs} each")
+    # the whole sequence through the plain versions and through B1-B3,
+    # on the same inputs (comparison launches, not counted)
+    o_pl, lse_pl = fa.flash_attention_reference(q, k, v, True, scale)
+    plain = dict(zip(("o", "lse", "dq", "dk", "dv"), (
+        o_pl, lse_pl, *fa.flash_attention_backward_reference(
+            q, k, v, o_pl, lse_pl, do, True, scale))))
+    o_ref, lse_ref = fa.launch_fwd(q, k, v, True, scale)
+    dq_ref, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, True, scale)
+    dk_ref, dv_ref = fa.launch_dkv(q, k, v, lse_ref, do, delta, True, scale)
+    kernels = {"o": o_ref, "lse": lse_ref, "dq": dq_ref, "dk": dk_ref,
+               "dv": dv_ref}
+    cat = lambda xs: torch.cat(xs, dim=1)
+    fold = {"o": cat(outs), "lse": cat(lses), "dq": cat(dqs),
+            "dk": cat(dks), "dv": cat(dvs)}
+    checks = {ref: hold_fold(f"sp_fold {name} ring vs {ref}", fold, want, n)
+              for ref, want in (("plain", plain), ("kernels", kernels))}
+    # the planted fault: the same checks must fail it
+    _, _, f_dq, f_dk, f_dv = ring_fold(qs, ks, vs, dos, scale,
+                                       drop=SP_FOLD_DROP)
+    fault = [(key, cat(x), plain[key])
+             for key, x in (("dq", f_dq), ("dk", f_dk), ("dv", f_dv))]
+    fault_rel = rel_errs(fault, n)
+    fault_used = flash_errs(SP_FOLD_TOL, fault)[1]
+    if not all(r > SP_FOLD_REL for r in fault_rel.values()):
+        raise AssertionError(f"sp_fold {name}: the fold without the visit "
+                             f"{SP_FOLD_DROP} passes the norm check: "
+                             f"{fault_rel} (bound {SP_FOLD_REL})")
+    del fault, f_dq, f_dk, f_dv
+    out = {"geometry": {"B": b, "H": h, "H_kv": h_kv, "S": s_len, "D": d,
+                        "sp": n, "S_chunk": sl},
+           "launches": launches, "b1_by_mask": masks, "routes": routes,
+           "planned": fa.plan_flash_fwd(dtype, d, sl, sl, h // h_kv),
+           "ring": checks, "atol": SP_FOLD_TOL, "rtol": SP_FOLD_TOL,
+           "rel_bound": SP_FOLD_REL,
+           "planted_fault": {"dropped_visit": SP_FOLD_DROP,
+                             "rel_err": fault_rel,
+                             "allowance_used": fault_used}}
+    log(f"sp_fold {name} ring: B {b}, {h} heads over {h_kv}, S {s_len} = "
+        f"{n} x {sl}, D {d}, bf16 causal; B1 {masks['causal']} causal + "
+        f"{masks['full']} non-causal launches a pass, B2/B3 "
+        f"{launches['dq']}/{launches['dkv']}; routes B1 {routes['fwd']}, "
+        f"B2 {routes['dq']}, B3 {routes['dkv']}; "
+        + "; ".join(f"vs whole-sequence {ref}: {fold_errs_txt(c)}"
+                    for ref, c in checks.items())
+        + f" (max abs err, % of atol + rtol|ref| with atol = rtol = "
+          f"{SP_FOLD_TOL}; the largest ||err|| / ||ref|| over the {n} "
+          f"chunks, bound {SP_FOLD_REL}) [{smi}]")
+    log(f"sp_fold {name} planted fault (rank {SP_FOLD_DROP[0]}'s visit to "
+        f"chunk {SP_FOLD_DROP[1]} left out of the backward), vs plain: "
+        + ", ".join(f"{key} rel {fault_rel[key]:.2e}, "
+                    f"{100 * fault_used[key]:.0f}% of the element allowance"
+                    for key in fault_rel)
+        + " — failed by the norm check, as it must be")
+    if h % n == 0 and h_kv % n == 0:
+        # Ulysses: after its all-to-all rank r holds the whole sequence
+        # of query heads [r h/n, (r+1) h/n) and kv heads [r h_kv/n, ...):
+        # its local attention through the dispatcher, forward and backward
+        hq, hk = h // n, h_kv // n
+        heads = lambda x, w, r: x.reshape(b, -1, s_len, d)[
+            :, r * w:(r + 1) * w].transpose(1, 2)
+        got = {key: [] for key in ("o", "dq", "dk", "dv")}
+        for r in range(n):
+            qh, kh, vh = (heads(x, w, r).detach().requires_grad_()
+                          for x, w in ((q, hq), (k, hk), (v, hk)))
+            o_h = attention(qh, kh, vh, causal=True)
+            o_h.backward(heads(do, hq, r))
+            for key, x in (("o", o_h.detach()), ("dq", qh.grad),
+                           ("dk", kh.grad), ("dv", vh.grad)):
+                got[key].append(x.transpose(1, 2))
+        whole = lambda xs: torch.cat(xs, dim=1).reshape(-1, s_len, d)
+        uly = {key: whole(xs) for key, xs in got.items()}
+        del got
+        u_checks = {
+            ref: hold_fold(f"sp_fold {name} ulysses vs {ref}", uly,
+                           {key: want[key] for key in uly}, n)
+            for ref, want in (("plain", plain), ("kernels", kernels))}
+        out["ulysses"] = u_checks
+        log(f"sp_fold {name} ulysses: each of {n} ranks {hq} heads over "
+            f"{hk} kv head(s) of the whole sequence, through the "
+            f"dispatcher; "
+            + "; ".join(f"vs whole-sequence {ref}: {fold_errs_txt(c)}"
+                        for ref, c in u_checks.items()))
+    del plain
+    # the fold (its fp32 merges and sums included) beside one
+    # whole-sequence B1 + B2 + B3, each by CUDA events around the call;
+    # each call's B1-B3 kernels alone from the profiler, kept only from a
+    # window that recorded every one of them (late in a full run a
+    # window can lose events)
+    def whole():
+        fa.launch_fwd(q, k, v, True, scale)
+        _, dl = fa.launch_dq(q, k, v, o_ref, lse_ref, do, True, scale)
+        fa.launch_dkv(q, k, v, lse_ref, do, dl, True, scale)
+
+    timing = {}
+    for key, fn, n_kernels in (
+            ("fold", lambda: ring_fold(qs, ks, vs, dos, scale),
+             3 * (n + pairs)),
+            ("whole", whole, 3)):
+        timing[key] = {"ms": cuda_ms(fn, iters=3, warmup=1),
+                       "flash_ms": flash_kernels_ms(fn, n_kernels),
+                       "flash_kernels": n_kernels}
+    out["timing"] = timing
+    f, w = timing["fold"], timing["whole"]
+    fmt = lambda x: "not measured (the profiler lost events)" if x is None \
+        else f"{x:.3f} ms"
+    log(f"sp_fold {name} timing (CUDA events a call): the fold "
+        f"{f['ms']:.3f} ms, its {f['flash_kernels']} B1-B3 kernels "
+        f"{fmt(f['flash_ms'])} (profiler device time); one whole-sequence "
+        f"B1 + B2 + B3 {w['ms']:.3f} ms, its kernels {fmt(w['flash_ms'])}; "
+        f"a finding only: {n} ranks on one card [{smi}]")
+    return out
+
+
+def rel_errs(pairs, chunks: int) -> dict:
+    """For each ``(key, got, want)`` of ``pairs``: the largest, over
+    ``chunks`` equal slices of the sequence (dim 1), of ||got - want|| /
+    ||want||."""
+    out = {}
+    for key, got, want in pairs:
+        g, w = (x.float().unflatten(1, (chunks, -1)).transpose(0, 1)
+                .reshape(chunks, -1) for x in (got, want))
+        norm = torch.linalg.vector_norm
+        out[key] = (norm(g - w, dim=1) / norm(w, dim=1)).max().item()
+    return out
+
+
+def hold_fold(label: str, got: dict, want: dict, chunks: int) -> dict:
+    """``got[key]`` held to ``want[key]`` for each key of ``want``:
+    element by element at atol = rtol = ``SP_FOLD_TOL``
+    (:func:`hold_flash`) and in norm, in each of ``chunks`` sequence
+    chunks, at ``SP_FOLD_REL`` (:func:`rel_errs`); raises on a miss."""
+    pairs = [(key, got[key], want[key]) for key in want]
+    errs, used = hold_flash(label, SP_FOLD_TOL, pairs)
+    rel = rel_errs(pairs, chunks)
+    if not all(r <= SP_FOLD_REL for r in rel.values()):
+        raise AssertionError(f"{label}: ||err|| / ||ref|| {rel} over "
+                             f"{chunks} chunks (bound {SP_FOLD_REL})")
+    return {"max_abs_err": errs, "allowance_used": used, "rel_err": rel}
+
+
+def fold_errs_txt(check: dict) -> str:
+    return ", ".join(
+        f"{key} {err:.2e} ({100 * check['allowance_used'][key]:.0f}%, rel "
+        f"{check['rel_err'][key]:.2e})"
+        for key, err in check["max_abs_err"].items())
+
+
+def flash_kernels_ms(fn, expected: int, windows: int = 3):
+    """Device ms of the B1-B3 kernels one call of ``fn`` launches, from
+    a profiler window that recorded all ``expected`` of them; None when
+    ``windows`` windows in a row lost any."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "flash" in e.name]
+        if len(spans) == expected:
+            return sum(r.end - r.start for r in spans) / 1e3
+    return None
+
+
+def phase_sp_fold(report: dict, smi: str) -> dict:
+    """The ring's per-rank forward and backward steps for all ranks of
+    ``sp:8`` on the card, at gpt-long's width and the MoE model's.
+    Returns the folds' B1-B3 launches (the whole-sequence comparisons
+    and the timing windows are not counted)."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    totals = {"fwd": 0, "dq": 0, "dkv": 0}
+    by_route = {key: {"sm90": 0, "mma_sync": 0, "f32": 0} for key in totals}
+    out = {}
+    for name, *geometry in SP_GEOMETRIES:
+        res = out[name] = fold_geometry(gen, name, *geometry, smi)
+        for key in totals:
+            totals[key] += res["launches"][key]
+            for route, count in res["routes"][key].items():
+                by_route[key][route] += count
+        torch.cuda.empty_cache()
+    out["card"] = smi
+    report["sp_fold"] = out
+    return {**totals, "by_route": by_route}
 
 
 # ------------------------------------------------------------------ conv
@@ -5689,6 +6258,8 @@ def main() -> int:
         conv_kernels[key].update(timed_route=None, launches_by_route=None,
                                  previous_ms=None)
     t0 = time.perf_counter()
+    # wall seconds of each phase, in chiprun_out/chip_smoke.json
+    phase_s = report["phase_s"] = {}
     if "build" in phases:
         # one nvcc per source, all started together
         from concurrent.futures import ThreadPoolExecutor
@@ -5718,14 +6289,18 @@ def main() -> int:
                 f"{r.get('spill_stores')} / loads {r.get('spill_loads')} "
                 f"bytes" for n, r in sorted(regs.items())))
     if "kernel" in phases:
+        t = time.perf_counter()
         res = phase_kernel(report)
+        phase_s["kernel"] = time.perf_counter() - t
         kernel.update({k: res[k] for k in ("max_abs_err", "ms", "sum_ms",
                                            "timed_by", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "timed_route",
                                            "previous_ms")})
     if "flash" in phases:
+        t = time.perf_counter()
         res = phase_flash(report)
+        phase_s["flash"] = time.perf_counter() - t
         for key in flash:
             flash[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
@@ -5779,7 +6354,9 @@ def main() -> int:
                            ("serve_fleet", phase_serve_fleet)):
             if key not in phases:
                 continue
+            t = time.perf_counter()
             launches, by_route, *int8_pool = phase(params, cfg, smi, report)
+            phase_s[key] = time.perf_counter() - t
             kernel["launches"] += launches
             for r, n in by_route.items():
                 kernel["launches_by_route"][r] += n
@@ -5787,18 +6364,22 @@ def main() -> int:
         # freed so that the train phase's peak memory is its own
         del params
         torch.cuda.empty_cache()
-    # B1-B3 launch on four paths: GPT-2 small's training on one card and
+    # B1-B3 launch on six paths: GPT-2 small's training on one card and
     # through the NCCL group's schedule ladder, the imported GPT-2's
-    # fine-tunes (D 64, "sm90"), and gpt-long's (D 48, "mma_sync"); the
-    # counts add up, as B4's do with the imported model's serving
+    # fine-tunes (D 64, "sm90"), gpt-long's (D 48, "mma_sync"), the MoE
+    # model's training, and the sp:8 ring folds (both routes); the
+    # counts add up, as B4's do with the imported and MoE models' serving
     for key, phase in (("train", phase_train),
                        ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long),
-                       ("train_comms", phase_train_comms)):
+                       ("train_comms", phase_train_comms),
+                       ("moe", phase_moe), ("sp_fold", phase_sp_fold)):
         if key not in phases:
             continue
+        t = time.perf_counter()
         launches = phase(report, smi)
-        if key == "gpt2_import":
+        phase_s[key] = time.perf_counter() - t
+        if key in ("gpt2_import", "moe"):
             paged = launches["paged"]
             kernel["launches"] += paged["launches"]
             for r, n in paged["by_route"].items():
@@ -5813,7 +6394,9 @@ def main() -> int:
             flash[k]["launches_by_route"] = {
                 r: n + launches["by_route"][k][r] for r, n in counts.items()}
     if "conv" in phases:
+        t = time.perf_counter()
         res = phase_conv(report)
+        phase_s["conv"] = time.perf_counter() - t
         for key in conv_kernels:
             conv_kernels[key].update({k: res[key][k] for k in (
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
@@ -5827,7 +6410,9 @@ def main() -> int:
                        ("resnet_data", phase_resnet_data)):
         if key not in phases:
             continue
+        t = time.perf_counter()
         launches = phase(report, smi)
+        phase_s[key] = time.perf_counter() - t
         for k in conv_kernels:
             conv_kernels[k]["launches"] += launches[k]
             counts = conv_kernels[k]["launches_by_route"] or dict.fromkeys(
@@ -5835,6 +6420,8 @@ def main() -> int:
             conv_kernels[k]["launches_by_route"] = {
                 r: n + launches["by_route"][k][r] for r, n in counts.items()}
     report["wall_s"] = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))

@@ -1142,3 +1142,67 @@ def test_prefetch_to_device_on_card_equals_host_batches():
             assert images.is_cuda and labels.is_cuda
             assert images.cpu().numpy().tobytes() == wx.tobytes()
             assert labels.cpu().numpy().tobytes() == wy.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,h_kv", [(64, 4, 4), (48, 4, 2)],
+                         ids=["sm90_d64", "mma_sync_d48_gqa"])
+def test_ring_fold_matches_whole_sequence_flash_on_card(d, h, h_kv):
+    """The ring's per-rank steps (``parallel/ring.py`` ``ring_fwd_step`` /
+    ``ring_bwd_step``) for four ranks in one process, the rotation done
+    by indexing, held to the plain versions and to one whole-sequence
+    B1-B3 call on the same bf16 inputs: out, lse, dQ, dK and dV within
+    the flash checks' bf16 allowance, atol = rtol = 2e-2 (each chunk's
+    kernel output is rounded to bf16 before the fp32 merge or sum), and
+    ||err|| / ||ref|| at most 2^-6 (four bf16 unit roundoffs). B1 runs
+    causal on the 4 diagonal chunks and non-causal on the 6 visible
+    ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.parallel import ring
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, b, s = 4, 2, 512
+    rand = lambda *shape: torch.randn(*shape, generator=gen,
+                                      device="cuda").to(torch.bfloat16)
+    q, do = rand(b * h, s, d), rand(b * h, s, d)
+    k, v = rand(b * h_kv, s, d), rand(b * h_kv, s, d)
+    scale, sl = d ** -0.5, s // n
+    chunk = lambda x: [x[:, r * sl:(r + 1) * sl].contiguous()
+                       for r in range(n)]
+    qs, ks, vs, dos = chunk(q), chunk(k), chunk(v), chunk(do)
+    masks = dict(fa.launches_fwd_by_mask)
+    outs, lses = [], []
+    for my in range(n):
+        carry = None
+        for t in range(n):
+            src = (my - t) % n
+            carry = ring.ring_fwd_step(qs[my], ks[src], vs[src], src=src,
+                                       my=my, causal=True, sm_scale=scale,
+                                       carry=carry)
+        outs.append(carry[0].to(torch.bfloat16))
+        lses.append(carry[1])
+    assert fa.launches_fwd_by_mask["causal"] - masks["causal"] == n
+    assert fa.launches_fwd_by_mask["full"] - masks["full"] == 6
+    dq, dk, dv = [None] * n, [None] * n, [None] * n
+    for t in range(n):
+        for my in range(n):
+            src = (my - t) % n
+            dq[my], dk[src], dv[src] = ring.ring_bwd_step(
+                qs[my], ks[src], vs[src], outs[my], lses[my], dos[my],
+                src=src, my=my, causal=True, sm_scale=scale, dq=dq[my],
+                dk=dk[src], dv=dv[src])
+    o_ref, lse_ref = fa.launch_fwd(q, k, v, True, scale)
+    dq_ref, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, True, scale)
+    dk_ref, dv_ref = fa.launch_dkv(q, k, v, lse_ref, do, delta, True, scale)
+    o_pl, lse_pl = fa.flash_attention_reference(q, k, v, True, scale)
+    plain = (o_pl, lse_pl, *fa.flash_attention_backward_reference(
+        q, k, v, o_pl, lse_pl, do, True, scale))
+    cat = lambda xs: torch.cat(xs, dim=1).float()
+    fold = (cat(outs), cat(lses), cat(dq), cat(dk), cat(dv))
+    for refs in (plain, (o_ref, lse_ref, dq_ref, dk_ref, dv_ref)):
+        for got, want in zip(fold, refs):
+            want = want.float()
+            torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+            assert (got - want).norm() <= 2.0 ** -6 * want.norm()

@@ -65,8 +65,13 @@ class RankPool:
         self._procs: list = []
         self._conns: list = []
 
-    def _start(self) -> None:
+    def start(self) -> None:
+        """Spawn the ranks now, if they are not running: they import
+        while the test process works."""
         import torch.multiprocessing as mp
+
+        if self._procs:
+            return
 
         ctx = mp.get_context("spawn")
         port = dist.find_free_port()
@@ -80,8 +85,7 @@ class RankPool:
             self._conns.append(parent)
 
     def run(self, fn, *args, timeout: float = 120.0) -> list:
-        if not self._procs:
-            self._start()
+        self.start()
         for conn in self._conns:
             conn.send((fn.__module__, fn.__name__, args))
         out, errors = [], []
@@ -98,12 +102,13 @@ class RankPool:
         return out
 
     def close(self, kill: bool = False) -> None:
-        for conn, proc in zip(self._conns, self._procs):
-            if not kill:
-                try:
-                    conn.send(None)
-                except (BrokenPipeError, OSError):
-                    pass
+        # every rank is told first: each leaves the group together
+        for conn in self._conns if not kill else ():
+            try:
+                conn.send(None)
+            except (BrokenPipeError, OSError):
+                pass
+        for proc in self._procs:
             proc.join(timeout=0 if kill else 20)
             if proc.is_alive():
                 proc.terminate()
@@ -465,21 +470,33 @@ def test_make_step_rules_matches_jax(pool):
 
 
 # =========================================================================
-# model axes raise, naming A-5b
+# model axes: sp and ep run, tp and pp raise naming A-5c
 # =========================================================================
 
 def test_model_axes_raise():
-    for spec in ("dp,tp:2", "dp:1,sp:2", "pp:2", "dp,ep:4"):
-        with pytest.raises(NotImplementedError, match="A-5b"):
+    for spec in ("dp,tp:2", "pp:2", "dp:1,sp:2,tp:2", "ep:2,pp:2"):
+        with pytest.raises(NotImplementedError, match="A-5c"):
             dist.make_mesh(spec, device="cpu")
-        with pytest.raises(NotImplementedError, match="A-5b"):
+        with pytest.raises(NotImplementedError, match="A-5c"):
             EnvConfig(distributed=True, mesh=spec).device("cpu")
+    # sp and ep are ported: at world 1 a size above 1 is JAX's mesh error
+    for spec in ("dp:1,sp:2", "dp,ep:4"):
+        with pytest.raises(ValueError, match="devices"):
+            dist.make_mesh(spec, device="cpu")
+    one = dist.make_mesh("dp,sp:1,ep:1", device="cpu")
+    assert one.shape == {"dp": 1, "sp": 1, "ep": 1}
+    assert one.token_axes() == ("dp", "sp") and one.axis("ep") is None
     # a rule that names tp on a mesh where tp has a size above 1
     mesh = dist.Mesh(axis_names=("dp", "tp"), sizes=(1, 2),
                      device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A-5b"):
+    with pytest.raises(NotImplementedError, match="A-5c"):
         make_param_specs({"w": torch.zeros(4, 4)}, [(r"w", P(None, "tp"))],
                          mesh=mesh)
+    # an ep rule shards where ep has a size above 1
+    ep = dist.Mesh(axis_names=("dp", "ep"), sizes=(1, 2),
+                   device=torch.device("cpu"))
+    assert make_param_specs({"w": torch.zeros(4, 4)}, [(r"w", P("ep"))],
+                            mesh=ep) == {"w": ("ep", None)}
     # absent or size-1 model axes are dropped, as JAX's _filter_spec does
     one = dist.make_mesh("dp,tp:1", device="cpu")
     assert make_param_specs({"w": torch.zeros(4, 4)},

@@ -118,11 +118,13 @@ def test_block_core_matches_jax():
     want, _, _ = jgpt._block_core(
         jbp, jnp.asarray(x), jcfg,
         lambda q, k, v: (jax_mha(q, k, v, causal=True), None))
-    got, _ = tgpt._block_core(
+    # (x, aux, extras), as JAX's: the aux loss is 0 for a dense block
+    got, aux, _ = tgpt._block_core(
         tgpt.layer_params(tp["blocks"], 1), torch.as_tensor(x), cfg,
         lambda q, k, v: (mha_reference(q, k, v, causal=True), None))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+    assert float(aux) == 0.0
 
 
 @pytest.mark.parametrize("quantized", [False, True])

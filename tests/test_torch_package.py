@@ -78,7 +78,8 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "serving.replica_server", "store", "lmdb_compat",
                  "data.idx", "data.cifar", "data.folder", "distributed",
                  "parallel", "parallel.sharding", "comms.quantized",
-                 "comms.zero", "comms.schedule"):
+                 "comms.zero", "comms.schedule", "models.moe",
+                 "parallel.ring", "parallel.ulysses"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

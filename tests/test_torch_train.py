@@ -504,11 +504,22 @@ def test_entry_points_default_to_the_card_and_unported_options_raise():
             recipe.setup(conf)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             EnvConfig().device()
-    # meshes over dp and fsdp are ported (tests/test_torch_distributed.py);
-    # the model axes wait for A-5b
-    with pytest.raises(NotImplementedError, match="A-5b"):
+    # meshes over dp and fsdp are ported (tests/test_torch_distributed.py),
+    # sp and ep too (tests/test_torch_sequence.py, tests/test_torch_moe.py);
+    # tp and pp wait for A-5c
+    with pytest.raises(NotImplementedError, match="A-5c"):
         EnvConfig(distributed=True, mesh="dp,tp:2").device("cpu")
+    with pytest.raises(NotImplementedError, match="A-5c"):
+        EnvConfig(distributed=True, mesh="dp,pp:2").device("cpu")
     assert EnvConfig(distributed=True).device("cpu") == torch.device("cpu")
+    assert EnvConfig(distributed=True, mesh="dp,sp:1,ep:1").device(
+        "cpu") == torch.device("cpu")
+    # MoE blocks are ported: the recipe takes n_experts
+    moe_conf = _tiny_conf(n_iter=1)
+    moe_conf.model.n_experts, moe_conf.sample_tokens = 2, 0
+    moe_conf.eval_batches = 0
+    res = recipe.main(moe_conf, device="cpu")
+    assert math.isfinite(res["loss"]) and res["aux"] >= 0.9
     # lamb, lion and adafactor are ported (tests/test_torch_optim.py)
     for name in ("lamb", "lion", "adafactor"):
         tx = OptimizerConfig(name=name).make()
@@ -523,5 +534,9 @@ def test_entry_points_default_to_the_card_and_unported_options_raise():
 
     tp = Mesh(axis_names=("dp", "tp"), sizes=(1, 2),
               device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A-5b"):
+    with pytest.raises(NotImplementedError, match="A-5c"):
         utils.make_step(lambda *a: None, None, mesh=tp, rules=[(r".*", ())])
+    sp_ep = Mesh(axis_names=("sp", "ep"), sizes=(2, 2),
+                 device=torch.device("cpu"))
+    assert callable(utils.make_step(lambda *a: None, None, mesh=sp_ep,
+                                    rules=[(r".*", ())]))

@@ -23,9 +23,9 @@ for the training and serving slices:
   workload source); ``ObservabilityConfig`` with its ``tracing:`` and
   ``slo:`` blocks.
 
-Not ported yet (``ROADMAP.md`` A-5b): the model-parallel mesh axes
-(``tp``, ``sp``, ``pp``, ``ep``) and tensor-parallel serving.
-Configurations that need them raise ``NotImplementedError``. PyYAML is
+Not ported yet (``ROADMAP.md`` A-5c): the tensor- and pipeline-parallel
+mesh axes (``tp``, ``pp``) and tensor-parallel serving. Configurations
+that need them raise ``NotImplementedError``. PyYAML is
 imported only when a file is read."""
 from __future__ import annotations
 
@@ -268,9 +268,9 @@ class BaseConfig:
 class EnvConfig(BaseConfig):
     """Execution environment: compute precision, the device and the mesh.
     One process runs per device (``distributed.launch``); ``mesh`` names
-    axes over the ranks (``dp``, ``fsdp``), and ``distributed: false``
-    degrades any topology to one device. Model-parallel axes (``tp``,
-    ``sp``, ``pp``, ``ep``) wait for ROADMAP.md A-5b and raise."""
+    axes over the ranks (``dp``, ``fsdp``, ``sp``, ``ep``), and
+    ``distributed: false`` degrades any topology to one device. The
+    ``tp`` and ``pp`` axes wait for ROADMAP.md A-5c and raise."""
 
     distributed: bool = False
     fp16: bool = False                 # alias → bf16 compute
@@ -280,7 +280,7 @@ class EnvConfig(BaseConfig):
     n_machine: int = 1
     machine_rank: int = 0
     dist_url: str = "auto"             # rendezvous ("auto": a free port)
-    mesh: str = "dp"                   # axis spec: "dp" | "dp,fsdp:2"
+    mesh: str = "dp"                   # axis spec: "dp" | "dp,fsdp:2" | "sp:8"
 
     def compute_dtype(self) -> torch.dtype:
         if self.precision == "bf16" or (not self.precision and self.fp16):
@@ -330,8 +330,10 @@ class EnvConfig(BaseConfig):
 
     def shard_batch(self, batch: Any,
                     device: str | torch.device = "cuda") -> Any:
-        """This rank's contiguous slice of a global host batch along its
-        leading axis over the mesh's data axes, on its device."""
+        """This rank's block of a global host batch, on its device: its
+        contiguous rows over the mesh's data axes and, on an ``sp`` mesh,
+        its contiguous chunk of dimension 1 (JAX's ``P(("dp", "fsdp"),
+        "sp")`` batch spec)."""
         from torchbooster_tpu_torch import distributed as dist
 
         return dist.shard_batch(batch, dist.get_mesh(self, device=device))

@@ -12,7 +12,11 @@ ranks with one process group per axis. Rank ``r`` sits at flat position
 
 Without a process group every helper gives the JAX package's
 single-process answer (rank 0 of a world of 1), and a mesh's collectives
-act on the one process's tensors."""
+act on the one process's tensors. The differentiable collectives at the
+end (``diff_ppermute``, ``diff_all_to_all``, ``copy_to_group``,
+``reduce_from_group``, ``all_reduce_sum``) carry the sequence- and
+expert-parallel layers' gradients across ranks, each backward the
+transpose of its forward as in JAX's ``shard_map``."""
 from __future__ import annotations
 
 import logging
@@ -30,9 +34,12 @@ from torchbooster_tpu_torch.utils import _tree_map
 # Data-bearing mesh axes: batches shard over these; parameters replicate
 # over dp and shard over fsdp (see parallel.sharding).
 DATA_AXES = ("dp", "fsdp")
-# Model-parallel axes, which wait for the tensor/sequence/pipeline/expert
-# slice of the port (ROADMAP.md A-5b).
-MODEL_AXES = ("tp", "sp", "pp", "ep")
+# Model-parallel axes not ported yet: tensor and pipeline parallelism
+# wait for ROADMAP.md A-5c (the sequence and expert axes, sp and ep, run).
+UNPORTED_AXES = ("tp", "pp")
+# Axes a batch's tokens are split over: its rows over the data axes, its
+# sequence over sp (JAX ``gpt.batch_spec``: P(("dp", "fsdp"), "sp"))
+TOKEN_AXES = DATA_AXES + ("sp",)
 
 _MESH_CACHE: dict[tuple, "Mesh"] = {}
 
@@ -174,14 +181,14 @@ def parse_mesh_spec(spec: str, n_devices: int) -> tuple[tuple[str, ...], tuple[i
 
 def check_model_axes(names: Sequence[str], sizes: Sequence[int],
                      what: str) -> None:
-    """Raise ``NotImplementedError`` naming A-5b when a model-parallel
-    axis has a size above 1."""
+    """Raise ``NotImplementedError`` naming A-5c when a tensor- or
+    pipeline-parallel axis has a size above 1."""
     live = [f"{n}:{s}" for n, s in zip(names, sizes)
-            if n in MODEL_AXES and s > 1]
+            if n in UNPORTED_AXES and s > 1]
     if live:
         raise NotImplementedError(
             f"{what}: model-parallel axes {live} are not ported yet "
-            f"(ROADMAP.md A-5b); the port runs dp and fsdp meshes")
+            f"(ROADMAP.md A-5c); the port runs dp, fsdp, sp and ep meshes")
 
 
 @dataclass(eq=False)
@@ -220,6 +227,20 @@ class Mesh:
     def data_axes(self) -> tuple[str, ...]:
         return tuple(a for a in DATA_AXES if a in self.axis_names)
 
+    def token_axes(self) -> tuple[str, ...]:
+        """The axes this rank's tokens are split over: the data axes and
+        ``sp`` (each rank holds different tokens over these; over ``ep``
+        the tokens replicate)."""
+        return tuple(a for a in self.axis_names if a in TOKEN_AXES)
+
+    def axis(self, name: str) -> tuple[Any, int, int] | None:
+        """``(group, size, index)`` of axis ``name`` for this rank, or
+        None when the mesh lacks it or it has size 1."""
+        size = self.shape.get(name, 1)
+        if size == 1:
+            return None
+        return self.group((name,)), size, self.coords()[name]
+
     def group(self, axes: Sequence[str]) -> Any:
         """The process group over ``axes`` (absent axes dropped)."""
         key = tuple(a for a in self.axis_names if a in axes)
@@ -242,9 +263,11 @@ class Mesh:
 
 def _axis_subsets(names: tuple[str, ...]) -> list[tuple[str, ...]]:
     """The axis sets a mesh keeps groups for: each axis alone, the data
-    axes together, and every axis (the world)."""
+    axes together, the token axes (data axes and ``sp``) together, and
+    every axis (the world)."""
     subsets = [(a,) for a in names]
-    for axes in (tuple(a for a in names if a in DATA_AXES), names):
+    for axes in (tuple(a for a in names if a in DATA_AXES),
+                 tuple(a for a in names if a in TOKEN_AXES), names):
         if len(axes) > 1 and axes not in subsets:
             subsets.append(axes)
     return subsets
@@ -292,8 +315,8 @@ def make_mesh(spec: str = "dp", n_devices: int = 0,
               device: str | torch.device = "cuda") -> Mesh:
     """A mesh from an axis spec over the world's ranks (one process per
     device). ``n_devices`` (0: the world) must equal the world size.
-    Model-parallel axes of size above 1 raise ``NotImplementedError``
-    naming A-5b."""
+    ``tp`` and ``pp`` axes of size above 1 raise ``NotImplementedError``
+    naming A-5c."""
     world = get_world_size()
     if n_devices and n_devices != world:
         raise ValueError(
@@ -398,6 +421,133 @@ def broadcast(t: torch.Tensor, group: Any, src: int = 0) -> None:
         tdist.broadcast(t, src=src, group=group)
 
 
+def ppermute(t: torch.Tensor, group: Any, shift: int = 1) -> torch.Tensor:
+    """A ring rotation over ``group``: group rank ``i``'s ``t`` goes to
+    rank ``(i + shift) % n``, and the result is what rank ``(i - shift) %
+    n`` sent (JAX ``lax.ppermute`` with ``perm = [(j, (j + shift) % n)]``),
+    one send and one receive through ``batch_isend_irecv``. The tensor
+    itself without a group or over one rank."""
+    if group is None or tdist.get_world_size(group) == 1:
+        return t
+    n, me = tdist.get_world_size(group), tdist.get_rank(group)
+    src = tdist.get_global_rank(group, (me - shift) % n)
+    dst = tdist.get_global_rank(group, (me + shift) % n)
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    ops = [tdist.P2POp(tdist.isend, t, dst, group),
+           tdist.P2POp(tdist.irecv, out, src, group)]
+    for req in tdist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+# =========================================================================
+# Differentiable collectives (the transposes JAX's shard_map takes)
+# =========================================================================
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ppermute(t, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ppermute(grad.contiguous(), ctx.group, -ctx.shift), None, None
+
+
+def diff_ppermute(t: torch.Tensor, group: Any,
+                  shift: int = 1) -> torch.Tensor:
+    """:func:`ppermute` whose backward rotates the gradient back."""
+    return _PPermute.apply(t, group, shift)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        all_to_all(out, t, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # empty_like keeps a permuted gradient's strides: copy first
+        grad = grad.contiguous()
+        out = torch.empty_like(grad)
+        all_to_all(out, grad, ctx.group)
+        return out, None
+
+
+def diff_all_to_all(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """``t`` is ``(n, ...)``, chunk ``j`` for group rank ``j``; returns
+    ``(n, ...)`` with chunk ``i`` from rank ``i`` (``all_to_all_single``,
+    the form gloo implements). Its backward is the same exchange."""
+    return _AllToAll.apply(t, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        all_reduce(grad, ctx.group)
+        return grad, None
+
+
+def copy_to_group(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over ``group``.
+    For a tensor every rank of ``group`` holds alike and feeds into
+    rank-local work: each rank's partial gradient adds up to the whole."""
+    return _CopyToGroup.apply(t, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.contiguous().clone()
+        all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduce_from_group(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """Sum over ``group`` forward; identity backward (the partner of
+    :func:`copy_to_group`: every rank goes on with the same sum)."""
+    return _ReduceFromGroup.apply(t, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.contiguous().clone()
+        all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        all_reduce(grad, ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """JAX ``lax.psum`` under ``shard_map``: sum over ``group`` forward,
+    and the gradient summed over ``group`` backward — the derivative of
+    the sum of every rank's objective, which each rank's loss is one
+    term of across the token axes."""
+    return _AllReduceSum.apply(t, group)
+
+
 # =========================================================================
 # Placement
 # =========================================================================
@@ -416,17 +566,35 @@ def batch_rows(n_rows: int, mesh: Mesh) -> slice:
     return slice(start, start + per)
 
 
+def seq_chunk(n_cols: int, mesh: Mesh) -> slice:
+    """The sequence positions this rank holds: its contiguous chunk
+    along the ``sp`` axis (the whole sequence without one)."""
+    n = mesh.shape.get("sp", 1)
+    if n_cols % n:
+        raise ValueError(f"sequence of {n_cols} does not split over "
+                         f"sp={n}")
+    per = n_cols // n
+    start = mesh.coords().get("sp", 0) * per
+    return slice(start, start + per)
+
+
 def shard_batch(batch: Any, mesh: Mesh) -> Any:
-    """This rank's contiguous slice of a global host batch, along its
-    leading axis over the mesh's data axes, as tensors on the rank's
-    device."""
+    """This rank's block of a global host batch, as tensors on the
+    rank's device: its contiguous rows over the mesh's data axes and,
+    on an ``sp`` mesh, its contiguous chunk of the sequence (dimension
+    1) — JAX's ``P(("dp", "fsdp"), "sp")`` batch spec, so rank (d, r)
+    holds data shard d's rows and sequence chunk r."""
+    sp = mesh.shape.get("sp", 1) > 1
 
     def place(leaf: Any) -> torch.Tensor:
         t = leaf if isinstance(leaf, torch.Tensor) \
             else torch.as_tensor(np.asarray(leaf))
         if t.ndim == 0:
             return t.to(mesh.device)
-        return t[batch_rows(t.shape[0], mesh)].to(mesh.device)
+        t = t[batch_rows(t.shape[0], mesh)]
+        if sp and t.ndim >= 2:
+            t = t[:, seq_chunk(t.shape[1], mesh)]
+        return t.to(mesh.device)
 
     return _tree_map(place, batch)
 
@@ -569,10 +737,12 @@ def launch(
 
 
 __all__ = [
-    "DATA_AXES", "MODEL_AXES", "Mesh", "all_gather", "all_reduce",
-    "all_to_all", "batch_rows", "broadcast", "check_model_axes",
-    "find_free_port", "gather", "get_device_count", "get_local_rank",
-    "get_mesh", "get_rank", "get_world_size", "is_primary", "launch",
-    "local_devices", "make_mesh", "parse_mesh_spec", "reduce_scatter",
-    "shard_batch", "synchronize", "to_env",
+    "DATA_AXES", "Mesh", "TOKEN_AXES", "UNPORTED_AXES",
+    "all_gather", "all_reduce", "all_reduce_sum", "all_to_all",
+    "batch_rows", "broadcast", "check_model_axes", "copy_to_group",
+    "diff_all_to_all", "diff_ppermute", "find_free_port", "gather",
+    "get_device_count", "get_local_rank", "get_mesh", "get_rank",
+    "get_world_size", "is_primary", "launch", "local_devices",
+    "make_mesh", "parse_mesh_spec", "ppermute", "reduce_from_group",
+    "reduce_scatter", "seq_chunk", "shard_batch", "synchronize", "to_env",
 ]

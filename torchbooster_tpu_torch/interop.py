@@ -38,7 +38,8 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _shapes(cfg: GPTConfig, tree: dict) -> dict:
-    """The leaves that pin ``cfg``'s widths, in the tree's own form:
+    """The leaves that pin ``cfg``'s widths (the MoE gate and experts
+    included), in the tree's own form:
     full precision, or quantized (``models/quant.py``: a per-row int8
     ``qtable``, int8 ``qkernel``s, or int4 ones packed two a byte along
     the input axis as uint8)."""
@@ -50,10 +51,17 @@ def _shapes(cfg: GPTConfig, tree: dict) -> dict:
     if q is not None:
         kernel = "qkernel"
         din = d // 2 if np.asarray(q).dtype == np.uint8 else d
-    return {("wte", table): (cfg.vocab, d),
-            ("blocks", "attn_qkv", kernel): (n, din, qkv),
-            ("blocks", "attn_proj", kernel): (n, din, d),
-            ("ln_f", "scale"): (d,)}
+    shapes = {("wte", table): (cfg.vocab, d),
+              ("blocks", "attn_qkv", kernel): (n, din, qkv),
+              ("blocks", "attn_proj", kernel): (n, din, d),
+              ("ln_f", "scale"): (d,)}
+    if cfg.n_experts:
+        # MoE blocks (models/moe.py): the gate and the stacked experts
+        e, h = cfg.n_experts, cfg.mlp_ratio * d
+        shapes.update({("blocks", "moe_gate", "kernel"): (n, d, e),
+                       ("blocks", "moe_fc1", "kernel"): (n, e, d, h),
+                       ("blocks", "moe_fc2", "kernel"): (n, e, h, d)})
+    return shapes
 
 
 def params_from_jax(tree: dict, cfg: GPTConfig,

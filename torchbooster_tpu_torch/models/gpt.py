@@ -1,7 +1,9 @@
 """GPT language model — the port of ``torchbooster_tpu/models/gpt.py``:
 config, init, the training forward ``GPT.apply`` (per-block remat
 under the JAX package's policy, attention through the ``ops.attention``
-dispatcher), the block math, the cached-attention numerics core shared
+dispatcher, or on an ``sp`` mesh through
+``parallel.ulysses.sequence_attention``), the block math with dense or
+MoE (``models/moe.py``) MLPs, the cached-attention numerics core shared
 by the dense ``generate`` control and the paged engine, the next-token
 rules, and ``load_torch_gpt2``, the import of a HuggingFace GPT-2
 checkpoint.
@@ -10,8 +12,8 @@ Layouts follow the JAX package so parameters cross frameworks with a
 plain copy (``interop.params_from_jax``): block tensors are stacked on
 a leading layer axis, dense kernels are ``(in, out)``, and the qkv
 projection's columns are ``q | k | v`` at GQA widths. Not ported here
-(``ROADMAP.md``): the tensor/expert/sequence/pipeline-parallel
-branches (so LoRA deltas run at tp 1 only) and MoE blocks.
+(``ROADMAP.md`` A-5c): the tensor- and pipeline-parallel branches (so
+LoRA deltas run at tp 1 only).
 """
 from __future__ import annotations
 
@@ -46,7 +48,10 @@ class GPTConfig:
     mlp_ratio: int = 4
     dropout: float = 0.0
     tie_embeddings: bool = True
-    n_experts: int = 0
+    n_experts: int = 0            # > 0: MoE blocks (models/moe.py)
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    sp_strategy: str = "auto"     # "auto" | "ring" | "ulysses" on sp meshes
     pos: str = "learned"          # "learned" (wpe table) | "rope"
     rope_base: float = 10_000.0
     mlp: str = "gelu"             # "gelu" (tanh approx.) | "swiglu"
@@ -68,9 +73,6 @@ def _check_cfg(cfg: GPTConfig) -> None:
         raise ValueError(f"unknown pos {cfg.pos!r}; use 'learned' or 'rope'")
     if cfg.mlp not in ("gelu", "swiglu"):
         raise ValueError(f"unknown mlp {cfg.mlp!r}; use 'gelu' or 'swiglu'")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md A-5b)")
 
 
 def _check_pos(params: dict, cfg: GPTConfig) -> None:
@@ -84,8 +86,8 @@ def _check_pos(params: dict, cfg: GPTConfig) -> None:
 
 # path-regex → spec (``parallel.sharding``; leading entry = the stacked
 # layer axis), a copy of the JAX package's table: axes absent from the
-# mesh are dropped, so on the port's dp and fsdp meshes the blocks'
-# kernels shard over fsdp and everything else replicates.
+# mesh are dropped, so the blocks' kernels shard over fsdp, the experts
+# over ep, and everything else replicates.
 SHARDING_RULES = [
     (r"wte/table", ()),
     (r"wpe/table", (None, None)),
@@ -144,7 +146,12 @@ class GPT:
 
         blocks = {"ln1": norm(), "attn_qkv": dense(d, qkv_out, 0.02),
                   "attn_proj": dense(d, d, res_std), "ln2": norm()}
-        if cfg.mlp == "swiglu":
+        if cfg.n_experts > 0:
+            from torchbooster_tpu_torch.models.moe import moe_init
+
+            blocks.update(moe_init(gen, cfg.n_experts, d, h, std=0.02,
+                                   out_std=res_std, lead=(n,)))
+        elif cfg.mlp == "swiglu":
             hs = max((-(-2 * h // 3) + 7) // 8 * 8, 8)
             blocks.update({"mlp_fc1": dense(d, hs, 0.02),
                            "mlp_fc3": dense(d, hs, 0.02),
@@ -166,14 +173,15 @@ class GPT:
               compute_dtype: torch.dtype = torch.bfloat16,
               remat: bool = True, attn_impl: str = "auto",
               return_aux: bool = False, return_hidden: bool = False,
-              generator: torch.Generator | None = None) -> torch.Tensor:
+              generator: torch.Generator | None = None,
+              mesh=None) -> torch.Tensor:
         """Full causal forward → logits (B, S, vocab), or the final-norm
         hidden states (B, S, d) with ``return_hidden`` (for the chunked
         LM-head loss, ``ops.losses.lm_head_cross_entropy`` with
         :meth:`head_table`). Every leaf is cast to ``compute_dtype``
         where it is used, inside the differentiated function, so the
         gradients land on the fp32 masters. ``return_aux`` adds the MoE
-        load-balance loss, 0 for these dense blocks.
+        load-balance loss, the mean over layers (0 for dense blocks).
 
         ``remat`` checkpoints each block under the JAX package's policy,
         ``dots_with_no_batch_dims_saveable``: the outputs of the block's
@@ -194,16 +202,46 @@ class GPT:
         the generator's state taken before the block runs (the JAX
         package splits its layer keys before the scan), so the remat
         recompute draws the forward's masks again, bit for bit; the
-        generator then moves on past the block's draws."""
+        generator then moves on past the block's draws.
+
+        ``mesh`` (a ``distributed.Mesh`` under a process group): ``ids``
+        is this rank's block of the global batch — its rows over the
+        data axes and, on an ``sp`` mesh, its ``S/sp`` chunk of the
+        sequence (``distributed.shard_batch``). Attention then goes
+        through ``parallel.ulysses.sequence_attention`` with
+        ``cfg.sp_strategy``; learned and rope positions are the global
+        ones, offset by the rank's chunk; each dropout mask is this
+        rank's slice of the mask one device draws over the whole
+        sequence from the same generator state, so an ``sp:N`` run
+        equals the ``sp:1`` run. MoE blocks route over the global batch
+        (``moe.token_shards``) and, on an ``ep`` mesh, hold this rank's
+        slice of the experts."""
         b, s = ids.shape
         _check_pos(params, cfg)
-        if s > cfg.seq_len:
-            raise ValueError(f"sequence length {s} exceeds "
+        sp = mesh.axis("sp") if mesh is not None else None
+        sp_size, sp_index = (sp[1], sp[2]) if sp is not None else (1, 0)
+        if s * sp_size > cfg.seq_len:
+            raise ValueError(f"sequence length {s * sp_size} exceeds "
                              f"cfg.seq_len={cfg.seq_len}")
+        offset = sp_index * s
+        seq = (sp_index, sp_size) if sp is not None else None
+        moe = _moe_layout(mesh) if cfg.n_experts > 0 else {}
+        positions = torch.arange(offset, offset + s, device=ids.device) \
+            if sp is not None else None
         drop = cfg.dropout if generator is not None else 0.0
-        x = _dropout(_embed(params, ids, compute_dtype), drop, generator)
+        x = _dropout(_embed(params, ids, compute_dtype, offset), drop,
+                     generator, seq)
 
         def attend(q, k, v):
+            if sp is not None:
+                from torchbooster_tpu_torch.parallel.ulysses import (
+                    sequence_attention,
+                )
+
+                # grouped K/V ride the sp exchanges un-expanded
+                return sequence_attention(q, k, v, mesh, causal=True,
+                                          strategy=cfg.sp_strategy,
+                                          impl=attn_impl), None
             # grouped K/V go to the dispatcher as they are: the flash
             # kernels index grouped rows, the reference expands them
             return attention(q, k, v, causal=True, impl=attn_impl), None
@@ -213,28 +251,34 @@ class GPT:
             if drop:
                 gen = torch.Generator(generator.device)
                 gen.set_state(rng_state)
-            x = _block_core(bp, x, cfg, attend, dropout=drop,
-                            generator=gen)[0]
+            x, aux, _ = _block_core(bp, x, cfg, attend, positions=positions,
+                                    dropout=drop, generator=gen, seq=seq,
+                                    **moe)
             if drop:
                 after[:] = [gen.get_state()]
-            return x
+            return x, aux
 
+        aux = 0.0
         for i in range(cfg.n_layers):
             bp = layer_params(params["blocks"], i)
             rng_state = generator.get_state() if drop else None
             after: list = []
             if remat and torch.is_grad_enabled():
-                x = checkpoint(block, bp, x, rng_state, after,
-                               use_reentrant=False,
-                               context_fn=_REMAT_CONTEXT)
+                x, layer_aux = checkpoint(block, bp, x, rng_state, after,
+                                          use_reentrant=False,
+                                          context_fn=_REMAT_CONTEXT)
             else:
-                x = block(bp, x, rng_state, after)
+                x, layer_aux = block(bp, x, rng_state, after)
+            aux = aux + layer_aux
             if drop:
                 generator.set_state(after[0])
         out = L.layer_norm(params["ln_f"], x) if return_hidden \
             else _lm_head(params, x)
         if return_aux:
-            return out, torch.zeros((), device=out.device)
+            # the mean load-balance loss over layers (0 for dense blocks)
+            aux = aux / max(cfg.n_layers, 1) if torch.is_tensor(aux) \
+                else torch.zeros((), device=out.device)
+            return out, aux
         return out
 
     @staticmethod
@@ -309,33 +353,59 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def _moe_layout(mesh) -> dict:
+    """``_block_core``'s MoE keywords on ``mesh``: the global token
+    layout and, on an ``ep`` mesh, this rank's expert slice."""
+    from torchbooster_tpu_torch.models.moe import token_shards
+
+    if mesh is None:
+        return {}
+    return {"shards": token_shards(mesh), "ep": mesh.axis("ep")}
+
+
 def _dropout(x: torch.Tensor, rate: float,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generator: torch.Generator | None,
+             seq: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout (``gpt.py:759``): keep each element with
     probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in x's
     dtype; the identity at rate 0 or without a generator. The mask is
-    drawn on x's device from ``generator``, which lies there too."""
+    drawn on x's device from ``generator``, which lies there too.
+    ``seq=(index, n)``: x is chunk ``index`` of ``n`` along the sequence
+    (dimension 1); the mask is drawn over the whole sequence and this
+    chunk's slice kept."""
     if not rate or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape, cols = x.shape, slice(None)
+    if seq is not None:
+        index, n = seq
+        shape = (x.shape[0], x.shape[1] * n, *x.shape[2:])
+        cols = slice(index * x.shape[1], (index + 1) * x.shape[1])
+    mask = torch.rand(shape, generator=generator,
+                      device=x.device)[:, cols] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
 def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
                 positions: torch.Tensor | None = None, dropout: float = 0.0,
-                generator: torch.Generator | None = None, lora=None):
+                generator: torch.Generator | None = None, lora=None,
+                capacity_factor: float | None = None, ep=None, shards=None,
+                seq: tuple[int, int] | None = None):
     """The transformer block shared by every path (full forward,
     prefill chunk, cached decode). ``attend(q, k, v) -> (o, extras)``
     supplies the attention flavor; ``dropout`` with a ``generator``
-    drops the two residual branches (:func:`_dropout`). ``lora`` =
+    drops the two residual branches (:func:`_dropout`; ``seq`` slices
+    the masks of a sequence chunk). MoE blocks run ``moe_apply`` at
+    ``capacity_factor`` (default ``cfg.capacity_factor``) with ``ep``
+    and ``shards`` (``models/moe.py``). ``lora`` =
     ``((a_qkv, b_qkv, a_proj, b_proj), lane_ids)``, this layer's
     adapter stacks ``(lanes, ...)`` and one lane id a batch row
     (``gpt.py:872``): row b adds ``h @ A[g] @ B[g]`` of its lane g to the
     qkv output and to the O projection before its bias, each stack cast
     to the activations' dtype, so lane 0's zero stacks are an exact
-    no-op. Returns ``(x, extras)``."""
+    no-op. Returns ``(x, aux_loss, extras)``; a dense block's aux loss
+    is the number 0.0 (no device work on the serving paths)."""
     b, s, d = x.shape
     n_heads, kv_heads, head_dim = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     h = L.layer_norm(bp["ln1"], x)
@@ -363,14 +433,22 @@ def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
         proj_delta = torch.einsum("bsr,bro->bso", dp,
                                   lb_p[lane_ids].to(o_flat.dtype))
     x = x + _dropout(L.dense(bp["attn_proj"], o_flat, delta=proj_delta),
-                     dropout, generator)
+                     dropout, generator, seq)
     h = L.layer_norm(bp["ln2"], x)
+    if cfg.n_experts > 0:
+        from torchbooster_tpu_torch.models.moe import moe_apply
+
+        m, aux = moe_apply(
+            bp, h, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor if capacity_factor is None
+            else capacity_factor, ep=ep, shards=shards)
+        return x + _dropout(m, dropout, generator, seq), aux, extras
     if "mlp_fc3" in bp:
         h = F.silu(L.dense(bp["mlp_fc1"], h)) * L.dense(bp["mlp_fc3"], h)
     else:   # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(L.dense(bp["mlp_fc1"], h), approximate="tanh")
     return x + _dropout(L.dense(bp["mlp_fc2"], h), dropout,
-                        generator), extras
+                        generator, seq), 0.0, extras
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -435,7 +513,9 @@ def _cached_block(bp: dict, x: torch.Tensor, cache_k, cache_v, pos: int,
                   cfg: GPTConfig) -> torch.Tensor:
     """One decode step through one block at position ``pos``: this
     token's K/V are written into the (B, S_cache, H_kv, Dh) caches IN
-    PLACE, then attended with everything ``<= pos``."""
+    PLACE, then attended with everything ``<= pos``. MoE capacity floors
+    at ``n_experts`` so a decode micro-batch never drops a token
+    (``gpt.py:1083``)."""
     quantized = isinstance(cache_k, tuple)
     s_cache = (cache_k[0] if quantized else cache_k).shape[1]
 
@@ -451,9 +531,17 @@ def _cached_block(bp: dict, x: torch.Tensor, cache_k, cache_v, pos: int,
         visible = torch.arange(s_cache, device=x.device) <= pos
         return _grouped_cache_attention(q, cache_k, cache_v, visible), None
 
-    x, _ = _block_core(bp, x, cfg, attend,
-                       positions=torch.tensor([pos], device=x.device))
+    x, _, _ = _block_core(bp, x, cfg, attend,
+                          positions=torch.tensor([pos], device=x.device),
+                          capacity_factor=serving_capacity(cfg))
     return x
+
+
+def serving_capacity(cfg: GPTConfig) -> float:
+    """The capacity factor of every serving forward (decode, the paged
+    engine's prefill and verify; JAX ``engine.py:760``): at least
+    ``n_experts``, so no token of a serving batch drops."""
+    return max(cfg.capacity_factor, float(cfg.n_experts))
 
 
 def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -620,12 +708,14 @@ def _make_spec_pick(temperature: float, top_k: int | None,
 
 
 def _embed(params: dict, ids: torch.Tensor,
-           compute_dtype: torch.dtype) -> torch.Tensor:
-    """Token (+ learned position) embeddings in ``compute_dtype``."""
+           compute_dtype: torch.dtype, offset: int = 0) -> torch.Tensor:
+    """Token (+ learned position) embeddings in ``compute_dtype``; the
+    positions start at ``offset`` (a sequence chunk's first)."""
     x = L.embedding(params["wte"], ids, dtype=compute_dtype)
     if "wpe" in params:
         x = x + L.embedding(params["wpe"],
-                            torch.arange(ids.shape[1], device=ids.device),
+                            torch.arange(offset, offset + ids.shape[1],
+                                         device=ids.device),
                             dtype=compute_dtype)
     return x
 
@@ -638,7 +728,7 @@ def _prefill_forward(params: dict, ids: torch.Tensor, cfg: GPTConfig,
     x = _embed(params, ids, compute_dtype)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _block_core(
+        x, _, (k, v) = _block_core(
             layer_params(params["blocks"], i), x, cfg,
             lambda q, k, v: (attention(q, k, v, causal=True), (k, v)))
         ks.append(k)
@@ -769,4 +859,4 @@ def load_torch_gpt2(state_dict, n_heads: int | None = None,
 
 
 __all__ = ["GPT", "GPTConfig", "cast_params", "generate", "layer_params",
-           "load_torch_gpt2", "map_tensors"]
+           "load_torch_gpt2", "map_tensors", "serving_capacity"]

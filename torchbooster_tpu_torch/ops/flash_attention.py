@@ -59,6 +59,9 @@ launches_dkv = 0    # B3 launches, every route
 launches_fwd_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
 launches_dq_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
 launches_dkv_by_route = {"sm90": 0, "mma_sync": 0, "f32": 0}
+# B1 launches by mask: the ring folds causal diagonal chunks and
+# non-causal visiting ones
+launches_fwd_by_mask = {"causal": 0, "full": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DTYPES = tuple(_DTYPE_CODE)   # dtypes the CUDA kernels are built for
@@ -383,6 +386,7 @@ def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
                            f"({route}): CUDA error {err}")
     launches_fwd += 1
     launches_fwd_by_route[route] += 1
+    launches_fwd_by_mask["causal" if causal else "full"] += 1
     return o, lse
 
 
@@ -492,6 +496,45 @@ def _backward(q, k, v, o, lse, do, causal, sm_scale, block_q, block_k):
     return (dq, *launch_dkv(q, k, v, lse, do, delta, causal, sm_scale))
 
 
+def _chunk_blocks(q, k, sm_scale, block):
+    s_q, s_kv = q.shape[1], k.shape[1]
+    block = DEFAULT_BLOCK if block is None else block
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return (float(sm_scale), _pick_block(block, s_q, "seq_q"),
+            _pick_block(block, s_kv, "seq_kv"))
+
+
+def flash_forward(q, k, v, causal: bool = True,
+                  sm_scale: float | None = None,
+                  block: int | None = None):
+    """B1 with its lse, outside autograd: ``(o, lse)``, o in q's dtype
+    and lse fp32 ``(BH, S_q)`` (natural log). The ring-flash body's
+    per-chunk forward (``parallel/ring.py``, JAX ``_fwd_pallas(...,
+    save_residuals=True)``): non-causal against a visiting chunk, causal
+    on the diagonal one. CUDA tensors launch the kernel on its planned
+    route; CPU tensors run :func:`flash_attention_reference`."""
+    scale, bq, bk = _chunk_blocks(q, k, sm_scale, block)
+    return _forward(q.contiguous(), k.contiguous(), v.contiguous(),
+                    bool(causal), scale, bq, bk)
+
+
+def flash_backward(q, k, v, o, lse, do, causal: bool = True,
+                   sm_scale: float | None = None,
+                   block: int | None = None):
+    """B2 then B3 against a GIVEN ``(o, lse)``: ``(dq, dk, dv)``, dK/dV
+    at grouped width. The ring-flash backward passes the global output
+    and lse of the whole sequence with each chunk's K/V: the
+    probabilities recomputed from the global lse are that chunk's columns
+    of the global softmax, and ``delta = rowsum(dO∘O)`` (B2's) is the
+    global one, so the per-chunk gradients add up exactly. CUDA tensors
+    launch the kernels; CPU tensors run their plain versions."""
+    scale, bq, bk = _chunk_blocks(q, k, sm_scale, block)
+    return _backward(q.contiguous(), k.contiguous(), v.contiguous(),
+                     o.contiguous(), lse.contiguous(), do.contiguous(),
+                     bool(causal), scale, bq, bk)
+
+
 class _Flash(torch.autograd.Function):
     """B1 forward, B2 + B3 backward (the JAX ``custom_vjp``)."""
 
@@ -538,8 +581,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 __all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "KERNEL_DTYPES", "SM90_HEAD_DIMS",
            "dkv_reference", "dq_reference", "flash_attention",
+           "flash_backward", "flash_forward",
            "flash_attention_backward_reference", "flash_attention_reference",
            "launch_dkv", "launch_dq", "launch_fwd", "launches_dkv",
            "launches_dkv_by_route", "launches_dq", "launches_dq_by_route",
-           "launches_fwd", "launches_fwd_by_route", "plan_flash_bwd",
+           "launches_fwd", "launches_fwd_by_mask", "launches_fwd_by_route", "plan_flash_bwd",
            "plan_flash_fwd", "tileable", "wgmma_probe"]

@@ -5,11 +5,13 @@ A spec is a tuple with one entry per dimension (JAX's ``PartitionSpec``):
 ``None``, an axis name, or a tuple of axis names. A model ships a list of
 ``(regex, spec)`` rules; a parameter whose path matches a rule gets that
 spec (first match wins), everything else replicates. On the port's
-meshes a dimension sharded over ``fsdp`` is split into contiguous chunks,
-one per rank of the axis (``Shard(dim)``), and every leaf replicates over
-``dp``. ``utils.make_step(mesh=, rules=)`` gathers a sharded leaf to full
-before the loss and reduce-scatters its gradient back (JAX's ``_pin``
-made explicit).
+meshes a dimension sharded over ``fsdp`` or ``ep`` is split into
+contiguous chunks, one per rank of the axis (``Shard(dim)``), and every
+leaf replicates over ``dp`` and ``sp``. ``utils.make_step(mesh=,
+rules=)`` gathers an ``fsdp``-sharded leaf to full before the loss and
+reduce-scatters its gradient back (JAX's ``_pin`` made explicit); an
+``ep``-sharded leaf (a block of experts) is used as it is, by
+``models/moe.py``'s expert-parallel path, and keeps its own gradient.
 
 Trees are nested dicts (lists and tuples by index); :func:`tree_flatten`
 walks them in the JAX package's order, keys sorted, which is the order
@@ -23,12 +25,16 @@ import torch
 
 from torchbooster_tpu_torch.distributed import (
     DATA_AXES,
-    MODEL_AXES,
+    UNPORTED_AXES,
     Mesh,
     all_gather,
     reduce_scatter,
     to_env,
 )
+
+# axes whose shards a rank computes with as they are (never gathered
+# before the loss): the expert axis
+LOCAL_AXES = ("ep",)
 
 
 def P(*entries: Any) -> tuple:
@@ -116,11 +122,11 @@ def _validate_divisibility(spec: tuple, shape: tuple, mesh: Mesh) -> tuple:
 
 def _check_rule_axes(spec: tuple, mesh: Mesh, name: str) -> None:
     live = sorted({a for e in spec for a in _entry_axes(e)
-                   if a in MODEL_AXES and mesh.shape.get(a, 1) > 1})
+                   if a in UNPORTED_AXES and mesh.shape.get(a, 1) > 1})
     if live:
         raise NotImplementedError(
             f"sharding rule for {name!r} uses model-parallel axes {live} "
-            f"of size > 1, which are not ported yet (ROADMAP.md A-5b)")
+            f"of size > 1, which are not ported yet (ROADMAP.md A-5c)")
 
 
 def make_param_specs(params: Any, rules: Sequence[tuple[str, tuple]],
@@ -283,15 +289,24 @@ def gather_leaf(local: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def loss_spec(spec: tuple) -> tuple:
+    """The part of ``spec`` gathered before the loss: ``spec`` with the
+    :data:`LOCAL_AXES` (``ep``) entries dropped."""
+    return tuple(None if set(_entry_axes(e)) & set(LOCAL_AXES) else e
+                 for e in spec)
+
+
 def replication_axes(spec: tuple, mesh: Mesh) -> tuple[str, ...]:
-    """The data axes a leaf under ``spec`` replicates over: its gradient
-    is summed over them after the reduce-scatter."""
+    """The axes a leaf under ``spec`` replicates over that split the
+    batch — the data axes and ``sp``: its gradient is summed over them
+    after the reduce-scatter. (Over ``ep`` the tokens replicate, and
+    every rank already holds its leaves' whole gradient.)"""
     used = {a for _, axes in sharded_dims(spec) for a in axes}
-    return tuple(a for a in DATA_AXES if a in mesh.axis_names
-                 and a not in used)
+    return tuple(a for a in mesh.token_axes() if a not in used)
 
 
-__all__ = ["P", "gather_leaf", "local_slice", "make_param_specs",
+__all__ = ["LOCAL_AXES", "P", "gather_leaf", "local_slice", "loss_spec",
+           "make_param_specs",
            "make_shardings", "make_state_specs", "path_str",
            "replication_axes", "shard_params", "shard_state",
            "sharded_dims", "tree_flatten", "tree_map_with_path"]

@@ -27,12 +27,18 @@ flash kernels.
 Across ranks (``env.distributed: true``, ``env.mesh: dp`` or
 ``dp,fsdp:N``): the loader gives each rank its strided shard of the
 global batch, the state is laid out by ``GPT.SHARDING_RULES`` (the block
-kernels shard over ``fsdp``) and ``make_step`` averages the gradient over
-the data axes; an optional ``comms:`` block (``CommsConfig``: ZeRO stage,
-wire format, overlap) replaces that with the explicit schedule and its
-sharded checkpoint. Only the primary rank prints and samples. The
-model-parallel axes (``tp``, ``sp``) and MoE blocks wait for
-``ROADMAP.md`` A-5b and raise ``NotImplementedError``."""
+kernels shard over ``fsdp``, the experts of MoE blocks over ``ep``) and
+``make_step`` averages the gradient over the data axes; an optional
+``comms:`` block (``CommsConfig``: ZeRO stage, wire format, overlap)
+replaces that with the explicit schedule and its sharded checkpoint. On
+a mesh with ``sp`` or ``ep`` every rank reads the global batch and keeps
+its block (``distributed.shard_batch``: its rows over the data axes, its
+sequence chunk over ``sp``), attention runs ring or Ulysses
+(``model.sp_strategy``) and the gradient is the global token mean. MoE
+blocks (``model.n_experts``, ``top_k``, ``capacity_factor``) add
+``aux_weight`` times their load-balance loss and report it as ``aux``.
+Only the primary rank prints and samples. The ``tp`` and ``pp`` axes
+wait for ``ROADMAP.md`` A-5c and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import sys
@@ -72,8 +78,8 @@ DEFAULT_YAML = Path(__file__).resolve().parents[2] / "examples" / "lm" \
 @dataclass
 class ModelConfig(BaseConfig):
     """GPT dims, YAML-driven (the JAX recipe's fields; ``top_k``,
-    ``capacity_factor``, ``aux_weight`` and ``sp_strategy`` only act on
-    MoE blocks and sequence-parallel meshes, which are not ported)."""
+    ``capacity_factor`` and ``aux_weight`` act on MoE blocks,
+    ``sp_strategy`` on meshes with an ``sp`` axis)."""
 
     vocab: int = 1_024
     n_layers: int = 4
@@ -96,7 +102,9 @@ class ModelConfig(BaseConfig):
         return GPTConfig(vocab=self.vocab, n_layers=self.n_layers,
                          d_model=self.d_model, n_heads=self.n_heads,
                          n_kv_heads=self.n_kv_heads, seq_len=self.seq_len,
-                         n_experts=self.n_experts, pos=self.pos,
+                         n_experts=self.n_experts, top_k=self.top_k,
+                         capacity_factor=self.capacity_factor,
+                         sp_strategy=self.sp_strategy, pos=self.pos,
                          mlp=self.mlp, dropout=self.dropout)
 
 
@@ -144,7 +152,16 @@ class Trainer:
 
     def batch(self, tokens: Any) -> dict:
         """Host tokens (B, S + 1) → ``ids``/``labels`` on the device,
-        shifted on the host and copied from pinned memory."""
+        shifted on the host and copied from pinned memory. On a mesh
+        with ``sp`` or ``ep`` the loader yields the global batch and each
+        side keeps this rank's block (``distributed.shard_batch``)."""
+        tokens = np.asarray(tokens)
+        if _global_batches(self.mesh):
+            # this rank's rows, and its chunk of the ids with the labels
+            # one position on
+            rows = dist.batch_rows(tokens.shape[0], self.mesh)
+            cols = dist.seq_chunk(tokens.shape[1] - 1, self.mesh)
+            tokens = tokens[rows, cols.start:cols.stop + 1]
         tokens = torch.from_numpy(np.ascontiguousarray(tokens)).long()
         if self.device.type == "cuda":
             tokens = tokens.pin_memory()
@@ -152,23 +169,37 @@ class Trainer:
         return {"ids": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
-def make_loss(conf: Config, cfg: GPTConfig) -> Callable:
-    """``loss_fn(params, batch, generator) -> (loss, {"ppl"})``; the
-    generator drives the model's dropout (``None`` turns it off)."""
+def _global_batches(mesh: Any) -> bool:
+    """True on a mesh whose ranks share rows (``ep``) or split sequences
+    (``sp``): the loader then yields the global batch to every rank."""
+    return mesh is not None and mesh.distributed and (
+        mesh.shape.get("sp", 1) > 1 or mesh.shape.get("ep", 1) > 1)
+
+
+def make_loss(conf: Config, cfg: GPTConfig, mesh: Any = None) -> Callable:
+    """``loss_fn(params, batch, generator) -> (loss, {"ppl"[, "aux"]})``;
+    the generator drives the model's dropout (``None`` turns it off).
+    ``mesh``: the batch is this rank's block of the global one
+    (``GPT.apply(mesh=...)``). MoE blocks add ``aux_weight`` times their
+    load-balance loss, reported as ``aux`` (JAX ``gpt.py:127-144``)."""
 
     def loss_fn(params: dict, batch: dict, generator: Any):
-        out = GPT.apply(params, batch["ids"], cfg,
-                        compute_dtype=conf.env.compute_dtype(),
-                        remat=conf.model.remat,
-                        return_hidden=conf.model.chunked_head,
-                        generator=generator)
+        out, aux = GPT.apply(params, batch["ids"], cfg,
+                             compute_dtype=conf.env.compute_dtype(),
+                             remat=conf.model.remat, return_aux=True,
+                             return_hidden=conf.model.chunked_head,
+                             generator=generator, mesh=mesh)
         if conf.model.chunked_head:
             # the (T, vocab) logits never materialize
             loss = lm_head_cross_entropy(out, GPT.head_table(params),
                                          batch["labels"])
         else:
             loss = cross_entropy(out, batch["labels"])
-        return loss, {"ppl": torch.exp(loss.detach())}
+        metrics = {"ppl": torch.exp(loss.detach())}
+        if cfg.n_experts:
+            metrics["aux"] = aux.detach()
+            loss = loss + conf.model.aux_weight * aux
+        return loss, metrics
 
     return loss_fn
 
@@ -181,17 +212,14 @@ def setup(conf: Config, device: str | torch.device = "cuda") -> Trainer:
     utils.seed(conf.seed)
     dev = conf.env.device(device)
     mesh = dist.get_mesh(conf.env, device=device)
-    if conf.model.n_experts or mesh.shape.get("sp", 1) > 1:
-        raise NotImplementedError(
-            "MoE blocks and sequence-parallel meshes are not ported yet "
-            "(ROADMAP.md A-5b)")
     cfg = conf.model.make()
     dataset = conf.dataset.make(Split.TRAIN, seq_len=cfg.seq_len + 1,
                                 vocab=cfg.vocab)
     loader = conf.loader.make(dataset, shuffle=True,
-                              distributed=conf.env.distributed,
+                              distributed=conf.env.distributed
+                              and not _global_batches(mesh),
                               seed=conf.seed)
-    loss_fn = make_loss(conf, cfg)
+    loss_fn = make_loss(conf, cfg, mesh if mesh.distributed else None)
     tx = conf.optim.make(conf.scheduler.make(conf.optim))
     params = GPT.init(conf.seed, cfg, device=dev)
     comms = conf.comms.make(mesh=mesh) if conf.comms is not None else None
@@ -265,20 +293,25 @@ def run(t: Trainer) -> dict:
     results = {**results, "log": log}
     params = t.comms.gather_params(t.state) if t.comms is not None \
         else t.state.params
+    loss_params = params
     if t.comms is None and t.mesh is not None and t.mesh.distributed:
+        # the loss keeps this rank's experts; sampling takes them all
+        loss_params = _full_params(params, t.mesh, local=True)
         params = _full_params(params, t.mesh)
     if conf.eval_batches > 0:
         eval_step = utils.make_eval_step(t.loss_fn)
         eval_loader = conf.loader.make(
             conf.dataset.make(Split.VALIDATION, seq_len=t.cfg.seq_len + 1,
                               vocab=t.cfg.vocab),
-            shuffle=False, distributed=conf.env.distributed, seed=conf.seed)
+            shuffle=False, distributed=conf.env.distributed
+            and not _global_batches(t.mesh), seed=conf.seed)
         eval_metrics = MetricsAccumulator()
         for i, tokens in enumerate(eval_loader):
             if i >= conf.eval_batches:
                 break
             # no generator: the eval forward stays deterministic
-            eval_metrics.update(eval_step(params, t.batch(tokens), None))
+            eval_metrics.update(eval_step(loss_params, t.batch(tokens),
+                                          None))
         evals = eval_metrics.compute()
         if evals and t.mesh is not None and t.mesh.distributed:
             # each rank evaluated its shard: the mean over the ranks
@@ -312,14 +345,22 @@ def run(t: Trainer) -> dict:
     return results
 
 
-def _full_params(params: dict, mesh: Any) -> dict:
+def _full_params(params: dict, mesh: Any, local: bool = False) -> dict:
     """The full parameter tree of a rule-sharded state (each sharded leaf
-    all-gathered), for evaluation and sampling."""
-    from torchbooster_tpu_torch.parallel.sharding import gather_leaf
+    all-gathered), for sampling; with ``local`` the tree the loss takes
+    (``ep``-sharded experts stay this rank's, ``parallel.sharding.
+    loss_spec``), for evaluation."""
+    from torchbooster_tpu_torch.parallel.sharding import (
+        gather_leaf,
+        loss_spec,
+    )
+
+    def full(p: torch.Tensor) -> torch.Tensor:
+        spec = getattr(p, "spec", ())
+        return gather_leaf(p, loss_spec(spec) if local else spec, mesh)
 
     with torch.no_grad():
-        return utils._tree_map(
-            lambda p: gather_leaf(p, getattr(p, "spec", ()), mesh), params)
+        return utils._tree_map(full, params)
 
 
 def launch_main(conf: Config, device: str = "cuda") -> Any:

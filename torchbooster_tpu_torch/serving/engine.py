@@ -78,6 +78,7 @@ from torchbooster_tpu_torch.models.gpt import (
     cast_params,
     layer_params,
     map_tensors,
+    serving_capacity,
 )
 from torchbooster_tpu_torch.ops.paged_attention import (
     check_paged,
@@ -212,7 +213,7 @@ class PagedEngine:
         if tp != 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) is not ported yet "
-                "(ROADMAP.md A-5b serving/tp.py)")
+                "(ROADMAP.md A-5c serving/tp.py)")
         if cfg.seq_len % page_size:
             raise ValueError(f"page_size ({page_size}) must divide "
                              f"cfg.seq_len ({cfg.seq_len})")
@@ -519,8 +520,10 @@ class PagedEngine:
                 o = (oA * mv(wA) + oB * mv(wB)) / mv(l)
                 return o.reshape(1, C, cfg.n_heads, head_dim).to(q.dtype), None
 
-            x, _ = _block_core(bp, x, cfg, attend, positions=positions[None],
-                               lora=self._lora_layer(i, lanes))
+            x, _, _ = _block_core(bp, x, cfg, attend,
+                                  positions=positions[None],
+                                  lora=self._lora_layer(i, lanes),
+                                  capacity_factor=serving_capacity(cfg))
         last = x[:, min(max(s0 - 1 - start, 0), C - 1)][:, None]
         return _lm_head(self.params, last)[:, 0]
 
@@ -631,8 +634,9 @@ class PagedEngine:
                 return o.reshape(n_slots, S, cfg.n_heads,
                                  cfg.head_dim).to(q.dtype), None
 
-            x, _ = _block_core(bp, x, cfg, attend, positions=pos_c,
-                               lora=self._lora_layer(i, lanes))
+            x, _, _ = _block_core(bp, x, cfg, attend, positions=pos_c,
+                                  lora=self._lora_layer(i, lanes),
+                                  capacity_factor=serving_capacity(cfg))
         return _lm_head(self.params, x)
 
     @torch.no_grad()

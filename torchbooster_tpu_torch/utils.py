@@ -171,12 +171,17 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
     (mixed precision over fp32 masters).
 
     Across ranks (JAX ``utils.make_step``): with ``mesh`` the gradient
-    is the batch mean over the mesh's data axes, all-reduced at the
-    update boundary, and the loss and aux metrics are averaged over the
-    ranks. ``rules`` (with ``mesh``) gathers each leaf the rule table
-    shards over ``fsdp`` before the loss and reduce-scatters its
-    gradient back (place the state with ``EnvConfig.make(state,
-    rules=...)``); clipping then sums the norm over the shards.
+    is the mean over the ranks of the token axes (the data axes and
+    ``sp``: each rank's loss is the mean over its rows and sequence
+    chunk, so that is the global token mean), all-reduced at the update
+    boundary, and the loss and aux metrics are averaged over the same
+    ranks. Over ``ep`` the tokens replicate and nothing is reduced.
+    ``rules`` (with ``mesh``) gathers each leaf the rule table shards
+    over ``fsdp`` before the loss and reduce-scatters its gradient back
+    (place the state with ``EnvConfig.make(state, rules=...)``); a leaf
+    sharded over ``ep`` stays this rank's block of experts and keeps its
+    own gradient. Clipping then sums the norm over the shards, each
+    counted once.
     ``comms`` (a ``GradComms`` / ``CommsSchedule``, states from its
     ``create_state``) replaces the all-reduce: ``fp32``/``bf16``/``int8``
     explicit syncs through ``comms.quantized.reduce_flat``, ZeRO-1 through
@@ -287,7 +292,7 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
                     mean_metrics,
                 )
 
-                axes = sync_mesh.data_axes()
+                axes = sync_mesh.token_axes()
                 loss, aux = mean_metrics(loss.detach(), aux,
                                          sync_mesh.group(axes),
                                          sync_mesh.axes_size(axes))
@@ -353,6 +358,7 @@ def _local_grads(diff_fn: Callable, state: TrainState, batch: Any,
     if rules is not None:
         from torchbooster_tpu_torch.parallel.sharding import (
             gather_leaf,
+            loss_spec,
             make_param_specs,
             tree_get,
             tree_map_with_path,
@@ -369,7 +375,7 @@ def _local_grads(diff_fn: Callable, state: TrainState, batch: Any,
                     f"make_step(rules=...): leaf {'/'.join(map(str, path))}"
                     f" is not laid out by the rules; place the state with "
                     f"EnvConfig.make(state, rules=...) first")
-            return gather_leaf(leaf, spec, mesh)
+            return gather_leaf(leaf, loss_spec(spec), mesh)
 
         params = tree_map_with_path(full, params)
     loss, aux = _split(diff_fn(params, batch, state.generator), has_aux)
@@ -380,13 +386,13 @@ def _local_grads(diff_fn: Callable, state: TrainState, batch: Any,
 @torch.no_grad()
 def _sync_grads(params: Any, mesh: Any) -> None:
     """The implicit path's gradient sync: each leaf's gradient summed over
-    the data axes it replicates over (one coalesced all-reduce per set
-    of axes), then divided by the number of data shards — the batch
-    mean over the global batch."""
+    the token axes it replicates over (one coalesced all-reduce per set
+    of axes), then divided by the number of token shards — the mean
+    over the global batch's tokens."""
     from torchbooster_tpu_torch.distributed import all_reduce
     from torchbooster_tpu_torch.parallel.sharding import replication_axes
 
-    n = mesh.axes_size(mesh.data_axes())
+    n = mesh.axes_size(mesh.token_axes())
     by_axes: dict[tuple, list] = {}
     for p in tree_leaves(params):
         if p.grad is None:
