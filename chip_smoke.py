@@ -315,6 +315,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    backward) held the same way. Prints the
    fold's ms beside one whole-sequence B1 + B2 + B3's (CUDA events a
    call) and each call's B1-B3 kernels alone (profiler), a finding only.
+14. tp      — GPT-2 small at full width (12 layers, d 768, 12 heads,
+   vocab 50257, seq 1024, learned positions, random weights of seed 42)
+   at ``tp:2``: two processes on the one card in a gloo group over
+   tensors on the card (NCCL refuses two ranks on one card; gloo takes
+   the all-reduces and broadcasts the path issues), spawned after the
+   build. Every block runs on 6 of the 12 heads (``_block_core(tp=...)``,
+   the rule table holding each rank's slices). fp32 (TF32 off): 2 steps
+   of batch 4 x 1024 against the tp:1 run of the same seed and batches
+   on the card, losses and the first step's gradients (gathered to the
+   canonical layout) within 1e-4 (|err| <= 1e-4 |ref| + 1e-4 max|ref| a
+   leaf). bf16: 6 steps at batch 8, remat on: finite falling losses, B1
+   / B2 / B3 24 / 12 / 12 a step a rank on ``"sm90"``. The trained tree
+   (head x4, decisive) served at tp:2 at fp32 and bf16 (8 requests of
+   64-512 prompt tokens, 32 new, page size 64): every stream token-exact
+   against the dense ``generate`` at tp:1, B4 = 12 x decode steps a
+   rank, each rank's pool half of tp:1's. Prints step ms, peak GiB a
+   rank, busy share, all-reduces a step and a forward, and
+   ``step_traffic``'s bytes; the all-reduces go through gloo and the
+   host, so no speed is read from this phase.
+15. pp_fold — the same model at ``pp:4`` (3 layers a stage), batch 8, so
+   8 microbatches of 1 x 1024, every stage in this process: the port's
+   ``run_schedule`` (``stage_tick`` each tick, the stages'
+   ``stage_runner``s, as ``pipeline_apply`` runs them) through
+   ``parallel.pipeline.fold_apply``, the rotation in-process, each (layer, microbatch) through ``models.gpt.
+   pipeline_layer`` under remat. Logits and gradients held to the
+   un-pipelined ``GPT.apply`` on the card: fp32 (TF32 off) within the
+   1e-4 bound above, bf16 at atol = rtol = 2e-2 and ||err|| / ||ref|| <=
+   2^-6 a tensor. B1 / B2 / B3 192 / 96 / 96 a step on ``"sm90"``, and no
+   stage runs its layers on an inactive tick. Prints the fold's ms and
+   device ms beside the un-pipelined step's, a finding only.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel's route, error, times and launches. Longer
@@ -340,7 +370,7 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
           "train", "gpt2_import", "train_long", "conv", "resnet_train",
-          "resnet_data", "train_comms", "moe", "sp_fold")
+          "resnet_data", "train_comms", "moe", "sp_fold", "tp", "pp_fold")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
@@ -5039,6 +5069,511 @@ def phase_sp_fold(report: dict, smi: str) -> dict:
     return {**totals, "by_route": by_route}
 
 
+# ---------------------------------------------------------- tp and pp_fold
+TP_FP32_BATCH = 4        # rows of 1024 in the fp32 tp:2 vs tp:1 check
+TP_FP32_STEPS = 2
+TP_STEPS = 6             # bf16, batch 8, remat: the tp:2 training run
+TP_BATCH = 8
+TP_SEED = 42
+# fp32 gradients, tp:2 against tp:1: |got - want| <= RTOL |want| + RTOL
+# max|want| a leaf (sums of the row products in another order)
+TP_RTOL = 1e-4
+# the flash plans at tp:2's 6 heads, D 64, bf16, one row of 1024 (the
+# pipeline's microbatch) and at decode: the routes the phases must take
+PP_STAGES, PP_MB = 4, 8
+
+
+def held_rel(label: str, got: torch.Tensor, want: torch.Tensor,
+             rtol: float) -> float:
+    """``got`` within ``rtol |want| + rtol max|want|`` of ``want``;
+    returns the worst |got - want| / max|want| and raises on a miss."""
+    g, w = got.float(), want.float()
+    scale = w.abs().max().clamp_min(1e-30)
+    err = (g - w).abs()
+    if not bool((err <= rtol * w.abs() + rtol * scale).all()):
+        raise AssertionError(f"{label}: worst |err| {err.max().item():.3e} "
+                             f"against max|ref| {scale.item():.3e} (rtol "
+                             f"{rtol})")
+    return (err.max() / scale).item()
+
+
+def canonical(leaf: torch.Tensor, value: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole tensor of a rule-sharded leaf's ``value`` (the leaf or
+    its gradient), qkv columns canonical (``sharding.full_leaf``)."""
+    from torchbooster_tpu_torch.parallel.sharding import full_leaf
+
+    return full_leaf(leaf, mesh, value.detach())
+
+
+class CountAllReduce:
+    """Counts ``torch.distributed.all_reduce`` calls while entered (the
+    port's ``distributed.all_reduce`` looks it up at call time)."""
+
+    def __enter__(self):
+        import torch.distributed as tdist
+
+        self.n, self._real = 0, tdist.all_reduce
+
+        def counting(*args, **kwargs):
+            self.n += 1
+            return self._real(*args, **kwargs)
+
+        tdist.all_reduce = counting
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        tdist.all_reduce = self._real
+
+
+def tp_trainer(mesh, cfg, dtype, remat: bool):
+    """A GPT-2 small ``TrainState`` laid out at ``tp:2`` by the rule
+    table (seed 42) and its ``make_step``; with ``mesh`` None the one-card
+    tp:1 run of the same seed."""
+    from torchbooster_tpu_torch import utils
+    from torchbooster_tpu_torch.config import EnvConfig, OptimizerConfig
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.ops.losses import cross_entropy
+
+    tx = OptimizerConfig(name="adamw", lr=1e-3, weight_decay=0.1).make()
+    state = utils.TrainState.create(GPT.init(TP_SEED, cfg, device=DEV), tx)
+    if mesh is not None:
+        state = EnvConfig(distributed=True, mesh="tp:2").make(
+            state, model=GPT, device=DEV)
+
+    def loss_fn(p, b, g):
+        logits = GPT.apply(p, b["ids"], cfg, compute_dtype=dtype,
+                           remat=remat, mesh=mesh)
+        return cross_entropy(logits, b["labels"]), {}
+
+    step = utils.make_step(loss_fn, tx, clip=1.0, mesh=mesh,
+                           rules=GPT.SHARDING_RULES if mesh else None)
+    return state, loss_fn, step
+
+
+def tp_batch(cfg, rows: int, seed: int) -> dict:
+    rs = np.random.RandomState(seed)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab, (rows, cfg.seq_len + 1)))
+    ids = ids.to(DEV)
+    return {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def tp_fp32_check(mesh, cfg) -> dict:
+    """tp:2 against tp:1 at fp32 (TF32 off), same seed and batches: the
+    first step's gradients (gathered to the canonical layout) and
+    ``TP_FP32_STEPS`` losses; rank 0 computes the tp:1 run and holds."""
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    batches = [tp_batch(cfg, TP_FP32_BATCH, 7 + i)
+               for i in range(TP_FP32_STEPS)]
+    state, loss_fn, step = tp_trainer(mesh, cfg, torch.float32, True)
+    loss, _ = loss_fn(state.params, batches[0], None)
+    loss.backward()
+    grads = {path: canonical(p, p.grad, mesh)
+             for path, p in tree_flatten(state.params)}
+    for _, p in tree_flatten(state.params):
+        p.grad = None
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    out = {"losses": losses}
+    if mesh.rank == 0:
+        ref, ref_loss_fn, ref_step = tp_trainer(None, cfg, torch.float32,
+                                                True)
+        ref_loss, _ = ref_loss_fn(ref.params, batches[0], None)
+        ref_loss.backward()
+        worst = 0.0
+        for path, p in tree_flatten(ref.params):
+            worst = max(worst, held_rel("tp fp32 grad " + "/".join(path),
+                                        grads[path], p.grad, TP_RTOL))
+            p.grad = None
+        want = []
+        for b in batches:
+            ref, m = ref_step(ref, b)
+            want.append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        if rel > TP_RTOL:
+            raise AssertionError(f"tp fp32 losses {losses} against tp:1 "
+                                 f"{want} (rtol {TP_RTOL})")
+        out.update(ref_losses=want, loss_rel=rel, grad_worst=worst)
+        del ref
+    del state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_bf16_train(mesh, cfg, smi: str) -> tuple[dict, dict]:
+    """``TP_STEPS`` bf16 steps at batch 8, remat on, at tp:2: finite
+    falling losses, B1 / B2 / B3 24 / 12 / 12 a step on ``"sm90"``, step
+    ms, peak, busy share, all-reduces a step and in a forward. Returns the
+    run's numbers and the trained state's whole tree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    state, loss_fn, step = tp_trainer(mesh, cfg, torch.bfloat16, True)
+    batch = tp_batch(cfg, TP_BATCH, 11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, counts = [], [], []
+    for i in range(TP_STEPS):
+        reset_flash_counts()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if i == TP_STEPS - 1:
+            with CountAllReduce() as per_step:
+                state, m = step(state, batch)
+        else:
+            state, m = step(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        counts.append(flash_counts())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"tp bf16 losses {losses} not finite and "
+                             f"falling")
+    for c in counts:
+        if (c["fwd"], c["dq"], c["dkv"]) != (24, 12, 12) or \
+                c["by_route"]["fwd"]["sm90"] != 24:
+            raise AssertionError(f"tp step B1-B3 {c}, not 24 / 12 / 12 "
+                                 f"on sm90")
+    with torch.no_grad(), CountAllReduce() as fwd:
+        loss_fn(state.params, batch, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = union_us(device_spans(prof)) / 1e6 / wall
+    with torch.no_grad():
+        tree: dict = {}
+        for path, p in tree_flatten(state.params):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = canonical(p, p, mesh)
+    res = {"losses": losses, "step_ms": ms, "peak_gib": peak,
+           "busy": busy, "profiled_wall_s": wall,
+           "all_reduces_step": per_step.n, "all_reduces_forward": fwd.n,
+           "flash": counts[-1], "flash_total": {
+               k: sum(c[k] for c in counts) for k in ("fwd", "dq", "dkv")},
+           "flash_routes": {k: {r: sum(c["by_route"][k][r] for c in counts)
+                                for r in counts[0]["by_route"][k]}
+                            for k in ("fwd", "dq", "dkv")}}
+    del state
+    torch.cuda.empty_cache()
+    return res, tree
+
+
+def tp_serve(mesh, params, cfg, dtype) -> dict:
+    """The trained tree (its head x4, decisive) served at tp:2: 8
+    requests of 64-512 tokens, 32 new, page size 64; B4 launches a rank,
+    decode steps, pool bytes, all-reduces a decode step. Rank 0 holds
+    every stream token-exact against the dense ``generate`` at tp:1."""
+    from torchbooster_tpu_torch.config import ServingConfig
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    batcher = ServingConfig(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
+                            tp=2).make(params, cfg, compute_dtype=dtype,
+                                       on_recompile="raise", mesh=mesh,
+                                       device=mesh.device)
+    eng = batcher.engine
+    steps = [0]
+    real_step = eng.step
+
+    def counted_step():
+        steps[0] += 1
+        return real_step()
+
+    eng.step = counted_step
+    reqs = requests(cfg)
+    reset_paged_counts()
+    t0 = time.perf_counter()
+    batcher.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_route = pa.launches, dict(pa.launches_by_route)
+    if launches != cfg.n_layers * steps[0]:
+        raise AssertionError(f"tp serving: B4 {launches} launches, not "
+                             f"{cfg.n_layers} x {steps[0]} decode steps")
+    want_route = "sm90" if dtype == torch.bfloat16 else "simt"
+    if by_route[want_route] != launches:
+        raise AssertionError(f"tp serving B4 by route {by_route}")
+    pool = sum(t.numel() * t.element_size()
+               for half in ("k", "v") for t in (
+                   eng.pool[half] if isinstance(eng.pool[half], tuple)
+                   else (eng.pool[half],)))
+    full = 2 * cfg.n_layers * N_PAGES * PS * cfg.kv_heads * cfg.head_dim \
+        * torch.empty((), dtype=dtype).element_size()
+    if pool * 2 != full:
+        raise AssertionError(f"tp pool {pool} B, not half of tp:1's {full}")
+    eng.admit(np.asarray(reqs[0].prompt[:64]))
+    eng.grow_slots()
+    with CountAllReduce() as per_step:
+        real_step()
+    torch.cuda.synchronize()
+    out = {"tokens": [list(r.tokens) for r in reqs], "launches": launches,
+           "by_route": by_route, "decode_steps": steps[0],
+           "pool_bytes": pool, "pool_bytes_tp1": full, "wall_s": wall,
+           "all_reduces_decode_step": per_step.n,
+           "traffic": eng.tp_step_traffic(1),
+           "decode_compiles": eng.decode_compiles}
+    if mesh.rank == 0:
+        want = dense_tokens(params, cfg, reqs, dtype)
+        bad = [i for i, (a, b) in enumerate(zip(out["tokens"], want))
+               if a != b]
+        if bad:
+            raise AssertionError(f"tp:2 {dtype} serving differs from the "
+                                 f"dense generate on requests {bad}")
+    del batcher, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(smi: str) -> dict:
+    """One of the two gloo ranks of the ``tp`` phase, on the one card:
+    the fp32 check, the bf16 run, then the trained tree served at fp32
+    and bf16. Every rank returns its own counts and numbers."""
+    from torchbooster_tpu_torch import distributed as dist
+    from torchbooster_tpu_torch.models.gpt import GPTConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = dist.make_mesh("tp:2", device=DEV)
+    if mesh.device.type != torch.device(DEV).type:
+        raise AssertionError(f"tp mesh on {mesh.device}, not the card")
+    cfg = GPTConfig()
+    out = {"rank": mesh.rank, "fp32": tp_fp32_check(mesh, cfg)}
+    out["bf16"], params = tp_bf16_train(mesh, cfg, smi)
+    params["wte"]["table"] = params["wte"]["table"] * 4.0
+    out["serve"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out["serve"][str(dtype)] = tp_serve(mesh, params, cfg, dtype)
+    return out
+
+
+def phase_tp(report: dict, smi: str) -> dict:
+    """GPT-2 small at ``tp:2`` in two processes on the one card, a gloo
+    group over tensors on the card (NCCL refuses two ranks on one card;
+    gloo takes the all-reduces and broadcasts the path issues). The
+    kernels are built before the spawn, so no two ranks race on the
+    build. Returns both ranks' B1-B3 and B4 launches."""
+    from torchbooster_tpu_torch import distributed as dist
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.ops import paged_attention as pa
+
+    log("tp plans at 6 heads, D 64, bf16: B1 "
+        f"{fa.plan_flash_fwd(torch.bfloat16, 64, 1024, 1024, 1)} at S 1024 "
+        f"(and batch 1 x 1024), B2/B3 "
+        f"{fa.plan_flash_bwd(torch.bfloat16, 64, 1024, 1024, 1)}, B4 "
+        f"{pa.plan_paged(torch.bfloat16, torch.bfloat16, 64, PS, 1, 1)} "
+        f"at decode, {pa.plan_paged(torch.float32, torch.float32, 64, PS, 1, 1)}"
+        f" at fp32")
+    compute_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    t0 = time.perf_counter()
+    ranks = dist.launch(tp_rank, n_devices=2, device=DEV, backend="gloo",
+                        args=(smi,))
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    fp = r0["fp32"]
+    log(f"tp fp32 tp:2 vs tp:1 ({TP_FP32_STEPS} steps, batch "
+        f"{TP_FP32_BATCH} x 1024, TF32 off): losses {fp['losses']} vs "
+        f"{fp['ref_losses']}, worst rel {fp['loss_rel']:.2e}; gradients "
+        f"worst |err| / max|ref| {fp['grad_worst']:.2e} (bound {TP_RTOL})")
+    for r in ranks:
+        b = r["bf16"]
+        log(f"tp bf16 rank {r['rank']}: losses "
+            f"{[round(x, 4) for x in b['losses']]}; step ms "
+            f"{[round(x, 1) for x in b['step_ms']]}; peak "
+            f"{b['peak_gib']:.2f} GiB; busy {100 * b['busy']:.1f}% of a "
+            f"profiled step's {b['profiled_wall_s']:.3f} s; all-reduces "
+            f"{b['all_reduces_step']} a step, {b['all_reduces_forward']} in "
+            f"a forward; B1-B3 a step {b['flash']['fwd']} / "
+            f"{b['flash']['dq']} / {b['flash']['dkv']} (sm90)")
+        for key, sv in r["serve"].items():
+            log(f"tp serve {key} rank {r['rank']}: 8/8 token-exact vs the "
+                f"dense generate at tp:1; B4 {sv['launches']} = 12 x "
+                f"{sv['decode_steps']} decode steps ({sv['by_route']}); "
+                f"pool {sv['pool_bytes'] / 2 ** 20:.1f} MiB = half of tp:1's "
+                f"{sv['pool_bytes_tp1'] / 2 ** 20:.1f}; all-reduces a decode "
+                f"step {sv['all_reduces_decode_step']}; step_traffic "
+                f"{sv['traffic']['wire_bytes']:.0f} B a step; wall "
+                f"{sv['wall_s']:.2f} s; decode shapes "
+                f"{sv['decode_compiles']}")
+    log(f"tp: compute mode {compute_mode}; two gloo ranks on one card; "
+        f"{wall:.1f} s with the spawn; {smi}")
+    report["tp"] = {"ranks": ranks, "wall_s": wall, "card": smi,
+                    "compute_mode": compute_mode}
+    flash = {k: sum(r["bf16"]["flash_total"][k] for r in ranks)
+             for k in ("fwd", "dq", "dkv")}
+    flash["by_route"] = {k: {rt: sum(r["bf16"]["flash_routes"][k][rt]
+                                     for r in ranks)
+                             for rt in ranks[0]["bf16"]["flash_routes"][k]}
+                         for k in ("fwd", "dq", "dkv")}
+    paged = {"launches": sum(sv["launches"] for r in ranks
+                             for sv in r["serve"].values()),
+             "by_route": {rt: sum(sv["by_route"][rt] for r in ranks
+                                  for sv in r["serve"].values())
+                          for rt in ("sm90", "simt")}}
+    return {"flash": flash, "paged": paged}
+
+
+def pp_fold_run(params, cfg, ids, labels, dtype, ran: list | None = None):
+    """GPT-2 small's forward and backward with its blocks through
+    ``fold_apply``: pp:4 (3 layers a stage), 8 microbatches of one row,
+    the port's ``pipeline_layer`` under remat. Returns logits and the
+    gradients by path."""
+    from torchbooster_tpu_torch.models.gpt import (
+        _embed,
+        _lm_head,
+        pipeline_layer,
+    )
+    from torchbooster_tpu_torch.ops.losses import cross_entropy
+    from torchbooster_tpu_torch.parallel.pipeline import fold_apply
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    layer = pipeline_layer(cfg, True, "auto", PP_MB)
+
+    def counted(layer_in, h, mb):
+        # the schedule's layer calls, in order (the remat recompute in
+        # backward runs inside ``layer``, not through here)
+        if ran is not None:
+            ran.append((int(layer_in[1]), mb))
+        return layer(layer_in, h, mb)
+
+    x = _embed(params, ids, dtype)
+    h, _ = fold_apply(counted,
+                      (params["blocks"], torch.arange(cfg.n_layers)),
+                      x, PP_STAGES, PP_MB, with_mb_index=True, with_aux=True)
+    logits = _lm_head(params, h)
+    cross_entropy(logits.float(), labels).backward()
+    grads = {p: leaf.grad for p, leaf in tree_flatten(params)}
+    for _, leaf in tree_flatten(params):
+        leaf.grad = None
+    return logits.detach(), grads
+
+
+def pp_plain_run(params, cfg, ids, labels, dtype):
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.ops.losses import cross_entropy
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    logits = GPT.apply(params, ids, cfg, compute_dtype=dtype, remat=True)
+    cross_entropy(logits.float(), labels).backward()
+    grads = {p: leaf.grad for p, leaf in tree_flatten(params)}
+    for _, leaf in tree_flatten(params):
+        leaf.grad = None
+    return logits.detach(), grads
+
+
+def phase_pp_fold(report: dict, smi: str) -> dict:
+    """GPT-2 small at ``pp:4`` folded on the one card: all four stages in
+    this process, the port's ``stage_tick`` under ``fold_apply`` with the
+    rotation in-process. Out and gradients held to the un-pipelined
+    ``GPT.apply`` on the card: fp32 (TF32 off) at ``TP_RTOL``, bf16 at
+    atol = rtol = 2e-2 and ||err|| / ||ref|| <= 2^-6 a tensor. Returns
+    the bf16 fold's B1-B3 launches."""
+    from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+    from torchbooster_tpu_torch.parallel.sharding import tree_flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig()
+    params = GPT.init(TP_SEED, cfg, device=DEV)
+    for _, leaf in tree_flatten(params):
+        leaf.requires_grad_(True)
+    b = tp_batch(cfg, PP_MB, 13)
+    ids, labels = b["ids"], b["labels"]
+    out: dict = {"card": smi}
+    want_l, want_g = pp_plain_run(params, cfg, ids, labels, torch.float32)
+    got_l, got_g = pp_fold_run(params, cfg, ids, labels, torch.float32)
+    worst = held_rel("pp_fold fp32 logits", got_l, want_l, TP_RTOL)
+    for path in want_g:
+        worst = max(worst, held_rel("pp_fold fp32 grad " + "/".join(path),
+                                    got_g[path], want_g[path], TP_RTOL))
+    out["fp32_worst"] = worst
+    del want_g, got_g
+    want_l, want_g = pp_plain_run(params, cfg, ids, labels, torch.bfloat16)
+    ran: list = []
+    reset_flash_counts()
+    got_l, got_g = pp_fold_run(params, cfg, ids, labels, torch.bfloat16,
+                               ran)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    if (launches["fwd"], launches["dq"], launches["dkv"]) != (192, 96, 96) \
+            or launches["by_route"]["fwd"]["sm90"] != 192:
+        raise AssertionError(f"pp_fold B1-B3 {launches}, not 192 / 96 / 96 "
+                             f"on sm90")
+    # tick t: stage s runs microbatch t - s where it exists, its layers
+    # in order; a stage that ran on an inactive tick adds calls
+    per = cfg.n_layers // PP_STAGES
+    want_ran = [(s * per + j, t - s) for t in range(PP_MB + PP_STAGES - 1)
+                for s in range(PP_STAGES) if 0 <= t - s < PP_MB
+                for j in range(per)]
+    if ran != want_ran:
+        raise AssertionError(f"pp_fold ran {ran}: a stage ran on an "
+                             f"inactive tick or skipped an active one")
+    pairs = [("logits", got_l, want_l)] + [
+        ("/".join(p), got_g[p], want_g[p]) for p in want_g]
+    errs, used = hold_flash("pp_fold bf16", SP_FOLD_TOL, pairs)
+    norm = torch.linalg.vector_norm
+    rel = {k: (norm(g.float() - w.float()) / norm(w.float())).item()
+           for k, g, w in pairs}
+    if max(rel.values()) > SP_FOLD_REL:
+        raise AssertionError(f"pp_fold bf16 ||err|| / ||ref|| "
+                             f"{max(rel.values()):.3e} > 2^-6")
+    out.update(bf16_max_abs_err=max(errs.values()),
+               bf16_allowance_used=max(used.values()),
+               bf16_rel=max(rel.values()), launches=launches)
+
+    def fold_step():
+        pp_fold_run(params, cfg, ids, labels, torch.bfloat16)
+
+    def plain_step():
+        pp_plain_run(params, cfg, ids, labels, torch.bfloat16)
+
+    out["fold_ms"] = cuda_ms(fold_step, iters=3, warmup=1)
+    out["plain_ms"] = cuda_ms(plain_step, iters=3, warmup=1)
+    out["fold_device_ms"] = call_device_ms(fold_step)
+    out["plain_device_ms"] = call_device_ms(plain_step)
+    log(f"pp_fold pp:4 x 8 microbatches of 1 x 1024: fp32 worst |err| / "
+        f"max|ref| {worst:.2e} (bound {TP_RTOL}); bf16 worst element "
+        f"{out['bf16_max_abs_err']:.2e} ({100 * out['bf16_allowance_used']:.0f}% "
+        f"of atol = rtol = {SP_FOLD_TOL}), ||err|| / ||ref|| "
+        f"{out['bf16_rel']:.2e} (bound 2^-6); B1-B3 192 / 96 / 96 (sm90); "
+        f"{len(ran) // per} active (stage, tick) pairs of "
+        f"{PP_STAGES * (PP_MB + PP_STAGES - 1)}, none inactive")
+    log(f"pp_fold timing (a finding): fold {out['fold_ms']:.1f} ms, "
+        f"device {out['fold_device_ms']:.1f} ms; un-pipelined step "
+        f"{out['plain_ms']:.1f} ms, device {out['plain_device_ms']:.1f} ms; "
+        f"{smi}")
+    report["pp_fold"] = out
+    del params
+    torch.cuda.empty_cache()
+    return {**{k: launches[k] for k in ("fwd", "dq", "dkv")},
+            "by_route": launches["by_route"]}
+
+
+def call_device_ms(fn) -> float:
+    """Device ms of one call of ``fn``: the union of its kernel intervals
+    under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return union_us(device_spans(prof)) / 1e3
+
+
 # ------------------------------------------------------------------ conv
 RN_B = 512            # the ResNet recipe's batch (examples/img_cls/resnet)
 GROUPS = 32
@@ -6373,13 +6908,14 @@ def main() -> int:
                        ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long),
                        ("train_comms", phase_train_comms),
-                       ("moe", phase_moe), ("sp_fold", phase_sp_fold)):
+                       ("moe", phase_moe), ("sp_fold", phase_sp_fold),
+                       ("tp", phase_tp), ("pp_fold", phase_pp_fold)):
         if key not in phases:
             continue
         t = time.perf_counter()
         launches = phase(report, smi)
         phase_s[key] = time.perf_counter() - t
-        if key in ("gpt2_import", "moe"):
+        if key in ("gpt2_import", "moe", "tp"):
             paged = launches["paged"]
             kernel["launches"] += paged["launches"]
             for r, n in paged["by_route"].items():

@@ -1206,3 +1206,58 @@ def test_ring_fold_matches_whole_sequence_flash_on_card(d, h, h_kv):
             want = want.float()
             torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
             assert (got - want).norm() <= 2.0 ** -6 * want.norm()
+
+
+@pytest.mark.cuda
+def test_pipeline_fold_matches_unpipelined_gpt_on_card():
+    """The pp:4 GPipe schedule folded into one process on the card
+    (``parallel.pipeline.fold_apply``; 8 layers, 8 microbatches, fp32,
+    remat): its logits and gradients equal the un-pipelined
+    ``GPT.apply`` on the card to 1e-4, and B1-B3 launch once per
+    (layer, microbatch) forward, twice with the remat recompute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernels have no "
+                    "interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from torchbooster_tpu_torch.models.gpt import (
+        GPT,
+        GPTConfig,
+        _embed,
+        _lm_head,
+        pipeline_layer,
+    )
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+    from torchbooster_tpu_torch.ops.losses import cross_entropy
+    from torchbooster_tpu_torch.parallel.pipeline import fold_apply
+
+    cfg = GPTConfig(vocab=128, n_layers=8, d_model=128, n_heads=2,
+                    seq_len=128)
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 128, (8, 128))).cuda()
+    labels = torch.from_numpy(rs.randint(0, 128, (8, 128))).cuda()
+    ref = GPT.init(0, cfg, device="cuda")
+    for leaf in _leaves(ref):
+        leaf.requires_grad_(True)
+    want = GPT.apply(ref, ids, cfg, compute_dtype=torch.float32)
+    cross_entropy(want, labels).backward()
+    p = GPT.init(0, cfg, device="cuda")
+    for leaf in _leaves(p):
+        leaf.requires_grad_(True)
+    before = fa.launches_fwd
+    layer = pipeline_layer(cfg, True, "auto", 8)
+    h, _ = fold_apply(layer, (p["blocks"], torch.arange(8)),
+                      _embed(p, ids, torch.float32), 4, 8,
+                      with_mb_index=True, with_aux=True)
+    got = _lm_head(p, h)
+    cross_entropy(got, labels).backward()
+    torch.cuda.synchronize()
+    assert fa.launches_fwd - before == 2 * 8 * 8
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for a, b in zip(_leaves(p), _leaves(ref)):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]

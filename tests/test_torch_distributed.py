@@ -272,6 +272,14 @@ def _launched(scale: int) -> dict:
             "sum": scale * float(t)}
 
 
+def _mesh_on_card() -> str:
+    try:
+        dist.make_mesh("dp", device="cuda")
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
 def test_launch_inline_and_at_world_2():
     assert dist.launch(lambda a, b: a + b, args=(2, 3)) == 5
     assert not tdist.is_initialized()
@@ -280,6 +288,14 @@ def test_launch_inline_and_at_world_2():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             dist.launch(lambda: None, n_devices=2)
+        # gloo over card tensors asks for a card all the same
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dist.launch(lambda: None, n_devices=2, backend="gloo")
+        # inside a gloo group on the CPU, a mesh asked on the card raises
+        # rather than landing on the CPU
+        err = dist.launch(_mesh_on_card, n_devices=1, distributed=True,
+                          device="cpu")
+        assert "device='cpu'" in err
     # one device under distributed: a world-1 group in this process
     one = dist.launch(_launched, n_devices=1, args=(1,), distributed=True,
                       device="cpu")
@@ -470,28 +486,33 @@ def test_make_step_rules_matches_jax(pool):
 
 
 # =========================================================================
-# model axes: sp and ep run, tp and pp raise naming A-5c
+# model axes: every axis runs; at world 1 a size above 1 is JAX's error
 # =========================================================================
 
 def test_model_axes_raise():
-    for spec in ("dp,tp:2", "pp:2", "dp:1,sp:2,tp:2", "ep:2,pp:2"):
-        with pytest.raises(NotImplementedError, match="A-5c"):
-            dist.make_mesh(spec, device="cpu")
-        with pytest.raises(NotImplementedError, match="A-5c"):
-            EnvConfig(distributed=True, mesh=spec).device("cpu")
-    # sp and ep are ported: at world 1 a size above 1 is JAX's mesh error
-    for spec in ("dp:1,sp:2", "dp,ep:4"):
+    """Every JAX axis builds a mesh now (tp and pp included): at world 1
+    an axis of size above 1 raises JAX's device-count error, and a rule
+    that names tp or pp shards where the axis has a size above 1."""
+    for spec in ("dp,tp:2", "pp:2", "dp:1,sp:2,tp:2", "ep:2,pp:2",
+                 "dp:1,sp:2", "dp,ep:4"):
         with pytest.raises(ValueError, match="devices"):
             dist.make_mesh(spec, device="cpu")
+        with pytest.raises(ValueError, match="devices"):
+            EnvConfig(distributed=True, mesh=spec).device("cpu")
     one = dist.make_mesh("dp,sp:1,ep:1", device="cpu")
     assert one.shape == {"dp": 1, "sp": 1, "ep": 1}
     assert one.token_axes() == ("dp", "sp") and one.axis("ep") is None
-    # a rule that names tp on a mesh where tp has a size above 1
+    # a rule that names tp on a mesh where tp has a size above 1 shards
     mesh = dist.Mesh(axis_names=("dp", "tp"), sizes=(1, 2),
                      device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A-5c"):
-        make_param_specs({"w": torch.zeros(4, 4)}, [(r"w", P(None, "tp"))],
-                         mesh=mesh)
+    assert make_param_specs({"w": torch.zeros(4, 4)},
+                            [(r"w", P(None, "tp"))], mesh=mesh) == \
+        {"w": (None, "tp")}
+    pp = dist.Mesh(axis_names=("pp", "tp"), sizes=(2, 2),
+                   device=torch.device("cpu"))
+    assert make_param_specs({"w": torch.zeros(4, 6)},
+                            [(r"w", P("pp", "tp"))], mesh=pp) == \
+        {"w": ("pp", "tp")}
     # an ep rule shards where ep has a size above 1
     ep = dist.Mesh(axis_names=("dp", "ep"), sizes=(1, 2),
                    device=torch.device("cpu"))

@@ -79,7 +79,8 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "data.idx", "data.cifar", "data.folder", "distributed",
                  "parallel", "parallel.sharding", "comms.quantized",
                  "comms.zero", "comms.schedule", "models.moe",
-                 "parallel.ring", "parallel.ulysses"):
+                 "parallel.ring", "parallel.ulysses", "parallel.pipeline",
+                 "serving.tp"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers

@@ -505,11 +505,13 @@ def test_entry_points_default_to_the_card_and_unported_options_raise():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             EnvConfig().device()
     # meshes over dp and fsdp are ported (tests/test_torch_distributed.py),
-    # sp and ep too (tests/test_torch_sequence.py, tests/test_torch_moe.py);
-    # tp and pp wait for A-5c
-    with pytest.raises(NotImplementedError, match="A-5c"):
+    # sp and ep too (tests/test_torch_sequence.py, tests/test_torch_moe.py),
+    # tp and pp too (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_pipeline.py): at world 1 a size of 2 is JAX's
+    # device-count error
+    with pytest.raises(ValueError, match="devices"):
         EnvConfig(distributed=True, mesh="dp,tp:2").device("cpu")
-    with pytest.raises(NotImplementedError, match="A-5c"):
+    with pytest.raises(ValueError, match="devices"):
         EnvConfig(distributed=True, mesh="dp,pp:2").device("cpu")
     assert EnvConfig(distributed=True).device("cpu") == torch.device("cpu")
     assert EnvConfig(distributed=True, mesh="dp,sp:1,ep:1").device(
@@ -534,8 +536,18 @@ def test_entry_points_default_to_the_card_and_unported_options_raise():
 
     tp = Mesh(axis_names=("dp", "tp"), sizes=(1, 2),
               device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A-5c"):
-        utils.make_step(lambda *a: None, None, mesh=tp, rules=[(r".*", ())])
+    assert callable(utils.make_step(lambda *a: None, None, mesh=tp,
+                                    rules=[(r".*", ())]))
+    # what still raises raises with JAX's message: tp > 1 serving with
+    # n_replicas > 1 from YAML
+    from torchbooster_tpu_torch.config import ServingConfig
+
+    conf = ServingConfig.from_dict({"tp": 2, "page_size": 4,
+                                    "router": {"n_replicas": 2}})
+    with pytest.raises(ValueError, match="not buildable from YAML"):
+        conf.make({}, recipe.ModelConfig(vocab=97, n_layers=2, d_model=32,
+                                         n_heads=4, seq_len=32).make(),
+                  device="cpu", mesh=tp)
     sp_ep = Mesh(axis_names=("sp", "ep"), sizes=(2, 2),
                  device=torch.device("cpu"))
     assert callable(utils.make_step(lambda *a: None, None, mesh=sp_ep,

@@ -178,6 +178,109 @@ def test_world4_dp_fsdp_stage2_matches_jax():
 
 
 # =========================================================================
+# stage 3 holds no gathered bucket from the forward to the backward
+# =========================================================================
+
+def case_stage3_held(model: str, regather: bool, steps: int = 2) -> dict:
+    """Stage 3 at fp32 for ``steps`` steps on the linear problem or a
+    two-layer GPT under remat. Every full bucket the schedule gathers is
+    watched (``distributed.all_gather`` wrapped); when backward starts
+    (a hook on the loss) the bytes of the watched buckets still alive
+    are counted. ``regather=False`` turns the saved-tensor hooks into
+    pass-throughs, the schedule before the re-gather: it must give the
+    same parameters, bit for bit."""
+    import gc
+
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    from tests.test_torch_distributed import TINY
+    from torchbooster_tpu_torch.comms import schedule
+    from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+
+    mesh = dist.make_mesh("dp", device="cpu")
+    tx = OptimizerConfig(name="adamw", lr=LR, weight_decay=1e-4).make()
+    comms = port_schedule(mesh, STAGE3)
+    if model == "linear":
+        params, host = host_problem()
+        params = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        inner = port_loss
+    else:
+        cfg = GPTConfig(**TINY)
+        params = GPT.init(0, cfg, device="cpu")
+        rs = np.random.RandomState(1)
+        ids = rs.randint(0, cfg.vocab, (4, cfg.seq_len + 1))
+        host = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+        def inner(p, b, generator):
+            logits = GPT.apply(p, b["ids"], cfg, compute_dtype=torch.float32,
+                               remat=True)
+            return torch.nn.functional.cross_entropy(
+                logits.reshape(-1, cfg.vocab), b["labels"].reshape(-1)), {}
+
+    state = comms.create_state(params, tx)
+    padded = set(comms.plan().padded)
+    watched: list = []
+    held: list = []
+    gather = dist.all_gather
+
+    def watching(out, inp, group, async_op=False):
+        if out.numel() in padded:
+            watched.append((StorageWeakRef(out.untyped_storage()),
+                            out.numel()))
+        return gather(out, inp, group, async_op)
+
+    def at_backward(grad):
+        gc.collect()
+        held.append(sum(4 * n for ref, n in watched
+                        if not ref.expired()))
+        watched.clear()
+        return grad
+
+    def loss_fn(p, b, generator):
+        loss, aux = inner(p, b, generator)
+        loss.register_hook(at_backward)
+        return loss, aux
+
+    step = utils.make_step(loss_fn, tx, comms=comms)
+    batch = dist.shard_batch(host, mesh)
+    pack = schedule._Regather.pack
+    dist.all_gather = watching
+    if not regather:
+        schedule._Regather.pack = lambda self, t: t
+    try:
+        losses = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    finally:
+        dist.all_gather = gather
+        schedule._Regather.pack = pack
+    full = comms.gather_params(state)
+    flat = {"/".join(path): v.detach().numpy().copy() for path, v in
+            __import__("torchbooster_tpu_torch.parallel.sharding",
+                       fromlist=["tree_flatten"]).tree_flatten(full)}
+    return {"held": held, "losses": losses, "params": flat,
+            "bucket_bytes": 4 * sum(padded)}
+
+
+@pytest.mark.parametrize("model", ["linear", "gpt_remat"])
+def test_stage3_holds_no_gathered_bucket_for_backward(pool, model):
+    """After the stage-3 forward no full bucket is alive: every saved
+    view of one is a token, gathered again in backward. The same run
+    with the hooks passing tensors through (the schedule before the
+    re-gather) holds buckets at that point, and the two runs' losses
+    and parameters are equal bit for bit."""
+    got = pool.run(case_stage3_held, model, True)
+    old = pool.run(case_stage3_held, model, False)
+    for new_rank, old_rank in zip(got, old):
+        assert new_rank["held"] == [0, 0]
+        assert all(h > 0 for h in old_rank["held"])
+        assert new_rank["losses"] == old_rank["losses"]
+        for key, value in old_rank["params"].items():
+            np.testing.assert_array_equal(new_rank["params"][key], value)
+
+
+# =========================================================================
 # the collectives each schedule plans
 # =========================================================================
 

@@ -225,6 +225,15 @@ class SaveCallback(BaseCallback):
                 unique = dict(zip(map(tuple, starts), chunks))
                 starts, chunks = list(map(list, unique)), list(unique.values())
                 shape = list(layout.global_shape)
+                perm = getattr(layout, "column_perm", None)
+                if perm is not None:
+                    # qkv columns split over tp, rank-major: assembled
+                    # and written in the canonical order, as JAX's are
+                    full = np.empty(shape, dtype=chunks[0].dtype)
+                    for c, st in zip(chunks, starts):
+                        full[tuple(slice(o, o + n)
+                                   for o, n in zip(st, c.shape))] = c
+                    chunks = [np.take(full, np.argsort(perm), axis=-1)]
             if len(chunks) > 1:
                 for i, c in enumerate(chunks):
                     arrays[f"{key}##{i}"] = c
@@ -501,14 +510,17 @@ def _plan_of(comms: Any, values: dict) -> Any:
 
 def _group_device(comms: Any) -> tuple:
     """The group a sharded save gathers over — the schedule's data group,
-    else the world's (a rule-sharded state: every axis a data axis) —
-    and this rank's device; ``(None, None)`` without a process group."""
+    else the world (a rule-sharded state: its blocks may split over any
+    axis, ``fsdp``, ``ep``, ``tp`` or ``pp``) — and this rank's device;
+    ``(None, None)`` without a process group."""
     from torchbooster_tpu_torch import distributed as dist
 
     # under a group the world's mesh takes the group's device, "cpu" or not
     mesh = comms.mesh if comms is not None else dist.get_mesh(device="cpu")
     if not mesh.distributed:
         return None, None
+    if comms is None:
+        return mesh.group(mesh.axis_names), mesh.device
     return mesh.group(mesh.data_axes()), mesh.device
 
 
@@ -615,9 +627,13 @@ def _load_state(st: Any, prefix: str, host: dict, old_meta: Any,
         dst.copy_(torch.as_tensor(np.asarray(value)).reshape(dst.shape))
 
     def block(arr: np.ndarray, layout: Any) -> np.ndarray:
-        """This rank's block of a full array, for a rule-sharded leaf."""
+        """This rank's block of a full array, for a rule-sharded leaf
+        (qkv columns over tp taken in their rank-major order first)."""
         if layout is None:
             return arr
+        perm = getattr(layout, "column_perm", None)
+        if perm is not None:
+            arr = np.take(arr, perm, axis=-1)
         return arr[tuple(slice(b, b + n) for b, n in
                          zip(layout.block_start, layout.shape))]
 

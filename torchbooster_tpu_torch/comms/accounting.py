@@ -39,8 +39,8 @@ def padded_size(n_params: int, n_shards: int, bucket_size: int) -> int:
 
 def step_traffic(n_params: int, n_shards: int, mode: str,
                  zero1: bool, bucket_size: int, stage: int | None = None,
-                 overlap: bool = False, padded: int | None = None
-                 ) -> dict:
+                 overlap: bool = False, padded: int | None = None,
+                 regathered: int = 0) -> dict:
     """Per-replica bytes the gradient sync of one train step moves,
     broken down per collective. ``n_params`` is the raw parameter
     count; the model accounts for padding to
@@ -59,7 +59,10 @@ def step_traffic(n_params: int, n_shards: int, mode: str,
     update, and the ``jax.checkpoint`` backward re-gather is CSE'd by
     XLA while the gathered buffer is live (the HLO-validation tests
     pin this — on a backend that keeps the re-gather, add
-    ``frac·4·padded``). ``overlap`` never changes the byte count,
+    ``frac·4·padded``). The port keeps it: ``regathered`` is the
+    elements its stage-3 backward gathered again (the padded buckets
+    the loss saved views of), priced as ``param_regather``; 0 gives the
+    JAX package's numbers. ``overlap`` never changes the byte count,
     only whether compute hides it (see :func:`overlap_report`)."""
     n = max(1, n_shards)
     if stage is None:
@@ -91,6 +94,8 @@ def step_traffic(n_params: int, n_shards: int, mode: str,
         raise ValueError(f"step_traffic: unknown mode {mode!r}")
     if zero1:
         per["param_all_gather"] = frac * GRAD_BYTES * padded
+    if stage >= 3 and regathered:
+        per["param_regather"] = frac * GRAD_BYTES * regathered
     total = sum(per.values())
     return {
         "mode": mode, "zero1": bool(zero1), "n_shards": n,
@@ -98,7 +103,8 @@ def step_traffic(n_params: int, n_shards: int, mode: str,
         "padded_params": padded,
         "per_collective": {k: round(v, 1) for k, v in per.items()},
         "total_bytes": round(total, 1),
-        "grad_bytes": round(total - per.get("param_all_gather", 0.0), 1),
+        "grad_bytes": round(total - per.get("param_all_gather", 0.0)
+                            - per.get("param_regather", 0.0), 1),
     }
 
 

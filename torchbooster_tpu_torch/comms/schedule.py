@@ -12,7 +12,13 @@
   ``TrainState.params`` is this rank's flat fp32 shard. The forward
   all-gathers each bucket through an ``autograd.Function`` whose
   backward issues that bucket's reduce-scatter, so the gradient sync is
-  inside backward by construction.
+  inside backward by construction. Nothing holds a gathered bucket from
+  the forward to the backward: saved-tensor hooks put a token in place
+  of every saved view of a bucket, and the backward gathers that bucket
+  again from the shard (JAX re-gathers under ``jax.checkpoint``) when
+  it first needs it, in the order autograd visits the saved tensors —
+  the same on every rank, whose graphs are the same — and keeps it to
+  the end of the backward.
 
 Collectives issued from autograd's thread run on the stream the backward
 runs on: the collective waits on it, and waiting for the result orders
@@ -270,16 +276,73 @@ class _GatherBucket(torch.autograd.Function):
 
 
 def gathered_params(plan: BucketPlan, shard: torch.Tensor, group: Any,
-                    launch: Callable[[int, torch.Tensor], None]) -> dict:
+                    launch: Callable[[int, torch.Tensor], None],
+                    regather: "_Regather | None" = None) -> dict:
     """Stage-3 forward: the full parameter tree from the flat shard,
-    bucket by bucket, through the gather hooks."""
+    bucket by bucket, through the gather hooks. With ``regather`` each
+    gathered bucket is registered with it, so that its saved views are
+    gathered again in backward instead of being held."""
     leaves: list = []
     for b in range(plan.n_buckets):
         off = plan.shard_offset(b)
         full = _GatherBucket.apply(shard[off:off + plan.chunks[b]], b,
                                    plan.padded[b], group, launch)
+        if regather is not None:
+            regather.register(b, full)
         leaves.extend(plan.unravel_bucket(b, full))
     return plan.tree(leaves)
+
+
+class _Regather:
+    """Saved-tensor hooks for the stage-3 forward (``with regather:``).
+    ``pack`` puts ``(bucket, size, stride, offset)`` in place of a saved
+    tensor that views a gathered bucket's storage; ``unpack`` gathers the
+    bucket again from this rank's chunk of the (not yet updated) shard
+    the first time one of its views is asked for, and gives the same
+    view of it. A re-gathered bucket is kept to the end of the backward
+    (a stacked leaf spans every layer, so each layer's backward reads
+    the same buckets); the order of the gathers is the order autograd
+    unpacks in, the same on every rank."""
+
+    def __init__(self, plan: BucketPlan, shard: torch.Tensor, group: Any):
+        self.plan, self.shard, self.group = plan, shard, group
+        self.storages: dict[int, int] = {}
+        self.cached: dict[int, torch.Tensor] = {}
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                               self.unpack)
+
+    def register(self, b: int, full: torch.Tensor) -> None:
+        self.storages[full.untyped_storage().data_ptr()] = b
+
+    def pack(self, t: torch.Tensor) -> Any:
+        b = self.storages.get(t.untyped_storage().data_ptr()) \
+            if t.device.type != "meta" else None
+        if b is None:
+            return t
+        return (b, tuple(t.shape), t.stride(), t.storage_offset())
+
+    def unpack(self, packed: Any) -> torch.Tensor:
+        if isinstance(packed, torch.Tensor):
+            return packed
+        b, size, stride, offset = packed
+        if b not in self.cached:
+            from torchbooster_tpu_torch.distributed import all_gather
+
+            off = self.plan.shard_offset(b)
+            chunk = self.shard.detach()[off:off + self.plan.chunks[b]]
+            full = torch.empty(self.plan.padded[b], dtype=torch.float32,
+                               device=self.shard.device)
+            all_gather(full, chunk, self.group)
+            self.cached[b] = full
+        return self.cached[b].as_strided(size, stride, offset)
+
+    def __enter__(self) -> "_Regather":
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._hooks.__exit__(*exc)
+        self.storages.clear()
 
 
 def hook_buckets(plan: BucketPlan, leaves: list,
@@ -420,10 +483,13 @@ class CommsSchedule(GradComms):
         from torchbooster_tpu_torch.comms import accounting
 
         plan = getattr(self, "_plan", None)
+        regathered = sum(plan.padded[b] for b in getattr(
+            self, "_regathered", ())) if plan is not None else 0
         return accounting.step_traffic(
             n_params, self.n_shards, self.mode, self.zero1,
             self.bucket_size, stage=self.stage, overlap=self.overlap,
-            padded=plan.total_padded if plan is not None else None)
+            padded=plan.total_padded if plan is not None else None,
+            regathered=regathered)
 
     def collectives_per_step(self, clip: bool = False) -> dict:
         """The collectives one ``make_step(comms=self)`` step issues, by
@@ -447,9 +513,13 @@ class CommsSchedule(GradComms):
                 out["all_gather"] += 1 if self.wire == "bf16" else 2
         if self.stage >= 1:
             # stage 1: one gather of the flat vector; 2: one a bucket
-            # after the update; 3: one a bucket before the loss
+            # after the update; 3: one a bucket before the loss, and in
+            # backward one for each bucket the loss saved a view of
+            # (those of the last step)
             out["all_gather"] += self.plan().n_buckets \
                 if self.stage >= 2 else 1
+            if self.stage >= 3:
+                out["all_gather"] += len(getattr(self, "_regathered", ()))
             out["all_reduce"] += int(clip)
         return out
 
@@ -550,9 +620,14 @@ def sharded_step(sched: CommsSchedule, loss_fn: Callable, tx: Any,
         return out if has_aux else (out, {})
 
     if stage >= 3:
-        loss, aux = call_loss(gathered_params(plan, state.params, group,
-                                              launch))
+        regather = _Regather(plan, state.params, group)
+        with regather:
+            loss, aux = call_loss(gathered_params(plan, state.params, group,
+                                                  launch, regather))
         loss.backward()
+        # the buckets gathered again, for the plan's count and traffic
+        object.__setattr__(sched, "_regathered", tuple(regather.cached))
+        regather.cached = {}
     else:
         leaves = plan.leaves(state.params)
         handles = hook_buckets(plan, leaves, launch) if overlap else []

@@ -23,10 +23,10 @@ for the training and serving slices:
   workload source); ``ObservabilityConfig`` with its ``tracing:`` and
   ``slo:`` blocks.
 
-Not ported yet (``ROADMAP.md`` A-5c): the tensor- and pipeline-parallel
-mesh axes (``tp``, ``pp``) and tensor-parallel serving. Configurations
-that need them raise ``NotImplementedError``. PyYAML is
-imported only when a file is read."""
+Meshes take every axis of the JAX package (``dp``, ``fsdp``, ``sp``,
+``ep``, ``tp``, ``pp``), and ``serving.tp`` splits the engine's heads
+over a ``tp`` mesh (``serving/tp.py``). PyYAML is imported only when a
+file is read."""
 from __future__ import annotations
 
 import ast
@@ -268,9 +268,9 @@ class BaseConfig:
 class EnvConfig(BaseConfig):
     """Execution environment: compute precision, the device and the mesh.
     One process runs per device (``distributed.launch``); ``mesh`` names
-    axes over the ranks (``dp``, ``fsdp``, ``sp``, ``ep``), and
-    ``distributed: false`` degrades any topology to one device. The
-    ``tp`` and ``pp`` axes wait for ROADMAP.md A-5c and raise."""
+    axes over the ranks (``dp``, ``fsdp``, ``sp``, ``ep``, ``tp``,
+    ``pp``), and ``distributed: false`` degrades any topology to one
+    device."""
 
     distributed: bool = False
     fp16: bool = False                 # alias → bf16 compute
@@ -859,8 +859,9 @@ class ServingConfig:
     ``"pallas"`` (the paged flash-decode kernel), and the port's own,
     ``"sweep"`` and ``"kernel"``; ``""`` picks the kernel on the card and
     the sweep on the CPU. Any other name raises in :meth:`make`.
-    ``tp > 1``, not ported yet, raises ``NotImplementedError`` in the
-    engine. The nested ``frontend:``, ``router:``, ``structured:``,
+    ``tp > 1`` runs one engine per rank of a ``tp`` mesh axis of that
+    size, each over its head shard (``serving/tp.py``; pass the mesh to
+    :meth:`make`). The nested ``frontend:``, ``router:``, ``structured:``,
     ``weights:``, ``adapters:``, ``host_spill:`` and ``disagg:`` blocks
     are :class:`FrontendConfig`, :class:`RouterConfig`,
     :class:`StructuredConfig`, :class:`WeightsConfig`,
@@ -917,7 +918,7 @@ class ServingConfig:
              compute_dtype: torch.dtype | str | None = None,
              on_recompile: str = "warn",
              device: str | torch.device = "cuda",
-             tracer: Any = None):
+             tracer: Any = None, mesh: Any = None):
         """Build the engines and their batchers; returns the
         :class:`~torchbooster_tpu_torch.serving.ContinuousBatcher`, with
         ``disagg.enabled`` a
@@ -930,11 +931,17 @@ class ServingConfig:
         ``compute_dtype`` defaults to bf16. The ``weights:`` block
         quantizes ``params`` once, before any engine is built.
         ``tracer`` is installed on every batcher; a fleet without one
-        gets one shared ``RequestTracer``."""
+        gets one shared ``RequestTracer``. ``mesh`` is the mesh a ``tp >
+        1`` engine splits its heads over (``distributed.make_mesh``, its
+        ``tp`` axis of exactly that size), checked here before anything
+        is built."""
         from torchbooster_tpu_torch.serving import (
             ContinuousBatcher,
             PagedEngine,
         )
+        from torchbooster_tpu_torch.serving.tp import check_tp
+
+        check_tp(self.tp, model_cfg, mesh)
 
         if isinstance(compute_dtype, str):
             compute_dtype = _DTYPES[compute_dtype]
@@ -947,6 +954,12 @@ class ServingConfig:
         if n_replicas < 1:
             raise ValueError(f"serving.router.n_replicas must be >= 1, got "
                              f"{n_replicas}")
+        if n_replicas > 1 and self.tp > 1:
+            raise ValueError(
+                f"serving.router.n_replicas={n_replicas} with "
+                f"tp={self.tp} is not buildable from YAML: every "
+                "replica would shard over the SAME tp mesh axis — "
+                "build EngineFleet directly with per-replica meshes")
 
         def build_engine(*, prefill_only=False, n_pages=None,
                          max_slots=None, host_spill=None):
@@ -973,7 +986,7 @@ class ServingConfig:
                 host_spill=(self.host_spill.enabled if host_spill is None
                             else host_spill),
                 host_spill_mb=self.host_spill.budget_mb,
-                prefill_only=prefill_only, device=device)
+                prefill_only=prefill_only, device=device, mesh=mesh)
 
         # one policy object serves every batcher built here (policies
         # are stateless over their class tables)

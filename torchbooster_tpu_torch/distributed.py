@@ -14,9 +14,11 @@ Without a process group every helper gives the JAX package's
 single-process answer (rank 0 of a world of 1), and a mesh's collectives
 act on the one process's tensors. The differentiable collectives at the
 end (``diff_ppermute``, ``diff_all_to_all``, ``copy_to_group``,
-``reduce_from_group``, ``all_reduce_sum``) carry the sequence- and
-expert-parallel layers' gradients across ranks, each backward the
-transpose of its forward as in JAX's ``shard_map``."""
+``reduce_from_group``, ``all_reduce_sum``) carry the model-parallel
+layers' gradients across ranks, each backward the transpose of its
+forward as in JAX's ``shard_map``: the Megatron pair of tensor
+parallelism (``tp``) is ``copy_to_group`` / ``reduce_from_group``, and
+the pipeline's (``pp``) ring is ``diff_ppermute``."""
 from __future__ import annotations
 
 import logging
@@ -34,9 +36,9 @@ from torchbooster_tpu_torch.utils import _tree_map
 # Data-bearing mesh axes: batches shard over these; parameters replicate
 # over dp and shard over fsdp (see parallel.sharding).
 DATA_AXES = ("dp", "fsdp")
-# Model-parallel axes not ported yet: tensor and pipeline parallelism
-# wait for ROADMAP.md A-5c (the sequence and expert axes, sp and ep, run).
-UNPORTED_AXES = ("tp", "pp")
+# Model-parallel axes whose leaves a rank holds as its own slice: tensor
+# parallelism splits heads and hidden units, the pipeline the layers
+MODEL_AXES = ("tp", "pp")
 # Axes a batch's tokens are split over: its rows over the data axes, its
 # sequence over sp (JAX ``gpt.batch_spec``: P(("dp", "fsdp"), "sp"))
 TOKEN_AXES = DATA_AXES + ("sp",)
@@ -179,18 +181,6 @@ def parse_mesh_spec(spec: str, n_devices: int) -> tuple[tuple[str, ...], tuple[i
     return tuple(names), tuple(sizes)
 
 
-def check_model_axes(names: Sequence[str], sizes: Sequence[int],
-                     what: str) -> None:
-    """Raise ``NotImplementedError`` naming A-5c when a tensor- or
-    pipeline-parallel axis has a size above 1."""
-    live = [f"{n}:{s}" for n, s in zip(names, sizes)
-            if n in UNPORTED_AXES and s > 1]
-    if live:
-        raise NotImplementedError(
-            f"{what}: model-parallel axes {live} are not ported yet "
-            f"(ROADMAP.md A-5c); the port runs dp, fsdp, sp and ep meshes")
-
-
 @dataclass(eq=False)
 class Mesh:
     """Named axes over the world's ranks: ``shape`` maps each axis to its
@@ -304,6 +294,11 @@ def _rank_device(device: str | torch.device = "cuda") -> torch.device:
     if _initialized():
         if tdist.get_backend() == "nccl":
             return torch.device("cuda", torch.cuda.current_device())
+        if torch.device(device).type == "cuda":
+            # gloo over tensors on the card (ranks that share one card,
+            # where NCCL refuses a second rank); raises without a card
+            resolve_device(device)
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cpu")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -315,20 +310,15 @@ def make_mesh(spec: str = "dp", n_devices: int = 0,
               device: str | torch.device = "cuda") -> Mesh:
     """A mesh from an axis spec over the world's ranks (one process per
     device). ``n_devices`` (0: the world) must equal the world size.
-    ``tp`` and ``pp`` axes of size above 1 raise ``NotImplementedError``
-    naming A-5c."""
+    Every axis gets its process group: ``tp`` carries the Megatron
+    all-reduces, ``pp`` the pipeline's ring."""
     world = get_world_size()
     if n_devices and n_devices != world:
         raise ValueError(
             f"make_mesh({spec!r}, n_devices={n_devices}): the port runs "
             f"one process per device, so a mesh spans the world of "
             f"{world} process(es)")
-    for entry in spec.split(","):
-        name, _, size = entry.strip().partition(":")
-        if size.strip().lstrip("-").isdigit():
-            check_model_axes([name.strip()], [int(size)], f"mesh {spec!r}")
     names, sizes = parse_mesh_spec(spec, world)
-    check_model_axes(names, sizes, f"mesh {spec!r}")
     groups = _new_groups(names, sizes, get_rank()) if _initialized() \
         else {}
     return Mesh(axis_names=names, sizes=sizes, device=_rank_device(device),
@@ -525,6 +515,30 @@ def reduce_from_group(t: torch.Tensor, group: Any) -> torch.Tensor:
     return _ReduceFromGroup.apply(t, group)
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        n = tdist.get_world_size(group) if group is not None else 1
+        ctx.n, ctx.me = n, tdist.get_rank(group) if group is not None else 0
+        t = t.contiguous()
+        out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        all_gather(out, t, group)
+        return torch.cat(out.chunk(n, dim=0), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.n, dim=-1)[ctx.me].contiguous(), None
+
+
+def gather_from_group(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along the last dimension, in group
+    order; the backward keeps this rank's slice of the gradient (every
+    rank of ``group`` goes on with the same concatenation). The
+    vocabulary-parallel head's logits."""
+    return _GatherFromGroup.apply(t, group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
@@ -646,6 +660,9 @@ def _init_group(backend: str, url: str, world: int, rank: int,
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
         kwargs["device_id"] = torch.device("cuda", local_rank)
+    elif torch.cuda.is_available():
+        # gloo ranks may share the cards
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
     tdist.init_process_group(backend, init_method=url, world_size=world,
                              rank=rank, **kwargs)
     logging.info("joined %s group: rank %d/%d", backend, rank, world)
@@ -682,6 +699,7 @@ def launch(
     *,
     distributed: bool = False,
     device: str | torch.device = "cuda",
+    backend: str | None = None,
 ) -> Any:
     """Run ``fn(*args)`` under the distributed runtime.
 
@@ -692,8 +710,12 @@ def launch(
     in rank order (``fn``'s result must pickle). With one device and
     ``distributed`` it starts a world-1 group in this process, so that
     the same code path runs on one card; without ``distributed`` it calls
-    ``fn`` directly. Asking for more cards than exist raises."""
-    backend = _backend(device)
+    ``fn`` directly. Asking for more cards than exist raises.
+    ``backend="gloo"`` with ``device="cuda"`` runs gloo over tensors on
+    the cards, the ranks taking the cards in turn (several ranks share a
+    card, which NCCL refuses); gloo takes ``all_reduce``, ``broadcast``
+    and the gathers on card tensors, not the point-to-point ring."""
+    backend = backend or _backend(device)
     if n_machine > 1 and dist_url in ("auto", "", None):
         raise ValueError(
             "multi-host launch needs an explicit coordinator address "
@@ -702,10 +724,12 @@ def launch(
     world = n_local * n_machine
     if world == 1 and not distributed:
         return fn(*args)
-    if backend == "nccl":
+    if torch.device(device).type == "cuda":
+        # a card was asked for, whatever the backend: no CPU fallback
         from torchbooster_tpu_torch._device import resolve_device
 
         resolve_device(device)
+    if backend == "nccl":
         have = torch.cuda.device_count()
         if n_local > have:
             raise ValueError(f"asked for {n_local} devices, have {have}")
@@ -737,10 +761,11 @@ def launch(
 
 
 __all__ = [
-    "DATA_AXES", "Mesh", "TOKEN_AXES", "UNPORTED_AXES",
+    "DATA_AXES", "MODEL_AXES", "Mesh", "TOKEN_AXES",
     "all_gather", "all_reduce", "all_reduce_sum", "all_to_all",
-    "batch_rows", "broadcast", "check_model_axes", "copy_to_group",
+    "batch_rows", "broadcast", "copy_to_group",
     "diff_all_to_all", "diff_ppermute", "find_free_port", "gather",
+    "gather_from_group",
     "get_device_count", "get_local_rank", "get_mesh", "get_rank",
     "get_world_size", "is_primary", "launch", "local_devices",
     "make_mesh", "parse_mesh_spec", "ppermute", "reduce_from_group",

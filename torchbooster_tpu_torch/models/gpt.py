@@ -11,9 +11,17 @@ checkpoint.
 Layouts follow the JAX package so parameters cross frameworks with a
 plain copy (``interop.params_from_jax``): block tensors are stacked on
 a leading layer axis, dense kernels are ``(in, out)``, and the qkv
-projection's columns are ``q | k | v`` at GQA widths. Not ported here
-(``ROADMAP.md`` A-5c): the tensor- and pipeline-parallel branches (so
-LoRA deltas run at tp 1 only).
+projection's columns are ``q | k | v`` at GQA widths.
+
+On a mesh with ``tp`` (JAX ``gpt.py:794``) every rank computes each block
+on its heads and hidden units, Megatron-style: qkv, fc1 and fc3 are
+column slices, proj and fc2 row slices with one all-reduce each before
+the bias (``_block_core(tp=...)``); the serving engine's layout splits
+the attention only (``tp_attn``). A rank's qkv slice is ``[q_i | k_i |
+v_i]``, the canonical columns taken in :func:`qkv_tp_permutation`'s
+rank-major order. On a mesh with ``pp`` the blocks run through the GPipe
+schedule (``parallel/pipeline.py``, ``_pipelined_blocks``), each rank
+holding ``L/pp`` contiguous layers.
 """
 from __future__ import annotations
 
@@ -75,24 +83,262 @@ def _check_cfg(cfg: GPTConfig) -> None:
         raise ValueError(f"unknown mlp {cfg.mlp!r}; use 'gelu' or 'swiglu'")
 
 
-def _check_pos(params: dict, cfg: GPTConfig) -> None:
+def _check_pos(params: dict, cfg: GPTConfig,
+               allow_tp_major: bool = False) -> None:
     """A rope checkpoint served with pos='learned' (or vice versa)
-    would decode with no position signal: make it loud."""
-    if cfg.pos == "rope" and "wpe" in params:
-        raise ValueError("params carry a wpe table but cfg.pos='rope'")
-    if cfg.pos != "rope" and "wpe" not in params:
-        raise ValueError(f"params have no wpe table but cfg.pos={cfg.pos!r}")
+    would decode with no position signal: make it loud (``gpt.py:359``).
+    Params whose qkv columns :func:`qkv_to_tp_major` permuted are refused
+    on every path that reads canonical columns; ``allow_tp_major`` only
+    on the pp×tp path, which checks the marker against the mesh."""
+    has_wpe = "wpe" in params
+    if cfg.pos == "rope" and has_wpe:
+        raise ValueError("params carry a wpe table but cfg.pos='rope' "
+                         "— checkpoint/config mismatch")
+    if cfg.pos != "rope" and not has_wpe:
+        raise ValueError("params have no wpe table but cfg.pos="
+                         f"{cfg.pos!r} — was this checkpoint trained "
+                         "with pos='rope'?")
+    stamped = _qkv_tp_marker(params)
+    if stamped is not None and not allow_tp_major:
+        raise ValueError(
+            f"params' qkv columns are tp-major for tp={stamped} "
+            "(qkv_to_tp_major) but this path reads the canonical "
+            "layout — attention would be silently scrambled; restore "
+            "with qkv_to_tp_major(..., inverse=True) or run the pp×tp "
+            "pipeline with qkv_tp_major=True")
+
+
+# key prefix of the layout marker qkv_to_tp_major stamps into the
+# attn_qkv block dict, f"{_TP_MAJOR_PREFIX}{tp}" (``gpt.py:389``): the tp
+# size lives in the KEY, the value is a zero (n_layers,) leaf
+_TP_MAJOR_PREFIX = "_tp_major"
+
+
+def _qkv_tp_marker(params: dict) -> int | None:
+    """The tp size :func:`qkv_to_tp_major` stamped on these params, or
+    None for the canonical layout (``gpt.py:396``)."""
+    qkv = params.get("blocks", {}).get("attn_qkv", {})
+    marks = [k for k in qkv if k.startswith(_TP_MAJOR_PREFIX)]
+    if not marks:
+        return None
+    if len(marks) > 1:
+        raise ValueError(
+            f"params carry multiple tp-major markers {sorted(marks)} — "
+            "corrupted layout bookkeeping")
+    return int(marks[0][len(_TP_MAJOR_PREFIX):])
+
+
+def qkv_columns(d_model: int, kv_dim: int, tp_size: int) -> np.ndarray:
+    """The rank-major order of the ``[q | k | v]`` columns (``d_model +
+    2·kv_dim`` of them): rank ``i`` of ``tp_size`` holds ``[q_i | k_i |
+    v_i]``, the contiguous ``i``-th part of each section."""
+    sections = np.split(np.arange(d_model + 2 * kv_dim),
+                        [d_model, d_model + kv_dim])
+    return np.concatenate([
+        np.concatenate([sec.reshape(tp_size, -1)[i] for sec in sections])
+        for i in range(tp_size)])
+
+
+def qkv_tp_permutation(cfg: GPTConfig, tp_size: int) -> np.ndarray:
+    """``perm`` with ``tp_major[..., j] = canonical[..., perm[j]]``
+    (``gpt.py:433``); invert with ``argsort``."""
+    return qkv_columns(cfg.d_model, cfg.kv_heads * cfg.head_dim, tp_size)
+
+
+def qkv_to_tp_major(params: dict, cfg: GPTConfig, tp_size: int,
+                    inverse: bool = False) -> dict:
+    """Permute the stacked qkv columns rank-major for a ``tp_size`` split
+    and stamp the ``_tp_major<tp>`` marker (``gpt.py:454``); ``inverse``
+    restores the canonical layout. The kernel, the quantized pair and
+    the bias permute together; a second permute, an inverse of another
+    tp, or of a tree never permuted, raises."""
+    if cfg.n_heads % tp_size or cfg.kv_heads % tp_size:
+        raise ValueError(
+            f"qkv_to_tp_major needs n_heads ({cfg.n_heads}) and "
+            f"kv_heads ({cfg.kv_heads}) divisible by tp ({tp_size})")
+    stamped = _qkv_tp_marker(params)
+    if inverse and stamped != tp_size:
+        raise ValueError(
+            f"qkv_to_tp_major(inverse=True, tp_size={tp_size}) on "
+            + ("params that were never permuted (no _tp_major marker)"
+               if stamped is None else
+               f"params permuted for tp={stamped}")
+            + " — inverting the wrong permutation scrambles attention")
+    if not inverse and stamped is not None:
+        raise ValueError(
+            f"params are already tp-major (tp={stamped}) — a second "
+            "permute would scramble the qkv columns; restore with "
+            "inverse=True first")
+    perm = qkv_tp_permutation(cfg, tp_size)
+    if inverse:
+        perm = np.argsort(perm)
+    qkv = params["blocks"]["attn_qkv"]
+    new_qkv = {k: v for k, v in qkv.items()
+               if k not in ("kernel", "qkernel", "qscale", "bias")
+               and not k.startswith(_TP_MAJOR_PREFIX)}
+    for key in ("kernel", "qkernel", "qscale", "bias"):
+        if key in qkv:
+            new_qkv[key] = _take_columns(qkv[key], perm)
+    if not inverse:
+        ref = qkv.get("kernel", qkv.get("qkernel"))
+        new_qkv[f"{_TP_MAJOR_PREFIX}{tp_size}"] = torch.zeros(
+            ref.shape[0], device=ref.device,
+            dtype=ref.dtype if ref.is_floating_point() else torch.float32)
+    return {**params, "blocks": {**params["blocks"], "attn_qkv": new_qkv}}
+
+
+def _take_columns(t: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    return t.index_select(-1, torch.as_tensor(perm, device=t.device))
+
+
+@torch.no_grad()
+def qkv_state_to_tp_major(state, cfg: GPTConfig, tp_size: int,
+                          inverse: bool = False):
+    """:func:`qkv_to_tp_major` for a whole ``TrainState``, in place
+    (``gpt.py:531``): the qkv leaves, their optimizer moments and EMA
+    permute together, so a canonical checkpoint resumes rank-major
+    without dividing a gradient by another column's moment. Run it on
+    the global state, before it is sharded. Returns the state."""
+    new = qkv_to_tp_major(state.params, cfg, tp_size, inverse=inverse)
+    old_qkv = state.params["blocks"]["attn_qkv"]
+    perm = qkv_tp_permutation(cfg, tp_size)
+    if inverse:
+        perm = np.argsort(perm)
+    for key in ("kernel", "bias"):
+        if key not in old_qkv:
+            continue
+        p = old_qkv[key]
+        for value in state.optimizer.state.get(p, {}).values():
+            if isinstance(value, torch.Tensor) and value.shape == p.shape:
+                value.copy_(_take_columns(value, perm))
+        if state.ema is not None:
+            e = state.ema["blocks"]["attn_qkv"][key]
+            e.copy_(_take_columns(e, perm))
+        p.copy_(new["blocks"]["attn_qkv"][key])
+        new["blocks"]["attn_qkv"][key] = p
+    marks = [k for k in old_qkv if k.startswith(_TP_MAJOR_PREFIX)]
+    for k in marks:
+        del old_qkv[k]
+    for k, v in new["blocks"]["attn_qkv"].items():
+        if k.startswith(_TP_MAJOR_PREFIX):
+            old_qkv[k] = v
+            if state.ema is not None:
+                state.ema["blocks"]["attn_qkv"][k] = v.clone()
+    if inverse and state.ema is not None:
+        for k in marks:
+            state.ema["blocks"]["attn_qkv"].pop(k, None)
+    return state
+
+
+def _mlp_hidden(cfg: GPTConfig) -> int:
+    """The dense MLP's hidden width: ``mlp_ratio·d``, or swiglu's
+    ``2/3`` of it rounded up to a multiple of 8 (``gpt.py:144``)."""
+    h = cfg.mlp_ratio * cfg.d_model
+    return max((-(-2 * h // 3) + 7) // 8 * 8, 8) if cfg.mlp == "swiglu" \
+        else h
+
+
+# layers whose output columns split over tp (their kernel's last dim and
+# their bias), and whose input rows do (the kernel's dim -2)
+_TP_COLUMNS = ("attn_qkv", "mlp_fc1", "mlp_fc3", "moe_fc1")
+_TP_ROWS = ("attn_proj", "mlp_fc2", "moe_fc2")
+
+
+def _tp_dim(layer: str, kind: str) -> int | None:
+    """The dimension of a block leaf that tp splits, or None."""
+    if layer in _TP_COLUMNS and kind in ("kernel", "bias"):
+        return -1
+    if layer in _TP_ROWS and kind == "kernel":
+        return -2
+    return None
+
+
+def local_blocks(blocks: dict, cfg: GPTConfig, mesh) -> dict:
+    """This rank's view of the stacked blocks on ``mesh``: on ``pp`` its
+    ``L/pp`` contiguous layers, on ``ep`` its experts, on ``tp`` its
+    heads and hidden units
+    (qkv columns in :func:`qkv_tp_permutation`'s order unless the tree
+    carries the tp-major marker, whose columns are rank-major already).
+    Leaves that are this rank's slices already (``make_step(rules=)``
+    places them so) pass through; a whole leaf is cut, and its gradient
+    lands on the cut's positions."""
+    pp = mesh.axis("pp") if mesh is not None else None
+    tp = mesh.axis("tp") if mesh is not None else None
+    ep = mesh.axis("ep") if mesh is not None and cfg.n_experts else None
+    if pp is None and tp is None and ep is None:
+        return blocks
+    if tp is not None and (cfg.n_heads % tp[1] or cfg.kv_heads % tp[1]):
+        raise ValueError(
+            f"tp needs n_heads ({cfg.n_heads}) and kv_heads "
+            f"({cfg.kv_heads}) divisible by tp ({tp[1]})")
+    tp_major = _qkv_tp_marker({"blocks": blocks}) is not None
+    hidden = _mlp_hidden(cfg)
+    widths = {"attn_qkv": cfg.d_model + 2 * cfg.kv_heads * cfg.head_dim,
+              "attn_proj": cfg.d_model, "moe_fc1": cfg.mlp_ratio
+              * cfg.d_model, "moe_fc2": cfg.mlp_ratio * cfg.d_model,
+              "mlp_fc1": hidden, "mlp_fc3": hidden, "mlp_fc2": hidden}
+
+    def cut(layer: str, kind: str, leaf: torch.Tensor) -> torch.Tensor:
+        if pp is not None and leaf.shape[0] == cfg.n_layers:
+            per = cfg.n_layers // pp[1]
+            leaf = leaf[pp[2] * per:(pp[2] + 1) * per]
+        if ep is not None and layer in ("moe_fc1", "moe_fc2") \
+                and leaf.shape[1] == cfg.n_experts:
+            per = cfg.n_experts // ep[1]
+            leaf = leaf[:, ep[2] * per:(ep[2] + 1) * per]
+        dim = _tp_dim(layer, kind) if tp is not None else None
+        if dim is None:
+            return leaf
+        _, size, index = tp
+        full = widths[layer]
+        if leaf.shape[dim] != full:
+            return leaf
+        per = full // size
+        if layer == "attn_qkv" and not tp_major:
+            cols = qkv_columns(cfg.d_model, cfg.kv_heads * cfg.head_dim,
+                               size)[index * per:(index + 1) * per]
+            return leaf.index_select(dim, torch.as_tensor(
+                cols, device=leaf.device))
+        return leaf.narrow(dim, index * per, per)
+
+    return {layer: {kind: cut(layer, kind, leaf)
+                    for kind, leaf in leaves.items()}
+            for layer, leaves in blocks.items()}
+
+
+def qkv_column_order(path: tuple, shape: tuple, spec: tuple, mesh,
+                     tree: dict) -> np.ndarray | None:
+    """The rule table's order for the qkv kernel and bias
+    (``parallel.sharding``): where their columns split over ``tp``, the
+    canonical ``[q | k | v]`` columns rank-major (:func:`qkv_columns`),
+    so that rank ``i``'s contiguous block is ``[q_i | k_i | v_i]``; None
+    otherwise, and for a tree whose qkv columns are rank-major already
+    (the ``_tp_major`` marker)."""
+    from torchbooster_tpu_torch.parallel.sharding import tree_get
+
+    last = (tuple(spec) + (None,) * len(shape))[len(shape) - 1]
+    axes = last if isinstance(last, (tuple, list)) else (last,)
+    if "tp" not in axes or mesh.shape.get("tp", 1) == 1:
+        return None
+    qkv = tree_get(tree, path[:-1])
+    if any(str(k).startswith(_TP_MAJOR_PREFIX) for k in qkv):
+        return None
+    kernel = qkv["kernel"]
+    d_model = getattr(kernel, "global_shape", kernel.shape)[-2]
+    return qkv_columns(d_model, (shape[-1] - d_model) // 2,
+                       mesh.shape["tp"])
 
 
 # path-regex → spec (``parallel.sharding``; leading entry = the stacked
 # layer axis), a copy of the JAX package's table: axes absent from the
 # mesh are dropped, so the blocks' kernels shard over fsdp, the experts
-# over ep, and everything else replicates.
+# over ep, and everything else replicates. The qkv rows carry their
+# column order over tp (:func:`qkv_column_order`).
 SHARDING_RULES = [
     (r"wte/table", ()),
     (r"wpe/table", (None, None)),
-    (r"attn_qkv/kernel", ("pp", "fsdp", "tp")),
-    (r"attn_qkv/bias", ("pp", "tp")),
+    (r"attn_qkv/kernel", ("pp", "fsdp", "tp"), qkv_column_order),
+    (r"attn_qkv/bias", ("pp", "tp"), qkv_column_order),
     (r"attn_proj/kernel", ("pp", "tp", "fsdp")),
     (r"mlp_fc1/kernel", ("pp", "fsdp", "tp")),
     (r"mlp_fc1/bias", ("pp", "tp")),
@@ -152,7 +398,7 @@ class GPT:
             blocks.update(moe_init(gen, cfg.n_experts, d, h, std=0.02,
                                    out_std=res_std, lead=(n,)))
         elif cfg.mlp == "swiglu":
-            hs = max((-(-2 * h // 3) + 7) // 8 * 8, 8)
+            hs = _mlp_hidden(cfg)
             blocks.update({"mlp_fc1": dense(d, hs, 0.02),
                            "mlp_fc3": dense(d, hs, 0.02),
                            "mlp_fc2": dense(hs, d, res_std)})
@@ -174,7 +420,7 @@ class GPT:
               remat: bool = True, attn_impl: str = "auto",
               return_aux: bool = False, return_hidden: bool = False,
               generator: torch.Generator | None = None,
-              mesh=None) -> torch.Tensor:
+              mesh=None, qkv_tp_major: bool = False) -> torch.Tensor:
         """Full causal forward → logits (B, S, vocab), or the final-norm
         hidden states (B, S, d) with ``return_hidden`` (for the chunked
         LM-head loss, ``ops.losses.lm_head_cross_entropy`` with
@@ -215,65 +461,96 @@ class GPT:
         sequence from the same generator state, so an ``sp:N`` run
         equals the ``sp:1`` run. MoE blocks route over the global batch
         (``moe.token_shards``) and, on an ``ep`` mesh, hold this rank's
-        slice of the experts."""
+        slice of the experts. On a ``tp`` mesh each block runs on this
+        rank's heads and hidden units (:func:`local_blocks`,
+        ``_block_core(tp=...)``); the embeddings, norms, row biases and
+        head are whole on every rank and get whole, equal gradients. On
+        a ``pp`` mesh the blocks run through the GPipe schedule
+        (``_pipelined_blocks``); the embedding's gradient comes back to
+        every stage (it is summed over ``pp``, where only stage 0 has
+        it), and each stage computes the head and loss on the broadcast
+        output. ``qkv_tp_major``: the tree's qkv columns are rank-major
+        (:func:`qkv_to_tp_major`), allowed on the pp×tp path only, with
+        its marker checked against the mesh's ``tp`` (``gpt.py:259``)."""
         b, s = ids.shape
-        _check_pos(params, cfg)
+        _check_pos(params, cfg, allow_tp_major=qkv_tp_major)
         sp = mesh.axis("sp") if mesh is not None else None
+        tp = mesh.axis("tp") if mesh is not None else None
+        pp = mesh.axis("pp") if mesh is not None else None
         sp_size, sp_index = (sp[1], sp[2]) if sp is not None else (1, 0)
         if s * sp_size > cfg.seq_len:
             raise ValueError(f"sequence length {s * sp_size} exceeds "
                              f"cfg.seq_len={cfg.seq_len}")
+        if qkv_tp_major and (pp is None or tp is None):
+            raise ValueError(
+                "qkv_tp_major=True but the mesh has no active pp+tp "
+                "axes — these params' qkv columns are rank-major and "
+                "the canonical paths would read them scrambled; "
+                "restore with qkv_to_tp_major(..., inverse=True)")
+        if qkv_tp_major:
+            stamped = _qkv_tp_marker(params)
+            if stamped != tp[1]:
+                raise ValueError(
+                    "qkv_tp_major=True but params carry "
+                    + ("no _tp_major marker — qkv_to_tp_major was "
+                       "never applied" if stamped is None else
+                       f"a tp={stamped} marker")
+                    + f"; this mesh has tp={tp[1]}")
+        blocks = local_blocks(params["blocks"], cfg, mesh)
         offset = sp_index * s
         seq = (sp_index, sp_size) if sp is not None else None
-        moe = _moe_layout(mesh) if cfg.n_experts > 0 else {}
         positions = torch.arange(offset, offset + s, device=ids.device) \
             if sp is not None else None
         drop = cfg.dropout if generator is not None else 0.0
         x = _dropout(_embed(params, ids, compute_dtype, offset), drop,
                      generator, seq)
+        if pp is not None:
+            x, aux = _pipelined_blocks(blocks, x, cfg, mesh, remat,
+                                       attn_impl, drop, generator,
+                                       positions, seq)
+        else:
+            moe = _moe_layout(mesh) if cfg.n_experts > 0 else {}
 
-        def attend(q, k, v):
-            if sp is not None:
-                from torchbooster_tpu_torch.parallel.ulysses import (
-                    sequence_attention,
-                )
+            def attend(q, k, v):
+                if sp is not None:
+                    from torchbooster_tpu_torch.parallel.ulysses import (
+                        sequence_attention,
+                    )
 
-                # grouped K/V ride the sp exchanges un-expanded
-                return sequence_attention(q, k, v, mesh, causal=True,
-                                          strategy=cfg.sp_strategy,
-                                          impl=attn_impl), None
-            # grouped K/V go to the dispatcher as they are: the flash
-            # kernels index grouped rows, the reference expands them
-            return attention(q, k, v, causal=True, impl=attn_impl), None
+                    # grouped K/V ride the sp exchanges un-expanded
+                    return sequence_attention(
+                        q, k, v, mesh, causal=True,
+                        strategy=cfg.sp_strategy, impl=attn_impl,
+                        tp_local=tp is not None), None
+                # grouped K/V go to the dispatcher as they are: the flash
+                # kernels index grouped rows, the reference expands them
+                return attention(q, k, v, causal=True, impl=attn_impl), None
 
-        def block(bp: dict, x: torch.Tensor, rng_state, after: list):
-            gen = None
-            if drop:
-                gen = torch.Generator(generator.device)
-                gen.set_state(rng_state)
-            x, aux, _ = _block_core(bp, x, cfg, attend, positions=positions,
-                                    dropout=drop, generator=gen, seq=seq,
-                                    **moe)
-            if drop:
-                after[:] = [gen.get_state()]
-            return x, aux
+            def block(bp: dict, x: torch.Tensor, rng_state, after: list):
+                gen = None
+                if drop:
+                    gen = torch.Generator(generator.device)
+                    gen.set_state(rng_state)
+                x, aux, _ = _block_core(bp, x, cfg, attend,
+                                        positions=positions, dropout=drop,
+                                        generator=gen, seq=seq, tp=tp,
+                                        **moe)
+                if drop:
+                    after[:] = [gen.get_state()]
+                return x, aux
 
-        aux = 0.0
-        for i in range(cfg.n_layers):
-            bp = layer_params(params["blocks"], i)
-            rng_state = generator.get_state() if drop else None
-            after: list = []
-            if remat and torch.is_grad_enabled():
-                x, layer_aux = checkpoint(block, bp, x, rng_state, after,
-                                          use_reentrant=False,
-                                          context_fn=_REMAT_CONTEXT)
-            else:
-                x, layer_aux = block(bp, x, rng_state, after)
-            aux = aux + layer_aux
-            if drop:
-                generator.set_state(after[0])
+            aux = 0.0
+            for i in range(cfg.n_layers):
+                bp = layer_params(blocks, i)
+                rng_state = generator.get_state() if drop else None
+                after: list = []
+                x, layer_aux = _run_block(block, bp, x, remat, rng_state,
+                                          after)
+                aux = aux + layer_aux
+                if drop:
+                    generator.set_state(after[0])
         out = L.layer_norm(params["ln_f"], x) if return_hidden \
-            else _lm_head(params, x)
+            else _lm_head(params, x, tp)
         if return_aux:
             # the mean load-balance loss over layers (0 for dense blocks)
             aux = aux / max(cfg.n_layers, 1) if torch.is_tensor(aux) \
@@ -308,6 +585,28 @@ def _dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
 
 _REMAT_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
                                    _dots_with_no_batch_dims_saveable)
+
+
+def _run_block(fn, bp: dict, x: torch.Tensor, remat: bool, *args):
+    """``fn(bp, x, *args)``, checkpointed under the remat policy when
+    ``remat`` and gradients are on. The block's tensors enter the
+    checkpoint as positional tensors, not inside a dict, so that the
+    saved-tensor hooks around the forward (ZeRO-3's re-gather,
+    ``comms/schedule.py``) see them too."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(bp, x, *args)
+    # a block's leaves are two levels deep: layer name, then kind
+    paths = [(k, kk) for k, v in bp.items() for kk in v]
+
+    def flat_fn(x, n_args, *rest):
+        tree: dict = {}
+        for (k, kk), t in zip(paths, rest[n_args:]):
+            tree.setdefault(k, {})[kk] = t
+        return fn(tree, x, *rest[:n_args])
+
+    return checkpoint(flat_fn, x, len(args), *args,
+                      *[bp[k][kk] for k, kk in paths],
+                      use_reentrant=False, context_fn=_REMAT_CONTEXT)
 
 
 def map_tensors(tree, fn):
@@ -365,57 +664,126 @@ def _moe_layout(mesh) -> dict:
 
 def _dropout(x: torch.Tensor, rate: float,
              generator: torch.Generator | None,
-             seq: tuple[int, int] | None = None) -> torch.Tensor:
+             seq: tuple[int, int] | None = None,
+             rows: tuple[torch.Tensor, int] | None = None) -> torch.Tensor:
     """Inverted dropout (``gpt.py:759``): keep each element with
     probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, in x's
     dtype; the identity at rate 0 or without a generator. The mask is
     drawn on x's device from ``generator``, which lies there too.
     ``seq=(index, n)``: x is chunk ``index`` of ``n`` along the sequence
-    (dimension 1); the mask is drawn over the whole sequence and this
-    chunk's slice kept."""
+    (dimension 1); ``rows=(lines, n)``: x's rows are rows ``lines`` (an
+    index) of a batch of ``n`` (a pipeline microbatch). The mask is
+    drawn over the whole sequence and batch and x's part kept, so the
+    pipelined and sequence-parallel forwards draw the masks of the
+    forward on one device."""
     if not rate or generator is None:
         return x
     keep = 1.0 - rate
-    shape, cols = x.shape, slice(None)
+    shape, cols, lines = list(x.shape), slice(None), slice(None)
     if seq is not None:
         index, n = seq
-        shape = (x.shape[0], x.shape[1] * n, *x.shape[2:])
+        shape[1] = x.shape[1] * n
         cols = slice(index * x.shape[1], (index + 1) * x.shape[1])
+    if rows is not None:
+        lines, shape[0] = rows
+        lines = lines.to(x.device)
     mask = torch.rand(shape, generator=generator,
-                      device=x.device)[:, cols] < keep
+                      device=x.device)[lines, cols] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def _row_dense(params: dict, x: torch.Tensor, reduce=None,
+               delta: torch.Tensor | None = None) -> torch.Tensor:
+    """Row-parallel dense (``gpt.py:770``): ``reduce`` (the all-reduce
+    over the tp group, or None) runs BETWEEN the product and the bias, so
+    the partial products of the row slices sum and the replicated bias
+    is added once. ``delta`` (a LoRA product, its A-factor row-sliced
+    like the kernel) adds to the partial products and rides the same
+    all-reduce."""
+    if "qkernel" in params:
+        y = L.qmatmul(params, x)
+    else:
+        y = x @ params["kernel"].to(x.dtype)
+    if delta is not None:
+        y = y + delta
+    if reduce is not None:
+        y = reduce(y)
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
 
 
 def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
                 positions: torch.Tensor | None = None, dropout: float = 0.0,
                 generator: torch.Generator | None = None, lora=None,
                 capacity_factor: float | None = None, ep=None, shards=None,
-                seq: tuple[int, int] | None = None):
+                seq: tuple[int, int] | None = None, tp=None, tp_attn=None,
+                rows: tuple[torch.Tensor, int] | None = None):
     """The transformer block shared by every path (full forward,
     prefill chunk, cached decode). ``attend(q, k, v) -> (o, extras)``
     supplies the attention flavor; ``dropout`` with a ``generator``
-    drops the two residual branches (:func:`_dropout`; ``seq`` slices
-    the masks of a sequence chunk). MoE blocks run ``moe_apply`` at
-    ``capacity_factor`` (default ``cfg.capacity_factor``) with ``ep``
-    and ``shards`` (``models/moe.py``). ``lora`` =
-    ``((a_qkv, b_qkv, a_proj, b_proj), lane_ids)``, this layer's
-    adapter stacks ``(lanes, ...)`` and one lane id a batch row
-    (``gpt.py:872``): row b adds ``h @ A[g] @ B[g]`` of its lane g to the
-    qkv output and to the O projection before its bias, each stack cast
-    to the activations' dtype, so lane 0's zero stacks are an exact
-    no-op. Returns ``(x, aux_loss, extras)``; a dense block's aux loss
-    is the number 0.0 (no device work on the serving paths)."""
+    drops the two residual branches (:func:`_dropout`; ``seq`` and
+    ``rows`` slice the masks of a sequence chunk or a microbatch). MoE
+    blocks run ``moe_apply`` at ``capacity_factor`` (default
+    ``cfg.capacity_factor``) with ``ep`` and ``shards``
+    (``models/moe.py``). ``lora`` = ``((a_qkv, b_qkv, a_proj, b_proj),
+    lane_ids)``, this layer's adapter stacks ``(lanes, ...)`` and one
+    lane id a batch row (``gpt.py:872``): row b adds ``h @ A[g] @ B[g]``
+    of its lane g to the qkv output and to the O projection before its
+    bias, each stack cast to the activations' dtype, so lane 0's zero
+    stacks are an exact no-op.
+
+    ``tp=(group, size, index)`` (``gpt.py:794``): ``bp`` holds this
+    rank's Megatron slices — qkv, fc1 and fc3 columns (its heads and
+    hidden units), proj and fc2 rows — and one all-reduce over ``group``
+    sums each row product before its bias
+    (``distributed.reduce_from_group``); the column products' input goes
+    through ``copy_to_group``, whose backward sums the partial input
+    gradients, so the norms and everything before them get whole, equal
+    gradients on every rank. MoE blocks split their experts' hidden the
+    same way. ``tp_attn=(group, size, index)`` is the serving layout:
+    only qkv and proj are split, the MLP runs whole on every rank, one
+    all-reduce a layer; ``lora`` rides it, its full stacks cut to this
+    rank's ``b_qkv`` columns (rank-major, as the adapter registry lays
+    them out) and ``a_proj`` rows. Returns ``(x, aux_loss, extras)``; a
+    dense block's aux loss is the number 0.0 (no device work on the
+    serving paths)."""
+    from torchbooster_tpu_torch import distributed as dist
+
+    if tp is not None and tp_attn is not None:
+        raise ValueError("_block_core: tp and tp_attn are mutually "
+                         "exclusive manual-parallelism modes")
+    if lora is not None and tp is not None:
+        raise ValueError(
+            "_block_core: lora rides the serving layouts (single-chip "
+            "or tp_attn) — the training tp path shards the MLP too "
+            "and has no adapter surface")
     b, s, d = x.shape
     n_heads, kv_heads, head_dim = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    split = tp if tp is not None else tp_attn
+    attn_in = mlp_in = lambda t: t
+    reduce = attn_reduce = None
+    if split is not None:
+        group, size, index = split
+        n_heads //= size
+        kv_heads //= size
+        attn_in = lambda t: dist.copy_to_group(t, group)
+        attn_reduce = lambda y: dist.reduce_from_group(y, group)
+        if tp is not None:
+            mlp_in, reduce = attn_in, attn_reduce
+    q_width, kv_dim = n_heads * head_dim, kv_heads * head_dim
     h = L.layer_norm(bp["ln1"], x)
-    qkv = L.dense(bp["attn_qkv"], h)
+    qkv = L.dense(bp["attn_qkv"], attn_in(h))
     if lora is not None:
         (la_q, lb_q, la_p, lb_p), lane_ids = lora
+        if tp_attn is not None:
+            w_loc = qkv.shape[-1]
+            lb_q = lb_q[..., index * w_loc:(index + 1) * w_loc]
+            la_p = la_p[:, index * q_width:(index + 1) * q_width]
         dq = torch.einsum("bsd,bdr->bsr", h, la_q[lane_ids].to(h.dtype))
         qkv = qkv + torch.einsum("bsr,bro->bso", dq,
                                  lb_q[lane_ids].to(h.dtype))
-    q_width, kv_dim = n_heads * head_dim, kv_heads * head_dim
     q = qkv[..., :q_width].reshape(b, s, n_heads, head_dim)
     k = qkv[..., q_width:q_width + kv_dim].reshape(b, s, kv_heads, head_dim)
     v = qkv[..., q_width + kv_dim:].reshape(b, s, kv_heads, head_dim)
@@ -432,8 +800,9 @@ def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
                           la_p[lane_ids].to(o_flat.dtype))
         proj_delta = torch.einsum("bsr,bro->bso", dp,
                                   lb_p[lane_ids].to(o_flat.dtype))
-    x = x + _dropout(L.dense(bp["attn_proj"], o_flat, delta=proj_delta),
-                     dropout, generator, seq)
+    x = x + _dropout(_row_dense(bp["attn_proj"], o_flat, attn_reduce,
+                                delta=proj_delta),
+                     dropout, generator, seq, rows)
     h = L.layer_norm(bp["ln2"], x)
     if cfg.n_experts > 0:
         from torchbooster_tpu_torch.models.moe import moe_apply
@@ -441,14 +810,153 @@ def _block_core(bp: dict, x: torch.Tensor, cfg: GPTConfig, attend,
         m, aux = moe_apply(
             bp, h, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor if capacity_factor is None
-            else capacity_factor, ep=ep, shards=shards)
-        return x + _dropout(m, dropout, generator, seq), aux, extras
+            else capacity_factor, ep=ep, shards=shards, tp=tp)
+        return x + _dropout(m, dropout, generator, seq, rows), aux, extras
+    h = mlp_in(h)
     if "mlp_fc3" in bp:
         h = F.silu(L.dense(bp["mlp_fc1"], h)) * L.dense(bp["mlp_fc3"], h)
     else:   # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(L.dense(bp["mlp_fc1"], h), approximate="tanh")
-    return x + _dropout(L.dense(bp["mlp_fc2"], h), dropout,
-                        generator, seq), 0.0, extras
+    return x + _dropout(_row_dense(bp["mlp_fc2"], h, reduce), dropout,
+                        generator, seq, rows), 0.0, extras
+
+
+def pipeline_layer(cfg: GPTConfig, remat: bool, attn_impl: str, n_mb: int,
+                   tp=None, sp=None, ep=None, drop: float = 0.0,
+                   states: list | None = None,
+                   generator: torch.Generator | None = None,
+                   positions: torch.Tensor | None = None,
+                   seq: tuple[int, int] | None = None,
+                   shard: tuple[int, int] = (1, 0)):
+    """``layer_fn((bp, layer_id), h, mb) -> (h, aux)``, one block of the
+    GPipe schedule (``gpt.py:643``): ``_block_core`` on microbatch ``mb``
+    of ``n_mb``, checkpointed under the remat policy, with this rank's
+    ``tp``/``ep`` slices; under ``sp`` the ring body ``select_ring_body``
+    picks for ``attn_impl``; with ``drop`` the masks come from
+    ``states[layer_id]``, the generator state the un-pipelined forward
+    has before that layer, kept at the rows the microbatch holds on data
+    shard ``index`` of ``shard = (n, index)``
+    (``parallel.pipeline.microbatch_rows``; the un-pipelined forward of
+    every data shard draws its rows from a generator in that state).
+    Shared by ``_pipelined_blocks`` and ``parallel.pipeline.fold_apply``."""
+    from torchbooster_tpu_torch.parallel.pipeline import microbatch_rows
+
+    if sp is not None:
+        from torchbooster_tpu_torch.parallel.ring import select_ring_body
+
+        def attend(q, k, v):
+            body = select_ring_body(
+                attn_impl, s_loc=q.shape[1], sp_size=sp[1], my=sp[2],
+                group=sp[0], causal=True,
+                sm_scale=1.0 / math.sqrt(cfg.head_dim),
+                rep=q.shape[2] // k.shape[2], device=q.device,
+                head_dim=cfg.head_dim, dtype=q.dtype)
+            return body(q, k, v), None
+    else:
+        def attend(q, k, v):
+            return attention(q, k, v, causal=True, impl=attn_impl), None
+
+    def block(bp: dict, h: torch.Tensor, layer: int, mb: int):
+        gen, rows = None, None
+        if drop:
+            gen = torch.Generator(generator.device)
+            gen.set_state(states[layer])
+            n_rows = h.shape[0] * n_mb
+            rows = (microbatch_rows(mb, n_mb, n_rows, *shard)
+                    % n_rows, n_rows)
+        out, aux, _ = _block_core(
+            bp, h, cfg, attend, positions=positions, dropout=drop,
+            generator=gen, seq=seq, tp=tp, ep=ep, rows=rows)
+        return out, aux
+
+    def layer_fn(layer_in: tuple, h: torch.Tensor, mb: int):
+        bp, layer = layer_in
+        out, aux = _run_block(block, bp, h, remat, int(layer), mb)
+        return out, aux if torch.is_tensor(aux) else torch.zeros(
+            (), dtype=torch.float32, device=h.device)
+
+    return layer_fn
+
+
+def _pipelined_blocks(blocks: dict, x: torch.Tensor, cfg: GPTConfig, mesh,
+                      remat: bool, attn_impl: str, drop: float,
+                      generator: torch.Generator | None,
+                      positions: torch.Tensor | None,
+                      seq: tuple[int, int] | None):
+    """The blocks through the GPipe schedule on a ``pp`` mesh
+    (``gpt.py:559``; ``parallel.pipeline.pipeline_apply``): ``blocks``
+    are this rank's ``L/pp`` layers (and its tp slices, :func:`
+    local_blocks`), and every (layer, microbatch) runs ``_block_core``,
+    checkpointed under the remat policy. Returns ``(x, aux)``.
+
+    - tp: the blocks' Megatron slices as in the un-pipelined forward
+      (the qkv columns in :func:`qkv_tp_permutation`'s order, or
+      rank-major already under the marker).
+    - sp: attention is the ring body ``select_ring_body`` picks for
+      ``attn_impl`` (``gpt.py:643``), positions offset by the chunk.
+    - ep: each rank's experts, routing every token of the microbatch.
+    - MoE: ``m = pp`` microbatches, JAX's rows (each data shard's part
+      of rows ``[j·B/m, (j+1)·B/m)``); capacity, dropped tokens and the
+      aux estimator are per microbatch and per data shard and, under
+      ``sp``, per sequence shard (routing stays on the rank's ``S/sp``
+      tokens), the aux averaged over the data and ``sp`` ranks
+      (``gpt.py:577``).
+    - dropout: layer ``l``'s masks come from the generator state the
+      un-pipelined forward has before layer ``l``, drawn over the rank's
+      whole batch and kept at the rows the microbatch holds, so the
+      pipelined forward equals the un-pipelined one (with the generator
+      in one state on every data shard, as ``TrainState`` seeds it)."""
+    from torchbooster_tpu_torch import distributed as dist
+    from torchbooster_tpu_torch.parallel.pipeline import pipeline_apply
+
+    pp_group = mesh.axis("pp")[0]
+    tp = mesh.axis("tp")
+    sp = mesh.axis("sp")
+    ep = mesh.axis("ep") if cfg.n_experts > 0 else None
+    if ep is not None and cfg.n_experts % ep[1]:
+        raise ValueError(
+            f"pp x ep needs n_experts ({cfg.n_experts}) divisible "
+            f"by ep ({ep[1]})")
+    if tp is not None and cfg.n_experts > 0:
+        hidden = cfg.mlp_ratio * cfg.d_model
+        if hidden % tp[1]:
+            raise ValueError(
+                f"pp x tp MoE needs expert hidden ({hidden}) "
+                f"divisible by tp ({tp[1]})")
+    states = None
+    if drop:
+        # the generator states the un-pipelined forward has before each
+        # layer: two draws of the rank's (B, S, d) masks a layer
+        shape = (x.shape[0], x.shape[1] * (seq[1] if seq else 1),
+                 x.shape[2])
+        states = []
+        for _ in range(cfg.n_layers):
+            states.append(generator.get_state())
+            for _ in range(2):
+                torch.rand(shape, generator=generator, device=x.device)
+    from torchbooster_tpu_torch.parallel.pipeline import (
+        _default_microbatches,
+    )
+
+    data = mesh.data_axes()
+    n_mb = mesh.shape["pp"] if cfg.n_experts > 0 else _default_microbatches(
+        x.shape[0] * mesh.axes_size(data), mesh.shape["pp"],
+        mesh.axes_size(data))
+    pp_layer = pipeline_layer(cfg, remat, attn_impl, n_mb, tp=tp, sp=sp,
+                              ep=ep, drop=drop, states=states,
+                              generator=generator, positions=positions,
+                              seq=seq, shard=(mesh.axes_size(data),
+                                              mesh.linear_index(data)))
+    n_local = next(iter(next(iter(blocks.values())).values())).shape[0]
+    first = mesh.coords()["pp"] * n_local
+    layer_ids = torch.arange(first, first + n_local)
+    # the embedding output reaches the schedule on stage 0 only: its
+    # gradient is summed over pp, so every stage's embedding gets it
+    x = dist.copy_to_group(x, pp_group)
+    return pipeline_apply(pp_layer, (blocks, layer_ids), x, mesh,
+                          n_microbatches=n_mb, with_mb_index=True,
+                          with_aux=True, params_local=True,
+                          aux_axes=("sp",) if sp is not None else ())
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -544,10 +1052,23 @@ def serving_capacity(cfg: GPTConfig) -> float:
     return max(cfg.capacity_factor, float(cfg.n_experts))
 
 
-def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+def _lm_head(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Final norm and the head (tied: the wte table). On a ``tp`` mesh an
+    untied head whose vocabulary columns are this rank's slice (the rule
+    ``P("fsdp", "tp")`` where tp divides the vocabulary) computes its
+    slice of the logits and gathers the rest over the tp group."""
     x = L.layer_norm(params["ln_f"], x)
     if "head" in params:
-        return L.dense(params["head"], x)
+        head = params["head"]
+        wte = params["wte"]
+        n_vocab = wte.get("table", wte.get("qtable")).shape[0]
+        if tp is not None and head.get(
+                "kernel", head.get("qkernel")).shape[-1] != n_vocab:
+            from torchbooster_tpu_torch import distributed as dist
+
+            return dist.gather_from_group(
+                L.dense(head, dist.copy_to_group(x, tp[0])), tp[0])
+        return L.dense(head, x)
     wte = params["wte"]
     if "qtable" in wte:
         # tied head over the per-row int8 table: each row's scale lands
@@ -859,4 +1380,6 @@ def load_torch_gpt2(state_dict, n_heads: int | None = None,
 
 
 __all__ = ["GPT", "GPTConfig", "cast_params", "generate", "layer_params",
-           "load_torch_gpt2", "map_tensors", "serving_capacity"]
+           "load_torch_gpt2", "local_blocks", "map_tensors", "qkv_columns",
+           "qkv_state_to_tp_major", "qkv_tp_permutation", "qkv_to_tp_major",
+           "serving_capacity"]

@@ -30,6 +30,12 @@ Across ranks (no JAX counterpart is needed for what GSPMD does there):
   :func:`~torchbooster_tpu_torch.distributed.reduce_from_group`
   (all-reduce, identity gradient), so the replicated tokens' gradient
   equals JAX's, where ``shard_map`` sums a replicated input's cotangent.
+- **Tensor parallelism** (``tp``, JAX ``reduce=``, ``:89-108``). Each
+  rank holds a slice of every expert's hidden units: fc1's columns and
+  fc2's rows. Routing runs whole on every rank; the tokens enter the
+  experts through ``copy_to_group`` and fc2's partial products are
+  all-reduced over the ``tp`` group before its bias, as the dense
+  blocks' ``_row_dense`` does. It composes with ``ep``.
 """
 from __future__ import annotations
 
@@ -167,7 +173,8 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int = 2,
               activation: Callable | None = None,
               impl: str = "scatter",
               ep: tuple[Any, int, int] | None = None,
-              shards: TokenShards | None = None
+              shards: TokenShards | None = None,
+              tp: tuple[Any, int, int] | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S, d) → ((B, S, d), aux_loss) (``moe.py:70``). Top-``top_k``
     routing with static per-expert capacity over the global token count;
@@ -184,7 +191,12 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int = 2,
 
     ``shards``: this rank's tokens are one block of a batch split over
     ranks (:func:`token_shards`); capacity, positions and the aux loss
-    are then the global batch's."""
+    are then the global batch's.
+
+    ``tp=(group, size, index)``: this rank holds hidden slice ``index``
+    of ``size`` of every expert (fc1 columns and bias, fc2 rows); fc2's
+    partial products are summed over ``group`` before its bias
+    (``moe.py:142-151``); scatter only."""
     if activation is None:
         activation = lambda h: F.gelu(h, approximate="tanh")
     b, s, d = x.shape
@@ -215,8 +227,10 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int = 2,
         w2 = params["moe_fc2"]["kernel"].to(x.dtype)
         h = activation(torch.bmm(expert_in, w1)
                        + params["moe_fc1"]["bias"].to(x.dtype)[:, None, :])
-        return torch.bmm(h, w2) \
-            + params["moe_fc2"]["bias"].to(x.dtype)[:, None, :]
+        out = torch.bmm(h, w2)
+        if tp is not None:
+            out = dist.reduce_from_group(out, tp[0])
+        return out + params["moe_fc2"]["bias"].to(x.dtype)[:, None, :]
 
     if impl == "scatter":
         w = torch.stack(weights)                           # (k, T) fp32
@@ -232,6 +246,8 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int = 2,
             w = dist.copy_to_group(w, group)
         else:
             local_e, lo = n_experts, 0
+        if tp is not None:
+            tokens = dist.copy_to_group(tokens, tp[0])
         # one spare row takes every dropped or foreign assignment: a
         # scatter there is discarded, a gather there reads zeros
         spare = local_e * capacity
@@ -257,7 +273,7 @@ def moe_apply(params: dict, x: torch.Tensor, top_k: int = 2,
         if ep is not None:
             out = dist.reduce_from_group(out, ep[0])
     elif impl == "einsum":
-        if ep is not None:
+        if ep is not None or tp is not None:
             raise ValueError(
                 "manual ep is wired for the scatter impl only (the "
                 "einsum oracle is a global-dispatch parity check)")

@@ -271,13 +271,15 @@ def select_ring_body(impl: str, *, s_loc: int, sp_size: int, my: int,
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mesh: Any, causal: bool = True,
                    sm_scale: float | None = None, axis: str = "sp",
-                   block_k: int = 512, impl: str = "auto") -> torch.Tensor:
+                   block_k: int = 512, impl: str = "auto",
+                   tp_local: bool = False) -> torch.Tensor:
     """Exact attention over this rank's ``(B, S/sp, H, D)`` chunks of a
     sequence split over ``axis`` of ``mesh`` (``ring.py:321``); returns
     this rank's chunk of the output. K/V may carry fewer (grouped) heads
     than q. ``block_k`` bounds the reference body's slice width.
     ``impl``: ``"auto"``, ``"flash"`` or ``"reference"``
-    (:func:`select_ring_body`)."""
+    (:func:`select_ring_body`). ``tp_local``: the heads are this rank's
+    ``H/tp`` already (the tensor-parallel block)."""
     *_, n_heads, head_dim = q.shape
     kv_heads = k.shape[2]
     if n_heads % kv_heads:
@@ -286,7 +288,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     sp_size = mesh.shape[axis]
-    tp_size = mesh.shape.get("tp", 1)
+    tp_size = 1 if tp_local else mesh.shape.get("tp", 1)
     if kv_heads % tp_size:
         raise ValueError(
             f"ring_attention: kv heads ({kv_heads}) not divisible by "

@@ -4,14 +4,20 @@
 A spec is a tuple with one entry per dimension (JAX's ``PartitionSpec``):
 ``None``, an axis name, or a tuple of axis names. A model ships a list of
 ``(regex, spec)`` rules; a parameter whose path matches a rule gets that
-spec (first match wins), everything else replicates. On the port's
-meshes a dimension sharded over ``fsdp`` or ``ep`` is split into
-contiguous chunks, one per rank of the axis (``Shard(dim)``), and every
-leaf replicates over ``dp`` and ``sp``. ``utils.make_step(mesh=,
+spec (first match wins), everything else replicates. A rule may carry a
+third entry, ``order(path, shape, spec, mesh, tree)``, the order of the
+leaf's last dimension before it is cut (None: as it is). On the port's
+meshes a dimension sharded over ``fsdp``, ``ep``, ``tp`` or ``pp`` is
+split into contiguous chunks, one per rank of the axis (``Shard(dim)``),
+and every leaf replicates over ``dp`` and ``sp``. ``utils.make_step(mesh=,
 rules=)`` gathers an ``fsdp``-sharded leaf to full before the loss and
-reduce-scatters its gradient back (JAX's ``_pin`` made explicit); an
-``ep``-sharded leaf (a block of experts) is used as it is, by
-``models/moe.py``'s expert-parallel path, and keeps its own gradient.
+reduce-scatters its gradient back (JAX's ``_pin`` made explicit); a leaf
+sharded over ``ep``, ``tp`` or ``pp`` (a block of experts, a Megatron
+slice, a stage's layers) is used as it is, by the model's parallel
+paths, and keeps its own gradient. A leaf cut in a rule's order (GPT's
+qkv columns over ``tp``, rank-major: rank ``i`` holds ``[q_i | k_i |
+v_i]``) records the order (``column_perm``), and :func:`full_leaf` and
+the sharded checkpoint give the canonical columns back.
 
 Trees are nested dicts (lists and tuples by index); :func:`tree_flatten`
 walks them in the JAX package's order, keys sorted, which is the order
@@ -23,9 +29,11 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+import numpy as np
+
 from torchbooster_tpu_torch.distributed import (
     DATA_AXES,
-    UNPORTED_AXES,
+    MODEL_AXES,
     Mesh,
     all_gather,
     reduce_scatter,
@@ -33,8 +41,8 @@ from torchbooster_tpu_torch.distributed import (
 )
 
 # axes whose shards a rank computes with as they are (never gathered
-# before the loss): the expert axis
-LOCAL_AXES = ("ep",)
+# before the loss): the expert axis, tensor and pipeline parallelism
+LOCAL_AXES = ("ep",) + MODEL_AXES
 
 
 def P(*entries: Any) -> tuple:
@@ -120,30 +128,19 @@ def _validate_divisibility(spec: tuple, shape: tuple, mesh: Mesh) -> tuple:
     return tuple(fixed)
 
 
-def _check_rule_axes(spec: tuple, mesh: Mesh, name: str) -> None:
-    live = sorted({a for e in spec for a in _entry_axes(e)
-                   if a in UNPORTED_AXES and mesh.shape.get(a, 1) > 1})
-    if live:
-        raise NotImplementedError(
-            f"sharding rule for {name!r} uses model-parallel axes {live} "
-            f"of size > 1, which are not ported yet (ROADMAP.md A-5c)")
-
-
 def make_param_specs(params: Any, rules: Sequence[tuple[str, tuple]],
                      mesh: Mesh | None = None, default: tuple = P()) -> Any:
     """Map each leaf of ``params`` to a spec via the rule table
     (``re.search`` semantics, first match wins). With ``mesh``, specs are
     filtered to the mesh's axes and an axis that does not divide its
     dimension replicates that dimension."""
-    compiled = [(re.compile(pattern), spec) for pattern, spec in rules]
+    compiled = [(re.compile(rule[0]), rule[1]) for rule in rules]
     mesh_axes = tuple(mesh.axis_names) if mesh is not None else None
 
     def assign(path: tuple, leaf: Any) -> tuple:
         name = path_str(path)
         for pattern, spec in compiled:
             if pattern.search(name):
-                if mesh is not None:
-                    _check_rule_axes(spec, mesh, name)
                 out = _filter_spec(spec, mesh_axes) if mesh_axes else spec
                 if mesh is not None and hasattr(leaf, "shape"):
                     out = _validate_divisibility(out, tuple(leaf.shape),
@@ -187,19 +184,47 @@ def local_slice(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
 
 
 def _record(local: torch.Tensor, shape: tuple, spec: tuple,
-            index: tuple) -> None:
-    """Note on a block its spec, the global shape and where the block
-    starts in it (read by ``make_step`` and the sharded checkpoint)."""
+            index: tuple, perm: np.ndarray | None = None) -> None:
+    """Note on a block its spec, the global shape, where the block
+    starts in it and, for the qkv columns over tp, their order (read by
+    ``make_step`` and the sharded checkpoint)."""
     local.global_shape, local.spec = shape, spec
     local.block_start = tuple(sl.start or 0 for sl in index)
+    if perm is not None:
+        local.column_perm = perm
 
 
-def _shard_leaf(leaf: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+def column_order(path: tuple, shape: tuple, spec: tuple, mesh: Mesh,
+                 tree: Any, rules: Sequence[tuple]) -> np.ndarray | None:
+    """The order of a leaf's last dimension before it is cut: the
+    ``order`` of the first rule that matches its path, None without
+    one."""
+    name = path_str(path)
+    for rule in rules:
+        if re.search(rule[0], name):
+            return rule[2](path, shape, spec, mesh, tree) \
+                if len(rule) > 2 else None
+    return None
+
+
+def _cut(full: torch.Tensor, spec: tuple, mesh: Mesh,
+         perm: np.ndarray | None) -> tuple[torch.Tensor, tuple]:
+    """This rank's block of ``full`` (columns put in ``perm``'s order
+    first) and its index."""
+    if perm is not None:
+        full = full.index_select(-1, torch.as_tensor(perm,
+                                                     device=full.device))
+    index = local_slice(tuple(full.shape), spec, mesh)
+    return full[index].clone(), index
+
+
+def _shard_leaf(leaf: torch.Tensor, spec: tuple, mesh: Mesh,
+                perm: np.ndarray | None = None) -> torch.Tensor:
     """This rank's block of the full ``leaf`` (already on the rank's
     device), its layout recorded on it."""
-    index = local_slice(tuple(leaf.shape), spec, mesh)
-    local = leaf.detach()[index].clone().requires_grad_(leaf.requires_grad)
-    _record(local, tuple(leaf.shape), spec, index)
+    local, index = _cut(leaf.detach(), spec, mesh, perm)
+    local.requires_grad_(leaf.requires_grad)
+    _record(local, tuple(leaf.shape), spec, index, perm)
     return local
 
 
@@ -210,9 +235,13 @@ def shard_params(params: Any, mesh: Mesh,
     leaf, laid out by the rule table."""
     full = to_env(params, mesh)
     specs = make_param_specs(full, rules, mesh=mesh, default=default)
-    return tree_map_with_path(
-        lambda path, leaf: _shard_leaf(leaf, tree_get(specs, path), mesh),
-        full)
+
+    def one(path: tuple, leaf: torch.Tensor) -> torch.Tensor:
+        spec = tree_get(specs, path)
+        return _shard_leaf(leaf, spec, mesh, column_order(
+            path, tuple(leaf.shape), spec, mesh, full, rules))
+
+    return tree_map_with_path(one, full)
 
 
 def make_state_specs(state: Any, rules: Sequence[tuple[str, tuple]],
@@ -239,16 +268,16 @@ def shard_state(state: Any, rules: Sequence[tuple[str, tuple]],
     for i, (path, p) in enumerate(pairs):
         full = to_env(p.detach(), mesh)
         spec = tree_get(specs, path)
-        index = local_slice(tuple(full.shape), spec, mesh)
         shape = tuple(full.shape)
+        perm = column_order(path, shape, spec, mesh, state.params, rules)
         for value in state.optimizer.state.get(p, {}).values():
             if isinstance(value, torch.Tensor) and tuple(value.shape) == shape:
-                value.data = value.data[index].clone()
-        p.data = full[index].clone()
-        _record(p, shape, spec, index)
+                value.data = _cut(value.data, spec, mesh, perm)[0]
+        p.data, index = _cut(full, spec, mesh, perm)
+        _record(p, shape, spec, index, perm)
         if emas is not None:
             e = emas[i][1]
-            e.data = to_env(e.detach(), mesh)[index].clone()
+            e.data = _cut(to_env(e.detach(), mesh), spec, mesh, perm)[0]
     return state
 
 
@@ -289,6 +318,22 @@ def gather_leaf(local: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def full_leaf(local: torch.Tensor, mesh: Mesh,
+              value: torch.Tensor | None = None) -> torch.Tensor:
+    """The whole tensor of a block laid out by :func:`shard_params` or
+    :func:`shard_state` (or of ``value``, a tensor of the block's layout
+    such as its gradient), all-gathered over every axis it is sharded
+    over, columns back in canonical order (differentiable, as
+    :func:`gather_leaf`)."""
+    out = gather_leaf(local if value is None else value,
+                      getattr(local, "spec", ()), mesh)
+    perm = getattr(local, "column_perm", None)
+    if perm is not None:
+        out = out.index_select(-1, torch.as_tensor(np.argsort(perm),
+                                                   device=out.device))
+    return out
+
+
 def loss_spec(spec: tuple) -> tuple:
     """The part of ``spec`` gathered before the loss: ``spec`` with the
     :data:`LOCAL_AXES` (``ep``) entries dropped."""
@@ -305,7 +350,8 @@ def replication_axes(spec: tuple, mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.token_axes() if a not in used)
 
 
-__all__ = ["LOCAL_AXES", "P", "gather_leaf", "local_slice", "loss_spec",
+__all__ = ["LOCAL_AXES", "P", "column_order", "full_leaf", "gather_leaf",
+           "local_slice", "loss_spec",
            "make_param_specs",
            "make_shardings", "make_state_specs", "path_str",
            "replication_axes", "shard_params", "shard_state",

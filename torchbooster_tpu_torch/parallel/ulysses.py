@@ -71,19 +71,23 @@ def _validate_heads(q: torch.Tensor, k: torch.Tensor) -> int:
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       mesh: Any, causal: bool = True,
                       sm_scale: float | None = None, axis: str = "sp",
-                      impl: str = "auto") -> torch.Tensor:
+                      impl: str = "auto",
+                      tp_local: bool = False) -> torch.Tensor:
     """Exact attention over this rank's ``(B, S/sp, H, D)`` chunks
     (``ulysses.py:87``), the contract of ``parallel.ring.ring_attention``;
     the query and grouped k/v head counts must divide by ``sp``. ``impl``
     feeds the local attention dispatch (``"auto"``: the flash kernels on
-    the card)."""
+    the card). ``tp_local``: q, k and v hold this rank's ``H/tp`` heads
+    (the tensor-parallel block), and the checks count the global heads."""
     *_, n_heads, head_dim = q.shape
     _validate_heads(q, k)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
     sp_size = mesh.shape[axis]
     tp_size = mesh.shape.get("tp", 1)
-    for name, heads in (("query", n_heads), ("kv", k.shape[2])):
+    scale = tp_size if tp_local else 1
+    for name, heads in (("query", n_heads * scale),
+                        ("kv", k.shape[2] * scale)):
         if heads % tp_size or (heads // tp_size) % sp_size:
             raise ValueError(
                 f"ulysses_attention needs {name} heads ({heads}) "
@@ -99,20 +103,24 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mesh: Any, causal: bool = True,
                        sm_scale: float | None = None, axis: str = "sp",
                        strategy: str = "auto",
-                       impl: str = "auto") -> torch.Tensor:
+                       impl: str = "auto",
+                       tp_local: bool = False) -> torch.Tensor:
     """One front door for sequence-parallel attention
     (``ulysses.py:121``). ``strategy``: ``"ring"``, ``"ulysses"``, or
     ``"auto"`` (Ulysses whenever the query heads divide, the ring
     otherwise — and the ring when grouped K/V fit the ring but would
     need expanding for the all-to-alls). Grouped K/V that fit neither
     layout are expanded to the query heads first. ``impl`` feeds both
-    strategies' local body."""
+    strategies' local body. ``tp_local``: the heads are this rank's
+    ``H/tp`` (the tensor-parallel block); the strategy is chosen on the
+    global counts, as the JAX package chooses it."""
     from torchbooster_tpu_torch.parallel.ring import ring_attention
 
     rep = _validate_heads(q, k)
-    n_heads, kv_heads = q.shape[2], k.shape[2]
     sp_size = mesh.shape[axis]
     tp_size = mesh.shape.get("tp", 1)
+    scale = tp_size if tp_local else 1
+    n_heads, kv_heads = q.shape[2] * scale, k.shape[2] * scale
 
     def divides(heads: int, with_sp: bool) -> bool:
         return heads % tp_size == 0 and (
@@ -132,10 +140,12 @@ def sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = expand_kv_heads(k, rep), expand_kv_heads(v, rep)
     if strategy == "ulysses":
         return ulysses_attention(q, k, v, mesh, causal=causal,
-                                 sm_scale=sm_scale, axis=axis, impl=impl)
+                                 sm_scale=sm_scale, axis=axis, impl=impl,
+                                 tp_local=tp_local)
     if strategy == "ring":
         return ring_attention(q, k, v, mesh, causal=causal,
-                              sm_scale=sm_scale, axis=axis, impl=impl)
+                              sm_scale=sm_scale, axis=axis, impl=impl,
+                              tp_local=tp_local)
     raise ValueError(f"unknown sequence-parallel strategy {strategy!r}")
 
 

@@ -37,8 +37,10 @@ sequence chunk over ``sp``), attention runs ring or Ulysses
 (``model.sp_strategy``) and the gradient is the global token mean. MoE
 blocks (``model.n_experts``, ``top_k``, ``capacity_factor``) add
 ``aux_weight`` times their load-balance loss and report it as ``aux``.
-Only the primary rank prints and samples. The ``tp`` and ``pp`` axes
-wait for ``ROADMAP.md`` A-5c and raise ``NotImplementedError``."""
+On a mesh with ``tp`` or ``pp`` the ranks of those axes read the same
+rows: the blocks split Megatron-style over ``tp`` and run the GPipe
+schedule over ``pp`` (``GPT.apply``), the rule table holding each rank's
+slice. Only the primary rank prints and samples."""
 from __future__ import annotations
 
 import sys
@@ -170,10 +172,11 @@ class Trainer:
 
 
 def _global_batches(mesh: Any) -> bool:
-    """True on a mesh whose ranks share rows (``ep``) or split sequences
-    (``sp``): the loader then yields the global batch to every rank."""
-    return mesh is not None and mesh.distributed and (
-        mesh.shape.get("sp", 1) > 1 or mesh.shape.get("ep", 1) > 1)
+    """True on a mesh whose ranks share rows (``ep``, ``tp``, ``pp``) or
+    split sequences (``sp``): the loader then yields the global batch to
+    every rank, which keeps its block."""
+    return mesh is not None and mesh.distributed and any(
+        mesh.shape.get(a, 1) > 1 for a in ("sp", "ep", "tp", "pp"))
 
 
 def make_loss(conf: Config, cfg: GPTConfig, mesh: Any = None) -> Callable:
@@ -347,17 +350,20 @@ def run(t: Trainer) -> dict:
 
 def _full_params(params: dict, mesh: Any, local: bool = False) -> dict:
     """The full parameter tree of a rule-sharded state (each sharded leaf
-    all-gathered), for sampling; with ``local`` the tree the loss takes
-    (``ep``-sharded experts stay this rank's, ``parallel.sharding.
-    loss_spec``), for evaluation."""
+    all-gathered, the qkv columns canonical), for sampling; with ``local``
+    the tree the loss takes (leaves sharded over ``ep``, ``tp`` and
+    ``pp`` stay this rank's, ``parallel.sharding.loss_spec``), for
+    evaluation."""
     from torchbooster_tpu_torch.parallel.sharding import (
+        full_leaf,
         gather_leaf,
         loss_spec,
     )
 
     def full(p: torch.Tensor) -> torch.Tensor:
-        spec = getattr(p, "spec", ())
-        return gather_leaf(p, loss_spec(spec) if local else spec, mesh)
+        if not local:
+            return full_leaf(p, mesh)
+        return gather_leaf(p, loss_spec(getattr(p, "spec", ())), mesh)
 
     with torch.no_grad():
         return utils._tree_map(full, params)

@@ -29,9 +29,11 @@ caller keeps the request queued — the same backpressure contract as
 ``KeyError``.
 
 Hot-loading writes one lane of the four device stacks in place through
-the engine's one fixed-shape writer (``PagedEngine.lora_load``). The
-tensor-parallel layout (rank-major ``b_qkv`` columns) is not ported:
-the port's engine serves at tp 1.
+the engine's one fixed-shape writer (``PagedEngine.lora_load``). Under
+``tp`` the ``b_qkv`` columns are permuted rank-major at registration
+(``qkv_tp_permutation``, the base kernel's layout), so that the block's
+column slice hands rank ``i`` its ``[q_i | k_i | v_i]``; every rank holds
+the whole stacks and cuts its slice in the step.
 """
 from __future__ import annotations
 
@@ -138,6 +140,11 @@ class AdapterRegistry:
                                      ((0, 0), (0, pad), (0, 0)))
             stacks["b_proj"] = np.pad(stacks["b_proj"],
                                       ((0, 0), (0, pad), (0, 0)))
+        if self.engine.tp > 1:
+            from torchbooster_tpu_torch.models.gpt import qkv_tp_permutation
+
+            perm = qkv_tp_permutation(cfg, self.engine.tp)
+            stacks["b_qkv"] = np.take(stacks["b_qkv"], perm, axis=2)
         if name in self._lane_of:
             # re-registering a RESIDENT adapter must refresh its lane
             # (a stale lane would silently serve the old weights);

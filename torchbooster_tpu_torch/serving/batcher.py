@@ -256,6 +256,13 @@ class ContinuousBatcher:
         self.tracer = tracer if tracer is not None else RequestTracer()
         self.flight = flight if flight is not None else FlightRecorder()
         self.engine = engine
+        tp = getattr(engine, "_tp_attn", None)
+        if tp is not None:
+            # every rank of a tensor-parallel engine decides on rank 0's
+            # clock (serving/tp.py), or their steps would part ways
+            from torchbooster_tpu_torch.serving.tp import shared_clock
+
+            clock = shared_clock(clock, tp[0], engine.device)
         self.clock = clock
         self._capacity = (engine.n_pages - 1) * engine.page_size
         self.est_chunk_s = 0.0
@@ -590,6 +597,18 @@ class ContinuousBatcher:
             inst["adapter_evictions"] = reg.counter(
                 "serving_adapter_evictions_total",
                 "cached adapter lanes displaced (LRU)")
+        if getattr(self.engine, "tp", 1) > 1:
+            # tensor-parallel serving only (``batcher.py:814``): the
+            # modeled per-rank wire bytes of each decode or verify
+            # step's decode-output all-reduce, one host add a step
+            inst["tp_bytes"] = reg.counter(
+                "serving_tp_bytes_total",
+                "modeled per-chip decode-output psum wire bytes "
+                "(tensor-parallel serving)")
+            self._tp_decode_bytes = \
+                self.engine.tp_step_traffic(1)["wire_bytes"]
+            self._tp_verify_bytes = self.engine.tp_step_traffic(
+                1 + self.engine.draft_len)["wire_bytes"]
         if self.policy.slo:
             inst.update({
                 "slo_ttft": reg.histogram("serving_slo_ttft_seconds",
@@ -1058,6 +1077,10 @@ class ContinuousBatcher:
         if not s.live:
             return
         t_step = self.clock()
+        if getattr(self.engine, "tp", 1) > 1:
+            self._inst["tp_bytes"].inc(
+                self._tp_verify_bytes if self.engine.speculative
+                else self._tp_decode_bytes)
         if self.engine.speculative:
             self._spec_arm(s, st, events, t_step)
             return

@@ -47,6 +47,12 @@ cache — the port of ``torchbooster_tpu/serving/engine.py``.
   disaggregated serving (``serving/disagg.py``): it admits and prefills,
   hands its finished pages out through :meth:`export_pages`, and refuses
   to decode.
+- **tensor parallelism** (``tp > 1`` with a ``mesh`` whose ``tp`` axis has
+  that size, ``serving/tp.py``): one engine per rank holds its qkv
+  columns and proj rows and a pool of ``kv_heads / tp`` heads; prefill,
+  decode and the fused verify run on its heads (the B4 kernel on the
+  card) with one all-reduce a layer, and the host bookkeeping is the
+  same on every rank.
 
 PyTorch runs eagerly, so the JAX package's one-compile contract
 becomes a fixed operand-shape contract: the decode and verify steps'
@@ -58,6 +64,8 @@ promotion write's). The pool, the legality masks, the lane ids and the
 promotion staging are updated in place.
 """
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
@@ -110,6 +118,7 @@ from torchbooster_tpu_torch.serving.structured import (
     bytes_vocab,
     compile_response_format,
 )
+from torchbooster_tpu_torch.serving.tp import check_tp, local_cfg, place
 
 # the demotion payload, one page across every layer: what the host pool
 # stores, the promotion stages and the page stream frames
@@ -192,7 +201,9 @@ class PagedEngine:
     ``host_spill_mb`` MiB and promotes them back on a match;
     ``prefill_only`` builds the prefill side of a
     :class:`~torchbooster_tpu_torch.serving.disagg.DisaggPair`, whose
-    ``step``/``spec_step`` raise."""
+    ``step``/``spec_step`` raise. ``tp > 1`` splits the attention over
+    ``mesh``'s ``tp`` axis (``serving/tp.py``); ``host_spill`` does not
+    compose with it."""
 
     def __init__(self, params: dict, cfg: GPTConfig, *,
                  page_size: int = 64, n_pages: int = 128,
@@ -209,11 +220,14 @@ class PagedEngine:
                  lora_rank: int = 0, lora_max_live: int = 0,
                  host_spill: bool = False, host_spill_mb: float = 64.0,
                  prefill_only: bool = False,
-                 device: str | torch.device = "cuda"):
-        if tp != 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1) is not ported yet "
-                "(ROADMAP.md A-5c serving/tp.py)")
+                 device: str | torch.device = "cuda", mesh: Any = None):
+        if host_spill and tp > 1:
+            raise ValueError(
+                f"host_spill with tp={tp} is not supported yet: the "
+                "host tier's page payloads are whole-head; a tp engine "
+                "would have to gather its head shards on every demotion "
+                "— serve the spill tier on tp=1 replicas (the fleet path)")
+        check_tp(tp, cfg, mesh)
         if cfg.seq_len % page_size:
             raise ValueError(f"page_size ({page_size}) must divide "
                              f"cfg.seq_len ({cfg.seq_len})")
@@ -288,6 +302,15 @@ class PagedEngine:
         self.compute_dtype = compute_dtype
         self.prefix_cache = bool(prefix_cache)
         self.parallel = bool(parallel_sampling)
+        # tensor parallelism (serving/tp.py): this rank's attention
+        # slices and a pool of its kv_heads / tp heads; every other leaf
+        # and all the host bookkeeping whole on every rank
+        self.tp = int(tp)
+        self.mesh = mesh if self.tp > 1 else None
+        self._tp_attn = mesh.axis("tp") if self.tp > 1 else None
+        self._n_heads = cfg.n_heads // self.tp
+        if self.tp > 1:
+            params = place(params, cfg, self._tp_attn, self.device)
         self.params = cast_params(
             map_tensors(params, lambda t: t.to(self.device)), compute_dtype)
         self._layers = [layer_params(self.params["blocks"], i)
@@ -298,7 +321,7 @@ class PagedEngine:
         self.prefill_chunk_pages = min(prefill_chunk_pages,
                                        self.tables.max_pages_per_slot)
         self.chunk_tokens = self.prefill_chunk_pages * page_size
-        self.pool = make_pool(cfg, page_size, n_pages,
+        self.pool = make_pool(local_cfg(cfg, self.tp), page_size, n_pages,
                               cache_dtype=cache_dtype,
                               compute_dtype=compute_dtype,
                               device=self.device)
@@ -518,12 +541,14 @@ class PagedEngine:
                 l = (lA * wA + lB * wB).clamp_min(1e-30)
                 mv = lambda t: t.movedim(-1, 1)[..., None]
                 o = (oA * mv(wA) + oB * mv(wB)) / mv(l)
-                return o.reshape(1, C, cfg.n_heads, head_dim).to(q.dtype), None
+                return o.reshape(1, C, self._n_heads,
+                                 head_dim).to(q.dtype), None
 
             x, _, _ = _block_core(bp, x, cfg, attend,
                                   positions=positions[None],
                                   lora=self._lora_layer(i, lanes),
-                                  capacity_factor=serving_capacity(cfg))
+                                  capacity_factor=serving_capacity(cfg),
+                                  tp_attn=self._tp_attn)
         last = x[:, min(max(s0 - 1 - start, 0), C - 1)][:, None]
         return _lm_head(self.params, last)[:, 0]
 
@@ -612,7 +637,7 @@ class PagedEngine:
                 # ONE pool read serves every lane's S positions: queries
                 # gather to (P, R*S, H, Dh)
                 q_lanes = q[ref_c].reshape(ref_c.shape[0], n_lanes * S,
-                                           cfg.n_heads, cfg.head_dim)
+                                           self._n_heads, cfg.head_dim)
                 o_p, m_p, l_p = _grouped_cache_attention(
                     q_lanes, rk, rv, visible[:, None, None], state=True)
                 n_seg = o_p.shape[0] * n_lanes * S
@@ -631,12 +656,13 @@ class PagedEngine:
                                                         o_f * w[..., None])
                 o = o_s[:n_slots * S] / l_s[:n_slots * S].clamp_min(
                     1e-30)[..., None]
-                return o.reshape(n_slots, S, cfg.n_heads,
+                return o.reshape(n_slots, S, self._n_heads,
                                  cfg.head_dim).to(q.dtype), None
 
             x, _, _ = _block_core(bp, x, cfg, attend, positions=pos_c,
                                   lora=self._lora_layer(i, lanes),
-                                  capacity_factor=serving_capacity(cfg))
+                                  capacity_factor=serving_capacity(cfg),
+                                  tp_attn=self._tp_attn)
         return _lm_head(self.params, x)
 
     @torch.no_grad()
@@ -1394,6 +1420,14 @@ class PagedEngine:
         """Fraction of eligible prompt pages served from the cache."""
         return self.prefix_hit_pages / max(self.prefix_lookup_pages, 1)
 
+    def tp_step_traffic(self, s_q: int = 1) -> dict:
+        """The modeled per-rank wire bytes of one step's decode-output
+        all-reduce (``serving/tp.py`` ``step_traffic``); zeros at tp 1."""
+        from torchbooster_tpu_torch.serving.tp import step_traffic
+
+        return step_traffic(self.tp, self.cfg, self.max_slots,
+                            self.compute_dtype, s_q=s_q)
+
     def debug_stats(self) -> dict:
         """Engine introspection for ``GET /debug/engine`` (``engine.py:
         1875``): pool occupancy, prefix-cache and spill-tier stats, shape
@@ -1402,7 +1436,7 @@ class PagedEngine:
         host = t.host_pool
         return {
             "backend": self.decode_backend,
-            "tp": 1,
+            "tp": self.tp,
             "speculative": self.speculative,
             "spec_tree": self.spec_tree,
             "parallel_sampling": self.parallel,

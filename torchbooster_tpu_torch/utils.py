@@ -179,9 +179,12 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
     ``rules`` (with ``mesh``) gathers each leaf the rule table shards
     over ``fsdp`` before the loss and reduce-scatters its gradient back
     (place the state with ``EnvConfig.make(state, rules=...)``); a leaf
-    sharded over ``ep`` stays this rank's block of experts and keeps its
-    own gradient. Clipping then sums the norm over the shards, each
-    counted once.
+    sharded over ``ep``, ``tp`` or ``pp`` stays this rank's block (its
+    experts, its Megatron slice, its stage's layers) and keeps its own
+    gradient, and a leaf those axes replicate gets its whole gradient on
+    every rank from the model itself (``GPT.apply``), with no all-reduce
+    over them. Clipping then sums the norm over the shards, each counted
+    once.
     ``comms`` (a ``GradComms`` / ``CommsSchedule``, states from its
     ``create_state``) replaces the all-reduce: ``fp32``/``bf16``/``int8``
     explicit syncs through ``comms.quantized.reduce_flat``, ZeRO-1 through
@@ -193,10 +196,6 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
     accumulate = accumulate_every > 1
     if rules is not None and mesh is None:
         raise ValueError("make_step(rules=...) needs mesh= as well")
-    if mesh is not None:
-        from torchbooster_tpu_torch.distributed import check_model_axes
-
-        check_model_axes(mesh.axis_names, mesh.sizes, "make_step")
     explicit = comms is not None and comms.mode != "implicit"
     zero1 = bool(comms is not None and comms.zero1)
     stage = int(getattr(comms, "stage", 1 if zero1 else 0)) \
@@ -399,10 +398,16 @@ def _sync_grads(params: Any, mesh: Any) -> None:
             p.grad = torch.zeros_like(p)
         by_axes.setdefault(replication_axes(_spec(p), mesh), []).append(p)
     for axes, leaves in by_axes.items():
+        # one group over the set where the mesh keeps one, else one axis
+        # of size above 1 at a time (e.g. dp and sp beside an fsdp axis
+        # the leaf is sharded over): the sums compose
         group = mesh.group(axes) if axes else None
-        if group is not None:
+        groups = [group] if group is not None else [
+            mesh.group((a,)) for a in axes if mesh.shape[a] > 1]
+        if groups:
             flat = torch.cat([p.grad.reshape(-1) for p in leaves])
-            all_reduce(flat, group)
+            for group in groups:
+                all_reduce(flat, group)
             off = 0
             for p in leaves:
                 p.grad.copy_(flat[off:off + p.numel()].reshape(p.shape))
@@ -415,7 +420,8 @@ def _sync_grads(params: Any, mesh: Any) -> None:
 @torch.no_grad()
 def _clip_sharded(leaves: list, clip: float, mesh: Any) -> None:
     """Global-norm clipping when some leaves are sharded: the sums of
-    squares of the blocks add up over the axes they are sharded over."""
+    squares of the blocks add up over the axes they are sharded over, one
+    axis at a time (a leaf replicated over an axis counts once)."""
     from torchbooster_tpu_torch.distributed import all_reduce
     from torchbooster_tpu_torch.parallel.sharding import sharded_dims
 
@@ -423,13 +429,14 @@ def _clip_sharded(leaves: list, clip: float, mesh: Any) -> None:
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     by_axes: dict[tuple, torch.Tensor] = {}
     for p in grads:
-        axes = tuple(sorted({a for _, ax in sharded_dims(_spec(p))
-                             for a in ax}))
+        axes = tuple(a for a in mesh.axis_names
+                     if a in {a for _, ax in sharded_dims(_spec(p))
+                              for a in ax})
         sq = p.grad.float().square().sum()
         by_axes[axes] = by_axes.get(axes, 0) + sq
-    for axes, sq in by_axes.items():
-        if axes:
-            all_reduce(sq, mesh.group(axes))
+    for axes, sq in sorted(by_axes.items()):
+        for axis in axes:
+            all_reduce(sq, mesh.group((axis,)))
         total = total + sq
     scale = torch.clamp(clip / (total.sqrt() + 1e-6), max=1.0)
     for p in grads:
