@@ -353,6 +353,7 @@ output (ptxas report, per-case errors) goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import importlib
 import itertools
 import json
 import math
@@ -370,7 +371,8 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
           "train", "gpt2_import", "train_long", "conv", "resnet_train",
-          "resnet_data", "train_comms", "moe", "sp_fold", "tp", "pp_fold")
+          "resnet_data", "lenet", "resnet_import", "image_models",
+          "train_comms", "moe", "sp_fold", "tp", "pp_fold")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
@@ -658,7 +660,7 @@ def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
     gathered dense (a yardstick the port never calls) and the bound. Each
     timed call reads another of N_LAYERS layer pools (over 300 MB, past
     the 50 MB L2), as the decode step does."""
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     case = make_case(rs, kv_heads=12, pool="bf16", q_dtype=torch.bfloat16,
                      s_q=1, tree=False, shared=False, lens=lens,
@@ -751,7 +753,7 @@ def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
 
 
 def phase_kernel(report: dict) -> dict:
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     rs = np.random.RandomState(0)
     cases = [
@@ -1234,7 +1236,7 @@ def requests(cfg):
 
 
 def reset_paged_counts() -> None:
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     pa.launches = 0
     pa.launches_by_route.update(dict.fromkeys(pa.launches_by_route, 0))
@@ -1242,7 +1244,7 @@ def reset_paged_counts() -> None:
 
 def serve(params, cfg, dtype: torch.dtype):
     from torchbooster_tpu_torch.config import ServingConfig
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     batcher = ServingConfig(page_size=PS, n_pages=N_PAGES,
                             max_slots=SLOTS).make(
@@ -1395,7 +1397,7 @@ def ambiguous_prompt(params, cfg, dtype, rs, n: int) -> np.ndarray:
 def spec_run(batcher, cfg, dtype, prompts, tree: bool) -> dict:
     """One run of the speculative ``batcher`` over ``prompts`` (SPEC_NEW
     new tokens each), with the exact B4 launch count and route checks."""
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import Request
 
     eng = batcher.engine
@@ -1517,7 +1519,7 @@ def phase_serve_fork(params, cfg, smi: str, report: dict) -> tuple[int, dict]:
     copied. Seeded sampling (temperature 0.8, top-k 50): each branch
     equals the engine's own run admitted alone with ``(seed, branch)``."""
     from torchbooster_tpu_torch.config import ServingConfig
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import (ContinuousBatcher, Request,
                                                 best_completions)
 
@@ -1648,7 +1650,7 @@ def paged_us_per_call(run) -> float:
     """B4's device µs a call over one profiled serving run: the union of
     its kernels' intervals over the run, over its launches."""
     from torch.profiler import ProfilerActivity, profile
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     reset_paged_counts()
     torch.cuda.synchronize()
@@ -1670,7 +1672,7 @@ def phase_serve_structured(params, cfg, smi: str, report: dict
     step) and one constrained ``n = 4`` request on a parallel-sampling
     engine (every branch conforms)."""
     from torchbooster_tpu_torch.config import ServingConfig, StructuredConfig
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import Request
     from torchbooster_tpu_torch.serving.structured import (
         SCHEMA_LIBRARY, conforms, library_response_format, schema_budget)
@@ -1831,7 +1833,7 @@ def phase_serve_wq(params, cfg, smi: str, report: dict
     from torchbooster_tpu_torch.models.gpt import cast_params, generate
     from torchbooster_tpu_torch.models.quant import (quantize_params,
                                                      weight_stream_bytes)
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
     arms, streams = {}, {}
@@ -1942,7 +1944,7 @@ def phase_serve_lora(params, cfg, smi: str, report: dict
     decode shape, one lane-writer shape, no pin left, tables consistent,
     B4 on its planned route."""
     from torchbooster_tpu_torch.config import AdaptersConfig, ServingConfig
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import Request, random_adapter
 
     adapters = {f"a{i}": random_adapter(i, cfg, LORA_RANK, std=LORA_STD)
@@ -2119,7 +2121,7 @@ def phase_serve_spill(params, cfg, smi: str, report: dict
                                                          spill_breakeven)
     from torchbooster_tpu_torch.config import HostSpillConfig, ServingConfig
     from torchbooster_tpu_torch.models.gpt import generate
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     launches, by_route = 0, dict.fromkeys(pa.launches_by_route, 0)
     int8_pool, arms = 0, {}
@@ -2281,7 +2283,7 @@ def phase_serve_disagg(params, cfg, smi: str, report: dict
     from torchbooster_tpu_torch.comms.accounting import disagg_traffic
     from torchbooster_tpu_torch.config import (DisaggConfig, HostSpillConfig,
                                                ServingConfig)
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import DisaggPair, Request
 
     rs = np.random.RandomState(11)
@@ -2534,7 +2536,7 @@ def phase_serve_http(params, cfg, smi: str, report: dict
     from torchbooster_tpu_torch.config import (ObservabilityConfig,
                                                TracingConfig)
     from torchbooster_tpu_torch.observability import record_memory_gauges
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import Request
     from torchbooster_tpu_torch.serving.loadgen import replay_http
 
@@ -2792,7 +2794,7 @@ def phase_serve_replay(params, cfg, smi: str, report: dict
 
     from torchbooster_tpu_torch.config import LoadgenConfig
     from torchbooster_tpu_torch.models.gpt import generate
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving.frontend import parse_classes
     from torchbooster_tpu_torch.serving.loadgen import (Workload,
                                                         replay_http,
@@ -3002,7 +3004,7 @@ def phase_serve_fleet(params, cfg, smi: str, report: dict
     from torchbooster_tpu_torch.observability import (FlightRecorder,
                                                       get_registry)
     from torchbooster_tpu_torch.observability.export import prometheus_text
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving.frontend import parse_classes
     from torchbooster_tpu_torch.serving.loadgen import (replay_http,
                                                         replay_inprocess)
@@ -4651,7 +4653,7 @@ def moe_serve(params, cfg) -> dict:
 
     from torchbooster_tpu_torch.config import ServingConfig
     from torchbooster_tpu_torch.models.gpt import serving_capacity
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
     from torchbooster_tpu_torch.serving import Request
 
     rs = np.random.RandomState(2)
@@ -5277,7 +5279,7 @@ def tp_serve(mesh, params, cfg, dtype) -> dict:
     decode steps, pool bytes, all-reduces a decode step. Rank 0 holds
     every stream token-exact against the dense ``generate`` at tp:1."""
     from torchbooster_tpu_torch.config import ServingConfig
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     batcher = ServingConfig(page_size=PS, n_pages=N_PAGES, max_slots=SLOTS,
                             tp=2).make(params, cfg, compute_dtype=dtype,
@@ -5366,7 +5368,7 @@ def phase_tp(report: dict, smi: str) -> dict:
     build. Returns both ranks' B1-B3 and B4 launches."""
     from torchbooster_tpu_torch import distributed as dist
     from torchbooster_tpu_torch.ops import flash_attention as fa
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     log("tp plans at 6 heads, D 64, bf16: B1 "
         f"{fa.plan_flash_fwd(torch.bfloat16, 64, 1024, 1024, 1)} at S 1024 "
@@ -6328,8 +6330,9 @@ def conv_counts() -> tuple[dict, dict]:
 
 
 def phase_resnet_train(report: dict, smi: str) -> dict:
-    """The ResNet recipe's ``main`` at the YAML's configuration on the
-    card; returns B5-B8's launch counts from this run."""
+    """The ResNet recipe's entry point (``launch_main``) at the YAML's
+    configuration on the card; returns B5-B8's launch counts from this
+    run."""
     from torchbooster_tpu_torch.dataset import Split
     from torchbooster_tpu_torch.recipes import resnet as recipe
 
@@ -6339,7 +6342,7 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_conv_counts()
     t0 = time.perf_counter()
-    res = recipe.main(conf)
+    res = recipe.launch_main(conf, device=DEV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, by_route = conv_counts()
@@ -6718,6 +6721,563 @@ def phase_resnet_data(report: dict, smi: str) -> dict:
     return {**total, "by_route": by_route}
 
 
+# ----------------------------------------------------------------- lenet
+LENET_B = 512          # lenet.yml's batch
+LENET_TRAIN, LENET_TEST = 60_000, 10_000     # MNIST's sizes
+LENET_PROFILED = 5     # steps profiled for the busy share
+# kernels vs plain on one batch: fp32 (both norms on "two_pass"), and bf16
+# (C 6 on "two_pass", C 16 on "one_pass"); gradients held against the
+# largest gradient entry of the model (the conv biases' exact gradient is
+# 0: a GroupNorm of one channel a group takes any per-channel constant out)
+LENET_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def write_idx(path: Path, array: np.ndarray) -> None:
+    """One uncompressed IDX file of unsigned bytes: magic ``0 0 8 ndim``,
+    the dims as big-endian int32, the data."""
+    header = bytes([0, 0, 0x08, array.ndim]) + np.asarray(
+        array.shape, ">i4").tobytes()
+    path.write_bytes(header + np.ascontiguousarray(array, np.uint8)
+                     .tobytes())
+
+
+def write_mnist_release(root: Path) -> dict:
+    """MNIST's IDX release at full size under ``root``
+    (``train-images-idx3-ubyte`` and the rest): 60,000 train and 10,000
+    test images of the ``synthetic_mnist`` twin's class-conditional
+    images, quantized to uint8, so the loss can fall."""
+    from torchbooster_tpu_torch.data import sources
+    from torchbooster_tpu_torch.dataset import Split
+
+    t0 = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for split, n, prefix in ((Split.TRAIN, LENET_TRAIN, "train"),
+                             (Split.TEST, LENET_TEST, "t10k")):
+        twin = sources._synthetic_classification(n, (28, 28, 1), 10, split)
+        images, labels = twin.arrays
+        pixels = np.clip(np.rint(images[..., 0] * 32.0 + 128.0), 0,
+                         255).astype(np.uint8)
+        write_idx(root / f"{prefix}-images-idx3-ubyte", pixels)
+        write_idx(root / f"{prefix}-labels-idx1-ubyte",
+                  labels.astype(np.uint8))
+        out[split.value] = (pixels, labels)
+    out["bytes"] = sum(f.stat().st_size for f in root.iterdir())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lenet_config(root: Path, precision: str = "bf16"):
+    """``examples/img_cls/lenet/lenet.yml``'s values built in code (the
+    card's machine reads no YAML), one epoch, over the release at
+    ``root``."""
+    from torchbooster_tpu_torch.config import (
+        DatasetConfig,
+        EnvConfig,
+        LoaderConfig,
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes.lenet import Config
+
+    return Config(
+        epochs=1, seed=42,
+        env=EnvConfig(distributed=False, precision=precision, n_devices=0,
+                      mesh="dp"),
+        loader=LoaderConfig(batch_size=LENET_B, num_workers=0,
+                            drop_last=True),
+        optim=OptimizerConfig(name="adamw", lr=2e-3, weight_decay=1e-4),
+        scheduler=SchedulerConfig(name="cycle", n_iter=0, warmup=10,
+                                  decay=("cos", "cos")),
+        dataset=DatasetConfig(name="mnist", root=str(root)))
+
+
+def lenet_kernels_vs_plain(root: Path) -> dict:
+    """One batch of the release, the recipe's loss forward and backward
+    from the same parameters through B5/B6 (``gn_impl="auto"``) and
+    through the plain GroupNorm, at fp32 and at bf16: the loss and every
+    parameter gradient must agree (``LENET_TOL``), and each dtype's
+    kernel run must take its routes (fp32: two ``"two_pass"`` calls each
+    way; bf16: one ``"two_pass"`` and one ``"one_pass"``)."""
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.models import LeNet
+    from torchbooster_tpu_torch.recipes import lenet as recipe
+    from torchbooster_tpu_torch.recipes.resnet import to_device
+    from torchbooster_tpu_torch.utils import _cast_batch, tree_leaves
+
+    conf = lenet_config(root)
+    loader = conf.loader.make(conf.dataset.make(Split.TRAIN), shuffle=False)
+    batch = to_device(next(iter(loader)), torch.device(DEV))
+    params = LeNet.init(0, device=DEV)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    want_routes = {torch.float32: ({"one_pass": 0, "two_pass": 2},) * 2,
+                   torch.bfloat16: ({"one_pass": 1, "two_pass": 1},) * 2}
+    out = {}
+    for dtype, tol in LENET_TOL.items():
+        runs = {}
+        for impl in ("auto", "plain"):
+            before = conv_counts()[1]
+            loss, _ = recipe.make_loss_fn(True, gn_impl=impl)(
+                _cast_batch(params, dtype), _cast_batch(batch, dtype), None)
+            loss.backward()
+            after = conv_counts()[1]
+            moved = tuple({r: after[k][r] - before[k][r] for r in after[k]}
+                          for k in ("gn_fwd", "gn_bwd"))
+            runs[impl] = (loss.item(), [p.grad.clone() for p in leaves],
+                          moved)
+            for p in leaves:
+                p.grad = None
+        name = str(dtype).split(".")[-1]
+        if runs["auto"][2] != want_routes[dtype] or any(
+                sum(m.values()) for m in runs["plain"][2]):
+            raise AssertionError(f"lenet {name}: routes {runs['auto'][2]} "
+                                 f"(plain {runs['plain'][2]}), expected "
+                                 f"{want_routes[dtype]}")
+        (la, ga, _), (lp, gp, _) = runs["auto"], runs["plain"]
+        top = max(g.abs().max().item() for g in gp)
+        worst = max((a - b).abs().max().item() for a, b in zip(ga, gp)) / top
+        if not (math.isfinite(la) and abs(la - lp) <= tol * abs(lp)
+                and worst <= tol):
+            raise AssertionError(f"lenet {name}: kernels loss {la} vs plain "
+                                 f"{lp}, worst gradient error {worst:.3g} of "
+                                 f"the largest entry (tolerance {tol})")
+        out[name] = {"loss": la, "plain_loss": lp,
+                     "worst_grad_err_of_max": worst, "tol": tol,
+                     "routes": runs["auto"][2]}
+        log(f"lenet {name} kernels vs plain: loss {la:.6f} / {lp:.6f}, "
+            f"worst gradient error {worst:.3g} of the largest entry (tol "
+            f"{tol}); B5 routes {runs['auto'][2][0]}, B6 "
+            f"{runs['auto'][2][1]}")
+    return out
+
+
+def lenet_breakdown(root: Path, n_steps: int = LENET_PROFILED) -> dict:
+    """A fresh bf16 trainer over the release: two warm steps, then
+    ``n_steps`` steps as the recipe runs them under the profiler (CUDA
+    activity): the device busy share of the wall, device ms per step,
+    kernels per step, B5/B6's share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.recipes import lenet as recipe
+    from torchbooster_tpu_torch.recipes.resnet import to_device
+
+    t = recipe.setup(lenet_config(root), DEV)
+    batches = iter(t.train_loader)
+    for _ in range(2):
+        t.state, m = t.step(t.state, to_device(next(batches), t.device))
+    m["loss"].item()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            t.state, m = t.step(t.state, to_device(next(batches), t.device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
+                         for e in events), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in per_kernel)
+    ours = sum(v for k, v in per_kernel if "gn_fwd" in k or "gn_bwd" in k)
+    return {"steps": n_steps, "wall_s": wall,
+            "step_ms": wall / n_steps * 1e3,
+            "img_per_s": LENET_B * n_steps / wall,
+            "device_busy_share": busy / wall,
+            "device_ms_per_step": busy / n_steps * 1e3,
+            "b5_b6_share_of_device": ours / max(busy, 1e-12),
+            "kernels_per_step": sum(e.count for e in events) / n_steps,
+            "top": per_kernel[:8]}
+
+
+def phase_lenet(report: dict, smi: str) -> dict:
+    """The lenet recipe's ``launch_main`` at ``lenet.yml``'s values over a
+    full-size MNIST IDX release written from a seed: one epoch, the loss
+    falling, B5 and B6 launched on both routes by exact counts; then the
+    kernels held to the plain GroupNorm on one batch and a profiled
+    window. Returns B5-B8's launch counts from the ``launch_main`` run."""
+    import tempfile
+
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.recipes import lenet as recipe
+
+    out: dict = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "mnist"
+        rel = write_mnist_release(root)
+        conf = lenet_config(root)
+        for split in (Split.TRAIN, Split.TEST):
+            ds = conf.dataset.make(split)
+            pixels, labels = rel[split.value]
+            images, got = ds.arrays
+            if ds.resolution != "local:mnist_idx" or len(ds) != len(labels) \
+                    or not np.array_equal(got, labels.astype(np.int32)) or \
+                    not np.array_equal(np.rint(images[:64] * 255.0),
+                                       pixels[:64].astype(np.float32)):
+                raise AssertionError(f"lenet: the release resolved "
+                                     f"{ds.resolution} or reads back "
+                                     f"different records")
+        n_eval = LENET_TEST // LENET_B
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_conv_counts()
+        t0 = time.perf_counter()
+        res = recipe.launch_main(conf, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by_route = conv_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [st["loss"] for st in res["steps"]]
+        n_steps = len(losses)
+        if n_steps != LENET_TRAIN // LENET_B or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"lenet: {n_steps} steps, losses {losses}")
+        if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+            raise AssertionError(f"lenet: the loss did not fall: {losses}")
+        fwd = n_steps + n_eval
+        # B5/B6 a forward/backward: norm1 (C 6, "two_pass") and norm2
+        # (C 16 at bf16, "one_pass")
+        expected = {"gn_fwd": 2 * fwd, "gn_bwd": 2 * n_steps,
+                    "conv1x1": 0, "conv3x3": 0}
+        route_expected = {
+            "gn_fwd": {"one_pass": fwd, "two_pass": fwd},
+            "gn_bwd": {"one_pass": n_steps, "two_pass": n_steps},
+            "conv1x1": dict.fromkeys(by_route["conv1x1"], 0),
+            "conv3x3": dict.fromkeys(by_route["conv3x3"], 0)}
+        if launches != expected or by_route != route_expected:
+            raise AssertionError(f"lenet: launches {launches} by route "
+                                 f"{by_route}, expected {expected} by route "
+                                 f"{route_expected}")
+        step_s = res["train_s"] / res["train_steps"]
+        out.update({"losses": losses, "launches": launches,
+                    "by_route": by_route, "eval_batches": n_eval,
+                    "main_wall_s": wall, "epoch_step_ms": step_s * 1e3,
+                    "epoch_img_per_s": LENET_B / step_s,
+                    "peak_mem_bytes": peak, "test_acc": res.get("test_acc"),
+                    "release_bytes": rel["bytes"],
+                    "release_write_s": rel["seconds"]})
+        log(f"lenet: LeNet-5 over a {rel['bytes'] / 1e6:.1f} MB MNIST IDX "
+            f"release (local:mnist_idx), batch {LENET_B}, bf16, {n_steps} "
+            f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, test acc "
+            f"{res.get('test_acc')}; epoch {step_s * 1e3:.2f} ms per step "
+            f"({LENET_B / step_s:.0f} img/s, host fetch included), peak "
+            f"mem {peak / 2**30:.3f} GiB; B5 by route {by_route['gn_fwd']}, "
+            f"B6 by route {by_route['gn_bwd']} [{smi}]")
+        out["kernels_vs_plain"] = lenet_kernels_vs_plain(root)
+        b = out["breakdown"] = lenet_breakdown(root)
+        log(f"lenet profiled: {b['steps']} steps, {b['step_ms']:.2f} ms per "
+            f"step, {b['img_per_s']:.0f} img/s, device "
+            f"{b['device_ms_per_step']:.2f} ms per step, busy "
+            f"{100 * b['device_busy_share']:.1f}%, "
+            f"{b['kernels_per_step']:.0f} kernels per step, B5/B6 "
+            f"{100 * b['b5_b6_share_of_device']:.1f}% of device time; top: "
+            + "; ".join(f"{k[:50]} {v * 1e3:.2f} ms" for k, v in b["top"][:5])
+            + f" [{smi}]")
+    report["lenet"] = out
+    return {**launches, "by_route": by_route}
+
+
+# --------------------------------------------------------- resnet_import
+IMPORT_B, IMPORT_SIZE = 8, 224     # the held forward's batch, ImageNet
+IMPORT_TUNE_EXAMPLES = 4096   # the cifar10 twin's: 8 fine-tune steps at 512
+IMPORT_TOL = 1e-4      # fp32, of the largest logit
+
+
+def torch_resnet18(classes: int = 1000):
+    """torchvision's ResNet-18 architecture in plain ``torch.nn``, with
+    its ``state_dict`` key names (conv1, bn1, layerN.M.convK/bnK,
+    downsample.0/1, fc); no torchvision needed."""
+    import torch.nn as nn
+
+    class Basic(nn.Module):
+        def __init__(self, cin, cout, stride):
+            super().__init__()
+            self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(cout)
+            self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.bn2 = nn.BatchNorm2d(cout)
+            self.downsample = None
+            if stride != 1 or cin != cout:
+                self.downsample = nn.Sequential(
+                    nn.Conv2d(cin, cout, 1, stride, bias=False),
+                    nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            idn = self.downsample(x) if self.downsample is not None else x
+            y = torch.relu(self.bn1(self.conv1(x)))
+            return torch.relu(self.bn2(self.conv2(y)) + idn)
+
+    class R18(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+            self.bn1 = nn.BatchNorm2d(64)
+            self.maxpool = nn.MaxPool2d(3, 2, 1)
+            cin = 64
+            for si, w in enumerate((64, 128, 256, 512)):
+                setattr(self, f"layer{si + 1}", nn.Sequential(
+                    Basic(cin, w, 2 if si else 1), Basic(w, w, 1)))
+                cin = w
+            self.fc = nn.Linear(512, classes)
+
+        def forward(self, x):
+            x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+            for si in range(4):
+                x = getattr(self, f"layer{si + 1}")(x)
+            return self.fc(x.mean(dim=(2, 3)))
+
+    return R18()
+
+
+def randomized_resnet18(seed: int = 0):
+    """:func:`torch_resnet18` with random weights and randomized
+    BatchNorm statistics (fresh ones, mean 0 and variance 1, would hide a
+    dropped fold), in eval mode."""
+    import torch.nn as nn
+
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    model = torch_resnet18()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                               + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(
+                    m.running_mean.shape, generator=gen) * 0.5)
+                m.running_var.copy_(torch.rand(
+                    m.running_var.shape, generator=gen) * 2 + 0.5)
+    return model.eval()
+
+
+def phase_resnet_import(report: dict, smi: str) -> dict:
+    """A torchvision-layout ResNet-18 saved as ``.pt``, loaded through
+    the ResNet recipe's ``pretrained``: its ``norm="affine"`` forward
+    held to the module's own ``eval()`` forward on the card (fp32, 224²),
+    then a fine-tune of the swapped head through ``launch_main``. The
+    frozen-BN affine runs no kernel: B5-B8 must not launch."""
+    import tempfile
+
+    from torchbooster_tpu_torch.config import DatasetConfig
+    from torchbooster_tpu_torch.models.resnet import ResNet
+    from torchbooster_tpu_torch.recipes import resnet as recipe
+
+    out: dict = {"card": smi}
+    model = randomized_resnet18()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "resnet18.pt"
+        torch.save(model.state_dict(), ckpt)
+        conf = resnet_train_config(1, "fp32")
+        conf.pretrained, conf.num_classes = str(ckpt), 1000
+        reset_conv_counts()
+        t0 = time.perf_counter()
+        params, norm = recipe.load_pretrained(
+            conf, ResNet.init(0, 18, 1000, "imagenet", device=DEV),
+            torch.Generator().manual_seed(conf.seed), DEV)
+        out["import_s"] = time.perf_counter() - t0
+        if norm != "affine":
+            raise AssertionError(f"resnet_import: norm {norm!r}")
+        x = torch.randn(IMPORT_B, 3, IMPORT_SIZE, IMPORT_SIZE,
+                        generator=torch.Generator().manual_seed(1)).to(DEV)
+        xh = x.permute(0, 2, 3, 1).contiguous()
+        model = model.to(DEV)
+        with torch.no_grad():
+            want = model(x)
+            got = ResNet.apply(params, xh, norm="affine")
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            out["ms"] = cuda_ms(lambda: ResNet.apply(params, xh,
+                                                     norm="affine"), 20)
+            out["torch_ms"] = cuda_ms(lambda: model(x), 20)
+        if not err <= IMPORT_TOL * top:
+            raise AssertionError(f"resnet_import: imported forward differs "
+                                 f"from eval() by {err} (max |logit| {top},"
+                                 f" tolerance {IMPORT_TOL} of it)")
+        out.update({"max_abs_err": err, "max_abs_logit": top,
+                    "tol_of_max": IMPORT_TOL})
+        log(f"resnet_import: a torchvision-layout ResNet-18 .pt through the "
+            f"recipe's pretrained ({out['import_s']:.2f} s), norm affine at "
+            f"fp32, {IMPORT_B} x {IMPORT_SIZE}²: max |err| {err:.3g} vs torch eval() "
+            f"(max |logit| {top:.3g}, tol {IMPORT_TOL} of it); forward "
+            f"{out['ms']:.2f} ms vs the module's {out['torch_ms']:.2f} ms "
+            f"[{smi}]")
+        tune = resnet_train_config(1)
+        tune.pretrained, tune.freeze_backbone = str(ckpt), True
+        tune.dataset = DatasetConfig(name="synthetic_cifar10",
+                                     n_examples=IMPORT_TUNE_EXAMPLES)
+        tune.scheduler.n_iter = IMPORT_TUNE_EXAMPLES // RN_B
+        res = recipe.launch_main(tune, device=DEV)
+    launches, _ = conv_counts()
+    losses = [st["loss"] for st in res["steps"]]
+    if len(losses) != IMPORT_TUNE_EXAMPLES // RN_B or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"resnet_import fine-tune: losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"resnet_import: norm affine launched "
+                             f"{launches}")
+    step_s = res["train_s"] / res["train_steps"]
+    out.update({"tune_losses": losses, "tune_step_ms": step_s * 1e3,
+                "tune_img_per_s": RN_B / step_s,
+                "tune_test_acc": res.get("test_acc"), "launches": launches})
+    log(f"resnet_import fine-tune: launch_main, head only "
+        f"(freeze_backbone), bf16, batch {RN_B}, {len(losses)} steps on the "
+        f"cifar10 twin, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{step_s * 1e3:.1f} ms per step, B5-B8 launches {launches} [{smi}]")
+    report["resnet_import"] = out
+    return out
+
+
+# ---------------------------------------------------------- image_models
+NF_SIZE = 224          # NF-ResNet-50 at ImageNet's resolution
+NF_B = 32              # its training batch
+NF_HELD_B = 8          # the s2d-vs-plain forward's batch
+NF_STEPS = 6           # on one fixed batch: the loss must fall
+NF_TOL = 2e-4          # s2d vs plain stem, fp32, of the largest logit
+VGG_SIZE = 256         # examples/img_stt/offline/offline.yml
+VGG_TAPS = (1, 6, 11, 20, 29)        # its style layers (29: content too)
+VGG_STEPS = 10
+
+
+def nf_train(params, x, y, stem_s2d: bool) -> dict:
+    """``NF_STEPS`` SGD-momentum steps (the variant's published pairing)
+    of NF-ResNet-50 at bf16 over fp32 masters on one fixed batch."""
+    from torchbooster_tpu_torch import utils
+    from torchbooster_tpu_torch.config import OptimizerConfig
+    from torchbooster_tpu_torch.models import ResNet
+    from torchbooster_tpu_torch.ops.losses import cross_entropy
+
+    tx = OptimizerConfig(name="sgd", lr=0.02, momentum=0.9).make()
+    state = utils.TrainState.create(params, tx)
+
+    def loss_fn(p, batch, generator):
+        logits = ResNet.apply(p, batch[0], norm="ws", stem_s2d=stem_s2d)
+        return cross_entropy(logits, batch[1]), {}
+
+    step = utils.make_step(loss_fn, tx, compute_dtype=torch.bfloat16)
+    losses, times = [], []
+    for _ in range(NF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, (x, y))
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_ms": float(np.median(times[2:])) * 1e3}
+
+
+def vgg_style_steps(smi: str) -> dict:
+    """The offline style-transfer step at ``offline.yml``'s geometry:
+    VGG-19 features of one 256² image (fp32, random weights), content
+    loss at slot 29, style loss on the grams of the taps, total
+    variation, Adam on the image."""
+    from torchbooster_tpu_torch.models import VGGFeatures
+    from torchbooster_tpu_torch.models.vgg import gram_matrix, \
+        total_variation
+
+    gen = torch.Generator().manual_seed(3)
+    vgg = VGGFeatures.init(0, 19, device=DEV)
+    content = torch.rand(1, VGG_SIZE, VGG_SIZE, 3, generator=gen).to(DEV)
+    style = torch.rand(1, VGG_SIZE, VGG_SIZE, 3, generator=gen).to(DEV)
+    with torch.no_grad():
+        c_feat = VGGFeatures.apply(vgg, VGGFeatures.normalize(content),
+                                   taps=[29])[0]
+        s_grams = [gram_matrix(f) for f in VGGFeatures.apply(
+            vgg, VGGFeatures.normalize(style), taps=VGG_TAPS)]
+    image = content.clone().requires_grad_(True)
+    opt = torch.optim.Adam([image], lr=5e-2)
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(VGG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = VGGFeatures.apply(vgg, VGGFeatures.normalize(image),
+                                  taps=VGG_TAPS)
+        loss = (feats[-1] - c_feat).square().mean() + 1e3 * sum(
+            (gram_matrix(f) - g).square().sum()
+            for f, g in zip(feats, s_grams)) + 1e-2 * total_variation(image)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"image_models vgg: losses {losses}")
+    out = {"losses": losses, "step_ms": float(np.median(times[2:])) * 1e3,
+           "peak_mem_bytes": peak,
+           "tap_shapes": [tuple(f.shape) for f in feats]}
+    log(f"image_models vgg19: offline style step, {VGG_SIZE}² fp32, taps "
+        f"{list(VGG_TAPS)} with gram_matrix, loss {losses[0]:.4g} -> "
+        f"{losses[-1]:.4g} over {VGG_STEPS} Adam steps, "
+        f"{out['step_ms']:.2f} ms per step, peak mem "
+        f"{peak / 2**30:.2f} GiB [{smi}]")
+    return out
+
+
+def phase_image_models(report: dict, smi: str) -> dict:
+    """NF-ResNet-50 (``norm="ws"``, ImageNet stem) at 224²: the
+    space-to-depth stem's forward held to the plain stem's at fp32, then
+    bf16 training on one fixed batch through each stem; VGG-19 at the
+    offline style recipe's geometry. Neither model has a GroupNorm: B5-B8
+    must not launch."""
+    from torchbooster_tpu_torch.models import ResNet
+
+    out: dict = {"card": smi}
+    reset_conv_counts()
+    gen = torch.Generator().manual_seed(1)
+    params = ResNet.init(0, 50, 1000, "imagenet", device=DEV)
+    x = torch.randn(NF_HELD_B, NF_SIZE, NF_SIZE, 3, generator=gen).to(DEV)
+    with torch.no_grad():
+        plain = ResNet.apply(params, x, norm="ws")
+        s2d = ResNet.apply(params, x, norm="ws", stem_s2d=True)
+        err = (s2d - plain).abs().max().item()
+        top = plain.abs().max().item()
+        fwd_ms = {k: cuda_ms(lambda s=s: ResNet.apply(params, x, norm="ws",
+                                                      stem_s2d=s), 10)
+                  for k, s in (("plain", False), ("s2d", True))}
+    if not (math.isfinite(err) and err <= NF_TOL * top):
+        raise AssertionError(f"image_models: s2d stem differs from the "
+                             f"plain stem by {err} (max |logit| {top}, "
+                             f"tolerance {NF_TOL} of it)")
+    out["s2d_vs_plain"] = {"max_abs_err": err, "max_abs_logit": top,
+                           "tol_of_max": NF_TOL, "fp32_forward_ms": fwd_ms}
+    log(f"image_models nf_resnet50 s2d stem vs plain: fp32, {NF_HELD_B} x "
+        f"{NF_SIZE}², max |err| {err:.3g} (max |logit| {top:.3g}, tol {NF_TOL} "
+        f"of it); forward {fwd_ms['plain']:.2f} ms plain, "
+        f"{fwd_ms['s2d']:.2f} ms s2d [{smi}]")
+    x = torch.randn(NF_B, NF_SIZE, NF_SIZE, 3, generator=gen).to(DEV)
+    y = torch.randint(0, 1000, (NF_B,), generator=gen).to(DEV)
+    for stem, s2d_on in (("plain", False), ("s2d", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = nf_train(ResNet.init(0, 50, 1000, "imagenet", device=DEV), x,
+                       y, s2d_on)
+        run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        losses = run["losses"]
+        if not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"image_models nf_resnet50 {stem}: losses "
+                                 f"{losses}")
+        out[f"nf_train_{stem}"] = run
+        log(f"image_models nf_resnet50 train ({stem} stem): bf16, batch "
+            f"{NF_B} x {NF_SIZE}², SGD-momentum, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} over {NF_STEPS} steps on one batch, "
+            f"{run['step_ms']:.1f} ms per step ({NF_B / run['step_ms'] * 1e3:.0f}"
+            f" img/s), peak mem {run['peak_mem_bytes'] / 2**30:.2f} GiB "
+            f"[{smi}]")
+    del params
+    torch.cuda.empty_cache()
+    out["vgg19"] = vgg_style_steps(smi)
+    launches, _ = conv_counts()
+    if any(launches.values()):
+        raise AssertionError(f"image_models: a model without GroupNorm "
+                             f"launched {launches}")
+    out["launches"] = launches
+    report["image_models"] = out
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6741,7 +7301,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(root))
     from torchbooster_tpu_torch.ops import _build
-    from torchbooster_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6940,10 +7500,12 @@ def main() -> int:
         for key in ("gn_fwd", "gn_bwd", "conv1x1", "conv3x3"):
             conv_kernels[key].update(timed_route=res[key]["timed_route"],
                                      previous_ms=res[key]["previous_ms"])
-    # B5-B8 launch on two paths, the recipe's ``main`` over the twin and
-    # the trainer over the record store; the counts add up
+    # B5-B8 launch on three paths, the ResNet recipe's entry point over
+    # the twin, its trainer over the record store and the lenet recipe's
+    # entry point (B5/B6 only); the counts add up
     for key, phase in (("resnet_train", phase_resnet_train),
-                       ("resnet_data", phase_resnet_data)):
+                       ("resnet_data", phase_resnet_data),
+                       ("lenet", phase_lenet)):
         if key not in phases:
             continue
         t = time.perf_counter()
@@ -6955,6 +7517,13 @@ def main() -> int:
                 launches["by_route"][k], 0)
             conv_kernels[k]["launches_by_route"] = {
                 r: n + launches["by_route"][k][r] for r, n in counts.items()}
+    # the frozen-BN import and the norm-free ResNet and VGG launch none
+    for key, phase in (("resnet_import", phase_resnet_import),
+                       ("image_models", phase_image_models)):
+        if key in phases:
+            t = time.perf_counter()
+            phase(report, smi)
+            phase_s[key] = time.perf_counter() - t
     report["wall_s"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))

@@ -9,12 +9,13 @@ Without a card every test here skips (the CUDA kernels have no CPU
 mode). ``paged_inputs`` is the small paged case that
 ``tests/test_torch_ops.py`` also holds against the JAX kernel.
 """
+import importlib
 import numpy as np
 import pytest
 import torch
 
 from torchbooster_tpu_torch.models.gpt import _quantize_kv
-from torchbooster_tpu_torch.ops import paged_attention as pa
+pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
 LAYOUTS = [(False, False, 1), (True, False, 3), (False, True, 3),
            (True, True, 3)]
@@ -1261,3 +1262,75 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
     return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lenet_group_norms_take_their_routes_on_card(dtype):
+    """LeNet's two GroupNorms on the card, forward and backward: at bf16
+    the 6-channel norm takes B5/B6's ``"two_pass"`` route and the
+    16-channel one ``"one_pass"``; at fp32 both ``"two_pass"``. Logits
+    and every gradient against the plain GroupNorm on the same inputs:
+    1e-4 (fp32) or 2e-2 (bf16) of the largest entry (the conv biases'
+    exact gradient is 0, so no per-leaf scale is used)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torchbooster_tpu_torch.models import LeNet
+    from torchbooster_tpu_torch.ops import group_norm as gn
+    from torchbooster_tpu_torch.utils import _cast_batch
+
+    dt = getattr(torch, dtype)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    params = LeNet.init(0, device="cuda")
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    x = torch.rand(64, 28, 28, 1, generator=torch.Generator().manual_seed(0))
+    x = x.cuda().to(dt)
+    runs = {}
+    for impl in ("auto", "plain"):
+        before = (dict(gn.launches_fwd_by_route),
+                  dict(gn.launches_bwd_by_route))
+        out = LeNet.apply(_cast_batch(params, dt), x, gn_impl=impl)
+        (out.float() ** 2).mean().backward()
+        torch.cuda.synchronize()
+        moved = tuple({r: a[r] - b[r] for r in a} for a, b in zip(
+            (gn.launches_fwd_by_route, gn.launches_bwd_by_route), before))
+        runs[impl] = (out.detach().float(), [p.grad.clone() for p in leaves],
+                      moved)
+        for p in leaves:
+            p.grad = None
+    want = {"float32": {"one_pass": 0, "two_pass": 2},
+            "bfloat16": {"one_pass": 1, "two_pass": 1}}[dtype]
+    assert runs["auto"][2] == (want, want)
+    assert all(sum(m.values()) == 0 for m in runs["plain"][2])
+    (ya, ga, _), (yp, gp, _) = runs["auto"], runs["plain"]
+    assert torch.isfinite(ya).all()
+    assert (ya - yp).abs().max() <= tol * yp.abs().max()
+    top = max(g.abs().max() for g in gp)
+    for a, b in zip(ga, gp):
+        assert (a - b).abs().max() <= tol * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["ws", "group"])
+def test_resnet50_s2d_stem_matches_plain_stem_on_card(norm):
+    """The space-to-depth stem on the card at 224² (ResNet-50, ImageNet
+    stem, batch 4, fp32 with TF32 off): logits within 2e-4 of the largest
+    (JAX's bound for the same check) of the plain 7×7/s2 stem's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torchbooster_tpu_torch.models import ResNet
+
+    params = ResNet.init(0, 50, 1000, "imagenet", device="cuda")
+    x = torch.randn(4, 224, 224, 3,
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.no_grad():
+        plain = ResNet.apply(params, x, norm=norm)
+        s2d = ResNet.apply(params, x, norm=norm, stem_s2d=True)
+    assert torch.isfinite(s2d).all()
+    assert (s2d - plain).abs().max() <= 2e-4 * plain.abs().max()

@@ -14,6 +14,7 @@ JAX package on the CPU.
 The CUDA kernel itself is held to its plain version in
 ``tests/test_torch_cuda.py`` (on a card) and in ``chip_smoke.py``.
 """
+import importlib
 import numpy as np
 import pytest
 import torch
@@ -25,9 +26,9 @@ from torchbooster_tpu.models.gpt import _quantize_kv as jax_quantize_kv
 from torchbooster_tpu.ops.attention import mha_reference as jax_mha
 from torchbooster_tpu.ops.paged_attention import paged_attention as jax_paged
 from torchbooster_tpu_torch.models.gpt import _quantize_kv
-from torchbooster_tpu_torch.ops import paged_attention as pa
 from torchbooster_tpu_torch.ops.attention import mha_reference
 from tests.test_torch_cuda import paged_inputs
+pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
 
 @pytest.mark.parametrize("kv_heads", [4, 2])

@@ -2,13 +2,14 @@
 serving shape takes, the invariants the ``"sm90"`` kernel checks before it
 launches, how a named route is held to the plan, and that the smoke's
 build phase builds every CUDA source. Pure Python: no card, no nvcc."""
+import importlib
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from torchbooster_tpu_torch.ops import _build
-from torchbooster_tpu_torch.ops import paged_attention as pa
+pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 

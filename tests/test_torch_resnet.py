@@ -17,7 +17,15 @@ seed and fed to both, all in fp32, each tolerance stated where it is used.
   and its shape check; ``synthetic_cifar10`` (and the twins) byte-identical;
   each transform byte-identical for an identical ``np.random.Generator``;
   ``freeze``; ``Config.load`` of the recipe's YAML; the recipe's ``main``
-  on a tiny config; the options that wait for a later slice raising.
+  on a tiny config; the options the port refuses raising;
+- ``load_torch_state`` against a plain-torch eval-mode ResNet-18 with
+  randomized BatchNorm statistics and against JAX's import, with and
+  without the head swap (JAX ``tests/test_torch_import.py:82``,
+  ``:100``); the recipe's ``pretrained`` from a ``.pt`` and from a
+  ``SaveCallback`` directory (JAX ``tests/test_examples.py:223``).
+
+NF-ResNet and the space-to-depth stem are in
+``tests/test_torch_resnet_nf.py``.
 """
 import dataclasses
 import importlib.util
@@ -479,22 +487,140 @@ def test_recipe_main_runs_on_the_cpu():
 
 
 def test_unported_options_raise(tmp_path):
+    """What the port still refuses, each with its reason: a pretrained
+    directory that no ``SaveCallback`` wrote (an orbax checkpoint needs
+    the JAX package), VGG features without an ``nn.Sequential`` (the port
+    downloads nothing), and the recipe's entry point on a machine with no
+    card unless ``device="cpu"`` is asked for."""
+    from torchbooster_tpu_torch.models.vgg import VGGFeatures, \
+        load_torch_features
+
     params = ResNet.init(0, 18, 10, "cifar", device="cpu")
-    x = torch.zeros(1, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ResNet.apply(params, x, norm="ws")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ResNet.apply(params, x, stem_s2d=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        load_torch_state({})
-    ckpt = tmp_path / "resnet18.pt"
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A10"):
-        recipe.load_pretrained(_tiny_conf(pretrained=str(ckpt)), params,
-                               torch.Generator())
-    with pytest.raises(NotImplementedError, match="A10"):
-        recipe.load_pretrained(_tiny_conf(pretrained=str(tmp_path)), params,
-                               torch.Generator())
+    (tmp_path / "orbax").mkdir()
+    (tmp_path / "orbax" / "_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="orbax checkpoint needs the JAX "
+                                         "package"):
+        recipe.load_pretrained(_tiny_conf(pretrained=str(tmp_path / "orbax")),
+                               params, torch.Generator(), "cpu")
+    with pytest.raises(FileNotFoundError, match="not found"):
+        recipe.load_pretrained(_tiny_conf(pretrained=str(tmp_path / "nope")),
+                               params, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="downloads nothing"):
+        load_torch_features(VGGFeatures.init(0, 16, device="cpu"))
+    with pytest.raises(ValueError, match="no norm in the activation path"):
+        ResNet.apply(params, torch.zeros(1, 8, 8, 3), norm="ws", fused=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             recipe.main(_tiny_conf())
+
+
+# ------------------------------------------------------- load_torch_state
+def _bn_randomized_resnet18(seed: int):
+    """The JAX suite's plain-torch ResNet-18 (torchvision's key names)
+    with random weights and randomized BatchNorm statistics, in eval
+    mode."""
+    from tests.test_torch_import import _randomize_bn_stats, _torch_resnet18
+
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        model = _torch_resnet18()
+        _randomize_bn_stats(model, gen)
+    return model.eval(), gen
+
+
+def test_load_torch_state_matches_torch_eval_and_jax():
+    """The import run at ``norm="affine"`` against the module's own
+    eval-mode forward (1e-4 relative plus 1e-4 of the largest logit; the
+    JAX suite holds its import to 1e-3), and every imported leaf against
+    JAX's ``load_torch_state`` of the same state dict (1e-6: the same
+    fp32 fold, in torch and in numpy)."""
+    from torchbooster_tpu.models.resnet import load_torch_state as jload
+
+    model, gen = _bn_randomized_resnet18(0)
+    x = torch.randn(2, 3, 64, 64, generator=gen)
+    with torch.no_grad():
+        want = model(x).numpy()
+    params = load_torch_state(model.state_dict(), device="cpu")
+    got = ResNet.apply(params, x.permute(0, 2, 3, 1).contiguous(),
+                       norm="affine").detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    jtree = jax.device_get(jload(model.state_dict()))
+    mine = dict(_leaves(to_numpy(params)))
+    theirs = dict(_leaves(jtree))
+    assert mine.keys() == theirs.keys()
+    for path, w in theirs.items():
+        np.testing.assert_allclose(mine[path], w, rtol=1e-6, atol=1e-7,
+                                   err_msg=str(path))
+    numpy_sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    again = load_torch_state(numpy_sd, device="cpu")
+    for a, b in zip(utils.tree_leaves(again), utils.tree_leaves(params)):
+        assert torch.equal(a, b)
+
+
+def test_load_torch_state_head_swap():
+    """``num_classes`` with a generator swaps the head (512 → 10) and
+    keeps every backbone leaf; without a generator the swap raises; the
+    swapped model runs (JAX ``test_resnet_torch_import_head_swap``)."""
+    model, _ = _bn_randomized_resnet18(1)
+    full = load_torch_state(model.state_dict(), device="cpu")
+    params = load_torch_state(model.state_dict(), num_classes=10,
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    assert tuple(params["head"]["kernel"].shape) == (512, 10)
+    for key in full:
+        if key != "head":
+            for a, b in zip(utils.tree_leaves(params[key]),
+                            utils.tree_leaves(full[key])):
+                assert torch.equal(a, b)
+    out = ResNet.apply(params, torch.zeros(1, 64, 64, 3), norm="affine")
+    assert out.shape == (1, 10)
+    with pytest.raises(ValueError, match="generator"):
+        load_torch_state(model.state_dict(), num_classes=10, device="cpu")
+
+
+def test_recipe_pretrained_pt_and_savecallback_tree(tmp_path):
+    """The recipe's ``pretrained``: a ``.pt`` state dict imports at
+    ``norm="affine"`` with the head swapped onto ``num_classes`` (JAX
+    ``test_resnet_pretrained_torch_import``: ``main`` then fine-tunes the
+    head only); a checkpoint directory ``SaveCallback`` wrote restores
+    its params tree byte for byte at ``norm="group"``."""
+    from torchbooster_tpu_torch.callbacks import SaveCallback
+
+    model, _ = _bn_randomized_resnet18(2)
+    ckpt = tmp_path / "resnet18.pt"
+    torch.save(model.state_dict(), ckpt)
+    conf = _tiny_conf(pretrained=str(ckpt))
+    params = ResNet.init(0, 18, 10, "cifar", device="cpu")
+    got, norm = recipe.load_pretrained(conf, params,
+                                       torch.Generator().manual_seed(0),
+                                       "cpu")
+    assert norm == "affine" and tuple(got["head"]["kernel"].shape) == \
+        (512, 10)
+    want = load_torch_state(model.state_dict(), device="cpu")
+    assert torch.equal(got["stage2"]["block1"]["norm2"]["scale"],
+                       want["stage2"]["block1"]["norm2"]["scale"])
+
+    saved = ResNet.init(5, 18, 10, "cifar", device="cpu")
+    cb = SaveCallback(1, 10, root=tmp_path / "ckpts")
+    path = cb.save(3, params=saved)
+    cb.wait()
+    conf = _tiny_conf(pretrained=str(path))
+    got, norm = recipe.load_pretrained(conf, params,
+                                       torch.Generator().manual_seed(0),
+                                       "cpu")
+    assert norm == "group"
+    for key in saved:
+        if key != "head":
+            for a, b in zip(utils.tree_leaves(got[key]),
+                            utils.tree_leaves(saved[key])):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+    conf = _tiny_conf(pretrained=str(ckpt))
+    conf.freeze_backbone = True
+    conf.dataset = DatasetConfig(name="synthetic_cifar10", n_examples=64)
+    conf.scheduler.n_iter = 4
+    conf.loader.batch_size = 16
+    res = recipe.main(conf, device="cpu")
+    assert res["train_steps"] == 4 and math.isfinite(res["train_loss"])

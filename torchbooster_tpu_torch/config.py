@@ -62,6 +62,13 @@ def _yaml():
 INCLUDE_PATTERN = re.compile(r"^\s*#include\s+(.+?)\s*$")
 
 
+def do_include(line: str) -> str | None:
+    """The include target if ``line`` is a ``#include`` directive, else
+    None."""
+    match = INCLUDE_PATTERN.match(line)
+    return match.group(1) if match else None
+
+
 def read_lines(path: str | Path, _stack: tuple[Path, ...] = ()) -> list[str]:
     """Read ``path`` splicing ``#include``d files in place, recursively,
     each relative to the including file's directory. A circular chain
@@ -73,9 +80,9 @@ def read_lines(path: str | Path, _stack: tuple[Path, ...] = ()) -> list[str]:
         raise RecursionError(f"circular #include chain: {chain}")
     lines: list[str] = []
     for line in path.read_text().splitlines():
-        match = INCLUDE_PATTERN.match(line)
-        if match:
-            included = (path.parent / match.group(1)).resolve()
+        target = do_include(line)
+        if target is not None:
+            included = (path.parent / target).resolve()
             lines.extend(read_lines(included, (*_stack, resolved)))
         else:
             lines.append(line)
@@ -337,6 +344,10 @@ class EnvConfig(BaseConfig):
         from torchbooster_tpu_torch import distributed as dist
 
         return dist.shard_batch(batch, dist.get_mesh(self, device=device))
+
+
+# the reference's spelling, kept as an alias (JAX ``config.py:370``)
+EnvironementConfig = EnvConfig
 
 
 @dataclass
@@ -1340,9 +1351,10 @@ class ObservabilityConfig(BaseConfig):
 
 
 __all__ = ["AdaptersConfig", "BaseConfig", "CommsConfig", "DatasetConfig",
-           "DisaggConfig", "EnvConfig", "FrontendConfig", "HostSpillConfig",
-           "HyperParameterConfig", "LoadgenConfig", "LoaderConfig",
-           "ObservabilityConfig", "OptimizerConfig", "SLOBurnConfig",
-           "SchedulerConfig", "ServingConfig", "StructuredConfig",
-           "TracingConfig", "Transform", "WeightsConfig", "parse_sweep",
+           "DisaggConfig", "EnvConfig", "EnvironementConfig",
+           "FrontendConfig", "HostSpillConfig", "HyperParameterConfig",
+           "LoadgenConfig", "LoaderConfig", "ObservabilityConfig",
+           "OptimizerConfig", "SLOBurnConfig", "SchedulerConfig",
+           "ServingConfig", "StructuredConfig", "TracingConfig",
+           "Transform", "WeightsConfig", "do_include", "parse_sweep",
            "read_lines", "resolve_types"]

@@ -26,6 +26,13 @@ def _fan_in_uniform(gen: torch.Generator, shape: tuple, fan_in: int,
             - 1.0).mul_(bound).to(dtype)
 
 
+def normal_init(gen: torch.Generator, shape: tuple, std: float = 0.02,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``N(0, std²)`` draws (JAX ``layers.py:38``)."""
+    return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+            * std).to(dtype)
+
+
 def dense_init(gen: torch.Generator, din: int, dout: int,
                use_bias: bool = True,
                dtype: torch.dtype = torch.float32) -> dict:
@@ -104,6 +111,49 @@ def conv(params: dict, x: torch.Tensor, stride: int = 1,
     return y
 
 
+def conv_transpose(params: dict, x: torch.Tensor,
+                   stride: int | tuple[int, int] = 2,
+                   padding: str = "SAME") -> torch.Tensor:
+    """JAX's ``lax.conv_transpose`` with ``transpose_kernel=False`` (JAX
+    ``layers.py:105``) over NHWC x and an HWIO kernel: x dilated by the
+    stride (``s - 1`` zeros between its entries), padded by lax's rule for
+    a transposed convolution, then correlated with the kernel as it lies
+    at stride 1. That is not ``F.conv_transpose2d``, which flips the
+    kernel's taps and swaps its I and O axes."""
+    w = params["kernel"].to(x.dtype)
+    kh, kw = w.shape[:2]
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    n, h, wd, c = x.shape
+    xc = x.permute(0, 3, 1, 2)
+    if (sh, sw) != (1, 1):
+        dil = xc.new_zeros(n, c, (h - 1) * sh + 1, (wd - 1) * sw + 1)
+        dil[:, :, ::sh, ::sw] = xc
+        xc = dil
+    ph = _transpose_pads(kh, sh, padding)
+    pw = _transpose_pads(kw, sw, padding)
+    xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
+
+
+def _transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:
+    """lax's ``_conv_transpose_padding``: the (before, after) padding of
+    one spatial axis of the dilated input, for the forward convolution's
+    ``padding``."""
+    if padding == "SAME":
+        total = k + s - 2
+        before = k - 1 if s > k - 1 else -(-total // 2)
+    elif padding == "VALID":
+        total = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    else:
+        raise ValueError(f"conv_transpose: padding must be 'SAME' or "
+                         f"'VALID', got {padding!r}")
+    return before, total - before
+
+
 # ------------------------------------------------------------------- pooling
 def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None,
              padding: int = 0) -> torch.Tensor:
@@ -111,6 +161,25 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None,
     never wins: ``-inf`` fill)."""
     stride = window if stride is None else stride
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int | None = None,
+             padding: str = "VALID") -> torch.Tensor:
+    """Average pool over NHWC (JAX ``layers.py:133``): the window's sum
+    over ``window²``, the zeros of ``"SAME"`` padding included. XLA's
+    ``"SAME"`` may pad one side more than the other, so the pad is
+    explicit."""
+    stride = window if stride is None else stride
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        ph = _same_pads(x.shape[1], window, stride)
+        pw = _same_pads(x.shape[2], window, stride)
+        xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+    elif padding != "VALID":
+        raise ValueError(f"avg_pool: padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    y = F.avg_pool2d(xc, window, stride)
     return y.permute(0, 2, 3, 1)
 
 
@@ -155,6 +224,28 @@ def layer_norm(params: dict, x: torch.Tensor,
     return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 
 
+def rms_norm(params: dict, x: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, computed in x's dtype (no fp32
+    upcast), as JAX ``layers.py:219`` does."""
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * params["scale"].to(x.dtype)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Parameter-free instance norm over NHWC's spatial axes with the
+    population variance (JAX ``layers.py:224``)."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    var = x.var(dim=(1, 2), keepdim=True, correction=0)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int,
+                   std: float = 0.02,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    return {"table": normal_init(gen, (vocab, dim), std, dtype)}
+
+
 def embedding(params: dict, ids: torch.Tensor,
               dtype: torch.dtype | None = None) -> torch.Tensor:
     if "qtable" in params:
@@ -165,6 +256,7 @@ def embedding(params: dict, ids: torch.Tensor,
     return rows.to(dtype) if dtype is not None else rows
 
 
-__all__ = ["conv", "conv_init", "dense", "dense_init", "embedding",
-           "global_avg_pool", "group_norm", "layer_norm", "max_pool",
-           "norm_init"]
+__all__ = ["avg_pool", "conv", "conv_init", "conv_transpose", "dense",
+           "dense_init", "embedding", "embedding_init", "global_avg_pool",
+           "group_norm", "instance_norm", "layer_norm", "max_pool",
+           "norm_init", "normal_init", "rms_norm"]

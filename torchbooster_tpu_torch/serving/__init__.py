@@ -7,7 +7,7 @@ the LoRA adapter registry (adapters), prefill/decode disaggregation
 (disagg), and the engine fleet (router: ``EngineFleet``, its routing
 policies, prefix directory, health scorer, audit trail and socket
 replicas; the names below load it lazily) with its replica server
-(replica_server)."""
+(replica_server). ``ServingFrontend`` loads lazily too (the HTTP layer)."""
 from __future__ import annotations
 
 from torchbooster_tpu_torch.serving.adapters import (
@@ -21,6 +21,12 @@ from torchbooster_tpu_torch.serving.batcher import (
 )
 from torchbooster_tpu_torch.serving.disagg import DisaggPair
 from torchbooster_tpu_torch.serving.engine import PagedEngine
+from torchbooster_tpu_torch.serving.frontend import (
+    FCFSPolicy,
+    PriorityClass,
+    SchedulerPolicy,
+    SLOPolicy,
+)
 from torchbooster_tpu_torch.serving.kv_pages import (
     NULL_PAGE,
     BlockTables,
@@ -39,6 +45,10 @@ _ROUTER_NAMES = ("EngineFleet", "InProcessReplica", "AffinityRouting",
 
 
 def __getattr__(name: str):
+    if name == "ServingFrontend":     # lazy: pulls in the http layer
+        from torchbooster_tpu_torch.serving.frontend import ServingFrontend
+
+        return ServingFrontend
     if name in _ROUTER_NAMES:         # lazy: the fleet layer
         from torchbooster_tpu_torch.serving import router
 
@@ -48,9 +58,10 @@ def __getattr__(name: str):
 
 
 __all__ = ["AdapterRegistry", "AffinityRouting", "BlockTables",
-           "ContinuousBatcher", "DisaggPair", "EngineFleet",
+           "ContinuousBatcher", "DisaggPair", "EngineFleet", "FCFSPolicy",
            "HostPagePool", "InProcessReplica", "NO_DRAFT", "NULL_PAGE",
            "PagedEngine", "PoolExhausted", "PrefixDirectory",
-           "PromptLookupDrafter", "Request", "RoundRobinRouting",
-           "TreeLookupDrafter", "best_completions", "make_pool",
-           "random_adapter"]
+           "PriorityClass", "PromptLookupDrafter", "Request",
+           "RoundRobinRouting", "SLOPolicy", "SchedulerPolicy",
+           "ServingFrontend", "TreeLookupDrafter", "best_completions",
+           "make_pool", "random_adapter"]

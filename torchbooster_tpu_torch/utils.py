@@ -1,8 +1,10 @@
 """Training utilities — the port of ``torchbooster_tpu/utils.py``:
 :class:`TrainState`, :func:`make_step` (forward, backward, global-norm
 clip, accumulation, the scheduled optimizer update and the EMA ramp),
-:func:`make_eval_step`, :func:`freeze`, :func:`seed`,
-:func:`iter_loader` and :func:`instrument_step`.
+:func:`make_eval_step`, :func:`freeze`, :func:`seed`, :func:`boost`,
+:func:`iter_loader`, :func:`instrument_step`, the tree helpers
+:func:`detach`, :func:`to_array` and :func:`stack_dictionaries`, and the
+profiler helpers ``trace`` and ``annotate`` (``observability/spans.py``).
 
 PyTorch runs eagerly, so the step is a plain function that updates the
 state IN PLACE (parameters through the optimizer, the EMA tree with
@@ -20,13 +22,21 @@ ZeRO stages 1-3 (``comms/``)."""
 from __future__ import annotations
 
 import functools
+import logging
 import random
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+
+# the profiler helpers' home is the telemetry layer; ``utils.trace`` is
+# the user-facing name, as in the JAX package
+from torchbooster_tpu_torch.observability.spans import (  # noqa: F401
+    annotate,
+    trace,
+)
 
 
 def tree_leaves(tree: Any) -> list[torch.Tensor]:
@@ -39,13 +49,64 @@ def tree_leaves(tree: Any) -> list[torch.Tensor]:
     return [tree]
 
 
-def seed(value: int = 42) -> torch.Generator:
+def boost(enable: bool = True) -> None:
+    """Speed or debug switch (JAX ``utils.py:44``). ``boost(False)`` is
+    debug mode: autograd's anomaly detection, the counterpart of
+    ``jax_debug_nans`` (a backward that makes a NaN raises, naming the
+    forward op). ``boost(True)`` turns it off again. JAX's other switch,
+    ``jax_disable_jit``, has no counterpart in eager PyTorch, and no cuDNN
+    setting is touched."""
+    if not enable:
+        logging.warning("boost disabled: autograd anomaly detection on — "
+                        "slow")
+    torch.autograd.set_detect_anomaly(not enable)
+
+
+def seed(value: int = 42, deterministic: bool = True) -> torch.Generator:
     """Seed Python, numpy and torch; return a CPU ``torch.Generator``
-    seeded with ``value`` (the JAX package returns the root PRNG key)."""
+    seeded with ``value`` (the JAX package returns the root PRNG key).
+
+    ``deterministic`` is accepted for the call signature the reference's
+    examples use and is a no-op, as in the JAX package (``utils.py:105``):
+    it sets no global switch (neither ``use_deterministic_algorithms`` nor
+    ``CUBLAS_WORKSPACE_CONFIG``), so a recipe that seeds does not make ops
+    without a deterministic CUDA implementation raise."""
+    del deterministic
     random.seed(value)
     np.random.seed(value)
     torch.manual_seed(value)
     return torch.Generator().manual_seed(value)
+
+
+def detach(*trees: Any) -> Any:
+    """Cut gradients (JAX ``utils.py:145``): each tree's tensors
+    detached; one argument gives its value, several a tuple."""
+    out = tuple(_tree_map(lambda t: t.detach()
+                          if isinstance(t, torch.Tensor) else t, a)
+                for a in trees)
+    return out[0] if len(out) == 1 else out
+
+
+def to_array(data: Any, dtype: Any = None) -> Any:
+    """Lists, dicts and namedtuples of numbers → numpy arrays (JAX
+    ``utils.py:152``), a dict's or namedtuple's fields one by one."""
+    if hasattr(data, "_asdict"):
+        data = data._asdict()
+    if isinstance(data, dict):
+        return {k: to_array(v, dtype) for k, v in data.items()}
+    arr = np.asarray(data)
+    if dtype is not None:
+        arr = arr.astype(dtype)
+    return arr
+
+
+def stack_dictionaries(dicts: Sequence[dict]) -> dict:
+    """A list of dicts → a dict of stacked numpy arrays, keyed by the
+    first dict's keys (JAX ``utils.py:166``)."""
+    if not dicts:
+        return {}
+    return {key: np.stack([to_array(d[key]) for d in dicts])
+            for key in dicts[0]}
 
 
 def iter_loader(loader: Iterable) -> Iterator[tuple[int, Any]]:
@@ -550,6 +611,7 @@ def instrument_step(step_fn: Callable, name: str = "train_step",
     return wrapped
 
 
-__all__ = ["Frozen", "TrainState", "freeze", "instrument_step",
-           "iter_loader", "make_eval_step", "make_step", "seed",
+__all__ = ["Frozen", "TrainState", "annotate", "boost", "detach", "freeze",
+           "instrument_step", "iter_loader", "make_eval_step", "make_step",
+           "seed", "stack_dictionaries", "to_array", "trace",
            "tree_leaves"]
