@@ -151,10 +151,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    in-process stream). Prints both conformance reports.
 6k. serve_fleet — two replicas of the serving geometry on the one card,
    built by ``ServingConfig.make`` from a ``router: {n_replicas: 2}``
-   block under ``policy: slo``: ``serve_replay``'s workload replayed
-   twice under ``round_robin`` and twice under ``affinity`` (identical
-   assignment logs and streams, equal to a one-replica replay and,
-   uncancelled, to the dense ``generate``), a shared-prefix workload
+   block under ``policy: slo``: ``serve_replay``'s workload cut to 16
+   requests, replayed twice under ``round_robin`` and twice under
+   ``affinity`` (identical assignment logs and streams, equal to a
+   one-replica replay and, uncancelled, to the dense ``generate``), a
+   shared-prefix workload
    (affinity hits, requests at their key's home, more prefix-hit pages
    than round robin), ``fleet.kill(1)`` mid-replay (readmissions equal
    what ``kill`` returned, streams unchanged), a socket replica served on
@@ -268,8 +269,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    4,096 records drawn from a seed read equal through the Python and the
    native reader, each alone and in gathers of 512 (write and read MB/s).
    Then the recipe's trainer (``setup``, ``to_device``, ``step``; the
-   YAML's values: batch 512, bf16, host augmentation) on the store, 4
-   warm-up and 24 timed steps under each loader: (a) ``num_workers: 0``,
+   YAML's values: batch 512, bf16, host augmentation) on the store, 2
+   warm-up and 8 timed steps under each loader: (a) ``num_workers: 0``,
    (b) min(8, cpu count) threads, (c) as many spawn processes, (d) the
    faster of (b) and (c) under ``prefetch_to_device(size=2)``. Every loss
    finite, B5-B8's launches exact per step (B5 4, B6 4, B7 3, B8 13) and
@@ -346,6 +347,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    stage runs its layers on an inactive tick. Prints the fold's ms and
    device ms beside the un-pipelined step's, a finding only.
 
+16. ddpm — the ddpm recipe (``recipes/ddpm.py``) at ``ddpm.yml``'s
+   widths (UNet base 64, mults 1, 2, 2, time_dim 256, one channel, cosine
+   T 1000, EMA 0.999, batch 256, bf16 weights over fp32 images) over a
+   full-size MNIST IDX release: the UNet's forward and every gradient on
+   one batch through B5/B6 against the plain GroupNorm, at fp32 (29 calls
+   each way on ``"two_pass"``) and with bf16 images and weights (the first
+   norm on ``"one_pass"``, 28 on ``"two_pass"``: the fp32 time projection
+   promotes the rest); ``launch_main`` for one epoch (234 steps, cut from
+   10 epochs; a checkpoint after it): the loss falling, B5 29 a forward
+   and B6 29 a step by route, 16 samples by DDIM 50; ``setup`` resumes
+   from the checkpoint and samples from the EMA by DDIM (equal to the
+   file launch_main wrote within 1e-5 of the largest entry) and by the
+   ancestral chain over all 1000 steps, B5 29 a step; a class-conditional
+   model (10 classes, p_uncond 0.1) 8 steps, ``cfg_apply`` checked on the
+   card and DDIM 50 at guidance 2 over a doubled batch of 32; a profiled
+   window; B5 and B6 timed at the UNet's six GroupNorm shapes at fp32 and
+   bf16 beside their plain versions, bounds and ``F.group_norm``.
+17. vae_gan — the vae and gan recipes' ``launch_main`` for one epoch each
+   (117 steps at batch 512) over the release at their YAMLs' values (vae
+   bf16; the GAN in fp32, as JAX's step never casts): the VAE's loss
+   falling and ``kld`` >= 0, every GAN metric finite, samples written,
+   D's loss gradient with the penalty's double backward on the card
+   within 1e-4 of the CPU's largest entry; no B-kernel launches.
+18. style — ``offline.yml`` in full (500 Adam steps on a 256² image,
+   fp32, random VGG-19; the loss falling), ``online.yml`` (batch 16) and
+   ``adain.yml`` (batch 8) at 256², bf16, cut to 24 steps with a preview
+   every 12: every loss finite, every output written; no B-kernel.
+
 The last stdout line is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel's route, error, times and launches. Longer
 output (ptxas report, per-case errors) goes to chiprun_out/chip_smoke.json.
@@ -372,7 +401,8 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
           "train", "gpt2_import", "train_long", "conv", "resnet_train",
           "resnet_data", "lenet", "resnet_import", "image_models",
-          "train_comms", "moe", "sp_fold", "tp", "pp_fold")
+          "ddpm", "vae_gan", "style", "train_comms", "moe", "sp_fold", "tp",
+          "pp_fold")
 SERVE_PHASES = ("serve_fp32", "serve_bf16", "serve_spec_bf16",
                 "serve_spec_fp32", "serve_tree", "serve_fork",
                 "serve_structured", "serve_wq", "serve_lora",
@@ -2936,6 +2966,9 @@ def phase_serve_replay(params, cfg, smi: str, report: dict
 FLEET_TENANTS = 2             # tenants of the shared-prefix workload
 FLEET_PREFIX_PAGES = 2        # their page-aligned shared prefix, in pages
 FLEET_KILL_AFTER = 40         # fleet steps before replica 1 may be killed
+# requests of the fleet's workload: serve_replay's 32 halved, to keep the
+# smoke inside its time limit (the replays are host-bound)
+FLEET_REQUESTS = 16
 FLEET_FLIGHT = 1 << 15        # a flight ring that holds every step here
 FLEET_MERGED_KEYS = {"n_requests", "new_tokens", "elapsed_s",
                      "decode_tok_s", "total_tok_s", "latency_mean_s",
@@ -2982,7 +3015,8 @@ def phase_serve_fleet(params, cfg, smi: str, report: dict
     """The engine fleet at GPT-2 small, bf16: two replicas on the one
     card, built by ``ServingConfig.make`` from a ``router: {n_replicas:
     2}`` block under ``policy: slo``, driven by ``replay_inprocess`` with
-    ``serve_replay``'s workload and a shared-prefix one (2 tenants, a
+    ``serve_replay``'s workload cut to ``FLEET_REQUESTS`` and a
+    shared-prefix one (2 tenants, a
     2-page prefix). Gates: two replays under each policy give the same
     ``assignment_log`` and streams, equal across policies and to a
     one-replica replay; uncancelled streams equal the dense ``generate``,
@@ -3015,7 +3049,7 @@ def phase_serve_fleet(params, cfg, smi: str, report: dict
                                                        routing_artifact)
 
     classes = f"interactive:{REPLAY_TTFT_MS}:0,batch:0:0"
-    load = dict(source="poisson", n_requests=32,
+    load = dict(source="poisson", n_requests=FLEET_REQUESTS,
                 classes="interactive:3,batch:1", cancel_frac=0.125,
                 prompt_len=(64, 512), max_new_tokens=(16, 32),
                 vocab=cfg.vocab)
@@ -3266,7 +3300,7 @@ def phase_serve_fleet(params, cfg, smi: str, report: dict
            "shared_fingerprint": shared.fingerprint(), "card": smi}
     report["serve_fleet"] = out
     log(f"serve_fleet: 2 GPT-2 small replicas on one card; workload "
-        f"{wl.fingerprint()} (32 requests) twice under round_robin and "
+        f"{wl.fingerprint()} ({len(wl)} requests) twice under round_robin and "
         f"twice under affinity: identical assignment logs and streams, "
         f"equal to the one-replica replay and (uncancelled) to dense "
         f"generate; shared-prefix workload {shared.fingerprint()}: affinity "
@@ -6412,7 +6446,9 @@ def phase_resnet_train(report: dict, smi: str) -> dict:
 
 
 # ----------------------------------------------------------- resnet_data
-RD_WARM, RD_TIMED = 4, 24      # steps a loader mode: warm-up, then timed
+# steps a loader mode: warm-up, then timed (4 and 24 until the generative
+# phases joined the smoke and its time limit called for cuts)
+RD_WARM, RD_TIMED = 2, 8
 RD_SAMPLE, RD_GATHER = 4096, 512   # records read back, records a gather
 RD_COPY_BATCHES = 8            # batches held byte for byte, prefetch vs host
 RD_TRAIN, RD_TEST, RD_PER_FILE = 50_000, 10_000, 10_000   # CIFAR-10's sizes
@@ -7278,6 +7314,767 @@ def phase_image_models(report: dict, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ ddpm
+DDPM_B = 256           # ddpm.yml's batch
+DDPM_EPOCHS = 1        # ddpm.yml trains 10 epochs; one here (234 steps)
+DDPM_SAMPLES = 16      # ddpm.yml's n_samples
+DDPM_DDIM = 50         # ddpm.yml's sample_steps
+DDPM_COND_STEPS = 8    # the conditional model's training steps
+DDPM_PROFILED = 5      # steps profiled for the busy share
+# kernels vs plain, of the largest entry: fp32 sums in another order; at
+# bf16 the first GroupNorm rounds its output to bf16 on both sides
+DDPM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the GroupNorm shapes of ddpm.yml's UNet, (side, C): B5/B6 timed at each
+UNET_GN_SHAPES = ((28, 64), (28, 128), (14, 128), (14, 256), (7, 128),
+                  (7, 256))
+
+
+def ddpm_config(root: Path, tmp: Path, **overrides):
+    """``examples/img_gen/ddpm/ddpm.yml``'s values built in code (the
+    card's machine reads no YAML), ``DDPM_EPOCHS`` epochs over the MNIST
+    release at ``root``, a checkpoint after every epoch under ``tmp`` (the
+    YAML saves none; the sampling runs restore the EMA from it), samples
+    written under ``tmp``; ``overrides`` set top-level fields."""
+    from torchbooster_tpu_torch.config import (
+        DatasetConfig,
+        EnvConfig,
+        LoaderConfig,
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes.ddpm import Config, ModelConfig
+
+    conf = Config(
+        epochs=DDPM_EPOCHS, seed=42, timesteps=1000, schedule="cosine",
+        n_samples=DDPM_SAMPLES, sample_steps=DDPM_DDIM,
+        samples_path=str(tmp / "samples" / "ddpm_samples.npy"),
+        model=ModelConfig(in_channels=1, base=64, mults=(1, 2, 2),
+                          time_dim=256),
+        env=EnvConfig(distributed=False, precision="bf16", n_devices=0,
+                      mesh="dp"),
+        loader=LoaderConfig(batch_size=DDPM_B, num_workers=0,
+                            drop_last=True),
+        optim=OptimizerConfig(name="adamw", lr=2e-4,
+                              decay_matrices_only=True),
+        scheduler=SchedulerConfig(name="cycle", n_iter=0, warmup=32,
+                                  decay=("cos", "cos")),
+        dataset=DatasetConfig(name="mnist", root=str(root)),
+        ema_decay=0.999, save_every=1,
+        checkpoint_root=str(tmp / "checkpoints"))
+    for key, value in overrides.items():
+        setattr(conf, key, value)
+    return conf
+
+
+def unet_gn_calls(cfg, size: int, dtype) -> list[tuple]:
+    """Each GroupNorm of one UNet forward over ``size``² images with
+    weights of ``dtype``, in order, as ``(H·W, C, groups, dtype)``:
+    recorded from a one-image forward on the CPU through a hook on the
+    plain GroupNorm, which ``layers.group_norm`` calls there with the
+    group count it settled on. The forward states the structure; nothing
+    here repeats it."""
+    from torchbooster_tpu_torch.models.unet import UNet
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+    from torchbooster_tpu_torch.utils import _cast_batch
+
+    real, seen = gnk.group_norm_fwd_reference, []
+
+    def hook(x, scale, bias, groups, *args):
+        seen.append((x.shape[1] * x.shape[2], x.shape[-1], groups, x.dtype))
+        return real(x, scale, bias, groups, *args)
+
+    gnk.group_norm_fwd_reference = hook
+    try:
+        with torch.no_grad():
+            UNet.apply(_cast_batch(UNet.init(0, cfg, device="cpu"), dtype),
+                       torch.zeros(1, size, size, cfg.in_channels,
+                                   dtype=dtype),
+                       torch.zeros(1, dtype=torch.long), cfg)
+    finally:
+        gnk.group_norm_fwd_reference = real
+    return seen
+
+
+def unet_routes(cfg, size: int, n: int, dtype) -> tuple[dict, dict]:
+    """B5's and B6's launches by route in one UNet forward and backward of
+    ``n`` images, from :func:`unet_gn_calls` and the plan functions."""
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    fwd = {"one_pass": 0, "two_pass": 0}
+    bwd = dict(fwd)
+    for hw, c, groups, dt in unet_gn_calls(cfg, size, dtype):
+        fwd[gnk.plan_gn_fwd(n, hw, c, groups, dt).route] += 1
+        bwd[gnk.plan_gn_bwd(n, hw, c, groups, dt).route] += 1
+    return fwd, bwd
+
+
+def scaled(routes: dict, k: int) -> dict:
+    return {r: k * n for r, n in routes.items()}
+
+
+def added(*counts: dict) -> dict:
+    return {r: sum(c[r] for c in counts) for r in counts[0]}
+
+
+def ddpm_kernels_vs_plain(root: Path, tmp: Path) -> dict:
+    """One batch of the release through the UNet at ``ddpm.yml``'s widths,
+    forward and the gradient of every parameter, through B5/B6
+    (``gn_impl="auto"``) and through the plain GroupNorm, from the same
+    parameters: at fp32 (the recipe's flow, every call ``"two_pass"``)
+    and with bf16 images and weights (the first norm ``"one_pass"``, the
+    28 after the fp32 time projection ``"two_pass"``). Exact launches by
+    route, and the output and every gradient within ``DDPM_TOL`` of the
+    largest entry."""
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.models.unet import UNet
+    from torchbooster_tpu_torch.recipes import ddpm as recipe
+    from torchbooster_tpu_torch.utils import _cast_batch, tree_leaves
+
+    conf = ddpm_config(root, tmp)
+    cfg = conf.model.make()
+    loader = conf.loader.make(conf.dataset.make(Split.TRAIN), shuffle=False)
+    images, _ = recipe.to_device(next(iter(loader)), torch.device(DEV))
+    x = recipe.to_unit(images)[..., None]
+    t = torch.randint(0, 1000, (DDPM_B,),
+                      generator=torch.Generator().manual_seed(3)).to(DEV)
+    params = UNet.init(0, cfg, device=DEV)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    out = {}
+    for dtype, tol in DDPM_TOL.items():
+        want = unet_routes(cfg, 28, DDPM_B, dtype)
+        runs = {}
+        for impl in ("auto", "plain"):
+            before = conv_counts()[1]
+            y = UNet.apply(_cast_batch(params, dtype), x.to(dtype), t, cfg,
+                           gn_impl=impl)
+            (y.float() ** 2).mean().backward()
+            after = conv_counts()[1]
+            moved = tuple({r: after[k][r] - before[k][r] for r in after[k]}
+                          for k in ("gn_fwd", "gn_bwd"))
+            runs[impl] = (y.detach().float(), [p.grad.clone() for p in leaves],
+                          moved)
+            for p in leaves:
+                p.grad = None
+        name = str(dtype).split(".")[-1]
+        if runs["auto"][2] != want or any(sum(m.values())
+                                          for m in runs["plain"][2]):
+            raise AssertionError(f"ddpm {name}: routes {runs['auto'][2]} "
+                                 f"(plain {runs['plain'][2]}), expected "
+                                 f"{want}")
+        (ya, ga, _), (yp, gp, _) = runs["auto"], runs["plain"]
+        y_err = (ya - yp).abs().max().item() / yp.abs().max().item()
+        top = max(g.abs().max().item() for g in gp)
+        worst = max((a - b).abs().max().item() for a, b in zip(ga, gp)) / top
+        if not (math.isfinite(y_err) and y_err <= tol and worst <= tol):
+            raise AssertionError(f"ddpm {name}: kernels vs plain output "
+                                 f"error {y_err:.3g}, worst gradient error "
+                                 f"{worst:.3g} of the largest entry "
+                                 f"(tolerance {tol})")
+        out[name] = {"output_err_of_max": y_err,
+                     "worst_grad_err_of_max": worst, "tol": tol,
+                     "routes": runs["auto"][2]}
+        log(f"ddpm {name} kernels vs plain: UNet forward + backward at batch "
+            f"{DDPM_B} x 28², output error {y_err:.3g}, worst gradient "
+            f"error {worst:.3g} of the largest entry (tol {tol}); B5 routes "
+            f"{runs['auto'][2][0]}, B6 {runs['auto'][2][1]}")
+    return out
+
+
+def ddpm_breakdown(root: Path, tmp: Path,
+                   n_steps: int = DDPM_PROFILED) -> dict:
+    """A fresh trainer (no checkpoint): two warm steps, then ``n_steps``
+    as the recipe runs them under the profiler: busy share, device ms a
+    step, kernels a step, B5/B6's share of device time, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchbooster_tpu_torch.recipes import ddpm as recipe
+
+    t = recipe.setup(ddpm_config(root, tmp, save_every=0), DEV)
+    batches = iter(t.loader)
+    for _ in range(2):
+        t.state, m = t.step(t.state, recipe.to_device(next(batches),
+                                                       t.device))
+    m["loss"].item()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            t.state, m = t.step(t.state, recipe.to_device(next(batches),
+                                                           t.device))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
+                         for e in events), key=lambda kv: -kv[1])
+    busy = sum(v for _, v in per_kernel)
+    ours = sum(v for k, v in per_kernel if "gn_fwd" in k or "gn_bwd" in k)
+    return {"steps": n_steps, "step_ms": wall / n_steps * 1e3,
+            "img_per_s": DDPM_B * n_steps / wall,
+            "device_busy_share": busy / wall,
+            "device_ms_per_step": busy / n_steps * 1e3,
+            "b5_b6_share_of_device": ours / max(busy, 1e-12),
+            "kernels_per_step": sum(e.count for e in events) / n_steps,
+            "top": per_kernel[:8]}
+
+
+def counted_run(fn) -> tuple:
+    """``fn()`` with B5-B8's counters from 0: its result, the wall ms
+    (synchronized) and the launches by route it made."""
+    reset_conv_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, conv_counts()[1]
+
+
+def ddpm_sampling(conf, cfg, saved: np.ndarray) -> tuple[dict, dict]:
+    """The trainer ``setup`` resumes from the epoch's checkpoint (no step
+    left to train), then samples from its EMA: DDIM at ``sample_steps``
+    (the second run from the seed: equal to the file ``launch_main``
+    wrote within 1e-5 of the largest entry) and the ancestral chain over
+    all T. Exact B5 counts: 29 a step, all ``"two_pass"``."""
+    from torchbooster_tpu_torch.recipes import ddpm as recipe
+
+    t = recipe.setup(conf, DEV)
+    if t.start_epoch != conf.epochs:
+        raise AssertionError(f"ddpm: resumed at epoch {t.start_epoch}, "
+                             f"expected {conf.epochs}")
+    weights = t.sample_params()
+    per_call = unet_routes(cfg, 28, DDPM_SAMPLES, torch.float32)[0]
+    out, moved = {}, []
+    runs = {}
+    for name, steps in (("ddim", conf.sample_steps), ("ancestral", 0)):
+        t.conf.sample_steps = steps
+        images, ms, by_route = counted_run(lambda: recipe.sample(t, weights))
+        n = steps or conf.timesteps
+        if by_route["gn_fwd"] != scaled(per_call, n) or \
+                sum(by_route["gn_bwd"].values()):
+            raise AssertionError(f"ddpm {name}: B5 {by_route['gn_fwd']}, "
+                                 f"B6 {by_route['gn_bwd']}; expected "
+                                 f"{scaled(per_call, n)} and none")
+        images = images.cpu().numpy()
+        if images.shape != (DDPM_SAMPLES, 28, 28, 1) or \
+                not np.isfinite(images).all():
+            raise AssertionError(f"ddpm {name}: samples {images.shape}, "
+                                 f"finite {np.isfinite(images).all()}")
+        runs[name] = images
+        moved.append(by_route)
+        out[name] = {"steps": n, "ms": ms, "ms_per_unet_call": ms / n,
+                     "by_route": by_route,
+                     "range": [float(images.min()), float(images.max())]}
+    err = np.abs(runs["ddim"] - saved).max() / np.abs(saved).max()
+    out["ddim_vs_saved_err_of_max"] = float(err)
+    if not err <= 1e-5:
+        raise AssertionError(f"ddpm: the second DDIM run differs from the "
+                             f"first by {err:.3g} of the largest entry")
+    conf.sample_steps = DDPM_DDIM
+    return out, {k: added(*(m[k] for m in moved)) for k in moved[0]}
+
+
+def ddpm_conditional(root: Path, tmp: Path) -> tuple[dict, dict]:
+    """``n_classes: 10``, ``p_uncond`` 0.1: ``DDPM_COND_STEPS`` steps of
+    the trainer, ``cfg_apply`` on the card (w = 0 is the conditional
+    branch itself; w = 2 equals 3·ε̂(x, y) − 2·ε̂(x, ∅) within 1e-4 of the
+    largest entry), then ``sample`` by DDIM at 50 steps with guidance 2
+    over one doubled batch of 32 a step."""
+    from torchbooster_tpu_torch.ops.diffusion import cfg_apply
+    from torchbooster_tpu_torch.recipes import ddpm as recipe
+
+    conf = ddpm_config(root, tmp, save_every=0, p_uncond=0.1, guidance=2.0)
+    conf.model.n_classes = 10
+    cfg = conf.model.make()
+    t = recipe.setup(conf, DEV)
+    batches = iter(t.loader)
+
+    def train():
+        return [t.step(t.state, recipe.to_device(next(batches),
+                                                 t.device))[1]["loss"]
+                for _ in range(DDPM_COND_STEPS)]
+
+    losses, train_ms, trained = counted_run(train)
+    losses = torch.stack(losses).tolist()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ddpm conditional: losses {losses}")
+    weights = t.sample_params()
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(DDPM_SAMPLES, 28, 28, 1, generator=gen).to(DEV)
+    steps = torch.randint(0, 1000, (DDPM_SAMPLES,), generator=gen).to(DEV)
+    labels = torch.arange(DDPM_SAMPLES, device=DEV) % 10
+    null = torch.full_like(labels, 10)
+
+    def guided():
+        with torch.no_grad():
+            cond = t.apply_fn(weights, x, steps, labels)
+            uncond = t.apply_fn(weights, x, steps, null)
+            return (cond, uncond,
+                    cfg_apply(t.apply_fn, weights, x, steps, labels, 10, 0.0),
+                    cfg_apply(t.apply_fn, weights, x, steps, labels, 10,
+                              2.0))
+
+    (cond, uncond, w0, w2), _, checked = counted_run(guided)
+    want = 3.0 * cond - 2.0 * uncond
+    w2_err = ((w2 - want).abs().max() / want.abs().max()).item()
+    if not torch.equal(w0, cond) or not w2_err <= 1e-4:
+        raise AssertionError(f"ddpm conditional: cfg_apply at w 0 equal "
+                             f"{torch.equal(w0, cond)}, at w 2 error "
+                             f"{w2_err:.3g} of the largest entry")
+    images, sample_ms, sampled = counted_run(lambda: recipe.sample(t,
+                                                                   weights))
+    images = images.cpu().numpy()
+    if images.shape != (DDPM_SAMPLES, 28, 28, 1) or \
+            not np.isfinite(images).all():
+        raise AssertionError(f"ddpm conditional: samples {images.shape}")
+    fwd, bwd = unet_routes(cfg, 28, DDPM_B, torch.float32)
+    want = {"gn_fwd": scaled(fwd, DDPM_COND_STEPS),
+            "gn_bwd": scaled(bwd, DDPM_COND_STEPS)}
+    if {k: trained[k] for k in want} != want:
+        raise AssertionError(f"ddpm conditional: training launched "
+                             f"{trained}, expected {want}")
+    doubled = unet_routes(cfg, 28, 2 * DDPM_SAMPLES, torch.float32)[0]
+    for what, got, n in (("cfg check", checked, 4),
+                         ("sampling", sampled, DDPM_DDIM)):
+        want = scaled(doubled if what == "sampling" else
+                      unet_routes(cfg, 28, DDPM_SAMPLES, torch.float32)[0],
+                      n)
+        if got["gn_fwd"] != want or sum(got["gn_bwd"].values()):
+            raise AssertionError(f"ddpm conditional {what}: B5 "
+                                 f"{got['gn_fwd']}, expected {want}")
+    out = {"losses": losses, "train_ms": train_ms, "w2_err_of_max": w2_err,
+           "sample_ms": sample_ms, "ms_per_unet_call": sample_ms / DDPM_DDIM}
+    return out, {k: added(trained[k], checked[k], sampled[k])
+                 for k in trained}
+
+
+def time_gn_at(gen, side: int, c: int, dtype) -> dict:
+    """B5 and B6 at one of the UNet's GroupNorm shapes (batch 256, 8
+    groups, no ReLU) beside their plain versions, the bound and
+    ``F.group_norm`` (its forward, and its backward by autograd, on the
+    channels-last view of the same tensor)."""
+    import torch.nn.functional as F
+
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+
+    x = (torch.randn(DDPM_B, side, side, c, generator=gen, device=DEV)
+         * 2.0 + 0.5).to(dtype)
+    dy = torch.randn(DDPM_B, side, side, c, generator=gen,
+                     device=DEV).to(dtype)
+    s = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEV)
+    b = 0.1 * torch.randn(c, generator=gen, device=DEV)
+    _, st = gnk.launch_fwd(x, s, b, 8, 1e-5)
+    x4, dy4 = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    xg = x4.detach().clone(memory_format=torch.channels_last) \
+        .requires_grad_()
+    sg = s.to(dtype).requires_grad_()
+    bg = b.to(dtype).requires_grad_()
+    lib_out = F.group_norm(xg, 8, sg, bg, 1e-5)
+    fns = {"gn_fwd": (lambda: gnk.launch_fwd(x, s, b, 8, 1e-5),
+                      lambda: gnk.group_norm_fwd_reference(x, s, b, 8),
+                      lambda: F.group_norm(x4, 8, sg.detach(), bg.detach(),
+                                           1e-5)),
+           "gn_bwd": (lambda: gnk.launch_bwd(x, dy, st, s, b, 8),
+                      lambda: gnk.group_norm_bwd_reference(x, dy, st, s, b,
+                                                           8),
+                      lambda: torch.autograd.grad(lib_out, (xg, sg, bg), dy4,
+                                                  retain_graph=True))}
+    el = 2 if dtype == torch.bfloat16 else 4
+    work = conv_work(("unet", "gn", DDPM_B, side, side, c, c, 1), el)
+    out = {}
+    for key, (kern, plain, lib) in fns.items():
+        ms = {}
+        for col, fn in (("kernel", kern), ("plain", plain),
+                        ("library", lib)):
+            iters = 3 if col == "plain" else 10
+            ms[col] = device_ms(fn, iters=iters) or stream_ms(fn, iters=iters)
+        nbytes, flops, peak = work[key]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        plan = (gnk.plan_gn_fwd if key == "gn_fwd" else gnk.plan_gn_bwd)(
+            DDPM_B, side * side, c, 8, dtype)
+        out[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "library_ms": ms["library"],
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "route": plan.route, "plan": plan._asdict()}
+    return out
+
+
+def ddpm_gn_timing(smi: str) -> dict:
+    """B5 and B6 at every GroupNorm shape of the UNet at ``ddpm.yml``'s
+    widths, fp32 (the recipe's route) and bf16."""
+    gen = torch.Generator(DEV).manual_seed(11)
+    out = {}
+    for side, c in UNET_GN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"{side}x{side}x{c}_{str(dtype).split('.')[-1]}"
+            res = out[name] = time_gn_at(gen, side, c, dtype)
+            log(f"ddpm gn timing {name} (batch {DDPM_B}, 8 groups): "
+                + "; ".join(
+                    f"{k} {r['route']} {r['ms'] * 1e3:.1f} us, plain "
+                    f"{r['plain_ms'] * 1e3:.1f} us, F.group_norm "
+                    f"{r['library_ms'] * 1e3:.1f} us, bound "
+                    f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})"
+                    for k, r in res.items()) + f" [{smi}]")
+    return out
+
+
+def phase_ddpm(report: dict, smi: str) -> dict:
+    """The ddpm recipe on the card at ``ddpm.yml``'s widths over a
+    full-size MNIST IDX release: the UNet's kernels held to the plain
+    GroupNorm (fp32 and bf16), ``launch_main`` for one epoch (loss
+    falling, B5/B6 exact by route, samples by DDIM), sampling from the
+    restored EMA (DDIM twice, the ancestral chain), the conditional model
+    with guidance, a profiled window and B5/B6 timed at the UNet's
+    shapes. Returns B5/B6's launches from the main-path runs."""
+    import tempfile
+
+    from torchbooster_tpu_torch.recipes import ddpm as recipe
+
+    out: dict = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        root = tmp / "mnist"
+        rel = write_mnist_release(root)
+        out["kernels_vs_plain"] = ddpm_kernels_vs_plain(root, tmp)
+        conf = ddpm_config(root, tmp)
+        cfg = conf.model.make()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall_ms, trained = counted_run(
+            lambda: recipe.launch_main(conf, device=DEV))
+        peak = torch.cuda.max_memory_allocated()
+        losses = res["losses"]
+        n_steps = len(losses)
+        if n_steps != DDPM_EPOCHS * (LENET_TRAIN // DDPM_B) or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"ddpm: {n_steps} steps, losses {losses}")
+        if not np.mean(losses[-20:]) < np.mean(losses[:20]):
+            raise AssertionError(f"ddpm: the loss did not fall: {losses}")
+        fwd, bwd = unet_routes(cfg, 28, DDPM_B, torch.float32)
+        sample_fwd = unet_routes(cfg, 28, DDPM_SAMPLES, torch.float32)[0]
+        want = {"gn_fwd": added(scaled(fwd, n_steps),
+                                scaled(sample_fwd, DDPM_DDIM)),
+                "gn_bwd": scaled(bwd, n_steps),
+                "conv1x1": dict.fromkeys(trained["conv1x1"], 0),
+                "conv3x3": dict.fromkeys(trained["conv3x3"], 0)}
+        if trained != want:
+            raise AssertionError(f"ddpm: launches by route {trained}, "
+                                 f"expected {want}")
+        saved = np.load(res["samples"])
+        step_s = res["train_s"] / res["train_steps"]
+        out.update({"losses": losses, "by_route": trained,
+                    "main_wall_ms": wall_ms, "epoch_step_ms": step_s * 1e3,
+                    "epoch_img_per_s": DDPM_B / step_s,
+                    "peak_mem_bytes": peak, "release_bytes": rel["bytes"]})
+        log(f"ddpm: UNet (base 64, mults 1,2,2, time_dim 256, cosine T 1000, "
+            f"EMA 0.999) over the MNIST IDX release, batch {DDPM_B}, bf16 "
+            f"weights over fp32 images, {n_steps} steps, loss "
+            f"{np.mean(losses[:20]):.4f} -> {np.mean(losses[-20:]):.4f} "
+            f"(first / last 20); epoch {step_s * 1e3:.2f} ms per step "
+            f"({DDPM_B / step_s:.0f} img/s, host fetch included), peak mem "
+            f"{peak / 2**30:.2f} GiB; B5 by route {trained['gn_fwd']}, B6 "
+            f"{trained['gn_bwd']} (train + DDIM {DDPM_DDIM} sampling) [{smi}]")
+        sampling, sampled = ddpm_sampling(conf, cfg, saved)
+        out["sampling"] = sampling
+        log(f"ddpm sampling from the restored EMA ({DDPM_SAMPLES} samples): "
+            + "; ".join(f"{k} {v['steps']} steps {v['ms']:.1f} ms "
+                        f"({v['ms_per_unet_call']:.2f} ms per UNet call), B5 "
+                        f"{v['by_route']['gn_fwd']}"
+                        for k, v in sampling.items() if isinstance(v, dict))
+            + f"; DDIM vs launch_main's file (the same seed) "
+            f"{sampling['ddim_vs_saved_err_of_max']:.3g} of the largest "
+            f"entry [{smi}]")
+        cond, cond_moved = ddpm_conditional(root, tmp)
+        out["conditional"] = cond
+        log(f"ddpm conditional (10 classes, p_uncond 0.1): "
+            f"{DDPM_COND_STEPS} steps, losses {cond['losses'][0]:.4f} -> "
+            f"{cond['losses'][-1]:.4f}; cfg_apply w 0 equal to the "
+            f"conditional call, w 2 within {cond['w2_err_of_max']:.3g} of "
+            f"the largest entry; DDIM {DDPM_DDIM} at guidance 2.0 (batch "
+            f"{2 * DDPM_SAMPLES} a step) {cond['sample_ms']:.1f} ms "
+            f"({cond['ms_per_unet_call']:.2f} ms per UNet call) [{smi}]")
+        b = out["breakdown"] = ddpm_breakdown(root, tmp)
+        log(f"ddpm profiled: {b['steps']} steps, {b['step_ms']:.2f} ms per "
+            f"step, {b['img_per_s']:.0f} img/s, device "
+            f"{b['device_ms_per_step']:.2f} ms per step, busy "
+            f"{100 * b['device_busy_share']:.1f}%, "
+            f"{b['kernels_per_step']:.0f} kernels per step, B5/B6 "
+            f"{100 * b['b5_b6_share_of_device']:.1f}% of device time; top: "
+            + "; ".join(f"{k[:50]} {v * 1e3:.2f} ms" for k, v in b["top"][:5])
+            + f" [{smi}]")
+    out["gn_timing"] = ddpm_gn_timing(smi)
+    report["ddpm"] = out
+    by_route = {k: added(trained[k], sampled[k], cond_moved[k])
+                if k in sampled else trained[k] for k in trained}
+    return {**{k: sum(v.values()) for k, v in by_route.items()},
+            "by_route": by_route, "gn_timing": out["gn_timing"]}
+
+
+# --------------------------------------------------------------- vae_gan
+GEN_B = 512            # vae.yml's and gan.yml's batch
+GAN_GRAD_TOL = 1e-4    # card vs CPU, fp32 (TF32 off), of the largest entry
+
+
+def b_counts() -> tuple:
+    """Every B-kernel launch counter of the port: B1-B3, B4, B5-B8."""
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
+    fl = flash_counts()
+    return (fl["fwd"], fl["dq"], fl["dkv"], pa.launches,
+            *conv_counts()[0].values())
+
+
+def gen_env(precision: str):
+    from torchbooster_tpu_torch.config import EnvConfig, LoaderConfig
+
+    return (EnvConfig(distributed=False, precision=precision, n_devices=0,
+                      mesh="dp"),
+            LoaderConfig(batch_size=GEN_B, num_workers=0, drop_last=True))
+
+
+def gan_grad_card_vs_cpu(root: Path) -> dict:
+    """D's loss (hinge + 10 × penalty) on the release's first batch, its
+    gradient with respect to D's parameters (the double backward
+    included) on the card against the CPU: the same weights, images, z
+    and α."""
+    from torchbooster_tpu_torch.config import DatasetConfig
+    from torchbooster_tpu_torch.dataset import Split
+    from torchbooster_tpu_torch.models import GAN
+    from torchbooster_tpu_torch.models import gan
+    from torchbooster_tpu_torch.recipes.vae import to_unit
+
+    ds = DatasetConfig(name="mnist", root=str(root)).make(Split.TRAIN)
+    images = torch.as_tensor(ds.arrays[0][:GEN_B])
+    x_real = to_unit(images)[..., None]
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn(GEN_B, 64, generator=gen)
+    alpha = torch.rand(GEN_B, 1, 1, 1, generator=gen)
+    out = {}
+    for dev in ("cpu", DEV):
+        params = GAN.init(1, device=dev)
+        d = params["D"]
+        leaves = [p.requires_grad_(True) for p in
+                  (leaf for block in d.values() for leaf in block.values())]
+        with torch.no_grad():
+            fake = GAN.generate(params["G"], z.to(dev))
+        loss = gan.hinge_d_loss(d, x_real.to(dev), fake) + 10.0 * \
+            gan._grad_penalty_core(d, x_real.to(dev), fake, alpha.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), [p.grad.cpu() for p in leaves])
+    (lc, gc), (lg, gg) = out["cpu"], out[DEV]
+    top = max(g.abs().max().item() for g in gc)
+    err = max((a - b).abs().max().item() for a, b in zip(gg, gc)) / top
+    if not (abs(lg - lc) <= GAN_GRAD_TOL * abs(lc) and err <= GAN_GRAD_TOL):
+        raise AssertionError(f"gan: card loss {lg} vs CPU {lc}, gradient "
+                             f"error {err:.3g} of the largest entry")
+    return {"loss_card": lg, "loss_cpu": lc, "grad_err_of_max": err}
+
+
+def phase_vae_gan(report: dict, smi: str) -> dict:
+    """The vae and gan recipes' ``launch_main`` for one epoch each over a
+    full-size MNIST IDX release at their YAMLs' values (vae bf16; the GAN
+    fp32, as JAX's step never casts). No B-kernel may launch."""
+    import tempfile
+
+    from torchbooster_tpu_torch.config import (
+        DatasetConfig,
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes import gan, vae
+
+    out: dict = {"card": smi}
+    before = b_counts()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        root = tmp / "mnist"
+        write_mnist_release(root)
+        data = DatasetConfig(name="mnist", root=str(root))
+        env, loader = gen_env("bf16")
+        conf = vae.Config(
+            epochs=1, seed=42, z_dim=32, kld_weight=1.0, n_samples=64,
+            samples_path=str(tmp / "vae_samples.npy"), env=env,
+            loader=loader, optim=OptimizerConfig(name="adamw", lr=1e-3),
+            scheduler=SchedulerConfig(name="cycle", n_iter=160, warmup=16,
+                                      decay=("cos", "cos")), dataset=data)
+        torch.cuda.reset_peak_memory_stats()
+        res = vae.launch_main(conf, device=DEV)
+        peak = torch.cuda.max_memory_allocated()
+        losses = res["losses"]
+        samples = np.load(res["samples"])
+        if len(losses) != LENET_TRAIN // GEN_B or not all(
+                map(math.isfinite, losses)) or not res["kld"] >= 0.0 or \
+                not np.mean(losses[-10:]) < np.mean(losses[:10]) or \
+                samples.shape != (64, 28, 28, 1):
+            raise AssertionError(f"vae: losses {losses}, kld {res['kld']}, "
+                                 f"samples {samples.shape}")
+        step_ms = res["train_s"] / len(losses) * 1e3
+        out["vae"] = {"losses": losses, "kld": res["kld"], "bce": res["bce"],
+                      "step_ms": step_ms, "peak_mem_bytes": peak}
+        log(f"vae_gan vae: vae.yml, batch {GEN_B}, bf16 weights over fp32 "
+            f"pixels, {len(losses)} steps, loss {losses[0]:.2f} -> "
+            f"{losses[-1]:.2f}, kld {res['kld']:.3f}; {step_ms:.2f} ms per "
+            f"step (host fetch included), peak mem {peak / 2**30:.3f} GiB; "
+            f"64 samples written [{smi}]")
+        env, loader = gen_env("bf16")
+        conf = gan.Config(
+            epochs=1, seed=42, z_dim=64, gp_weight=10.0, n_samples=64,
+            samples_path=str(tmp / "gan_samples.npy"), env=env,
+            loader=loader,
+            g_optim=OptimizerConfig(name="adam", lr=1e-4,
+                                    betas=(0.5, 0.999)),
+            d_optim=OptimizerConfig(name="adam", lr=4e-4,
+                                    betas=(0.5, 0.999)),
+            g_scheduler=SchedulerConfig(name="cycle", n_iter=160,
+                                        decay=("flat", "cos")),
+            d_scheduler=SchedulerConfig(name="cycle", n_iter=160,
+                                        decay=("flat", "cos")),
+            dataset=data)
+        torch.cuda.reset_peak_memory_stats()
+        res = gan.launch_main(conf, device=DEV)
+        peak = torch.cuda.max_memory_allocated()
+        steps = res["steps"]
+        samples = np.load(res["samples"])
+        if len(steps) != LENET_TRAIN // GEN_B or not all(
+                math.isfinite(v) for m in steps for v in m.values()) or \
+                samples.shape != (64, 28, 28, 1):
+            raise AssertionError(f"gan: steps {steps[:3]}..., samples "
+                                 f"{samples.shape}")
+        step_ms = res["train_s"] / len(steps) * 1e3
+        grad = gan_grad_card_vs_cpu(root)
+        out["gan"] = {"steps": steps, "step_ms": step_ms,
+                      "peak_mem_bytes": peak, "grad_check": grad}
+        log(f"vae_gan gan: gan.yml, batch {GEN_B}, fp32, {len(steps)} "
+            f"two-player steps, d_loss {steps[0]['d_loss']:.3f} -> "
+            f"{steps[-1]['d_loss']:.3f}, g_loss {steps[0]['g_loss']:.3f} -> "
+            f"{steps[-1]['g_loss']:.3f}, gp {steps[-1]['gp']:.4f}; "
+            f"{step_ms:.2f} ms per step, peak mem {peak / 2**30:.3f} GiB; "
+            f"D-loss gradient card vs CPU {grad['grad_err_of_max']:.3g} of "
+            f"the largest entry (tol {GAN_GRAD_TOL}) [{smi}]")
+    if b_counts() != before:
+        raise AssertionError(f"vae_gan: a B-kernel launched: {before} -> "
+                             f"{b_counts()}")
+    report["vae_gan"] = out
+    return out
+
+
+# ----------------------------------------------------------------- style
+STYLE_ONLINE_ITERS = 24     # online.yml trains 2,000 iterations
+STYLE_ADAIN_ITERS = 24      # adain.yml trains 2,000
+STYLE_SAMPLE_EVERY = 12     # both YAMLs preview every 200
+
+
+def phase_style(report: dict, smi: str) -> dict:
+    """The three style recipes on the card: ``offline.yml`` in full (500
+    Adam steps on a 256² image's logits, fp32, random VGG-19),
+    ``online.yml`` and ``adain.yml`` cut to ``STYLE_*_ITERS`` steps
+    (previews every ``STYLE_SAMPLE_EVERY``) at their batches and 256²,
+    bf16, random VGG-16 / VGG-19 over procedural images. Every loss
+    finite, offline's falling, every output written; no B-kernel."""
+    import tempfile
+
+    from torchbooster_tpu_torch.config import (
+        OptimizerConfig,
+        SchedulerConfig,
+    )
+    from torchbooster_tpu_torch.recipes import adain, offline, online
+
+    out: dict = {"card": smi}
+    before = b_counts()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        env, _ = gen_env("fp32")
+        conf = offline.Config(
+            n_iter=500, seed=42, image_size=256,
+            content_path=str(tmp / "content.jpg"),
+            style_path=str(tmp / "style.jpg"), content_layers=[29],
+            style_layers=[1, 6, 11, 20, 29], content_weight=1.0,
+            style_weight=1e3, tv_weight=1e-2,
+            output_path=str(tmp / "out" / "stylized.npy"), env=env,
+            optim=OptimizerConfig(name="adam", lr=5e-2))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = offline.main(conf, device=DEV)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = res["losses"]
+        image = np.load(conf.output_path)
+        if len(losses) != 500 or not all(map(math.isfinite, losses)) or \
+                not losses[-1] < losses[0] or image.shape != (256, 256, 3):
+            raise AssertionError(f"style offline: losses {losses[:3]} ... "
+                                 f"{losses[-3:]}, output {image.shape}")
+        out["offline"] = {"losses": losses, "main_s": wall,
+                          "step_ms": wall / 500 * 1e3, "peak_mem_bytes": peak}
+        log(f"style offline: offline.yml, 256² fp32, random VGG-19, 500 "
+            f"Adam steps, loss {losses[0]:.4g} -> {losses[-1]:.4g}; "
+            f"{wall / 500 * 1e3:.2f} ms per step (main's wall, set-up "
+            f"included), peak mem {peak / 2**30:.2f} GiB [{smi}]")
+        for name, recipe, n_iter, batch in (
+                ("online", online, STYLE_ONLINE_ITERS, 16),
+                ("adain", adain, STYLE_ADAIN_ITERS, 8)):
+            env, loader = gen_env("bf16")
+            loader.batch_size = batch
+            warmup = 100 if name == "online" else 1_000
+            common = dict(
+                n_iter=n_iter, seed=42, sample_every=STYLE_SAMPLE_EVERY,
+                samples_path=str(tmp / f"{name}_samples"), env=env,
+                loader=loader,
+                optim=OptimizerConfig(name="adam",
+                                      lr=1e-3 if name == "online" else 1e-4),
+                scheduler=SchedulerConfig(name="cycle", n_iter=2_000,
+                                          warmup=warmup,
+                                          decay=("lin", "cos")))
+            if name == "online":
+                conf = online.Config(
+                    style_path=str(tmp / "style.jpg"), content_layers=[15],
+                    style_layers=[3, 8, 15, 22], content_weight=1.0,
+                    style_weight=1e2, tv_weight=1e-2,
+                    dataset=online.CocoDatasetConfig(
+                        name="coco", root=str(tmp / "coco"),
+                        image_size=256, n_images=2_048), **common)
+                want = [f"styled_{i:06d}.npy" for i in range(
+                    STYLE_SAMPLE_EVERY, n_iter + 1, STYLE_SAMPLE_EVERY)]
+            else:
+                conf = adain.Config(
+                    style_weight=10.0,
+                    content=adain.ContentDatasetConfig(
+                        name="coco", root=str(tmp / "coco"), image_size=256,
+                        n_images=2_048),
+                    style=adain.PaintingsDatasetConfig(
+                        name="paintings", root=str(tmp / "paintings"),
+                        image_size=256, n_images=1_024), **common)
+                want = ["adain_final.npy"]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = recipe.launch_main(conf, device=DEV)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            losses = res["losses"]
+            written = sorted(p.name for p in Path(conf.samples_path)
+                             .glob("*.npy"))
+            if len(losses) != n_iter or not all(map(math.isfinite,
+                                                    losses)) or \
+                    written != want:
+                raise AssertionError(f"style {name}: losses {losses}, "
+                                     f"written {written}, expected {want}")
+            out[name] = {"losses": losses, "main_s": wall,
+                         "step_ms": wall / n_iter * 1e3,
+                         "peak_mem_bytes": peak, "written": written}
+            log(f"style {name}: {name}.yml at batch {batch} x 256², bf16, "
+                f"{n_iter} steps (cut from 2,000), loss {losses[0]:.4g} -> "
+                f"{losses[-1]:.4g}; {wall / n_iter * 1e3:.1f} ms per step "
+                f"(main's wall, set-up and previews included), peak mem "
+                f"{peak / 2**30:.2f} GiB; wrote {', '.join(written)} "
+                f"[{smi}]")
+    if b_counts() != before:
+        raise AssertionError(f"style: a B-kernel launched: {before} -> "
+                             f"{b_counts()}")
+    report["style"] = out
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -7500,12 +8297,12 @@ def main() -> int:
         for key in ("gn_fwd", "gn_bwd", "conv1x1", "conv3x3"):
             conv_kernels[key].update(timed_route=res[key]["timed_route"],
                                      previous_ms=res[key]["previous_ms"])
-    # B5-B8 launch on three paths, the ResNet recipe's entry point over
-    # the twin, its trainer over the record store and the lenet recipe's
-    # entry point (B5/B6 only); the counts add up
+    # B5-B8 launch on four paths, the ResNet recipe's entry point over
+    # the twin, its trainer over the record store, and the lenet and ddpm
+    # recipes' entry points (B5/B6 only); the counts add up
     for key, phase in (("resnet_train", phase_resnet_train),
                        ("resnet_data", phase_resnet_data),
-                       ("lenet", phase_lenet)):
+                       ("lenet", phase_lenet), ("ddpm", phase_ddpm)):
         if key not in phases:
             continue
         t = time.perf_counter()
@@ -7517,9 +8314,17 @@ def main() -> int:
                 launches["by_route"][k], 0)
             conv_kernels[k]["launches_by_route"] = {
                 r: n + launches["by_route"][k][r] for r, n in counts.items()}
-    # the frozen-BN import and the norm-free ResNet and VGG launch none
+        if key == "ddpm":
+            # B5 and B6 timed at the UNet's GroupNorm shapes
+            for k in ("gn_fwd", "gn_bwd"):
+                conv_kernels[k]["unet"] = {
+                    shape: res[k] for shape, res in
+                    launches["gn_timing"].items()}
+    # the frozen-BN import, the norm-free ResNet and VGG, and the VAE, GAN
+    # and style recipes launch none
     for key, phase in (("resnet_import", phase_resnet_import),
-                       ("image_models", phase_image_models)):
+                       ("image_models", phase_image_models),
+                       ("vae_gan", phase_vae_gan), ("style", phase_style)):
         if key in phases:
             t = time.perf_counter()
             phase(report, smi)

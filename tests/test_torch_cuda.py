@@ -1334,3 +1334,137 @@ def test_resnet50_s2d_stem_matches_plain_stem_on_card(norm):
         s2d = ResNet.apply(params, x, norm=norm, stem_s2d=True)
     assert torch.isfinite(s2d).all()
     assert (s2d - plain).abs().max() <= 2e-4 * plain.abs().max()
+
+
+def unet_gn_calls(cfg, size: int, dtype) -> list[tuple]:
+    """Each GroupNorm of one UNet forward over ``size``² images with
+    weights of ``dtype``, in order, as ``(H·W, C, groups, dtype)``:
+    recorded from a one-image forward on the CPU through a hook on the
+    plain GroupNorm, which ``layers.group_norm`` calls there with the
+    group count it settled on. The forward states the structure; nothing
+    here repeats it."""
+    from torchbooster_tpu_torch.models.unet import UNet
+    from torchbooster_tpu_torch.ops import group_norm as gnk
+    from torchbooster_tpu_torch.utils import _cast_batch
+
+    real, seen = gnk.group_norm_fwd_reference, []
+
+    def hook(x, scale, bias, groups, *args):
+        seen.append((x.shape[1] * x.shape[2], x.shape[-1], groups, x.dtype))
+        return real(x, scale, bias, groups, *args)
+
+    gnk.group_norm_fwd_reference = hook
+    try:
+        with torch.no_grad():
+            UNet.apply(_cast_batch(UNet.init(0, cfg, device="cpu"), dtype),
+                       torch.zeros(1, size, size, cfg.in_channels,
+                                   dtype=dtype),
+                       torch.zeros(1, dtype=torch.long), cfg)
+    finally:
+        gnk.group_norm_fwd_reference = real
+    return seen
+
+
+def unet_routes(cfg, size, n, dtype):
+    """B5's and B6's launches by route in one UNet forward and backward,
+    from :func:`unet_gn_calls` and the plan functions."""
+    from torchbooster_tpu_torch.ops import group_norm as gn
+
+    fwd = {"one_pass": 0, "two_pass": 0}
+    bwd = dict(fwd)
+    for hw, c, groups, dt in unet_gn_calls(cfg, size, dtype):
+        fwd[gn.plan_gn_fwd(n, hw, c, groups, dt).route] += 1
+        bwd[gn.plan_gn_bwd(n, hw, c, groups, dt).route] += 1
+    return fwd, bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_group_norms_take_their_routes_on_card(dtype):
+    """The UNet at ``ddpm.yml``'s widths (base 64, mults 1, 2, 2, time_dim
+    256), batch 4 at 28², forward and backward through B5/B6 against the
+    plain GroupNorm on the same inputs: at fp32 all 29 calls each way on
+    ``"two_pass"``; with bf16 images and weights the first norm (C 64 at
+    28², bf16) on ``"one_pass"`` and the 28 after the fp32 time
+    projection on ``"two_pass"``, as the recorded calls and the plans
+    say.
+    Output and every gradient within 1e-4 (fp32) or 2e-2 (bf16) of the
+    largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from torchbooster_tpu_torch.models.unet import UNet, UNetConfig
+    from torchbooster_tpu_torch.ops import group_norm as gn
+    from torchbooster_tpu_torch.utils import _cast_batch
+
+    dt = getattr(torch, dtype)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    cfg = UNetConfig()
+    params = UNet.init(0, cfg, device="cuda")
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 28, 28, 1, generator=gen).cuda().to(dt)
+    t = torch.randint(0, 1000, (4,), generator=gen).cuda()
+    runs = {}
+    for impl in ("auto", "plain"):
+        before = (dict(gn.launches_fwd_by_route),
+                  dict(gn.launches_bwd_by_route))
+        out = UNet.apply(_cast_batch(params, dt), x, t, cfg, gn_impl=impl)
+        (out.float() ** 2).mean().backward()
+        torch.cuda.synchronize()
+        moved = tuple({r: a[r] - b[r] for r in a} for a, b in zip(
+            (gn.launches_fwd_by_route, gn.launches_bwd_by_route), before))
+        runs[impl] = (out.detach().float(), [p.grad.clone() for p in leaves],
+                      moved)
+        for p in leaves:
+            p.grad = None
+    assert runs["auto"][2] == unet_routes(cfg, 28, 4, dt)
+    assert sum(runs["auto"][2][0].values()) == 29
+    assert runs["auto"][2][0]["one_pass"] == (1 if dtype == "bfloat16"
+                                              else 0)
+    assert all(sum(m.values()) == 0 for m in runs["plain"][2])
+    (ya, ga, _), (yp, gp, _) = runs["auto"], runs["plain"]
+    assert torch.isfinite(ya).all()
+    assert (ya - yp).abs().max() <= tol * yp.abs().max()
+    top = max(g.abs().max() for g in gp)
+    for a, b in zip(ga, gp):
+        assert (a - b).abs().max() <= tol * top
+
+
+@pytest.mark.cuda
+def test_gan_penalty_double_backward_on_card_matches_cpu():
+    """The GAN's gradient penalty and hinge D loss at the recipe's widths
+    (z 64, batch 64), fp32 with TF32 off: the loss and its gradient with
+    respect to D's parameters, the double backward included, on the card
+    against the CPU on the same weights, images and α (1e-4 of the
+    largest entry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from torchbooster_tpu_torch.models import GAN
+    from torchbooster_tpu_torch.models import gan
+
+    gen = torch.Generator().manual_seed(0)
+    x_real = torch.rand(64, 28, 28, 1, generator=gen)
+    z = torch.randn(64, 64, generator=gen)
+    alpha = torch.rand(64, 1, 1, 1, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = GAN.init(1, device=dev)
+        d = params["D"]
+        for p in _leaves(d):
+            p.requires_grad_(True)
+        with torch.no_grad():
+            fake = GAN.generate(params["G"], z.to(dev))
+        loss = gan.hinge_d_loss(d, x_real.to(dev), fake) + 10.0 * \
+            gan._grad_penalty_core(d, x_real.to(dev), fake, alpha.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), [p.grad.cpu() for p in _leaves(d)])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    top = max(g.abs().max() for g in gc)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * top

@@ -86,7 +86,10 @@ def test_port_imports_neither_jax_nor_the_jax_package_nor_nvcc():
                  "comms.zero", "comms.schedule", "models.moe",
                  "parallel.ring", "parallel.ulysses", "parallel.pipeline",
                  "serving.tp", "models.lenet", "models.vgg",
-                 "recipes.lenet"):
+                 "recipes.lenet", "ops.diffusion", "models.unet",
+                 "models.vae", "models.gan", "models.stylenet",
+                 "recipes.ddpm", "recipes.vae", "recipes.gan",
+                 "recipes.offline", "recipes.online", "recipes.adain"):
         assert f"torchbooster_tpu_torch.{name}" in got["modules"]
     assert got["jax"] == [] and got["jax_pkg"] == [] and got["yaml"] == []
     # the GPT-2 import reads a state dict; it never imports transformers
@@ -145,20 +148,11 @@ EXEMPT_NAMES = {
     "ops.fused_block.fits3": "the TPU's VMEM budget for a B8 call; the "
     "tiled CUDA kernels have none (models.resnet._use_fused)",
     "models.gpt.jit_generate": "ROADMAP A-8: not ported yet",
-    "models.GAN": "ROADMAP A-7b: not ported yet",
-    "models.StyleNet": "ROADMAP A-7b: not ported yet",
-    "models.UNet": "ROADMAP A-7b: not ported yet",
-    "models.VAE": "ROADMAP A-7b: not ported yet",
 }
 EXEMPT_MODULES = {
     "_jax_compat": "JAX-version shims; the port imports no JAX",
     "ops._pallas_util": "Pallas helpers; the port's kernels are CUDA C++ "
     "built by ops/_build.py",
-    "models.gan": "ROADMAP A-7b: not ported yet",
-    "models.stylenet": "ROADMAP A-7b: not ported yet",
-    "models.unet": "ROADMAP A-7b: not ported yet",
-    "models.vae": "ROADMAP A-7b: not ported yet",
-    "ops.diffusion": "ROADMAP A-7b: not ported yet",
 }
 
 
@@ -202,9 +196,13 @@ def test_package_surface_c8_names():
     import torchbooster_tpu_torch as pkg
     from torchbooster_tpu_torch import config, ops, serving
     from torchbooster_tpu_torch.models import (  # noqa: F401
+        GAN,
         GPT,
+        VAE,
         LeNet,
         ResNet,
+        StyleNet,
+        UNet,
         VGGFeatures,
         layers,
     )

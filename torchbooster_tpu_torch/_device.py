@@ -19,4 +19,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def seeded(seed: int | torch.Generator) -> torch.Generator:
+    """``seed`` itself when it is a ``torch.Generator``, else a CPU
+    generator seeded with it (the models' ``init`` draws on the CPU)."""
+    return seed if isinstance(seed, torch.Generator) \
+        else torch.Generator().manual_seed(int(seed))
+
+
+def tree_to(tree, device: torch.device):
+    """A nested dict of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+__all__ = ["resolve_device", "seeded", "tree_to"]

@@ -580,6 +580,26 @@ def batch_rows(n_rows: int, mesh: Mesh) -> slice:
     return slice(start, start + per)
 
 
+def global_draw(draw: Callable[[int], Any], n_rows: int,
+                mesh: Mesh | None) -> Any:
+    """Random draws for this rank's ``n_rows`` rows of the global batch.
+    ``draw(n)`` makes them for all ``n`` rows of the global batch (a
+    tensor led by the rows, or a tuple of such tensors or None), from a
+    generator in the same state on every rank, and each keeps this
+    rank's rows (:func:`batch_rows`). So every row of the global batch
+    gets draws of its own, as under JAX's ``make_step``, whose step key
+    draws over the global batch, and the ranks' generators stay in step.
+    Without a distributed mesh this is ``draw(n_rows)``."""
+    if mesh is None or not mesh.distributed:
+        return draw(n_rows)
+    n = n_rows * mesh.axes_size(mesh.data_axes())
+    rows = batch_rows(n, mesh)
+    out = draw(n)
+    if isinstance(out, tuple):
+        return tuple(None if x is None else x[rows] for x in out)
+    return out[rows]
+
+
 def seq_chunk(n_cols: int, mesh: Mesh) -> slice:
     """The sequence positions this rank holds: its contiguous chunk
     along the ``sp`` axis (the whole sequence without one)."""
@@ -767,7 +787,8 @@ __all__ = [
     "diff_all_to_all", "diff_ppermute", "find_free_port", "gather",
     "gather_from_group",
     "get_device_count", "get_local_rank", "get_mesh", "get_rank",
-    "get_world_size", "is_primary", "launch", "local_devices",
+    "get_world_size", "global_draw", "is_primary", "launch",
+    "local_devices",
     "make_mesh", "parse_mesh_spec", "ppermute", "reduce_from_group",
     "reduce_scatter", "seq_chunk", "shard_batch", "synchronize", "to_env",
 ]

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch._device import resolve_device, seeded
 from torchbooster_tpu_torch.models import layers as L
 from torchbooster_tpu_torch.models.torch_interop import to_numpy
 from torchbooster_tpu_torch.ops.attention import NEG_INF, attention
@@ -373,8 +373,7 @@ class GPT:
         the same weights on every device, then moved to ``device``."""
         _check_cfg(cfg)
         dev = resolve_device(device)
-        gen = seed if isinstance(seed, torch.Generator) \
-            else torch.Generator().manual_seed(int(seed))
+        gen = seeded(seed)
         n, d = cfg.n_layers, cfg.d_model
         h = cfg.mlp_ratio * d
         res_std = 0.02 / math.sqrt(2 * n)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch._device import resolve_device, seeded, tree_to
 from torchbooster_tpu_torch.models import layers as L
 
 
@@ -46,9 +46,8 @@ class LeNet:
         ``torch.Generator``) with the JAX package's distributions, then
         moved to ``device``."""
         dev = resolve_device(device)
-        gen = seed if isinstance(seed, torch.Generator) \
-            else torch.Generator().manual_seed(int(seed))
-        params = {
+        gen = seeded(seed)
+        return tree_to({
             "conv1": L.conv_init(gen, 5, 1, 6, dtype=dtype),
             "norm1": L.norm_init(6, dtype),
             "conv2": L.conv_init(gen, 5, 6, 16, dtype=dtype),
@@ -56,9 +55,7 @@ class LeNet:
             "fc1": L.dense_init(gen, 256, 120, dtype=dtype),
             "fc2": L.dense_init(gen, 120, 84, dtype=dtype),
             "head": L.dense_init(gen, 84, num_classes, dtype=dtype),
-        }
-        return {k: {n: t.to(dev) for n, t in v.items()}
-                for k, v in params.items()}
+        }, dev)
 
     @staticmethod
     def apply(params: dict, x: torch.Tensor,

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch._device import resolve_device, seeded, tree_to
 from torchbooster_tpu_torch.models import layers as L
 
 # depth -> (block kind, stage repeats)
@@ -317,8 +317,7 @@ class ResNet:
             raise ValueError(f"stem must be 'imagenet' or 'cifar', got "
                              f"{stem!r}")
         dev = resolve_device(device)
-        gen = seed if isinstance(seed, torch.Generator) \
-            else torch.Generator().manual_seed(int(seed))
+        gen = seeded(seed)
         kind, repeats = _CONFIGS[depth]
         params: dict = {"stem": {
             "conv": L.conv_init(gen, 7 if stem == "imagenet" else 3,
@@ -339,7 +338,7 @@ class ResNet:
                     cin = width * 4
             params[f"stage{si}"] = stage
         params["head"] = L.dense_init(gen, cin, num_classes, dtype=dtype)
-        return _to(params, dev)
+        return tree_to(params, dev)
 
     @staticmethod
     def apply(params: dict, x: torch.Tensor, norm: str = "group",
@@ -402,16 +401,9 @@ class ResNet:
         """Transfer-learning head swap: a fresh ``(din, num_classes)``
         head on the device of the old one."""
         old = params["head"]["kernel"]
-        gen = seed if isinstance(seed, torch.Generator) \
-            else torch.Generator().manual_seed(int(seed))
+        gen = seeded(seed)
         head = L.dense_init(gen, old.shape[0], num_classes)
-        return {**params, "head": _to(head, old.device)}
-
-
-def _to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {**params, "head": tree_to(head, old.device)}
 
 
 def _host(value: Any) -> torch.Tensor:
@@ -476,7 +468,7 @@ def load_torch_state(state_dict: Mapping[str, Any],
     w = _host(sd["fc.weight"])                          # (classes, cin)
     params["head"] = {"kernel": w.t().contiguous(),
                       "bias": _host(sd["fc.bias"])}
-    params = _to(params, dev)
+    params = tree_to(params, dev)
     if num_classes is not None and num_classes != w.shape[0]:
         if generator is None:
             raise ValueError("load_torch_state: a num_classes swap needs a "

@@ -16,7 +16,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch._device import resolve_device, seeded, tree_to
 from torchbooster_tpu_torch.models import layers as L
 
 # torchvision cfgs: numbers = conv output channels, "M" = max pool
@@ -63,15 +63,13 @@ class VGGFeatures:
         """Fan-in uniform 3×3 kernels and zero biases drawn on the CPU from
         ``seed``, then moved to ``device``; keys ``conv{slot}``."""
         dev = resolve_device(device)
-        gen = seed if isinstance(seed, torch.Generator) \
-            else torch.Generator().manual_seed(int(seed))
+        gen = seeded(seed)
         params: dict = {}
         for slot, (kind, spec) in enumerate(_plan(depth)):
             if kind == "conv":
                 conv = L.conv_init(gen, 3, *spec, dtype=dtype)
-                params[f"conv{slot}"] = {k: v.to(dev)
-                                         for k, v in conv.items()}
-        return params
+                params[f"conv{slot}"] = conv
+        return tree_to(params, dev)
 
     @staticmethod
     def _depth_of(params: dict) -> int:

@@ -334,6 +334,20 @@ def full_leaf(local: torch.Tensor, mesh: Mesh,
     return out
 
 
+def full_tree(tree: Any, mesh: Mesh | None, values: Any = None) -> Any:
+    """Every leaf of ``tree`` (laid out by :func:`shard_params` or
+    :func:`shard_state`) whole, as :func:`full_leaf` gives it, without
+    gradient; with ``values`` (a tree of the same layout, such as the
+    EMA) those values whole. Without a distributed mesh the tree (or
+    ``values``) comes back as it is. Collective: every rank calls it."""
+    if mesh is None or not mesh.distributed:
+        return tree if values is None else values
+    with torch.no_grad():
+        return tree_map_with_path(lambda path, leaf: full_leaf(
+            leaf, mesh, None if values is None else tree_get(values, path)),
+            tree)
+
+
 def loss_spec(spec: tuple) -> tuple:
     """The part of ``spec`` gathered before the loss: ``spec`` with the
     :data:`LOCAL_AXES` (``ep``) entries dropped."""
@@ -350,7 +364,8 @@ def replication_axes(spec: tuple, mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.token_axes() if a not in used)
 
 
-__all__ = ["LOCAL_AXES", "P", "column_order", "full_leaf", "gather_leaf",
+__all__ = ["LOCAL_AXES", "P", "column_order", "full_leaf", "full_tree",
+           "gather_leaf",
            "local_slice", "loss_spec",
            "make_param_specs",
            "make_shardings", "make_state_specs", "path_str",

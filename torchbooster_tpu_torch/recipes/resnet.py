@@ -210,13 +210,9 @@ class Trainer:
     def eval_params(self) -> dict:
         """The whole parameter tree for the eval forward: each leaf the
         rule table sharded, all-gathered."""
-        if self.mesh is None or not self.mesh.distributed:
-            return self.state.params
-        from torchbooster_tpu_torch.parallel.sharding import full_leaf
+        from torchbooster_tpu_torch.parallel.sharding import full_tree
 
-        with torch.no_grad():
-            return utils._tree_map(lambda p: full_leaf(p, self.mesh),
-                                   self.state.params)
+        return full_tree(self.state.params, self.mesh)
 
 
 def setup(conf: Config, device: str | torch.device = "cuda") -> Trainer:
