@@ -45,7 +45,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
    tokens, 32 new tokens each); every request must equal the port's
    dense ``generate``, and the kernel must have launched on this path,
-   every launch on ``"simt"`` (``"sm90"`` at bf16).
+   every launch on ``"simt"`` (``"sm90"`` at bf16). The dense control of
+   every serving phase is one ``jit_generate`` fn a call (batch 1):
+   one cached shape a prompt length and, once a phase at least, a
+   repeated shape kept at that and its first request equal to plain
+   ``generate``; prints its ms a new token.
 6. serve_bf16 — the same at bf16; prints decode tok/s, p50 TTFT and peak
    device memory beside the card's name and power limit, then replays the
    trace under the profiler for the device busy share and the top kernels.
@@ -331,7 +335,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (head x4, decisive) served at tp:2 at fp32 and bf16 (8 requests of
    64-512 prompt tokens, 32 new, page size 64): every stream token-exact
    against the dense ``generate`` at tp:1, B4 = 12 x decode steps a
-   rank, each rank's pool half of tp:1's. Prints step ms, peak GiB a
+   rank, each rank's pool half of tp:1's. Then the first 4 requests
+   through dense ``jit_generate(mesh=)`` on the rule-sharded tree on
+   both ranks: token-exact against tp:1 and equal across ranks, B1 = 12
+   a request a rank (``"sm90"`` at bf16, ``"f32"`` at fp32), 24
+   all-reduces a token, ms a new token beside tp:1's dense decode.
+   Prints step ms, peak GiB a
    rank, busy share, all-reduces a step and a forward, and
    ``step_traffic``'s bytes; the all-reduces go through gloo and the
    host, so no speed is read from this phase.
@@ -902,6 +911,12 @@ FLASH_CASES = [
     ("gqa2_d48_fp32_causal", 1, 16, 8, 1024, 1024, 48, torch.float32, True),
     ("d48_bf16_kvcache_sq256_skv1024", 8, 16, 8, 256, 1024, 48,
      torch.bfloat16, True),
+    # the tp:2 dense prefill's: one request over a rank's 6 of GPT-2
+    # small's heads, at prompt lengths of the tp phase (64 and 100 fit in
+    # less than one tile)
+    *((f"prefill_tp2_{name}_s{s}", 1, 6, 6, s, s, 64, dtype, True)
+      for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))
+      for s in (64, 100, 200)),
 ]
 # head dims whose bf16 cases run the "mma_sync" kernels (no "sm90" build)
 MMA_SYNC_DIMS = (32, 48)
@@ -1307,16 +1322,53 @@ def serve(params, cfg, dtype: torch.dtype):
     return batcher, reqs, metrics, launches, by_route
 
 
-def dense_tokens(params, cfg, reqs, dtype, n_new: int = N_NEW):
-    from torchbooster_tpu_torch.models.gpt import generate
+def ms_per_token(request_s: list, n_new: int) -> float:
+    """ms a new token (prefill included) over requests at batch 1 that
+    took ``request_s`` seconds each."""
+    return 1e3 * sum(request_s) / (len(request_s) * n_new)
 
-    out = []
+
+def dense_tokens(params, cfg, reqs, dtype, n_new: int = N_NEW,
+                 check: bool = True) -> tuple[list, dict]:
+    """The serving phases' dense control: every request, at batch 1,
+    through one ``jit_generate`` fn a call. Gate: ``fn._cache_size()``
+    is the number of distinct prompt lengths. With ``check`` (once a
+    phase at least): the first request again (a shape seen) leaves it
+    there with the same ids, which plain ``generate`` gives too, token
+    for token. Returns the streams and a record: the cached shapes, each
+    request's seconds and the ms a new token."""
+    from torchbooster_tpu_torch.models.gpt import generate, jit_generate
+
+    fn = jit_generate(cfg, n_new=n_new, temperature=0.0, compute_dtype=dtype)
+    out, request_s = [], []
     for r in reqs:
         ids = torch.as_tensor(r.prompt, device="cuda").long()[None]
-        full = generate(params, ids, cfg, n_new=n_new, temperature=0.0,
-                        compute_dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = fn(params, ids)
+        torch.cuda.synchronize()
+        request_s.append(time.perf_counter() - t0)
         out.append(full[0, len(r.prompt):].tolist())
-    return out
+    shapes = len({len(r.prompt) for r in reqs})
+    if fn._cache_size() != shapes:
+        raise AssertionError(f"dense control: {fn._cache_size()} cached "
+                             f"shapes for {shapes} prompt lengths")
+    record = {"dtype": str(dtype), "d_model": cfg.d_model,
+              "n_layers": cfg.n_layers, "requests": len(reqs),
+              "shapes": shapes, "n_new": n_new, "checked": check,
+              "request_s": request_s,
+              "ms_per_token": ms_per_token(request_s, n_new)}
+    if not check:
+        return out, record
+    ids = torch.as_tensor(reqs[0].prompt, device="cuda").long()[None]
+    again = fn(params, ids)[0, ids.shape[1]:].tolist()
+    plain = generate(params, ids, cfg, n_new=n_new, temperature=0.0,
+                     compute_dtype=dtype)[0, ids.shape[1]:].tolist()
+    if fn._cache_size() != shapes or not again == plain == out[0]:
+        raise AssertionError(f"dense control: a repeated shape gave "
+                             f"{fn._cache_size()} shapes, or jit_generate "
+                             f"{out[0]} / {again} vs generate {plain}")
+    return out, record
 
 
 def device_breakdown(batcher, cfg) -> dict:
@@ -1355,20 +1407,24 @@ def device_breakdown(batcher, cfg) -> dict:
 def phase_serve(params, cfg, dtype, smi: str, report: dict, key: str,
                 breakdown: bool = False):
     batcher, reqs, m, launches, by_route = serve(params, cfg, dtype)
-    dense = dense_tokens(params, cfg, reqs, dtype)
+    dense, dc = dense_tokens(params, cfg, reqs, dtype)
     match = [r.tokens == d for r, d in zip(reqs, dense)]
     n_steps = launches // cfg.n_layers
     report[key] = {"metrics": m, "launches": launches,
                    "launches_per_step": cfg.n_layers,
                    "launches_by_route": by_route,
                    "decode_steps": n_steps, "token_match": match,
-                   "card": smi}
+                   "dense_control": dc, "card": smi}
     log(f"{key}: {sum(match)}/{len(match)} requests token-exact vs dense "
         f"generate; kernel launches {launches} ({cfg.n_layers} per decode "
         f"step), B4 by route {by_route}; decode {m['decode_tok_s']} tok/s, "
         f"p50 TTFT "
         f"{m['ttft_p50_s']} s, peak mem {m['peak_mem_bytes'] / 2**20:.1f} "
         f"MiB [{smi}]")
+    log(f"{key} dense control: jit_generate {dc['ms_per_token']:.3f} ms a "
+        f"new token (prefill included; batch 1, {dc['requests']} requests, "
+        f"{dc['n_new']} new each), {dc['shapes']} cached shapes, a repeated "
+        f"shape and plain generate token-exact [{smi}]")
     if breakdown:
         b = report[key]["breakdown"] = device_breakdown(batcher, cfg)
         log(f"{key} profiled replay: wall {b['wall_s']:.3f} s, device busy "
@@ -1415,7 +1471,7 @@ def ambiguous_prompt(params, cfg, dtype, rs, n: int) -> np.ndarray:
             prompt = np.concatenate([seg, [u, v, f, t], seg, [u, v, f, w],
                                      seg, [u, v]]).astype(np.int32)
             got = dense_tokens(params, cfg, [Request(prompt=prompt)], dtype,
-                               n_new=2)[0]
+                               n_new=2, check=False)[0][0]
             if got == [f, t] and t != w:
                 return prompt
             f, t = got
@@ -1508,9 +1564,9 @@ def phase_serve_spec(params, cfg, dtype, smi: str, report: dict, key: str,
             torch.cuda.synchronize()
             got = [r.tokens for r in reqs]
         if dense is None:
-            dense = dense_tokens(params, cfg, [Request(prompt=p)
-                                               for p in prompts],
-                                 dtype, n_new=SPEC_NEW)
+            dense, _ = dense_tokens(params, cfg, [Request(prompt=p)
+                                                  for p in prompts],
+                                    dtype, n_new=SPEC_NEW)
         match = [g == d for g, d in zip(got, dense)]
         if not all(match):
             raise AssertionError(f"{key} ({turn}): {match.count(False)} of "
@@ -1585,7 +1641,7 @@ def phase_serve_fork(params, cfg, smi: str, report: dict) -> tuple[int, dict]:
     reqs, max_lanes = family(greedy)
     torch.cuda.synchronize()
     launches, by_route = pa.launches, dict(pa.launches_by_route)
-    dense = dense_tokens(params, cfg, reqs, dtype, n_new=FORK_NEW)
+    dense, _ = dense_tokens(params, cfg, reqs, dtype, n_new=FORK_NEW)
     greedy_match = [b.tokens == d for r, d in zip(reqs, dense)
                     for b in r.branches]
     if not all(greedy_match):
@@ -1756,7 +1812,7 @@ def phase_serve_structured(params, cfg, smi: str, report: dict
         raise AssertionError(f"serve_structured: B4 {n} by route {routes}, "
                              f"{eng.decode_compiles} decode shapes")
     riders = [r for r in reqs if r.response_format is None]
-    dense = dense_tokens(params, cfg, riders, dtype)
+    dense, _ = dense_tokens(params, cfg, riders, dtype)
     rider_match = [r.tokens == d for r, d in zip(riders, dense)]
     if not all(rider_match):
         raise AssertionError(f"serve_structured: riders {rider_match} vs "
@@ -2037,7 +2093,8 @@ def phase_serve_lora(params, cfg, smi: str, report: dict
                 if not r.adapter:
                     continue
                 dense = dense_tokens(merged_params(params, adapters[
-                    r.adapter]), cfg, [r], dtype)[0]
+                    r.adapter]), cfg, [r], dtype,
+                    check=not merged_match)[0][0]
                 merged_match.append(r.tokens == dense)
             if not all(merged_match):
                 raise AssertionError(f"serve_lora fp32: adapters "
@@ -2587,7 +2644,7 @@ def phase_serve_http(params, cfg, smi: str, report: dict
     warm_up(batcher, cfg)
     idle_free = int(eng.tables.n_free_pages)
     reqs = requests(cfg)
-    dense = dense_tokens(params, cfg, reqs, torch.bfloat16)
+    dense, _ = dense_tokens(params, cfg, reqs, torch.bfloat16)
     fe = conf.frontend.make(batcher)
     reset_paged_counts()
     out: dict = {"card": smi}
@@ -3236,7 +3293,7 @@ def phase_serve_fleet(params, cfg, smi: str, report: dict
         fleet = build("affinity", klass=HTTP_CLASSES)
         reqs = requests(cfg)
         want = dict(zip((f"fleet{i}" for i in range(len(reqs))),
-                        dense_tokens(params, cfg, reqs, torch.bfloat16)))
+                        dense_tokens(params, cfg, reqs, torch.bfloat16)[0]))
         fe = fleet_config(HTTP_CLASSES, "affinity").frontend.make(fleet)
 
         async def scenario():
@@ -4712,7 +4769,8 @@ def moe_serve(params, cfg) -> dict:
     wall = time.perf_counter() - t0
     launches, by_route = pa.launches, dict(pa.launches_by_route)
     served = dataclasses.replace(cfg, capacity_factor=serving_capacity(cfg))
-    want = dense_tokens(params, served, reqs, torch.float32, n_new=MOE_NEW)
+    want, _ = dense_tokens(params, served, reqs, torch.float32,
+                           n_new=MOE_NEW)
     match = [r.tokens == w for r, w in zip(reqs, want)]
     out = {"match": match, "b4_launches": launches, "b4_by_route": by_route,
            "decode_steps": steps[0], "wall_s": wall,
@@ -5307,11 +5365,67 @@ def tp_bf16_train(mesh, cfg, smi: str) -> tuple[dict, dict]:
     return res, tree
 
 
+# the phase's first 4 requests go through generate(mesh=): all 8 took
+# over 20 s a dtype on the card's host
+TP_GEN_REQUESTS = 4
+
+
+def tp_mesh_generate(mesh, params, cfg, dtype, reqs) -> dict:
+    """Dense decode at tp:2 on both ranks: ``jit_generate(mesh=)`` over
+    ``shard_params(params, mesh, GPT.SHARDING_RULES)``, greedy, each
+    request at batch 1. Gates: B1 exactly ``n_layers`` launches a
+    request (the prefill, over this rank's 6 heads), all on ``"sm90"``
+    at bf16 and ``"f32"`` at fp32; one cached shape a prompt length; the
+    first request again under ``CountAllReduce``: 2 all-reduces a layer
+    and token (the proj and fc2 row products; GPT-2 small ties its head,
+    so no vocabulary gather), the same ids. Returns the streams and ms a
+    new token (prefill included)."""
+    from torchbooster_tpu_torch.models.gpt import GPT, jit_generate
+    from torchbooster_tpu_torch.parallel.sharding import shard_params
+
+    placed = shard_params(params, mesh, GPT.SHARDING_RULES)
+    fn = jit_generate(cfg, n_new=N_NEW, temperature=0.0, compute_dtype=dtype,
+                      mesh=mesh)
+    reset_flash_counts()
+    tokens, request_s = [], []
+    for r in reqs:
+        ids = torch.as_tensor(r.prompt, device=mesh.device).long()[None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = fn(placed, ids)
+        torch.cuda.synchronize()
+        request_s.append(time.perf_counter() - t0)
+        tokens.append(full[0, ids.shape[1]:].tolist())
+    counts = flash_counts()
+    route = "sm90" if dtype == torch.bfloat16 else "f32"
+    if counts["fwd"] != cfg.n_layers * len(reqs) \
+            or counts["by_route"]["fwd"][route] != counts["fwd"]:
+        raise AssertionError(f"tp generate {dtype}: B1 {counts}, not "
+                             f"{cfg.n_layers} x {len(reqs)} on {route!r}")
+    shapes = len({len(r.prompt) for r in reqs})
+    ids = torch.as_tensor(reqs[0].prompt, device=mesh.device).long()[None]
+    with CountAllReduce() as ar:
+        again = fn(placed, ids)[0, ids.shape[1]:].tolist()
+    want_ar = 2 * cfg.n_layers * N_NEW
+    if ar.n != want_ar or again != tokens[0] or fn._cache_size() != shapes:
+        raise AssertionError(
+            f"tp generate {dtype}: {ar.n} all-reduces over {N_NEW} tokens "
+            f"(want {want_ar}), {fn._cache_size()} cached shapes for "
+            f"{shapes}, repeat equal {again == tokens[0]}")
+    del placed
+    return {"tokens": tokens, "b1": counts["fwd"], "b1_route": route,
+            "all_reduces_token": ar.n / N_NEW, "requests": len(reqs),
+            "wall_s": sum(request_s),
+            "ms_per_token": ms_per_token(request_s, N_NEW)}
+
+
 def tp_serve(mesh, params, cfg, dtype) -> dict:
     """The trained tree (its head x4, decisive) served at tp:2: 8
     requests of 64-512 tokens, 32 new, page size 64; B4 launches a rank,
-    decode steps, pool bytes, all-reduces a decode step. Rank 0 holds
-    every stream token-exact against the dense ``generate`` at tp:1."""
+    decode steps, pool bytes, all-reduces a decode step; then the same
+    requests through dense ``generate(mesh=)`` (:func:`tp_mesh_generate`).
+    Rank 0 holds the engine's and the dense mesh decode's streams
+    token-exact against the dense ``generate`` at tp:1."""
     from torchbooster_tpu_torch.config import ServingConfig
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
@@ -5360,14 +5474,22 @@ def tp_serve(mesh, params, cfg, dtype) -> dict:
            "all_reduces_decode_step": per_step.n,
            "traffic": eng.tp_step_traffic(1),
            "decode_compiles": eng.decode_compiles}
-    if mesh.rank == 0:
-        want = dense_tokens(params, cfg, reqs, dtype)
-        bad = [i for i, (a, b) in enumerate(zip(out["tokens"], want))
-               if a != b]
-        if bad:
-            raise AssertionError(f"tp:2 {dtype} serving differs from the "
-                                 f"dense generate on requests {bad}")
     del batcher, eng
+    torch.cuda.empty_cache()
+    gen = out["mesh_generate"] = tp_mesh_generate(
+        mesh, params, cfg, dtype, reqs[:TP_GEN_REQUESTS])
+    if mesh.rank == 0:
+        want, dc = dense_tokens(params, cfg, reqs, dtype)
+        # the tp:1 figure over the requests the mesh decode ran
+        gen["tp1_ms_per_token"] = ms_per_token(
+            dc["request_s"][:len(gen["tokens"])], dc["n_new"])
+        for name, got in (("serving", out["tokens"]),
+                          ("generate(mesh=)", gen["tokens"])):
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            if bad:
+                raise AssertionError(f"tp:2 {dtype} {name} differs from "
+                                     f"the dense generate on requests "
+                                     f"{bad}")
     torch.cuda.empty_cache()
     return out
 
@@ -5435,6 +5557,19 @@ def phase_tp(report: dict, smi: str) -> dict:
             f"a forward; B1-B3 a step {b['flash']['fwd']} / "
             f"{b['flash']['dq']} / {b['flash']['dkv']} (sm90)")
         for key, sv in r["serve"].items():
+            g = sv["mesh_generate"]
+            if g["tokens"] != r0["serve"][key]["mesh_generate"]["tokens"]:
+                raise AssertionError(f"tp generate {key}: rank {r['rank']}'s "
+                                     f"streams differ from rank 0's")
+            log(f"tp generate {key} rank {r['rank']}: "
+                f"{g['requests']}/{g['requests']} token-exact vs the dense "
+                f"generate at tp:1 and equal across ranks; B1 {g['b1']} "
+                f"({g['b1_route']}, {g['b1'] // g['requests']} a request); "
+                f"all-reduces a token {g['all_reduces_token']:.0f}; "
+                f"{g['ms_per_token']:.3f} ms a new token (prefill included, "
+                f"batch 1; the dense generate at tp:1 on the same requests "
+                f"{r0['serve'][key]['mesh_generate']['tp1_ms_per_token']:.3f}"
+                f"); wall {g['wall_s']:.2f} s")
             log(f"tp serve {key} rank {r['rank']}: 8/8 token-exact vs the "
                 f"dense generate at tp:1; B4 {sv['launches']} = 12 x "
                 f"{sv['decode_steps']} decode steps ({sv['by_route']}); "
@@ -5454,6 +5589,12 @@ def phase_tp(report: dict, smi: str) -> dict:
                                      for r in ranks)
                              for rt in ranks[0]["bf16"]["flash_routes"][k]}
                          for k in ("fwd", "dq", "dkv")}
+    # the dense mesh decode's prefills add B1 launches on both ranks
+    for r in ranks:
+        for sv in r["serve"].values():
+            g = sv["mesh_generate"]
+            flash["fwd"] += g["b1"]
+            flash["by_route"]["fwd"][g["b1_route"]] += g["b1"]
     paged = {"launches": sum(sv["launches"] for r in ranks
                              for sv in r["serve"].values()),
              "by_route": {rt: sum(sv["by_route"][rt] for r in ranks

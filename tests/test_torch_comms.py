@@ -456,7 +456,9 @@ dataset: {{name: synthetic_lm, n_examples: 64}}
 def run_recipe_at_world_2(tmp_path, mesh: str, comms: str) -> None:
     """The GPT recipe's ``launch_main`` at world 2 on gloo from a YAML:
     finite losses, the same logged loss on both ranks (the mean over
-    them), a sample on the primary only, and a checkpoint."""
+    them), a sample on the primary only under ``comms`` (the gathered
+    tree) and without it the same sample on both ranks (each samples on
+    the rule-sharded state, ``generate(mesh=)``), and a checkpoint."""
     from torchbooster_tpu_torch.recipes import gpt as recipe
 
     path = tmp_path / "gpt.yml"
@@ -473,7 +475,10 @@ def run_recipe_at_world_2(tmp_path, mesh: str, comms: str) -> None:
     # the loss is the mean over the ranks: every rank logs the same
     assert [r["loss"] for r in ranks[0]["log"]] == \
         [r["loss"] for r in ranks[1]["log"]]
-    assert "sample" in ranks[0] and "sample" not in ranks[1]
+    if comms:
+        assert "sample" in ranks[0] and "sample" not in ranks[1]
+    else:
+        assert ranks[0]["sample"] == ranks[1]["sample"]
     assert (tmp_path / "ckpt" / "ckpt_2" / "manifest.json").exists()
 
 

@@ -1468,3 +1468,37 @@ def test_gan_penalty_double_backward_on_card_matches_cpu():
     top = max(g.abs().max() for g in gc)
     for a, b in zip(gg, gc):
         assert (a - b).abs().max() <= 1e-4 * top
+
+
+@pytest.mark.cuda
+def test_jit_generate_on_card_equals_generate():
+    """``jit_generate`` on the card (bf16, GPT-2 small's 12 heads of 64
+    at 2 layers) returns ``generate``'s ids; each call's prefill launches
+    B1 once a layer, on ``"sm90"``, and a repeated shape stays one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.models.gpt import (
+        GPT,
+        GPTConfig,
+        generate,
+        jit_generate,
+    )
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    cfg = GPTConfig(vocab=1024, n_layers=2, d_model=768, n_heads=12,
+                    seq_len=128)
+    params = GPT.init(0, cfg, device="cuda")
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 40)), device="cuda")
+    fn = jit_generate(cfg, n_new=8, temperature=0.0,
+                      compute_dtype=torch.bfloat16)
+    before = dict(fa.launches_fwd_by_route)
+    got = fn(params, ids)
+    again = fn(params, ids)
+    torch.cuda.synchronize()
+    assert fa.launches_fwd_by_route == {**before,
+                                        "sm90": before["sm90"] + 4}
+    want = generate(params, ids, cfg, n_new=8, temperature=0.0,
+                    compute_dtype=torch.bfloat16)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert fn._cache_size() == 1

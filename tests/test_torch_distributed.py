@@ -13,6 +13,8 @@ from __future__ import annotations
 import importlib
 import logging
 import os
+import shutil
+import tempfile
 import traceback
 
 import numpy as np
@@ -33,12 +35,12 @@ TINY = dict(vocab=64, n_layers=2, d_model=32, n_heads=2, seq_len=16)
 # The rank pool
 # =========================================================================
 
-def _serve(rank: int, world: int, port: int, conn) -> None:
+def _serve(rank: int, world: int, store: str, conn) -> None:
     """Spawn target: one gloo rank that runs the cases it is sent —
     ``(module, function, args)`` — and sends back each result."""
     torch.set_num_threads(1)
     os.environ["LOCAL_RANK"] = str(rank)
-    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    tdist.init_process_group("gloo", init_method=f"file://{store}",
                              world_size=world, rank=rank)
     try:
         while True:
@@ -57,13 +59,17 @@ def _serve(rank: int, world: int, port: int, conn) -> None:
 
 class RankPool:
     """``world`` gloo ranks kept alive for a test file. :meth:`run` sends
-    a case to every rank and returns the per-rank results; a failing or
-    hung case takes the pool down, and the next case starts it again."""
+    a case to every rank and returns the per-rank results; a failing,
+    hung or dying case takes the pool down, and the next case starts it
+    again. The ranks meet in a file of a fresh temporary directory, not
+    on a TCP port, so no other process can take their rendezvous between
+    the pick and the bind."""
 
     def __init__(self, world: int):
         self.world = world
         self._procs: list = []
         self._conns: list = []
+        self._dir: str | None = None
 
     def start(self) -> None:
         """Spawn the ranks now, if they are not running: they import
@@ -74,11 +80,12 @@ class RankPool:
             return
 
         ctx = mp.get_context("spawn")
-        port = dist.find_free_port()
+        self._dir = tempfile.mkdtemp(prefix="rank_pool_")
+        store = os.path.join(self._dir, "store")
         for rank in range(self.world):
             parent, child = ctx.Pipe()
             proc = ctx.Process(target=_serve,
-                               args=(rank, self.world, port, child),
+                               args=(rank, self.world, store, child),
                                daemon=True)
             proc.start()
             self._procs.append(proc)
@@ -86,6 +93,15 @@ class RankPool:
 
     def run(self, fn, *args, timeout: float = 120.0) -> list:
         self.start()
+        try:
+            return self._run(fn, args, timeout)
+        except (EOFError, ConnectionError) as err:
+            # a rank's pipe closed: the rank died
+            self.close(kill=True)
+            raise AssertionError(f"{fn.__name__}: a rank died "
+                                 f"({err!r})") from err
+
+    def _run(self, fn, args: tuple, timeout: float) -> list:
         for conn in self._conns:
             conn.send((fn.__module__, fn.__name__, args))
         out, errors = [], []
@@ -114,6 +130,9 @@ class RankPool:
                 proc.terminate()
                 proc.join(timeout=10)
         self._procs, self._conns = [], []
+        if self._dir is not None:
+            shutil.rmtree(self._dir, ignore_errors=True)
+            self._dir = None
 
 
 @pytest.fixture(scope="module")

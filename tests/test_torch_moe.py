@@ -577,7 +577,8 @@ def test_recipe_main_on_dp2_ep2_and_its_checkpoint(tmp_path, pool4):
     """The recipe's ``main`` on every rank of a world-4 group (dp:2,ep:2,
     what ``launch_main`` runs in each process) from a YAML: finite losses,
     ``aux`` reported and >= 0.9 (JAX's ``test_gpt_moe_expert_parallel``),
-    the same logs on every rank, a sample on the primary. The sharded
+    the same logs on every rank, the same sample on every rank (each
+    samples on the rule-sharded state, ``generate(mesh=)``). The sharded
     checkpoint holds the experts as two blocks; JAX's ``SaveCallback``
     reads it whole, a fresh dp:2,ep:2 state restores its blocks and a
     world-1 state the whole; a checkpoint JAX writes restores into the
@@ -596,7 +597,7 @@ def test_recipe_main_on_dp2_ep2_and_its_checkpoint(tmp_path, pool4):
         assert all(np.isfinite(r["loss"]) and r["aux"] >= 0.9
                    for r in res["log"])
         assert np.isfinite(res["val_loss"])
-    assert "sample" in ranks[0] and all("sample" not in r for r in ranks[1:])
+    assert all(r["sample"] == ranks[0]["sample"] for r in ranks)
     ckpt = tmp_path / "ckpt" / "ckpt_2"
     entry = json.loads((ckpt / "manifest.json").read_text())["leaves"][FC1]
     assert entry == {"sharded": True, "n_chunks": 2,

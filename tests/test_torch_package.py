@@ -12,6 +12,7 @@
   with its reason (C8: the package surface).
 """
 import importlib
+import inspect
 import json
 import pkgutil
 import subprocess
@@ -147,7 +148,18 @@ EXEMPT_NAMES = {
     "tiled CUDA kernels have none (models.resnet._use_fused)",
     "ops.fused_block.fits3": "the TPU's VMEM budget for a B8 call; the "
     "tiled CUDA kernels have none (models.resnet._use_fused)",
-    "models.gpt.jit_generate": "ROADMAP A-8: not ported yet",
+}
+# public methods and properties of exported JAX classes with no port
+# counterpart, keyed by the class's defining module and name
+EXEMPT_METHODS = {
+    "serving.engine.PagedEngine.decode_hlo_text": "reads the HLO text of "
+    "a jit lowering of the decode step; the port has no XLA "
+    "(PagedEngine.tp_step_traffic counts the step's collective bytes)",
+    "callbacks.SaveCallback.checkpointer": "orbax's checkpointer object; "
+    "the port's SaveCallback writes and reads its files itself",
+    "comms.schedule.BucketPlan.gather_params": "shard_map body code "
+    "(a per-bucket all-gather inside jit); the port answers it with "
+    "BucketPlan.gather_into",
 }
 EXEMPT_MODULES = {
     "_jax_compat": "JAX-version shims; the port imports no JAX",
@@ -156,15 +168,25 @@ EXEMPT_MODULES = {
 }
 
 
+def _public_methods(cls) -> list[str]:
+    """The public methods and properties a class defines itself."""
+    return [name for name, value in vars(cls).items()
+            if not name.startswith("_") and (
+                inspect.isfunction(value)
+                or isinstance(value, (staticmethod, classmethod, property)))]
+
+
 def test_port_exports_every_name_the_jax_package_exports():
-    """C8: walk every module of the JAX package; each name of its
+    """C8, C11: walk every module of the JAX package; each name of its
     ``__all__`` must be an attribute of the port module at the same path
-    (``torchbooster_tpu.X`` ↔ ``torchbooster_tpu_torch.X``), unless
-    exempted above with its reason. An exemption the port has caught up
-    with fails too, so the lists shrink as slices land."""
+    (``torchbooster_tpu.X`` ↔ ``torchbooster_tpu_torch.X``), and each
+    public method or property a class among them defines must be an
+    attribute of the port's class, unless exempted above with its
+    reason. An exemption the port has caught up with fails too, so the
+    lists shrink as slices land."""
     import torchbooster_tpu as jpkg
 
-    missing, stale = [], []
+    missing, stale, methods = [], [], {}
     for info in pkgutil.walk_packages(jpkg.__path__, "torchbooster_tpu."):
         rel = info.name[len("torchbooster_tpu."):]
         jmod = importlib.import_module(info.name)
@@ -181,11 +203,27 @@ def test_port_exports_every_name_the_jax_package_exports():
             if not hasattr(port, name):
                 if key not in EXEMPT_NAMES and rel not in EXEMPT_MODULES:
                     missing.append(key)
-            elif key in EXEMPT_NAMES:
+                continue
+            if key in EXEMPT_NAMES:
                 stale.append(key)
+            jcls = getattr(jmod, name)
+            if inspect.isclass(jcls) and jcls.__module__.startswith(
+                    "torchbooster_tpu."):
+                owner = f"{jcls.__module__[len('torchbooster_tpu.'):]}." \
+                    f"{jcls.__qualname__}"
+                for attr in _public_methods(jcls):
+                    methods[f"{owner}.{attr}"] = hasattr(getattr(port, name),
+                                                         attr)
+    for key, present in sorted(methods.items()):
+        if not present and key not in EXEMPT_METHODS:
+            missing.append(key)
+        elif present and key in EXEMPT_METHODS:
+            stale.append(key)
+    stale += sorted(set(EXEMPT_METHODS) - set(methods))
     assert missing == [], f"names the port lacks: {missing}"
     assert stale == [], f"exempted but present in the port: {stale}"
     assert all(EXEMPT_NAMES.values()) and all(EXEMPT_MODULES.values())
+    assert all(EXEMPT_METHODS.values())
 
 
 def test_package_surface_c8_names():

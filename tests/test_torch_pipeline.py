@@ -691,7 +691,7 @@ def test_qkv_tp_major_marker_guards_match_jax():
     with pytest.raises(ValueError, match="tp-major for tp=2"):
         GPT.apply(marked, ids, cfg, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="tp-major for tp=2"):
-        generate(marked, ids, cfg, n_new=2)
+        generate(marked, ids, cfg, n_new=2, temperature=0.0)
     with pytest.raises(ValueError, match="tp-major for tp=2"):
         PagedEngine(marked, cfg, page_size=4, n_pages=8, max_slots=1,
                     device="cpu")

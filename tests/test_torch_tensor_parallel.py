@@ -11,6 +11,7 @@ by ``GPT.SHARDING_RULES`` (GSPMD), imported inside the functions that
 run it. fp32 throughout; greedy serving streams are token-exact."""
 from __future__ import annotations
 
+import functools
 import json
 
 import numpy as np
@@ -786,3 +787,234 @@ def test_tp_serving_validation_matches_jax():
     with pytest.raises(ValueError, match="not buildable from YAML"):
         conf.make(params, cfg, compute_dtype="float32", device="cpu",
                   mesh=mesh)
+
+
+# =========================================================================
+# dense decode on a mesh: generate(mesh=) over rule-sharded params
+# =========================================================================
+
+# JAX's sharded-decode test model (``tests/test_models.py:399``)
+MESH_CFG = dict(vocab=64, n_layers=2, d_model=32, n_heads=4, seq_len=32,
+                n_kv_heads=2)
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_problem() -> tuple[dict, np.ndarray]:
+    """JAX's initialisation of :data:`MESH_CFG` (seed 0) as numpy, and
+    its ids (2, 8) (``jax.random.randint(PRNGKey(1), ...)``); cached, so
+    callers must not mutate them."""
+    import jax
+
+    from torchbooster_tpu.models.gpt import GPT as JGPT, GPTConfig as JCfg
+
+    params = jax.tree.map(np.asarray, JGPT.init(jax.random.PRNGKey(0),
+                                                JCfg(**MESH_CFG)))
+    ids = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (2, 8), 0,
+                                        64))
+    return params, ids
+
+
+def jax_generate(cache_dtype=None, spec: str | None = None) -> np.ndarray:
+    """JAX's greedy fp32 decode of :func:`mesh_problem`'s ids: its
+    ``jit_generate`` on one device, or with ``spec`` over the params
+    placed on that mesh by ``GPT.SHARDING_RULES``
+    (``tests/test_models.py:417``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from torchbooster_tpu.models.gpt import GPT as JGPT, GPTConfig as JCfg
+    from torchbooster_tpu.models.gpt import jit_generate
+
+    params, ids = mesh_problem()
+    tree = jax.tree.map(jnp.asarray, params)
+    gen = jit_generate(JCfg(**MESH_CFG), n_new=6, temperature=0.0,
+                       compute_dtype=jnp.float32, cache_dtype=cache_dtype)
+    if spec is None:
+        return np.asarray(gen(tree, jnp.asarray(ids),
+                              jax.random.PRNGKey(0)))
+    from torchbooster_tpu.parallel.sharding import shard_params as jshard
+
+    mesh = jax_mesh(spec)
+    placed = jshard(tree, mesh, JGPT.SHARDING_RULES)
+    with mesh:
+        return np.asarray(gen(placed, jnp.asarray(ids),
+                              jax.random.PRNGKey(0)))
+
+
+def case_mesh_generate(spec: str, cfg_kw: dict, params: dict,
+                       ids: np.ndarray, cache_dtype=None,
+                       temperature: float = 0.0, sharded: bool = True,
+                       seed: int = 5) -> dict:
+    """This rank's ``jit_generate(mesh=)`` decode of the whole ``ids``
+    over its blocks of the rule-laid tree (or the whole tree), every
+    rank's generator seeded alike; with the leaf shapes it held."""
+    from torchbooster_tpu_torch.models.gpt import jit_generate
+    from torchbooster_tpu_torch.parallel.sharding import shard_params
+
+    mesh = dist.make_mesh(spec, device="cpu")
+    cfg = GPTConfig(**cfg_kw)
+    tree = _torch_tree(params)
+    if sharded:
+        tree = shard_params(tree, mesh, GPT.SHARDING_RULES)
+    fn = jit_generate(cfg, n_new=6, temperature=temperature, top_k=4,
+                      compute_dtype=torch.float32, cache_dtype=cache_dtype,
+                      mesh=mesh)
+    gen = torch.Generator().manual_seed(seed) if temperature else None
+    out = fn(tree, torch.from_numpy(ids).long(), gen)
+    return {"ids": out.numpy(), "cache_size": fn._cache_size(),
+            "qkv": tuple(tree["blocks"]["attn_qkv"]["kernel"].shape)}
+
+
+def case_mesh_generate_sampled(params: dict, ids: np.ndarray) -> list:
+    """:func:`case_mesh_generate`'s sampled ids at tp:2, from the
+    rule-laid tree and from the whole tree."""
+    return [case_mesh_generate("tp:2", MESH_CFG, params, ids, None, 0.8,
+                               sharded)["ids"] for sharded in (True, False)]
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"])
+def test_mesh_generate_fsdp2_tp2_matches_jax(pool4, cache_dtype):
+    """``generate(mesh=)`` at ``fsdp:2,tp:2`` on the rule-sharded tree
+    (JAX ``test_gpt_jit_generate_with_sharded_params``'s model, ids and
+    6 new tokens): each rank gathers its leaves over fsdp, keeps its
+    Megatron slices over tp (its 2 of 4 heads, qkv columns rank-major),
+    and returns JAX's one-device greedy fp32 decode token for token,
+    with the plain cache and the int8 cache (which JAX holds to the
+    same one-device ids)."""
+    params, ids = mesh_problem()
+    want = jax_generate()
+    for res in pool4.run(case_mesh_generate, "fsdp:2,tp:2", MESH_CFG,
+                         params, ids, cache_dtype):
+        np.testing.assert_array_equal(res["ids"], want)
+        # d_model rows over fsdp, (32 + 2 * 16) columns over tp
+        assert res["qkv"] == (2, 16, 32) and res["cache_size"] == 1
+
+
+def test_mesh_generate_sampled_tp2_equals_world1(pool):
+    """Sampled decode at ``tp:2`` (temperature 0.8, top-k 4), each rank's
+    generator seeded alike: both ranks draw the ids the one-process run
+    draws from the same seed — from the rule-sharded tree and from the
+    whole tree, which ``generate`` cuts to the rank's heads."""
+    from torchbooster_tpu_torch.models.gpt import generate
+
+    params, ids = mesh_problem()
+    want = generate(_torch_tree(params), torch.from_numpy(ids).long(),
+                    GPTConfig(**MESH_CFG), n_new=6, temperature=0.8,
+                    top_k=4, compute_dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(5)).numpy()
+    for res in pool.run(case_mesh_generate_sampled, params, ids):
+        for got in res:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("spec,against", [
+    ("dp:2,tp:2,fsdp:2", "dp:2,tp:2,fsdp:2"), ("pp:2,tp:2", None)])
+def test_mesh_generate_eight_and_pp_ranks_match_jax(spec, against):
+    """JAX's exact mesh, ``dp:2,tp:2,fsdp:2`` at 8 ranks, held to JAX's
+    own ``jit_generate`` on its 8-device mesh (plain and int8 caches);
+    ``pp:2,tp:2`` (each rank gathers the other stage's layers) to the
+    one-device decode."""
+    params, ids = mesh_problem()
+    n = int(np.prod([int(e.split(":")[1]) for e in spec.split(",")]))
+    ranks = RankPool(n)
+    try:
+        for cache_dtype in (None, "int8"):
+            want = jax_generate(cache_dtype, against)
+            for res in ranks.run(case_mesh_generate, spec, MESH_CFG, params,
+                                 ids, cache_dtype, timeout=300.0):
+                np.testing.assert_array_equal(res["ids"], want)
+    finally:
+        ranks.close()
+
+
+def case_recipe_sample(spec: str, n: int) -> dict:
+    recipe, conf = _recipe_conf(spec, 0, n)
+    conf.sample_tokens = 8
+    res = recipe.main(conf, device="cpu")
+    return {"sample": res["sample"],
+            "losses": [r["loss"] for r in res["log"]]}
+
+
+def test_recipe_tp2_samples_on_every_rank_as_one_device(pool):
+    """The GPT recipe at ``tp:2`` samples on the rule-sharded state on
+    both ranks (``generate(mesh=)``, as the JAX recipe samples on its
+    sharded state, ``examples/lm/gpt/gpt.py:247``): each rank's sample
+    is the one-process run's from the same seed."""
+    want = case_recipe_sample("", 1)
+    for res in pool.run(case_recipe_sample, "tp:2", 2, timeout=300.0):
+        np.testing.assert_allclose(res["losses"], want["losses"], rtol=1e-4)
+        assert res["sample"] == want["sample"]
+
+
+# =========================================================================
+# can_admit under tp churn (``tests/test_serving.py:1303``)
+# =========================================================================
+
+def can_admit_churn(engine) -> list:
+    """JAX's tp churn on ``engine``: 24 random admit / step / retire ops
+    (seed 11), each ``can_admit`` answer and admitted slot recorded,
+    ``tables.check()`` after every op. Before each op a dry run of a
+    probe of 6 pages, which the pool can seat only while it has room
+    (the churn's own prompts always fit), adds its answer."""
+    rs = np.random.RandomState(11)
+    probe = np.arange(24, dtype=np.int32) % 97
+    live: list[int] = []
+    seen: list = []
+    for _ in range(24):
+        seen.append(("probe", bool(engine.can_admit(probe))))
+        op = rs.randint(3)
+        if op == 0 and len(live) < 2:
+            prompt = rs.randint(0, 97, rs.randint(2, 11)).astype(np.int32)
+            ok = engine.can_admit(prompt)
+            seen.append(("can_admit", bool(ok)))
+            if ok:
+                got = engine.admit(prompt)
+                seen.append(("admit", None if got is None else got[0]))
+                if got is not None:
+                    live.append(got[0])
+        elif op == 1 and live:
+            if engine.grow_slots() == []:
+                engine.step()
+        elif op == 2 and live:
+            engine.retire(live.pop(rs.randint(len(live))))
+        engine.tables.check()
+    seen.append(("decode_compiles", min(engine.decode_compiles, 1)))
+    return seen
+
+
+def case_can_admit_churn(params: dict, tp: int) -> list:
+    from torchbooster_tpu_torch.serving import PagedEngine
+
+    mesh = dist.make_mesh(f"tp:{tp}", device="cpu") if tp > 1 else None
+    cfg = GPTConfig(vocab=97, n_layers=2, d_model=32, n_heads=4,
+                    seq_len=32, n_kv_heads=2)
+    engine = PagedEngine(_torch_tree(params), cfg, page_size=4, n_pages=10,
+                         max_slots=2, prefix_cache=True,
+                         compute_dtype=torch.float32, tp=tp, mesh=mesh,
+                         device="cpu")
+    return can_admit_churn(engine)
+
+
+def test_can_admit_under_tp2_churn_matches_jax(pool):
+    """``PagedEngine.can_admit`` (JAX ``engine.py:1148``) through JAX's
+    randomized tp:2 churn with the prefix cache under eviction pressure:
+    the port's engine at tp:2 on both ranks, and at tp 1, answers every
+    ``can_admit`` and seats every admission as JAX's engine at tp:2 on
+    its 2-device mesh does, its tables consistent after every op."""
+    import jax.numpy as jnp
+
+    from tests.test_torch_gpt import _model
+    from torchbooster_tpu.serving import PagedEngine as JEngine
+    from torchbooster_tpu_torch.interop import to_numpy
+
+    jp, jcfg, tp_params, _ = _model(2)
+    ref = JEngine(jp, jcfg, page_size=4, n_pages=10, max_slots=2,
+                  prefix_cache=True, compute_dtype=jnp.float32, tp=2,
+                  mesh=jax_mesh("tp:2"))
+    want = can_admit_churn(ref)
+    assert ("probe", True) in want and ("probe", False) in want
+    params = to_numpy(tp_params)
+    assert case_can_admit_churn(params, 1) == want
+    for got in pool.run(case_can_admit_churn, params, 2):
+        assert got == want

@@ -253,7 +253,8 @@ def _tp_dim(layer: str, kind: str) -> int | None:
     return None
 
 
-def local_blocks(blocks: dict, cfg: GPTConfig, mesh) -> dict:
+def local_blocks(blocks: dict, cfg: GPTConfig, mesh,
+                 axes: tuple[str, ...] = ("pp", "ep", "tp")) -> dict:
     """This rank's view of the stacked blocks on ``mesh``: on ``pp`` its
     ``L/pp`` contiguous layers, on ``ep`` its experts, on ``tp`` its
     heads and hidden units
@@ -261,10 +262,14 @@ def local_blocks(blocks: dict, cfg: GPTConfig, mesh) -> dict:
     carries the tp-major marker, whose columns are rank-major already).
     Leaves that are this rank's slices already (``make_step(rules=)``
     places them so) pass through; a whole leaf is cut, and its gradient
-    lands on the cut's positions."""
-    pp = mesh.axis("pp") if mesh is not None else None
-    tp = mesh.axis("tp") if mesh is not None else None
-    ep = mesh.axis("ep") if mesh is not None and cfg.n_experts else None
+    lands on the cut's positions. Only the mesh axes among ``axes`` cut
+    (dense decode keeps every layer and expert and cuts over tp)."""
+    def active(name: str):
+        return mesh.axis(name) if mesh is not None and name in axes \
+            else None
+
+    pp, tp = active("pp"), active("tp")
+    ep = active("ep") if cfg.n_experts else None
     if pp is None and tp is None and ep is None:
         return blocks
     if tp is not None and (cfg.n_heads % tp[1] or cfg.kv_heads % tp[1]):
@@ -570,6 +575,10 @@ class GPT:
     def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
                  **kw) -> torch.Tensor:
         return generate(params, ids, cfg, **kw)
+
+    @staticmethod
+    def jit_generate(cfg: GPTConfig = GPTConfig(), *args, **kw):
+        return jit_generate(cfg, *args, **kw)
 
 
 # the JAX remat policy: products without batch dims are saved
@@ -1017,12 +1026,13 @@ def _grouped_cache_attention(q: torch.Tensor, cache_k, cache_v,
 
 
 def _cached_block(bp: dict, x: torch.Tensor, cache_k, cache_v, pos: int,
-                  cfg: GPTConfig) -> torch.Tensor:
+                  cfg: GPTConfig, tp=None) -> torch.Tensor:
     """One decode step through one block at position ``pos``: this
     token's K/V are written into the (B, S_cache, H_kv, Dh) caches IN
     PLACE, then attended with everything ``<= pos``. MoE capacity floors
     at ``n_experts`` so a decode micro-batch never drops a token
-    (``gpt.py:1083``)."""
+    (``gpt.py:1083``). ``tp``: ``bp`` holds this rank's Megatron slices
+    and the caches its ``kv_heads / tp`` heads (``_block_core(tp=)``)."""
     quantized = isinstance(cache_k, tuple)
     s_cache = (cache_k[0] if quantized else cache_k).shape[1]
 
@@ -1040,7 +1050,7 @@ def _cached_block(bp: dict, x: torch.Tensor, cache_k, cache_v, pos: int,
 
     x, _, _ = _block_core(bp, x, cfg, attend,
                           positions=torch.tensor([pos], device=x.device),
-                          capacity_factor=serving_capacity(cfg))
+                          capacity_factor=serving_capacity(cfg), tp=tp)
     return x
 
 
@@ -1241,19 +1251,40 @@ def _embed(params: dict, ids: torch.Tensor,
 
 
 def _prefill_forward(params: dict, ids: torch.Tensor, cfg: GPTConfig,
-                     compute_dtype: torch.dtype):
+                     compute_dtype: torch.dtype, tp=None):
     """Full prompt forward collecting per-layer K/V, attending through
     the dispatcher as ``gpt.py:1320`` does. Returns ``(x, ks, vs)`` with
-    x (B, S, d) and ks/vs stacked (L, B, S, kv_heads, Dh)."""
+    x (B, S, d) and ks/vs stacked (L, B, S, kv_heads, Dh); with ``tp``
+    the blocks are this rank's slices and ks/vs its ``kv_heads / tp``
+    heads."""
     x = _embed(params, ids, compute_dtype)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, _, (k, v) = _block_core(
             layer_params(params["blocks"], i), x, cfg,
-            lambda q, k, v: (attention(q, k, v, causal=True), (k, v)))
+            lambda q, k, v: (attention(q, k, v, causal=True), (k, v)), tp=tp)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
+
+
+def _decode_params(params: dict, cfg: GPTConfig, mesh) -> dict:
+    """This rank's tree for dense decode on ``mesh``: every leaf laid out
+    by ``parallel.sharding.shard_params`` gathered whole over every axis
+    but ``tp`` (``fsdp``, ``pp``, ``ep``); a dimension split over ``tp``
+    stays this rank's Megatron slice (the qkv columns in the order
+    ``shard_params`` recorded, rank-major), and a whole tree is cut to
+    that slice (:func:`local_blocks` over ``tp`` alone)."""
+    from torchbooster_tpu_torch.parallel.sharding import (
+        decode_spec,
+        gather_leaf,
+        tree_map_with_path,
+    )
+
+    tree = tree_map_with_path(lambda _, leaf: gather_leaf(
+        leaf, decode_spec(getattr(leaf, "spec", ())), mesh), params)
+    return {**tree, "blocks": local_blocks(tree["blocks"], cfg, mesh,
+                                           axes=("tp",))}
 
 
 @torch.no_grad()
@@ -1262,18 +1293,33 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
              temperature: float = 1.0, top_k: int | None = None,
              top_p: float | None = None,
              compute_dtype: torch.dtype = torch.bfloat16,
-             cache_dtype: str | None = None) -> torch.Tensor:
+             cache_dtype: str | None = None, mesh=None) -> torch.Tensor:
     """Dense KV-cache decoding — the control every serving test is
     held to (``gpt.py:1329``). Prefill runs the whole prompt once, then
     ``n_new`` tokens decode one at a time against a static-shape cache
-    (``cache_dtype="int8"`` stores ``_quantize_kv`` pairs). Returns
-    (B, S_prompt + n_new) ids."""
+    (``cache_dtype="int8"`` stores ``_quantize_kv`` pairs). Greedy at
+    ``temperature=0``; sampling draws from ``generator``, which it
+    needs. Returns (B, S_prompt + n_new) ids.
+
+    ``mesh`` (a ``distributed.Mesh`` under a process group): ``params``
+    are this rank's blocks as ``parallel.sharding.shard_params(params,
+    mesh, GPT.SHARDING_RULES)`` lays them out, or the whole tree.
+    Every leaf is gathered whole over every axis but ``tp`` once, before
+    the prefill (:func:`_decode_params`); each block then runs on this
+    rank's heads and hidden units with two all-reduces over ``tp``
+    (``_block_core(tp=)``), the cache holds its ``kv_heads / tp`` heads,
+    and a vocabulary-sliced head gathers its logits. ``ids`` is the
+    whole batch on every rank, and every rank returns the whole ids: the
+    reduced logits are equal on every rank, so are greedy picks, and so
+    are sampled ones when every rank's generator is seeded alike."""
     b, s0 = ids.shape
     if s0 + n_new > cfg.seq_len:
         raise ValueError(f"prompt {s0} + n_new {n_new} exceeds "
                          f"cfg.seq_len={cfg.seq_len}")
     if temperature < 0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs generator=")
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
     if cache_dtype not in (None, "int8"):
@@ -1282,8 +1328,12 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
     if n_new == 0:
         return ids
     _check_pos(params, cfg)
+    tp = None
+    if mesh is not None and mesh.distributed and mesh.size > 1:
+        params = _decode_params(params, cfg, mesh)
+        tp = mesh.axis("tp")
     params = cast_params(params, compute_dtype)
-    x, ks, vs = _prefill_forward(params, ids, cfg, compute_dtype)
+    x, ks, vs = _prefill_forward(params, ids, cfg, compute_dtype, tp)
     s_total = s0 + n_new
 
     def padded(t):
@@ -1301,7 +1351,7 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
         cache_v = padded(vs.to(compute_dtype))
         layer_cache = lambda c, i: c[i]
     pick = _make_pick(temperature, top_k, top_p)
-    last = pick(generator, _lm_head(params, x[:, -1:])[:, 0])
+    last = pick(generator, _lm_head(params, x[:, -1:], tp)[:, 0])
     out = [last]
     for pos in range(s0, s_total - 1):
         x = L.embedding(params["wte"], last[:, None], dtype=compute_dtype)
@@ -1310,10 +1360,37 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
         for i in range(cfg.n_layers):
             x = _cached_block(layer_params(params["blocks"], i), x,
                               layer_cache(cache_k, i),
-                              layer_cache(cache_v, i), pos, cfg)
-        last = pick(generator, _lm_head(params, x)[:, 0])
+                              layer_cache(cache_v, i), pos, cfg, tp)
+        last = pick(generator, _lm_head(params, x, tp)[:, 0])
         out.append(last)
     return torch.cat([ids, torch.stack(out, dim=1).to(ids.dtype)], dim=1)
+
+
+def jit_generate(cfg: GPTConfig = GPTConfig(), n_new: int = 32,
+                 temperature: float = 1.0, top_k: int | None = None,
+                 top_p: float | None = None,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 cache_dtype: str | None = None, mesh=None):
+    """The one-entry decode of ``gpt.py:1428``: ``fn(params, ids,
+    generator=None) -> (B, S_prompt + n_new) ids``, :func:`generate`
+    with the decode knobs closed over. ``fn._cache_size()`` counts the
+    distinct ``(batch, prompt length)`` shapes ``fn`` has run, the
+    counterpart of JAX's compile cache (as
+    ``PagedEngine.decode_compiles`` is of the engine's). No CUDA graph
+    is captured: the loop runs eagerly."""
+    shapes: set = set()
+
+    def fn(params: dict, ids: torch.Tensor,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+        out = generate(params, ids, cfg, n_new=n_new, generator=generator,
+                       temperature=temperature, top_k=top_k, top_p=top_p,
+                       compute_dtype=compute_dtype, cache_dtype=cache_dtype,
+                       mesh=mesh)
+        shapes.add(tuple(ids.shape))
+        return out
+
+    fn._cache_size = lambda: len(shapes)
+    return fn
 
 
 # GPT-2's published widths: d_model → heads
@@ -1378,7 +1455,7 @@ def load_torch_gpt2(state_dict, n_heads: int | None = None,
     return params, cfg
 
 
-__all__ = ["GPT", "GPTConfig", "cast_params", "generate", "layer_params",
-           "load_torch_gpt2", "local_blocks", "map_tensors", "qkv_columns",
-           "qkv_state_to_tp_major", "qkv_tp_permutation", "qkv_to_tp_major",
-           "serving_capacity"]
+__all__ = ["GPT", "GPTConfig", "cast_params", "generate", "jit_generate",
+           "layer_params", "load_torch_gpt2", "local_blocks", "map_tensors",
+           "qkv_columns", "qkv_state_to_tp_major", "qkv_tp_permutation",
+           "qkv_to_tp_major", "serving_capacity"]

@@ -34,9 +34,13 @@ def normal_init(gen: torch.Generator, shape: tuple, std: float = 0.02,
 
 
 def dense_init(gen: torch.Generator, din: int, dout: int,
-               use_bias: bool = True,
+               use_bias: bool = True, std: float | None = None,
                dtype: torch.dtype = torch.float32) -> dict:
-    params = {"kernel": _fan_in_uniform(gen, (din, dout), din, dtype)}
+    """A ``(din, dout)`` kernel, fan-in uniform or, with ``std``, drawn
+    from ``N(0, std²)`` (:func:`normal_init`; JAX ``layers.py:47``), and
+    a zero bias."""
+    params = {"kernel": _fan_in_uniform(gen, (din, dout), din, dtype)
+              if std is None else normal_init(gen, (din, dout), std, dtype)}
     if use_bias:
         params["bias"] = torch.zeros((dout,), dtype=dtype)
     return params

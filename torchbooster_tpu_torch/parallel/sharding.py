@@ -355,6 +355,14 @@ def loss_spec(spec: tuple) -> tuple:
                  for e in spec)
 
 
+def decode_spec(spec: tuple) -> tuple:
+    """The part of ``spec`` gathered before dense decode on a mesh:
+    ``spec`` with the entries of its ``tp`` dimensions dropped, which
+    stay this rank's Megatron slices (``fsdp``, ``pp`` and ``ep`` are
+    gathered whole)."""
+    return tuple(None if "tp" in _entry_axes(e) else e for e in spec)
+
+
 def replication_axes(spec: tuple, mesh: Mesh) -> tuple[str, ...]:
     """The axes a leaf under ``spec`` replicates over that split the
     batch — the data axes and ``sp``: its gradient is summed over them
@@ -366,7 +374,7 @@ def replication_axes(spec: tuple, mesh: Mesh) -> tuple[str, ...]:
 
 __all__ = ["LOCAL_AXES", "P", "column_order", "full_leaf", "full_tree",
            "gather_leaf",
-           "local_slice", "loss_spec",
+           "decode_spec", "local_slice", "loss_spec",
            "make_param_specs",
            "make_shardings", "make_state_specs", "path_str",
            "replication_axes", "shard_params", "shard_state",

@@ -40,7 +40,9 @@ blocks (``model.n_experts``, ``top_k``, ``capacity_factor``) add
 On a mesh with ``tp`` or ``pp`` the ranks of those axes read the same
 rows: the blocks split Megatron-style over ``tp`` and run the GPipe
 schedule over ``pp`` (``GPT.apply``), the rule table holding each rank's
-slice. Only the primary rank prints and samples."""
+slice. Without a ``comms:`` block every rank samples on that layout
+(``generate(mesh=)``); with one the primary rank samples the
+gathered tree. Only the primary rank prints."""
 from __future__ import annotations
 
 import sys
@@ -296,11 +298,12 @@ def run(t: Trainer) -> dict:
     results = {**results, "log": log}
     params = t.comms.gather_params(t.state) if t.comms is not None \
         else t.state.params
-    loss_params = params
+    loss_params, sample_mesh = params, None
     if t.comms is None and t.mesh is not None and t.mesh.distributed:
-        # the loss keeps this rank's experts; sampling takes them all
-        loss_params = _full_params(params, t.mesh, local=True)
-        params = _full_params(params, t.mesh)
+        # the loss keeps this rank's experts; every rank samples on the
+        # rule-sharded state, generate gathering what it needs
+        loss_params = _loss_params(params, t.mesh)
+        sample_mesh = t.mesh
     if conf.eval_batches > 0:
         eval_step = utils.make_eval_step(t.loss_fn)
         eval_loader = conf.loader.make(
@@ -329,44 +332,40 @@ def run(t: Trainer) -> dict:
         elif dist.is_primary():
             print("eval skipped: the validation split yielded no full "
                   "batches (drop_last)", flush=True)
-    if conf.sample_tokens > 0 and dist.is_primary():
-        # prompt with the first tokens of a training example
+    if conf.sample_tokens > 0 and (sample_mesh is not None
+                                   or dist.is_primary()):
+        # prompt with the first tokens of a training example (rank 0's
+        # on a mesh); every rank's generator is seeded alike, so every
+        # rank draws the same ids
         _, tokens = next(t.batches)
         prompt = torch.as_tensor(np.asarray(tokens)[:1, :8]).long().to(
             t.device)
+        if sample_mesh is not None:
+            prompt = dist.to_env(prompt, sample_mesh)
         sampled = generate(
             params, prompt, t.cfg, n_new=conf.sample_tokens,
             generator=torch.Generator(t.device).manual_seed(conf.seed),
             temperature=conf.sample_temperature, top_k=50,
-            top_p=conf.sample_top_p or None)
+            top_p=conf.sample_top_p or None, mesh=sample_mesh)
         results["sample"] = sampled[0].tolist()
-        print("sample:", results["sample"], flush=True)
-        if t.cfg.vocab == 256:
-            # a byte-level corpus (text_file): the ids are UTF-8 bytes
-            print("sample text:", repr(
-                ByteTokenizer().decode(results["sample"])), flush=True)
+        if dist.is_primary():
+            print("sample:", results["sample"], flush=True)
+            if t.cfg.vocab == 256:
+                # a byte-level corpus (text_file): the ids are UTF-8 bytes
+                print("sample text:", repr(
+                    ByteTokenizer().decode(results["sample"])), flush=True)
     return results
 
 
-def _full_params(params: dict, mesh: Any, local: bool = False) -> dict:
-    """The full parameter tree of a rule-sharded state (each sharded leaf
-    all-gathered, the qkv columns canonical), for sampling; with ``local``
-    the tree the loss takes (leaves sharded over ``ep``, ``tp`` and
-    ``pp`` stay this rank's, ``parallel.sharding.loss_spec``), for
-    evaluation."""
-    from torchbooster_tpu_torch.parallel.sharding import (
-        full_leaf,
-        gather_leaf,
-        loss_spec,
-    )
-
-    def full(p: torch.Tensor) -> torch.Tensor:
-        if not local:
-            return full_leaf(p, mesh)
-        return gather_leaf(p, loss_spec(getattr(p, "spec", ())), mesh)
+def _loss_params(params: dict, mesh: Any) -> dict:
+    """The tree the loss takes from a rule-sharded state: each leaf
+    all-gathered but over ``ep``, ``tp`` and ``pp``, whose slices stay
+    this rank's (``parallel.sharding.loss_spec``)."""
+    from torchbooster_tpu_torch.parallel.sharding import gather_leaf, loss_spec
 
     with torch.no_grad():
-        return utils._tree_map(full, params)
+        return utils._tree_map(lambda p: gather_leaf(
+            p, loss_spec(getattr(p, "spec", ())), mesh), params)
 
 
 def launch_main(conf: Config, device: str = "cuda") -> Any:

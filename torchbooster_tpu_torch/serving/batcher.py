@@ -230,6 +230,10 @@ class _Session:
         if len(series) > self.MAX_SAMPLES:
             del series[:len(series) - self.MAX_SAMPLES]
 
+    @property
+    def has_seated(self) -> bool:
+        return bool(self.live or self.filling)
+
 
 class ContinuousBatcher:
     """Policy-driven admission queue driving a :class:`PagedEngine`.

@@ -813,6 +813,24 @@ class PagedEngine:
         return out
 
     # ---- lifecycle --------------------------------------------------
+    def can_admit(self, prompt_ids: np.ndarray) -> bool:
+        """A dry run of :meth:`admit_begin`'s checks (a free slot, the
+        horizon, and pages net of the prefix cache's resident matches)
+        that seats nothing. Takes the prompt's token array, since the
+        prefix match reads its content; a scalar length raises."""
+        if np.asarray(prompt_ids).ndim == 0:
+            raise TypeError(
+                "can_admit takes the prompt token array (prefix "
+                "matching is content-based), not its length")
+        prompt = np.ascontiguousarray(prompt_ids, np.int32).reshape(-1)
+        s0 = len(prompt)
+        if self.tables.free_slot() is None \
+                or not 0 < s0 < self.cfg.seq_len:
+            return False
+        return (self.tables.pages_for(s0)
+                - len(self.tables.match_pages(prompt))
+                <= self.tables.n_available_pages)
+
     def admit_begin(self, prompt_ids: np.ndarray, seed: int | None = None,
                     branch: int = 0, adapter_lane: int = 0) -> int | None:
         """Seat one request: map cached prefix pages into its block
@@ -1389,6 +1407,12 @@ class PagedEngine:
         """Active slots decoding as a fork branch b > 0."""
         return int(np.count_nonzero(self.tables.active
                                     & (self._branch_of > 0)))
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """The share of proposed draft tokens the verify step
+        accepted."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
 
     @property
     def decode_compiles(self) -> int:

@@ -310,6 +310,16 @@ class BlockTables:
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
+    def slot_pages(self, slot: int) -> np.ndarray:
+        """The slot's live page ids, in sequence order."""
+        n = self.pages_for(int(self.lengths[slot]))
+        return self.tables[slot, :n].copy()
+
+    def match_prefix(self, prompt: np.ndarray) -> int:
+        """How many leading full pages of ``prompt`` are resident in the
+        prefix index (:meth:`match_pages`'s count, under its cap)."""
+        return len(self.match_pages(prompt))
+
     def match_pages(self, prompt: np.ndarray) -> list[int]:
         """The resident page chain for ``prompt``'s leading full pages,
         capped at ``(len - 1) // page_size`` so the last prompt token
@@ -524,6 +534,12 @@ class BlockTables:
             self._page_key[p] = key
             if self.on_tier_event is not None:
                 self.on_tier_event("promote", key)
+
+    def ensure_next_page(self, slot: int) -> bool:
+        """Make sure the page that position ``lengths[slot]`` (the next
+        write) lands in exists: :meth:`ensure_write_pages` of one
+        token."""
+        return self.ensure_write_pages(slot, 1)
 
     def ensure_write_pages(self, slot: int, n_tokens: int = 1) -> bool:
         """Make sure pages exist for the next ``n_tokens`` write

@@ -25,7 +25,7 @@ import functools
 import logging
 import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
@@ -161,6 +161,11 @@ class TrainState:
             if ema else None
         return cls(params=params, optimizer=tx.init(params),
                    generator=generator, grad_acc=accumulate, ema=ema_tree)
+
+    def replace(self, **changes: Any) -> "TrainState":
+        """A new state with ``changes`` over this one's fields (the JAX
+        state's ``replace``); the fields not named are shared."""
+        return replace(self, **changes)
 
     def state_dict(self) -> dict:
         """Live references to what a checkpoint holds: parameters, the
