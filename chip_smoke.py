@@ -28,18 +28,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
    S_q 256 < S_kv 1024, ragged S 1000, D 32 (the recipe default's heads),
    D 128 at S 1024, non-causal bf16 and fp32 cases, and gpt-long's head
-   dim 48 (16 heads over 8: GQA at S 2048 bf16 and S 1024 fp32, and S_q
-   256 < S_kv 1024); B1 on the route ``plan_flash_fwd`` plans and B2 and
-   B3 on the route ``plan_flash_bwd`` plans (every bf16 case but D 32 and
-   D 48 on ``"sm90"``, those on ``"mma_sync"``), two bf16 calls of each
-   bit for bit; then time each kernel at the training geometry (profiler
-   device time, or CUDA events around back-to-back calls where the
-   profiler loses events) beside its plain version, its bound and SDPA
-   (forward, and its backward), B1, B2 and B3 on ``"sm90"`` and on
-   ``"mma_sync"`` on the same inputs; the same at gpt-long's geometry (B
-   8, H 16 over 8, S 8192, D 48, on ``"mma_sync"``, SDPA over K/V
-   expanded to 16 heads); and sweep S for the ``"auto"`` crossover
-   against ``mha_reference``.
+   dim 48 (16 heads over 8: GQA at S 2048 bf16 and S 1024 fp32, S_q 256
+   < S_kv 1024, ragged S 200, and non-causal at S 1024, the sp:8 ring's
+   visiting chunks); B1 on the route ``plan_flash_fwd`` plans and B2 and
+   B3 on the route ``plan_flash_bwd`` plans (every bf16 case on
+   ``"sm90"`` but D 32's, and D 48's B1, which take ``"mma_sync"``), two
+   bf16 calls of each bit for bit; then time each kernel at the training
+   geometry (profiler device time, or CUDA events around back-to-back
+   calls where the profiler loses events) beside its plain version, its
+   bound and SDPA (forward, and its backward), B1, B2 and B3 on
+   ``"sm90"`` and on ``"mma_sync"`` on the same inputs; the same at
+   gpt-long's geometry (B 8, H 16 over 8, S 8192, D 48: B1 on
+   ``"mma_sync"``, B2 and B3 on ``"sm90"`` and on ``"mma_sync"``, SDPA
+   over K/V expanded to 16 heads); and sweep S for the ``"auto"``
+   crossover against ``mha_reference``.
 5. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
    (tied embeddings x4), ``ServingConfig(page_size=64, n_pages=129,
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
@@ -208,18 +210,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    heads over 8 kv heads (D 48), rope, dropout 0.1, remat, chunked head,
    AdamW with decay on matrices only, a cos/cos cycle, then a 128-token
    top-p 0.95 sample. Checks: B1 24, B2 12 and B3 12 launches a step (and
-   12 B1 each for the eval batch and the sample's prefill), all on
-   ``"mma_sync"``, and no ``mha_reference`` call; finite losses whose last
-   3 average below the first; ``ckpt_04``, ``ckpt_08``, ``ckpt_12``; a
-   fresh ``setup`` resumes at step 12 with params, AdamW moments, step and
-   generator bit for bit, and one more step from both trainers agrees bit
-   for bit; one generator state gives one loss, and the eval loss (no
-   generator) is the dropout-0 loss bit for bit; 136 byte tokens printed
-   as text. Prints the median step ms of steps 3-12, tokens/s, the
-   model-FLOP share of 989 TFLOP/s (dense and causal attention FLOPs
-   stated), peak memory, the checkpoint's bytes with the save's blocking
-   and background-write ms, the validation loss, and a profiled busy
-   share with B1-B3's share of device time.
+   12 B1 each for the eval batch and the sample's prefill), B1 on
+   ``"mma_sync"`` and B2/B3 on ``"sm90"``, and no ``mha_reference`` call;
+   finite losses whose last 3 average below the first; ``ckpt_04``,
+   ``ckpt_08``, ``ckpt_12``; a fresh ``setup`` resumes at step 12 with
+   params, AdamW moments, step and generator bit for bit, and one more
+   step from both trainers agrees bit for bit; one generator state gives
+   one loss, and the eval loss (no generator) is the dropout-0 loss bit
+   for bit; 136 byte tokens printed as text. Prints the median step ms of
+   steps 3-12, tokens/s, the model-FLOP share of 989 TFLOP/s (dense and
+   causal attention FLOPs stated), peak memory, the checkpoint's bytes
+   with the save's blocking and background-write ms, the validation loss,
+   and a profiled busy share with B1-B3's share of device time.
 8. conv    — hold the GroupNorm kernels B5 (forward) and B6 (backward) and
    the fused conv + GroupNorm kernels B7 (1x1, any stride) and B8 (3x3,
    stride 1) against their plain versions, in bf16 and fp32, with and
@@ -306,9 +308,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ring_fwd_step`` / ``ring_bwd_step``) for all eight ranks of
    gpt-long's ``sp:8`` in one process, the rotation done in-process: at
    gpt-long's width (B 8, S 8192 = 8 x 1024, 16 heads over 8 kv heads, D
-   48, bf16 causal; ``"mma_sync"``) and the MoE model's (12 heads, S 1024,
-   D 64; ``"sm90"``). The fold's out, lse, dQ, dK and dV held to the
-   plain versions (``flash_attention_reference``,
+   48, bf16 causal; B1 on ``"mma_sync"``, B2/B3 on ``"sm90"``) and the MoE
+   model's (12 heads, S 1024, D 64; ``"sm90"``); every launch of the fold
+   on its kernel's planned route. The fold's out, lse, dQ, dK and dV held
+   to the plain versions (``flash_attention_reference``,
    ``flash_attention_backward_reference``) and to one whole-sequence
    B1-B3 call on the same inputs: atol = rtol = 2e-2 element by element,
    and ||err|| / ||ref|| <= 2^-6 in each of the 8 chunks (both printed);
@@ -911,6 +914,9 @@ FLASH_CASES = [
     ("gqa2_d48_fp32_causal", 1, 16, 8, 1024, 1024, 48, torch.float32, True),
     ("d48_bf16_kvcache_sq256_skv1024", 8, 16, 8, 256, 1024, 48,
      torch.bfloat16, True),
+    ("d48_bf16_ragged200", 2, 16, 8, 200, 200, 48, torch.bfloat16, True),
+    ("d48_bf16_noncausal_s1024", 2, 16, 8, 1024, 1024, 48, torch.bfloat16,
+     False),
     # the tp:2 dense prefill's: one request over a rank's 6 of GPT-2
     # small's heads, at prompt lengths of the tp phase (64 and 100 fit in
     # less than one tile)
@@ -918,8 +924,9 @@ FLASH_CASES = [
       for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))
       for s in (64, 100, 200)),
 ]
-# head dims whose bf16 cases run the "mma_sync" kernels (no "sm90" build)
-MMA_SYNC_DIMS = (32, 48)
+# head dims whose bf16 cases run the "mma_sync" kernels (no "sm90" build):
+# B1's, and B2/B3's
+MMA_SYNC_DIMS = {"fwd": (32, 48), "bwd": (32,)}
 # gpt-long's attention (examples/lm/gpt/gpt-long.yml): B, H, H_kv, S, D
 LONG_GEOMETRY = (8, 16, 8, 8192, 48)
 # atol = rtol, per dtype. bf16: the kernels round P and dS to bf16 before
@@ -937,13 +944,14 @@ def flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype):
             rand(b * h_kv, s_kv, d), rand(b * h, s_q, d))
 
 
-def expected_route(dtype, d) -> str:
-    """The route the flash plans must give a case: ``"f32"`` at fp32,
-    ``"mma_sync"`` at the bf16 head dims without an ``"sm90"`` build,
-    ``"sm90"`` at every other bf16 case of ``FLASH_CASES``."""
+def expected_route(dtype, d, what: str) -> str:
+    """The route a flash plan must give a case, ``what`` ``"fwd"`` (B1)
+    or ``"bwd"`` (B2/B3): ``"f32"`` at fp32, ``"mma_sync"`` at the bf16
+    head dims without an ``"sm90"`` build of that kernel, ``"sm90"`` at
+    every other bf16 case of ``FLASH_CASES``."""
     if dtype == torch.float32:
         return "f32"
-    return "mma_sync" if d in MMA_SYNC_DIMS else "sm90"
+    return "mma_sync" if d in MMA_SYNC_DIMS[what] else "sm90"
 
 
 def visible_pairs(s_q, s_kv, causal):
@@ -970,10 +978,10 @@ def phase_flash(report: dict) -> dict:
         # B1 on its planned route: every bf16 case on "sm90" but D 32 and
         # D 48, which take "mma_sync"
         fwd_route = fa.plan_flash_fwd(dtype, d, s_q, s_kv, h // h_kv)
-        if fwd_route != expected_route(dtype, d):
+        if fwd_route != expected_route(dtype, d, "fwd"):
             raise AssertionError(f"flash case {name}: B1 planned "
                                  f"{fwd_route!r}, not "
-                                 f"{expected_route(dtype, d)!r}")
+                                 f"{expected_route(dtype, d, 'fwd')!r}")
         before = fa.launches_fwd_by_route[fwd_route]
         o, lse = fa.launch_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -982,11 +990,11 @@ def phase_flash(report: dict) -> dict:
                                  f"{fwd_route!r} route")
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
         # the backward pair on the same inputs: the plain forward's o/lse,
-        # on the planned route (as B1's)
+        # on its planned route: every bf16 case on "sm90" but D 32
         route = fa.plan_flash_bwd(dtype, d, s_q, s_kv, h // h_kv)
-        if route != expected_route(dtype, d):
+        if route != expected_route(dtype, d, "bwd"):
             raise AssertionError(f"flash case {name}: planned {route!r}, "
-                                 f"not {expected_route(dtype, d)!r}")
+                                 f"not {expected_route(dtype, d, 'bwd')!r}")
         before = (fa.launches_dq_by_route[route],
                   fa.launches_dkv_by_route[route])
         dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal, scale)
@@ -1053,12 +1061,17 @@ def phase_flash(report: dict) -> dict:
         f" us, sdpa backward {timing['dq']['library_ms'] * 1e3:.1f} us")
     report["flash_timing"] = timing
     # and at gpt-long's (B 8, H 16 over 8 kv heads, S 8192, D 48), where
-    # "mma_sync" is the planned route; its max abs errors are those of the
+    # B1's planned route is "mma_sync" and B2/B3's "sm90", beside B2/B3 on
+    # "mma_sync" on the same inputs; its max abs errors are those of the
     # timed inputs alone
     b, h, h_kv, s_len, d = LONG_GEOMETRY
-    long = time_flash(gen, b, h, h_kv, s_len, d, None, previous=False,
+    long = time_flash(gen, b, h, h_kv, s_len, d, None, previous=True,
                       plain_iters=3)
-    log(f"flash timing gpt-long B1 + B2 + B3: mma_sync "
+    log(f"flash timing gpt-long B2 + B3: sm90 "
+        f"{(long['dq']['ms'] + long['dkv']['ms']) * 1e3:.1f} us, mma_sync "
+        f"{(long['dq']['previous_ms'] + long['dkv']['previous_ms']) * 1e3:.1f}"
+        f" us, sdpa backward {long['dq']['library_ms'] * 1e3:.1f} us; B1 "
+        f"(mma_sync) + B2 + B3 "
         f"{sum(long[k]['ms'] for k in ('fwd', 'dq', 'dkv')):.3f} ms; sdpa "
         f"forward + backward {long['sdpa_fwd_bwd_ms']:.3f} ms")
     report["flash_timing_long"] = long
@@ -1100,7 +1113,8 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
     forward; its backward, whose dQ, dK and dV stand beside B2 + B3;
     grouped K/V are expanded to the query heads before SDPA's timed
     calls), and with ``previous`` the ``"mma_sync"`` route on the same
-    inputs. Each kernel's output on the timed inputs is held to its plain
+    inputs for each kernel planned on ``"sm90"``. Each kernel's output on
+    the timed inputs is held to its plain
     version's (bf16 atol = rtol of ``FLASH_TOL``); a kernel's
     ``max_abs_err`` is that error, or the larger of it and ``worst``'s
     (the checked cases' at this head dim) where ``worst`` is given."""
@@ -1109,7 +1123,9 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
     dtype = torch.bfloat16
     q, k, v, do = flash_inputs(gen, b, h, h_kv, s_len, s_len, d, dtype)
     scale = 1.0 / math.sqrt(d)
-    route = fa.plan_flash_fwd(dtype, d, s_len, s_len, h // h_kv)
+    fwd_route = fa.plan_flash_fwd(dtype, d, s_len, s_len, h // h_kv)
+    bwd_route = fa.plan_flash_bwd(dtype, d, s_len, s_len, h // h_kv)
+    routes = {"fwd": fwd_route, "dq": bwd_route, "dkv": bwd_route}
     o, lse = fa.launch_fwd(q, k, v, True, scale)
     _, delta = fa.launch_dq(q, k, v, o, lse, do, True, scale)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1140,7 +1156,7 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
             "dq": (3 * 2, (3 * n_q + 2 * n_kv + n_q) * el + rows * 8),
             "dkv": (4 * 2, (2 * n_q + 4 * n_kv) * el + rows * 8)}
     # B1, B2 and B3 on their earlier route, on the same inputs (outside
-    # the main path's launch counts)
+    # the main path's launch counts), where "sm90" is the planned one
     older = {
         "fwd": lambda: fa.launch_fwd(q, k, v, True, scale,
                                      route="mma_sync"),
@@ -1148,6 +1164,7 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
                                    route="mma_sync"),
         "dkv": lambda: fa.launch_dkv(q, k, v, lse, do, delta, True, scale,
                                      route="mma_sync")} if previous else {}
+    older = {key: fn for key, fn in older.items() if routes[key] == "sm90"}
     # one output of each kernel and of its plain version on these inputs
     tol = FLASH_TOL[dtype]
     label = f"flash timed inputs B{b} H{h} H_kv{h_kv} S{s_len} D{d}"
@@ -1163,7 +1180,8 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
     log(f"{label}: " + ", ".join(f"{n} {errs[n]:.2e} ({100 * used[n]:.0f}%)"
                                  for n in errs)
         + f" (max abs err vs the plain version, % of atol + rtol|ref| "
-        f"used; atol = rtol = {tol}); route {route}")
+        f"used; atol = rtol = {tol}); B1 route {fwd_route}, B2/B3 route "
+        f"{bwd_route}")
     measured = {"fwd": max(errs["o"], errs["lse"]),
                 "dq": max(errs["dq"], errs["delta"]),
                 "dkv": max(errs["dk"], errs["dv"])}
@@ -1205,12 +1223,13 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
-            "tflops": flops / src["kernel"] / 1e9, "timed_route": route,
+            "tflops": flops / src["kernel"] / 1e9,
+            "timed_route": routes[key],
             "max_abs_err": max(measured[key], worst[key]) if worst
             else measured[key], "timed_inputs_max_abs_err": measured[key]}
         lib_txt = (f"; sdpa {src['library'] * 1e3:.1f} us"
                    if lib is not None else "")
-        route_txt = f" (route {route})"
+        route_txt = f" (route {routes[key]})"
         if key in older:
             timing[key].update(
                 previous_route="mma_sync", previous_ms=src["previous"],
@@ -4080,8 +4099,11 @@ def long_breakdown(t, n_steps: int = 2) -> dict:
     per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
                          for e in events), key=lambda kv: -kv[1])
     busy = sum(v for _, v in per_kernel)
-    flash = {name: sum(v for k, v in per_kernel if f"::{name}<" in k)
-             for name in ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")}
+    # B1-B3 on either bf16 route (D 48: B1 "mma_sync", B2/B3 "sm90")
+    names = (f"flash_{kern}_{route}" for kern in ("fwd", "dq", "dkv")
+             for route in ("mma", "sm90"))
+    flash = {name: t for name in names
+             if (t := sum(v for k, v in per_kernel if f"::{name}<" in k))}
     return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
             "device_busy_s": busy, "device_busy_share": busy / wall,
             "device_ms_per_step": busy / n_steps * 1e3,
@@ -4139,12 +4161,15 @@ def phase_train_long(report: dict, smi: str) -> dict:
 
         # 1. attention routes: per step B1 twice a layer (remat), B2 and B3
         # once; one B1 a layer for the eval batch and for the sample's
-        # prefill; all on "mma_sync" (bf16, D 48); never the reference
+        # prefill; at bf16 D 48, B1 on "mma_sync" and B2/B3 on "sm90";
+        # never the reference
         n_l = cfg.n_layers
         expected = {"fwd": 2 * n_l * LONG_STEPS + 2 * n_l,
                     "dq": n_l * LONG_STEPS, "dkv": n_l * LONG_STEPS}
-        route_expected = {k: {"sm90": 0, "mma_sync": n, "f32": 0}
-                          for k, n in expected.items()}
+        routes = {"fwd": "mma_sync", "dq": "sm90", "dkv": "sm90"}
+        route_expected = {
+            k: {**dict.fromkeys(("sm90", "mma_sync", "f32"), 0),
+                routes[k]: n} for k, n in expected.items()}
         if launches != expected or by_route != route_expected:
             raise AssertionError(f"train_long: flash launches {by_route}, "
                                  f"expected {route_expected}")
@@ -4977,6 +5002,13 @@ def fold_geometry(gen, name, b, h, h_kv, s_len, d, smi) -> dict:
         raise AssertionError(f"sp_fold {name}: B1 by mask {masks}, "
                              f"launches {launches}; expected {want_masks}, "
                              f"{n + pairs} each")
+    # every chunk call on its kernel's planned route (S_q == S_kv == S/sp)
+    planned = {"fwd": fa.plan_flash_fwd(dtype, d, sl, sl, h // h_kv),
+               "dq": fa.plan_flash_bwd(dtype, d, sl, sl, h // h_kv)}
+    planned["dkv"] = planned["dq"]
+    if any(routes[key][planned[key]] != launches[key] for key in launches):
+        raise AssertionError(f"sp_fold {name}: launches by route {routes}, "
+                             f"planned {planned}")
     # the whole sequence through the plain versions and through B1-B3,
     # on the same inputs (comparison launches, not counted)
     o_pl, lse_pl = fa.flash_attention_reference(q, k, v, True, scale)
@@ -5008,7 +5040,7 @@ def fold_geometry(gen, name, b, h, h_kv, s_len, d, smi) -> dict:
     out = {"geometry": {"B": b, "H": h, "H_kv": h_kv, "S": s_len, "D": d,
                         "sp": n, "S_chunk": sl},
            "launches": launches, "b1_by_mask": masks, "routes": routes,
-           "planned": fa.plan_flash_fwd(dtype, d, sl, sl, h // h_kv),
+           "planned": planned,
            "ring": checks, "atol": SP_FOLD_TOL, "rtol": SP_FOLD_TOL,
            "rel_bound": SP_FOLD_REL,
            "planted_fault": {"dropped_visit": SP_FOLD_DROP,
@@ -8267,8 +8299,9 @@ def main() -> int:
                  ("dq", "flash_dq", "flash_bwd_sm90.cu", 227),
                  ("dkv", "flash_dkv", "flash_bwd_sm90.cu", 265))}
     # the file each route's launches come from: "ms" and "source" are the
-    # "sm90" kernels' (GPT-2 small's D 64); gpt-long's D 48 runs
-    # flash_attention.cu's "mma_sync" kernels ("gpt_long" below)
+    # "sm90" kernels' (GPT-2 small's D 64); at gpt-long's D 48 ("gpt_long"
+    # below) B1 runs flash_attention.cu's "mma_sync" kernel and B2/B3
+    # flash_bwd_sm90.cu's "sm90" ones
     for key in flash:
         flash[key].update(timed_route=None, launches_by_route=None,
                           previous_ms=None, sources_by_route={
@@ -8339,10 +8372,12 @@ def main() -> int:
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "timed_route",
                 "previous_ms")})
-            # the same kernel at gpt-long's geometry (D 48, "mma_sync")
-            long = flash[key]["gpt_long"] = {k: res["long"][key][k] for k in (
+            # the same kernel at gpt-long's geometry (D 48: B1 "mma_sync",
+            # B2/B3 "sm90", with their "mma_sync" time as previous_ms)
+            long = flash[key]["gpt_long"] = {k: res["long"][key].get(k) for k in (
                 "max_abs_err", "ms", "timed_by", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "timed_route", "tflops")}
+                "bound_by", "library_ms", "timed_route", "tflops",
+                "previous_ms")}
             long["source"] = flash[key]["sources_by_route"][long["timed_route"]]
     if set(SERVE_PHASES) & set(phases):
         params, cfg = gpt2_small()
@@ -8399,9 +8434,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     # B1-B3 launch on six paths: GPT-2 small's training on one card and
     # through the NCCL group's schedule ladder, the imported GPT-2's
-    # fine-tunes (D 64, "sm90"), gpt-long's (D 48, "mma_sync"), the MoE
-    # model's training, and the sp:8 ring folds (both routes); the
-    # counts add up, as B4's do with the imported and MoE models' serving
+    # fine-tunes (D 64, "sm90"), gpt-long's (D 48: B1 "mma_sync", B2/B3
+    # "sm90"), the MoE model's training, and the sp:8 ring folds (both
+    # routes); the counts add up, as B4's do with the imported and MoE
+    # models' serving
     for key, phase in (("train", phase_train),
                        ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long),

@@ -354,21 +354,40 @@ FLASH_CASES = {
     "d128_ragged130_fp32": (2, 4, 4, 130, 130, 128, torch.float32, True),
     "d128_s1024_bf16": (4, 8, 8, 1024, 1024, 128, torch.bfloat16, True),
     "noncausal_s512_bf16": (4, 12, 12, 512, 512, 64, torch.bfloat16, False),
-    # gpt-long's head dim (768 / 16 heads) and its GQA group of 2
+    # gpt-long's head dim (768 / 16 heads) and its GQA group of 2; ragged,
+    # the KV-cache alignment, and non-causal at S 1024 (the sp:8 ring's
+    # visiting chunks)
     "gpt_long_d48_gqa2_bf16": (2, 16, 8, 1024, 1024, 48, torch.bfloat16,
                                True),
     "d48_gqa2_ragged200_fp32": (2, 4, 2, 200, 200, 48, torch.float32, True),
+    "d48_gqa2_ragged200_bf16": (2, 16, 8, 200, 200, 48, torch.bfloat16,
+                                True),
+    "d48_sq256_skv1024_bf16": (2, 16, 8, 256, 1024, 48, torch.bfloat16,
+                               True),
+    "d48_noncausal_s1024_bf16": (2, 16, 8, 1024, 1024, 48, torch.bfloat16,
+                                 False),
 }
-# the route each case's B1 (plan_flash_fwd) and B2/B3 (plan_flash_bwd) must
-# take: the two plans agree on every case
-FLASH_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
-               "gpt2_small_gqa4_bf16": "sm90", "sq256_skv1024_bf16": "sm90",
-               "recipe_default_d32_bf16": "mma_sync",
-               "d128_gqa2_ragged200_bf16": "sm90",
-               "d128_ragged130_fp32": "f32", "d128_s1024_bf16": "sm90",
-               "noncausal_s512_bf16": "sm90",
-               "gpt_long_d48_gqa2_bf16": "mma_sync",
-               "d48_gqa2_ragged200_fp32": "f32"}
+# the route each case's B1 (plan_flash_fwd) must take, and B2/B3's
+# (plan_flash_bwd): the same but at bf16 D 48, whose backward alone has an
+# "sm90" build
+FLASH_FWD_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
+                   "gpt2_small_gqa4_bf16": "sm90",
+                   "sq256_skv1024_bf16": "sm90",
+                   "recipe_default_d32_bf16": "mma_sync",
+                   "d128_gqa2_ragged200_bf16": "sm90",
+                   "d128_ragged130_fp32": "f32", "d128_s1024_bf16": "sm90",
+                   "noncausal_s512_bf16": "sm90",
+                   "gpt_long_d48_gqa2_bf16": "mma_sync",
+                   "d48_gqa2_ragged200_fp32": "f32",
+                   "d48_gqa2_ragged200_bf16": "mma_sync",
+                   "d48_sq256_skv1024_bf16": "mma_sync",
+                   "d48_noncausal_s1024_bf16": "mma_sync"}
+FLASH_BWD_ROUTE = {**FLASH_FWD_ROUTE, **dict.fromkeys(
+    ("gpt_long_d48_gqa2_bf16", "d48_gqa2_ragged200_bf16",
+     "d48_sq256_skv1024_bf16", "d48_noncausal_s1024_bf16"), "sm90")}
+# bf16 cases at head dim 48: B2/B3 on "sm90", also held to "mma_sync"
+D48_BF16_CASES = sorted(n for n, c in FLASH_CASES.items()
+                        if c[5] == 48 and c[6] == torch.bfloat16)
 
 
 def _flash_operands(name, seed=0):
@@ -384,8 +403,9 @@ def _flash_operands(name, seed=0):
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain_versions_on_card(name):
     """B1 (o, lse), B2 (dq) and B3 (dk, dv) against their plain versions
-    on the same inputs; all three on the route the case names (their
-    per-route counters move). bf16: the tensor-core kernels round P and
+    on the same inputs; B1 on the forward route the case names and B2/B3
+    on its backward route (their per-route counters move). bf16: the
+    tensor-core kernels round P and
     dS to bf16 before their second product, the plain version keeps them
     fp32, so a few bf16 ulp: 2e-2; fp32: summation order only, 1e-4."""
     if not torch.cuda.is_available():
@@ -397,12 +417,12 @@ def test_flash_kernels_match_plain_versions_on_card(name):
     d = q.shape[-1]
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     scale = d ** -0.5
-    route = FLASH_ROUTE[name]
+    fwd_route, route = FLASH_FWD_ROUTE[name], FLASH_BWD_ROUTE[name]
     shape = (dtype, d, q.shape[1], k.shape[1], q.shape[0] // k.shape[0])
     assert fa.plan_flash_bwd(*shape) == route
-    assert fa.plan_flash_fwd(*shape) == route
+    assert fa.plan_flash_fwd(*shape) == fwd_route
     before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
-              fa.launches_fwd_by_route[route],
+              fa.launches_fwd_by_route[fwd_route],
               fa.launches_dq_by_route[route], fa.launches_dkv_by_route[route])
     o, lse = fa.launch_fwd(q, k, v, causal, scale)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
@@ -410,7 +430,7 @@ def test_flash_kernels_match_plain_versions_on_card(name):
     dk, dv = fa.launch_dkv(q, k, v, lse_ref, do, delta, causal, scale)
     torch.cuda.synchronize()
     assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
-            fa.launches_fwd_by_route[route],
+            fa.launches_fwd_by_route[fwd_route],
             fa.launches_dq_by_route[route],
             fa.launches_dkv_by_route[route]) == tuple(n + 1 for n in before)
     want = (o_ref, lse_ref,
@@ -424,7 +444,7 @@ def test_flash_kernels_match_plain_versions_on_card(name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gpt2_small_gqa4_bf16",
                                   "d128_gqa2_ragged200_bf16",
-                                  "noncausal_s512_bf16"])
+                                  "noncausal_s512_bf16", *D48_BF16_CASES])
 def test_flash_bwd_sm90_repeats_bit_for_bit_on_card(name):
     """Two calls of B2 and of B3 on the ``"sm90"`` route, on the same
     inputs, give the same dq, delta, dk and dv bit for bit: every sum runs
@@ -448,8 +468,47 @@ def test_flash_bwd_sm90_repeats_bit_for_bit_on_card(name):
         assert torch.equal(one, two)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", D48_BF16_CASES)
+def test_flash_bwd_d48_sm90_holds_to_mma_sync_on_card(name):
+    """B2 and B3 at head dim 48 on ``"sm90"`` (the planned route) and on
+    ``"mma_sync"`` (named) on the same inputs: each within the bf16
+    allowance (2e-2) of the plain versions, and of each other; each
+    route's counters move once a kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    causal = FLASH_CASES[name][7]
+    q, k, v, do = _flash_operands(name, seed=6)
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_attention_reference(q, k, v, causal, scale)
+    before = (dict(fa.launches_dq_by_route), dict(fa.launches_dkv_by_route))
+    outs = {}
+    for route in ("sm90", "mma_sync"):
+        dq, delta = fa.launch_dq(q, k, v, o, lse, do, causal, scale,
+                                 route=None if route == "sm90" else route)
+        outs[route] = (dq, delta, *fa.launch_dkv(
+            q, k, v, lse, do, delta, causal, scale,
+            route=None if route == "sm90" else route))
+    torch.cuda.synchronize()
+    for now, was in zip((fa.launches_dq_by_route, fa.launches_dkv_by_route),
+                        before):
+        assert now == {**was, "sm90": was["sm90"] + 1,
+                       "mma_sync": was["mma_sync"] + 1}
+    args = (q, k, v, o, lse, do, causal, scale)
+    want = (fa.dq_reference(*args), (o.float() * do.float()).sum(-1),
+            *fa.dkv_reference(*args))
+    for new, old, ref in zip(outs["sm90"], outs["mma_sync"], want):
+        for got in (new, old):
+            torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                       rtol=2e-2)
+        torch.testing.assert_close(new.float(), old.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
 # the bf16 cases B1 takes on its "sm90" route
-SM90_FWD_CASES = sorted(n for n, r in FLASH_ROUTE.items() if r == "sm90")
+SM90_FWD_CASES = sorted(n for n, r in FLASH_FWD_ROUTE.items() if r == "sm90")
 
 
 @pytest.mark.cuda
@@ -523,13 +582,15 @@ def test_flash_autograd_step_takes_sm90_forward_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("n", [48, 64, 128])
 @pytest.mark.parametrize("mode", [0, 1], ids=["mn_major_b", "register_a"])
 def test_wgmma_operand_forms_match_matmul_on_card(mode, n):
     """The two operand forms the ``"sm90"`` backward rests on, one 64-row
     tile each, against ``torch.matmul`` on the same bf16 tiles: B read
     MN-major through the transpose bit (N 128 spans two 64-column blocks,
-    the descriptor's leading offset), and an accumulator re-packed as the
+    the descriptor's leading offset; N 48, head dim 48's dQ, dK and dV
+    products, reads six of a 128-byte row's eight chunks), and an
+    accumulator re-packed as the
     register-A operand. Small integers keep every product and sum exact,
     so the two must be equal: a wrong layout is not a rounding error."""
     if not torch.cuda.is_available():

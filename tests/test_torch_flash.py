@@ -1,11 +1,14 @@
 """Port parity: the flash attention of ``torchbooster_tpu_torch`` (the
 plain blocked versions of kernels B1-B3, which its CPU path runs)
 against the JAX package's ``flash_attention`` in interpret mode, on the
-CPU, at a small size (BH <= 8, S <= 48, D 16), inputs from a numpy seed.
+CPU, at a small size (BH <= 8, S <= 48, D 16 or 48), inputs from a numpy
+seed.
 
 - forward ``o`` and ``lse``, and ``dq``/``dk``/``dv`` (``jax.vjp`` of the
   JAX kernel), causal and non-causal, GQA rep 2, ``S_q < S_kv`` (the
-  KV-cache alignment) and a multi-block sweep (block 8 over S 32);
+  KV-cache alignment) and a multi-block sweep (block 8 over S 32); and at
+  gpt-long's head dim 48 (whose backward the card runs on the ``"sm90"``
+  route): GQA rep 2 causal, and ``S_q 16 < S_kv 48``;
 - the untileable-length ``ValueError`` and the ``tileable`` predicate;
 - the ``attention`` dispatcher on the CPU, and its flash route against
   the JAX dispatcher's interpret-mode flash route;
@@ -34,12 +37,15 @@ from torchbooster_tpu_torch.ops.attention import (
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 GEOMETRIES = {
-    # name: (bh, bh_kv, s_q, s_kv, causal, block_q, block_k)
-    "causal": (8, 8, 32, 32, True, None, None),
-    "noncausal": (8, 8, 32, 32, False, None, None),
-    "gqa_rep2": (8, 4, 32, 32, True, None, None),
-    "kv_cache_sq16_skv48": (8, 8, 16, 48, True, None, None),
-    "multiblock_8_over_32": (8, 8, 32, 32, True, 8, 8),
+    # name: (bh, bh_kv, s_q, s_kv, causal, block_q, block_k, head_dim)
+    "causal": (8, 8, 32, 32, True, None, None, 16),
+    "noncausal": (8, 8, 32, 32, False, None, None, 16),
+    "gqa_rep2": (8, 4, 32, 32, True, None, None, 16),
+    "kv_cache_sq16_skv48": (8, 8, 16, 48, True, None, None, 16),
+    "multiblock_8_over_32": (8, 8, 32, 32, True, 8, 8, 16),
+    # gpt-long's head dim (768 / 16) and its GQA group of 2
+    "d48_gqa_rep2": (8, 4, 32, 32, True, None, None, 48),
+    "d48_gqa_rep2_sq16_skv48": (8, 4, 16, 48, True, None, None, 48),
 }
 
 
@@ -54,8 +60,8 @@ def _inputs(seed, bh, bh_kv, s_q, s_kv, d=16):
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
 def test_flash_forward_and_grads_match_jax(name):
-    bh, bh_kv, s_q, s_kv, causal, bq, bk = GEOMETRIES[name]
-    q, k, v, do = _inputs(0, bh, bh_kv, s_q, s_kv)
+    bh, bh_kv, s_q, s_kv, causal, bq, bk, d = GEOMETRIES[name]
+    q, k, v, do = _inputs(0, bh, bh_kv, s_q, s_kv, d)
     scale = 1.0 / np.sqrt(q.shape[-1])
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     # lse from the JAX forward with residuals (8-lane padded there)

@@ -5,7 +5,7 @@
 // (bound by the custom_vjp at :377-399):
 //   B2 `_dq_kernel`  (:227, pallas_call :324) -> flash_dq_sm90
 //   B3 `_dkv_kernel` (:265, pallas_call :351) -> flash_dkv_sm90
-// for bf16 operands at head dims 64 and 128 with 1 <= S_q <= S_kv. The route
+// for bf16 operands at head dims 48, 64 and 128 with 1 <= S_q <= S_kv. The route
 // is planned before launch by `plan_flash_bwd` (ops/flash_attention.py);
 // other shapes and fp32 keep the kernels of flash_attention.cu.
 //
@@ -27,9 +27,16 @@
 // 22.5 us at 3.35 TB/s. So B2 is bound by bytes and B3 by operations, by
 // small margins: both sit near the card's ridge.
 //
+// At gpt-long's geometry (B 8, H 16 over 8 kv heads, S 8192, D 48, causal)
+// the 4.30 G visible pairs make 1.24 and 1.65 TFLOP, 1,250.9 and 1,667.8 us
+// at 989 TFLOP/s, against 153 and 122 us of bytes: both are bound by
+// operations. At D 48 the products over D take three k16 steps and those
+// whose N is D (dQ, dK, dV) run as m64n48k16: no padded work.
+//
 // Design. Every operand tile lives in shared memory in one layout: rows of
-// 128 bytes (64 bf16 of one row; a 128-wide head is two 64-column blocks),
-// the 16-byte chunks of row r swizzled by r % 8 (SW128). wgmma reads that
+// 128 bytes (64 bf16 of one row; a 128-wide head is two 64-column blocks;
+// a 48-wide head fills 96 bytes of each row and leaves the last two chunks
+// unused), the 16-byte chunks of row r swizzled by r % 8 (SW128). wgmma reads that
 // layout K-major when D is the reduction axis and MN-major (the transpose bit
 // of the instruction) when the rows are, so one copy of K (B2) or of Q and dO
 // (B3) serves both products that use it, and nothing is transposed as it is
@@ -49,14 +56,15 @@
 //
 // Budget per CTA (dynamic shared memory, + 1 KB alignment slack):
 //   B2: Q, dO (128 x D) + kStages x (K, V (64 x D)) + lse, delta (128 fp32):
-//       D 64: 32 + 3 x 16 + 1 = 81 KB; D 128: 64 + 2 x 32 + 1 = 129 KB.
+//       D 48 and 64: 32 + 3 x 16 + 1 = 81 KB; D 128: 64 + 2 x 32 + 1 = 129 KB.
 //   B3: K, V (64 x D) + kStages x (Q, dO (BQ x D) + lse, delta (BQ fp32)),
-//       BQ = 64 at D 64, 32 at D 128 (the dK and dV accumulators take D
-//       registers a thread): D 64: 16 + 3 x 16.5 = 65.5 KB; D 128: 32 + 3 x
-//       16.25 = 80.75 KB.
-// Several CTAs share an SM, so one CTA's softmax overlaps another's
-// products: B2 two at D 64 (at most 128 registers a thread; one at D 128),
-// B3 three at D 64 and two at D 128. On one H100 these beat the other
+//       BQ = 64 at D 48 and 64, 32 at D 128 (the dK and dV accumulators take
+//       D registers a thread): D 48 and 64: 16 + 3 x 16.5 = 65.5 KB; D 128:
+//       32 + 3 x 16.25 = 80.75 KB.
+// (D 48 rows take 128 bytes in shared memory, as D 64's.) Several CTAs
+// share an SM, so one CTA's softmax overlaps another's products: B2 two at
+// D 48 and 64 (at most 128 registers a thread; one at D 128), B3 three at D
+// 48 and 64 and two at D 128. On one H100 these beat the other
 // layouts tried (B2 as one-warpgroup CTAs, three or four an SM; B3 as
 // two-warpgroup CTAs, one an SM, or 32-row q steps at two an SM).
 //
@@ -73,19 +81,24 @@ using namespace sm90;
 constexpr float kNegInf = -1e30f;  // the JAX package's mask value (never -inf)
 constexpr int kMaxTiles = 65535;   // grid.y limit: q tiles (B2), kv tiles (B3)
 
+// shared-memory bytes a tile row takes: whole 128-byte SW128 rows, one per
+// 64-column block (D 48 fills 96 of its 128; D * 2 would overlap the rows)
+template <int D>
+constexpr int kRowBytes = 128 * ((D + 63) / 64);
+
 // ------------------------------------------------------------------ B2
 template <int D>
 struct DqCfg {
   static constexpr int kThreads = 256;  // two consumer warpgroups
   static constexpr int kBQ = 128;       // q rows a CTA, 64 a warpgroup
   static constexpr int kBK = 64;        // kv rows a ring step
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTileQ = kBQ * D * 2;   // bytes of Q (or dO)
-  static constexpr int kTileK = kBK * D * 2;   // bytes of K (or V) a step
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr int kTileQ = kBQ * kRowBytes<D>;  // bytes of Q (or dO)
+  static constexpr int kTileK = kBK * kRowBytes<D>;  // bytes of K (or V) a step
   static constexpr int kSmem = 2 * kTileQ + kStages * 2 * kTileK + 2 * kBQ * 4 + 1024;
-  // D 64: two CTAs an SM (128 registers a thread), so one CTA's softmax
-  // runs while the other's products do
-  static constexpr int kCtasPerSm = D == 64 ? 2 : 1;
+  // D 48 and 64: two CTAs an SM (128 registers a thread), so one CTA's
+  // softmax runs while the other's products do
+  static constexpr int kCtasPerSm = D <= 64 ? 2 : 1;
 };
 
 // grid (BH, q tiles); DqCfg<D>::kThreads threads and kSmem dynamic shared
@@ -270,12 +283,12 @@ template <int D>
 struct DkvCfg {
   static constexpr int kThreads = 128;           // one consumer warpgroup
   static constexpr int kBKV = 64;                // kv rows a CTA
-  static constexpr int kBQ = D == 64 ? 64 : 32;  // q rows a ring step
+  static constexpr int kBQ = D <= 64 ? 64 : 32;  // q rows a ring step
   static constexpr int kStages = 3;
   // several CTAs an SM, so one CTA's softmax overlaps another's products
-  static constexpr int kCtasPerSm = D == 64 ? 3 : 2;
-  static constexpr int kTileKV = kBKV * D * 2;   // bytes of K (or V)
-  static constexpr int kTileQ = kBQ * D * 2;     // bytes of Q (or dO) a step
+  static constexpr int kCtasPerSm = D <= 64 ? 3 : 2;
+  static constexpr int kTileKV = kBKV * kRowBytes<D>;  // bytes of K (or V)
+  static constexpr int kTileQ = kBQ * kRowBytes<D>;    // bytes of Q (or dO) a step
   static constexpr int kSmem =
       2 * kTileKV + kStages * (2 * kTileQ + 2 * kBQ * 4) + 1024;
 };
@@ -445,8 +458,10 @@ flash_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------- descriptor probe
 // One warpgroup, one tile, for the card tests of the two operand forms the
-// kernels above rest on. a, w (64 x 64) and b (64 x N) bf16 row-major; c
-// (64 x N) fp32. mode 0: c = a b, with b read MN-major (the transpose bit).
+// kernels above rest on. a, w (64 x 64) and b (64 x N) bf16 row-major, N 48,
+// 64 or 128 (N 48: six chunks of each 128-byte row, D 48's dQ, dK and dV
+// products); c (64 x N) fp32. mode 0: c = a b, with b read MN-major (the
+// transpose bit).
 // mode 1: c = bf16(a w^T) b, the first product K-major from shared memory,
 // its accumulator re-packed as the register-A operand of the second.
 template <int N>
@@ -546,8 +561,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // what both kernels take: the route `plan_flash_bwd` calls "sm90"
 bool shape_ok(int head_dim, int bh, int bh_kv, int s_q, int s_kv) {
-  return (head_dim == 64 || head_dim == 128) && bh > 0 && bh_kv > 0 && bh % bh_kv == 0 &&
-         s_q >= 1 && s_q <= s_kv && (s_kv + 63) / 64 <= kMaxTiles;
+  return (head_dim == 48 || head_dim == 64 || head_dim == 128) && bh > 0 && bh_kv > 0 &&
+         bh % bh_kv == 0 && s_q >= 1 && s_q <= s_kv && (s_kv + 63) / 64 <= kMaxTiles;
 }
 
 }  // namespace
@@ -565,6 +580,9 @@ extern "C" int tb_flash_dq_sm90(int head_dim, const void* q, const void* k, cons
       !aligned16(v) || !aligned16(o) || !aligned16(dout) || !aligned16(dq))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 48)
+    return static_cast<int>(launch_dq<48>(q, k, v, o, dout, lse, delta, dq, bh, bh_kv, s_q,
+                                          s_kv, causal, sm_scale, st));
   if (head_dim == 64)
     return static_cast<int>(launch_dq<64>(q, k, v, o, dout, lse, delta, dq, bh, bh_kv, s_q,
                                           s_kv, causal, sm_scale, st));
@@ -580,6 +598,9 @@ extern "C" int tb_flash_dkv_sm90(int head_dim, const void* q, const void* k, con
       !aligned16(v) || !aligned16(dout) || !aligned16(dk) || !aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 48)
+    return static_cast<int>(launch_dkv<48>(q, k, v, dout, lse, delta, dk, dv, bh, bh_kv, s_q,
+                                           s_kv, causal, sm_scale, st));
   if (head_dim == 64)
     return static_cast<int>(launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, bh_kv, s_q,
                                            s_kv, causal, sm_scale, st));
@@ -587,16 +608,18 @@ extern "C" int tb_flash_dkv_sm90(int head_dim, const void* q, const void* k, con
                                           s_kv, causal, sm_scale, st));
 }
 
-// tb_wgmma_probe: the descriptor probe above, one CTA, n 64 or 128.
+// tb_wgmma_probe: the descriptor probe above, one CTA, n 48, 64 or 128.
 extern "C" int tb_wgmma_probe(int mode, int n, const void* a, const void* w, const void* b,
                               float* c, void* stream) {
-  if ((mode != 0 && mode != 1) || (n != 64 && n != 128))
+  if ((mode != 0 && mode != 1) || (n != 48 && n != 64 && n != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = (2 * 64 * 128 + 64 * n * 2) + 1024;
+  const int smem = 2 * 64 * 128 + 64 * 128 * ((n + 63) / 64) + 1024;
   const bf16 *pa = static_cast<const bf16*>(a), *pw = static_cast<const bf16*>(w),
              *pb = static_cast<const bf16*>(b);
-  if (n == 64)
+  if (n == 48)
+    wgmma_probe<48><<<1, 128, smem, st>>>(pa, pw, pb, c, mode);
+  else if (n == 64)
     wgmma_probe<64><<<1, 128, smem, st>>>(pa, pw, pb, c, mode);
   else
     wgmma_probe<128><<<1, 128, smem, st>>>(pa, pw, pb, c, mode);

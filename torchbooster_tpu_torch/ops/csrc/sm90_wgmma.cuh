@@ -6,7 +6,7 @@
 // zero fill, the async-proxy fence, wgmma fence / commit / wait, the SW128
 // shared-memory descriptors (K-major, and MN-major through the transpose bit), wgmma with A
 // from shared memory (ss) or registers (rs), the accumulator-to-register-A
-// re-pack, the SW128 tile copy, and the thread-block-cluster barrier and
+// re-pack, the SW128 tile copy (D 48, 64 and 128), and the thread-block-cluster barrier and
 // distributed-shared-memory read. The card tests hold the two operand forms
 // to torch.matmul exactly (`tb_wgmma_probe`).
 #pragma once
@@ -111,6 +111,24 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+// D (64 x 48) += A (64 x 16, shared, K-major) * B (16 x 48, shared; K-major for
+// TB 0, MN-major for TB 1). MN-major, the 48 columns are the first six 16-byte
+// chunks of each 128-byte SW128 row (head dim 48 in a 64-column block)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, %27;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
 // D (64 x 64) += A (64 x 16, shared, K-major) * B (16 x 64, shared; K-major for
 // TB 0, MN-major for TB 1)
 template <int TB>
@@ -189,6 +207,24 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
+// D (64 x 48) += A (64 x 16, registers) * B (16 x 48, shared; K-major for
+// TB 0, MN-major for TB 1)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
 // D (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared; K-major for
 // TB 0, MN-major for TB 1)
 template <int TB>
@@ -237,6 +273,8 @@ template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
   if constexpr (N == 32)
     wgmma_ss_n32<TB>(d, da, db);
+  else if constexpr (N == 48)
+    wgmma_ss_n48<TB>(d, da, db);
   else if constexpr (N == 64)
     wgmma_ss_n64<TB>(d, da, db);
   else if constexpr (N == 128)
@@ -248,7 +286,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (N == 64)
+  if constexpr (N == 48)
+    wgmma_rs_n48<TB>(d, a, db);
+  else if constexpr (N == 64)
     wgmma_rs_n64<TB>(d, a, db);
   else
     wgmma_rs_n128<TB>(d, a, db);
@@ -276,14 +316,18 @@ __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[N / 16][4], const floa
 // shared address `dst` (1024-byte aligned): 64-column block cb at dst + cb
 // ROWS 128, row r of a block at + 128 r, its 16-byte chunk c at + 16 (c ^
 // (r % 8)). Rows past `rows` are zero-filled. NT threads share the copies.
+// At D 48 a row's six chunks fill 96 of its 128 bytes; the last two chunks
+// of the swizzle are never written (and never read: the products over D
+// take three k16 steps, and those whose N is D read N 48).
 template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src, int row0,
                                           int rows) {
   constexpr int kChunks = D / 8;
-  static_assert((ROWS * kChunks) % NT == 0, "whole copies per thread");
+  constexpr int kCopies = ROWS * kChunks;
 #pragma unroll
-  for (int it = 0; it < ROWS * kChunks / NT; ++it) {
+  for (int it = 0; it < (kCopies + NT - 1) / NT; ++it) {
     const int i = threadIdx.x + it * NT;
+    if (kCopies % NT != 0 && i >= kCopies) break;  // 64 rows x 6 chunks over 256
     const int r = i / kChunks, ch = i - r * kChunks;
     const bool ok = row0 + r < rows;
     const bf16* g = ok ? src + static_cast<size_t>(row0 + r) * D + ch * 8 : src;

@@ -18,11 +18,13 @@ path never touches them.
 The forward and the backward each have three CUDA routes, planned before
 launch by :func:`plan_flash_fwd` and :func:`plan_flash_bwd` and counted
 in ``launches_fwd_by_route``, ``launches_dq_by_route`` and
-``launches_dkv_by_route``: ``"sm90"`` (bf16, head dim 64 or 128, ``1 <=
-S_q <= S_kv``: the ``wgmma`` kernels of ``csrc/flash_fwd_sm90.cu`` and
-``csrc/flash_bwd_sm90.cu``), ``"mma_sync"`` (other bf16 shapes, D 32 and
-D 48 among them: the ``mma.sync`` kernels of ``csrc/flash_attention.cu``) and
-``"f32"`` (fp32, CUDA-core kernels of the same file).
+``launches_dkv_by_route``: ``"sm90"`` (bf16, ``1 <= S_q <= S_kv``, the
+``wgmma`` kernels: B1 at head dim 64 or 128 in ``csrc/flash_fwd_sm90.cu``,
+B2/B3 at head dim 48, 64 or 128 in ``csrc/flash_bwd_sm90.cu``),
+``"mma_sync"`` (other bf16 shapes, D 32 among them, and B1 at D 48: the
+``mma.sync`` kernels of ``csrc/flash_attention.cu``) and ``"f32"`` (fp32,
+CUDA-core kernels of the same file). The two plans differ only at bf16
+D 48, where the backward takes ``"sm90"`` and the forward ``"mma_sync"``.
 
 Shape contract (the TPU kernels'): q ``(BH, S_q, D)``, k/v ``(BH_kv,
 S_kv, D)`` with ``BH % BH_kv == 0``; q row ``b`` reads grouped k/v row
@@ -49,7 +51,8 @@ from torchbooster_tpu_torch.ops.attention import NEG_INF
 MIN_BLOCK = 8          # the TPU kernel's smallest tile edge
 DEFAULT_BLOCK = 1024   # the JAX package's default tile (both axes)
 HEAD_DIMS = (32, 48, 64, 128)   # head dims the CUDA kernels are built for
-SM90_HEAD_DIMS = (64, 128)  # head dims of the "sm90" routes
+SM90_HEAD_DIMS = (64, 128)  # head dims of B1's "sm90" route
+SM90_BWD_HEAD_DIMS = (48, 64, 128)  # head dims of B2/B3's "sm90" route
 _SM90_MAX_S = 65535 * 64    # at most 65535 64-row tiles along grid.y
 
 launches_fwd = 0    # B1 launches (the main path's proof of route)
@@ -250,33 +253,38 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 
 
 # ------------------------------------------------------------ CUDA route
-def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
-                   rep: int) -> str:
-    """The route of a B2/B3 pair on the card, chosen before launch:
-    ``"f32"`` for fp32; ``"sm90"`` for bf16 at head dim 64 or 128 with
-    ``1 <= S_q <= S_kv`` (ragged lengths and any GQA group included: what
-    ``csrc/flash_bwd_sm90.cu`` checks before it launches); ``"mma_sync"``
-    for every other bf16 shape — D 32, whose 64-byte rows need a 64-byte
-    swizzle the ``wgmma`` kernels do not build, D 48, whose 96-byte rows
-    fit none of the 32/64/128-byte swizzles, and S_q > S_kv, where causal
-    rows see no key."""
+def _plan(dtype, head_dim, s_q, s_kv, rep, sm90_dims) -> str:
     if dtype == torch.float32:
         return "f32"
-    if (head_dim in SM90_HEAD_DIMS and rep >= 1
+    if (head_dim in sm90_dims and rep >= 1
             and 1 <= s_q <= s_kv <= _SM90_MAX_S):
         return "sm90"
     return "mma_sync"
 
 
+def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
+                   rep: int) -> str:
+    """The route of a B2/B3 pair on the card, chosen before launch:
+    ``"f32"`` for fp32; ``"sm90"`` for bf16 at head dim 48, 64 or 128
+    with ``1 <= S_q <= S_kv`` (ragged lengths and any GQA group included:
+    what ``csrc/flash_bwd_sm90.cu`` checks before it launches; a 48-wide
+    row fills 96 bytes of a 128-byte swizzled row there); ``"mma_sync"``
+    for every other bf16 shape — D 32, whose 64-byte rows need a 64-byte
+    swizzle the ``wgmma`` kernels do not build, and S_q > S_kv, where
+    causal rows see no key."""
+    return _plan(dtype, head_dim, s_q, s_kv, rep, SM90_BWD_HEAD_DIMS)
+
+
 def plan_flash_fwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
                    rep: int) -> str:
-    """The route of a B1 launch on the card, chosen before launch, by
-    :func:`plan_flash_bwd`'s rule: ``"f32"`` for fp32 (``flash_fwd``);
-    ``"sm90"`` for bf16 at head dim 64 or 128 with ``1 <= S_q <= S_kv``
-    (the ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cu``, which checks the
-    same before it launches); ``"mma_sync"`` (``flash_fwd_mma``) for every
-    other bf16 shape — D 32, D 48 and S_q > S_kv, as for the backward."""
-    return plan_flash_bwd(dtype, head_dim, s_q, s_kv, rep)
+    """The route of a B1 launch on the card, chosen before launch:
+    ``"f32"`` for fp32 (``flash_fwd``); ``"sm90"`` for bf16 at head dim 64
+    or 128 with ``1 <= S_q <= S_kv`` (the ``wgmma`` kernel of
+    ``csrc/flash_fwd_sm90.cu``, which checks the same before it launches);
+    ``"mma_sync"`` (``flash_fwd_mma``) for every other bf16 shape — D 32,
+    S_q > S_kv, and D 48, which the backward's ``"sm90"`` route takes but
+    B1's has no build for."""
+    return _plan(dtype, head_dim, s_q, s_kv, rep, SM90_HEAD_DIMS)
 
 
 def _bind(lib: ctypes.CDLL, specs: dict) -> None:
@@ -470,7 +478,7 @@ def wgmma_probe(mode: int, a: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """One ``wgmma`` tile of ``csrc/flash_bwd_sm90.cu`` on bf16 CUDA
     tensors, for the card tests of the two operand forms B2/B3 rest on:
-    ``a``, ``w`` (64, 64) and ``b`` (64, N), N 64 or 128. Mode 0 returns
+    ``a``, ``w`` (64, 64) and ``b`` (64, N), N 48, 64 or 128. Mode 0 returns
     ``a @ b`` with b read MN-major (the transpose bit); mode 1 ``bf16(a
     @ w.T) @ b``, the first product's accumulator re-packed as the
     register-A operand of the second. fp32 (64, N)."""
@@ -579,7 +587,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bool(causal), float(sm_scale), block_q, block_k)
 
 
-__all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "KERNEL_DTYPES", "SM90_HEAD_DIMS",
+__all__ = ["DEFAULT_BLOCK", "HEAD_DIMS", "KERNEL_DTYPES", "SM90_BWD_HEAD_DIMS",
+           "SM90_HEAD_DIMS",
            "dkv_reference", "dq_reference", "flash_attention",
            "flash_backward", "flash_forward",
            "flash_attention_backward_reference", "flash_attention_reference",
