@@ -32,16 +32,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    < S_kv 1024, ragged S 200, and non-causal at S 1024, the sp:8 ring's
    visiting chunks); B1 on the route ``plan_flash_fwd`` plans and B2 and
    B3 on the route ``plan_flash_bwd`` plans (every bf16 case on
-   ``"sm90"`` but D 32's, and D 48's B1, which take ``"mma_sync"``), two
-   bf16 calls of each bit for bit; then time each kernel at the training
-   geometry (profiler device time, or CUDA events around back-to-back
-   calls where the profiler loses events) beside its plain version, its
-   bound and SDPA (forward, and its backward), B1, B2 and B3 on
-   ``"sm90"`` and on ``"mma_sync"`` on the same inputs; the same at
-   gpt-long's geometry (B 8, H 16 over 8, S 8192, D 48: B1 on
-   ``"mma_sync"``, B2 and B3 on ``"sm90"`` and on ``"mma_sync"``, SDPA
-   over K/V expanded to 16 heads); and sweep S for the ``"auto"``
-   crossover against ``mha_reference``.
+   ``"sm90"`` but D 32's, which take ``"mma_sync"``), two bf16 calls of
+   each bit for bit; then time each kernel at the training geometry
+   (profiler device time, or CUDA events around back-to-back calls where
+   the profiler loses events) beside its plain version, its bound and
+   SDPA (forward, and its backward), B1, B2 and B3 on ``"sm90"`` and on
+   ``"mma_sync"`` on the same inputs; the same at gpt-long's geometry (B
+   8, H 16 over 8, S 8192, D 48, SDPA over K/V expanded to 16 heads),
+   with B1's exponential floor (one ex2 a visible pair at 16 a clock on
+   each SM) beside its bound; and sweep S for the ``"auto"`` crossover
+   against ``mha_reference``.
 5. serve_fp32 — GPT-2 small, random seeded weights with a decisive head
    (tied embeddings x4), ``ServingConfig(page_size=64, n_pages=129,
    max_slots=8).make(...).run(...)`` on 8 requests (prompts 64-512
@@ -210,8 +210,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    heads over 8 kv heads (D 48), rope, dropout 0.1, remat, chunked head,
    AdamW with decay on matrices only, a cos/cos cycle, then a 128-token
    top-p 0.95 sample. Checks: B1 24, B2 12 and B3 12 launches a step (and
-   12 B1 each for the eval batch and the sample's prefill), B1 on
-   ``"mma_sync"`` and B2/B3 on ``"sm90"``, and no ``mha_reference`` call;
+   12 B1 each for the eval batch and the sample's prefill), all on
+   ``"sm90"``, and no ``mha_reference`` call;
    finite losses whose last 3 average below the first; ``ckpt_04``,
    ``ckpt_08``, ``ckpt_12``; a fresh ``setup`` resumes at step 12 with
    params, AdamW moments, step and generator bit for bit, and one more
@@ -308,9 +308,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``ring_fwd_step`` / ``ring_bwd_step``) for all eight ranks of
    gpt-long's ``sp:8`` in one process, the rotation done in-process: at
    gpt-long's width (B 8, S 8192 = 8 x 1024, 16 heads over 8 kv heads, D
-   48, bf16 causal; B1 on ``"mma_sync"``, B2/B3 on ``"sm90"``) and the MoE
-   model's (12 heads, S 1024, D 64; ``"sm90"``); every launch of the fold
-   on its kernel's planned route. The fold's out, lse, dQ, dK and dV held
+   48, bf16 causal) and the MoE model's (12 heads, S 1024, D 64); every
+   launch of the fold on its kernel's planned route (``"sm90"`` at both
+   widths). The fold's out, lse, dQ, dK and dV held
    to the plain versions (``flash_attention_reference``,
    ``flash_attention_backward_reference``) and to one whole-sequence
    B1-B3 call on the same inputs: atol = rtol = 2e-2 element by element,
@@ -427,6 +427,9 @@ SOURCES = ("paged_attention", "paged_decode_sm90", "flash_attention",
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12               # H100 SXM fp32 rate outside tensor cores
+# ex2 an SM does a clock on its special-function units (the CUDA C++
+# programming guide's instruction throughput table, compute capability 9.0)
+SFU_EX2_PER_CLOCK = 16
 DEV = "cuda"
 # what a number timed by device_ms is; ``sum_ms`` beside it is the sum of
 # the kernels' own times, the measure of the smoke's earlier revisions
@@ -441,6 +444,18 @@ N_NEW = 32
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sm_clocks_mhz() -> dict:
+    """The SM clock now and its maximum, in MHz, as ``nvidia-smi``
+    reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    now, top = (float(x) for x in out.stdout.strip().splitlines()[0]
+                .split(","))
+    return {"now": now, "max": top}
 
 
 def smi_line() -> str:
@@ -924,9 +939,9 @@ FLASH_CASES = [
       for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))
       for s in (64, 100, 200)),
 ]
-# head dims whose bf16 cases run the "mma_sync" kernels (no "sm90" build):
-# B1's, and B2/B3's
-MMA_SYNC_DIMS = {"fwd": (32, 48), "bwd": (32,)}
+# head dims whose bf16 cases run the "mma_sync" kernels (no "sm90" build
+# of B1-B3)
+MMA_SYNC_DIMS = (32,)
 # gpt-long's attention (examples/lm/gpt/gpt-long.yml): B, H, H_kv, S, D
 LONG_GEOMETRY = (8, 16, 8, 8192, 48)
 # atol = rtol, per dtype. bf16: the kernels round P and dS to bf16 before
@@ -934,6 +949,10 @@ LONG_GEOMETRY = (8, 16, 8, 8192, 48)
 # keeps fp32, so outputs differ by a few bf16 ulp of their own size;
 # fp32: only the summation order differs
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# and in norm: ||err|| / ||ref|| of o, dq, dk and dv in each 128-row chunk
+# of the sequence, where the element-wise allowance is as large as a late
+# causal row's values
+FLASH_REL = 2.0 ** -6
 
 
 def flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype):
@@ -944,14 +963,14 @@ def flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype):
             rand(b * h_kv, s_kv, d), rand(b * h, s_q, d))
 
 
-def expected_route(dtype, d, what: str) -> str:
-    """The route a flash plan must give a case, ``what`` ``"fwd"`` (B1)
-    or ``"bwd"`` (B2/B3): ``"f32"`` at fp32, ``"mma_sync"`` at the bf16
-    head dims without an ``"sm90"`` build of that kernel, ``"sm90"`` at
-    every other bf16 case of ``FLASH_CASES``."""
+def expected_route(dtype, d) -> str:
+    """The route both flash plans (B1's, B2/B3's) must give a case:
+    ``"f32"`` at fp32, ``"mma_sync"`` at the bf16 head dims without an
+    ``"sm90"`` build, ``"sm90"`` at every other bf16 case of
+    ``FLASH_CASES``."""
     if dtype == torch.float32:
         return "f32"
-    return "mma_sync" if d in MMA_SYNC_DIMS[what] else "sm90"
+    return "mma_sync" if d in MMA_SYNC_DIMS else "sm90"
 
 
 def visible_pairs(s_q, s_kv, causal):
@@ -963,8 +982,9 @@ def visible_pairs(s_q, s_kv, causal):
 
 
 def phase_flash(report: dict) -> dict:
-    """Each of B1, B2 and B3 against its plain version in every case,
-    then timed at the training geometry. Returns the three kernels'
+    """Each of B1, B2 and B3 against its plain version in every case
+    (element by element and, in 128-row chunks, in norm), then timed at
+    the training geometry and at gpt-long's. Returns the three kernels'
     ``kernels``-line fields."""
     from torchbooster_tpu_torch.ops import flash_attention as fa
 
@@ -975,13 +995,13 @@ def phase_flash(report: dict) -> dict:
     for name, b, h, h_kv, s_q, s_kv, d, dtype, causal in FLASH_CASES:
         q, k, v, do = flash_inputs(gen, b, h, h_kv, s_q, s_kv, d, dtype)
         scale = 1.0 / math.sqrt(d)
-        # B1 on its planned route: every bf16 case on "sm90" but D 32 and
-        # D 48, which take "mma_sync"
+        # B1 on its planned route: every bf16 case on "sm90" but D 32's,
+        # which take "mma_sync"
         fwd_route = fa.plan_flash_fwd(dtype, d, s_q, s_kv, h // h_kv)
-        if fwd_route != expected_route(dtype, d, "fwd"):
+        if fwd_route != expected_route(dtype, d):
             raise AssertionError(f"flash case {name}: B1 planned "
                                  f"{fwd_route!r}, not "
-                                 f"{expected_route(dtype, d, 'fwd')!r}")
+                                 f"{expected_route(dtype, d)!r}")
         before = fa.launches_fwd_by_route[fwd_route]
         o, lse = fa.launch_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -992,9 +1012,9 @@ def phase_flash(report: dict) -> dict:
         # the backward pair on the same inputs: the plain forward's o/lse,
         # on its planned route: every bf16 case on "sm90" but D 32
         route = fa.plan_flash_bwd(dtype, d, s_q, s_kv, h // h_kv)
-        if route != expected_route(dtype, d, "bwd"):
+        if route != expected_route(dtype, d):
             raise AssertionError(f"flash case {name}: planned {route!r}, "
-                                 f"not {expected_route(dtype, d, 'bwd')!r}")
+                                 f"not {expected_route(dtype, d)!r}")
         before = (fa.launches_dq_by_route[route],
                   fa.launches_dkv_by_route[route])
         dq, delta = fa.launch_dq(q, k, v, o_ref, lse_ref, do, causal, scale)
@@ -1033,17 +1053,23 @@ def phase_flash(report: dict) -> dict:
         errs, used = hold_flash(f"flash case {name}", tol, (
             ("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
             ("dk", dk, dk_ref), ("dv", dv, dv_ref)))
+        rel = hold_flash_norm(f"flash case {name}", (
+            ("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+            ("dv", dv, dv_ref)))
         worst["fwd"] = max(worst["fwd"], errs["o"], errs["lse"])
         worst["dq"] = max(worst["dq"], errs["dq"])
         worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
         per_case[name] = {"max_abs_err": errs, "allowance_used": used,
-                          "atol": tol, "rtol": tol, "fwd_route": fwd_route,
+                          "atol": tol, "rtol": tol, "rel_err": rel,
+                          "rel_bound": FLASH_REL, "fwd_route": fwd_route,
                           "bwd_route": route}
         log(f"flash {name}: " + ", ".join(
             f"{k} {errs[k]:.2e} ({100 * used[k]:.0f}%)" for k in errs)
             + f" (max abs err, and % of the allowance atol + rtol|ref| "
-            f"used; atol = rtol = {tol}); forward route {fwd_route}, "
-            f"backward route {route}")
+            f"used; atol = rtol = {tol}); ||err|| / ||ref|| " + ", ".join(
+                f"{k} {r:.2e}" for k, r in rel.items())
+            + f" (the largest 128-row chunk's, bound {FLASH_REL}); forward "
+            f"route {fwd_route}, backward route {route}")
     report["flash_cases"] = per_case
     report["flash_bwd_repeat"] = repeat
     log("flash forward repeat, bit for bit: " + ", ".join(
@@ -1061,17 +1087,28 @@ def phase_flash(report: dict) -> dict:
         f" us, sdpa backward {timing['dq']['library_ms'] * 1e3:.1f} us")
     report["flash_timing"] = timing
     # and at gpt-long's (B 8, H 16 over 8 kv heads, S 8192, D 48), where
-    # B1's planned route is "mma_sync" and B2/B3's "sm90", beside B2/B3 on
-    # "mma_sync" on the same inputs; its max abs errors are those of the
-    # timed inputs alone
+    # B1's and B2/B3's planned route is "sm90", beside each on "mma_sync"
+    # on the same inputs; its max abs errors are those of the timed inputs
+    # alone
     b, h, h_kv, s_len, d = LONG_GEOMETRY
     long = time_flash(gen, b, h, h_kv, s_len, d, None, previous=True,
                       plain_iters=3)
+    fwd = long["fwd"]
+    log(f"flash timing gpt-long B1: {fwd['timed_route']} "
+        f"{fwd['ms'] * 1e3:.1f} us ({fwd['tflops']:.1f} TFLOP/s), "
+        f"mma_sync {fwd['previous_ms'] * 1e3:.1f} us, plain "
+        f"{fwd['plain_ms'] * 1e3:.1f} us, sdpa forward "
+        f"{fwd['library_ms'] * 1e3:.1f} us; bound {fwd['bound_ms'] * 1e3:.1f}"
+        f" us ({fwd['bound_by']}), exponential floor "
+        f"{fwd['exp_floor_ms'] * 1e3:.1f} us ({fwd['exps'] / 1e9:.3f} G "
+        f"ex2 at {SFU_EX2_PER_CLOCK} a clock on {fwd['exp_floor_sms']} SMs "
+        f"at {fwd['exp_floor_mhz']:.0f} MHz; SM clock read after the "
+        f"timing {fwd['sm_mhz_after']:.0f} MHz)")
     log(f"flash timing gpt-long B2 + B3: sm90 "
         f"{(long['dq']['ms'] + long['dkv']['ms']) * 1e3:.1f} us, mma_sync "
         f"{(long['dq']['previous_ms'] + long['dkv']['previous_ms']) * 1e3:.1f}"
         f" us, sdpa backward {long['dq']['library_ms'] * 1e3:.1f} us; B1 "
-        f"(mma_sync) + B2 + B3 "
+        f"({fwd['timed_route']}) + B2 + B3 "
         f"{sum(long[k]['ms'] for k in ('fwd', 'dq', 'dkv')):.3f} ms; sdpa "
         f"forward + backward {long['sdpa_fwd_bwd_ms']:.3f} ms")
     report["flash_timing_long"] = long
@@ -1104,6 +1141,23 @@ def hold_flash(label: str, tol: float, pairs) -> tuple[dict, dict]:
                                  f"version: max abs err {errs[key]} (atol "
                                  f"= rtol = {tol})")
     return errs, used
+
+
+def hold_flash_norm(label: str, pairs) -> dict:
+    """Each ``(key, got, want)`` of ``pairs`` held in norm: ||got - want||
+    / ||want|| at most ``FLASH_REL`` in each 128-row chunk of the sequence
+    (dim 1; the whole sequence where its length is no multiple of 128),
+    so that an error confined to some rows (a wrong late kv step) shows
+    (raises on a miss). Returns each key's largest ratio."""
+    rel = {}
+    for key, got, want in pairs:
+        s_len = got.shape[1]
+        rel.update(rel_errs([(key, got, want)],
+                            s_len // 128 if s_len % 128 == 0 else 1))
+    if not all(r <= FLASH_REL for r in rel.values()):
+        raise AssertionError(f"{label}: ||err|| / ||ref|| {rel} in 128-row "
+                             f"chunks (bound {FLASH_REL})")
+    return rel
 
 
 def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
@@ -1177,17 +1231,23 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
     errs, used = hold_flash(label, tol, (
         ("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
         ("delta", delta, delta_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)))
+    rel = hold_flash_norm(label, (
+        ("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+        ("dv", dv, dv_ref)))
     log(f"{label}: " + ", ".join(f"{n} {errs[n]:.2e} ({100 * used[n]:.0f}%)"
                                  for n in errs)
         + f" (max abs err vs the plain version, % of atol + rtol|ref| "
-        f"used; atol = rtol = {tol}); B1 route {fwd_route}, B2/B3 route "
-        f"{bwd_route}")
+        f"used; atol = rtol = {tol}); ||err|| / ||ref|| " + ", ".join(
+            f"{n} {r:.2e}" for n, r in rel.items())
+        + f" (the largest 128-row chunk's, bound {FLASH_REL}); B1 route "
+        f"{fwd_route}, B2/B3 route {bwd_route}")
     measured = {"fwd": max(errs["o"], errs["lse"]),
                 "dq": max(errs["dq"], errs["delta"]),
                 "dkv": max(errs["dk"], errs["dv"])}
     del o_ref, lse_ref, dq_ref, delta_ref, dk, dv, dk_ref, dv_ref, dq
     timing = {"checked": {"max_abs_err": errs, "allowance_used": used,
-                          "atol": tol, "rtol": tol}}
+                          "atol": tol, "rtol": tol, "rel_err": rel,
+                          "rel_bound": FLASH_REL}}
     for key, (kern, plain, lib) in runs.items():
         call = {"kernel": cuda_ms(kern, iters=50),
                 "plain": cuda_ms(plain, iters=plain_iters)}
@@ -1242,6 +1302,15 @@ def time_flash(gen, b, h, h_kv, s_len, d, worst, previous: bool,
             f"bound {timing[key]['bound_ms'] * 1e3:.1f} us "
             f"({timing[key]['bound_by']}, {flops / 1e12:.3f} TFLOP); "
             f"achieved {timing[key]['tflops']:.1f} TFLOP/s")
+    # B1's second floor: one ex2 a visible pair on the special-function
+    # units, at the SM clock's maximum (the least time)
+    clocks = sm_clocks_mhz()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    timing["fwd"].update(
+        exps=pairs, exp_floor_sms=n_sm, exp_floor_mhz=clocks["max"],
+        sm_mhz_after=clocks["now"],
+        exp_floor_ms=pairs / (n_sm * SFU_EX2_PER_CLOCK * clocks["max"] * 1e6)
+        * 1e3)
     # the SDPA yardstick's backward computes dQ, dK and dV in one call: it
     # stands beside B2 and B3 together
     timing["dkv"]["library_ms"] = timing["dq"]["library_ms"]
@@ -4099,7 +4168,7 @@ def long_breakdown(t, n_steps: int = 2) -> dict:
     per_kernel = sorted(((e.key, e.self_device_time_total / 1e6)
                          for e in events), key=lambda kv: -kv[1])
     busy = sum(v for _, v in per_kernel)
-    # B1-B3 on either bf16 route (D 48: B1 "mma_sync", B2/B3 "sm90")
+    # B1-B3 on either bf16 route (D 48: "sm90")
     names = (f"flash_{kern}_{route}" for kern in ("fwd", "dq", "dkv")
              for route in ("mma", "sm90"))
     flash = {name: t for name in names
@@ -4161,12 +4230,11 @@ def phase_train_long(report: dict, smi: str) -> dict:
 
         # 1. attention routes: per step B1 twice a layer (remat), B2 and B3
         # once; one B1 a layer for the eval batch and for the sample's
-        # prefill; at bf16 D 48, B1 on "mma_sync" and B2/B3 on "sm90";
-        # never the reference
+        # prefill; at bf16 D 48, B1-B3 on "sm90"; never the reference
         n_l = cfg.n_layers
         expected = {"fwd": 2 * n_l * LONG_STEPS + 2 * n_l,
                     "dq": n_l * LONG_STEPS, "dkv": n_l * LONG_STEPS}
-        routes = {"fwd": "mma_sync", "dq": "sm90", "dkv": "sm90"}
+        routes = {"fwd": "sm90", "dq": "sm90", "dkv": "sm90"}
         route_expected = {
             k: {**dict.fromkeys(("sm90", "mma_sync", "f32"), 0),
                 routes[k]: n} for k, n in expected.items()}
@@ -8300,8 +8368,7 @@ def main() -> int:
                  ("dkv", "flash_dkv", "flash_bwd_sm90.cu", 265))}
     # the file each route's launches come from: "ms" and "source" are the
     # "sm90" kernels' (GPT-2 small's D 64); at gpt-long's D 48 ("gpt_long"
-    # below) B1 runs flash_attention.cu's "mma_sync" kernel and B2/B3
-    # flash_bwd_sm90.cu's "sm90" ones
+    # below) B1-B3 run the "sm90" kernels too
     for key in flash:
         flash[key].update(timed_route=None, launches_by_route=None,
                           previous_ms=None, sources_by_route={
@@ -8372,12 +8439,15 @@ def main() -> int:
                 "max_abs_err", "ms", "sum_ms", "timed_by", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "timed_route",
                 "previous_ms")})
-            # the same kernel at gpt-long's geometry (D 48: B1 "mma_sync",
-            # B2/B3 "sm90", with their "mma_sync" time as previous_ms)
+            # the same kernel at gpt-long's geometry (D 48: "sm90", with
+            # the "mma_sync" time as previous_ms; B1 with its exponential
+            # floor beside bound_ms)
             long = flash[key]["gpt_long"] = {k: res["long"][key].get(k) for k in (
                 "max_abs_err", "ms", "timed_by", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "timed_route", "tflops",
                 "previous_ms")}
+            if key == "fwd":
+                long["exp_floor_ms"] = res["long"][key]["exp_floor_ms"]
             long["source"] = flash[key]["sources_by_route"][long["timed_route"]]
     if set(SERVE_PHASES) & set(phases):
         params, cfg = gpt2_small()
@@ -8434,10 +8504,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     # B1-B3 launch on six paths: GPT-2 small's training on one card and
     # through the NCCL group's schedule ladder, the imported GPT-2's
-    # fine-tunes (D 64, "sm90"), gpt-long's (D 48: B1 "mma_sync", B2/B3
-    # "sm90"), the MoE model's training, and the sp:8 ring folds (both
-    # routes); the counts add up, as B4's do with the imported and MoE
-    # models' serving
+    # fine-tunes (D 64, "sm90"), gpt-long's (D 48, "sm90"), the MoE
+    # model's training, and the sp:8 ring folds; the counts add up, as B4's
+    # do with the imported and MoE models' serving
     for key, phase in (("train", phase_train),
                        ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long),

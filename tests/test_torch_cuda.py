@@ -367,9 +367,8 @@ FLASH_CASES = {
     "d48_noncausal_s1024_bf16": (2, 16, 8, 1024, 1024, 48, torch.bfloat16,
                                  False),
 }
-# the route each case's B1 (plan_flash_fwd) must take, and B2/B3's
-# (plan_flash_bwd): the same but at bf16 D 48, whose backward alone has an
-# "sm90" build
+# the route each case's B1 (plan_flash_fwd) and B2/B3 (plan_flash_bwd)
+# must take: the two plans agree, bf16 D 48 on "sm90"
 FLASH_FWD_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
                    "gpt2_small_gqa4_bf16": "sm90",
                    "sq256_skv1024_bf16": "sm90",
@@ -377,15 +376,13 @@ FLASH_FWD_ROUTE = {"gpt2_small_bf16": "sm90", "gpt2_small_fp32": "f32",
                    "d128_gqa2_ragged200_bf16": "sm90",
                    "d128_ragged130_fp32": "f32", "d128_s1024_bf16": "sm90",
                    "noncausal_s512_bf16": "sm90",
-                   "gpt_long_d48_gqa2_bf16": "mma_sync",
+                   "gpt_long_d48_gqa2_bf16": "sm90",
                    "d48_gqa2_ragged200_fp32": "f32",
-                   "d48_gqa2_ragged200_bf16": "mma_sync",
-                   "d48_sq256_skv1024_bf16": "mma_sync",
-                   "d48_noncausal_s1024_bf16": "mma_sync"}
-FLASH_BWD_ROUTE = {**FLASH_FWD_ROUTE, **dict.fromkeys(
-    ("gpt_long_d48_gqa2_bf16", "d48_gqa2_ragged200_bf16",
-     "d48_sq256_skv1024_bf16", "d48_noncausal_s1024_bf16"), "sm90")}
-# bf16 cases at head dim 48: B2/B3 on "sm90", also held to "mma_sync"
+                   "d48_gqa2_ragged200_bf16": "sm90",
+                   "d48_sq256_skv1024_bf16": "sm90",
+                   "d48_noncausal_s1024_bf16": "sm90"}
+FLASH_BWD_ROUTE = dict(FLASH_FWD_ROUTE)
+# bf16 cases at head dim 48: B1-B3 on "sm90", also held to "mma_sync"
 D48_BF16_CASES = sorted(n for n, c in FLASH_CASES.items()
                         if c[5] == 48 and c[6] == torch.bfloat16)
 
@@ -504,6 +501,72 @@ def test_flash_bwd_d48_sm90_holds_to_mma_sync_on_card(name):
             torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                        rtol=2e-2)
         torch.testing.assert_close(new.float(), old.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", D48_BF16_CASES)
+def test_flash_fwd_d48_sm90_holds_to_mma_sync_on_card(name):
+    """B1 at head dim 48 on ``"sm90"`` (the planned route,
+    ``flash_fwd_sm90<48>``) and on ``"mma_sync"`` (named) on the same
+    inputs: o and lse of each within the bf16 allowance (2e-2) of the
+    plain version; ``"sm90"`` bit for bit on a repeat; each call moves
+    ``launches_fwd_by_route`` on the route it ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    causal = FLASH_CASES[name][7]
+    q, k, v, _ = _flash_operands(name, seed=7)
+    scale = q.shape[-1] ** -0.5
+    assert fa.plan_flash_fwd(q.dtype, 48, q.shape[1], k.shape[1],
+                             q.shape[0] // k.shape[0]) == "sm90"
+    outs = {}
+    for route in ("sm90", "mma_sync", "sm90"):
+        before = dict(fa.launches_fwd_by_route)
+        outs.setdefault(route, []).append(fa.launch_fwd(
+            q, k, v, causal, scale, route=None if route == "sm90" else route))
+        torch.cuda.synchronize()
+        assert fa.launches_fwd_by_route == {**before,
+                                            route: before[route] + 1}
+    want = fa.flash_attention_reference(q, k, v, causal, scale)
+    for got in (outs["sm90"][0], outs["mma_sync"][0]):
+        for a, ref in zip(got, want):
+            torch.testing.assert_close(a.float(), ref.float(), atol=2e-2,
+                                       rtol=2e-2)
+    for a, b in zip(*outs["sm90"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.0, -48 ** -0.5])
+def test_flash_fwd_sm90_refuses_non_positive_scale_on_card(scale):
+    """``flash_fwd_sm90`` takes its running max over the raw scores, which
+    keep the scaled scores' order only for ``sm_scale > 0``: at any other
+    scale ``launch_fwd`` on ``"sm90"`` raises and the C entry point returns
+    an error without launching; ``"mma_sync"``, named, scales first and
+    holds to the plain version within the bf16 allowance (2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_operands("d48_gqa2_ragged200_bf16", seed=5)
+    bh, s_q, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
+    before = dict(fa.launches_fwd_by_route)
+    with pytest.raises(ValueError, match="sm_scale > 0"):
+        fa.launch_fwd(q, k, v, True, scale)
+    err = fa._lib_fwd_sm90().tb_flash_fwd_sm90(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, k.shape[0], s_q, k.shape[1], 1, scale,
+        fa._stream(q))
+    assert err != 0
+    assert fa.launches_fwd_by_route == before
+    got = fa.launch_fwd(q, k, v, True, scale, route="mma_sync")
+    want = fa.flash_attention_reference(q, k, v, True, scale)
+    for a, ref in zip(got, want):
+        torch.testing.assert_close(a.float(), ref.float(), atol=2e-2,
                                    rtol=2e-2)
 
 
@@ -1208,7 +1271,7 @@ def test_prefetch_to_device_on_card_equals_host_batches():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,h,h_kv", [(64, 4, 4), (48, 4, 2)],
-                         ids=["sm90_d64", "mma_sync_d48_gqa"])
+                         ids=["sm90_d64", "sm90_d48_gqa"])
 def test_ring_fold_matches_whole_sequence_flash_on_card(d, h, h_kv):
     """The ring's per-rank steps (``parallel/ring.py`` ``ring_fwd_step`` /
     ``ring_bwd_step``) for four ranks in one process, the rotation done

@@ -21,7 +21,7 @@ from torchbooster_tpu_torch.ops.attention import (
 BF16, F32 = torch.bfloat16, torch.float32
 
 # (dtype, head_dim, S_q, S_kv, rep) -> route, the same for the forward
-# (B1) and the backward (B2/B3); D 48 (where they differ) is in D48_PLANS
+# (B1) and the backward (B2/B3); gpt-long's D 48 is in D48_PLANS
 PLANS = {
     # GPT-2 small's training path (12 heads of 64, S 1024), and at fp32
     "gpt2_small_bf16": ((BF16, 64, 1024, 1024, 1), "sm90"),
@@ -46,12 +46,10 @@ PLANS = {
 # B2/B3's route)
 D48_PLANS = {
     # gpt-long's training (16 heads over 8, S 8192) and its sp:8 chunk
-    "gpt_long_bf16": ((BF16, 48, 8192, 8192, 2), ("mma_sync", "sm90")),
-    "gpt_long_chunk_bf16": ((BF16, 48, 1024, 1024, 2),
-                            ("mma_sync", "sm90")),
-    "d48_ragged200_bf16": ((BF16, 48, 200, 200, 2), ("mma_sync", "sm90")),
-    "d48_sq256_skv1024_bf16": ((BF16, 48, 256, 1024, 2),
-                               ("mma_sync", "sm90")),
+    "gpt_long_bf16": ((BF16, 48, 8192, 8192, 2), ("sm90", "sm90")),
+    "gpt_long_chunk_bf16": ((BF16, 48, 1024, 1024, 2), ("sm90", "sm90")),
+    "d48_ragged200_bf16": ((BF16, 48, 200, 200, 2), ("sm90", "sm90")),
+    "d48_sq256_skv1024_bf16": ((BF16, 48, 256, 1024, 2), ("sm90", "sm90")),
     "d48_sq_over_skv_bf16": ((BF16, 48, 1024, 256, 2),
                              ("mma_sync", "mma_sync")),
     "gpt_long_fp32": ((F32, 48, 1024, 1024, 2), ("f32", "f32")),
@@ -74,16 +72,16 @@ def test_plan_flash_fwd_routes(name):
 
 @pytest.mark.parametrize("head_dim", (16, 32, 48, 64, 96, 128, 256))
 def test_plan_flash_fwd_invariants(head_dim):
-    """What ``tb_flash_fwd_sm90`` checks before it launches (head dim 64
-    or 128, ``1 <= S_q <= S_kv``, at most 65535 64-row kv tiles, a whole
-    GQA group) holds for every ``"sm90"`` plan of B1; fp32 plans
+    """What ``tb_flash_fwd_sm90`` checks before it launches (head dim 48,
+    64 or 128, ``1 <= S_q <= S_kv``, at most 65535 64-row kv tiles, a
+    whole GQA group) holds for every ``"sm90"`` plan of B1; fp32 plans
     ``"f32"``; every other bf16 shape ``"mma_sync"``."""
     lengths = (1, 63, 64, 65, 128, 129, 1000, 1024, 65535 * 64,
                65535 * 64 + 1)
     for s_q, s_kv, rep in itertools.product(lengths, lengths, (1, 3, 12)):
         assert fa.plan_flash_fwd(F32, head_dim, s_q, s_kv, rep) == "f32"
         route = fa.plan_flash_fwd(BF16, head_dim, s_q, s_kv, rep)
-        fits = (head_dim in (64, 128) and 1 <= s_q <= s_kv
+        fits = (head_dim in (48, 64, 128) and 1 <= s_q <= s_kv
                 and -(-s_kv // 64) <= 65535)
         assert route == ("sm90" if fits else "mma_sync")
 
@@ -109,20 +107,16 @@ def test_plan_flash_bwd_invariants(head_dim):
 @pytest.mark.parametrize("dtype", (BF16, F32))
 @pytest.mark.parametrize("head_dim", (16, 32, 48, 64, 96, 128, 256))
 def test_plans_differ_only_at_bf16_d48(dtype, head_dim):
-    """B1's and B2/B3's plans agree on every shape but bf16 at head dim
-    48 with ``1 <= S_q <= S_kv``, where the backward takes ``"sm90"``
-    (``flash_bwd_sm90.cu`` builds D 48) and the forward ``"mma_sync"``
-    (``flash_fwd_sm90.cu`` does not)."""
+    """B1's and B2/B3's plans agree on every shape, bf16 at head dim 48
+    included (so they differ at no shape outside it, nor inside): both
+    ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` build D 48, 64 and
+    128, and ``SM90_HEAD_DIMS`` equals ``SM90_BWD_HEAD_DIMS``."""
+    assert fa.SM90_HEAD_DIMS == fa.SM90_BWD_HEAD_DIMS == (48, 64, 128)
     lengths = (1, 63, 64, 65, 200, 1024, 8192, 65535 * 64,
                65535 * 64 + 1)
     for s_q, s_kv, rep in itertools.product(lengths, lengths, (1, 2, 3)):
         args = (dtype, head_dim, s_q, s_kv, rep)
-        fwd, bwd = fa.plan_flash_fwd(*args), fa.plan_flash_bwd(*args)
-        split = (dtype == BF16 and head_dim == 48 and 1 <= s_q <= s_kv
-                 and -(-s_kv // 64) <= 65535)
-        assert (fwd != bwd) == split
-        if split:
-            assert (fwd, bwd) == ("mma_sync", "sm90")
+        assert fa.plan_flash_fwd(*args) == fa.plan_flash_bwd(*args)
 
 
 def test_route_counters_start_with_every_route():
@@ -174,8 +168,9 @@ def test_plain_backward_counts_no_route():
     (BF16, 64, "f32", None),
     (BF16, 32, None, "mma_sync"),
     (BF16, 32, "sm90", None),
-    (BF16, 48, None, "mma_sync"),
-    (BF16, 48, "sm90", None),
+    (BF16, 48, None, "sm90"),
+    (BF16, 48, "sm90", "sm90"),
+    (BF16, 48, "mma_sync", "mma_sync"),
     (F32, 64, None, "f32"),
     (F32, 64, "sm90", None),
     (F32, 64, "mma_sync", None),

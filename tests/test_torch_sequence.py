@@ -407,13 +407,13 @@ def test_comms_on_sp_and_ep_meshes_do_what_jax_does(pool, spec, kind):
 
 
 @pytest.mark.parametrize("d,h,h_kv,s_chunk,fwd_route,bwd_route", [
-    (48, 16, 8, 1024, "mma_sync", "sm90"),    # gpt-long's sp:8 chunk
+    (48, 16, 8, 1024, "sm90", "sm90"),        # gpt-long's sp:8 chunk
     (64, 12, 12, 1024, "sm90", "sm90"),       # a 1024-long chunk at D 64
     (64, 12, 12, 128, "sm90", "sm90")])       # the MoE width's sp:8 chunk
 def test_ring_chunk_routes(d, h, h_kv, s_chunk, fwd_route, bwd_route):
     """What ``plan_flash_fwd`` and ``plan_flash_bwd`` pick for the ring's
-    chunk calls (S_q == S_kv == S/sp, bf16): at D 48 B1 has no ``"sm90"``
-    build and B2/B3 do; D 64 takes ``"sm90"`` at any chunk length."""
+    chunk calls (S_q == S_kv == S/sp, bf16): B1 and B2/B3 take
+    ``"sm90"`` at D 48 and D 64, at any chunk length."""
     from torchbooster_tpu_torch.ops import flash_attention as fa
 
     args = (torch.bfloat16, d, s_chunk, s_chunk, h // h_kv)

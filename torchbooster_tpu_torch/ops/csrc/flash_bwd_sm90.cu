@@ -81,11 +81,6 @@ using namespace sm90;
 constexpr float kNegInf = -1e30f;  // the JAX package's mask value (never -inf)
 constexpr int kMaxTiles = 65535;   // grid.y limit: q tiles (B2), kv tiles (B3)
 
-// shared-memory bytes a tile row takes: whole 128-byte SW128 rows, one per
-// 64-column block (D 48 fills 96 of its 128; D * 2 would overlap the rows)
-template <int D>
-constexpr int kRowBytes = 128 * ((D + 63) / 64);
-
 // ------------------------------------------------------------------ B2
 template <int D>
 struct DqCfg {

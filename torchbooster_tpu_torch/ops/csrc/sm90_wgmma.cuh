@@ -6,7 +6,7 @@
 // zero fill, the async-proxy fence, wgmma fence / commit / wait, the SW128
 // shared-memory descriptors (K-major, and MN-major through the transpose bit), wgmma with A
 // from shared memory (ss) or registers (rs), the accumulator-to-register-A
-// re-pack, the SW128 tile copy (D 48, 64 and 128), and the thread-block-cluster barrier and
+// re-pack, the SW128 tile copy (D 48, 64 and 128) and its row size, and the thread-block-cluster barrier and
 // distributed-shared-memory read. The card tests hold the two operand forms
 // to torch.matmul exactly (`tb_wgmma_probe`).
 #pragma once
@@ -311,6 +311,11 @@ __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[N / 16][4], const floa
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
+
+// shared-memory bytes a tile row takes: whole 128-byte SW128 rows, one per
+// 64-column block (D 48 fills 96 of its 128; D * 2 would overlap the rows)
+template <int D>
+constexpr int kRowBytes = 128 * ((D + 63) / 64);
 
 // rows [row0, row0 + ROWS) of a (rows, D) bf16 matrix into the SW128 tile at
 // shared address `dst` (1024-byte aligned): 64-column block cb at dst + cb

@@ -18,13 +18,13 @@ path never touches them.
 The forward and the backward each have three CUDA routes, planned before
 launch by :func:`plan_flash_fwd` and :func:`plan_flash_bwd` and counted
 in ``launches_fwd_by_route``, ``launches_dq_by_route`` and
-``launches_dkv_by_route``: ``"sm90"`` (bf16, ``1 <= S_q <= S_kv``, the
-``wgmma`` kernels: B1 at head dim 64 or 128 in ``csrc/flash_fwd_sm90.cu``,
-B2/B3 at head dim 48, 64 or 128 in ``csrc/flash_bwd_sm90.cu``),
-``"mma_sync"`` (other bf16 shapes, D 32 among them, and B1 at D 48: the
+``launches_dkv_by_route``: ``"sm90"`` (bf16 at head dim 48, 64 or 128
+with ``1 <= S_q <= S_kv``, the ``wgmma`` kernels of
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu``),
+``"mma_sync"`` (other bf16 shapes, D 32 and S_q > S_kv among them: the
 ``mma.sync`` kernels of ``csrc/flash_attention.cu``) and ``"f32"`` (fp32,
-CUDA-core kernels of the same file). The two plans differ only at bf16
-D 48, where the backward takes ``"sm90"`` and the forward ``"mma_sync"``.
+CUDA-core kernels of the same file). The two plans agree on every
+shape.
 
 Shape contract (the TPU kernels'): q ``(BH, S_q, D)``, k/v ``(BH_kv,
 S_kv, D)`` with ``BH % BH_kv == 0``; q row ``b`` reads grouped k/v row
@@ -51,8 +51,8 @@ from torchbooster_tpu_torch.ops.attention import NEG_INF
 MIN_BLOCK = 8          # the TPU kernel's smallest tile edge
 DEFAULT_BLOCK = 1024   # the JAX package's default tile (both axes)
 HEAD_DIMS = (32, 48, 64, 128)   # head dims the CUDA kernels are built for
-SM90_HEAD_DIMS = (64, 128)  # head dims of B1's "sm90" route
-SM90_BWD_HEAD_DIMS = (48, 64, 128)  # head dims of B2/B3's "sm90" route
+SM90_HEAD_DIMS = (48, 64, 128)  # head dims of B1's "sm90" route
+SM90_BWD_HEAD_DIMS = SM90_HEAD_DIMS  # and of B2/B3's
 _SM90_MAX_S = 65535 * 64    # at most 65535 64-row tiles along grid.y
 
 launches_fwd = 0    # B1 launches (the main path's proof of route)
@@ -253,15 +253,6 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 
 
 # ------------------------------------------------------------ CUDA route
-def _plan(dtype, head_dim, s_q, s_kv, rep, sm90_dims) -> str:
-    if dtype == torch.float32:
-        return "f32"
-    if (head_dim in sm90_dims and rep >= 1
-            and 1 <= s_q <= s_kv <= _SM90_MAX_S):
-        return "sm90"
-    return "mma_sync"
-
-
 def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
                    rep: int) -> str:
     """The route of a B2/B3 pair on the card, chosen before launch:
@@ -272,19 +263,22 @@ def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
     for every other bf16 shape — D 32, whose 64-byte rows need a 64-byte
     swizzle the ``wgmma`` kernels do not build, and S_q > S_kv, where
     causal rows see no key."""
-    return _plan(dtype, head_dim, s_q, s_kv, rep, SM90_BWD_HEAD_DIMS)
+    if dtype == torch.float32:
+        return "f32"
+    if (head_dim in SM90_BWD_HEAD_DIMS and rep >= 1
+            and 1 <= s_q <= s_kv <= _SM90_MAX_S):
+        return "sm90"
+    return "mma_sync"
 
 
 def plan_flash_fwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
                    rep: int) -> str:
-    """The route of a B1 launch on the card, chosen before launch:
-    ``"f32"`` for fp32 (``flash_fwd``); ``"sm90"`` for bf16 at head dim 64
-    or 128 with ``1 <= S_q <= S_kv`` (the ``wgmma`` kernel of
-    ``csrc/flash_fwd_sm90.cu``, which checks the same before it launches);
-    ``"mma_sync"`` (``flash_fwd_mma``) for every other bf16 shape — D 32,
-    S_q > S_kv, and D 48, which the backward's ``"sm90"`` route takes but
-    B1's has no build for."""
-    return _plan(dtype, head_dim, s_q, s_kv, rep, SM90_HEAD_DIMS)
+    """The route of a B1 launch on the card, chosen before launch: the
+    route :func:`plan_flash_bwd` gives the same shape (``"sm90"`` is the
+    ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cu``, which checks the same
+    before it launches and takes ``sm_scale > 0`` only; ``"mma_sync"`` is
+    ``flash_fwd_mma``, ``"f32"`` ``flash_fwd``)."""
+    return plan_flash_bwd(dtype, head_dim, s_q, s_kv, rep)
 
 
 def _bind(lib: ctypes.CDLL, specs: dict) -> None:
@@ -373,7 +367,9 @@ def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
     """B1 on CUDA tensors: ``(o, lse)``. ``route`` defaults to the plan
     of :func:`plan_flash_fwd` (the smoke times ``"mma_sync"`` beside
     ``"sm90"`` on the same inputs); a route that cannot take the
-    operands raises."""
+    operands raises, and so does ``"sm90"`` at ``sm_scale <= 0``: its
+    running max is over the raw scores, which keep the order of the
+    scaled ones only for a positive scale."""
     global launches_fwd
     _check_cuda(q, k, v)
     bh, s_q, head_dim = q.shape
@@ -386,6 +382,9 @@ def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
             lse.data_ptr(), bh, bh_kv, s_q, s_kv, int(causal), sm_scale,
             _stream(q))
     if route == "sm90":
+        if not sm_scale > 0:
+            raise ValueError("flash_attention forward: the sm90 kernel takes "
+                             f"sm_scale > 0, not {sm_scale}")
         err = _lib_fwd_sm90().tb_flash_fwd_sm90(head_dim, *ptrs)
     else:
         err = _lib().tb_flash_fwd(_DTYPE_CODE[q.dtype], head_dim, *ptrs)
