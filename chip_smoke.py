@@ -16,13 +16,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    pages, 8 slots): MHA and GQA (4 kv heads), bf16/fp32/int8 pools, S=1
    decode, S=5 linear verify, a tree-verify mask, and a prefix page shared
    by two lanes; each case on the route ``plan_paged`` plans (every bf16-q
-   case on ``"sm90"``), those also forced to ``"simt"``, and two
+   case on ``"sm90"``), those also forced to ``"simt"``, each held element
+   by element and in norm (every (slot, head) block within 2^-6), and two
    ``"sm90"`` calls bit for bit; then time both routes (profiler device
    time, and CUDA events per call) beside the plain version, the bound and
    ``scaled_dot_product_attention`` over the same context, each timed call
    reading another of 12 layer pools as the decode step does, at bf16 MHA
    decode and at the prefix cache's layout (8 lanes, every slot behind one
-   4-page shared prefix).
+   4-page shared prefix). Then the same at gpt-long's decode geometry (16
+   heads over 8 kv heads of 48, 1025 pages, 8 slots at the serve_long
+   prompts' contexts, 1024-8000 tokens): decode and GQA verify S=5 over a
+   bf16 and an int8 pool and an int8 tree at S=5 held on both routes, and
+   bf16 decode timed as above (SDPA on the 8 kv heads with enable_gqa,
+   and over K/V repeated to 16 heads beside it).
 4. flash   — hold the flash kernels B1 (forward: o, lse), B2 (dq) and B3
    (dk, dv) against their plain versions: GPT-2-small training geometry
    (B 8, H 12, S 1024, D 64) causal at bf16 and fp32, GQA with 4 kv heads,
@@ -222,6 +228,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    causal attention FLOPs stated), peak memory, the checkpoint's bytes
    with the save's blocking and background-write ms, the validation loss,
    and a profiled busy share with B1-B3's share of device time.
+7c. serve_long — gpt-long served: ``Config.load("examples/lm/gpt/
+   gpt-long.yml")``'s model (12 layers, d_model 768, 16 heads over 8 kv
+   heads of 48, rope, vocab 256), random weights of seed 42, bf16, the decisive tied head (x4),
+   through ``ServingConfig(page_size=64, n_pages=1025, max_slots=8)
+   .make(...)`` and ``ContinuousBatcher.run``: 8 greedy requests whose
+   prompts are 1024-8000-byte windows of the repo's text, 32 new tokens
+   each. Gates: ``check_paged`` plans ``"sm90"``; every stream equals the
+   dense ``generate`` (its prefill B1 at D 48 on ``"sm90"``, 12 a call);
+   one decode shape; every B4 launch ``"sm90"``. Prints decode tok/s, ms
+   a decode step, TTFT p50/p99, peak memory, and from the decode-only
+   tail of a replay through the batcher's session API, under the
+   profiler (``device_breakdown``), the device ms a step, busy share,
+   B4's µs a call and share of device time and the top kernels.
 8. conv    — hold the GroupNorm kernels B5 (forward) and B6 (backward) and
    the fused conv + GroupNorm kernels B7 (1x1, any stride) and B8 (3x3,
    stride 1) against their plain versions, in bf16 and fp32, with and
@@ -411,7 +430,8 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
-          "train", "gpt2_import", "train_long", "conv", "resnet_train",
+          "train", "gpt2_import", "train_long", "serve_long", "conv",
+          "resnet_train",
           "resnet_data", "lenet", "resnet_import", "image_models",
           "ddpm", "vae_gan", "style", "train_comms", "moe", "sp_fold", "tp",
           "pp_fold")
@@ -440,6 +460,14 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 H, DH, PS, N_PAGES, SLOTS, N_LAYERS = 12, 64, 64, 129, 8, 12
 PROMPT_LENS = (64, 100, 150, 200, 256, 300, 400, 512)
 N_NEW = 32
+# gpt-long's serving geometry (phase serve_long, and B4 at head dim 48 in
+# phase kernel): 16 heads over 8 kv heads of 48, the same 64-token pages
+# and 8 slots, 1025 pages; prompts of 1024-8000 bytes of repo text
+LONG_H, LONG_KV, LONG_DH, LONG_N_PAGES = 16, 8, 48, 1025
+LONG_PROMPT_LENS = (1024, 2048, 3072, 4096, 5120, 6144, 7168, 8000)
+# gpt-long.yml's model, as serve_long checks it
+LONG_MODEL = dict(n_layers=12, d_model=768, n_heads=LONG_H,
+                  kv_heads=LONG_KV, head_dim=LONG_DH, vocab=256, pos="rope")
 
 
 def log(msg: str) -> None:
@@ -602,6 +630,8 @@ def device_ms(fn, iters: int = 50, by_kernel: dict | None = None) -> float:
         spans = device_spans(prof)
         if len(spans) < iters:
             continue
+        if not SPANS_HELD:
+            hold_device_spans(prof, spans)
         if by_kernel is not None:
             for start, stop, name in spans:
                 by_kernel[name] = by_kernel.get(name, 0.0) \
@@ -612,13 +642,57 @@ def device_ms(fn, iters: int = 50, by_kernel: dict | None = None) -> float:
 
 def device_spans(prof) -> list:
     """``(start µs, end µs, name)`` of every device activity the profiler
-    recorded, in start order."""
+    recorded, in start order, from the profiler's raw records: the same
+    intervals and demangled names as ``prof.events()``, with its filter,
+    without building an event object a record, which is slow over a long
+    serving replay's records. :func:`hold_device_spans` holds the two
+    readings together in the run's first :func:`device_ms` window."""
     from torch.autograd import DeviceType
 
-    return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and e.time_range.end > e.time_range.start)
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    spans = []
+    for e in res.events():
+        if (e.device_type() != DeviceType.CUDA or e.end_ns() <= e.start_ns()
+                or e.name() in ("[memory]", "[OutOfMemory]")
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        spans.append(((e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3,
+                      torch._C._demangle(e.name())))
+    return sorted(spans)
+
+
+# the first full window of device_ms, held by hold_device_spans
+SPANS_HELD: dict = {}
+
+
+def hold_device_spans(prof, spans) -> None:
+    """Hold :func:`device_spans`' reading of the raw records to the
+    profiler's public ``prof.events()`` in one window: the same number of
+    device intervals, the same intervals to the nanosecond, the same
+    union. Every device time of the smoke comes through
+    :func:`device_spans`, so a profiler whose raw records change fails
+    here rather than moving every time unseen."""
+    from torch.autograd import DeviceType
+
+    public = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.time_range.end > e.time_range.start)
+    raw = [(start, stop) for start, stop, _ in spans]
+    same = len(public) == len(raw) and all(
+        abs(a - c) < 1e-3 and abs(b - d) < 1e-3
+        for (a, b), (c, d) in zip(public, raw))
+    u_public = union_us([(a, b, "") for a, b in public])
+    u_raw = union_us(spans)
+    if not same or abs(u_public - u_raw) > 1e-3:
+        raise AssertionError(f"device spans: the raw records give "
+                             f"{len(raw)} intervals over {u_raw:.3f} us, "
+                             f"prof.events() {len(public)} over "
+                             f"{u_public:.3f} us")
+    SPANS_HELD.update(spans=len(raw), union_us=u_raw)
+    log(f"device spans: the raw records agree with prof.events() ({len(raw)} "
+        f"device intervals, union {u_raw:.3f} us, each to the nanosecond)")
 
 
 def union_us(spans) -> float:
@@ -632,12 +706,14 @@ def union_us(spans) -> float:
 
 # ---------------------------------------------------------------- kernel
 def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None,
-              prefix_pages: int = 0):
-    """A pool, a compacted work list and queries at serving geometry.
-    ``shared``: slots 0 and 1 share their first two (full) pages, listed
-    once in the work list with both slots on its lanes. ``prefix_pages``:
-    every slot shares its first that many pages (the prefix cache's
-    layout, one lane per slot)."""
+              prefix_pages: int = 0, n_heads: int = H, head_dim: int = DH,
+              n_pages: int = N_PAGES):
+    """A pool, a compacted work list and queries at serving geometry
+    (GPT-2 small's heads and pool unless ``n_heads``, ``head_dim`` and
+    ``n_pages`` say otherwise). ``shared``: slots 0 and 1 share their
+    first two (full) pages, listed once in the work list with both slots
+    on its lanes. ``prefix_pages``: every slot shares its first that many
+    pages (the prefix cache's layout, one lane per slot)."""
     from torchbooster_tpu_torch.models.gpt import _quantize_kv
 
     dev = DEV
@@ -646,7 +722,7 @@ def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None,
     if shared:
         lens[:2] = np.maximum(lens[:2], 2 * PS + 1)
     n_lanes = SLOTS if shared or prefix_pages else 1
-    free = list(rs.permutation(np.arange(1, N_PAGES)))
+    free = list(rs.permutation(np.arange(1, n_pages)))
     table = {}
     for s in range(SLOTS):
         need = -(-int(lens[s] + s_q) // PS)
@@ -660,7 +736,7 @@ def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None,
         for idx, p in enumerate(table[s]):
             holders.setdefault(p, []).append((s, idx))
     live = sorted(holders)
-    n_w = N_PAGES - 1
+    n_w = n_pages - 1
     wp = np.zeros(n_w, np.int32)
     wr = np.full((n_w, n_lanes), -1, np.int32)
     wpos = np.zeros(n_w, np.int32)
@@ -669,7 +745,7 @@ def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None,
         wpos[i] = holders[p][0][1]
         for lane, (s, _) in enumerate(holders[p]):
             wr[i, lane] = s
-    shape = (N_PAGES, PS, kv_heads, DH)
+    shape = (n_pages, PS, kv_heads, head_dim)
     k = torch.randn(shape, device=dev)
     v = torch.randn(shape, device=dev)
     if pool == "int8":
@@ -677,7 +753,8 @@ def make_case(rs, *, kv_heads, pool, q_dtype, s_q, tree, shared, lens=None,
     else:
         dt = torch.bfloat16 if pool == "bf16" else torch.float32
         pk, pv = k.to(dt), v.to(dt)
-    q = torch.randn(SLOTS, s_q, H, DH, device=dev).to(q_dtype)
+    del k, v
+    q = torch.randn(SLOTS, s_q, n_heads, head_dim, device=dev).to(q_dtype)
     tvis = None
     if tree:
         # a random candidate tree per slot: node j hangs off a parent < j
@@ -710,23 +787,30 @@ def kv_dtype_of(pool: str) -> torch.dtype:
             "int8": torch.int8}[pool]
 
 
-def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
-    """B4 at bf16 MHA decode over the serving geometry, every number from
-    this one call: the planned ``"sm90"`` route, ``"simt"`` forced on the
-    same inputs, the plain version (``plain``), SDPA over the same context
-    gathered dense (a yardstick the port never calls) and the bound. Each
-    timed call reads another of N_LAYERS layer pools (over 300 MB, past
-    the 50 MB L2), as the decode step does."""
+def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True,
+               kv_heads: int = H, n_heads: int = H, head_dim: int = DH,
+               n_pages: int = N_PAGES) -> dict:
+    """B4 at bf16 decode over a serving geometry (GPT-2 small's MHA unless
+    the heads, head dim and pool are given), every number from this one
+    call: the planned ``"sm90"`` route, ``"simt"`` forced on the same
+    inputs, the plain version (``plain``), SDPA over the same context
+    gathered dense on the kv heads (a yardstick the port never calls) and
+    the bound. Each timed call reads another of
+    N_LAYERS layer pools (over 300 MB, past the 50 MB L2), as the decode
+    step does."""
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
-    case = make_case(rs, kv_heads=12, pool="bf16", q_dtype=torch.bfloat16,
-                     s_q=1, tree=False, shared=False, lens=lens,
-                     prefix_pages=prefix_pages)
+    case = make_case(rs, kv_heads=kv_heads, pool="bf16",
+                     q_dtype=torch.bfloat16, s_q=1, tree=False, shared=False,
+                     lens=lens, prefix_pages=prefix_pages, n_heads=n_heads,
+                     head_dim=head_dim, n_pages=n_pages)
     args, kw = kernel_inputs(case)
     q, pk, pv, rest = args[0], args[1], args[2], args[3:]
-    route = pa.plan_paged(q.dtype, pk.dtype, DH, PS, 1, 1)
+    rep = n_heads // kv_heads
+    route = pa.plan_paged(q.dtype, pk.dtype, head_dim, PS, 1, rep)
     if route != "sm90":
-        raise AssertionError(f"bf16 MHA decode planned {route!r}, not sm90")
+        raise AssertionError(f"bf16 decode at head dim {head_dim} planned "
+                             f"{route!r}, not sm90")
     layers = [(pk.clone(), pv.clone()) for _ in range(N_LAYERS)]
     turn = itertools.count()
 
@@ -738,37 +822,48 @@ def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
 
     # SDPA over the same context gathered dense per slot (a shared page is
     # copied into every slot that holds it), padded to the longest slot and
-    # masked; the gather is outside the timing
+    # masked, on the kv heads with enable_gqa, so it reads each kv head
+    # once as B4 does; the gather is outside the timing, and the layer
+    # pools are copies of one, so is their gather. Where the query heads
+    # share kv heads, SDPA over K/V repeated to the query heads (the
+    # yardstick of earlier revisions) is timed beside it.
     wp = case["work_pages"].long()
     wr = case["work_refs"].cpu().numpy()
     wpos = case["work_pos"].cpu().numpy()
     max_len = int(lens.max()) + 1
-    dense = []
-    for lk, lv in layers:
-        kd = torch.zeros(SLOTS, H, max_len, DH, device="cuda",
-                         dtype=torch.bfloat16)
-        vd = torch.zeros_like(kd)
-        for i in range(case["n_live"]):
-            base = int(wpos[i]) * PS
-            n = min(PS, max_len - base)
-            for s in (int(x) for x in wr[i] if x >= 0):
-                if n > 0:
-                    kd[s, :, base:base + n] = lk[wp[i], :n].transpose(0, 1)
-                    vd[s, :, base:base + n] = lv[wp[i], :n].transpose(0, 1)
-        dense.append((kd, vd))
+    lk, lv = layers[0]
+    kd = torch.zeros(SLOTS, kv_heads, max_len, head_dim, device="cuda",
+                     dtype=torch.bfloat16)
+    vd = torch.zeros_like(kd)
+    for i in range(case["n_live"]):
+        base = int(wpos[i]) * PS
+        n = min(PS, max_len - base)
+        for s in (int(x) for x in wr[i] if x >= 0):
+            if n > 0:
+                kd[s, :, base:base + n] = lk[wp[i], :n].transpose(0, 1)
+                vd[s, :, base:base + n] = lv[wp[i], :n].transpose(0, 1)
+    dense = [(kd, vd)] + [(kd.clone(), vd.clone())
+                          for _ in range(N_LAYERS - 1)]
+    expanded = [(k.repeat_interleave(rep, dim=1),
+                 v.repeat_interleave(rep, dim=1))
+                for k, v in dense] if rep > 1 else None
     mask = (torch.arange(max_len, device="cuda")[None, :]
             <= torch.as_tensor(lens, device="cuda")[:, None])
     qd = q.transpose(1, 2)                               # (slots, H, 1, Dh)
     attn_mask = mask[:, None, None, :]
 
-    def run_library():
-        kd, vd = dense[next(turn) % N_LAYERS]
-        return torch.nn.functional.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=attn_mask)
+    def library(pools, gqa):
+        def run():
+            kd, vd = pools[next(turn) % N_LAYERS]
+            return torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=attn_mask, enable_gqa=gqa)
+        return run
 
     runs = {"sm90": runner(pa.paged_attention),
             "simt": runner(pa.paged_attention, route="simt"),
-            "library": run_library}
+            "library": library(dense, rep > 1)}
+    if expanded is not None:
+        runs["library_expanded"] = library(expanded, False)
     if plain:
         runs["plain"] = runner(pa.paged_attention_reference)
     # device time (profiler) is the kernels' own time (both passes); call
@@ -787,17 +882,23 @@ def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
         base = int(wpos[i]) * PS
         page_tokens += max(min(PS, max(0, int(lens[s]) + 1 - base))
                            for s in wr[i] if s >= 0)
-    kv_bytes = 2 * page_tokens * H * DH * 2                # K and V, bf16
-    io_bytes = (2 * SLOTS * H * DH * 2 + wp.numel() * 4 * 2 + wr.size * 4
-                + SLOTS * 4)
-    flops = 4 * H * DH * int((lens + 1).sum())
+    kv_bytes = 2 * page_tokens * kv_heads * head_dim * 2   # K and V, bf16
+    io_bytes = (2 * SLOTS * n_heads * head_dim * 2 + wp.numel() * 4 * 2
+                + wr.size * 4 + SLOTS * 4)
+    flops = 4 * n_heads * head_dim * int((lens + 1).sum())
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     sums = {k: sum(per_kernel[k].values()) if src is dev else None
             for k in ("sm90", "simt")}
+    # K and V as SDPA reads them: every slot padded to the longest
+    library_kv_bytes = 2 * kd.numel() * kd.element_size()
+    del layers, dense, expanded
+    torch.cuda.empty_cache()
     return {"ms": src["sm90"], "previous_ms": src["simt"],
             "sum_ms": sums["sm90"], "previous_sum_ms": sums["simt"],
             "plain_ms": src.get("plain"), "library_ms": src["library"],
+            "library_expanded_ms": src.get("library_expanded"),
+            "library_kv_bytes": library_kv_bytes, "kv_bytes": kv_bytes,
             "timed_route": route,
             "timed_by": DEVICE_TIME if src is dev
             else "CUDA events per call", "call_ms": call, "device_ms": dev,
@@ -806,7 +907,24 @@ def time_paged(rs, lens, prefix_pages: int = 0, plain: bool = True) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "live_pages": case["n_live"], "lanes": int(wr.shape[1]),
             "page_tokens": page_tokens, "bytes": kv_bytes + io_bytes,
-            "flops": flops}
+            "flops": flops, "heads": n_heads, "kv_heads": kv_heads,
+            "head_dim": head_dim}
+
+
+# B4's output held in norm beside the element-wise check: ||err|| / ||ref||
+# over each (slot, head) block of (S, Dh) at most this. At long contexts a
+# typical |o| is a few hundredths, about the element-wise allowance, so
+# that check alone would pass a kernel that dropped part of a context.
+PAGED_REL = 2.0 ** -6
+
+
+def paged_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest ||got - want|| / ||want|| over the (slot, head) blocks of a
+    paged output of shape (slots, S, H, Dh)."""
+    g, w = got.float(), want.float()
+    err = (g - w).square().sum(dim=(1, 3)).sqrt()
+    ref = w.square().sum(dim=(1, 3)).sqrt().clamp_min(1e-30)
+    return (err / ref).max().item()
 
 
 def phase_kernel(report: dict) -> dict:
@@ -828,14 +946,28 @@ def phase_kernel(report: dict) -> dict:
         ("gqa_bf16_verify5_prefix", dict(kv_heads=4, pool="bf16", q_dtype=torch.bfloat16, s_q=5, tree=False, shared=False, prefix_pages=2)),
         ("gqa_int8_tree5_prefix", dict(kv_heads=4, pool="int8", q_dtype=torch.bfloat16, s_q=5, tree=True, shared=False, prefix_pages=2)),
     ]
-    worst = 0.0
+    # gpt-long's decode geometry (16 heads over 8 of 48, 1025 pages, the
+    # serve_long prompts' contexts): decode and GQA verify 5 over a bf16
+    # and an int8 pool, an int8 tree at S 5
+    long = dict(n_heads=LONG_H, head_dim=LONG_DH, n_pages=LONG_N_PAGES,
+                kv_heads=LONG_KV, q_dtype=torch.bfloat16, shared=False,
+                lens=LONG_PROMPT_LENS)
+    cases += [
+        ("gpt_long_d48_bf16_decode", dict(long, pool="bf16", s_q=1, tree=False)),
+        ("gpt_long_d48_int8_decode", dict(long, pool="int8", s_q=1, tree=False)),
+        ("gpt_long_d48_bf16_verify5", dict(long, pool="bf16", s_q=5, tree=False)),
+        ("gpt_long_d48_int8_verify5", dict(long, pool="int8", s_q=5, tree=False)),
+        ("gpt_long_d48_int8_tree5", dict(long, pool="int8", s_q=5, tree=True)),
+    ]
+    worst = worst_rel = 0.0
     per_case = {}
     repeat = {}
     for name, spec in cases:
         case = make_case(rs, **spec)
         args, kw = kernel_inputs(case)
-        route = pa.plan_paged(spec["q_dtype"], kv_dtype_of(spec["pool"]), DH,
-                              PS, spec["s_q"], H // spec["kv_heads"])
+        route = pa.plan_paged(spec["q_dtype"], kv_dtype_of(spec["pool"]),
+                              spec.get("head_dim", DH), PS, spec["s_q"],
+                              spec.get("n_heads", H) // spec["kv_heads"])
         if (route == "sm90") != (spec["q_dtype"] == torch.bfloat16):
             raise AssertionError(f"kernel case {name}: planned {route!r}")
         want = pa.paged_attention_reference(*args, **kw)
@@ -844,7 +976,7 @@ def phase_kernel(report: dict) -> dict:
         else:
             atol, rtol = 1e-4, 1e-4
         # the planned route, then "simt" forced on the same inputs
-        errs, outs = {}, {}
+        errs, rels, outs = {}, {}, {}
         for r in dict.fromkeys((route, "simt")):
             before = pa.launches_by_route[r]
             got = pa.paged_attention(*args, **kw,
@@ -854,13 +986,15 @@ def phase_kernel(report: dict) -> dict:
                 raise AssertionError(f"kernel case {name}: the {r!r} route "
                                      f"did not launch")
             err = (got.float() - want.float()).abs().max().item()
+            rel = paged_rel(got, want)
             ok = torch.allclose(got.float(), want.float(), atol=atol,
                                 rtol=rtol)
-            if not ok or not math.isfinite(err):
+            if not ok or not math.isfinite(err) or not rel <= PAGED_REL:
                 raise AssertionError(f"kernel case {name} ({r}) disagrees "
-                                     f"with paged_attention_reference: "
-                                     f"{err}")
-            errs[r], outs[r] = err, got
+                                     f"with paged_attention_reference: max "
+                                     f"abs {err}, largest (slot, head) "
+                                     f"norm ratio {rel} (limit {PAGED_REL})")
+            errs[r], rels[r], outs[r] = err, rel, got
         if route == "sm90":
             again = pa.paged_attention(*args, **kw)
             torch.cuda.synchronize()
@@ -868,13 +1002,19 @@ def phase_kernel(report: dict) -> dict:
                 raise AssertionError(f"kernel case {name}: two sm90 calls on "
                                      f"the same inputs differ")
             repeat[name] = True
-        per_case[name] = {"route": route, "max_abs_err": errs, "atol": atol,
-                          "rtol": rtol, "live_pages": case["n_live"]}
+        per_case[name] = {"route": route, "max_abs_err": errs,
+                          "norm_ratio": rels, "atol": atol, "rtol": rtol,
+                          "rel": PAGED_REL, "live_pages": case["n_live"]}
         log(f"kernel {name}: route {route}, max_abs_err " + ", ".join(
             f"{r} {e:.3e}" for r, e in errs.items())
-            + f" (atol {atol}, rtol {rtol}) live_pages={case['n_live']}")
+            + f" (atol {atol}, rtol {rtol}); largest (slot, head) norm "
+            f"ratio " + ", ".join(f"{r} {e:.3e}" for r, e in rels.items())
+            + f" (limit {PAGED_REL:.3e}) live_pages={case['n_live']}")
         worst = max(worst, errs[route])
+        worst_rel = max(worst_rel, *rels.values())
     report["kernel_cases"] = per_case
+    log(f"kernel cases: largest (slot, head) norm ratio over every case "
+        f"and route {worst_rel:.3e} (limit {PAGED_REL:.3e})")
     log("paged repeat, bit for bit: " + ", ".join(
         f"{n} (sm90) ok" for n in repeat))
 
@@ -884,15 +1024,28 @@ def phase_kernel(report: dict) -> dict:
     timing = time_paged(rs, np.asarray(PROMPT_LENS) + N_NEW // 2)
     prefix = time_paged(rs, np.asarray(PROMPT_LENS) + N_NEW // 2 + 4 * PS,
                         prefix_pages=4, plain=False)
+    # gpt-long's decode step: 16 heads over 8 of 48 at the serve_long
+    # prompts' contexts, mid-decode
+    long_t = time_paged(rs, np.asarray(LONG_PROMPT_LENS) + N_NEW // 2,
+                        kv_heads=LONG_KV, n_heads=LONG_H, head_dim=LONG_DH,
+                        n_pages=LONG_N_PAGES)
     for label, t in (("bf16 MHA decode", timing),
                      ("bf16 MHA decode, 8 lanes, 4-page shared prefix",
-                      prefix)):
+                      prefix),
+                     ("gpt-long bf16 GQA decode, 16 heads over 8 of 48",
+                      long_t)):
         plain = (f"; plain {t['plain_ms'] * 1e3:.2f} us"
                  if t["plain_ms"] is not None else "")
+        expanded = (f" on the kv heads (enable_gqa), "
+                    f"{t['library_expanded_ms'] * 1e3:.2f} us with K/V "
+                    f"repeated to the query heads"
+                    if t["library_expanded_ms"] is not None else "")
         log(f"kernel timing ({label}, {t['live_pages']} live pages, "
             f"{t['timed_by']}): sm90 {t['ms'] * 1e3:.2f} us; simt "
             f"{t['previous_ms'] * 1e3:.2f} us{plain}; sdpa over dense "
-            f"gather {t['library_ms'] * 1e3:.2f} us; bound "
+            f"gather {t['library_ms'] * 1e3:.2f} us{expanded} (reads "
+            f"{t['library_kv_bytes'] / 1e6:.1f} MB of K/V, padded to the "
+            f"longest slot, against B4's {t['kv_bytes'] / 1e6:.1f}); bound "
             f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); per-call "
             f"(events) " + ", ".join(f"{k} {v * 1e3:.1f} us"
                                      for k, v in t["call_ms"].items())
@@ -903,7 +1056,8 @@ def phase_kernel(report: dict) -> dict:
                 for r, ks in t["kernel_ms"].items()))
     report["kernel_timing"] = timing
     report["kernel_timing_prefix"] = prefix
-    return {"max_abs_err": worst, **timing}
+    report["kernel_timing_gpt_long"] = long_t
+    return {"max_abs_err": worst, **timing, "gpt_long": long_t}
 
 
 # ----------------------------------------------------------------- flash
@@ -1375,16 +1529,25 @@ def reset_paged_counts() -> None:
     pa.launches_by_route.update(dict.fromkeys(pa.launches_by_route, 0))
 
 
-def serve(params, cfg, dtype: torch.dtype):
+def serve(params, cfg, dtype: torch.dtype, reqs=None,
+          n_pages: int = N_PAGES):
+    """Serve ``reqs`` (the serving phases' trace, :func:`requests`, unless
+    given) through ``ServingConfig(page_size=PS, n_pages=n_pages,
+    max_slots=SLOTS).make(..., on_recompile="raise")`` and
+    ``ContinuousBatcher.run``. Gates: the kernel backend; B4 launched, a
+    whole number of times a decode step, every launch on the route the
+    dtype plans; one decode shape; every stream its full length of
+    in-vocabulary tokens. Returns the batcher, the requests, the run's
+    metrics (with its peak memory), B4's launches and their routes."""
     from torchbooster_tpu_torch.config import ServingConfig
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
-    batcher = ServingConfig(page_size=PS, n_pages=N_PAGES,
+    batcher = ServingConfig(page_size=PS, n_pages=n_pages,
                             max_slots=SLOTS).make(
         params, cfg, compute_dtype=dtype, on_recompile="raise")
     if batcher.engine.decode_backend != "kernel":
         raise AssertionError("the CUDA engine is not on the kernel backend")
-    reqs = requests(cfg)
+    reqs = requests(cfg) if reqs is None else reqs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_paged_counts()
@@ -1393,13 +1556,15 @@ def serve(params, cfg, dtype: torch.dtype):
     launches = pa.launches
     by_route = dict(pa.launches_by_route)
     metrics["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    if launches <= 0:
-        raise AssertionError("the serving run never launched the kernel")
+    if launches <= 0 or launches % cfg.n_layers:
+        raise AssertionError(f"the serving run launched the kernel "
+                             f"{launches} times, not {cfg.n_layers} a "
+                             f"decode step")
     if batcher.engine.decode_compiles != 1:
         raise AssertionError(f"decode step took "
                              f"{batcher.engine.decode_compiles} shapes")
     for r in reqs:
-        if len(r.tokens) != N_NEW or not all(
+        if len(r.tokens) != r.max_new_tokens or not all(
                 0 <= t < cfg.vocab for t in r.tokens):
             raise AssertionError(f"{r.request_id}: bad tokens {r.tokens}")
     # bf16 decode plans "sm90", fp32 "simt"; every launch on that route
@@ -1459,23 +1624,56 @@ def dense_tokens(params, cfg, reqs, dtype, n_new: int = N_NEW,
     return out, record
 
 
-def device_breakdown(batcher, cfg) -> dict:
-    """Replay the same trace under the profiler (CUDA activity only):
-    device busy share of the wall time and the top kernels by their own
-    device time. Busy time and B4's time are unions of device intervals,
-    so B4's merge, which starts under its first pass (programmatic
-    dependent launch), counts once; ``paged_kernel_sum_s`` is B4's kernels'
-    own times summed, the measure of the smoke's earlier revisions. The
-    profiled run is not the one the tok/s figures come from."""
+def device_breakdown(batcher, cfg, reqs=None,
+                     decode_only: bool = False) -> dict:
+    """Replay a trace (``reqs``, else :func:`requests`) under the profiler
+    (CUDA activity only): device busy share of the wall time, B4's time,
+    µs a call and share of device time, and the top kernels by their own
+    device time. With ``decode_only`` the replay goes through the
+    batcher's session API (``start_session``, ``submit``, ``step``,
+    ``finish_session``), unprofiled while any prompt still waits or
+    prefills, and only its decode-only tail is profiled, where every step
+    is one decode step of ``cfg.n_layers`` B4 calls. Busy time and B4's
+    time are unions of device intervals, so B4's merge, which starts
+    under its first pass (programmatic dependent launch), counts once;
+    ``paged_kernel_sum_s`` is B4's kernels' own times summed, the measure
+    of the smoke's earlier revisions. The profiled run is not the one the
+    tok/s figures come from."""
     from torch.profiler import ProfilerActivity, profile
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
-    reqs = requests(cfg)
+    reqs = requests(cfg) if reqs is None else reqs
+    if decode_only:
+        batcher.start_session()
+        for r in reqs:
+            batcher.submit(r, arrival=0.0)
+        while batcher.has_work:
+            batcher.step()
+            row = batcher.flight.tail(1)[0]
+            if row["slots_filling"] == 0 and row["queue_depth"] == 0:
+                break
+    before = pa.launches
+    steps = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        m = batcher.run(reqs)
+        if decode_only:
+            while batcher.has_work:
+                batcher.step()
+                steps += 1
+        else:
+            m = batcher.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    calls = pa.launches - before
+    if decode_only:
+        batcher.finish_session()
+        if steps == 0 or calls != cfg.n_layers * steps:
+            raise AssertionError(f"decode window: {calls} B4 calls over "
+                                 f"{steps} decode-only steps, not "
+                                 f"{cfg.n_layers} a step")
+    else:
+        steps = calls // cfg.n_layers
     spans = device_spans(prof)
     own: dict = {}
     for start, stop, name in spans:
@@ -1483,12 +1681,17 @@ def device_breakdown(batcher, cfg) -> dict:
     busy = union_us(spans) / 1e6
     paged_spans = [sp for sp in spans if "paged_" in sp[2]]
     paged = union_us(paged_spans) / 1e6
-    return {"wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall, "paged_kernel_s": paged,
+    return {"decode_only": decode_only, "wall_s": wall,
+            "device_busy_s": busy, "device_busy_share": busy / wall,
+            "paged_kernel_s": paged,
             "paged_kernel_sum_s": sum(stop - start
                                       for start, stop, _ in paged_spans) / 1e6,
             "paged_share_of_device": paged / max(busy, 1e-12),
-            "decode_s": m["elapsed_s"],
+            "b4_calls": calls, "steps": steps,
+            "paged_us_per_call": paged / max(calls, 1) * 1e6,
+            "wall_ms_per_step": wall / max(steps, 1) * 1e3,
+            "device_ms_per_step": busy / max(steps, 1) * 1e3,
+            "decode_s": None if decode_only else m["elapsed_s"],
             "top": sorted(own.items(), key=lambda kv: -kv[1])[:8]}
 
 
@@ -4355,6 +4558,152 @@ def phase_train_long(report: dict, smi: str) -> dict:
         torch.cuda.empty_cache()
     report["train_long"] = out
     return {**launches, "by_route": by_route}
+
+
+# ------------------------------------------------------------- serve_long
+def long_prompts(corpus: Path, rs) -> list:
+    """One byte window of the repo's text a length of LONG_PROMPT_LENS,
+    each at an offset drawn from ``rs``: byte tokens, as gpt-long.yml's
+    ``text_file`` gives them."""
+    data = np.frombuffer(corpus.read_bytes(), np.uint8)
+    prompts = []
+    for n in LONG_PROMPT_LENS:
+        at = int(rs.randint(0, data.size - n))
+        prompts.append(data[at:at + n].astype(np.int32))
+    return prompts
+
+
+def phase_serve_long(report: dict, smi: str) -> dict:
+    """gpt-long served on one card: ``examples/lm/gpt/gpt-long.yml``'s
+    model through ``Config.load`` at full width and depth (12 layers,
+    d_model 768, 16 heads over 8 kv heads of 48, rope, vocab 256),
+    random weights of seed 42 in bf16 with the decisive tied head (x4),
+    served by :func:`serve` over a 1025-page pool: 8 greedy requests,
+    prompts of 1024-8000 bytes of the repo's text, 32 new tokens each.
+    Gates beside :func:`serve`'s: the engine's construction check plans
+    B4's ``"sm90"``; every stream token-exact against the dense
+    ``generate``, whose prefill runs B1 at D 48 on ``"sm90"`` (12 a
+    call). Reports decode tok/s, TTFT p50/p99, ms a decode step, peak
+    memory, and from the decode-only tail of a replay
+    (:func:`device_breakdown`) B4's µs a call and share of device time
+    and the busy share. Returns B4's launches of the served run and B1's
+    of the dense control."""
+    import tempfile
+
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.recipes.gpt import Config
+    from torchbooster_tpu_torch.serving import Request
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
+
+    # wall seconds of each part of the phase
+    t0, sec = time.perf_counter(), {}
+
+    def lap(name):
+        nonlocal t0
+        sec[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="serve_long_") as tmp:
+        corpus = Path(tmp) / "corpus.txt"
+        corpus_bytes = repo_corpus(corpus)
+        prompts = long_prompts(corpus, np.random.RandomState(42))
+    cfg = Config.load(Path(__file__).resolve().parent / "examples" / "lm"
+                      / "gpt" / "gpt-long.yml").model.make()
+    if {k: getattr(cfg, k) for k in LONG_MODEL} != LONG_MODEL:
+        raise AssertionError(f"serve_long: not gpt-long.yml's model: {cfg}")
+    params = GPT.init(42, cfg, device=DEV)
+    params["wte"]["table"] *= 4.0       # decisive head
+    planned = pa.check_paged(torch.bfloat16, torch.bfloat16, cfg.head_dim,
+                             PS, 1, cfg.n_heads // cfg.kv_heads)
+    if planned != "sm90":
+        raise AssertionError(f"serve_long: the engine's check planned "
+                             f"{planned!r}, not 'sm90'")
+
+    def make_reqs():
+        return [Request(prompt=p, max_new_tokens=N_NEW,
+                        request_id=f"long{i}")
+                for i, p in enumerate(prompts)]
+
+    lap("setup")
+    batcher, reqs, m, launches, by_route = serve(
+        params, cfg, torch.bfloat16, make_reqs(), n_pages=LONG_N_PAGES)
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in (batcher.engine.pool["k"],
+                               batcher.engine.pool["v"]))
+    steps = launches // cfg.n_layers
+    decoded = sum(len(r.tokens) - 1 for r in reqs)
+    decode_ms = decoded / m["decode_tok_s"] / steps * 1e3
+    ttft = [r.first_token_at - r.arrival for r in reqs]
+    lap("serve")
+
+    # the control: the dense generate, B1 at D 48 in each call's prefill
+    reset_flash_counts()
+    dense, dc = dense_tokens(params, cfg, reqs, torch.bfloat16, n_new=N_NEW)
+    torch.cuda.synchronize()
+    b1 = flash_counts()
+    calls = len(reqs) + 2            # each request, the repeat, generate
+    want_b1 = {**dict.fromkeys(("sm90", "mma_sync", "f32"), 0),
+               "sm90": cfg.n_layers * calls}
+    if (b1["fwd"], b1["dq"], b1["dkv"]) != (cfg.n_layers * calls, 0, 0) \
+            or b1["by_route"]["fwd"] != want_b1:
+        raise AssertionError(f"serve_long dense control: flash launches "
+                             f"{b1}, expected B1 {want_b1}")
+    match = [r.tokens == d for r, d in zip(reqs, dense)]
+    if not all(match):
+        raise AssertionError(f"serve_long: {match.count(False)} of "
+                             f"{len(match)} streams differ from the dense "
+                             f"generate: " + "; ".join(
+                                 f"{r.request_id} {r.tokens} vs {d}"
+                                 for r, d in zip(reqs, dense)
+                                 if r.tokens != d))
+    lap("dense_control")
+
+    win = device_breakdown(batcher, cfg, make_reqs(), decode_only=True)
+    lap("replay")
+    out = {"metrics": m, "launches": launches, "by_route": by_route,
+           "decode_steps": steps, "decoded_tokens": decoded,
+           "decode_ms_per_step": decode_ms,
+           "ttft_s": ttft, "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p99_s": float(np.percentile(ttft, 99)),
+           "peak_mem_bytes": m["peak_mem_bytes"], "pool_bytes": pool_bytes,
+           "prompt_lens": [len(p) for p in prompts],
+           "corpus_bytes": corpus_bytes, "token_match": match,
+           "dense_control": dc, "dense_b1": b1, "decode_window": win,
+           "seconds": sec, "card": smi}
+    report["serve_long"] = out
+    log(f"serve_long: gpt-long.yml's model ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.kv_heads} of "
+        f"{cfg.head_dim}, {cfg.pos}, vocab {cfg.vocab}; random weights, seed "
+        f"42, bf16, tied head x4) over a {LONG_N_PAGES}-page pool of {PS} "
+        f"tokens ({pool_bytes / 1e9:.3f} GB), {len(reqs)} requests of "
+        f"{min(LONG_PROMPT_LENS)}-{max(LONG_PROMPT_LENS)} prompt bytes of "
+        f"repo text, {N_NEW} new each: {sum(match)}/{len(match)} token-"
+        f"exact vs dense generate (B1 {b1['by_route']['fwd']}); decode "
+        f"{m['decode_tok_s']} tok/s, {decode_ms:.3f} ms a decode step "
+        f"({steps} steps, decode compiles {batcher.engine.decode_compiles}"
+        f"), TTFT p50 {out['ttft_p50_s']:.4f} s / p99 "
+        f"{out['ttft_p99_s']:.4f} s, peak mem "
+        f"{m['peak_mem_bytes'] / 2**30:.2f} GiB; B4 by route {by_route} "
+        f"[{smi}]")
+    log(f"serve_long decode-only tail of a replay, profiled: "
+        f"{win['steps']} steps, {win['wall_ms_per_step']:.3f} ms a step, "
+        f"device {win['device_ms_per_step']:.3f} ms a step (busy "
+        f"{100 * win['device_busy_share']:.1f}%), B4 "
+        f"{win['paged_us_per_call']:.2f} us a call ({win['b4_calls']} "
+        f"calls), {win['paged_kernel_s'] / win['steps'] * 1e3:.3f} ms a "
+        f"step ({100 * win['paged_share_of_device']:.1f}% of device time); "
+        f"top a step: " + "; ".join(
+            f"{kernel_name(k)[:48]} {v / win['steps'] * 1e3:.3f} ms"
+            for k, v in win["top"][:6]))
+    log(f"serve_long dense control: jit_generate {dc['ms_per_token']:.3f} "
+        f"ms a new token (prefill included; batch 1, {dc['requests']} "
+        f"requests, {dc['n_new']} new each), {dc['shapes']} cached shapes; "
+        f"phase parts " + ", ".join(f"{k} {v:.1f} s" for k, v in sec.items())
+        + f" [{smi}]")
+    del batcher, params
+    torch.cuda.empty_cache()
+    return {"paged": {"launches": launches, "by_route": by_route},
+            "flash": {k: b1[k] for k in ("fwd", "dq", "dkv", "by_route")}}
 
 
 # ----------------------------------------------------------- train_comms
@@ -8430,6 +8779,11 @@ def main() -> int:
                                            "bound_ms", "bound_by",
                                            "library_ms", "timed_route",
                                            "previous_ms")})
+        # the same kernel at gpt-long's decode (D 48, 16 heads over 8):
+        # "sm90" with "simt" as previous_ms; its launches are serve_long's
+        kernel["gpt_long"] = {k: res["gpt_long"][k] for k in (
+            "ms", "timed_by", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "timed_route", "previous_ms")}
     if "flash" in phases:
         t = time.perf_counter()
         res = phase_flash(report)
@@ -8506,10 +8860,12 @@ def main() -> int:
     # through the NCCL group's schedule ladder, the imported GPT-2's
     # fine-tunes (D 64, "sm90"), gpt-long's (D 48, "sm90"), the MoE
     # model's training, and the sp:8 ring folds; the counts add up, as B4's
-    # do with the imported and MoE models' serving
+    # do with the imported, gpt-long and MoE models' serving (gpt-long's
+    # dense control adds B1 at D 48)
     for key, phase in (("train", phase_train),
                        ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long),
+                       ("serve_long", phase_serve_long),
                        ("train_comms", phase_train_comms),
                        ("moe", phase_moe), ("sp_fold", phase_sp_fold),
                        ("tp", phase_tp), ("pp_fold", phase_pp_fold)):
@@ -8518,16 +8874,21 @@ def main() -> int:
         t = time.perf_counter()
         launches = phase(report, smi)
         phase_s[key] = time.perf_counter() - t
-        if key in ("gpt2_import", "moe", "tp"):
+        if key in ("gpt2_import", "serve_long", "moe", "tp"):
             paged = launches["paged"]
             kernel["launches"] += paged["launches"]
             for r, n in paged["by_route"].items():
                 kernel["launches_by_route"][r] += n
+            if key == "serve_long":
+                kernel.setdefault("gpt_long", {}).update(
+                    launches=paged["launches"],
+                    launches_by_route=paged["by_route"])
             launches = launches["flash"]
         for k in flash:
             flash[k]["launches"] += launches[k]
-            if key == "train_long":
-                flash[k].setdefault("gpt_long", {})["launches"] = launches[k]
+            if key in ("train_long", "serve_long"):
+                long = flash[k].setdefault("gpt_long", {})
+                long["launches"] = long.get("launches", 0) + launches[k]
             counts = flash[k]["launches_by_route"] or dict.fromkeys(
                 ("sm90", "mma_sync", "f32"), 0)
             flash[k]["launches_by_route"] = {

@@ -126,24 +126,32 @@ def test_paged_kernel_masked_lane_and_bad_operands_on_card():
 
 
 # B4's "sm90" route at GPT-2-small serving geometry (12 heads of 64,
-# 64-token pages, 8 slots): name -> (kv heads, pool, S, tree mask, pages of
-# a prefix every slot shares). Every case plans "sm90". The two GQA verify
+# 64-token pages, 8 slots) and at gpt-long's (16 heads over 8 kv heads of
+# 48): name -> (kv heads, pool, S, tree mask, pages of a prefix every slot
+# shares, heads, head dim). Every case plans "sm90". The two GQA verify
 # cases behind a shared prefix give an item 8 lanes x rep 3 x S 5 = 120
 # query rows, more than the 64 a ring slot holds, so the kernel stages
-# them in two rounds.
+# them in two rounds. At head dim 48 the kernel's tile rows are 64 columns
+# wide, the last 16 the TMA's zero fill.
 SM90_PAGED = {
-    "gpt2_small_bf16_decode": (12, "bf16", 1, False, 0),
-    "gpt2_small_gqa4_verify5": (4, "bf16", 5, False, 0),
-    "gpt2_small_int8_tree5": (12, "int8", 5, True, 0),
-    "gpt2_small_8lane_shared_prefix": (12, "bf16", 1, False, 4),
-    "gpt2_small_gqa4_verify5_8lane_prefix": (4, "bf16", 5, False, 2),
-    "gpt2_small_gqa4_int8_tree5_8lane_prefix": (4, "int8", 5, True, 2),
+    "gpt2_small_bf16_decode": (12, "bf16", 1, False, 0, 12, 64),
+    "gpt2_small_gqa4_verify5": (4, "bf16", 5, False, 0, 12, 64),
+    "gpt2_small_int8_tree5": (12, "int8", 5, True, 0, 12, 64),
+    "gpt2_small_8lane_shared_prefix": (12, "bf16", 1, False, 4, 12, 64),
+    "gpt2_small_gqa4_verify5_8lane_prefix": (4, "bf16", 5, False, 2, 12, 64),
+    "gpt2_small_gqa4_int8_tree5_8lane_prefix": (4, "int8", 5, True, 2, 12,
+                                                64),
+    "gpt_long_d48_bf16_decode": (8, "bf16", 1, False, 0, 16, 48),
+    "gpt_long_d48_gqa2_verify5": (8, "bf16", 5, False, 0, 16, 48),
+    "gpt_long_d48_int8_tree5": (8, "int8", 5, True, 0, 16, 48),
+    "gpt_long_d48_8lane_shared_prefix": (8, "bf16", 1, False, 4, 16, 48),
 }
 
 
 def gpt2_paged_case(rs, *, kv_heads, pool, s_q, tree, prefix_pages,
                     n_slots=8, ps=64, n_pages=80, n_heads=12, head_dim=64):
-    """bf16 queries over a pool at GPT-2-small width, the compacted walk
+    """bf16 queries over a pool at GPT-2-small width (or the heads and head
+    dim given), the compacted walk
     of ``BlockTables.kernel_args`` (live pages first, one lane per holder
     when pages are shared) and, with ``tree``, a random candidate tree
     per slot. Returns the kernel's operands on the card."""
@@ -201,13 +209,14 @@ def test_paged_sm90_and_simt_match_plain_version_on_card(name):
     before P V (a tensor-core operand), so 2e-2 as in the smoke."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    kv_heads, pool, s_q, tree, prefix = SM90_PAGED[name]
+    kv_heads, pool, s_q, tree, prefix, n_heads, head_dim = SM90_PAGED[name]
     args, kw = gpt2_paged_case(np.random.RandomState(7), kv_heads=kv_heads,
                                pool=pool, s_q=s_q, tree=tree,
-                               prefix_pages=prefix)
+                               prefix_pages=prefix, n_heads=n_heads,
+                               head_dim=head_dim)
     kv = args[1][0] if pool == "int8" else args[1]
-    assert pa.plan_paged(torch.bfloat16, kv.dtype, 64, 64, s_q,
-                         12 // kv_heads) == "sm90"
+    assert pa.plan_paged(torch.bfloat16, kv.dtype, head_dim, 64, s_q,
+                         n_heads // kv_heads) == "sm90"
     want = pa.paged_attention_reference(*args, **kw).float()
     for route in ("sm90", "simt"):
         before = pa.launches_by_route[route]
@@ -224,10 +233,11 @@ def test_paged_sm90_repeats_bit_for_bit_on_card(name):
     """Fixed-order sums and no atomics: two calls agree bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    kv_heads, pool, s_q, tree, prefix = SM90_PAGED[name]
+    kv_heads, pool, s_q, tree, prefix, n_heads, head_dim = SM90_PAGED[name]
     args, kw = gpt2_paged_case(np.random.RandomState(11), kv_heads=kv_heads,
                                pool=pool, s_q=s_q, tree=tree,
-                               prefix_pages=prefix)
+                               prefix_pages=prefix, n_heads=n_heads,
+                               head_dim=head_dim)
     a = pa.paged_attention(*args, **kw)
     b = pa.paged_attention(*args, **kw)
     torch.cuda.synchronize()
@@ -543,9 +553,10 @@ def test_flash_fwd_d48_sm90_holds_to_mma_sync_on_card(name):
 def test_flash_fwd_sm90_refuses_non_positive_scale_on_card(scale):
     """``flash_fwd_sm90`` takes its running max over the raw scores, which
     keep the scaled scores' order only for ``sm_scale > 0``: at any other
-    scale ``launch_fwd`` on ``"sm90"`` raises and the C entry point returns
-    an error without launching; ``"mma_sync"``, named, scales first and
-    holds to the plain version within the bf16 allowance (2e-2)."""
+    scale ``launch_fwd`` named onto ``"sm90"`` raises and the C entry
+    point returns an error without launching; by default the plan sends
+    the call to ``"mma_sync"``, which scales first and holds to the plain
+    version within the bf16 allowance (2e-2), as it does named."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     from torchbooster_tpu_torch.ops import flash_attention as fa
@@ -556,17 +567,60 @@ def test_flash_fwd_sm90_refuses_non_positive_scale_on_card(scale):
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     before = dict(fa.launches_fwd_by_route)
     with pytest.raises(ValueError, match="sm_scale > 0"):
-        fa.launch_fwd(q, k, v, True, scale)
+        fa.launch_fwd(q, k, v, True, scale, route="sm90")
     err = fa._lib_fwd_sm90().tb_flash_fwd_sm90(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, k.shape[0], s_q, k.shape[1], 1, scale,
         fa._stream(q))
     assert err != 0
     assert fa.launches_fwd_by_route == before
-    got = fa.launch_fwd(q, k, v, True, scale, route="mma_sync")
     want = fa.flash_attention_reference(q, k, v, True, scale)
-    for a, ref in zip(got, want):
-        torch.testing.assert_close(a.float(), ref.float(), atol=2e-2,
+    for route in (None, "mma_sync"):
+        got = fa.launch_fwd(q, k, v, True, scale, route=route)
+        torch.cuda.synchronize()
+        for a, ref in zip(got, want):
+            torch.testing.assert_close(a.float(), ref.float(), atol=2e-2,
+                                       rtol=2e-2)
+    assert fa.launches_fwd_by_route == {
+        **before, "mma_sync": before["mma_sync"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [48, 64])
+@pytest.mark.parametrize("sign", [0, -1], ids=["zero", "negative"])
+def test_flash_attention_non_positive_scale_with_grads_on_card(sign,
+                                                               head_dim):
+    """``flash_attention(q, k, v, sm_scale=s)`` at s = 0 and s = -1/sqrt(D),
+    bf16, causal, GQA 2, ragged S 200, with gradients: B1 launches on
+    ``"mma_sync"`` (the ``sm90`` forward takes ``sm_scale > 0`` only),
+    B2 and B3 on ``"sm90"`` (they scale before they mask); o, dq, dk and
+    dv within the bf16 allowance (2e-2) of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    scale = sign * head_dim ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, do = (torch.randn(8, 200, head_dim, generator=gen, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(4, 200, head_dim, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    counts = (fa.launches_fwd_by_route, fa.launches_dq_by_route,
+              fa.launches_dkv_by_route)
+    before = [dict(c) for c in counts]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, sm_scale=scale)
+    out.backward(do)
+    torch.cuda.synchronize()
+    for now, was, route in zip(counts, before,
+                               ("mma_sync", "sm90", "sm90")):
+        assert now == {**was, route: was[route] + 1}
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, scale)
+    want = (o_ref, *fa.flash_attention_backward_reference(
+        q, k, v, o_ref, lse_ref, do, True, scale))
+    for got, ref in zip((out, *(t.grad for t in leaves)), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
                                    rtol=2e-2)
 
 

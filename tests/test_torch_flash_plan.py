@@ -106,17 +106,27 @@ def test_plan_flash_bwd_invariants(head_dim):
 
 @pytest.mark.parametrize("dtype", (BF16, F32))
 @pytest.mark.parametrize("head_dim", (16, 32, 48, 64, 96, 128, 256))
-def test_plans_differ_only_at_bf16_d48(dtype, head_dim):
-    """B1's and B2/B3's plans agree on every shape, bf16 at head dim 48
-    included (so they differ at no shape outside it, nor inside): both
-    ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` build D 48, 64 and
-    128, and ``SM90_HEAD_DIMS`` equals ``SM90_BWD_HEAD_DIMS``."""
+def test_fwd_plan_is_bwd_plan_but_mma_sync_at_non_positive_scale(
+        dtype, head_dim):
+    """B1's plan is B2/B3's on every shape at a positive (or the default)
+    ``sm_scale``: both ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``
+    build D 48, 64 and 128, and ``SM90_HEAD_DIMS`` equals
+    ``SM90_BWD_HEAD_DIMS``. At ``sm_scale <= 0`` a forward the backward
+    plans on ``"sm90"`` plans ``"mma_sync"`` (the ``sm90`` forward's
+    running max is over raw scores; ``flash_fwd_mma`` scales first, as
+    the TPU kernel does), and every other forward plan is unchanged."""
     assert fa.SM90_HEAD_DIMS == fa.SM90_BWD_HEAD_DIMS == (48, 64, 128)
     lengths = (1, 63, 64, 65, 200, 1024, 8192, 65535 * 64,
                65535 * 64 + 1)
     for s_q, s_kv, rep in itertools.product(lengths, lengths, (1, 2, 3)):
         args = (dtype, head_dim, s_q, s_kv, rep)
-        assert fa.plan_flash_fwd(*args) == fa.plan_flash_bwd(*args)
+        bwd = fa.plan_flash_bwd(*args)
+        assert fa.plan_flash_fwd(*args) == bwd
+        for scale in (head_dim ** -0.5, 1e-30, 2.0):
+            assert fa.plan_flash_fwd(*args, sm_scale=scale) == bwd
+        for scale in (0.0, -0.0, -head_dim ** -0.5, -1e-30):
+            assert fa.plan_flash_fwd(*args, sm_scale=scale) == (
+                "mma_sync" if bwd == "sm90" else bwd)
 
 
 def test_route_counters_start_with_every_route():

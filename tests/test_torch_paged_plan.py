@@ -3,6 +3,7 @@ serving shape takes, the invariants the ``"sm90"`` kernel checks before it
 launches, how a named route is held to the plan, and that the smoke's
 build phase builds every CUDA source. Pure Python: no card, no nvcc."""
 import importlib
+import itertools
 import numpy as np
 import pytest
 import torch
@@ -20,11 +21,15 @@ PLANS = {
     "bf16_q_int8_pool": ((BF16, I8, 64, 64, 1, 1), "sm90"),
     "gqa_rep3_verify5": ((BF16, BF16, 64, 64, 5, 3), "sm90"),
     "d32": ((BF16, BF16, 32, 64, 1, 1), "sm90"),
+    # gpt-long's 16 heads over 8 of 48: decode, verify 5, and an int8 pool
+    "d48": ((BF16, BF16, 48, 64, 1, 2), "sm90"),
+    "d48_verify5": ((BF16, BF16, 48, 64, 5, 2), "sm90"),
+    "d48_int8_pool": ((BF16, I8, 48, 64, 1, 2), "sm90"),
     "fp32_q": ((F32, BF16, 64, 64, 1, 1), "simt"),
     "fp32_pool": ((BF16, F32, 64, 64, 1, 1), "simt"),
     # the small parity case of tests/test_torch_cuda.py (4-token pages)
     "page4": ((BF16, BF16, 8, 4, 1, 2), "simt"),
-    "d48": ((BF16, BF16, 48, 64, 1, 1), "simt"),
+    "d40": ((BF16, BF16, 40, 64, 1, 1), "simt"),
     "rows_over_64": ((BF16, BF16, 64, 64, 5, 13), "simt"),
 }
 
@@ -55,6 +60,16 @@ def test_plan_paged_row_limit(s_q, rep, want):
     assert pa.plan_paged(BF16, I8, 64, 64, s_q, rep) == want
 
 
+@pytest.mark.parametrize("pool", [BF16, I8])
+def test_plan_paged_d48_takes_every_row_count_to_64(pool):
+    """Head dim 48 (gpt-long's) plans ``"sm90"`` over a bf16 or an int8
+    pool at 64-token pages for every ``rep * S <= 64``, ``"simt"`` above."""
+    for rep, s_q in itertools.product((1, 2, 3, 4, 8, 16), range(1, 33)):
+        want = "sm90" if rep * s_q <= 64 else "simt"
+        assert pa.plan_paged(BF16, pool, 48, 64, s_q, rep) == want
+        assert pa.check_paged(BF16, pool, 48, 64, s_q, rep) == want
+
+
 def _cpu_case(q_dtype=BF16, page_size=64, head_dim=64):
     rs = np.random.RandomState(0)
     q = torch.as_tensor(rs.randn(2, 1, 4, head_dim)).to(q_dtype)
@@ -78,7 +93,7 @@ def test_named_route_on_cpu_runs_the_plain_version(route):
 
 @pytest.mark.parametrize("case,route", [
     (dict(q_dtype=F32), "sm90"), (dict(page_size=4), "sm90"),
-    (dict(head_dim=48), "sm90"), (dict(), "tensor_cores")])
+    (dict(head_dim=40), "sm90"), (dict(), "tensor_cores")])
 def test_named_route_that_cannot_take_the_operands_raises(case, route):
     args, kw = _cpu_case(**case)
     with pytest.raises(ValueError, match="route"):

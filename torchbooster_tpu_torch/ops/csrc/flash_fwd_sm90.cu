@@ -14,7 +14,8 @@
 // queries align to the last keys), here into the raw score, which gives
 // the same probability, exactly 0, as the reference's -1e30 in the scaled
 // one: every row sees key 0, so each running max is a visible score. That
-// holds for sm_scale > 0 only, so the kernel refuses any other scale. Keys
+// holds for sm_scale > 0 only, so the kernel refuses any other scale and
+// `plan_flash_fwd` sends such a call to flash_fwd_mma, which scales first. Keys
 // past a ragged S_kv have probability 0 and rows past S_q are not written;
 // P rounds once to bf16 before P V; o = (sum P V) / l in bf16 and lse =
 // m + log l, written once.

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel `_paged_kernel`
 // (torchbooster_tpu/ops/paged_attention.py:70, pallas_call :274) for bf16
 // queries over a bf16 pool, or over an int8 pool with bf16 per-(token, head)
-// scales, at head dims 32, 64 and 128, page sizes 16-128 (a multiple of 16)
+// scales, at head dims 32, 48, 64 and 128, page sizes 16-128 (a multiple of 16)
 // and at most 64 query rows (rep x S) per kv head. The route is planned
 // before launch by `plan_paged` (ops/paged_attention.py), and this file
 // checks the same before it launches; fp32 queries or pools and every other
@@ -36,7 +36,12 @@
 //   the host through cuTensorMapEncodeTiled, which the runtime hands out
 //   (cudaGetDriverEntryPoint), so nothing links libcuda. Tiles land in the
 //   TMA's 128/64/32-byte swizzle (tile_off), so ldmatrix rows hit distinct
-//   banks. One 1-D bulk copy per token row was tried first, and starting
+//   banks. At Dh 48 a row's 96 (bf16) or 48 (int8) bytes are no swizzle
+//   width: the box is 64 columns wide (128 bytes bf16, SW128; 64 bytes
+//   int8, SW64) and its last 16 lie past the map's Dh, so the TMA fills
+//   them with zeros and counts them in complete_tx; no product reads them,
+//   and device memory still gives 96 or 48 bytes a row (tile_cols). One
+//   1-D bulk copy per token row was tried first, and starting
 //   129 small copies an item held the walk: pass 1 took 15.3 us at the
 //   smoke's timed shape against 9.9 us with the tensor map (chip_smoke.py
 //   phase kernel, one H100 80GB HBM3 at 700 W, before the other changes
@@ -72,11 +77,11 @@
 //   of the partials after pass 1. No floating-point atomics: two calls on
 //   the same inputs agree bit for bit.
 //
-// Shared memory per CTA: two ring slots of K and V tiles (2 page_size Dh elt
-// bytes each) and of up to 64 query rows (2 Dh + 16 bytes), the warps' (m, l,
-// O) for one 16-row tile, the page's scales and the items' lane lists. bf16,
-// page 64, Dh 64, one lane: 55.6 KB (four CTAs an SM); the largest case, Dh
-// 128 bf16 at page 128 with 64 query rows, 198 KB.
+// Shared memory per CTA: two ring slots of K and V tiles (2 page_size
+// tile_cols(Dh) elt bytes each) and of up to 64 query rows (2 Dh + 16 bytes),
+// the warps' (m, l, O) for one 16-row tile, the page's scales and the items'
+// lane lists. bf16, page 64, Dh 64, one lane: 55.6 KB (four CTAs an SM); the
+// largest case, Dh 128 bf16 at page 128 with 64 query rows, 198 KB.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <math.h>
@@ -125,6 +130,11 @@ struct Params {
   float scale_log2;              // sm_scale log2(e): scores in log2 units
 };
 
+// Elements of a K/V tile row in shared memory: Dh, or 64 at Dh 48, whose
+// 96 (bf16) or 48 (int8) bytes are no TMA swizzle width. The box is then
+// 64 columns wide; the 16 past the pool's row are the TMA's zero fill.
+__host__ __device__ constexpr int tile_cols(int d) { return d == 48 ? 64 : d; }
+
 // byte offsets into the dynamic shared memory, from its first 1024-byte
 // boundary (the swizzled tiles' alignment)
 struct Layout {
@@ -133,8 +143,8 @@ struct Layout {
 
 __host__ __device__ inline Layout make_layout(int d, int elt, int ps, int qcap, int n_lanes) {
   Layout L;
-  L.stage = 2 * ps * d * elt;  // a slot's K and V tiles, a multiple of 1024 bytes
-  L.v = ps * d * elt;
+  L.stage = 2 * ps * tile_cols(d) * elt;  // a slot's K and V tiles, a multiple of 1024 bytes
+  L.v = ps * tile_cols(d) * elt;
   L.qrow = d * 2 + 16;  // a 16-byte pad: ldmatrix rows fall on distinct banks
   L.q = kStages * L.stage;  // then each slot's query rows
   L.qstage = qcap * L.qrow;
@@ -147,10 +157,11 @@ __host__ __device__ inline Layout make_layout(int d, int elt, int ps, int qcap, 
   return L;
 }
 
-// The tensor map's swizzled tile: row r of a K or V tile (RB = Dh x elt
-// bytes) in 128-byte column blocks of ps rows (one when RB <= 128); within a
-// block's row of W = min(RB, 128) bytes, 16-byte chunk c sits at chunk c ^
-// ((r W / 128) mod W / 16) — the 128B, 64B and 32B swizzles of the TMA.
+// The tensor map's swizzled tile: row r of a K or V tile (RB = tile_cols(Dh)
+// x elt bytes, a power of two) in 128-byte column blocks of ps rows (one
+// when RB <= 128); within a block's row of W = min(RB, 128) bytes, 16-byte
+// chunk c sits at chunk c ^ ((r W / 128) mod W / 16) — the 128B, 64B and
+// 32B swizzles of the TMA.
 // Byte offset of byte b of row r:
 template <int RB>
 __device__ __forceinline__ int tile_off(int ps, int r, int b) {
@@ -284,6 +295,7 @@ __device__ __forceinline__ bool visible(int pos, int len, int j, int s_q, const 
 // ELT: bytes of a stored K/V value (2 bf16, 1 int8)
 template <int D, int ELT>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2) paged_partials_sm90(const __grid_constant__ Params p) {
+  constexpr int RB = tile_cols(D) * ELT;  // bytes of a tile row in shared memory
   pdl_launch_dependents();  // every CTA of this grid is resident: the merge may launch
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ps = p.page_size, S = p.s_q, rs = p.rep * p.s_q;
@@ -352,11 +364,11 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2) paged_partials_sm90
     }
     const int nq = min(cnt * rs, p.qcap);
     const uint32_t bar = bar0 + 8 * s;
-    if (lane == 0) mbar_expect_tx(bar, 2u * ps * D * ELT + nq * D * 2u);
+    if (lane == 0) mbar_expect_tx(bar, 2u * ps * RB + nq * D * 2u);  // whole boxes, zero fill too
     __syncwarp();  // the lane lists above are read below
     const uint32_t st = sbase + s * L.stage;
-    constexpr int kBox = D * ELT < 128 ? D : 128 / ELT;  // elements of a box row
-    if (lane < D / kBox) {  // the page's K and V tiles: one box per 128-byte column block
+    constexpr int kBox = RB < 128 ? RB / ELT : 128 / ELT;  // elements of a box row
+    if (lane < RB / ELT / kBox) {  // the page's K and V tiles: one box per 128-byte column block
       const uint32_t off = lane * ps * kBox * ELT;
       tma_load_3d(st + off, &p.map_k, bar, lane * kBox, g, page * ps);
       tma_load_3d(st + L.v + off, &p.map_v, bar, lane * kBox, g, page * ps);
@@ -456,13 +468,13 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2) paged_partials_sm90
             uint32_t b[4];
             if constexpr (ELT == 2) {
               const int mi = lane >> 3;
-              ldsm_x4(b, sk + tile_off<D * ELT>(ps, tok0 + (mi >> 1) * 8 + (lane & 7),
+              ldsm_x4(b, sk + tile_off<RB>(ps, tok0 + (mi >> 1) * 8 + (lane & 7),
                                                  kk * 32 + (mi & 1) * 16));
             } else {
 #pragma unroll
               for (int nt = 0; nt < 2; ++nt) {
                 const unsigned char* at =
-                    pk + tile_off<D * ELT>(ps, tok0 + nt * 8 + gr, kk * 16 + 2 * tq);
+                    pk + tile_off<RB>(ps, tok0 + nt * 8 + gr, kk * 16 + 2 * tq);
                 b[2 * nt] = i8x2(at[0], at[1]);
                 b[2 * nt + 1] = i8x2(at[8], at[9]);
               }
@@ -519,13 +531,13 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2) paged_partials_sm90
             uint32_t b[4];
             if constexpr (ELT == 2) {
               const int mi = lane >> 3;
-              ldsm_x4_t(b, sv + tile_off<D * ELT>(ps, tok0 + (mi & 1) * 8 + (lane & 7),
+              ldsm_x4_t(b, sv + tile_off<RB>(ps, tok0 + (mi & 1) * 8 + (lane & 7),
                                                    nd * 32 + (mi >> 1) * 16));
             } else {
 #pragma unroll
               for (int half = 0; half < 2; ++half) {
                 const int c = nd * 16 + half * 8 + gr, t0 = tok0 + 2 * tq;
-                const auto at = [&](int t) { return pv[tile_off<D * ELT>(ps, t, c)]; };
+                const auto at = [&](int t) { return pv[tile_off<RB>(ps, t, c)]; };
                 b[2 * half] = i8x2(at(t0), at(t0 + 1));
                 b[2 * half + 1] = i8x2(at(t0 + 8), at(t0 + 9));
               }
@@ -577,20 +589,35 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 2) paged_partials_sm90
             row_of(p, g, R, c, h, j);
             const size_t base =
                 ((static_cast<size_t>(w) * p.n_lanes + lanes_of[c]) * p.n_heads + h) * S + j;
+            // each of the 8 parts a row's D / 8 columns, as float4 or, at
+            // D 48 (6 columns), float2
+            constexpr int kVec = (D / 8) % 4 == 0 ? 4 : 2;
 #pragma unroll
-            for (int q4 = 0; q4 < D / 32; ++q4) {
-              const int col = part * (D / 8) + q4 * 4;
-              float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int c0 = 0; c0 < D / 8; c0 += kVec) {
+              const int col = part * (D / 8) + c0;
+              if constexpr (kVec == 4) {
+                float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-              for (int v = 0; v < kWarps; ++v) {
-                const float4 x4 =
-                    *reinterpret_cast<const float4*>(comb + (v * 16 + row) * (D + 4) + col);
-                acc.x += x4.x * mw[v];
-                acc.y += x4.y * mw[v];
-                acc.z += x4.z * mw[v];
-                acc.w += x4.w * mw[v];
+                for (int v = 0; v < kWarps; ++v) {
+                  const float4 x4 =
+                      *reinterpret_cast<const float4*>(comb + (v * 16 + row) * (D + 4) + col);
+                  acc.x += x4.x * mw[v];
+                  acc.y += x4.y * mw[v];
+                  acc.z += x4.z * mw[v];
+                  acc.w += x4.w * mw[v];
+                }
+                *reinterpret_cast<float4*>(p.o_part + base * D + col) = acc;
+              } else {
+                float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+                for (int v = 0; v < kWarps; ++v) {
+                  const float2 x2 =
+                      *reinterpret_cast<const float2*>(comb + (v * 16 + row) * (D + 4) + col);
+                  acc.x += x2.x * mw[v];
+                  acc.y += x2.y * mw[v];
+                }
+                *reinterpret_cast<float2*>(p.o_part + base * D + col) = acc;
               }
-              *reinterpret_cast<float4*>(p.o_part + base * D + col) = acc;
             }
             if (part == 0) {
               p.m_part[base] = m;
@@ -742,22 +769,24 @@ EncodeTiled encode_tiled() {
 }
 
 // one layer pool (pages, ps, H_kv, Dh) as a 3-D map (Dh, H_kv, pages x ps)
-// whose box is one 128-byte column block (or the whole row) of one kv head's
-// ps token rows, swizzled to the row width
+// whose box is one 128-byte column block (or the whole tile row,
+// tile_cols(Dh) columns: at Dh 48 its last 16 are the TMA's zero fill) of
+// one kv head's ps token rows, swizzled to the tile row's width
 bool encode_pool(CUtensorMap* map, const void* pool, int elt, int d, int kv_heads, int ps,
                  int n_pages) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const int row = d * elt, box = row < 128 ? d : 128 / elt;
+  const int row = d * elt, tile_row = tile_cols(d) * elt;
+  const int box = tile_row < 128 ? tile_cols(d) : 128 / elt;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(kv_heads),
                               static_cast<cuuint64_t>(n_pages) * ps};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row),
                                  static_cast<cuuint64_t>(row) * kv_heads};
   const cuuint32_t boxes[3] = {static_cast<cuuint32_t>(box), 1, static_cast<cuuint32_t>(ps)};
   const cuuint32_t steps[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = row >= 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = tile_row >= 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : tile_row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, elt == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(pool), dims, strides, boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -829,7 +858,8 @@ extern "C" int tb_paged_attention_sm90(
     int n_pages, int n_w, int n_lanes, float sm_scale, void* stream) {
   const bool int8 = kv_dtype == kI8;
   if ((kv_dtype != kBF16 && !int8) || (int8 && (scale_k == nullptr || scale_v == nullptr)) ||
-      (head_dim != 32 && head_dim != 64 && head_dim != 128) || page_size % kTokBlock != 0 ||
+      (head_dim != 32 && head_dim != 48 && head_dim != 64 && head_dim != 128) ||
+      page_size % kTokBlock != 0 ||
       page_size < kMinPage || page_size > kMaxPage || kv_heads < 1 || n_heads % kv_heads != 0 ||
       s_q < 1 || (n_heads / kv_heads) * s_q > kMaxRowsPerHead || n_slots < 1 || n_lanes < 1 ||
       n_lanes > kMaxLanes ||
@@ -867,6 +897,7 @@ extern "C" int tb_paged_attention_sm90(
   p.scale_log2 = sm_scale * 1.4426950408889634f;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 32) return static_cast<int>(int8 ? launch<32, 1>(p, st) : launch<32, 2>(p, st));
+  if (head_dim == 48) return static_cast<int>(int8 ? launch<48, 1>(p, st) : launch<48, 2>(p, st));
   if (head_dim == 64) return static_cast<int>(int8 ? launch<64, 1>(p, st) : launch<64, 2>(p, st));
   return static_cast<int>(int8 ? launch<128, 1>(p, st) : launch<128, 2>(p, st));
 }

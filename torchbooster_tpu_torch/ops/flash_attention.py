@@ -24,7 +24,9 @@ with ``1 <= S_q <= S_kv``, the ``wgmma`` kernels of
 ``"mma_sync"`` (other bf16 shapes, D 32 and S_q > S_kv among them: the
 ``mma.sync`` kernels of ``csrc/flash_attention.cu``) and ``"f32"`` (fp32,
 CUDA-core kernels of the same file). The two plans agree on every
-shape.
+shape at a positive ``sm_scale``; at ``sm_scale <= 0`` the forward plans
+``"mma_sync"`` (which scales before it masks) and the backward stays on
+``"sm90"``, whose kernels scale before they mask too.
 
 Shape contract (the TPU kernels'): q ``(BH, S_q, D)``, k/v ``(BH_kv,
 S_kv, D)`` with ``BH % BH_kv == 0``; q row ``b`` reads grouped k/v row
@@ -272,13 +274,20 @@ def plan_flash_bwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
 
 
 def plan_flash_fwd(dtype: torch.dtype, head_dim: int, s_q: int, s_kv: int,
-                   rep: int) -> str:
+                   rep: int, *, sm_scale: float | None = None) -> str:
     """The route of a B1 launch on the card, chosen before launch: the
     route :func:`plan_flash_bwd` gives the same shape (``"sm90"`` is the
     ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cu``, which checks the same
-    before it launches and takes ``sm_scale > 0`` only; ``"mma_sync"`` is
-    ``flash_fwd_mma``, ``"f32"`` ``flash_fwd``)."""
-    return plan_flash_bwd(dtype, head_dim, s_q, s_kv, rep)
+    before it launches; ``"mma_sync"`` is ``flash_fwd_mma``, ``"f32"``
+    ``flash_fwd``), except that ``sm_scale <= 0`` plans ``"mma_sync"``
+    where that would be ``"sm90"``: the ``sm90`` kernel takes its running
+    max over the raw scores, which keep the scaled ones' order only for a
+    positive scale, and ``flash_fwd_mma`` scales before it masks, as the
+    TPU kernel does. ``sm_scale=None`` is the default ``1 / sqrt(D)``."""
+    route = plan_flash_bwd(dtype, head_dim, s_q, s_kv, rep)
+    if route == "sm90" and sm_scale is not None and not sm_scale > 0:
+        return "mma_sync"
+    return route
 
 
 def _bind(lib: ctypes.CDLL, specs: dict) -> None:
@@ -365,26 +374,26 @@ def _forward(q, k, v, causal, sm_scale, block_q, block_k):
 
 def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
     """B1 on CUDA tensors: ``(o, lse)``. ``route`` defaults to the plan
-    of :func:`plan_flash_fwd` (the smoke times ``"mma_sync"`` beside
-    ``"sm90"`` on the same inputs); a route that cannot take the
-    operands raises, and so does ``"sm90"`` at ``sm_scale <= 0``: its
-    running max is over the raw scores, which keep the order of the
-    scaled ones only for a positive scale."""
+    of :func:`plan_flash_fwd` for this ``sm_scale`` (the smoke times
+    ``"mma_sync"`` beside ``"sm90"`` on the same inputs); a route that
+    cannot take the operands raises, and so does a named ``"sm90"`` at
+    ``sm_scale <= 0``: its running max is over the raw scores, which keep
+    the order of the scaled ones only for a positive scale."""
     global launches_fwd
     _check_cuda(q, k, v)
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
+    if route == "sm90" and not sm_scale > 0:
+        raise ValueError("flash_attention forward: the sm90 kernel takes "
+                         f"sm_scale > 0, not {sm_scale}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     route = _held_route(plan_flash_fwd, "forward", q, k, route,
-                        (q, k, v, o))
+                        (q, k, v, o), sm_scale=sm_scale)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, bh_kv, s_q, s_kv, int(causal), sm_scale,
             _stream(q))
     if route == "sm90":
-        if not sm_scale > 0:
-            raise ValueError("flash_attention forward: the sm90 kernel takes "
-                             f"sm_scale > 0, not {sm_scale}")
         err = _lib_fwd_sm90().tb_flash_fwd_sm90(head_dim, *ptrs)
     else:
         err = _lib().tb_flash_fwd(_DTYPE_CODE[q.dtype], head_dim, *ptrs)
@@ -397,12 +406,14 @@ def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
     return o, lse
 
 
-def _held_route(plan, what: str, q, k, route: str | None, tensors) -> str:
-    """The route of a launch on checked operands: ``plan``'s, or
-    ``route`` when the caller names one. A route that cannot take the
-    operands raises."""
+def _held_route(plan, what: str, q, k, route: str | None, tensors,
+                **plan_kw) -> str:
+    """The route of a launch on checked operands: ``plan``'s (given
+    ``plan_kw``), or ``route`` when the caller names one. A route that
+    cannot take the operands raises."""
     bh, s_q, head_dim = q.shape
-    planned = plan(q.dtype, head_dim, s_q, k.shape[1], bh // k.shape[0])
+    planned = plan(q.dtype, head_dim, s_q, k.shape[1], bh // k.shape[0],
+                   **plan_kw)
     route = planned if route is None else route
     wants = {"sm90": planned == "sm90", "f32": q.dtype == torch.float32,
              "mma_sync": q.dtype == torch.bfloat16}

@@ -7,8 +7,9 @@ tensors (two passes: per-(work entry, kv head) partials, then a
 per-(slot, head) merge), and runs :func:`paged_attention_reference` —
 the same math in plain PyTorch — only on CPU tensors. It has two
 routes, planned before launch by :func:`plan_paged`: ``"sm90"``
-(``csrc/paged_decode_sm90.cu``: bf16 queries over a bf16 or int8 pool,
-TMA-copied page tiles, tensor-core products, a parallel merge) and
+(``csrc/paged_decode_sm90.cu``: bf16 queries over a bf16 or int8 pool at
+head dim 32, 48, 64 or 128, TMA-copied page tiles, tensor-core products,
+a parallel merge) and
 ``"simt"`` (``csrc/paged_attention.cu``: CUDA cores, every dtype and
 shape the wrapper takes). ``route=`` forces one; a route that cannot
 take the operands raises. There is no fall-back: a failed build or
@@ -44,7 +45,7 @@ launches_by_route = {"sm90": 0, "simt": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SMEM = 232_448         # bytes of shared memory a CTA may use on sm_90
 # what the "sm90" kernel takes (csrc/paged_decode_sm90.cu checks the same)
-SM90_HEAD_DIMS = (32, 64, 128)
+SM90_HEAD_DIMS = (32, 48, 64, 128)
 SM90_MAX_PAGE = 128         # two ring slots of K/V at Dh 128 + 64 q rows fit
 SM90_MAX_ROWS = 64          # query rows per kv head, rep x S
 
@@ -53,8 +54,9 @@ def plan_paged(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
                page_size: int, s_q: int, rep: int) -> str:
     """The route of a B4 launch on the card, chosen before launch:
     ``"sm90"`` (``csrc/paged_decode_sm90.cu``) for bf16 queries over a
-    bf16 pool or an int8 pool (bf16 scales), head dim 32, 64 or 128, a
-    page size that is a multiple of 16 from 16 to 128 (the largest
+    bf16 pool or an int8 pool (bf16 scales), head dim 32, 48, 64 or 128
+    (at 48 the kernel's tile rows are 64 columns wide, the last 16 the
+    TMA's zero fill), a page size that is a multiple of 16 from 16 to 128 (the largest
     whose two-slot ring of K/V tiles fits beside 64 query rows at head
     dim 128) and at most 64 query rows (``rep * s_q``) per kv head;
     ``"simt"`` (``csrc/paged_attention.cu``) for everything else — fp32
