@@ -57,7 +57,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    every serving phase is one ``jit_generate`` fn a call (batch 1):
    one cached shape a prompt length and, once a phase at least, a
    repeated shape kept at that and its first request equal to plain
-   ``generate``; prints its ms a new token.
+   ``generate``; prints its ms a new token. Every engine on one card
+   plans the captured route (``step_route == "graph"``): every serving
+   phase but ``tp`` (eager by the plan: gloo through the host) must have
+   run B4 from replays of captured steps (``b4_replayed`` in the report).
 6. serve_bf16 — the same at bf16; prints decode tok/s, p50 TTFT and peak
    device memory beside the card's name and power limit, then replays the
    trace under the profiler for the device busy share and the top kernels.
@@ -241,6 +244,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    tail of a replay through the batcher's session API, under the
    profiler (``device_breakdown``), the device ms a step, busy share,
    B4's µs a call and share of device time and the top kernels.
+7d. serve_graph — the captured steps against their eager twins:
+   serve_bf16's trace (GPT-2 small) and serve_long's (gpt-long), each
+   through a captured bf16 batcher and one under ``eager_steps()``, in
+   turns (captured, eager, eager, captured): the first pair's
+   decode-only tails timed by the host clock (ms a decode step, decode
+   tok/s), the second's profiled (device ms a step, busy share, B4 µs a
+   call). Gates: all four runs token-exact, B4 launches equal by route
+   (all ``"sm90"``), one captured decode graph and its replays, none in
+   the twin. One such pair (timed by the host clock) each at GPT-2 small
+   for fp32 (B4 on ``"simt"``), chain and tree verify (repetitive and
+   ambiguous prompts, draft 4; the verify graph, and the compaction's in
+   tree mode; equal accepted drafts) and a sampled stream (temperature
+   0.8, top-k 50, the engines' generators from one seed). Then ``jit_generate`` (its decode step captured a shape)
+   against ``generate`` over serve_bf16's trace at batch 1, in turns:
+   ms a new token each, token-exact, one cached shape a prompt length
+   and one shape cached once.
 8. conv    — hold the GroupNorm kernels B5 (forward) and B6 (backward) and
    the fused conv + GroupNorm kernels B7 (1x1, any stride) and B8 (3x3,
    stride 1) against their plain versions, in bf16 and fp32, with and
@@ -430,7 +449,8 @@ PHASES = ("device", "build", "kernel", "flash", "serve_fp32", "serve_bf16",
           "serve_spec_bf16", "serve_spec_fp32", "serve_tree", "serve_fork",
           "serve_structured", "serve_wq", "serve_lora", "serve_spill",
           "serve_disagg", "serve_http", "serve_replay", "serve_fleet",
-          "train", "gpt2_import", "train_long", "serve_long", "conv",
+          "train", "gpt2_import", "train_long", "serve_long", "serve_graph",
+          "conv",
           "resnet_train",
           "resnet_data", "lenet", "resnet_import", "image_models",
           "ddpm", "vae_gan", "style", "train_comms", "moe", "sp_fold", "tp",
@@ -472,6 +492,17 @@ LONG_MODEL = dict(n_layers=12, d_model=768, n_heads=LONG_H,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def hold_captured(pa, key: str, before: int, report: dict) -> None:
+    """A serving phase on one card ran its decode and verify steps as
+    replays of captured graphs: B4 launches came from replays while it
+    ran (``launches_replayed`` grew past ``before``)."""
+    n = sum(pa.launches_replayed.values()) - before
+    report.setdefault("b4_replayed", {})[key] = n
+    if n <= 0:
+        raise AssertionError(f"{key}: no B4 launch came from a captured "
+                             f"step")
 
 
 def sm_clocks_mhz() -> dict:
@@ -1537,8 +1568,11 @@ def serve(params, cfg, dtype: torch.dtype, reqs=None,
     ``ContinuousBatcher.run``. Gates: the kernel backend; B4 launched, a
     whole number of times a decode step, every launch on the route the
     dtype plans; one decode shape; every stream its full length of
-    in-vocabulary tokens. Returns the batcher, the requests, the run's
-    metrics (with its peak memory), B4's launches and their routes."""
+    in-vocabulary tokens; the engine plans the captured route
+    (``step_route == "graph"``) and its decode step ran as replays of one
+    CUDA graph. Returns the batcher, the requests, the run's metrics (with
+    its peak memory and the step route), B4's launches and their
+    routes."""
     from torchbooster_tpu_torch.config import ServingConfig
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
@@ -1560,9 +1594,18 @@ def serve(params, cfg, dtype: torch.dtype, reqs=None,
         raise AssertionError(f"the serving run launched the kernel "
                              f"{launches} times, not {cfg.n_layers} a "
                              f"decode step")
-    if batcher.engine.decode_compiles != 1:
+    eng = batcher.engine
+    if eng.decode_compiles != 1:
         raise AssertionError(f"decode step took "
-                             f"{batcher.engine.decode_compiles} shapes")
+                             f"{eng.decode_compiles} shapes")
+    if eng.step_route != "graph" or len(eng._graphs) != 1 \
+            or eng.graph_replays <= 0:
+        raise AssertionError(f"serving ran route {eng.step_route!r} "
+                             f"({eng.step_route_reason}), "
+                             f"{len(eng._graphs)} graphs, "
+                             f"{eng.graph_replays} replays")
+    metrics["step_route"] = eng.step_route
+    metrics["graph_replays"] = eng.graph_replays
     for r in reqs:
         if len(r.tokens) != r.max_new_tokens or not all(
                 0 <= t < cfg.vocab for t in r.tokens):
@@ -1624,8 +1667,8 @@ def dense_tokens(params, cfg, reqs, dtype, n_new: int = N_NEW,
     return out, record
 
 
-def device_breakdown(batcher, cfg, reqs=None,
-                     decode_only: bool = False) -> dict:
+def device_breakdown(batcher, cfg, reqs=None, decode_only: bool = False,
+                     profiled: bool = True) -> dict:
     """Replay a trace (``reqs``, else :func:`requests`) under the profiler
     (CUDA activity only): device busy share of the wall time, B4's time,
     µs a call and share of device time, and the top kernels by their own
@@ -1633,12 +1676,16 @@ def device_breakdown(batcher, cfg, reqs=None,
     batcher's session API (``start_session``, ``submit``, ``step``,
     ``finish_session``), unprofiled while any prompt still waits or
     prefills, and only its decode-only tail is profiled, where every step
-    is one decode step of ``cfg.n_layers`` B4 calls. Busy time and B4's
-    time are unions of device intervals, so B4's merge, which starts
-    under its first pass (programmatic dependent launch), counts once;
-    ``paged_kernel_sum_s`` is B4's kernels' own times summed, the measure
-    of the smoke's earlier revisions. The profiled run is not the one the
-    tok/s figures come from."""
+    is one decode step of ``cfg.n_layers`` B4 calls; its new tokens and
+    tok/s are reported too. Busy time and B4's time are unions of device
+    intervals, so B4's merge, which starts under its first pass
+    (programmatic dependent launch), counts once; ``paged_kernel_sum_s``
+    is B4's kernels' own times summed, the measure of the smoke's earlier
+    revisions. The profiled run is not the one the tok/s figures of the
+    serving phases come from. ``profiled=False`` times the same window by
+    the host clock alone and reports no device figure."""
+    from contextlib import nullcontext
+
     from torch.profiler import ProfilerActivity, profile
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
@@ -1652,10 +1699,11 @@ def device_breakdown(batcher, cfg, reqs=None,
             row = batcher.flight.tail(1)[0]
             if row["slots_filling"] == 0 and row["queue_depth"] == 0:
                 break
-    before = pa.launches
+    before, done = pa.launches, sum(len(r.tokens) for r in reqs)
     steps = 0
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) if profiled \
+            else nullcontext() as prof:
         t0 = time.perf_counter()
         if decode_only:
             while batcher.has_work:
@@ -1674,6 +1722,13 @@ def device_breakdown(batcher, cfg, reqs=None,
                                  f"{cfg.n_layers} a step")
     else:
         steps = calls // cfg.n_layers
+    tokens = sum(len(r.tokens) for r in reqs) - done
+    out = {"decode_only": decode_only, "wall_s": wall, "b4_calls": calls,
+           "steps": steps, "wall_ms_per_step": wall / max(steps, 1) * 1e3,
+           "tokens": tokens, "tok_s": tokens / wall,
+           "decode_s": None if decode_only else m["elapsed_s"]}
+    if not profiled:
+        return out
     spans = device_spans(prof)
     own: dict = {}
     for start, stop, name in spans:
@@ -1681,17 +1736,13 @@ def device_breakdown(batcher, cfg, reqs=None,
     busy = union_us(spans) / 1e6
     paged_spans = [sp for sp in spans if "paged_" in sp[2]]
     paged = union_us(paged_spans) / 1e6
-    return {"decode_only": decode_only, "wall_s": wall,
-            "device_busy_s": busy, "device_busy_share": busy / wall,
+    return {**out, "device_busy_s": busy, "device_busy_share": busy / wall,
             "paged_kernel_s": paged,
             "paged_kernel_sum_s": sum(stop - start
                                       for start, stop, _ in paged_spans) / 1e6,
             "paged_share_of_device": paged / max(busy, 1e-12),
-            "b4_calls": calls, "steps": steps,
             "paged_us_per_call": paged / max(calls, 1) * 1e6,
-            "wall_ms_per_step": wall / max(steps, 1) * 1e3,
             "device_ms_per_step": busy / max(steps, 1) * 1e3,
-            "decode_s": None if decode_only else m["elapsed_s"],
             "top": sorted(own.items(), key=lambda kv: -kv[1])[:8]}
 
 
@@ -1708,8 +1759,9 @@ def phase_serve(params, cfg, dtype, smi: str, report: dict, key: str,
                    "dense_control": dc, "card": smi}
     log(f"{key}: {sum(match)}/{len(match)} requests token-exact vs dense "
         f"generate; kernel launches {launches} ({cfg.n_layers} per decode "
-        f"step), B4 by route {by_route}; decode {m['decode_tok_s']} tok/s, "
-        f"p50 TTFT "
+        f"step), B4 by route {by_route}; step route {m['step_route']} "
+        f"({m['graph_replays']} replays of one captured decode step); decode "
+        f"{m['decode_tok_s']} tok/s, p50 TTFT "
         f"{m['ttft_p50_s']} s, peak mem {m['peak_mem_bytes'] / 2**20:.1f} "
         f"MiB [{smi}]")
     log(f"{key} dense control: jit_generate {dc['ms_per_token']:.3f} ms a "
@@ -4573,6 +4625,38 @@ def long_prompts(corpus: Path, rs) -> list:
     return prompts
 
 
+def long_model():
+    """gpt-long.yml's model through ``Config.load`` (checked against
+    ``LONG_MODEL``), random weights of seed 42 with the decisive tied head
+    (x4), and its requests: the 8 windows of the repo's text of
+    :func:`long_prompts`, ``N_NEW`` new tokens each. Returns ``(params,
+    cfg, make_reqs, corpus_bytes)``; ``make_reqs()`` gives fresh
+    requests."""
+    import tempfile
+
+    from torchbooster_tpu_torch.models.gpt import GPT
+    from torchbooster_tpu_torch.recipes.gpt import Config
+    from torchbooster_tpu_torch.serving import Request
+
+    with tempfile.TemporaryDirectory(prefix="serve_long_") as tmp:
+        corpus = Path(tmp) / "corpus.txt"
+        corpus_bytes = repo_corpus(corpus)
+        prompts = long_prompts(corpus, np.random.RandomState(42))
+    cfg = Config.load(Path(__file__).resolve().parent / "examples" / "lm"
+                      / "gpt" / "gpt-long.yml").model.make()
+    if {k: getattr(cfg, k) for k in LONG_MODEL} != LONG_MODEL:
+        raise AssertionError(f"serve_long: not gpt-long.yml's model: {cfg}")
+    params = GPT.init(42, cfg, device=DEV)
+    params["wte"]["table"] *= 4.0       # decisive head
+
+    def make_reqs():
+        return [Request(prompt=p, max_new_tokens=N_NEW,
+                        request_id=f"long{i}")
+                for i, p in enumerate(prompts)]
+
+    return params, cfg, make_reqs, corpus_bytes
+
+
 def phase_serve_long(report: dict, smi: str) -> dict:
     """gpt-long served on one card: ``examples/lm/gpt/gpt-long.yml``'s
     model through ``Config.load`` at full width and depth (12 layers,
@@ -4588,11 +4672,6 @@ def phase_serve_long(report: dict, smi: str) -> dict:
     (:func:`device_breakdown`) B4's µs a call and share of device time
     and the busy share. Returns B4's launches of the served run and B1's
     of the dense control."""
-    import tempfile
-
-    from torchbooster_tpu_torch.models.gpt import GPT
-    from torchbooster_tpu_torch.recipes.gpt import Config
-    from torchbooster_tpu_torch.serving import Request
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
     # wall seconds of each part of the phase
@@ -4603,27 +4682,13 @@ def phase_serve_long(report: dict, smi: str) -> dict:
         sec[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    with tempfile.TemporaryDirectory(prefix="serve_long_") as tmp:
-        corpus = Path(tmp) / "corpus.txt"
-        corpus_bytes = repo_corpus(corpus)
-        prompts = long_prompts(corpus, np.random.RandomState(42))
-    cfg = Config.load(Path(__file__).resolve().parent / "examples" / "lm"
-                      / "gpt" / "gpt-long.yml").model.make()
-    if {k: getattr(cfg, k) for k in LONG_MODEL} != LONG_MODEL:
-        raise AssertionError(f"serve_long: not gpt-long.yml's model: {cfg}")
-    params = GPT.init(42, cfg, device=DEV)
-    params["wte"]["table"] *= 4.0       # decisive head
+    params, cfg, make_reqs, corpus_bytes = long_model()
+    prompts = [r.prompt for r in make_reqs()]
     planned = pa.check_paged(torch.bfloat16, torch.bfloat16, cfg.head_dim,
                              PS, 1, cfg.n_heads // cfg.kv_heads)
     if planned != "sm90":
         raise AssertionError(f"serve_long: the engine's check planned "
                              f"{planned!r}, not 'sm90'")
-
-    def make_reqs():
-        return [Request(prompt=p, max_new_tokens=N_NEW,
-                        request_id=f"long{i}")
-                for i, p in enumerate(prompts)]
-
     lap("setup")
     batcher, reqs, m, launches, by_route = serve(
         params, cfg, torch.bfloat16, make_reqs(), n_pages=LONG_N_PAGES)
@@ -4703,6 +4768,223 @@ def phase_serve_long(report: dict, smi: str) -> dict:
     del batcher, params
     torch.cuda.empty_cache()
     return {"paged": {"launches": launches, "by_route": by_route},
+            "flash": {k: b1[k] for k in ("fwd", "dq", "dkv", "by_route")}}
+
+
+# ------------------------------------------------------------ serve_graph
+# the order of a cell's runs: a pair timed by the host clock, then a pair
+# under the profiler, each mode first once
+GRAPH_RUNS = (("graph", False), ("eager", False), ("eager", True),
+              ("graph", True))
+
+
+# the one-pair cells at GPT-2 small beside serve_bf16's: (name, dtype, the
+# engine's options, the prompts' kind, B4's route); each pair's gates are
+# graph_cell's
+GRAPH_PAIR = (("graph", False), ("eager", False))
+GRAPH_MORE = (
+    ("gpt2_fp32", torch.float32, {}, "trace", "simt"),
+    ("gpt2_chain", torch.bfloat16,
+     dict(speculative=True, draft_len=DRAFT_LEN), "repetitive", "sm90"),
+    ("gpt2_tree", torch.bfloat16,
+     dict(speculative=True, draft_len=DRAFT_LEN, spec_tree=True,
+          spec_tree_width=2), "ambiguous", "sm90"),
+    ("gpt2_sampled", torch.bfloat16, dict(temperature=0.8, top_k=50),
+     "trace", "sm90"))
+
+
+def graph_cell(name, params, cfg, make_reqs, n_pages: int,
+               dtype: torch.dtype = torch.bfloat16, runs=GRAPH_RUNS,
+               route: str = "sm90", **engine_kw) -> dict:
+    """One trace through two batchers of one configuration
+    (``ServingConfig(..., **engine_kw)`` at ``dtype``), one captured and
+    one under ``eager_steps()``, in the order of ``runs``, each run's
+    decode-only tail through :func:`device_breakdown`: a pair timed by
+    the host clock, a pair profiled (busy share, device ms a step, B4 µs
+    a call). Sampled engines draw from their generators from the seed
+    on, so a sampled cell runs one pair, each engine's first run. Gates:
+    every run's streams equal; every run's B4 launches equal by route,
+    all on ``route``; the captured engine one graph a step kind (decode;
+    verify, and compaction in tree mode), one signature each, and
+    replays, the eager twin none."""
+    from contextlib import nullcontext
+
+    from torchbooster_tpu_torch.config import ServingConfig
+    from torchbooster_tpu_torch.serving import eager_steps
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
+
+    make = lambda: ServingConfig(page_size=PS, n_pages=n_pages,
+                                 max_slots=SLOTS, **engine_kw).make(
+        params, cfg, compute_dtype=dtype, on_recompile="raise")
+    batchers = {"graph": make(), "eager": make()}
+    out = []
+    for mode, profiled in runs:
+        b, reqs = batchers[mode], make_reqs()
+        before = b4_counts(pa)
+        with eager_steps() if mode == "eager" else nullcontext():
+            run = device_breakdown(b, cfg, reqs, decode_only=True,
+                                   profiled=profiled)
+        torch.cuda.synchronize()
+        n, by_route = b4_delta(pa, before)
+        out.append({**run, "mode": mode, "profiled": profiled, "b4": n,
+                    "b4_by_route": by_route,
+                    "streams": [list(r.tokens) for r in reqs]})
+    first = out[0]
+    for r in out[1:]:
+        if r["streams"] != first["streams"]:
+            raise AssertionError(f"serve_graph {name}: the {r['mode']} run "
+                                 f"(profiled {r['profiled']}) differs from "
+                                 f"the first captured run")
+        if r["b4_by_route"] != first["b4_by_route"]:
+            raise AssertionError(f"serve_graph {name}: B4 by route "
+                                 f"{r['b4_by_route']} ({r['mode']}) vs "
+                                 f"{first['b4_by_route']}")
+    if first["b4_by_route"][route] != first["b4"] or first["b4"] <= 0:
+        raise AssertionError(f"serve_graph {name}: B4 {first['b4_by_route']}"
+                             f", not all {route!r}")
+    g, e = batchers["graph"].engine, batchers["eager"].engine
+    kinds = ({"verify", "compact"} if g.spec_tree else {"verify"}) \
+        if g.speculative else {"decode"}
+    compiles = (g.verify_compiles, g.decode_compiles) if g.speculative \
+        else (g.decode_compiles, g.verify_compiles)
+    if g.step_route != "graph" or compiles != (1, 0) \
+            or sorted(k for k, _ in g._graphs) != sorted(kinds) \
+            or g.graph_replays <= 0 or e.graph_replays or e._graphs:
+        raise AssertionError(f"serve_graph {name}: captured engine "
+                             f"{g.debug_stats()['compiles']}, eager twin "
+                             f"{e.debug_stats()['compiles']}")
+    n_requests = len(first["streams"])
+    for r in out:
+        del r["streams"]
+    cell = {"runs": out, "requests": n_requests, "dtype": str(dtype),
+            "options": engine_kw, "graphs": sorted(kinds),
+            "graph_replays": g.graph_replays}
+    if g.speculative:
+        cell["spec_accepted"] = (g.spec_accepted, e.spec_accepted)
+        cell["spec_proposed"] = (g.spec_proposed, e.spec_proposed)
+        if g.spec_accepted != e.spec_accepted or g.spec_accepted <= 0:
+            raise AssertionError(f"serve_graph {name}: accepted drafts "
+                                 f"{cell['spec_accepted']}")
+    return cell
+
+
+def jit_vs_generate(params, cfg, reqs, n_new: int = N_NEW) -> dict:
+    """The dense decode at batch 1 over ``reqs``, bf16, in turns
+    (``jit_generate``, ``generate``, ``generate``, ``jit_generate``; one
+    ``jit_generate`` fn): ms a new token each (prefill included; the
+    first turn also captures each shape). Gates: every turn's ids equal
+    ``generate``'s; the fn holds one shape a prompt length; a fresh fn
+    over two prompts of one shape holds one (``_cache_size() == 1``) and
+    gives ``generate``'s ids for both."""
+    from torchbooster_tpu_torch.models.gpt import generate, jit_generate
+
+    kw = dict(n_new=n_new, temperature=0.0, compute_dtype=torch.bfloat16)
+    fn = jit_generate(cfg, **kw)
+    plain = lambda p, ids: generate(p, ids, cfg, **kw)
+    turns, outs = [], []
+    for name, call in (("jit_generate", fn), ("generate", plain),
+                       ("generate", plain), ("jit_generate", fn)):
+        out, request_s = [], []
+        for r in reqs:
+            ids = torch.as_tensor(r.prompt, device="cuda").long()[None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = call(params, ids)
+            torch.cuda.synchronize()
+            request_s.append(time.perf_counter() - t0)
+            out.append(full[0, ids.shape[1]:].tolist())
+        turns.append({"fn": name, "request_s": request_s,
+                      "ms_per_token": ms_per_token(request_s, n_new)})
+        outs.append(out)
+    if any(out != outs[1] for out in outs):
+        raise AssertionError("serve_graph: jit_generate's ids differ from "
+                             "generate's")
+    shapes = len({len(r.prompt) for r in reqs})
+    if fn._cache_size() != shapes:
+        raise AssertionError(f"serve_graph: jit_generate {fn._cache_size()}"
+                             f" shapes for {shapes} prompt lengths")
+    one = jit_generate(cfg, **kw)
+    for r in reqs[:2]:
+        ids = torch.as_tensor(r.prompt[:64], device="cuda").long()[None]
+        if not torch.equal(one(params, ids), plain(params, ids)):
+            raise AssertionError("serve_graph: a replayed shape differs "
+                                 "from generate")
+    if one._cache_size() != 1:
+        raise AssertionError(f"serve_graph: one shape cached "
+                             f"{one._cache_size()} times")
+    return {"turns": turns, "shapes": shapes, "one_shape_cache": 1}
+
+
+def phase_serve_graph(report: dict, smi: str) -> dict:
+    """The captured serving steps against their eager twins on one card,
+    in repeated pairs: serve_bf16's trace (GPT-2 small, 8 requests of
+    64-512 tokens, 32 new) and serve_long's (gpt-long, 8 requests of
+    1024-8000 bytes, 32 new), each through a captured bf16 batcher and
+    one under ``eager_steps()`` (:func:`graph_cell`), then the dense
+    decode, ``jit_generate`` against ``generate``, over serve_bf16's
+    trace (:func:`jit_vs_generate`). Returns B4's launches and B1's (the
+    dense decodes' prefills)."""
+    from torchbooster_tpu_torch.serving import Request
+    pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
+
+    reset_flash_counts()
+    reset_paged_counts()
+    params, cfg = gpt2_small()
+    cells = {"gpt2_bf16": graph_cell("gpt2_bf16", params, cfg,
+                                     lambda: requests(cfg), N_PAGES)}
+    for name, dtype, kw, kind, route in GRAPH_MORE:
+        rs = np.random.RandomState(7)
+        prompts = [ambiguous_prompt(params, cfg, dtype, rs, n)
+                   if kind == "ambiguous" else repetitive_prompt(
+                       rs, n, cfg.vocab) for n in PROMPT_LENS] \
+            if kind != "trace" else None
+        make_reqs = (lambda: requests(cfg)) if prompts is None else (
+            lambda: [Request(prompt=p, max_new_tokens=N_NEW,
+                             request_id=f"r{i}")
+                     for i, p in enumerate(prompts)])
+        cells[name] = graph_cell(name, params, cfg, make_reqs, N_PAGES,
+                                 dtype=dtype, runs=GRAPH_PAIR, route=route,
+                                 **kw)
+    dense = jit_vs_generate(params, cfg, requests(cfg))
+    del params
+    torch.cuda.empty_cache()
+    params, cfg_long, make_reqs, _ = long_model()
+    cells["gpt_long"] = graph_cell("gpt_long", params, cfg_long, make_reqs,
+                                   LONG_N_PAGES)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    b1 = flash_counts()
+    report["serve_graph"] = {"cells": cells, "dense": dense, "b1": b1,
+                             "card": smi}
+    for name, cell in cells.items():
+        for r in cell["runs"]:
+            if r["profiled"]:
+                log(f"serve_graph {name} {r['mode']}, profiled decode-only "
+                    f"tail: {r['steps']} steps, {r['wall_ms_per_step']:.3f} "
+                    f"ms a step, device {r['device_ms_per_step']:.3f} ms a "
+                    f"step (busy {100 * r['device_busy_share']:.1f}%), B4 "
+                    f"{r['paged_us_per_call']:.2f} us a call [{smi}]")
+            else:
+                log(f"serve_graph {name} {r['mode']}: decode-only tail "
+                    f"{r['steps']} steps, {r['wall_ms_per_step']:.3f} ms a "
+                    f"step, "
+                    f"{r['tok_s']:.1f} tok/s ({r['tokens']} tokens); B4 by "
+                    f"route {r['b4_by_route']} over the whole run [{smi}]")
+        spec = (f"; accepted drafts {cell['spec_accepted']} of "
+                f"{cell['spec_proposed']} (captured, eager)"
+                if "spec_accepted" in cell else "")
+        log(f"serve_graph {name} ({cell['dtype']}, {cell['options']}): "
+            f"{len(cell['runs'])} runs token-exact and B4 by route equal "
+            f"(captured and eager_steps(), in turns); graphs "
+            f"{cell['graphs']}, {cell['graph_replays']} replays{spec}")
+    log("serve_graph dense decode (GPT-2 small bf16, batch 1, 8 requests, "
+        f"{N_NEW} new): " + ", ".join(
+            f"{t['fn']} {t['ms_per_token']:.3f}" for t in dense["turns"])
+        + f" ms a new token (prefill included), token-exact; "
+        f"{dense['shapes']} cached shapes, one shape cached once [{smi}]")
+    return {"paged": {"launches": pa.launches,
+                      "by_route": dict(pa.launches_by_route)},
             "flash": {k: b1[k] for k in ("fwd", "dq", "dkv", "by_route")}}
 
 
@@ -5217,7 +5499,10 @@ def moe_serve(params, cfg) -> dict:
     out = {"match": match, "b4_launches": launches, "b4_by_route": by_route,
            "decode_steps": steps[0], "wall_s": wall,
            "capacity_factor": served.capacity_factor,
-           "decode_tok_s": metrics.get("decode_tok_s")}
+           "decode_tok_s": metrics.get("decode_tok_s"),
+           "step_route": eng.step_route,
+           "step_route_reason": eng.step_route_reason,
+           "graph_replays": eng.graph_replays}
     if not all(match):
         raise AssertionError(f"moe serving: {match.count(False)} of "
                              f"{len(match)} streams differ from the dense "
@@ -5226,6 +5511,12 @@ def moe_serve(params, cfg) -> dict:
         raise AssertionError(f"moe serving: B4 launches {launches} by route "
                              f"{by_route}, expected {cfg.n_layers} x "
                              f"{steps[0]} decode steps on simt")
+    # the routing at serving capacity reads nothing back to the host, so
+    # the plan captures the MoE decode step as it does a dense one
+    if eng.step_route != "graph" or eng.graph_replays != steps[0] - 1:
+        raise AssertionError(f"moe serving: route {eng.step_route!r}, "
+                             f"{eng.graph_replays} replays over "
+                             f"{steps[0]} decode steps")
     return out
 
 
@@ -5316,7 +5607,8 @@ def phase_moe(report: dict, smi: str) -> dict:
         f"{sum(serve_out['match'])}/{len(serve_out['match'])} token-exact "
         f"vs the dense generate; B4 {serve_out['b4_launches']} launches = "
         f"{n_l} x {serve_out['decode_steps']} decode steps, by route "
-        f"{serve_out['b4_by_route']} [{smi}]")
+        f"{serve_out['b4_by_route']}; step route {serve_out['step_route']} "
+        f"({serve_out['graph_replays']} replays) [{smi}]")
     shutil.rmtree(root, ignore_errors=True)
     out["card"] = smi
     report["moe"] = out
@@ -5904,6 +6196,10 @@ def tp_serve(mesh, params, cfg, dtype) -> dict:
     want_route = "sm90" if dtype == torch.bfloat16 else "simt"
     if by_route[want_route] != launches:
         raise AssertionError(f"tp serving B4 by route {by_route}")
+    # its all-reduces go through gloo on the host: eager by the plan
+    if eng.step_route != "eager" or eng.graph_replays:
+        raise AssertionError(f"tp serving: route {eng.step_route!r}, "
+                             f"{eng.graph_replays} replays")
     pool = sum(t.numel() * t.element_size()
                for half in ("k", "v") for t in (
                    eng.pool[half] if isinstance(eng.pool[half], tuple)
@@ -5922,7 +6218,9 @@ def tp_serve(mesh, params, cfg, dtype) -> dict:
            "pool_bytes": pool, "pool_bytes_tp1": full, "wall_s": wall,
            "all_reduces_decode_step": per_step.n,
            "traffic": eng.tp_step_traffic(1),
-           "decode_compiles": eng.decode_compiles}
+           "decode_compiles": eng.decode_compiles,
+           "step_route": eng.step_route,
+           "step_route_reason": eng.step_route_reason}
     del batcher, eng
     torch.cuda.empty_cache()
     gen = out["mesh_generate"] = tp_mesh_generate(
@@ -6027,7 +6325,8 @@ def phase_tp(report: dict, smi: str) -> dict:
                 f"step {sv['all_reduces_decode_step']}; step_traffic "
                 f"{sv['traffic']['wire_bytes']:.0f} B a step; wall "
                 f"{sv['wall_s']:.2f} s; decode shapes "
-                f"{sv['decode_compiles']}")
+                f"{sv['decode_compiles']}; step route {sv['step_route']} "
+                f"({sv['step_route_reason']})")
     log(f"tp: compute mode {compute_mode}; two gloo ranks on one card; "
         f"{wall:.1f} s with the spawn; {smi}")
     report["tp"] = {"ranks": ranks, "wall_s": wall, "card": smi,
@@ -8805,7 +9104,9 @@ def main() -> int:
             long["source"] = flash[key]["sources_by_route"][long["timed_route"]]
     if set(SERVE_PHASES) & set(phases):
         params, cfg = gpt2_small()
+        replayed = lambda: sum(pa.launches_replayed.values())
         if "serve_fp32" in phases:
+            before = replayed()
             match, launches, by_route = phase_serve(
                 params, cfg, torch.float32, smi, report, "serve_fp32")
             kernel["launches"] += launches
@@ -8815,10 +9116,13 @@ def main() -> int:
                 raise AssertionError(f"fp32 paged serving disagrees with "
                                      f"dense generate on "
                                      f"{match.count(False)} requests")
+            hold_captured(pa, "serve_fp32", before, report)
         if "serve_bf16" in phases:
+            before = replayed()
             _, launches, by_route = phase_serve(
                 params, cfg, torch.bfloat16, smi, report, "serve_bf16",
                 breakdown=True)
+            hold_captured(pa, "serve_bf16", before, report)
             kernel["launches"] += launches
             for r, n in by_route.items():
                 kernel["launches_by_route"][r] += n
@@ -8826,13 +9130,17 @@ def main() -> int:
                                  ("serve_spec_fp32", torch.float32, False),
                                  ("serve_tree", torch.bfloat16, True)):
             if key in phases:
+                before = replayed()
                 launches, by_route = phase_serve_spec(
                     params, cfg, dtype, smi, report, key, tree=tree)
+                hold_captured(pa, key, before, report)
                 kernel["launches"] += launches
                 for r, n in by_route.items():
                     kernel["launches_by_route"][r] += n
         if "serve_fork" in phases:
+            before = replayed()
             launches, by_route = phase_serve_fork(params, cfg, smi, report)
+            hold_captured(pa, "serve_fork", before, report)
             kernel["launches"] += launches
             for r, n in by_route.items():
                 kernel["launches_by_route"][r] += n
@@ -8846,9 +9154,10 @@ def main() -> int:
                            ("serve_fleet", phase_serve_fleet)):
             if key not in phases:
                 continue
-            t = time.perf_counter()
+            t, before = time.perf_counter(), replayed()
             launches, by_route, *int8_pool = phase(params, cfg, smi, report)
             phase_s[key] = time.perf_counter() - t
+            hold_captured(pa, key, before, report)
             kernel["launches"] += launches
             for r, n in by_route.items():
                 kernel["launches_by_route"][r] += n
@@ -8866,15 +9175,20 @@ def main() -> int:
                        ("gpt2_import", phase_gpt2_import),
                        ("train_long", phase_train_long),
                        ("serve_long", phase_serve_long),
+                       ("serve_graph", phase_serve_graph),
                        ("train_comms", phase_train_comms),
                        ("moe", phase_moe), ("sp_fold", phase_sp_fold),
                        ("tp", phase_tp), ("pp_fold", phase_pp_fold)):
         if key not in phases:
             continue
-        t = time.perf_counter()
+        t, before = time.perf_counter(), sum(pa.launches_replayed.values())
         launches = phase(report, smi)
         phase_s[key] = time.perf_counter() - t
-        if key in ("gpt2_import", "serve_long", "moe", "tp"):
+        # the tp phase serves in its ranks' processes, eager by the plan
+        # (tp_serve holds that)
+        if key in ("gpt2_import", "serve_long", "serve_graph", "moe"):
+            hold_captured(pa, key, before, report)
+        if key in ("gpt2_import", "serve_long", "serve_graph", "moe", "tp"):
             paged = launches["paged"]
             kernel["launches"] += paged["launches"]
             for r, n in paged["by_route"].items():

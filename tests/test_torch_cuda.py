@@ -301,9 +301,13 @@ def test_engine_spec_verify_on_sm90_matches_sweep_on_card(spec_tree,
     """The engine's verify step at S = 5 (and its tree mask) through B4 on
     ``"sm90"``: every launch on that route, each launch's output within
     2e-2 of the plain version on the same operands, and every token equal
-    to the same engine on the pool sweep."""
+    to the same engine on the pool sweep. The steps run under
+    ``eager_steps()``: the check reads each launch's output back, which a
+    captured step cannot (the captured twin is held to this eager step
+    below)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from torchbooster_tpu_torch.serving import eager_steps
     from torchbooster_tpu_torch.serving import engine as engine_mod
 
     errs, s_qs = [], set()
@@ -333,8 +337,9 @@ def test_engine_spec_verify_on_sm90_matches_sweep_on_card(spec_tree,
         slots = {eng.admit(p)[0]: [] for p in prompts}
         for _ in range(10):
             assert eng.grow_slots() == []
-            for slot, toks in eng.spec_step().items():
-                slots[slot].extend(toks)
+            with eager_steps():
+                for slot, toks in eng.spec_step().items():
+                    slots[slot].extend(toks)
         streams[backend] = [slots[s][:20] for s in sorted(slots)]
         assert eng.verify_compiles == 1 and eng.decode_compiles == 0
         eng.tables.check()
@@ -1680,3 +1685,257 @@ def test_jit_generate_on_card_equals_generate():
                     compute_dtype=torch.bfloat16)
     assert torch.equal(got, want) and torch.equal(again, want)
     assert fn._cache_size() == 1
+
+
+# ---- captured serving steps (CUDA graphs) --------------------------------
+def _graph_model(dtype_cfg=None):
+    """A small GPT on the card (head dim 64, decisive head)."""
+    from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = dtype_cfg or GPTConfig(vocab=97, n_layers=2, d_model=128,
+                                 n_heads=2, seq_len=128)
+    params = GPT.init(0, cfg, device="cuda")
+    params["wte"]["table"] *= 4.0
+    return params, cfg
+
+
+def _graph_streams(eng, prompts, n_steps, spec=False):
+    """Each prompt's first token and ``n_steps`` steps' tokens, and the
+    B4 launches by route the steps ran."""
+    streams = {}
+    for p in prompts:
+        slot, first = eng.admit(p)
+        streams[slot] = [first]
+    before = dict(pa.launches_by_route)
+    for _ in range(n_steps):
+        assert eng.grow_slots() == []
+        if spec:
+            for slot, toks in eng.spec_step().items():
+                streams[slot].extend(toks)
+        else:
+            toks = eng.step()
+            for slot in streams:
+                streams[slot].append(int(toks[slot]))
+    torch.cuda.synchronize()
+    by_route = {r: n - before[r] for r, n in pa.launches_by_route.items()}
+    return [streams[s] for s in sorted(streams)], by_route
+
+
+def _captured_and_eager(kw, prompts, n_steps, spec=False, cfg=None):
+    """The same engine twice on one model: captured, and under
+    ``eager_steps()``."""
+    from torchbooster_tpu_torch.serving import PagedEngine, eager_steps
+
+    params, cfg = _graph_model(cfg)
+    kw = dict(dict(page_size=16, n_pages=24, max_slots=3), **kw)
+    graph = PagedEngine(params, cfg, **kw)
+    assert graph.step_route == "graph", graph.step_route_reason
+    got = _graph_streams(graph, prompts, n_steps, spec)
+    eager = PagedEngine(params, cfg, **kw)
+    with eager_steps():
+        want = _graph_streams(eager, prompts, n_steps, spec)
+    assert eager.graph_replays == 0 and not eager._graphs
+    return graph, got, want
+
+
+def _prompts(rs, vocab=97):
+    return [np.tile(rs.randint(0, vocab, n).astype(np.int32), r)
+            for n, r in ((3, 6), (5, 4), (7, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cache,route", [
+    (torch.bfloat16, None, "sm90"), (torch.bfloat16, "int8", "sm90"),
+    (torch.float32, None, "simt")], ids=["bf16_sm90", "int8_sm90",
+                                         "fp32_simt"])
+def test_captured_decode_equals_eager_on_card(dtype, cache, route):
+    """The decode step captured once and replayed is token-exact against
+    the same engine under ``eager_steps()``, with the same B4 launches by
+    route (two a step, all on the planned route): the warm-up runs the
+    first step for real, the capture counts nothing, each replay adds
+    its two."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    eng, (got, g_routes), (want, e_routes) = _captured_and_eager(
+        dict(compute_dtype=dtype, cache_dtype=cache),
+        _prompts(np.random.RandomState(0)), 12)
+    assert got == want
+    assert g_routes == e_routes and g_routes[route] == 2 * 12
+    assert eng.decode_compiles == 1 and len(eng._graphs) == 1
+    assert eng.graph_replays == 11
+    assert eng.debug_stats()["compiles"]["graph_replays"] == 11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_tree", [False, True], ids=["chain", "tree"])
+def test_captured_verify_equals_eager_on_card(spec_tree):
+    """The verify step (chain, and the tree with its compaction, a
+    second graph) captured is token-exact against ``eager_steps()``, on
+    B4's ``"sm90"`` route at S = 5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    rs = np.random.RandomState(0)
+    prompts = _prompts(rs)
+    if spec_tree:                      # ambiguous: two continuations
+        pat = rs.randint(0, 97, 5).astype(np.int32)
+        prompts[0] = np.concatenate([pat, [11], pat, [13], pat, [11], pat])
+    eng, (got, g_routes), (want, e_routes) = _captured_and_eager(
+        dict(compute_dtype=torch.bfloat16, speculative=True, draft_len=4,
+             spec_tree=spec_tree), prompts, 10, spec=True)
+    assert got == want and g_routes == e_routes
+    assert g_routes["sm90"] == 2 * 10 and g_routes["simt"] == 0
+    assert eng.verify_compiles == 1 and eng.spec_accepted > 0
+    assert len(eng._graphs) == (2 if spec_tree else 1)
+    eng.tables.check()
+
+
+@pytest.mark.cuda
+def test_captured_sampled_decode_equals_eager_on_card():
+    """Sampling (temperature 0.8, top-k 20) draws after the captured
+    forward from the engine's seeded generator, so the stream equals the
+    eager step's from the same seed; so do parallel-sampling branches
+    (per-branch generators) and a MoE model's (its serving routing reads
+    nothing back to the host, so it captures)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from torchbooster_tpu_torch.models.gpt import GPTConfig
+
+    prompts = _prompts(np.random.RandomState(3))
+    _, (got, _), (want, _) = _captured_and_eager(
+        dict(compute_dtype=torch.bfloat16, temperature=0.8, top_k=20,
+             seed=7), prompts, 12)
+    assert got == want
+    _, (got, _), (want, _) = _captured_and_eager(
+        dict(compute_dtype=torch.bfloat16, temperature=0.8, top_k=20,
+             parallel_sampling=True), prompts, 12)
+    assert got == want
+    moe = GPTConfig(vocab=97, n_layers=2, d_model=128, n_heads=2,
+                    seq_len=128, n_experts=4)
+    _, (got, g_routes), (want, e_routes) = _captured_and_eager(
+        dict(compute_dtype=torch.float32), prompts, 8, cfg=moe)
+    assert got == want and g_routes == e_routes
+
+
+@pytest.mark.cuda
+def test_captured_steps_from_a_stepping_thread_on_card():
+    """A batcher run on another thread captures there while this thread
+    keeps the card busy (``capture_error_mode="thread_local"``): its
+    streams equal the eager run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    import threading
+
+    from torchbooster_tpu_torch.serving import (
+        ContinuousBatcher,
+        PagedEngine,
+        Request,
+        eager_steps,
+    )
+
+    params, cfg = _graph_model()
+    prompts = _prompts(np.random.RandomState(4))
+    kw = dict(page_size=16, n_pages=24, max_slots=3,
+              compute_dtype=torch.bfloat16)
+
+    def reqs():
+        return [Request(prompt=p, max_new_tokens=10, request_id=str(i))
+                for i, p in enumerate(prompts)]
+
+    threaded, eager = reqs(), reqs()
+    batcher = ContinuousBatcher(PagedEngine(params, cfg, **kw),
+                                on_recompile="raise")
+    worker = threading.Thread(target=batcher.run, args=(threaded,))
+    x = torch.randn(1024, 1024, device="cuda")
+    worker.start()
+    while worker.is_alive():
+        x = torch.tanh(x @ x)
+        worker.join(timeout=0.001)
+    torch.cuda.synchronize()
+    assert batcher.engine.graph_replays > 0
+    with eager_steps():
+        ContinuousBatcher(PagedEngine(params, cfg, **kw)).run(eager)
+    assert [r.tokens for r in threaded] == [r.tokens for r in eager]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", [None, "int8"])
+def test_captured_jit_generate_equals_generate_on_card(cache):
+    """``jit_generate``'s decode step, captured once a (batch, prompt
+    length) and replayed, returns ``generate``'s ids greedy and sampled
+    (the same seeded generator), at bf16 with a plain and an int8 cache;
+    a second prompt of the shape replays the same graph on its own cache
+    contents, and under ``eager_steps()`` the same ids come back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from torchbooster_tpu_torch.models.gpt import (
+        GPT,
+        GPTConfig,
+        generate,
+        jit_generate,
+    )
+    from torchbooster_tpu_torch.serving import eager_steps
+
+    cfg = GPTConfig(vocab=512, n_layers=2, d_model=256, n_heads=4,
+                    n_kv_heads=2, seq_len=128, pos="rope")
+    params = GPT.init(0, cfg, device="cuda")
+    rs = np.random.RandomState(1)
+    kw = dict(n_new=9, compute_dtype=torch.bfloat16, cache_dtype=cache)
+    for temperature in (0.0, 0.9):
+        fn = jit_generate(cfg, temperature=temperature, top_k=40, **kw)
+        for _ in range(2):
+            ids = torch.as_tensor(rs.randint(0, 512, (2, 21)), device="cuda")
+            gen = lambda: torch.Generator(device="cuda").manual_seed(5)
+            got = fn(params, ids, gen())
+            want = generate(params, ids, cfg, generator=gen(),
+                            temperature=temperature, top_k=40, **kw)
+            assert torch.equal(got, want)
+            with eager_steps():
+                assert torch.equal(fn(params, ids, gen()), want)
+        assert fn._cache_size() == 1
+
+
+@pytest.mark.cuda
+def test_captured_jit_generate_follows_params_to_new_addresses_on_card():
+    """``jit_generate``'s graph reads params already in ``compute_dtype``
+    where the caller keeps them: an in-place update is read by the next
+    replay, and a new tree (new addresses) captures the shape again,
+    counted in ``_cache_size()``; every call returns ``generate``'s ids
+    for the params it was given."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    from torchbooster_tpu_torch.models.gpt import (
+        GPT,
+        GPTConfig,
+        cast_params,
+        generate,
+        jit_generate,
+        map_tensors,
+    )
+
+    cfg = GPTConfig(vocab=64, n_layers=2, d_model=32, n_heads=4,
+                    seq_len=32)
+    params = cast_params(GPT.init(0, cfg, device="cuda"), torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # weights of std 0.1, so that every block steers the picks
+    redraw = lambda t: t.copy_(0.1 * torch.randn(t.shape, generator=g,
+                                                 device="cuda"))
+    for leaf in (params["wte"]["table"], *(
+            params["blocks"][k]["kernel"] for k in (
+                "attn_qkv", "attn_proj", "mlp_fc1", "mlp_fc2"))):
+        redraw(leaf)
+    ids = torch.as_tensor(np.random.RandomState(3).randint(0, 64, (2, 7)),
+                          device="cuda")
+    kw = dict(n_new=6, temperature=0.0, compute_dtype=torch.bfloat16)
+    fn = jit_generate(cfg, **kw)
+    first = generate(params, ids, cfg, **kw)
+    assert torch.equal(fn(params, ids), first)
+    redraw(params["blocks"]["mlp_fc1"]["kernel"])
+    redrawn = generate(params, ids, cfg, **kw)
+    assert not torch.equal(redrawn, first)
+    assert torch.equal(fn(params, ids), redrawn)
+    assert fn._cache_size() == 1
+    other = map_tensors(params, lambda t: t.flip(0).contiguous())
+    flipped = generate(other, ids, cfg, **kw)
+    assert not torch.equal(flipped, redrawn)
+    assert torch.equal(fn(other, ids), flipped)
+    assert fn._cache_size() == 2

@@ -617,6 +617,15 @@ def _run_block(fn, bp: dict, x: torch.Tensor, remat: bool, *args):
                       use_reentrant=False, context_fn=_REMAT_CONTEXT)
 
 
+def tensor_leaves(tree) -> list:
+    """The tensor leaves of a nested dict/tuple tree, in key order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return [tree]
+
+
 def map_tensors(tree, fn):
     """Apply ``fn`` to every tensor leaf of a nested dict/tuple tree."""
     if isinstance(tree, dict):
@@ -1054,6 +1063,33 @@ def _cached_block(bp: dict, x: torch.Tensor, cache_k, cache_v, pos: int,
     return x
 
 
+def _cached_block_at(bp: dict, x: torch.Tensor, cache_k, cache_v,
+                     at: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """:func:`_cached_block` at a position read on the device (``at``, a
+    (1,) long tensor), so that its shapes and addresses are the same for
+    every token: K/V are written at ``at`` with ``index_copy_`` and the
+    whole cache is attended under a ``<= at`` mask. The step
+    :func:`jit_generate` captures."""
+    quantized = isinstance(cache_k, tuple)
+    s_cache = (cache_k[0] if quantized else cache_k).shape[1]
+
+    def attend(q, k, v):
+        if quantized:
+            for cache, new in ((cache_k, k), (cache_v, v)):
+                vals, scales = _quantize_kv(new)
+                cache[0].index_copy_(1, at, vals)
+                cache[1].index_copy_(1, at, scales)
+        else:
+            cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+            cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+        visible = torch.arange(s_cache, device=x.device) <= at
+        return _grouped_cache_attention(q, cache_k, cache_v, visible), None
+
+    x, _, _ = _block_core(bp, x, cfg, attend, positions=at,
+                          capacity_factor=serving_capacity(cfg))
+    return x
+
+
 def serving_capacity(cfg: GPTConfig) -> float:
     """The capacity factor of every serving forward (decode, the paged
     engine's prefill and verify; JAX ``engine.py:760``): at least
@@ -1312,19 +1348,9 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
     whole batch on every rank, and every rank returns the whole ids: the
     reduced logits are equal on every rank, so are greedy picks, and so
     are sampled ones when every rank's generator is seeded alike."""
+    _check_decode(ids, cfg, n_new, generator, temperature, top_p,
+                  cache_dtype)
     b, s0 = ids.shape
-    if s0 + n_new > cfg.seq_len:
-        raise ValueError(f"prompt {s0} + n_new {n_new} exceeds "
-                         f"cfg.seq_len={cfg.seq_len}")
-    if temperature < 0:
-        raise ValueError(f"temperature must be >= 0, got {temperature}")
-    if temperature > 0 and generator is None:
-        raise ValueError("sampling (temperature > 0) needs generator=")
-    if top_p is not None and not 0.0 < top_p <= 1.0:
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    if cache_dtype not in (None, "int8"):
-        raise ValueError(f"cache_dtype must be None or 'int8', got "
-                         f"{cache_dtype!r}")
     if n_new == 0:
         return ids
     _check_pos(params, cfg)
@@ -1366,30 +1392,173 @@ def generate(params: dict, ids: torch.Tensor, cfg: GPTConfig = GPTConfig(),
     return torch.cat([ids, torch.stack(out, dim=1).to(ids.dtype)], dim=1)
 
 
+def _check_decode(ids: torch.Tensor, cfg: GPTConfig, n_new: int,
+                  generator, temperature: float, top_p: float | None,
+                  cache_dtype: str | None) -> None:
+    """The argument checks of :func:`generate` and :func:`jit_generate`."""
+    if ids.shape[1] + n_new > cfg.seq_len:
+        raise ValueError(f"prompt {ids.shape[1]} + n_new {n_new} exceeds "
+                         f"cfg.seq_len={cfg.seq_len}")
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs generator=")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if cache_dtype not in (None, "int8"):
+        raise ValueError(f"cache_dtype must be None or 'int8', got "
+                         f"{cache_dtype!r}")
+
+
+class _DecodeState:
+    """:func:`jit_generate`'s fixed-shape decode for one (batch, prompt
+    length): the KV cache of ``s_total`` positions, ``(n_layers, B,
+    s_total, H_kv, Dh)`` in ``dtype`` or ``_quantize_kv`` pairs
+    (``cache_dtype="int8"``), shaped from the prefill's ``ks``; the token
+    and the position its step reads on the device; its captured step."""
+
+    def __init__(self, ks: torch.Tensor, s_total: int,
+                 cache_dtype: str | None, dtype: torch.dtype):
+        shape = (*ks.shape[:2], s_total, *ks.shape[3:])
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                 device=ks.device)
+        pair = lambda: (zeros(shape, torch.int8),
+                        zeros((*shape[:-1], 1), torch.bfloat16))
+        self.k, self.v = ((pair(), pair()) if cache_dtype == "int8"
+                          else (zeros(shape, dtype), zeros(shape, dtype)))
+        self.tok = zeros((ks.shape[1],), torch.long)
+        self.pos = zeros((1,), torch.long)
+        self.graph = None
+
+    def load(self, ks: torch.Tensor, vs: torch.Tensor) -> None:
+        """The prompt's K/V at positions ``[0, s0)``, zeros past them."""
+        s0 = ks.shape[2]
+        for cache, new in ((self.k, ks), (self.v, vs)):
+            parts = _quantize_kv(new) if isinstance(cache, tuple) else (new,)
+            for c, p in zip(cache if isinstance(cache, tuple) else (cache,),
+                            parts):
+                c[:, :, :s0] = p
+                c[:, :, s0:] = 0
+
+    def step(self, params: dict, cfg: GPTConfig,
+             compute_dtype: torch.dtype) -> torch.Tensor:
+        """One token a row (``tok``) through every block at ``pos``, its
+        K/V written into the cache in place: the (B, vocab) logits."""
+        x = L.embedding(params["wte"], self.tok[:, None],
+                        dtype=compute_dtype)
+        if "wpe" in params:
+            x = x + params["wpe"]["table"][self.pos].to(compute_dtype)
+        at = lambda c, i: (c[0][i], c[1][i]) if isinstance(c, tuple) \
+            else c[i]
+        for i in range(cfg.n_layers):
+            x = _cached_block_at(layer_params(params["blocks"], i), x,
+                                 at(self.k, i), at(self.v, i), self.pos,
+                                 cfg)
+        return _lm_head(params, x)[:, 0]
+
+    def operands(self, params: dict) -> list:
+        return [*tensor_leaves(params), *tensor_leaves((self.k, self.v)),
+                self.tok, self.pos]
+
+
 def jit_generate(cfg: GPTConfig = GPTConfig(), n_new: int = 32,
                  temperature: float = 1.0, top_k: int | None = None,
                  top_p: float | None = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  cache_dtype: str | None = None, mesh=None):
     """The one-entry decode of ``gpt.py:1428``: ``fn(params, ids,
-    generator=None) -> (B, S_prompt + n_new) ids``, :func:`generate`
-    with the decode knobs closed over. ``fn._cache_size()`` counts the
-    distinct ``(batch, prompt length)`` shapes ``fn`` has run, the
-    counterpart of JAX's compile cache (as
-    ``PagedEngine.decode_compiles`` is of the engine's). No CUDA graph
-    is captured: the loop runs eagerly."""
-    shapes: set = set()
+    generator=None) -> (B, S_prompt + n_new) ids``, :func:`generate`'s
+    tokens with the decode knobs closed over.
 
-    def fn(params: dict, ids: torch.Tensor,
-           generator: torch.Generator | None = None) -> torch.Tensor:
-        out = generate(params, ids, cfg, n_new=n_new, generator=generator,
-                       temperature=temperature, top_k=top_k, top_p=top_p,
-                       compute_dtype=compute_dtype, cache_dtype=cache_dtype,
-                       mesh=mesh)
-        shapes.add(tuple(ids.shape))
+    On the card (:func:`~torchbooster_tpu_torch._graphs.plan_steps`) the
+    prefill runs eagerly (B1), then a fixed-shape decode step: it reads
+    its position from a device tensor, writes K/V there in place and
+    attends the whole ``S_prompt + n_new`` cache under a ``<= pos`` mask
+    (:func:`_cached_block_at`), so its shapes depend on ``(batch, prompt
+    length)`` alone. That step is captured once a shape as a CUDA graph
+    and replayed ``n_new - 1`` times; the draws run after each replay
+    from ``generator``, and the tokens stay on the device until the end.
+    The graph reads the params where they lie: the leaves already in
+    ``compute_dtype`` are the caller's, and each leaf that needs a cast
+    is cast into a buffer of ``fn``'s own (kept, one copy in
+    ``compute_dtype``, and refreshed in place each call). Params at other
+    addresses than the capture's (a new tree) capture that shape again.
+    On the CPU and under ``eager_steps()`` the same step runs eagerly;
+    with a ``mesh`` (collectives) ``fn`` runs :func:`generate`.
+
+    ``fn._cache_size()`` counts the ``(batch, prompt length)`` shapes
+    ``fn`` has run, plus one for each capture that params at new
+    addresses forced: the counterpart of JAX's compile cache (as
+    ``PagedEngine.decode_compiles`` is of the engine's)."""
+    from torchbooster_tpu_torch._graphs import capture, captured, plan_steps
+
+    states: dict = {}     # (batch, prompt length) -> _DecodeState
+    casts: dict = {}      # key path -> fn's compute-dtype copy of a leaf
+    recaptures = [0]
+
+    def staged_params(tree: dict, path: tuple = ()) -> dict:
+        # cast_params's rule, each cast landing in its kept buffer
+        out = {}
+        for k, v in tree.items():
+            at = (*path, k)
+            if isinstance(v, dict):
+                out[k] = staged_params(v, at)
+            elif not v.is_floating_point() or k == "qscale" \
+                    or v.dtype == compute_dtype:
+                out[k] = v
+            else:
+                buf = casts.get(at)
+                if buf is None or buf.shape != v.shape \
+                        or buf.device != v.device:
+                    buf = casts[at] = torch.empty_like(v, dtype=compute_dtype)
+                out[k] = buf.copy_(v)
         return out
 
-    fn._cache_size = lambda: len(shapes)
+    @torch.no_grad()
+    def fn(params: dict, ids: torch.Tensor,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+        b, s0 = ids.shape
+        collectives = mesh is not None and mesh.distributed and mesh.size > 1
+        route = plan_steps(ids.device, collectives=collectives)[0]
+        if collectives:
+            out = generate(params, ids, cfg, n_new=n_new,
+                           generator=generator, temperature=temperature,
+                           top_k=top_k, top_p=top_p,
+                           compute_dtype=compute_dtype,
+                           cache_dtype=cache_dtype, mesh=mesh)
+            states.setdefault((b, s0), None)
+            return out
+        _check_decode(ids, cfg, n_new, generator, temperature, top_p,
+                      cache_dtype)
+        if n_new == 0:
+            return ids
+        _check_pos(params, cfg)
+        params = staged_params(params)
+        x, ks, vs = _prefill_forward(params, ids, cfg, compute_dtype)
+        st = states.get((b, s0))
+        if st is None:
+            st = states[(b, s0)] = _DecodeState(ks, s0 + n_new, cache_dtype,
+                                                compute_dtype)
+        st.load(ks, vs)
+        pick = _make_pick(temperature, top_k, top_p)
+        last = pick(generator, _lm_head(params, x[:, -1:])[:, 0])
+        out = [last]
+        step = lambda: st.step(params, cfg, compute_dtype)
+        for pos in range(s0, s0 + n_new - 1):
+            st.tok.copy_(last)
+            st.pos.fill_(pos)
+            if not captured(route):
+                logits = step()
+            elif st.graph is None or st.graph.moved(st.operands(params)):
+                recaptures[0] += st.graph is not None
+                st.graph, logits = capture(step, st.operands(params))
+            else:
+                logits = st.graph.replay()
+            last = pick(generator, logits)
+            out.append(last)
+        return torch.cat([ids, torch.stack(out, dim=1).to(ids.dtype)], dim=1)
+
+    fn._cache_size = lambda: len(states) + recaptures[0]
     return fn
 
 

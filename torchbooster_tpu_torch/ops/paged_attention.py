@@ -15,7 +15,12 @@ shape the wrapper takes). ``route=`` forces one; a route that cannot
 take the operands raises. There is no fall-back: a failed build or
 launch raises. ``launches`` counts kernel launches (pairs of passes),
 ``launches_by_route`` the same by route; the plain path touches
-neither.
+neither. Under a CUDA-graph capture (``_graphs.py``) the wrapper runs
+but nothing launches: it counts into the tally of the capture open on
+its own thread (:func:`capture_tally`), never into the counters, and
+each replay of the graph adds that tally (:func:`count_replay`, which
+also counts it in ``launches_replayed``), so the counters follow what
+the card ran, whatever other threads launch meanwhile.
 
 Operands are exactly the TPU kernel's: ``q (slots, S, H, Dh)`` with
 ``S ∈ {1, 1 + draft_len}``, one layer's pool ``(n_pages, page_size,
@@ -31,8 +36,10 @@ kernel ends its walk at the first entry whose lanes are all empty.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -41,6 +48,10 @@ from torchbooster_tpu_torch.ops.attention import NEG_INF
 launches = 0    # CUDA kernel launches (the main path's proof of route)
 # launches by the route plan_paged chose (or the caller forced)
 launches_by_route = {"sm90": 0, "simt": 0}
+# the part of launches_by_route that CUDA-graph replays ran
+launches_replayed = {"sm90": 0, "simt": 0}
+_count_lock = threading.Lock()
+_capture = threading.local()    # .held: the tally of this thread's capture
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SMEM = 232_448         # bytes of shared memory a CTA may use on sm_90
@@ -69,6 +80,46 @@ def plan_paged(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
             and rep >= 1 and s_q >= 1 and rep * s_q <= SM90_MAX_ROWS):
         return "sm90"
     return "simt"
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Inside the block, this thread's launches under a CUDA-graph
+    capture go to the dict it yields (by route), not to the counters: the
+    launches each replay of the graph runs (:func:`count_replay`)."""
+    outer = getattr(_capture, "held", None)
+    _capture.held = held = dict.fromkeys(launches_by_route, 0)
+    try:
+        yield held
+    finally:
+        _capture.held = outer
+
+
+def _count_launch(route: str) -> None:
+    """One launch on ``route`` from this thread: into the tally of the
+    capture open here, if the stream is being captured (a capture with no
+    tally, as a timing harness's, launches nothing and counts nothing),
+    else into the counters."""
+    global launches
+    if torch.cuda.is_current_stream_capturing():
+        held = getattr(_capture, "held", None)
+        if held is not None:
+            held[route] += 1
+        return
+    with _count_lock:
+        launches += 1
+        launches_by_route[route] += 1
+
+
+def count_replay(held: dict) -> None:
+    """A replay of a captured graph ran the launches ``held`` by route
+    (its :func:`capture_tally`)."""
+    global launches
+    with _count_lock:
+        for r, n in held.items():
+            launches_by_route[r] += n
+            launches_replayed[r] += n
+        launches += sum(held.values())
 
 
 def _simt_limits(head_dim: int, page_size: int, s_q: int) -> None:
@@ -210,7 +261,6 @@ def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
             page_size=page_size, sm_scale=sm_scale, tree_vis=tree_vis)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    global launches
     from torchbooster_tpu_torch.ops import _build
 
     q = q.contiguous()     # the qkv split leaves a strided view
@@ -273,11 +323,11 @@ def paged_attention(q: torch.Tensor, pool_k, pool_v, work_pages, work_refs,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"({route}): CUDA error {err}")
-    launches += 1
-    launches_by_route[route] += 1
+    _count_launch(route)
     return out
 
 
-__all__ = ["SM90_HEAD_DIMS", "SM90_MAX_PAGE", "SM90_MAX_ROWS", "check_paged",
-           "launches", "launches_by_route", "paged_attention",
+__all__ = ["SM90_HEAD_DIMS", "SM90_MAX_PAGE", "SM90_MAX_ROWS",
+           "capture_tally", "check_paged", "count_replay", "launches",
+           "launches_by_route", "launches_replayed", "paged_attention",
            "paged_attention_reference", "plan_paged"]

@@ -7,9 +7,12 @@ the LoRA adapter registry (adapters), prefill/decode disaggregation
 (disagg), and the engine fleet (router: ``EngineFleet``, its routing
 policies, prefix directory, health scorer, audit trail and socket
 replicas; the names below load it lazily) with its replica server
-(replica_server). ``ServingFrontend`` loads lazily too (the HTTP layer)."""
+(replica_server). ``ServingFrontend`` loads lazily too (the HTTP layer).
+``eager_steps()`` runs the engine's captured steps eagerly on the card
+(``_graphs.py``)."""
 from __future__ import annotations
 
+from torchbooster_tpu_torch._graphs import eager_steps
 from torchbooster_tpu_torch.serving.adapters import (
     AdapterRegistry,
     random_adapter,
@@ -64,4 +67,4 @@ __all__ = ["AdapterRegistry", "AffinityRouting", "BlockTables",
            "PriorityClass", "PromptLookupDrafter", "Request",
            "RoundRobinRouting", "SLOPolicy", "SchedulerPolicy",
            "ServingFrontend", "TreeLookupDrafter", "best_completions",
-           "make_pool", "random_adapter"]
+           "eager_steps", "make_pool", "random_adapter"]

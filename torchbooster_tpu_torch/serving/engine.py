@@ -54,14 +54,27 @@ cache — the port of ``torchbooster_tpu/serving/engine.py``.
   card) with one all-reduce a layer, and the host bookkeeping is the
   same on every rank.
 
-PyTorch runs eagerly, so the JAX package's one-compile contract
-becomes a fixed operand-shape contract: the decode and verify steps'
-operand shapes depend only on pool geometry (and ``draft_len``), and
+The JAX package jits the decode and verify steps and the tree
+compaction once; the port captures each once as a CUDA graph
+(``_graphs.py``) and replays it. Every tensor those steps read keeps its
+shape and address for the engine's life: the table operands, the
+kernel's live-page walk, the verify's ids and tree masks, the
+compaction's offsets, the legality masks and the lane ids are
+preallocated device buffers refreshed in place before each step
+(:class:`_Staged`), and the pool, the LoRA stacks and the params are
+written in place. Shapes depend only on pool geometry (and
+``draft_len``). :func:`~torchbooster_tpu_torch._graphs.plan_steps`
+decides the route from the device and the configuration
+(``step_route``, with ``step_route_reason``): ``"graph"`` on the card at
+``tp == 1``, ``"eager"`` on the CPU and at ``tp > 1``;
+``eager_steps()`` runs the eager step on the card. The first step of a
+signature runs for real (the warm-up) and captures; the draws
+(``_pick``, the branch and speculative picks) run after the graph, from
+the same generators, so sampled streams are the eager step's.
 ``decode_compiles``/``verify_compiles`` count the DISTINCT shape
-signatures each step has seen (each must stay 1 — what a CUDA-graph
-capture of the step will need; ``promote_compiles`` likewise counts the
-promotion write's). The pool, the legality masks, the lane ids and the
-promotion staging are updated in place.
+signatures each step has seen, one graph each on the graph route (each
+must stay 1; ``promote_compiles`` likewise counts the promotion
+write's, which runs eagerly).
 """
 from __future__ import annotations
 
@@ -71,6 +84,7 @@ import numpy as np
 import torch
 
 from torchbooster_tpu_torch._device import resolve_device
+from torchbooster_tpu_torch._graphs import capture, captured, plan_steps
 from torchbooster_tpu_torch.models import layers as L
 from torchbooster_tpu_torch.models.gpt import (
     GPTConfig,
@@ -87,6 +101,7 @@ from torchbooster_tpu_torch.models.gpt import (
     layer_params,
     map_tensors,
     serving_capacity,
+    tensor_leaves,
 )
 from torchbooster_tpu_torch.ops.paged_attention import (
     check_paged,
@@ -448,6 +463,37 @@ class PagedEngine:
             self._lanes_dev = _Staged((max_slots,), torch.long, self.device)
             self._lane_chunk = _Staged((1,), torch.long, self.device)
             self.adapters = AdapterRegistry(self)
+        # the steps' operands, allocated once in their final dtype and
+        # refreshed in place (index operands int64, the kernel's walk
+        # int32, its dtype at launch)
+        staged = lambda shape, dtype: _Staged(shape, dtype, self.device)
+        t = self.tables
+        self._args_dev = {
+            "tables": staged(t.tables.shape, torch.long),
+            "lengths": staged(t.lengths.shape, torch.long),
+            "refs": staged(t.refs.shape, torch.long),
+            "page_pos": staged(t.page_pos.shape, torch.long),
+            "active": staged(t.active.shape, torch.bool),
+            "last_ids": staged(t.last_ids.shape, torch.long)}
+        n_w, s_v = n_pages - 1, 1 + draft_len
+        self._work_dev = (
+            staged((n_w,), torch.int32),
+            staged((n_w, t.n_ref_lanes), torch.int32),
+            staged((n_w,), torch.int32)) if decode_backend == "kernel" \
+            else None
+        self._in_ids_dev = self._tree_dev = self._src_off_dev = None
+        if self.speculative:
+            self._in_ids_dev = staged((max_slots, s_v), torch.long)
+        if self.spec_tree:
+            self._tree_dev = (staged((max_slots, draft_len), torch.long),
+                              staged((max_slots, s_v), torch.long),
+                              staged((max_slots, s_v, s_v), torch.int32))
+            self._src_off_dev = staged((max_slots, s_v), torch.long)
+        # the route of the decode, verify and compaction steps, and their
+        # CUDA graphs by (kind, operand signature)
+        self.step_route, self.step_route_reason = plan_steps(
+            self.device, collectives=self.tp > 1)
+        self._graphs: dict = {}
 
     @classmethod
     def dense_control(cls, params: dict, cfg: GPTConfig, *,
@@ -1098,8 +1144,8 @@ class PagedEngine:
         if self.decode_backend != "kernel":
             return None
         ka = self.tables.kernel_args()
-        return tuple(torch.as_tensor(ka[k]).to(self.device)
-                     for k in ("work_pages", "work_refs", "work_pos"))
+        return tuple(buf.upload(ka[k]) for buf, k in zip(
+            self._work_dev, ("work_pages", "work_refs", "work_pos")))
 
     def _step_args(self) -> tuple[np.ndarray, dict, tuple | None]:
         """The active mask (host), the table operands on the device and
@@ -1109,16 +1155,45 @@ class PagedEngine:
                              >= self.cfg.seq_len).any():
             raise RuntimeError("a slot reached cfg.seq_len; the batcher "
                                "must retire sequences at the horizon")
-        args = {k: torch.as_tensor(v).to(self.device)
+        args = {k: self._args_dev[k].upload(v)
                 for k, v in self.tables.device_args().items()}
-        args = {k: v.long() if v.dtype == torch.int32 else v
-                for k, v in args.items()}
         return active, args, self._kernel_operands()
 
     @staticmethod
     def _signature(tensors: dict) -> tuple:
         return tuple((k, tuple(v.shape), str(v.dtype))
                      for k, v in tensors.items() if v is not None)
+
+    def _step_operands(self) -> list:
+        """Every tensor the decode, verify and compaction steps read: the
+        staged operands, the pool, the LoRA stacks and the params. Each
+        keeps its address for the engine's life; a captured step checks
+        them at every replay."""
+        staged = [*self._args_dev.values(), *(self._work_dev or ()),
+                  *(self._tree_dev or ())]
+        staged += [b for b in (self._in_ids_dev, self._src_off_dev,
+                               getattr(self, "_smask", None),
+                               getattr(self, "_smask_verify_dev", None),
+                               getattr(self, "_lanes_dev", None))
+                   if b is not None]
+        return [*(b.dev for b in staged), *_pool_arrays(self.pool),
+                *tensor_leaves(self._lora_buf or {}),
+                *tensor_leaves(self.params)]
+
+    def _run(self, kind: str, sig: tuple, fn):
+        """One ``kind`` step (``"decode"``, ``"verify"``, ``"compact"``)
+        of operand signature ``sig``: ``fn()`` eagerly on the eager route
+        and under ``eager_steps()``; else the step's CUDA graph, captured
+        at the signature's first call (which runs ``fn`` for real as the
+        warm-up and returns its result) and replayed after."""
+        if not captured(self.step_route):
+            return fn()
+        step = self._graphs.get((kind, sig))
+        if step is None:
+            step, out = capture(fn, self._step_operands())
+            self._graphs[(kind, sig)] = step
+            return out
+        return step.replay()
 
     def _mode_operands(self, smask, lanes) -> dict:
         """The structured and LoRA operands of a step, by name, for its
@@ -1141,17 +1216,22 @@ class PagedEngine:
                  if self.structured else None)
         lanes = (self._lanes_dev.upload(self._slot_lanes)
                  if self.lora else None)
-        self._decode_shapes.add(self._signature(
+        sig = self._signature(
             {**args, **dict(zip(("wp", "wr", "wpos"), work or ())),
-             **self._mode_operands(smask, lanes)}))
-        with span("decode_step"):
+             **self._mode_operands(smask, lanes)})
+        self._decode_shapes.add(sig)
+
+        def decode():
             logits = self._forward_fn(
                 args["last_ids"][:, None], args["tables"], args["lengths"],
                 args["refs"], args["page_pos"], args["active"], work,
                 lanes=lanes)[:, 0]
             # constrained rows knock illegal tokens to the dtype's
             # minimum; unconstrained rows are all-True (a no-op)
-            logits = _mask_logits(logits, smask)
+            return _mask_logits(logits, smask)
+
+        with span("decode_step"):
+            logits = self._run("decode", sig, decode)
         if self.parallel:
             slots = np.flatnonzero(active)
             gens = [None] * self.max_slots
@@ -1224,28 +1304,29 @@ class PagedEngine:
                 vmask[slot] = rows
             drafts[slot] = d
             self.spec_proposed += int((d >= 0).sum())
-        in_ids = torch.cat([args["last_ids"][:, None],
-                            torch.as_tensor(drafts).to(self.device).long()],
-                           dim=1)
+        in_ids = self._in_ids_dev.upload(np.concatenate(
+            [self.tables.last_ids[:, None], drafts], axis=1))
         tree = None
         if self.spec_tree:
             depth, vis = tree_masks(parents)
-            tree = tuple(torch.as_tensor(a).to(self.device).long()
-                         for a in (parents, depth, vis))
+            tree = tuple(buf.upload(a) for buf, a in zip(
+                self._tree_dev, (parents, depth, vis)))
         smask = (self._smask_verify_dev.upload(vmask)
                  if self.structured else None)
         lanes = (self._lanes_dev.upload(self._slot_lanes)
                  if self.lora else None)
-        self._verify_shapes.add(self._signature(
+        sig = self._signature(
             {**args, "in_ids": in_ids,
              **dict(zip(("wp", "wr", "wpos"), work or ())),
              **dict(zip(("parents", "depth", "vis"), tree or ())),
-             **self._mode_operands(smask, lanes)}))
+             **self._mode_operands(smask, lanes)})
+        self._verify_shapes.add(sig)
         with span("spec_verify_step"):
-            accept, token = self._verify(
+            logits = self._run("verify", sig, lambda: self._verify.forward(
                 args["tables"], args["lengths"], args["refs"],
                 args["page_pos"], args["active"], in_ids, work, tree,
-                smask, lanes)
+                smask, lanes))
+            accept, token = self._verify.pick(logits, in_ids, tree)
             # ONE device->host copy for both results
             both = torch.cat([accept.long(), token], dim=1).cpu().numpy()
         accept, token = both[:, :k].astype(bool), both[:, k:]
@@ -1277,10 +1358,12 @@ class PagedEngine:
             src_off = np.tile(np.arange(k + 1), (self.max_slots, 1))
             for slot, path in paths.items():
                 src_off[slot, 1:len(path) + 1] = path
+            src = self._src_off_dev.upload(src_off)
             with span("spec_tree_compact"):
-                self._compact_fn(args["tables"], args["lengths"],
-                                 args["active"],
-                                 torch.as_tensor(src_off).to(self.device))
+                self._run("compact", self._signature(
+                    {**args, "src_off": src}), lambda: self._compact_fn(
+                        args["tables"], args["lengths"], args["active"],
+                        src))
         for slot, emitted in out.items():
             for t in emitted:
                 self.tables.advance(slot, t)
@@ -1416,15 +1499,23 @@ class PagedEngine:
 
     @property
     def decode_compiles(self) -> int:
-        """Distinct decode-step operand-shape signatures seen — the
-        fixed-shape contract's observable (stays 1 across churn)."""
+        """Distinct decode-step operand-shape signatures seen, one CUDA
+        graph each on the graph route (JAX's ``_cache_size()`` of the
+        decode jit) — stays 1 across churn."""
         return len(self._decode_shapes)
 
     @property
     def verify_compiles(self) -> int:
-        """Distinct verify-step operand-shape signatures (stays 1 across
-        accept-length and slot churn; 0 when not speculative)."""
+        """Distinct verify-step operand-shape signatures, one graph each
+        on the graph route (stays 1 across accept-length and slot churn;
+        0 when not speculative)."""
         return len(self._verify_shapes)
+
+    @property
+    def graph_replays(self) -> int:
+        """Replays of the engine's captured steps (0 on the eager
+        route)."""
+        return sum(g.replays for g in self._graphs.values())
 
     @property
     def prefill_compiles(self) -> int:
@@ -1455,7 +1546,8 @@ class PagedEngine:
     def debug_stats(self) -> dict:
         """Engine introspection for ``GET /debug/engine`` (``engine.py:
         1875``): pool occupancy, prefix-cache and spill-tier stats, shape
-        counts — host integers only, never a device read."""
+        counts and, under ``"compiles"``, the step route and its graphs —
+        host values only, never a device read."""
         t = self.tables
         host = t.host_pool
         return {
@@ -1507,7 +1599,15 @@ class PagedEngine:
                          "prefill": self.prefill_compiles,
                          "verify": self.verify_compiles,
                          "promote": self.promote_compiles,
-                         "lora_load": self.lora_load_compiles},
+                         "lora_load": self.lora_load_compiles,
+                         # how the decode, verify and compaction steps
+                         # run: their plan, and the captured graphs'
+                         # count and replays (JAX's keys stay the
+                         # top level's)
+                         "step_route": self.step_route,
+                         "step_route_reason": self.step_route_reason,
+                         "graphs": len(self._graphs),
+                         "graph_replays": self.graph_replays},
         }
 
 

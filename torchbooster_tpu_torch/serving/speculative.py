@@ -232,19 +232,33 @@ def make_verify_fn(engine):
     + k)``. ``smask`` (structured generation, ``speculative.py:300``) is
     the ``(B, 1 + k, vocab)`` legality row of every position, applied to
     the logits before the pick, so fallback and bonus picks are legal
-    (drafts were checked against the automaton on the host)."""
+    (drafts were checked against the automaton on the host).
+    ``fn.forward`` (the same arguments, returning the masked logits)
+    and ``fn.pick(logits, in_ids, tree=None)`` are its two halves."""
     spec_pick = _make_spec_pick(engine.temperature, engine.top_k,
                                 engine.top_p)
 
-    def verify_fn(tables, lengths, refs, page_pos, active, in_ids,
-                  work=None, tree=None, smask=None, lanes=None):
+    def forward(tables, lengths, refs, page_pos, active, in_ids,
+                work=None, tree=None, smask=None, lanes=None):
         parents, depth, vis = tree if tree is not None else (None,) * 3
         logits = engine._forward_fn(in_ids, tables, lengths, refs,
                                     page_pos, active, work, depth=depth,
                                     tree_vis=vis, lanes=lanes)
-        logits = _mask_logits(logits, smask)
-        return spec_pick(engine._gen, logits, in_ids[:, 1:], parent=parents)
+        return _mask_logits(logits, smask)
 
+    def pick(logits, in_ids, tree=None):
+        return spec_pick(engine._gen, logits, in_ids[:, 1:],
+                         parent=None if tree is None else tree[0])
+
+    def verify_fn(tables, lengths, refs, page_pos, active, in_ids,
+                  work=None, tree=None, smask=None, lanes=None):
+        return pick(forward(tables, lengths, refs, page_pos, active, in_ids,
+                            work, tree, smask, lanes), in_ids, tree)
+
+    # the engine runs the two halves apart: the forward (masked logits,
+    # no draw) is the part a CUDA graph captures, the pick draws from
+    # the engine's generator after it
+    verify_fn.forward, verify_fn.pick = forward, pick
     return verify_fn
 
 
