@@ -3809,26 +3809,132 @@ def flash_vs_reference_fp32() -> dict:
     return out
 
 
-def train_breakdown(n_steps: int = 3) -> dict:
-    """A fresh bf16 trainer: two warm steps, then ``n_steps`` under the
-    profiler (CUDA activity): device busy share of the wall time, kernels
-    per step, the flash kernels' share of device time, and the top
-    kernels; then one step with host activity traced, for the host ops
-    that take the most CPU time."""
+# ------------------------------------------------------------ step twins
+TWIN_STEPS = 8     # the captured step and its eager twin, in turns
+# a captured train step against its eager twin (``eager_steps()``) from
+# the same start on the same batches: the same kernels on the same
+# operands in the same order, so the two agree bit for bit unless a
+# kernel's reduction order varies between runs; each step's loss is held
+# within TWIN_LOSS_RTOL of the twin's and every final parameter within
+# TWIN_PARAM_ATOL. A graph that baked in its capture's learning rate, a
+# bias correction frozen at the capture's count or the first step's
+# dropout masks moves them by 1e-4 or more within three steps
+TWIN_LOSS_RTOL = 1e-6
+TWIN_PARAM_ATOL = 1e-7
+
+
+def uncounted(fn):
+    """``fn()`` with B1-B3's launch counters as they were before: the
+    eager twin's launches compare a route with another and are not the
+    main path's. Returns ``(fn's result, the launches it made)``."""
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    before = flash_counts()
+    out = fn()
+    after = flash_counts()
+    fa.launches_fwd, fa.launches_dq, fa.launches_dkv = (
+        before["fwd"], before["dq"], before["dkv"])
+    for key, counts in (("fwd", fa.launches_fwd_by_route),
+                        ("dq", fa.launches_dq_by_route),
+                        ("dkv", fa.launches_dkv_by_route)):
+        counts.update(before["by_route"][key])
+    return out, {k: after[k] - before[k] for k in ("fwd", "dq", "dkv")}
+
+
+def in_turns(step_g, state_g, step_e, state_e, batches) -> tuple:
+    """A captured step (``step_g`` on ``state_g``) and its eager twin
+    (``step_e`` on ``state_e`` inside ``eager_steps()``) in turns, each
+    on the same batch and read back before the next step. Returns both
+    states and, per route, each step's loss and wall ms; the reserved
+    memory the capture added (the graph's pool, with the lazy optimizer
+    state when the capture is the first step); and the eager steps' peak
+    above the memory allocated before them. The twin's B1-B3 launches
+    are left out of the counters (:func:`uncounted`)."""
+    from torchbooster_tpu_torch._graphs import eager_steps
+
+    out = {"graph": {"loss": [], "ms": []},
+           "eager": {"loss": [], "ms": [], "peak_above_bytes": 0,
+                     "flash_launches": {"fwd": 0, "dq": 0, "dkv": 0}}}
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        state_g, m = step_g(state_g, batch)
+        out["graph"]["loss"].append(m["loss"].item())
+        out["graph"]["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["graph"]["capture_reserved_bytes"] = \
+                torch.cuda.memory_reserved() - reserved
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+
+        def eager():
+            with eager_steps():
+                state, e = step_e(state_e, batch)
+            return state, e["loss"].item()
+
+        (state_e, loss), made = uncounted(eager)
+        out["eager"]["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["eager"]["loss"].append(loss)
+        out["eager"]["peak_above_bytes"] = max(
+            out["eager"]["peak_above_bytes"],
+            torch.cuda.max_memory_allocated() - base)
+        for k, n in made.items():
+            out["eager"]["flash_launches"][k] += n
+    for route in ("graph", "eager"):
+        ms = sorted(out[route]["ms"][2:])
+        out[route]["step_ms"] = (ms[(len(ms) - 1) // 2]
+                                 + ms[len(ms) // 2]) / 2
+    return state_g, state_e, out
+
+
+def hold_twins(label: str, res: dict, state_g, state_e) -> dict:
+    """The captured run ``res`` (:func:`in_turns`) against its twin: every
+    step's loss within ``TWIN_LOSS_RTOL`` and every final parameter
+    within ``TWIN_PARAM_ATOL``; returns the largest differences and
+    whether each side was bit for bit."""
+    from torchbooster_tpu_torch.utils import tree_leaves
+
+    lg, le = res["graph"]["loss"], res["eager"]["loss"]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, le))
+    param_err = max((p - q).abs().max().item() for p, q in zip(
+        tree_leaves(state_g.params), tree_leaves(state_e.params),
+        strict=True))
+    bitwise = lg == le and all(torch.equal(p, q) for p, q in zip(
+        tree_leaves(state_g.params), tree_leaves(state_e.params)))
+    if not all(map(math.isfinite, lg)) or not loss_rel <= TWIN_LOSS_RTOL \
+            or not param_err <= TWIN_PARAM_ATOL:
+        raise AssertionError(
+            f"{label}: captured vs eager twin: losses {lg} / {le} (largest "
+            f"relative difference {loss_rel}, rtol {TWIN_LOSS_RTOL}), "
+            f"largest parameter difference {param_err} (atol "
+            f"{TWIN_PARAM_ATOL})")
+    return {"loss_max_rel": loss_rel, "param_max_abs": param_err,
+            "bit_for_bit": bitwise, "loss_rtol": TWIN_LOSS_RTOL,
+            "param_atol": TWIN_PARAM_ATOL}
+
+
+def profile_steps(step, state, batches, eager: bool) -> tuple:
+    """Steps of ``step`` on ``batches`` under the profiler (CUDA
+    activity), eagerly inside ``eager_steps()`` or on the step's plan:
+    wall and device ms a step, the device's busy share, kernels a step
+    and the top kernels; then one more step with host activity traced,
+    for the host ops that take the most CPU time. Returns ``(state,
+    breakdown)``."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    from torchbooster_tpu_torch.recipes import gpt as recipe
+    from torchbooster_tpu_torch._graphs import eager_steps
 
-    t = recipe.setup(gpt2_train_config(n_steps + 2, sample_tokens=0))
-    for _ in range(2):
-        t.state, m = t.step(t.state, t.batch(next(t.batches)[1]))
-    m["loss"].item()
-    batches = [t.batch(next(t.batches)[1]) for _ in range(n_steps)]
+    mode = eager_steps if eager else contextlib.nullcontext
+    run, host_batch = batches[:-1], batches[-1]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
-            t.state, m = t.step(t.state, batch)
+        for batch in run:
+            state, m = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -3836,22 +3942,79 @@ def train_breakdown(n_steps: int = 3) -> dict:
                          for e in events), key=lambda kv: -kv[1])
     busy = sum(v for _, v in per_kernel)
     flash = sum(v for k, v in per_kernel if "::flash_" in k)
-    # one more step with host (CPU) activity traced, apart from the timed
-    # ones because the tracing slows the host: where the host time goes
-    batch = t.batch(next(t.batches)[1])
+    n = len(run)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as host_prof:
-        t.state, m = t.step(t.state, batch)
+    with mode(), profile(activities=[ProfilerActivity.CPU]) as host_prof:
+        state, m = step(state, host_batch)
         torch.cuda.synchronize()
     host_ops = sorted(((e.key, e.self_cpu_time_total / 1e6, e.count)
                        for e in host_prof.key_averages()),
                       key=lambda kv: -kv[1])
-    return {"steps": n_steps, "wall_s": wall, "step_ms": wall / n_steps * 1e3,
-            "device_busy_s": busy, "device_busy_share": busy / wall,
-            "device_ms_per_step": busy / n_steps * 1e3, "flash_s": flash,
-            "flash_share_of_device": flash / max(busy, 1e-12),
-            "kernels_per_step": sum(e.count for e in events) / n_steps,
-            "top": per_kernel[:10], "host_top_one_step": host_ops[:12]}
+    return state, {
+        "steps": n, "wall_s": wall, "step_ms": wall / n * 1e3,
+        "device_busy_s": busy, "device_busy_share": busy / wall,
+        "device_ms_per_step": busy / n * 1e3, "flash_s": flash,
+        "flash_share_of_device": flash / max(busy, 1e-12),
+        "kernels_per_step": sum(e.count for e in events) / n,
+        "top": per_kernel[:10], "host_top_one_step": host_ops[:12]}
+
+
+def trainer_twins(label: str, conf, smi: str, n_profiled: int = 3) -> dict:
+    """Two trainers of the GPT recipe from one config and seed
+    (``setup``): ``TWIN_STEPS`` steps of the captured one and of its
+    eager twin in turns (:func:`in_turns`, :func:`hold_twins`), then
+    ``n_profiled`` more steps of each under the profiler
+    (:func:`profile_steps`). Reports step ms, device ms a step, busy
+    share and memory for both routes, the replays and the captures
+    (one)."""
+    from torchbooster_tpu_torch.recipes import gpt as recipe
+
+    tg, te = recipe.setup(conf), recipe.setup(conf)
+    take = lambda t, n: [t.batch(next(t.batches)[1]) for _ in range(n)]
+    # both trainers take the captured one's batches
+    tg.state, te.state, res = in_turns(tg.step, tg.state, te.step, te.state,
+                                       take(tg, TWIN_STEPS))
+    held = hold_twins(label, res, tg.state, te.state)
+    captures = tg.step._cache_size()
+    if captures != 1 or te.step._cache_size() != 0:
+        raise AssertionError(f"{label}: {captures} captures over "
+                             f"{TWIN_STEPS} steps (one expected), "
+                             f"{te.step._cache_size()} by the twin")
+    out = {"steps": TWIN_STEPS, **held, "captures": captures,
+           "graph": res["graph"], "eager": res["eager"], "card": smi}
+    tg.state, out["graph"]["breakdown"] = profile_steps(
+        tg.step, tg.state, take(tg, n_profiled + 1), eager=False)
+    te.state, out["eager"]["breakdown"] = profile_steps(
+        te.step, te.state, take(te, n_profiled + 1), eager=True)
+    out["replays"] = tg.step.graphs.replays
+    if tg.step._cache_size() != 1:
+        raise AssertionError(f"{label}: the profiled steps captured again")
+    g, e = out["graph"], out["eager"]
+    log(f"{label} twins ({TWIN_STEPS} steps in turns, same seed): losses "
+        f"captured {g['loss'][0]:.6f} -> {g['loss'][-1]:.6f}, eager "
+        f"{e['loss'][0]:.6f} -> {e['loss'][-1]:.6f}; largest loss "
+        f"difference {held['loss_max_rel']:.3g} relative (rtol "
+        f"{TWIN_LOSS_RTOL}), parameters {held['param_max_abs']:.3g} (atol "
+        f"{TWIN_PARAM_ATOL}), bit for bit {held['bit_for_bit']}; step "
+        f"{g['step_ms']:.1f} ms captured vs {e['step_ms']:.1f} ms eager "
+        f"(median of steps 3-{TWIN_STEPS}, each read back); device "
+        f"{g['breakdown']['device_ms_per_step']:.1f} / "
+        f"{e['breakdown']['device_ms_per_step']:.1f} ms a step, busy "
+        f"{100 * g['breakdown']['device_busy_share']:.1f}% / "
+        f"{100 * e['breakdown']['device_busy_share']:.1f}%, kernels "
+        f"{g['breakdown']['kernels_per_step']:.0f} / "
+        f"{e['breakdown']['kernels_per_step']:.0f} a step; capture added "
+        f"{g['capture_reserved_bytes'] / 2**30:.2f} GiB reserved (the "
+        f"graph's pool and the optimizer state), an eager step peaks "
+        f"{e['peak_above_bytes'] / 2**30:.2f} GiB above its start; "
+        f"{out['replays']} replays, {captures} capture [{smi}]")
+    for route in ("graph", "eager"):
+        log(f"{label} {route} host, one traced step (self CPU ms, calls): "
+            + "; ".join(f"{k[:40]} {v * 1e3:.1f} ({n})" for k, v, n in
+                        out[route]["breakdown"]["host_top_one_step"][:8]))
+    del tg, te
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train(report: dict, smi: str) -> dict:
@@ -3860,15 +4023,24 @@ def phase_train(report: dict, smi: str) -> dict:
     from torchbooster_tpu_torch.ops import flash_attention as fa
     from torchbooster_tpu_torch.recipes import gpt as recipe
 
+    from torchbooster_tpu_torch import utils
+
     conf = gpt2_train_config(TRAIN_STEPS)
     cfg = conf.model.make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
+    graph0, captures0 = utils.steps_by_route["graph"], utils.step_captures
     t0 = time.perf_counter()
     res = recipe.main(conf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graph_steps = utils.steps_by_route["graph"] - graph0
+    captures = utils.step_captures - captures0
+    # the recipe's step on one card: captured once, replayed after
+    if (graph_steps, captures) != (TRAIN_STEPS, 1):
+        raise AssertionError(f"train: {graph_steps} captured steps of "
+                             f"{TRAIN_STEPS}, {captures} captures")
     launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
                 "dkv": fa.launches_dkv}
     by_route = {"fwd": dict(fa.launches_fwd_by_route),
@@ -3905,25 +4077,26 @@ def phase_train(report: dict, smi: str) -> dict:
            "model_flops_per_step": flops,
            "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
            "peak_mem_bytes": peak, "sample_len": len(res.get("sample", [])),
-           "card": smi}
+           "captures": captures, "card": smi}
     log(f"train: GPT-2 small, batch {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} "
-        f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"captured steps (1 capture), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step "
         f"{out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
         f"model FLOP share {100 * out['mfu_of_989_tflops']:.2f}% of 989 "
         f"TFLOP/s, peak mem {peak / 2**30:.2f} GiB; flash launches "
         f"{launches}, B1-B3 by route {by_route} [{smi}]")
     out["fp32_flash_vs_reference"] = flash_vs_reference_fp32()
     torch.cuda.empty_cache()
-    b = out["breakdown"] = train_breakdown()
-    log(f"train profiled: {b['steps']} steps, wall {b['wall_s']:.3f} s "
-        f"({b['step_ms']:.1f} ms/step), device {b['device_ms_per_step']:.1f} "
-        f"ms/step, busy {100 * b['device_busy_share']:.1f}%, "
+    tw = out["twins"] = trainer_twins(
+        "train", gpt2_train_config(TWIN_STEPS + 8, sample_tokens=0), smi)
+    b = out["breakdown"] = tw["graph"]["breakdown"]
+    log(f"train profiled (captured): {b['steps']} steps, wall "
+        f"{b['wall_s']:.3f} s ({b['step_ms']:.1f} ms/step), device "
+        f"{b['device_ms_per_step']:.1f} ms/step, busy "
+        f"{100 * b['device_busy_share']:.1f}%, "
         f"{b['kernels_per_step']:.0f} kernels per step, flash kernels "
         f"{100 * b['flash_share_of_device']:.1f}% of device time; top: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in b["top"][:5]))
-    log("train host, one traced step (self CPU ms, calls): " + "; ".join(
-        f"{k[:40]} {v * 1e3:.1f} ({n})"
-        for k, v, n in b["host_top_one_step"][:8]))
     report["train"] = out
     return {**launches, "by_route": by_route}
 
@@ -4105,9 +4278,9 @@ def gpt2_finetune(name: str, imported: dict, cfg, smi: str) -> tuple:
     conf = gpt2_finetune_config(name)
     loss_fn = recipe.make_loss(conf, cfg)
     tx = conf.optim.make(conf.scheduler.make(conf.optim))
-    state = utils.TrainState.create(
+    state, twin = (utils.TrainState.create(
         map_tensors(imported, lambda t: t.clone()), tx,
-        generator=conf.seed)
+        generator=conf.seed) for _ in range(2))
     step = utils.make_step(loss_fn, tx, clip=conf.clip)
     data = conf.dataset.make(Split.TRAIN, seq_len=cfg.seq_len + 1,
                              vocab=cfg.vocab)
@@ -4120,15 +4293,18 @@ def gpt2_finetune(name: str, imported: dict, cfg, smi: str) -> tuple:
         return {"ids": tokens[:, :-1], "labels": tokens[:, 1:]}
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
-    losses, step_s = [], []
-    for _ in range(GPT2_STEPS):
-        batch = to_card(next(batches)[1])
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(m["loss"].item())
-        step_s.append(time.perf_counter() - t0)
+    # the captured steps and, in turns, the same step eagerly on a twin
+    # state (its launches left out of the counts)
+    state, twin, res = in_turns(step, state, step, twin, [
+        to_card(next(batches)[1]) for _ in range(GPT2_STEPS)])
+    held = hold_twins(f"gpt2_import {name}", res, state, twin)
+    if step._cache_size() != 1 or step.graphs.replays != GPT2_STEPS - 1:
+        raise AssertionError(f"gpt2_import {name}: {step._cache_size()} "
+                             f"captures, {step.graphs.replays} replays")
+    del twin
+    losses = res["graph"]["loss"]
+    step_s = [ms / 1e3 for ms in res["graph"]["ms"]]
     peak = torch.cuda.max_memory_allocated()
     launches = {"fwd": fa.launches_fwd, "dq": fa.launches_dq,
                 "dkv": fa.launches_dkv}
@@ -4163,6 +4339,9 @@ def gpt2_finetune(name: str, imported: dict, cfg, smi: str) -> tuple:
                + steady[len(steady) // 2]) / 2 * 1e3
     out = {"lr": GPT2_LR[name], "losses": losses, "step_ms": step_ms,
            "step_ms_each": [s * 1e3 for s in step_s],
+           "twin": {**held, "eager": res["eager"],
+                    "capture_reserved_bytes":
+                        res["graph"]["capture_reserved_bytes"]},
            "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
            "peak_mem_bytes": peak, "optimizer_state_bytes": state_bytes,
            "param_bytes": param_bytes,
@@ -4172,12 +4351,18 @@ def gpt2_finetune(name: str, imported: dict, cfg, smi: str) -> tuple:
            "update_tol": {"rtol": GPT2_UPDATE_RTOL,
                           "atol": GPT2_UPDATE_ATOL},
            "card": smi}
-    log(f"gpt2_import {name} (lr {GPT2_LR[name]}): {GPT2_STEPS} steps at "
+    log(f"gpt2_import {name} (lr {GPT2_LR[name]}): {GPT2_STEPS} captured "
+        f"steps (1 capture, {GPT2_STEPS - 1} replays) at "
         f"batch {TRAIN_B} x {TRAIN_S}, {conf.env.precision}, remat "
         f"policy, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {step_ms:.1f} ms "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; against the eager twin in "
+        f"turns: losses within {held['loss_max_rel']:.3g} relative, "
+        f"parameters within {held['param_max_abs']:.3g}, bit for bit "
+        f"{held['bit_for_bit']}; step {step_ms:.1f} ms captured, "
+        f"{res['eager']['step_ms']:.1f} ms eager "
         f"(median of steps 3-{GPT2_STEPS}), {out['tokens_per_s']:.0f} "
-        f"tokens/s, peak mem {peak / 2**30:.2f} GiB, optimizer state "
+        f"tokens/s, peak mem {peak / 2**30:.2f} GiB since the last eager "
+        f"step began, optimizer state "
         f"{state_bytes} bytes ({100 * out['state_share_of_params']:.3f}% "
         f"of the fp32 params' {param_bytes}); B1-B3 by route {by_route}; "
         f"one update at lr {conf.optim.lr}, card vs CPU: max abs err "
@@ -4353,9 +4538,11 @@ def state_diff(a, b) -> dict:
         b.optimizer.state_dict()["state"]
     for i in sa:
         for key in sa[i]:
-            if not torch.equal(sa[i][key], sb[i][key]):
-                out[f"optimizer{i}.{key}"] = (
-                    sa[i][key] - sb[i][key]).abs().max().item()
+            # on the host: a restored count lies on the CPU until the
+            # step's first call puts the optimizer in its graph form
+            x, y = sa[i][key].cpu(), sb[i][key].cpu()
+            if not torch.equal(x, y):
+                out[f"optimizer{i}.{key}"] = (x - y).abs().max().item()
     if a.step != b.step:
         out["step"] = (a.step, b.step)
     if not torch.equal(a.generator.get_state(), b.generator.get_state()):
@@ -4608,6 +4795,15 @@ def phase_train_long(report: dict, smi: str) -> dict:
                 f"{k[:60]} {v * 1e3:.1f} ms" for k, v in bd["top"][:6]))
         del t1
         torch.cuda.empty_cache()
+
+        # 6. the captured steps against their eager twin, dropout on: a
+        # graph that kept its capture's masks would part from the twin
+        # at the second step
+        import dataclasses
+
+        out["twins"] = trainer_twins("train_long", dataclasses.replace(
+            conf, save_every=0, eval_batches=0, sample_tokens=0,
+            n_iter=TWIN_STEPS + 8), smi, n_profiled=2)
     report["train_long"] = out
     return {**launches, "by_route": by_route}
 
@@ -6019,6 +6215,9 @@ def tp_fp32_check(mesh, cfg) -> dict:
                                                 True)
         ref_loss, _ = ref_loss_fn(ref.params, batches[0], None)
         ref_loss.backward()
+        # the tp:1 step is captured: no graph of an eager backward may
+        # stay alive, its leaves' accumulators on the default stream
+        del ref_loss
         worst = 0.0
         for path, p in tree_flatten(ref.params):
             worst = max(worst, held_rel("tp fp32 grad " + "/".join(path),
@@ -8964,6 +9163,34 @@ def phase_style(report: dict, smi: str) -> dict:
     return out
 
 
+# phases whose train steps have collectives (a process group): eager by
+# the plan, in the processes they start
+MESH_PHASES = ("train_comms", "moe", "sp_fold", "tp", "pp_fold")
+
+
+def step_routes(key: str, before: tuple, report: dict) -> None:
+    """The train steps phase ``key`` ran in this process by route since
+    ``before`` (``utils.steps_by_route``, ``utils.step_captures``), beside
+    the plan for its configuration. One card's steps must all be
+    captured but for their eager twins; a mesh phase's none."""
+    from torchbooster_tpu_torch import _graphs, utils
+
+    ran = {r: n - before[0][r] for r, n in utils.steps_by_route.items()}
+    captures = utils.step_captures - before[1]
+    mesh = key in MESH_PHASES
+    route, why = _graphs.plan_steps(DEV, collectives=mesh)
+    report.setdefault("step_routes", {})[key] = {
+        "steps": ran, "captures": captures, "planned": route,
+        "reason": why}
+    if (mesh and ran["graph"]) or (not mesh and ran["eager"]):
+        raise AssertionError(f"{key}: train steps by route {ran}, planned "
+                             f"{route!r}")
+    log(f"{key} train steps: planned {route!r} ({why}); in this process "
+        f"{ran['graph']} captured ({captures} captures), "
+        f"{ran['eager_steps']} eager twins, {ran['eager']} eager "
+        f"[{report['card']}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -8986,6 +9213,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    from torchbooster_tpu_torch import utils
     from torchbooster_tpu_torch.ops import _build
     pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
 
@@ -9182,8 +9410,11 @@ def main() -> int:
         if key not in phases:
             continue
         t, before = time.perf_counter(), sum(pa.launches_replayed.values())
+        routes = dict(utils.steps_by_route), utils.step_captures
         launches = phase(report, smi)
         phase_s[key] = time.perf_counter() - t
+        if key not in ("serve_long", "serve_graph"):
+            step_routes(key, routes, report)
         # the tp phase serves in its ranks' processes, eager by the plan
         # (tp_serve holds that)
         if key in ("gpt2_import", "serve_long", "serve_graph", "moe"):
@@ -9227,8 +9458,10 @@ def main() -> int:
         if key not in phases:
             continue
         t = time.perf_counter()
+        routes = dict(utils.steps_by_route), utils.step_captures
         launches = phase(report, smi)
         phase_s[key] = time.perf_counter() - t
+        step_routes(key, routes, report)
         for k in conv_kernels:
             conv_kernels[k]["launches"] += launches[k]
             counts = conv_kernels[k]["launches_by_route"] or dict.fromkeys(
@@ -9248,8 +9481,10 @@ def main() -> int:
                        ("vae_gan", phase_vae_gan), ("style", phase_style)):
         if key in phases:
             t = time.perf_counter()
+            routes = dict(utils.steps_by_route), utils.step_captures
             phase(report, smi)
             phase_s[key] = time.perf_counter() - t
+            step_routes(key, routes, report)
     report["wall_s"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in phase_s.items()))

@@ -1939,3 +1939,125 @@ def test_captured_jit_generate_follows_params_to_new_addresses_on_card():
     assert not torch.equal(flipped, redrawn)
     assert torch.equal(fn(other, ids), flipped)
     assert fn._cache_size() == 2
+
+
+# ---- captured train step (CUDA graphs) -----------------------------------
+def _train_pair(name: str, dropout: float = 0.0):
+    """A small GPT (bf16 compute over fp32 masters, remat, head dim 64:
+    B1-B3 on ``"sm90"``) twice from one seed, its optimizer ``name``
+    through ``OptimizerConfig.make`` on the card, and one step function."""
+    from torchbooster_tpu_torch import utils
+    from torchbooster_tpu_torch.config import OptimizerConfig, SchedulerConfig
+    from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+    from torchbooster_tpu_torch.ops.losses import cross_entropy
+
+    cfg = GPTConfig(vocab=97, n_layers=2, d_model=128, n_heads=2,
+                    seq_len=128, dropout=dropout)
+    conf = OptimizerConfig(name=name, lr=1e-2, weight_decay=0.1)
+    tx = conf.make(SchedulerConfig(name="cycle", n_iter=6, warmup=2).make(
+        conf))
+
+    def loss_fn(params, batch, generator):
+        logits = GPT.apply(params, batch["ids"], cfg, remat=True,
+                           compute_dtype=torch.bfloat16, generator=generator)
+        return cross_entropy(logits, batch["labels"]), {}
+
+    states = [utils.TrainState.create(GPT.init(0, cfg, device="cuda"), tx,
+                                      generator=7, ema=True)
+              for _ in range(2)]
+    step = utils.make_step(loss_fn, tx, clip=1.0, ema_decay=0.99)
+    rs = np.random.RandomState(0)
+    batches = []
+    for _ in range(6):
+        t = torch.as_tensor(rs.randint(0, 97, (4, 129)), device="cuda")
+        batches.append({"ids": t[:, :-1], "labels": t[:, 1:]})
+    return states, step, batches
+
+
+def _same_states(a, b) -> None:
+    from torchbooster_tpu_torch import utils
+
+    for p, q in zip(utils.tree_leaves(a.params), utils.tree_leaves(b.params),
+                    strict=True):
+        assert torch.equal(p, q)
+    for p, q in zip(utils.tree_leaves(a.ema), utils.tree_leaves(b.ema),
+                    strict=True):
+        assert torch.equal(p, q)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dropout", [
+    ("adamw", 0.0), ("lamb", 0.0), ("lion", 0.0), ("adafactor", 0.0),
+    ("adamw", 0.1)], ids=["adamw", "lamb", "lion", "adafactor",
+                          "adamw_dropout"])
+def test_captured_train_step_equals_eager_on_card(name, dropout):
+    """``make_step`` on the card: 5 steps captured once and replayed (the
+    optimizer's lr, count and bias corrections on the card, the EMA's
+    decay staged) against the same step function's eager twin inside
+    ``eager_steps()``, in turns: losses, parameters, EMA and generator
+    bit for bit. At dropout 0.1 under remat each replay draws new masks
+    (the losses differ from a replay of the first step's masks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch._graphs import eager_steps
+    from torchbooster_tpu_torch.ops import flash_attention as fa
+
+    (graph, eager), step, batches = _train_pair(name, dropout)
+    assert step.plan(torch.device("cuda"))[0] == "graph"
+    before = fa.launches_dq_by_route["sm90"]
+    losses = []
+    for batch in batches[:5]:
+        graph, m = step(graph, batch)
+        with eager_steps():
+            eager, e = step(eager, batch)
+        assert torch.equal(m["loss"], e["loss"])
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    _same_states(graph, eager)
+    assert step._cache_size() == 1 and step.graphs.replays == 4
+    # B2 once a layer a step, replays counted, the twin's too
+    assert fa.launches_dq_by_route["sm90"] - before == 2 * 2 * 5
+    if dropout:
+        assert len(set(losses)) == len(losses)
+
+
+@pytest.mark.cuda
+def test_captured_train_step_resumes_in_place_on_card(tmp_path):
+    """A save after 2 captured steps, 2 more; a fresh state restored from
+    the save (``SaveCallback``) into the captured step: nothing captures
+    again (the load writes into the live tensors), and its 2 steps take
+    the original's bit for bit (dropout on). A cold state (no optimizer
+    state yet) restored the same way takes them too, its lr a scalar on
+    the card from its first step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from torchbooster_tpu_torch.callbacks import SaveCallback
+
+    (state, fresh), step, batches = _train_pair("adamw", 0.1)
+    cb = SaveCallback(every=2, n_iter=4, root=tmp_path)
+    for i, batch in enumerate(batches[:4]):
+        state, _ = step(state, batch)
+        if i == 1:
+            cb.save(2, state=state)
+    cb.wait()
+    captures = step._cache_size()
+    # the fresh state takes one step first, so that its optimizer state
+    # exists and the restore writes into it
+    fresh, _ = step(fresh, batches[0])
+    assert step._cache_size() == captures + 1
+    cb.restore(like={"state": fresh})
+    assert fresh.step == 2 and fresh.loads == 0
+    for batch in batches[2:4]:
+        fresh, _ = step(fresh, batch)
+    assert step._cache_size() == captures + 1
+    torch.cuda.synchronize()
+    _same_states(fresh, state)
+    (cold, _), _, _ = _train_pair("adamw", 0.1)
+    cb.restore(like={"state": cold})
+    assert cold.step == 2 and cold.loads == 1
+    for batch in batches[2:4]:
+        cold, _ = step(cold, batch)
+    assert all(g["lr"].is_cuda for g in cold.optimizer.param_groups)
+    torch.cuda.synchronize()
+    _same_states(cold, state)

@@ -25,6 +25,8 @@ decode step rests on, at a small size (2-3 layers, d_model 32).
 The captures themselves run on the card (``tests/test_torch_cuda.py``).
 """
 import importlib
+from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -40,6 +42,7 @@ from torchbooster_tpu_torch import _graphs
 from torchbooster_tpu_torch.interop import params_from_jax
 from torchbooster_tpu_torch.models import gpt as tgpt
 from torchbooster_tpu_torch.models.gpt import GPT, GPTConfig
+from torchbooster_tpu_torch.ops import launch_tally
 from torchbooster_tpu_torch.serving import PagedEngine, random_adapter
 from torchbooster_tpu_torch.serving import structured as st
 
@@ -290,13 +293,16 @@ def test_replay_adds_the_launches_its_capture_held(saved_counts,
     raises before it runs."""
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: True)
+    stream = SimpleNamespace(cuda_stream=7)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
     pa.launches = 5
     pa.launches_by_route.update(sm90=3, simt=2)
     before = dict(pa.launches_by_route)
-    with pa.capture_tally() as held:
+    with launch_tally.capture_tally(stream) as held:
         for route in ["sm90"] * 12 + ["simt"] * 2:
             pa._count_launch(route)
-    assert held == {"sm90": 12, "simt": 2}
+    assert launch_tally.by_key(held, pa.__name__, "launches_by_route") \
+        == {"sm90": 12, "simt": 2}
     assert (pa.launches, pa.launches_by_route) == (5, before)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
@@ -307,7 +313,7 @@ def test_replay_adds_the_launches_its_capture_held(saved_counts,
     assert pa.launches == 5 + 28 and graph.replays == 2
     assert pa.launches_by_route == {"sm90": 27, "simt": 6}
     assert {r: pa.launches_replayed[r] - saved_counts[2][r]
-            for r in held} == {"sm90": 24, "simt": 4}
+            for r in pa.launches_replayed} == {"sm90": 24, "simt": 4}
     assert step.replays == 2 and not step.moved() and not step.moved([x])
     assert step.moved([torch.zeros(4)])
     x.set_(torch.zeros(8))
@@ -321,8 +327,8 @@ def test_capture_holds_only_its_own_threads_launches(saved_counts,
                                                      monkeypatch):
     """(c) While one thread captures (``_graphs.capture`` over a fake
     graph and stream), another thread's launches count as its own: the
-    capture's tally holds only the launches its step made, and a replay
-    adds exactly those."""
+    capture's tally (its stream's) holds only the launches its step
+    made, and a replay adds exactly those."""
     import contextlib
     import threading
 
@@ -331,11 +337,13 @@ def test_capture_holds_only_its_own_threads_launches(saved_counts,
                         lambda: getattr(capturing, "on", False))
 
     class _Stream:
+        cuda_stream = 7
+
         def wait_stream(self, other):
             pass
 
     @contextlib.contextmanager
-    def graph_ctx(graph, stream=None, capture_error_mode=None):
+    def graph_ctx(graph, pool=None, stream=None, capture_error_mode=None):
         assert capture_error_mode == "thread_local"
         capturing.on = True
         try:
@@ -368,7 +376,8 @@ def test_capture_holds_only_its_own_threads_launches(saved_counts,
 
     captured, out = _graphs.capture(step, [torch.zeros(2)])
     assert out == "logits" and captured.outputs == "logits"
-    assert captured.held == {"sm90": 3, "simt": 1}
+    assert launch_tally.by_key(captured.held, pa.__name__,
+                               "launches_by_route") == {"sm90": 3, "simt": 1}
     # the warm-up's 4 launches and the other thread's 7, nothing else
     assert pa.launches_by_route == {"sm90": 3, "simt": 1 + 7}
     assert pa.launches == 11
@@ -436,7 +445,7 @@ def test_jit_generate_graph_route_reads_the_params_it_is_given(
         static = fn()
         return _graphs.CapturedStep(_Replayed(fn, static), static,
                                     list(operands),
-                                    dict.fromkeys(pa.launches_by_route, 0)), out
+                                    Counter()), out
 
     monkeypatch.setattr(_graphs, "capture", fake_capture)
     monkeypatch.setattr(_graphs, "plan_steps",

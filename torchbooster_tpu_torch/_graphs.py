@@ -1,7 +1,8 @@
 """CUDA-graph capture of the port's fixed-shape steps: its counterpart of
 the JAX package's ``jax.jit`` over the serving steps
-(``torchbooster_tpu/serving/engine.py:558-617``) and over ``generate``
-(``models/gpt.py:1428`` ``jit_generate``).
+(``torchbooster_tpu/serving/engine.py:558-617``), over ``generate``
+(``models/gpt.py:1428`` ``jit_generate``) and over the train step
+(``utils.py:233`` ``make_step``).
 
 A step here is a function of no arguments that reads only tensors which
 keep their shapes and addresses between calls (device buffers refreshed
@@ -15,10 +16,14 @@ graph (:meth:`CapturedStep.replay`): the same kernels on the same
 addresses, with no Python dispatch. A failed capture raises; nothing
 falls back to the eager step.
 
-B4 (``ops/paged_attention.py``) counts its launches in Python, which a
-replay never runs: under the capture its wrapper counts into the
-capture's own tally (per thread, so another thread's launches meanwhile
-stay theirs), and each replay adds that tally, by route.
+The kernel wrappers (B1-B8) count their launches in Python, which a
+replay never runs: under the capture each counts into the capture's own
+tally (``ops/launch_tally.py``; the capture stream's, so the backward's
+launches from autograd's thread join it and another thread's launches
+meanwhile stay theirs), and each replay adds that tally, by counter and
+route. A step that draws random numbers from a card generator names it
+at the capture: the graph registers it, so that each replay draws at the
+generator's offset then and advances it, as the eager step would.
 
 :func:`plan_steps` decides from the device and the configuration alone
 whether a step is captured; :func:`eager_steps` is the one way to run a
@@ -29,13 +34,11 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import importlib
-from typing import Callable
+from typing import Callable, Iterable
 
 import torch
 
-# the module, not ``ops.paged_attention`` the function ``ops`` exports
-_pa = importlib.import_module("torchbooster_tpu_torch.ops.paged_attention")
+from torchbooster_tpu_torch.ops import launch_tally
 
 _EAGER = contextvars.ContextVar("torchbooster_eager_steps", default=False)
 
@@ -60,10 +63,12 @@ def plan_steps(device: str | torch.device, *,
     only, never from a failed attempt.
 
     - The CPU is eager: CUDA graphs exist only on the card.
-    - A step with collectives (a ``tp > 1`` engine, a decode on a mesh)
-      is eager: its all-reduces go over a process group, gloo through
-      the host in the port's tp serving (``serving/tp.py``), which a
-      graph cannot hold.
+    - A step with collectives (a ``tp > 1`` engine, a decode on a mesh,
+      a train step on a mesh or with a ``comms`` schedule) is eager: its
+      all-reduces go over a process group, gloo through the host in the
+      port's tp serving (``serving/tp.py``), which a graph cannot hold;
+      a train step's NCCL syncs are not captured either (N cards are not
+      measured).
     - Everything else on the card is captured. That includes MoE
       models: the serving forward's capacity (``serving_capacity``) and
       its routing are static shapes and device ops (``moe_apply``:
@@ -72,9 +77,10 @@ def plan_steps(device: str | torch.device, *,
     if torch.device(device).type != "cuda":
         return "eager", "the CPU has no CUDA graphs"
     if collectives:
-        return "eager", ("the step's all-reduces go over a process group "
+        return "eager", ("the step's collectives go over a process group "
                          "(gloo through the host in the port's tp "
-                         "serving), which a CUDA graph cannot hold")
+                         "serving; a mesh train step's syncs), which "
+                         "the port runs eagerly")
     return "graph", ("one card, fixed operand shapes and addresses, no "
                      "host read inside the step: captured once, replayed")
 
@@ -88,7 +94,8 @@ def captured(route: str) -> bool:
 class CapturedStep:
     """One captured step: its graph, its static outputs (rewritten by each
     replay: read them before the next), the addresses of the operands it
-    baked in, and the B4 launches by route each replay runs."""
+    baked in, and the tally of kernel launches each replay runs
+    (``launch_tally``)."""
 
     def __init__(self, graph, outputs, operands: list, held: dict):
         self.graph = graph
@@ -113,17 +120,23 @@ class CapturedStep:
                 "the graph would read freed memory (update pools, "
                 "buffers and params in place)")
         self.graph.replay()
-        _pa.count_replay(self.held)
+        launch_tally.count_replay(self.held)
         self.replays += 1
         return self.outputs
 
 
-def capture(fn: Callable, operands: list) -> tuple[CapturedStep, object]:
+def capture(fn: Callable, operands, generators: Iterable = (),
+            pool=None) -> tuple[CapturedStep, object]:
     """Warm ``fn`` up on a side stream (this call's step: its result is
     returned), then capture a second call of it into a CUDA graph on the
     calling thread. ``operands`` are the tensors ``fn`` reads whose
-    addresses the graph bakes in; :meth:`CapturedStep.replay` refuses to
-    run once one has moved. Returns ``(step, warm-up outputs)``."""
+    addresses the graph bakes in (or a function that lists them after
+    the warm-up, for state the warm-up makes, such as an optimizer's);
+    :meth:`CapturedStep.replay` refuses to run once one has moved.
+    ``generators``: the card generators ``fn`` draws from, registered
+    with the graph. ``pool``: another graph's memory pool to share (its
+    graphs never run at once with this one). Returns ``(step, warm-up
+    outputs)``."""
     current = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(current)
@@ -131,12 +144,16 @@ def capture(fn: Callable, operands: list) -> tuple[CapturedStep, object]:
         out = fn()
     current.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     # on the warm-up's own stream: two threads capturing at once
     # (replica servers of one process) never share a capture stream
-    with _pa.capture_tally() as held, torch.cuda.graph(
-            graph, stream=side, capture_error_mode="thread_local"):
+    with launch_tally.capture_tally(side) as held, torch.cuda.graph(
+            graph, pool=pool, stream=side,
+            capture_error_mode="thread_local"):
         outputs = fn()
-    return CapturedStep(graph, outputs, list(operands), held), out
+    listed = operands() if callable(operands) else operands
+    return CapturedStep(graph, outputs, list(listed), held), out
 
 
 __all__ = ["CapturedStep", "capture", "captured", "eager_steps",

@@ -495,6 +495,20 @@ def _saved_leaves(prefix: str, value: Any, comms: Any) -> list:
     return out
 
 
+def _count_device(optimizer: Any, q: torch.Tensor) -> torch.device:
+    """Where an optimizer keeps a restored update count: on the leaf's
+    device for the port's optimizers (``optim.py``) and torch's
+    capturable or fused ones, on the CPU for torch's others (as torch's
+    own ``load_state_dict`` places it)."""
+    from torchbooster_tpu_torch import optim
+
+    group = optimizer.param_groups[0] if optimizer.param_groups else {}
+    if isinstance(optimizer, optim._InPlace) or group.get("capturable") \
+            or group.get("fused"):
+        return q.device
+    return torch.device("cpu")
+
+
 def _plan_of(comms: Any, values: dict) -> Any:
     """The schedule's bucket plan (built from a saved state's parameter
     tree when the schedule has none yet), or None."""
@@ -654,14 +668,24 @@ def _load_state(st: Any, prefix: str, host: dict, old_meta: Any,
         for jname in sorted(names):
             tname = _TORCH_NAMES.get(jname, jname)
             if jname == "count":
-                entry[tname] = torch.tensor(float(get(
-                    f"{prefix}.opt_state[0].count")))
+                count = float(get(f"{prefix}.opt_state[0].count"))
+                if isinstance(entry.get(tname), torch.Tensor):
+                    entry[tname].fill_(count)
+                else:
+                    entry[tname] = torch.tensor(
+                        count, device=_count_device(st.optimizer, q))
                 continue
             key = f"{prefix}.opt_state[0].{jname}{suffix}"
             value = shard_of(key, q.numel()) if id(q) not in suffixes \
                 else torch.as_tensor(block(get(key), _block_of(q)))
-            entry[tname] = value.to(device=q.device,
-                                    dtype=q.dtype).reshape(q.shape).clone()
+            value = value.to(device=q.device, dtype=q.dtype).reshape(q.shape)
+            live = entry.get(tname)
+            # into the live tensor where there is one: a captured train
+            # step reads the optimizer's state where it lies
+            if isinstance(live, torch.Tensor) and live.shape == value.shape:
+                live.copy_(value)
+            else:
+                entry[tname] = value.clone()
     st.step = int(get(f"{prefix}.step"))
     if st.generator is not None:
         saved = host.get(f"{prefix}.generator")

@@ -495,7 +495,7 @@ class OptimizerConfig(BaseConfig):
             if self.nesterov and (self.dampening or not self.momentum):
                 raise ValueError(
                     "nesterov requires a momentum and zero dampening")
-            factory = lambda groups, lr: torch.optim.SGD(
+            factory = lambda groups, lr: optim.SGD(
                 groups, lr=lr, momentum=self.momentum,
                 dampening=self.dampening, nesterov=self.nesterov)
         elif name == "adam":

@@ -530,29 +530,26 @@ class GPT:
                 # kernels index grouped rows, the reference expands them
                 return attention(q, k, v, causal=True, impl=attn_impl), None
 
-            def block(bp: dict, x: torch.Tensor, rng_state, after: list):
-                gen = None
-                if drop:
-                    gen = torch.Generator(generator.device)
-                    gen.set_state(rng_state)
+            def block(bp: dict, x: torch.Tensor, *masks):
                 x, aux, _ = _block_core(bp, x, cfg, attend,
                                         positions=positions, dropout=drop,
-                                        generator=gen, seq=seq, tp=tp,
+                                        generator=_Drawn(*masks)
+                                        if drop else None, seq=seq, tp=tp,
                                         **moe)
-                if drop:
-                    after[:] = [gen.get_state()]
                 return x, aux
 
             aux = 0.0
             for i in range(cfg.n_layers):
-                bp = layer_params(blocks, i)
-                rng_state = generator.get_state() if drop else None
-                after: list = []
-                x, layer_aux = _run_block(block, bp, x, remat, rng_state,
-                                          after)
+                # the block's two residual masks, drawn from the
+                # generator before the block, in the order its forward
+                # takes them: the remat recompute reuses them, and
+                # nothing reads or sets a generator's state on the host,
+                # so a CUDA graph of the step draws afresh on each replay
+                masks = [_dropout_mask(x, drop, generator, seq)
+                         for _ in range(2)] if drop else []
+                x, layer_aux = _run_block(block, layer_params(blocks, i), x,
+                                          remat, *masks)
                 aux = aux + layer_aux
-                if drop:
-                    generator.set_state(after[0])
         out = L.layer_norm(params["ln_f"], x) if return_hidden \
             else _lm_head(params, x, tp)
         if return_aux:
@@ -612,9 +609,14 @@ def _run_block(fn, bp: dict, x: torch.Tensor, remat: bool, *args):
             tree.setdefault(k, {})[kk] = t
         return fn(tree, x, *rest[:n_args])
 
+    # the RNG state is not kept: a block draws nothing (its dropout masks
+    # are drawn before it, or from a generator whose state the pipelined
+    # path sets), and a CUDA-graph capture of the step cannot read the
+    # card's generator state
     return checkpoint(flat_fn, x, len(args), *args,
                       *[bp[k][kk] for k, kk in paths],
-                      use_reentrant=False, context_fn=_REMAT_CONTEXT)
+                      use_reentrant=False, context_fn=_REMAT_CONTEXT,
+                      preserve_rng_state=False)
 
 
 def tensor_leaves(tree) -> list:
@@ -692,10 +694,23 @@ def _dropout(x: torch.Tensor, rate: float,
     index) of a batch of ``n`` (a pipeline microbatch). The mask is
     drawn over the whole sequence and batch and x's part kept, so the
     pipelined and sequence-parallel forwards draw the masks of the
-    forward on one device."""
+    forward on one device. ``generator`` may be a :class:`_Drawn` of
+    masks drawn ahead (:func:`_dropout_mask`), taken in order."""
     if not rate or generator is None:
         return x
+    mask = generator.next() if isinstance(generator, _Drawn) \
+        else _dropout_mask(x, rate, generator, seq, rows)
     keep = 1.0 - rate
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _dropout_mask(x: torch.Tensor, rate: float, generator: torch.Generator,
+                  seq: tuple[int, int] | None = None,
+                  rows: tuple[torch.Tensor, int] | None = None
+                  ) -> torch.Tensor:
+    """The keep mask :func:`_dropout` applies to a tensor of ``x``'s
+    shape (``seq`` and ``rows`` as there)."""
     shape, cols, lines = list(x.shape), slice(None), slice(None)
     if seq is not None:
         index, n = seq
@@ -704,10 +719,19 @@ def _dropout(x: torch.Tensor, rate: float,
     if rows is not None:
         lines, shape[0] = rows
         lines = lines.to(x.device)
-    mask = torch.rand(shape, generator=generator,
-                      device=x.device)[lines, cols] < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    return torch.rand(shape, generator=generator,
+                      device=x.device)[lines, cols] < 1.0 - rate
+
+
+class _Drawn:
+    """Dropout masks drawn ahead of a block, which its :func:`_dropout`
+    calls take in order in place of a generator."""
+
+    def __init__(self, *masks: torch.Tensor):
+        self._masks = list(masks)
+
+    def next(self) -> torch.Tensor:
+        return self._masks.pop(0)
 
 
 def _row_dense(params: dict, x: torch.Tensor, reduce=None,

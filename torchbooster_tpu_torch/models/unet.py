@@ -52,7 +52,9 @@ def time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal embedding of integer timesteps t (B,) → (B, dim); fp32
     angles (bf16 t·freq products alias at large T)."""
     half = dim // 2
-    log = torch.log(torch.tensor(10_000.0, device=t.device))
+    # filled on the device, not copied from the host: a CUDA-graph
+    # capture of the step cannot copy
+    log = torch.log(torch.full((), 10_000.0, device=t.device))
     freqs = torch.exp(-log * torch.arange(half, dtype=torch.float32,
                                           device=t.device) / half)
     angles = t.float()[:, None] * freqs[None, :]

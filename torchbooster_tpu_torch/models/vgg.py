@@ -29,6 +29,7 @@ _CFGS = {
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+_NORMALIZE: dict = {}     # (dtype, device) -> (mean, std) tensors
 
 
 def _plan(depth: int) -> list[tuple[str, Any]]:
@@ -106,9 +107,15 @@ class VGGFeatures:
 
     @staticmethod
     def normalize(x: torch.Tensor) -> torch.Tensor:
-        """ImageNet-normalize NHWC images in [0, 1]."""
-        mean = torch.as_tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.as_tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        """ImageNet-normalize NHWC images in [0, 1]. The constants are
+        made once a dtype and device: a CUDA-graph capture of a step
+        cannot copy them from the host."""
+        key = (x.dtype, x.device)
+        if key not in _NORMALIZE:
+            _NORMALIZE[key] = tuple(
+                torch.as_tensor(v, dtype=x.dtype, device=x.device)
+                for v in (IMAGENET_MEAN, IMAGENET_STD))
+        mean, std = _NORMALIZE[key]
         return (x - mean) / std
 
 

@@ -13,7 +13,8 @@ and, for the bf16 ``"sm90"`` routes, ``csrc/flash_fwd_sm90.cu`` and
 PyTorch, blocked exactly like the TPU kernels — and only there. There is
 no fall-back: a failed build or launch raises. ``launches_fwd``,
 ``launches_dq`` and ``launches_dkv`` count kernel launches; the plain
-path never touches them.
+path never touches them. Under a CUDA-graph capture the launches go to
+the capture's tally and each replay adds them (``launch_tally.py``).
 
 The forward and the backward each have three CUDA routes, planned before
 launch by :func:`plan_flash_fwd` and :func:`plan_flash_bwd` and counted
@@ -48,6 +49,7 @@ import math
 
 import torch
 
+from torchbooster_tpu_torch.ops import launch_tally
 from torchbooster_tpu_torch.ops.attention import NEG_INF
 
 MIN_BLOCK = 8          # the TPU kernel's smallest tile edge
@@ -379,7 +381,6 @@ def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
     cannot take the operands raises, and so does a named ``"sm90"`` at
     ``sm_scale <= 0``: its running max is over the raw scores, which keep
     the order of the scaled ones only for a positive scale."""
-    global launches_fwd
     _check_cuda(q, k, v)
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
@@ -400,9 +401,10 @@ def launch_fwd(q, k, v, causal, sm_scale, route: str | None = None):
     if err != 0:
         raise RuntimeError(f"flash_attention forward kernel launch failed "
                            f"({route}): CUDA error {err}")
-    launches_fwd += 1
-    launches_fwd_by_route[route] += 1
-    launches_fwd_by_mask["causal" if causal else "full"] += 1
+    launch_tally.count(__name__, ("launches_fwd", None),
+                       ("launches_fwd_by_route", route),
+                       ("launches_fwd_by_mask",
+                        "causal" if causal else "full"))
     return o, lse
 
 
@@ -437,7 +439,6 @@ def launch_dq(q, k, v, o, lse, do, causal, sm_scale,
     """B2 on CUDA tensors: ``(dq, delta)``, delta the fp32 (BH, S_q)
     rowsum(dO∘O) that B3 reads. ``route`` defaults to the plan of
     :func:`plan_flash_bwd`."""
-    global launches_dq
     _check_cuda(q, k, v, o, do, rows=(lse,))
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
@@ -454,8 +455,8 @@ def launch_dq(q, k, v, o, lse, do, causal, sm_scale,
     if err != 0:
         raise RuntimeError(f"flash_attention dQ kernel launch failed "
                            f"({route}): CUDA error {err}")
-    launches_dq += 1
-    launches_dq_by_route[route] += 1
+    launch_tally.count(__name__, ("launches_dq", None),
+                       ("launches_dq_by_route", route))
     return dq, delta
 
 
@@ -463,7 +464,6 @@ def launch_dkv(q, k, v, lse, do, delta, causal, sm_scale,
                route: str | None = None):
     """B3 on CUDA tensors: grouped ``(dk, dv)``. ``delta`` comes from
     :func:`launch_dq` on the same stream; ``route`` as there."""
-    global launches_dkv
     _check_cuda(q, k, v, do, rows=(lse, delta))
     bh, s_q, head_dim = q.shape
     bh_kv, s_kv, _ = k.shape
@@ -479,8 +479,8 @@ def launch_dkv(q, k, v, lse, do, delta, causal, sm_scale,
     if err != 0:
         raise RuntimeError(f"flash_attention dK/dV kernel launch failed "
                            f"({route}): CUDA error {err}")
-    launches_dkv += 1
-    launches_dkv_by_route[route] += 1
+    launch_tally.count(__name__, ("launches_dkv", None),
+                       ("launches_dkv_by_route", route))
     return dk, dv
 
 

@@ -15,7 +15,9 @@ formulation ``_ref_conv3x3_gn`` (:283-305) recomputed from (x, w, scale,
 bias), as at :345-352. There is no fall-back: a failed build or launch
 raises. ``launches_1x1`` and ``launches_3x3`` count kernel launches,
 ``launches_1x1_by_route`` and ``launches_3x3_by_route`` the same by the
-route :func:`plan_conv1x1` or :func:`plan_conv3x3` chose.
+route :func:`plan_conv1x1` or :func:`plan_conv3x3` chose. Under a
+CUDA-graph capture the launches go to the capture's tally and each replay
+adds them (``launch_tally.py``).
 
 What the kernels keep of the TPU ones: the weight is cast to x's dtype
 before the product (:365, :397), the product accumulates in fp32, the
@@ -34,6 +36,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from torchbooster_tpu_torch.ops import launch_tally
 
 launches_1x1 = 0    # B7 launches (the main path's proof of route)
 launches_3x3 = 0    # B8 launches, every route
@@ -370,7 +374,6 @@ def launch_1x1(x, w, scale, bias, groups: int, eps: float = 1e-5,
     two-pass kernel; ``route`` forces another (``"mma_sync"``, B7's earlier
     bf16 kernel, on the same inputs); a route that cannot take the operands
     raises."""
-    global launches_1x1
     if w.shape[:2] != (1, 1):
         raise ValueError(f"launch_1x1: w must be (1, 1, Cin, Cout), got "
                          f"{tuple(w.shape)}")
@@ -381,8 +384,8 @@ def launch_1x1(x, w, scale, bias, groups: int, eps: float = 1e-5,
         res = _launch_sm90(x, w, scale, bias, groups, eps, relu, stride, plan)
     else:
         res = _launch(x, w, scale, bias, groups, eps, relu, stride)
-    launches_1x1 += 1
-    launches_1x1_by_route[route] += 1
+    launch_tally.count(__name__, ("launches_1x1", None),
+                       ("launches_1x1_by_route", route))
     return res
 
 
@@ -391,7 +394,6 @@ def launch_3x3(x, w, scale, bias, groups: int, eps: float = 1e-5,
     """B8 on CUDA tensors, w ``(3, 3, Cin, Cout)``, stride 1, padding 1:
     ``(out, mu, rstd)``. bf16 takes the route :func:`plan_conv3x3` plans;
     fp32 the CUDA-core two-pass kernel."""
-    global launches_3x3
     if w.shape[:2] != (3, 3):
         raise ValueError(f"launch_3x3: w must be (3, 3, Cin, Cout), got "
                          f"{tuple(w.shape)}")
@@ -402,8 +404,8 @@ def launch_3x3(x, w, scale, bias, groups: int, eps: float = 1e-5,
         res = _launch_sm90(x, w, scale, bias, groups, eps, relu, 1, plan)
     else:
         res = _launch(x, w, scale, bias, groups, eps, relu, 1)
-    launches_3x3 += 1
-    launches_3x3_by_route[route] += 1
+    launch_tally.count(__name__, ("launches_3x3", None),
+                       ("launches_3x3_by_route", route))
     return res
 
 

@@ -14,7 +14,9 @@ it runs :func:`group_norm_fwd_reference` and :func:`group_norm_bwd_reference`
 — the same math in plain PyTorch — and only there. There is no fall-back: a
 failed build or launch raises. ``launches_fwd`` and ``launches_bwd`` count
 kernel launches, ``launches_fwd_by_route`` and ``launches_bwd_by_route`` the
-same by route; the plain path never touches them.
+same by route; the plain path never touches them. Under a CUDA-graph
+capture the launches go to the capture's tally and each replay adds them
+(``launch_tally.py``).
 
 Numerics are the TPU kernels', not the docstring's: B5 clamps the group
 variance at 0 (:87), B6 recomputes the ReLU mask as ``xhat * scale + bias
@@ -29,6 +31,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from torchbooster_tpu_torch.ops import launch_tally
 
 launches_fwd = 0    # B5 launches, every route (the main path's proof)
 launches_bwd = 0    # B6 launches, every route
@@ -332,7 +336,6 @@ def launch_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     defaults to the plan of :func:`plan_gn_fwd`; ``"two_pass"`` forces
     ``gn_fwd`` on the same inputs, and ``"one_pass"`` where it was not
     planned raises."""
-    global launches_fwd
     _check_cuda(x, scale, bias, groups)
     n, h, w, c = x.shape
     plan = plan_gn_fwd(n, h * w, c, groups, x.dtype)
@@ -350,8 +353,8 @@ def launch_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             raise RuntimeError(f"group_norm forward kernel launch failed "
                                f"(two_pass): CUDA error {err}")
         res = y, stats
-    launches_fwd += 1
-    launches_fwd_by_route[route] += 1
+    launch_tally.count(__name__, ("launches_fwd", None),
+                       ("launches_fwd_by_route", route))
     return res
 
 
@@ -386,7 +389,6 @@ def launch_bwd(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
     """B6 on CUDA tensors: ``(dx, part)``. ``route`` defaults to the plan of
     :func:`plan_gn_bwd`; ``"two_pass"`` forces ``gn_bwd`` on the same
     inputs, and ``"one_pass"`` where it was not planned raises."""
-    global launches_bwd
     _check_cuda(x, scale, bias, groups, dy, stats=stats)
     n, h, w, c = x.shape
     plan = plan_gn_bwd(n, h * w, c, groups, x.dtype)
@@ -405,8 +407,8 @@ def launch_bwd(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
             raise RuntimeError(f"group_norm backward kernel launch failed "
                                f"(two_pass): CUDA error {err}")
         res = dx, part
-    launches_bwd += 1
-    launches_bwd_by_route[route] += 1
+    launch_tally.count(__name__, ("launches_bwd", None),
+                       ("launches_bwd_by_route", route))
     return res
 
 

@@ -52,8 +52,11 @@ def lm_head_cross_entropy(hidden: torch.Tensor, table: torch.Tensor,
     for start in range(0, t, chunk_size):
         part = slice(start, start + chunk_size)
         if torch.is_grad_enabled():
+            # no RNG state to keep (the chunk draws nothing), and none
+            # read: a CUDA-graph capture of the step cannot read it
             total = total + checkpoint(chunk_nll, x2[part], y[part], table,
-                                       use_reentrant=False)
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
         else:
             total = total + chunk_nll(x2[part], y[part], table)
     return total / t

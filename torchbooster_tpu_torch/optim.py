@@ -1,7 +1,8 @@
 """The optimizers that torch does not ship with the JAX package's rule:
-``Lamb``, ``Lion`` and ``Adafactor``. Each is a ``torch.optim.Optimizer``
-that computes exactly the optax chain ``OptimizerConfig.make`` of the JAX
-package builds for its name (optax 0.2.6), leaf by leaf:
+``Lamb``, ``Lion`` and ``Adafactor``, and ``SGD`` over a learning rate
+held on the card. Each is a ``torch.optim.Optimizer`` that computes
+exactly the optax chain ``OptimizerConfig.make`` of the JAX package
+builds for its name (optax 0.2.6), leaf by leaf:
 
 - :class:`Lamb` — ``optax.lamb``: ``scale_by_adam(b1, b2, eps,
   eps_root=0)`` → ``add_decayed_weights(wd, mask)`` →
@@ -26,31 +27,58 @@ The weight decay of Lamb and Lion is a group's ``weight_decay`` (the
 ``decay_matrices_only`` groups of ``config.Transform.init`` are optax's
 ``ndim > 1`` mask). Every rule runs in the parameters' dtype, as optax's
 does on fp32 leaves. ``torch.optim.Adafactor`` is another rule (no
-block-RMS clip, no parameter scale, another decay) and is not used."""
+block-RMS clip, no parameter scale, another decay) and is not used.
+
+A step reads nothing back to the host, so that a CUDA graph can hold it
+(``utils.make_step``): the update count (optax's ``count``) lies on the
+parameters' device and the values made from it (Lamb's bias
+corrections, Adafactor's decay) are computed there in fp32, as optax
+computes them; every state tensor is written in place, so the addresses
+a graph baked in stay the state; and a group's ``lr`` may be a tensor
+on the card, which the train step refreshes in place before each step.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 
-def _init(state: dict, **moments: torch.Tensor) -> None:
+class _InPlace(torch.optim.Optimizer):
+    """An optimizer whose step writes its state in place: a state loaded
+    from another optimizer's live ``state_dict`` is copied first, so the
+    two share nothing."""
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            for key, value in state.items():
+                if isinstance(value, torch.Tensor):
+                    state[key] = value.clone()
+
+
+def _init(state: dict, p: torch.Tensor, **moments: torch.Tensor) -> None:
     """A leaf's first state: the update count (optax's ``count``, per
-    leaf here: every leaf updates together) and its zero moments."""
-    state.update(step=torch.zeros((), dtype=torch.int64), **moments)
+    leaf here: every leaf updates together), an fp32 scalar on ``p``'s
+    device, and its zero moments."""
+    state.update(step=torch.zeros((), dtype=torch.float32, device=p.device),
+                 **moments)
 
 
-def _count(state: dict) -> int:
-    """Advance the leaf's update count and return it. Every state entry
-    is replaced, never written in place, so a state loaded from another
-    optimizer's live ``state_dict`` shares nothing with it."""
-    state["step"] = state["step"] + 1
-    return int(state["step"])
+def _count(state: dict, p: torch.Tensor) -> torch.Tensor:
+    """Advance the leaf's update count in place and return it. A count
+    restored elsewhere (a CPU tensor, an int64 one) moves onto ``p``'s
+    device as fp32 first; that happens before any capture, at the first
+    step after the restore."""
+    step = state["step"]
+    if step.device != p.device or step.dtype != torch.float32:
+        step = state["step"] = step.to(p.device, torch.float32)
+    return step.add_(1)
 
 
-def _bias_correction(decay: float, count: int) -> float:
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     """optax's ``1 - decay**count``, computed in fp32 as optax does (in
     double it differs by up to 5e-5 relative at ``decay`` 0.999)."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+    return 1.0 - torch.pow(decay, count)
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +90,45 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return x.square().sum().sqrt()
 
 
-class Lamb(torch.optim.Optimizer):
+def _ema(value: torch.Tensor, decay, new: torch.Tensor) -> None:
+    """``value ← decay·value + (1 - decay)·new`` in place, rounded as the
+    optax expression ``(1 - decay) * new + decay * value`` is."""
+    torch.add((1.0 - decay) * new, decay * value, out=value)
+
+
+class SGD(torch.optim.SGD):
+    """``torch.optim.SGD``'s momentum and decay rule — the JAX package
+    reproduces it — with an ``lr`` that is a float or a scalar tensor on
+    the card. torch's own step reads such an lr back to the host
+    (``add_(grad, alpha=-lr)``); here the update is ``p + grad·(-lr)``
+    for either, the product rounded first, as optax's
+    ``scale_by_learning_rate`` then ``apply_updates`` round it."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            wd, momentum = group["weight_decay"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if wd:
+                    g = g.add(p, alpha=wd)
+                if momentum:
+                    state = self.state[p]
+                    buf = state.get("momentum_buffer")
+                    if buf is None:
+                        buf = state["momentum_buffer"] = g.detach().clone()
+                    else:
+                        buf.mul_(momentum).add_(
+                            g, alpha=1 - group["dampening"])
+                    g = g.add(buf, alpha=momentum) if group["nesterov"] \
+                        else buf
+                p.add_(g * -group["lr"])
+        return None
+
+
+class Lamb(_InPlace):
     """``optax.lamb`` (see the module docstring); state per leaf: the
     ``step`` count and the moments ``mu``, ``nu``."""
 
@@ -81,11 +147,12 @@ class Lamb(torch.optim.Optimizer):
                     continue
                 g, state = p.grad, self.state[p]
                 if not state:
-                    _init(state, mu=torch.zeros_like(p),
+                    _init(state, p, mu=torch.zeros_like(p),
                           nu=torch.zeros_like(p))
-                t = _count(state)
-                state["mu"] = mu = (1 - b1) * g + b1 * state["mu"]
-                state["nu"] = nu = (1 - b2) * g.square() + b2 * state["nu"]
+                t = _count(state, p)
+                mu, nu = state["mu"], state["nu"]
+                _ema(mu, b1, g)
+                _ema(nu, b2, g.square())
                 u = (mu / _bias_correction(b1, t)) / (
                     (nu / _bias_correction(b2, t)).sqrt() + group["eps"])
                 if group["weight_decay"]:
@@ -96,7 +163,7 @@ class Lamb(torch.optim.Optimizer):
                 p.add_((u * ratio) * -group["lr"])
 
 
-class Lion(torch.optim.Optimizer):
+class Lion(_InPlace):
     """``optax.lion`` (see the module docstring); state per leaf: the
     ``step`` count and the moment ``mu``."""
 
@@ -115,11 +182,11 @@ class Lion(torch.optim.Optimizer):
                     continue
                 g, state = p.grad, self.state[p]
                 if not state:
-                    _init(state, mu=torch.zeros_like(p))
-                _count(state)
+                    _init(state, p, mu=torch.zeros_like(p))
+                _count(state, p)
                 mu = state["mu"]
                 u = torch.sign((1.0 - b1) * g + b1 * mu)
-                state["mu"] = (1 - b2) * g + b2 * mu
+                _ema(mu, b2, g)
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p
                 p.add_(u * -group["lr"])
@@ -150,7 +217,7 @@ def _block_rms(x: torch.Tensor) -> torch.Tensor:
     return x.square().mean().sqrt()
 
 
-class Adafactor(torch.optim.Optimizer):
+class Adafactor(_InPlace):
     """``optax.adafactor(lr)`` at optax's defaults (see the module
     docstring); state per leaf: the ``step`` count and either the row and
     column second moments ``v_row``, ``v_col`` (factored leaves) or the
@@ -173,26 +240,26 @@ class Adafactor(torch.optim.Optimizer):
         dims = factored_dims(tuple(p.shape))
         if not state:
             if dims is None:
-                _init(state, v=torch.zeros_like(p))
+                _init(state, p, v=torch.zeros_like(p))
             else:
                 d1, d0 = dims
-                _init(state, v_row=p.new_zeros(
+                _init(state, p, v_row=p.new_zeros(
                     [n for i, n in enumerate(p.shape) if i != d0]),
                     v_col=p.new_zeros(
                         [n for i, n in enumerate(p.shape) if i != d1]))
-        # optax's _decay_rate_pow at the count before this update, in fp32
-        t = np.float32(_count(state))
-        decay = float(np.float32(1.0) - t ** np.float32(-DECAY_RATE))
+        # optax's _decay_rate_pow(count) = 1 - (count + 1)^-0.8 in fp32,
+        # count the updates before this one
+        decay = 1.0 - torch.pow(_count(state, p), -DECAY_RATE)
         grad_sqr = g.square() + EPS
         if dims is None:
-            state["v"] = v = decay * state["v"] + (1.0 - decay) * grad_sqr
+            v = state["v"]
+            _ema(v, decay, grad_sqr)
             u = g * v.pow(-0.5)
         else:
             d1, d0 = dims
-            state["v_row"] = v_row = (decay * state["v_row"] + (1.0 - decay)
-                                      * grad_sqr.mean(dim=d0))
-            state["v_col"] = v_col = (decay * state["v_col"] + (1.0 - decay)
-                                      * grad_sqr.mean(dim=d1))
+            v_row, v_col = state["v_row"], state["v_col"]
+            _ema(v_row, decay, grad_sqr.mean(dim=d0))
+            _ema(v_col, decay, grad_sqr.mean(dim=d1))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)
                           ).pow(-0.5)
@@ -206,4 +273,4 @@ class Adafactor(torch.optim.Optimizer):
         p.add_(-u)
 
 
-__all__ = ["Adafactor", "Lamb", "Lion", "factored_dims"]
+__all__ = ["Adafactor", "Lamb", "Lion", "SGD", "factored_dims"]

@@ -6,12 +6,14 @@ clip, accumulation, the scheduled optimizer update and the EMA ramp),
 :func:`detach`, :func:`to_array` and :func:`stack_dictionaries`, and the
 profiler helpers ``trace`` and ``annotate`` (``observability/spans.py``).
 
-PyTorch runs eagerly, so the step is a plain function that updates the
-state IN PLACE (parameters through the optimizer, the EMA tree with
-in-place lerps) and returns it — the counterpart of the JAX step's
-donated state. Parameters are a nested dict of leaf tensors (fp32
+The step updates the state IN PLACE (parameters through the optimizer,
+the EMA tree in place) and returns it — the counterpart of the JAX
+step's donated state. Parameters are a nested dict of leaf tensors (fp32
 masters); the loss function casts them to the compute dtype where it
-uses them, so their gradients arrive in fp32.
+uses them, so their gradients arrive in fp32. On one card the step is a
+CUDA graph, captured at the first call of each operand signature and
+replayed after (the JAX step's ``jax.jit``, ``_graphs.py``); on the CPU,
+with collectives and inside ``_graphs.eager_steps()`` it runs eagerly.
 
 Across ranks (one process per device, ``distributed.launch``) the step
 takes a mesh: the implicit path all-reduces the batch-mean gradient over
@@ -25,11 +27,13 @@ import functools
 import logging
 import random
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+
+from torchbooster_tpu_torch import _graphs
 
 # the profiler helpers' home is the telemetry layer; ``utils.trace`` is
 # the user-facing name, as in the JAX package
@@ -37,6 +41,15 @@ from torchbooster_tpu_torch.observability.spans import (  # noqa: F401
     annotate,
     trace,
 )
+
+
+# train steps since import by route: "graph" (a capture or a replay),
+# "eager" (the plan's route: the CPU, collectives) and "eager_steps" (a
+# step planned "graph" run eagerly inside ``_graphs.eager_steps()``); and
+# the captures among the graph steps. ``chip_smoke.py`` reads them to
+# report each phase's route.
+steps_by_route = {"graph": 0, "eager": 0, "eager_steps": 0}
+step_captures = 0
 
 
 def tree_leaves(tree: Any) -> list[torch.Tensor]:
@@ -137,7 +150,10 @@ class TrainState:
     :meth:`state_dict` and :meth:`load_state_dict` carry all of it but
     the accumulating gradients across a checkpoint
     (``callbacks.SaveCallback``); loading writes into the live tensors,
-    optimizer and generator in place."""
+    optimizer state and generator in place, so the addresses a captured
+    step baked in stay the state's. ``loads`` counts the loads that could
+    not keep them (an optimizer state of another layout): a captured
+    step drops its graphs when it changes."""
 
     params: Any
     optimizer: torch.optim.Optimizer
@@ -146,6 +162,7 @@ class TrainState:
     grad_acc: bool = False
     ema: Any = None
     comms: Any = None
+    loads: int = field(default=0, repr=False)
 
     @classmethod
     def create(cls, params: Any, tx: Any,
@@ -180,11 +197,26 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Load a :meth:`state_dict` (host or device tensors) in place."""
+        """Load a :meth:`state_dict` (host or device tensors) in place.
+        The optimizer's state goes into its live tensors where it has the
+        same layout; otherwise ``optimizer.load_state_dict`` replaces it
+        and ``loads`` counts one."""
         for p, q in zip(tree_leaves(self.params),
                         tree_leaves(state["params"]), strict=True):
             p.copy_(q)
-        self.optimizer.load_state_dict(state["optimizer"])
+        # the groups keep their own lr objects (a scalar on the card for
+        # a captured step), set to the saved values
+        lrs = [g["lr"] for g in self.optimizer.param_groups]
+        if not _load_optimizer_in_place(self.optimizer, state["optimizer"]):
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.loads += 1
+        for g, lr, h in zip(self.optimizer.param_groups, lrs,
+                            state["optimizer"]["param_groups"]):
+            if isinstance(lr, torch.Tensor):
+                lr.fill_(float(h["lr"]))
+                g["lr"] = lr
+            else:
+                g["lr"] = float(h["lr"])
         self.step = int(state["step"])
         if self.generator is not None:
             self.generator.set_state(state["generator"])
@@ -195,6 +227,43 @@ class TrainState:
         if self.comms:
             for key, value in self.comms.items():
                 value.copy_(state["comms"][key])
+
+
+def _load_optimizer_in_place(opt: torch.optim.Optimizer, saved: dict
+                             ) -> bool:
+    """Copy an optimizer ``state_dict`` into ``opt``'s live state tensors
+    when both hold the same entries, shapes and hyperparameters (the
+    groups' ``lr`` apart, which the caller sets); returns False, changing
+    nothing, otherwise."""
+    groups = saved["param_groups"]
+    if len(groups) != len(opt.param_groups) or any(
+            len(g["params"]) != len(h["params"])
+            for g, h in zip(opt.param_groups, groups)):
+        return False
+    for g, h in zip(opt.param_groups, groups):
+        for key, value in h.items():
+            if key in ("params", "lr"):
+                continue
+            live = g.get(key)
+            if isinstance(live, torch.Tensor) or isinstance(
+                    value, torch.Tensor) or live != value:
+                return False
+    leaves = [p for g in opt.param_groups for p in g["params"]]
+    pairs = []
+    for i, p in enumerate(leaves):
+        live, want = opt.state.get(p, {}), saved["state"].get(i, {})
+        if set(live) != set(want):
+            return False
+        for key, value in want.items():
+            now = live[key]
+            if not (isinstance(now, torch.Tensor)
+                    and isinstance(value, torch.Tensor)
+                    and now.shape == value.shape):
+                return False
+            pairs.append((now, value))
+    for now, value in pairs:
+        now.copy_(value)
+    return True
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
@@ -258,7 +327,35 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
     ``comms.schedule.sharded_step``, with clipping by the global norm
     over the shards (one all-reduce). Explicit comms need replicated
     parameters (no ``rules``), ZeRO does not compose with accumulation,
-    and stage 2 or above needs a state with a flat sharded optimizer."""
+    and stage 2 or above needs a state with a flat sharded optimizer.
+
+    On one card, without a mesh or ``comms``
+    (``_graphs.plan_steps``; ``step.plan(device)`` gives the route and
+    why), the step is a CUDA graph: the forward, the backward with the
+    remat recompute, the accumulation, the clip, the optimizer update
+    and the EMA. Its first call for each operand signature (the batch's
+    shapes and dtypes, and whether the call is an update boundary: with
+    accumulation the micro-step and the boundary step are two graphs)
+    runs the step for real as the warm-up, which also makes the
+    optimizer's lazy state, and captures it; later calls copy the batch
+    into the signature's staged buffers, write the learning rate and
+    the EMA decay into their scalars on the card, replay the graph and
+    return metric tensors cloned out of its outputs. ``state.step``
+    advances on the host. The optimizer ``tx.init`` built (float lr) is
+    put in the form a graph holds at the step's first call on the card
+    (``_graph_form``: the lr a scalar on the card, torch's Adam and
+    AdamW capturable); a step with collectives leaves it as it is. The graph reads the state where it lies:
+    loads in place (:meth:`TrainState.load_state_dict`) keep it, and
+    when a state tensor moved or ``state.loads`` changed the step drops
+    its graphs and captures again. The generator the loss draws from is
+    registered with the graph, so each replay draws afresh, as the eager
+    step would. ``step._cache_size()`` counts the captures (the JAX
+    step's compile count); ``step.graphs`` holds them. Inside
+    ``_graphs.eager_steps()`` the same step runs eagerly, the counterpart
+    of ``jax.disable_jit()``; a failed capture raises. Drop the graph of
+    an eager backward over the parameters (its loss tensor) before the
+    first call: while it lives, their gradient accumulators stay on the
+    stream of that backward, which a capture cannot wait on."""
     accumulate = accumulate_every > 1
     if rules is not None and mesh is None:
         raise ValueError("make_step(rules=...) needs mesh= as well")
@@ -298,31 +395,162 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
             params = _cast_batch(params, compute_dtype)
         return loss_fn(params, batch, generator)
 
+    collectives = comms is not None or mesh is not None
+    graphs = _StepGraphs()
+
+    def plan(device: Any) -> tuple[str, str]:
+        return _graphs.plan_steps(device, collectives=collectives)
+
     def set_lr(state: TrainState) -> None:
         lr = tx.learning_rate(state.step // accumulate_every)
         for group in state.optimizer.param_groups:
-            group["lr"] = lr
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
 
-    def update_ema(state: TrainState) -> None:
-        d = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
-        with torch.no_grad():
-            for e, p in zip(tree_leaves(state.ema),
-                            tree_leaves(state.params)):
-                e.mul_(d).add_(p, alpha=1.0 - d)
+    def ema_decay_of(step: int) -> tuple[float, float]:
+        # JAX's fp32 ramp: min(decay, (1 + step) / (10 + step)), 1 - d
+        d = np.minimum(np.float32(ema_decay),
+                       np.float32(1 + step) / np.float32(10 + step))
+        return float(d), float(np.float32(1.0) - d)
+
+    @torch.no_grad()
+    def update_ema(state: TrainState, d: Any, keep: Any) -> None:
+        # e·d + (1 - d)·p, rounded as the JAX step's expression; d and
+        # 1 - d are floats, or scalars on the card in a graph
+        ema = tree_leaves(state.ema)
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            tree_leaves(state.params), keep))
 
     def finish(state: TrainState, loss: torch.Tensor, aux: dict,
                boundary: bool = True) -> tuple[TrainState, dict]:
         if ema_decay is not None and state.ema is not None and boundary:
-            update_ema(state)
+            update_ema(state, *ema_decay_of(state.step))
         state.step += 1
-        return state, {"loss": loss.detach(),
-                       **{k: v.detach() if isinstance(v, torch.Tensor)
-                          else v for k, v in aux.items()}}
+        return state, _metrics(loss, aux)
+
+    def update(state: TrainState, leaves: list) -> None:
+        """The boundary's update: the accumulated mean, the clip, agc and
+        the optimizer step (its lr already written)."""
+        if accumulate:
+            for p in leaves:
+                if p.grad is not None:
+                    p.grad.div_(accumulate_every)
+        if clip is not None:
+            if mesh is not None and any(
+                    any(e is not None for e in _spec(p)) for p in leaves):
+                _clip_sharded(leaves, clip, mesh)
+            else:
+                torch.nn.utils.clip_grad_norm_(leaves, clip)
+        tx.clip_units(state.params)
+        state.optimizer.step()
+
+    def body(state: TrainState, batch: Any, boundary: bool) -> dict:
+        """What the graph holds: one step on the staged batch."""
+        leaves = tree_leaves(state.params)
+        if graphs.grads:
+            for p, g in graphs.grads.items():
+                p.grad = g
+        if compute_dtype is not None:
+            batch = _cast_batch(batch, compute_dtype)
+        loss, aux = _local_grads(diff_fn, state, batch, has_aux, None, None)
+        if accumulate and graphs.grads is None:
+            # the micro-steps' running sum: the warm-up's gradients
+            graphs.grads = {p: p.grad for p in leaves if p.grad is not None}
+        if boundary:
+            update(state, leaves)
+            if ema_decay is not None and state.ema is not None:
+                update_ema(state, *graphs.decay)
+            if graphs.grads:
+                torch._foreach_zero_(list(graphs.grads.values()))
+            for p in leaves:
+                p.grad = None
+        return _metrics(loss, aux)
+
+    def operands(state: TrainState, staged: Any, boundary: bool) -> list:
+        """The tensors a graph reads: the staged batch, the parameters,
+        the gradient buffers, and at a boundary the optimizer's state and
+        lr, the EMA and its decay scalars."""
+        out = [t for t in tree_leaves(staged) if isinstance(t, torch.Tensor)]
+        out += tree_leaves(state.params)
+        out += list((graphs.grads or {}).values())
+        if boundary:
+            for group in state.optimizer.param_groups:
+                out += [group["lr"]] + [
+                    v for p in group["params"]
+                    for v in state.optimizer.state.get(p, {}).values()
+                    if isinstance(v, torch.Tensor)]
+            if ema_decay is not None and state.ema is not None:
+                out += tree_leaves(state.ema) + list(graphs.decay)
+        return out
+
+    def graph_step(state: TrainState, batch: Any, leaves: list
+                   ) -> tuple[TrainState, dict]:
+        device = leaves[0].device
+        boundary = (state.step + 1) % accumulate_every == 0
+        sig = _signature(batch, device)
+        staged = graphs.staged.get(sig)
+        if staged is None:
+            staged = graphs.staged[sig] = _tree_map(
+                lambda x: torch.empty_like(x)
+                if isinstance(x, torch.Tensor) else x, batch)
+        with torch.no_grad():
+            for buf, x in zip(tree_leaves(staged), tree_leaves(batch)):
+                if isinstance(x, torch.Tensor):
+                    buf.copy_(x, non_blocking=True)
+        if boundary:
+            set_lr(state)
+            if ema_decay is not None and state.ema is not None:
+                if graphs.decay is None:
+                    graphs.decay = tuple(torch.zeros(
+                        (), dtype=torch.float32, device=device)
+                        for _ in range(2))
+                for t, v in zip(graphs.decay, ema_decay_of(state.step)):
+                    t.fill_(v)
+        key = (boundary, sig)
+        entry = graphs.steps.get(key)
+        if entry is not None and (graphs.loads != state.loads or entry.moved(
+                operands(state, staged, boundary))):
+            graphs.drop()
+            entry = None
+        graphs.bind_grads(leaves, accumulate)
+        if entry is None:
+            gen = state.generator
+            entry, metrics = _graphs.capture(
+                lambda: body(state, staged, boundary),
+                lambda: operands(state, staged, boundary),
+                generators=[gen] if gen is not None
+                and gen.device.type == "cuda" else [],
+                pool=graphs.pool)
+            graphs.add(key, entry, state.loads)
+        else:
+            metrics = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                       for k, v in entry.replay().items()}
+        if accumulate:
+            graphs.grads_zero = boundary
+            for p, g in (graphs.grads or {}).items():
+                p.grad = None if boundary else g
+        state.step += 1
+        return state, metrics
 
     def step_fn(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         if accumulate and not state.grad_acc:
             raise ValueError("accumulate_every > 1 needs a state created "
                              "with accumulate=True")
+        leaves = tree_leaves(state.params)
+        route = plan(leaves[0].device)[0] if leaves else "eager"
+        if route == "graph":
+            # the optimizer a graph can hold, for the captured step and
+            # for the same step inside eager_steps() alike
+            _graph_form(state.optimizer, leaves[0].device)
+        if _graphs.captured(route):
+            steps_by_route["graph"] += 1
+            return graph_step(state, batch, leaves)
+        steps_by_route["eager" if route == "eager" else "eager_steps"] += 1
+        # an eager step may leave anything in the gradient buffers
+        graphs.grads_zero = False
         if compute_dtype is not None:
             batch = _cast_batch(batch, compute_dtype)
         if stage >= 2:
@@ -384,27 +612,126 @@ def make_step(loss_fn: Callable, tx: Any, clip: float | None = None,
                            state.params, scattered=explicit)
             return finish(state, loss, aux)
         if boundary:
-            leaves = tree_leaves(state.params)
-            if accumulate:
-                for p in leaves:
-                    if p.grad is not None:
-                        p.grad.div_(accumulate_every)
-            if clip is not None:
-                if mesh is not None and any(
-                        any(e is not None for e in _spec(p)) for p in leaves):
-                    _clip_sharded(leaves, clip, mesh)
-                else:
-                    torch.nn.utils.clip_grad_norm_(leaves, clip)
-            tx.clip_units(state.params)
             set_lr(state)
-            state.optimizer.step()
+            update(state, leaves)
             # every leaf, not only the optimizer's: a frozen leaf
             # (``freeze``) gets a gradient too, which must not pile up
             for p in leaves:
                 p.grad = None
         return finish(state, loss, aux, boundary)
 
+    step_fn.plan = plan
+    step_fn.graphs = graphs
+    step_fn._cache_size = lambda: graphs.captures
     return step_fn
+
+
+@torch.no_grad()
+def _graph_form(optimizer: torch.optim.Optimizer, device: torch.device
+                ) -> None:
+    """Put ``optimizer`` in the form a captured train step holds, in
+    place (once; a later call finds it so): every group's ``lr`` an fp32
+    scalar on ``device``, which the step writes before each update (a
+    float would be baked into the graph), and torch's Adam and AdamW
+    ``capturable`` over the multi-tensor update, their update counts on
+    ``device``, so that no bias correction is read back to the host.
+    The port's optimizers (``optim.py``) take either lr as they are."""
+    for group in optimizer.param_groups:
+        lr = group["lr"]
+        if not (isinstance(lr, torch.Tensor) and lr.device == device):
+            group["lr"] = torch.tensor(float(lr), dtype=torch.float32,
+                                       device=device)
+        if "capturable" in group and not group["capturable"]:
+            group.update(capturable=True, foreach=True)
+            for p in group["params"]:
+                state = optimizer.state.get(p, {})
+                if isinstance(state.get("step"), torch.Tensor):
+                    state["step"] = state["step"].to(device, torch.float32)
+
+
+def _metrics(loss: torch.Tensor, aux: dict) -> dict:
+    return {"loss": loss.detach(),
+            **{k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in aux.items()}}
+
+
+def _signature(batch: Any, device: torch.device) -> tuple:
+    """A batch's operand signature: its tree, and each leaf's shape and
+    dtype (a tensor, which must lie on ``device``) or value (a Python
+    scalar or string, which the graph bakes in)."""
+    if isinstance(batch, dict):
+        return ("dict", tuple((k, _signature(v, device))
+                              for k, v in batch.items()))
+    if isinstance(batch, (tuple, list)):
+        return (type(batch).__name__,
+                tuple(_signature(v, device) for v in batch))
+    if isinstance(batch, torch.Tensor):
+        if batch.device != device:
+            raise ValueError(
+                f"the captured train step takes the batch on the "
+                f"parameters' device {device}, not {batch.device}")
+        return ("tensor", tuple(batch.shape), batch.dtype)
+    if batch is None or isinstance(batch, (bool, int, float, str)):
+        return ("value", batch)
+    raise TypeError(f"the captured train step takes a batch of tensors "
+                    f"and Python scalars, not {type(batch).__name__}")
+
+
+class _StepGraphs:
+    """The CUDA graphs of one train step (:func:`make_step`): each
+    signature's captured step and staged batch, the memory pool they
+    share (one graph runs at a time), and the state they were captured
+    against (``loads``). With accumulation, ``grads`` are the leaves'
+    gradient buffers the graphs accumulate into (zero after a boundary:
+    ``grads_zero``)."""
+
+    def __init__(self):
+        self.steps: dict = {}
+        self.staged: dict = {}
+        self.pool = None
+        self.loads = 0
+        self.captures = 0
+        self.grads: dict | None = None
+        self.grads_zero = True
+        self.decay: tuple | None = None
+
+    @property
+    def replays(self) -> int:
+        return sum(step.replays for step in self.steps.values())
+
+    def add(self, key: tuple, step: Any, loads: int) -> None:
+        global step_captures
+        self.steps[key] = step
+        self.pool = step.graph.pool()
+        self.loads = loads
+        self.captures += 1
+        step_captures += 1
+
+    def drop(self) -> None:
+        """Forget every graph (the next call captures again); the staged
+        batches stay, the same for any state."""
+        self.steps.clear()
+        self.pool = None
+        self.grads = None
+        self.grads_zero = True
+
+    def bind_grads(self, leaves: list, accumulate: bool) -> None:
+        """Point the leaves' ``.grad`` at the buffers the graphs
+        accumulate into, holding the running sum the leaves carry (an
+        eager micro-step's, or none)."""
+        if not accumulate:
+            if any(p.grad is not None for p in leaves):
+                raise ValueError("the captured train step takes leaves "
+                                 "without gradients (.grad None)")
+            return
+        for p, g in (self.grads or {}).items():
+            if p.grad is g:
+                continue
+            if p.grad is not None:
+                g.copy_(p.grad)
+            elif not self.grads_zero:
+                g.zero_()
+            p.grad = g
 
 
 def _spec(leaf: torch.Tensor) -> tuple:
